@@ -13,10 +13,21 @@ Phases, one JSON line each on stdout:
   3. the K1a kernel against its plain torch version, on the card, on the
      same records and draws: cornell_box 800×800, 4 spp, depth 50;
   4. sample chunks of 2 and 4 give bit-identical kernel sums;
-  5. the main path through the command line, `render --scene
+  5. the render path through the command line, `render --scene
      cornell_box_baseline --device cuda` (800×800, 500 spp, depth 50),
-     with every kernel's launch count, a check of the image, and the
-     kernel's and the plain version's times at 800×800×8 spp.
+     with K1a's launch count, a check of the image, and the kernel's and
+     the plain version's times at 800×800×8 spp;
+  6. K2 (csrc/grad.cu) against its plain version `trace_tiles_plain` at
+     the training step's full width: the inverse-render scene, 4,096
+     pixels × 64 spp = 262,144 lanes, depth 6, the step's own rays and
+     draws;
+  7. K3 against torch autograd through the plain version, same inputs and
+     a seeded cotangent;
+  8. the training path, `inverse_render.main(["--device", "cuda",
+     "--steps", "40"])` (200×200, block 4,096, 64 spp, depth 6), with K2's
+     and K3's launch counts and the recovered albedo and emission;
+  9. times by CUDA events at that width: K2, K3, the plain forward, the
+     plain forward + backward, one training step; sample-paths/s.
 Then the kernel table and, as the last line, the device summary.
 
 Any failure exits non-zero before the last line. Without CUDA, or run
@@ -75,8 +86,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from raytracing_rust_tpu_torch import cli
+    from raytracing_rust_tpu_torch import inverse_render as ir
     from raytracing_rust_tpu_torch.models.builders import PRESETS
-    from raytracing_rust_tpu_torch.ops import _build, tracer
+    from raytracing_rust_tpu_torch.ops import _build, grad, tracer
     from raytracing_rust_tpu_torch.utils.image_io import read_ppm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -149,7 +161,7 @@ def main() -> int:
         argv = ["render", "--scene", "cornell_box_baseline", "--device",
                 "cuda", "--out", out, "--timers"]
         buf = io.StringIO()
-        tracer.KERNEL_LAUNCHES = 0
+        tracer.KERNEL_LAUNCHES = grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
         t = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
@@ -187,12 +199,119 @@ def main() -> int:
          kernel_primary_rays_per_s=rays / (k_ms * 1e-3),
          plain_primary_rays_per_s=rays / (p_ms * 1e-3))
 
+    # -- 6. K2 vs plain at the training step's full width
+    kw = dict(nx=200, ny=200, spp=64, block=4096, max_depth=6)
+    target = ir.build_scene(ir.TRUE_ALBEDO, ir.TRUE_EMIT, device=dev)
+    cfg = grad.fast_grad_config(target)
+    rec = grad.fast_grad_record(target).detach()
+    o, d, u = ir.step_inputs(ir.camera(dev), 0, device=dev, **kw)
+    n = o.shape[0]
+    k2 = grad.grad_fwd(rec, o, d, u, cfg, 6)
+    p2 = grad.trace_tiles_plain(rec, o, d, u, cfg, 6)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(k2).all()), "K2 radiance is not finite")
+    agree = float(torch.isclose(k2, p2, rtol=1e-4, atol=0.0)
+                  .all(dim=1).double().mean())
+    km, pm = k2.mean(dim=0), p2.mean(dim=0)
+    mean_rel = float(((km - pm).abs() / pm.abs()).max())
+    k2_err = float((k2 - p2).abs().max())
+    emit("k2_vs_plain", lanes=n, depth=6, lanes_within_rel_1e4=agree,
+         kernel_channel_means=km.tolist(), plain_channel_means=pm.tolist(),
+         channel_mean_max_rel=mean_rel, max_abs_err=k2_err)
+    check(agree >= 0.99, f"K2: only {agree:.4%} of lanes agree within 1e-4")
+    check(mean_rel <= 1e-4, f"K2: channel means differ by {mean_rel:.2e}")
+
+    # -- 7. K3 vs autograd of the plain version, same inputs
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    ct = torch.rand(n, 3, generator=g, device=dev)
+    k3 = grad.grad_bwd(rec, o, d, u, ct, cfg, 6)
+    p3 = grad.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, 6)
+    torch.cuda.synchronize()
+    scale = float(p3[0].abs().max())
+    k3_err = float((k3[0] - p3[0]).abs().max())
+    lanes_ok = [float(torch.isclose(a, b, rtol=1e-4, atol=0.0)
+                      .all(dim=1).double().mean())
+                for a, b in zip(k3[1:], p3[1:])]
+    emit("k3_vs_autograd", lanes=n, depth=6, d_rec_max_abs_err=k3_err,
+         d_rec_scale=scale, d_rec_err_over_scale=k3_err / scale,
+         d_o_lanes_within_rel_1e4=lanes_ok[0],
+         d_d_lanes_within_rel_1e4=lanes_ok[1],
+         d_rec_light_and_albedo=k3[0][:, [grad.C_LIGHT, grad.C_TEX_E,
+                                          grad.C_TEX_E + 1,
+                                          grad.C_TEX_E + 2]].tolist())
+    check(scale > 0 and k3_err <= 1e-4 * scale,
+          f"K3: d_rec off by {k3_err:.3e} at scale {scale:.3e}")
+    check(min(lanes_ok) >= 0.99, f"K3: d_o/d_d lanes within 1e-4: {lanes_ok}")
+    del p3
+
+    # -- 8. the training path
+    buf = io.StringIO()
+    tracer.KERNEL_LAUNCHES = grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = ir.main(["--device", "cuda", "--steps", "40"])
+    wall = time.perf_counter() - t
+    train_launches = {"k2_grad_fwd": grad.K2_LAUNCHES,
+                      "k3_grad_bwd": grad.K3_LAUNCHES}
+    text = buf.getvalue()
+    rec_line = re.search(r"max abs err ([0-9.]+)\), emission ([0-9.]+) "
+                         r"\(err ([0-9.]+)\)", text)
+    step_line = re.search(r"step time: ([0-9.]+)s", text)
+    emit("train_path", argv=["--device", "cuda", "--steps", "40"], rc=rc,
+         wall_seconds=wall, launches=train_launches,
+         albedo_max_abs_err=float(rec_line.group(1)) if rec_line else None,
+         emission=float(rec_line.group(2)) if rec_line else None,
+         emission_err=float(rec_line.group(3)) if rec_line else None,
+         median_step_seconds=float(step_line.group(1)) if step_line else None,
+         log=text.splitlines())
+    check(all(v > 0 for v in train_launches.values()),
+          f"a kernel of the training path never launched: {train_launches}")
+    check(rc == 0 and rec_line is not None,
+          f"inverse_render.main returned {rc}")
+
+    # -- 9. times at the training step's full width
+    k2_ms = cuda_ms(lambda: grad.grad_fwd(rec, o, d, u, cfg, 6), reps=20)
+    k3_ms = cuda_ms(lambda: grad.grad_bwd(rec, o, d, u, ct, cfg, 6), reps=20)
+    p2_ms = cuda_ms(lambda: grad.trace_tiles_plain(rec, o, d, u, cfg, 6),
+                    reps=3)
+    p3_ms = cuda_ms(lambda: grad.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg,
+                                                       6), reps=3)
+    scene = ir.build_scene(ir.START_ALBEDO, ir.START_EMIT, device=dev)
+    light_tex, box_tex = ir.param_tex_rows(scene)
+    albedo = torch.tensor(ir.START_ALBEDO, device=dev, requires_grad=True)
+    emission = torch.tensor(ir.START_EMIT, device=dev, requires_grad=True)
+
+    cam = ir.camera(dev)
+
+    def step():
+        oo, dd, uu = ir.step_inputs(cam, 1, device=dev, **kw)
+        ir.path_matched_loss(target, scene, light_tex, box_tex, albedo,
+                             emission, oo, dd, uu, block=4096, spp=64,
+                             max_depth=6, cfg=cfg).backward()
+    step_ms = cuda_ms(step, reps=10)
+    emit("grad_times", lanes=n, depth=6, k2_ms=k2_ms, k3_ms=k3_ms,
+         plain_fwd_ms=p2_ms, plain_fwd_bwd_ms=p3_ms, step_ms=step_ms,
+         kernel_fwd_bwd_sample_paths_per_s=n / ((k2_ms + k3_ms) * 1e-3),
+         plain_fwd_bwd_sample_paths_per_s=n / (p3_ms * 1e-3),
+         step_candidate_sample_paths_per_s=n / (step_ms * 1e-3))
+
     print(json.dumps({"kernels": [{
         "name": "k1a_static_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
         "launches": launches["k1a_static_trace"],
-        "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms}]}),
+        "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms}, {
+        "name": "k2_grad_fwd", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:557",
+        "launches": train_launches["k2_grad_fwd"],
+        "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": p2_ms}, {
+        "name": "k3_grad_bwd", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:567",
+        "launches": train_launches["k3_grad_bwd"],
+        "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": p3_ms}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

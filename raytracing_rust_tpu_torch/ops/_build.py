@@ -1,6 +1,7 @@
 """Build and bind the package's CUDA kernels.
 
-At first use, `nvcc` compiles every `csrc/*.cu` of the package into one
+At first use, `nvcc` compiles every `csrc/*.cu` of the package, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, in `_build/` beside the package
 (listed in `.gitignore`), named by a hash of the sources and flags, so an
 edit rebuilds and an unchanged tree reuses the library. It is loaded with
@@ -25,8 +26,7 @@ _BUILD = os.path.join(_PKG, "_build")
 # own, as torch's elementwise ops do, so a kernel agrees with its plain
 # version path by path.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -55,12 +55,25 @@ def build() -> tuple[str, str]:
         return lib, ""
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", s, "-o", o],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    for s, p, out in zip(srcs, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {os.path.basename(s)} "
+                               f"({p.returncode}):\n{out}")
+    res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                          capture_output=True, text=True)
+    for o in objs:
+        os.remove(o)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
     os.replace(tmp, lib)
-    return lib, res.stdout + res.stderr
+    return lib, "".join(logs)
 
 
 @functools.cache
@@ -70,4 +83,8 @@ def load() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.rt_trace_k1a.argtypes = [p, p, i, p, p, i, i, u, u, i, i, i, p]
     lib.rt_trace_k1a.restype = i
+    lib.rt_grad_fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, p]
+    lib.rt_grad_fwd.restype = i
+    lib.rt_grad_bwd.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.rt_grad_bwd.restype = i
     return lib

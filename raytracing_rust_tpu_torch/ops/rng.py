@@ -20,6 +20,14 @@ version (`ops/tracer.trace_plain`):
         word 2 ball radius (cbrt(1 − u)), word 3 unused (reserved for the
         dielectric branch draw)
     stream 2 reserved for the shutter time (moving spheres)
+    stream 3 (GRAD, the fused differentiable tier `ops/grad.py`): counter
+        (lane, 0, bounce, 3); all four words fill the u tensor
+        [bounce, word, lane] of `grad.fast_draws`: word 0 cos θ, word 1 φ,
+        word 2 ball radius, word 3 the dielectric's reflect-or-refract
+        draw (read by no family the kernels cover yet)
+
+`render.camera_lane_rays` keys the camera stream by lane instead of pixel:
+counter (lane, 0, 0, 0).
 
 Each 32-bit word becomes a uniform in [0, 1) as the TPU kernel's `_uniform`
 does it (`ops/pallas_tracer.py:1028-1036`): `(bits >> 8) · 2⁻²⁴`.
@@ -36,6 +44,7 @@ import torch
 
 STREAM_CAMERA = 0
 STREAM_SCATTER = 1
+STREAM_GRAD = 3
 
 PHILOX_M0 = 0xD2511F53
 PHILOX_M1 = 0xCD9E8D57

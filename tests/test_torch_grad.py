@@ -1,0 +1,566 @@
+"""The port's fused differentiable tier (ops/grad.py) and the inverse render
+(inverse_render.py) against the JAX package, on the CPU.
+
+The CUDA kernels K2/K3 run only on a card (tests/test_torch_kernel.py and
+chip_smoke.py hold them against the plain version there). Here the plain
+version, `trace_tiles_plain`, and torch autograd through it are held
+against the JAX `_trace_tiles` and `jax.vjp` on identical numpy-seeded
+(rec, o, d, u, ct); the kernel plumbing against the JAX `_make_traced` in
+interpret mode; and the trainer's step against `jax.value_and_grad` of the
+same loss. Tolerances are stated per test.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracing_rust_tpu.models import builders as jb
+from raytracing_rust_tpu.models.scene import SceneBuilder as JSceneBuilder
+from raytracing_rust_tpu.ops import camera as jcam
+from raytracing_rust_tpu.ops import pallas_grad as pg
+from raytracing_rust_tpu_torch import inverse_render as ir
+from raytracing_rust_tpu_torch.models import builders as tb
+from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
+                                                    SceneBuilder, SceneTables)
+from raytracing_rust_tpu_torch.ops import grad as tg
+from raytracing_rust_tpu_torch.ops import rng
+from raytracing_rust_tpu_torch.ops.tracer import UnsupportedScene
+from raytracing_rust_tpu_torch.render import camera_lane_rays
+
+GRAD_LEAVES = ("prim_data", "mat_param", "tex_color", "xf_offset",
+               "xf_sin", "xf_cos")
+
+
+def _jax_inverse_scene(albedo=ir.TRUE_ALBEDO, emit=ir.TRUE_EMIT):
+    os.environ["RT_IR_TPU"] = "1"  # stop the example's import-time CPU pin
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), ".."))
+    from examples.inverse_render import build_scene
+    return build_scene(albedo, emit)
+
+
+def _sphere_scene(builder_cls):
+    """Lambertian + light with spheres (one of them a light), a flipped
+    rect and a rotated-translated cube, black background."""
+    b = builder_cls(background=BG_BLACK)
+    b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.73, 0.73, 0.73)))
+    b.rect("zx", -1, -1, 1, 1, 5.0,
+           b.diffuse_light(b.solid(4.0, 4.0, 4.0)), flip=True)
+    b.sphere((0.9, 1.0, 0.5), 0.8, b.lambertian(b.solid(0.8, 0.7, 0.6)))
+    b.sphere((-1.5, 3.5, 0.0), 0.5, b.diffuse_light(b.solid(3.0, 2.0, 1.0)))
+    xf = b.transform(offset=(0.4, 0.0, 0.2), rotate_axis="y", angle_deg=20.0)
+    b.cube((-2.4, 0.0, -1.4), (-1.4, 1.6, -0.4),
+           b.lambertian(b.solid(0.4, 0.6, 0.3)), xform=xf)
+    return b.build()
+
+
+def _scenes(name):
+    if name == "inverse_render":
+        return ir.build_scene(ir.TRUE_ALBEDO), _jax_inverse_scene(ir.TRUE_ALBEDO)
+    return _sphere_scene(SceneBuilder), _sphere_scene(JSceneBuilder)
+
+
+def _probe(n, n_bounce, seed):
+    """Rays from (0, 2, 8) into the scenes, draws and a cotangent."""
+    r = np.random.default_rng(seed)
+    o = np.tile(np.array([0.0, 2.0, 8.0], np.float32), (n, 1))
+    d = np.stack([r.uniform(-0.7, 0.7, n), r.uniform(-0.45, 0.25, n),
+                  -np.ones(n)], -1).astype(np.float32)
+    u = r.random((n_bounce, 4, n), dtype=np.float32)
+    ct = r.uniform(0.5, 1.5, (n, 3)).astype(np.float32)
+    return o, d, u, ct
+
+
+def _jax_trace(rec, o, d, u, cfg, max_depth):
+    """The JAX `_trace_tiles` on flat lanes with the draws given."""
+    kinds, feats = cfg
+    n_bounce = u.shape[0]
+    scal = [[rec[p, c] for c in range(pg.REC_C)] for p in range(len(kinds))]
+    ul = [[jnp.asarray(u[b, c]) for c in range(4)] for b in range(n_bounce)]
+    rr = pg._trace_tiles(scal, tuple(o[:, i] for i in range(3)),
+                         tuple(d[:, i] for i in range(3)), ul, kinds, feats,
+                         n_bounce, max_depth)
+    return jnp.stack(rr, axis=1)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _assert_scale_close(got, want, atol_scale, what):
+    """|got − want| ≤ atol_scale · max(max|want|, 1e-3): the scale-relative
+    tolerance of tests/test_pallas_grad.py."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = max(np.abs(want).max(), 1e-3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol_scale * scale,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("name", ["inverse_render", "spheres"])
+def test_fast_grad_record_equals_jax(name):
+    """Bit-equal: the same pack_prims arithmetic on the same tables."""
+    port, ref = _scenes(name)
+    got = tg.fast_grad_record(port).numpy()
+    want = np.asarray(pg.fast_grad_record(ref))
+    assert got.shape == want.shape == (port.num_prims, tg.REC_C)
+    np.testing.assert_array_equal(got, want)
+    assert tg.fast_grad_config(port) == pg.fast_grad_config(ref)
+
+
+def test_inverse_render_scene_and_rows_equal_jax():
+    port = ir.build_scene((0.5, 0.5, 0.5), 3.0)
+    ref = jax.device_get(_jax_inverse_scene((0.5, 0.5, 0.5), 3.0))
+    for f in dataclasses.fields(SceneTables):
+        got = getattr(port, f.name)
+        want = getattr(ref, f.name)
+        if f.metadata.get("static"):
+            assert got == want, f.name
+        else:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                          err_msg=f.name)
+    from examples.inverse_render import param_tex_rows
+    assert ir.param_tex_rows(port) == param_tex_rows(ref)
+
+
+@pytest.fixture(scope="module", params=["inverse_render", "spheres"])
+def twin_vs_jax(request):
+    """1,024 lanes at depth 6: the twin's primal and vjp, and JAX's."""
+    port, ref = _scenes(request.param)
+    md = 6
+    o, d, u, ct = _probe(1024, md + 1, seed=3)
+    cfg = pg.fast_grad_config(ref)
+    rec = np.asarray(pg.fast_grad_record(ref))
+    want, vjp = jax.vjp(lambda r, o_, d_: _jax_trace(r, o_, d_, u, cfg, md),
+                        jnp.asarray(rec), jnp.asarray(o), jnp.asarray(d))
+    want_g = vjp(jnp.asarray(ct))
+    got = tg.trace_tiles_plain(_t(rec), _t(o), _t(d), _t(u), cfg, md)
+    got_g = tg.trace_tiles_plain_vjp(_t(rec), _t(o), _t(d), _t(u), _t(ct),
+                                     cfg, md)
+    return got, np.asarray(want), got_g, [np.asarray(g) for g in want_g]
+
+
+def test_twin_primal_equals_jax(twin_vs_jax):
+    """Op for op in the JAX order: within 1e-6 (2 ulp at the radiance's
+    scale; exp, log, sin and cos may round differently in XLA and torch)."""
+    got, want, _, _ = twin_vs_jax
+    assert got.shape == (1024, 3) and float(got.sum()) > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("i,leaf", [(0, "d_rec"), (1, "d_o"), (2, "d_d")])
+def test_twin_vjp_equals_jax_vjp(twin_vs_jax, i, leaf):
+    """Torch autograd through the twin vs jax.vjp under the same ct,
+    within 5e-4 of the gradient's scale (tests/test_pallas_grad.py). In
+    this scope only the light and albedo columns carry gradient; o, d and
+    the geometric columns get exact zeros from both."""
+    _, _, got_g, want_g = twin_vs_jax
+    _assert_scale_close(got_g[i].numpy(), want_g[i], 5e-4, leaf)
+    if i == 0:
+        live = np.nonzero(np.abs(want_g[0]).max(axis=0))[0].tolist()
+        assert set(live) <= {tg.C_LIGHT, tg.C_TEX_E, tg.C_TEX_E + 1,
+                             tg.C_TEX_E + 2} and tg.C_TEX_E in live
+    else:
+        assert not np.abs(got_g[i].numpy()).any()
+
+
+def _leaves(scene: SceneTables) -> SceneTables:
+    return dataclasses.replace(scene, **{
+        k: getattr(scene, k).clone().requires_grad_(True)
+        for k in GRAD_LEAVES})
+
+
+def test_scene_leaf_grads_equal_jax():
+    """d loss / d scene leaf through trace_fast (TraceFast's CPU backward)
+    vs jax.grad through fast_grad_record + _trace_tiles, on the sphere
+    scene at 1,024 lanes and depth 4, within 5e-4 of each leaf's scale."""
+    port, ref = _scenes("spheres")
+    md = 4
+    o, d, u, _ = _probe(1024, md + 1, seed=5)
+    w = np.random.default_rng(1).uniform(0.5, 1.5, (1024, 3)).astype(
+        np.float32)
+    cfg = pg.fast_grad_config(ref)
+
+    def jloss(s):
+        return jnp.mean(w * _jax_trace(pg.fast_grad_record(s), o, d, u, cfg,
+                                       md))
+    want = jax.grad(jloss, allow_int=True)(ref)
+    port = _leaves(port)
+    rad = tg.trace_fast(port, _t(o), _t(d), 0, max_depth=md, u=_t(u))
+    loss = torch.mean(_t(w) * rad)
+    got = torch.autograd.grad(loss, [getattr(port, k) for k in GRAD_LEAVES],
+                              allow_unused=True)
+    for k, g in zip(GRAD_LEAVES, got):
+        g = torch.zeros_like(getattr(port, k)) if g is None else g
+        _assert_scale_close(g.numpy(), getattr(want, k), 5e-4, k)
+    assert float(got[GRAD_LEAVES.index("tex_color")].abs().sum()) > 0
+
+
+def test_kernel_plumbing_matches_jax_interpret():
+    """The JAX kernels themselves (`_make_traced`, interpret mode) on a
+    4-prim scene at depth 3 and 1,024 lanes vs the port's TraceFast on the
+    CPU: primal within 1e-6, gradients within 5e-4 of their scale."""
+    b = JSceneBuilder(background=BG_BLACK)
+    b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.7, 0.7, 0.7)))
+    b.rect("zx", -1, -1, 1, 1, 5.0,
+           b.diffuse_light(b.solid(4.0, 4.0, 4.0)), flip=True)
+    b.sphere((0.9, 1.0, 0.5), 0.8, b.lambertian(b.solid(0.8, 0.7, 0.6)))
+    b.rect("yz", 0, -3, 6, 3, -3.0, b.lambertian(b.solid(0.65, 0.05, 0.05)))
+    ref = b.build()
+    md = 3
+    n = pg.BLOCK
+    o, d, u, ct = _probe(n, md + 1, seed=8)
+    kinds, feats = pg.fast_grad_config(ref)
+    traced = pg._make_traced(kinds, feats, md + 1, md, 1, True)
+    rec = pg.fast_grad_record(ref)
+    od = jnp.asarray(np.concatenate([o.T, d.T]).reshape(6, 1, pg.SUB,
+                                                        pg.LANES))
+    uu = jnp.asarray(u.reshape(md + 1, 4, 1, pg.SUB, pg.LANES))
+    rad, vjp = jax.vjp(traced, rec, od, uu)
+    ct_t = jnp.asarray(ct.T.reshape(3, 1, pg.SUB, pg.LANES))
+    d_rec, d_od, _ = vjp(ct_t)
+    want = np.asarray(rad).reshape(3, n).T
+    want_do = np.asarray(d_od).reshape(6, n)
+
+    rec_t = _t(rec).requires_grad_(True)
+    o_t, d_t = _t(o).requires_grad_(True), _t(d).requires_grad_(True)
+    before = (tg.K2_LAUNCHES, tg.K3_LAUNCHES)
+    got = tg.TraceFast.apply(rec_t, o_t, d_t, _t(u), (kinds, feats), md)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6,
+                               atol=1e-6)
+    got.backward(_t(ct))
+    assert (tg.K2_LAUNCHES, tg.K3_LAUNCHES) == before  # the CPU launches none
+    _assert_scale_close(rec_t.grad.numpy(), d_rec, 5e-4, "d_rec")
+    _assert_scale_close(o_t.grad.numpy(), want_do[:3].T, 5e-4, "d_o")
+    _assert_scale_close(d_t.grad.numpy(), want_do[3:].T, 5e-4, "d_d")
+
+
+def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
+    """csrc/grad.cu K3 in vectorized torch: forward replay with a tape of
+    (winner, throughput, alive) stopped one bounce after a path dies, then
+    the reverse sweep of the color chain, each bounce adding into its
+    winner's row. Returns d_rec."""
+    has_light = "light" in cfg[1]
+    n, n_bounce = o.shape[0], u.shape[0]
+    P = rec.shape[0]
+    # the replay: the twin's trace one bounce at a time, from its own state
+    tape = []
+    ox, oy, oz = o.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    thr = torch.ones(n, 3)
+    alive = torch.ones(n)
+    stopped = torch.zeros(n, dtype=torch.bool)
+    for b in range(n_bounce):
+        ghost = alive == 0
+        t_best = torch.full((n,), tg.BIG)
+        win = torch.full((n,), -1, dtype=torch.int64)
+        a_dd = dx * dx + dy * dy + dz * dz
+        for p, kind in enumerate(cfg[0]):
+            # the kernel's hit test: reuse the twin on one prim, one bounce
+            t_p = _prim_t(rec[p], kind, ox, oy, oz, dx, dy, dz, a_dd)
+            better = t_p < t_best
+            t_best = torch.where(better, t_p, t_best)
+            win = torch.where(better, p, win)
+        tape.append((win.clone(), thr.clone(), alive.clone(), ~stopped))
+        stopped = stopped | ghost | (b == max_depth)
+        if b == max_depth:
+            break
+        hit = win >= 0
+        w = rec[win.clamp(min=0)]
+        ok = 1.0 - w[:, tg.C_LIGHT] if has_light else torch.ones(n)
+        cont = torch.where(hit, alive * ok, 0.0)
+        keep = cont > 0.5
+        t = torch.where(hit, t_best, 0.0)
+        px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
+        sph = w[:, tg.C_IS_SPHERE] > 0.5
+        fl = w[:, tg.C_FLIP]
+        nrm = [torch.where(sph, (q - w[:, tg.C_CX + a]) * w[:, tg.C_INVR],
+                           w[:, tg.C_KN + a]) * fl
+               for a, q in enumerate((px, py, pz))]
+        cos_t = 2.0 * u[b, 0] - 1.0
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        phi = rng.TWO_PI * u[b, 1]
+        rr3 = torch.exp(torch.log(1.0 - u[b, 2]) * rng.ONE_THIRD)
+        nd = (nrm[0] + rr3 * sin_t * torch.cos(phi),
+              nrm[1] + rr3 * sin_t * torch.sin(phi), nrm[2] + rr3 * cos_t)
+        thr = torch.where(keep[:, None], thr * w[:, tg.C_TEX_E:tg.C_TEX_E + 3],
+                          thr)
+        ox, oy, oz = (torch.where(keep, a, c) for a, c in
+                      zip((px, py, pz), (ox, oy, oz)))
+        dx, dy, dz = (torch.where(keep, a, c) for a, c in zip(nd, (dx, dy, dz)))
+        alive = cont
+    d_rec = torch.zeros(P, tg.REC_C)
+    g_thr = torch.zeros(n, 3)
+    g_alive = torch.zeros(n)
+    for b in range(len(tape) - 1, -1, -1):
+        win, thr_b, alive_b, on = tape[b]
+        hit = (win >= 0) & on
+        w = rec[win.clamp(min=0)]
+        al = torch.where(hit[:, None], w[:, tg.C_TEX_E:tg.C_TEX_E + 3], 0.0)
+        wl = torch.where(hit, w[:, tg.C_LIGHT], 0.0) if has_light \
+            else torch.zeros(n)
+        gain = alive_b * hit.float()
+        g_al = torch.zeros(n, 3)
+        g_wl = torch.zeros(n)
+        g_gain = torch.zeros(n)
+        if b < max_depth:
+            ok = 1.0 - wl
+            keep = (gain * ok) > 0.5
+            n_thr = torch.where(keep[:, None], g_thr * al, g_thr)
+            g_al = torch.where(keep[:, None], g_thr * thr_b, 0.0)
+            g_gain = g_alive * ok
+            g_wl = -(g_alive * gain) if has_light else g_wl
+        else:
+            n_thr = torch.zeros(n, 3)
+        if has_light:
+            gl = gain * wl
+            a = ct * al
+            g_gl = (a * thr_b).sum(dim=1)
+            n_thr = n_thr + a * gl[:, None]
+            g_al = g_al + ct * (gl[:, None] * thr_b)
+            g_gain = g_gain + g_gl * wl
+            g_wl = g_wl + g_gl * gain
+        g_alive = torch.where(on, g_gain * hit.float(), 0.0)
+        g_thr = torch.where(on[:, None], n_thr, 0.0)
+        rows = win[hit]
+        d_rec[:, tg.C_LIGHT].index_add_(0, rows, g_wl[hit])
+        for c in range(3):
+            d_rec[:, tg.C_TEX_E + c].index_add_(0, rows, g_al[hit, c])
+    return d_rec
+
+
+def _prim_t(r, kind, ox, oy, oz, dx, dy, dz, a_dd):
+    """One prim's hit distance, the twin's (and the kernel's) arithmetic."""
+    one = torch.ones(())
+    if kind == "s":
+        ocx, ocy, ocz = ox - r[tg.C_CX], oy - r[tg.C_CY], oz - r[tg.C_CZ]
+        bq = ocx * dx + ocy * dy + ocz * dz
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - r[tg.C_R2]
+        disc = bq * bq - a_dd * cc
+        pos = disc > 0.0
+        sq = torch.sqrt(torch.where(pos, disc, one))
+        inv_a = one / a_dd
+        t_near, t_far = (-bq - sq) * inv_a, (-bq + sq) * inv_a
+        near = pos & (t_near > tg.T_MIN) & (t_near < tg.BIG)
+        far = pos & (t_far > tg.T_MIN) & (t_far < tg.BIG)
+        return torch.where(near, t_near, torch.where(far, t_far, tg.BIG))
+    kn = r[tg.C_KN:tg.C_KN + 3]
+    an, bn = r[tg.C_AN:tg.C_AN + 3], r[tg.C_BN:tg.C_BN + 3]
+    o_kn = ox * kn[0] + oy * kn[1] + oz * kn[2]
+    d_kn = dx * kn[0] + dy * kn[1] + dz * kn[2]
+    par = d_kn == 0.0
+    t_r = (r[tg.C_KOFF] - o_kn) / torch.where(par, one, d_kn)
+    xx = (ox * an[0] + oy * an[1] + oz * an[2]
+          + t_r * (dx * an[0] + dy * an[1] + dz * an[2]) - r[tg.C_AOFF])
+    yy = (ox * bn[0] + oy * bn[1] + oz * bn[2]
+          + t_r * (dx * bn[0] + dy * bn[1] + dz * bn[2]) - r[tg.C_BOFF])
+    ok = ((~par) & (t_r > tg.T_MIN) & (t_r < tg.BIG) & (xx >= r[tg.C_A0])
+          & (xx <= r[tg.C_A1]) & (yy >= r[tg.C_B0]) & (yy <= r[tg.C_B1]))
+    return torch.where(ok, t_r, tg.BIG)
+
+
+@pytest.mark.parametrize("name", ["inverse_render", "spheres"])
+def test_k3_design_equals_autograd(name):
+    """K3's algorithm (the tape stopped one bounce after a path dies, the
+    reverse color chain, winner-only routing), mirrored in torch, vs
+    autograd through the twin: d_rec within 1e-5 of its scale (sums in
+    another order). Pins the design before the card runs it."""
+    port, _ = _scenes(name)
+    md = 6
+    o, d, u, ct = _probe(2048, md + 1, seed=11)
+    cfg = tg.fast_grad_config(port)
+    rec = tg.fast_grad_record(port).detach()
+    want = tg.trace_tiles_plain_vjp(rec, _t(o), _t(d), _t(u), _t(ct), cfg,
+                                    md)[0]
+    got = _k3_mirror(rec, _t(o), _t(d), _t(u), _t(ct), cfg, md)
+    _assert_scale_close(got.numpy(), want.numpy(), 1e-5, "d_rec")
+
+
+def test_gate_agrees_with_jax_on_presets():
+    for name in ("random_spheres", "two_spheres", "two_perlin_spheres",
+                 "earth", "simple_light", "cornell_box", "cornell_smoke",
+                 "final_scene"):
+        port, ref = tb.PRESETS[name].build(), jb.PRESETS[name].build()
+        for depth in (6, 16, 17):
+            assert (tg.supports_fast_grad(port, depth)
+                    == pg.supports_fast_grad(ref, depth)), (name, depth)
+        if pg.supports_fast_grad(ref, 6):
+            assert tg.fast_grad_config(port) == pg.fast_grad_config(ref)
+    assert not tg.supports_fast_grad(ir.build_scene(), 6, rr_depth=3)
+
+
+def _outside_scope(what):
+    b = SceneBuilder(background=BG_SKY if what == "sky" else BG_BLACK)
+    b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.7, 0.7, 0.7)))
+    if what == "metal":
+        b.sphere((0, 1, 0), 1.0, b.metal(b.solid(0.8, 0.7, 0.6), 0.2))
+    elif what == "dielectric":
+        b.sphere((0, 1, 0), 1.0, b.dielectric(1.5))
+    elif what == "checker":
+        b.sphere((0, 1, 0), 1.0, b.lambertian(b.checker(
+            b.solid(0.2, 0.3, 0.1), b.solid(0.9, 0.9, 0.9))))
+    return b.build()
+
+
+@pytest.mark.parametrize("what,feat", [("metal", "metal"),
+                                       ("dielectric", "diel"),
+                                       ("checker", "checker"),
+                                       ("sky", "sky")])
+def test_outside_kernel_scope_raises(what, feat):
+    scene = _outside_scope(what)
+    assert tg.supports_fast_grad(scene, 6)  # in the JAX tier's scope
+    o, d, _, _ = _probe(64, 7, seed=1)
+    with pytest.raises(UnsupportedScene, match=feat):
+        tg.trace_fast(scene, _t(o), _t(d), 0, max_depth=6)
+    with pytest.raises(UnsupportedScene, match=feat):
+        tg.grad_fwd(tg.fast_grad_record(scene), _t(o), _t(d),
+                    torch.rand(7, 4, 64), tg.fast_grad_config(scene), 6)
+
+
+def test_wrappers_reject_bad_operands():
+    scene = ir.build_scene()
+    cfg = tg.fast_grad_config(scene)
+    rec = tg.fast_grad_record(scene)
+    o, d, u, ct = (_t(x) for x in _probe(32, 7, seed=2))
+    with pytest.raises(TypeError):
+        tg.grad_fwd(rec, o.double(), d, u, cfg, 6)
+    with pytest.raises(ValueError):
+        tg.grad_fwd(rec, o, d[:16], u, cfg, 6)
+    with pytest.raises(ValueError):
+        tg.grad_bwd(rec, o, d, u, ct[:, :2], cfg, 6)
+    with pytest.raises(ValueError):
+        tg.grad_fwd(rec, o, d, torch.rand(18, 4, 32), cfg, 17)
+    with pytest.raises(UnsupportedScene):
+        tg.trace_fast(scene, o, d, 0, max_depth=17, cfg=cfg)
+
+
+def test_fast_draws_are_the_grad_stream():
+    u = tg.fast_draws(9, 256, 3)
+    assert u.shape == (3, 4, 256) and u.dtype == torch.float32
+    for b in range(3):
+        want = rng.draws(9, torch.arange(256), 0, b, rng.STREAM_GRAD)
+        for c in range(4):
+            assert torch.equal(u[b, c], want[c])
+    assert not torch.equal(u[0, 0], rng.draws(9, torch.arange(256), 0, 0,
+                                              rng.STREAM_SCATTER)[0])
+
+
+def test_camera_lane_rays_match_jax_get_rays():
+    """The port's lane rays equal the JAX camera's get_rays on the same
+    viewport coordinates and lens uniforms (to 2 ulp of the scene's scale)."""
+    nx, ny = 50, 40
+    pid = torch.from_numpy(np.random.default_rng(4).integers(
+        0, nx * ny, 300)).long()
+    cam = ir.camera()
+    o, d, _ = camera_lane_rays(cam, pid, 77, nx, ny)
+    u0, u1, u2, u3 = (x.numpy() for x in rng.draws(
+        77, torch.arange(300), 0, 0, rng.STREAM_CAMERA))
+    i = (pid % nx).numpy().astype(np.float32)
+    j = (ny - 1 - pid // nx).numpy().astype(np.float32)
+    jc = jcam.make_camera((0, 3, 9), (0, 1.5, 0), (0, 1, 0), 45.0, 1.0, 0.0,
+                          9.0)
+    jo, jd, _ = jcam.get_rays(jc, (i + u0) / nx, (j + u1) / ny,
+                              np.stack([u2, u3, np.zeros_like(u2)], -1))
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=0, atol=4e-6)
+
+
+def test_trainer_step_matches_jax():
+    """One path-matched step on injected identical rays and draws (32
+    pixels × 4 spp, depth 6): the loss within 1e-6 relative, the albedo and
+    emission gradients within 5e-4 of their scale, against
+    jax.value_and_grad of the JAX fast step's loss (make_fast_step_body)."""
+    block, spp, md = 32, 4, 6
+    n = block * spp
+    r = np.random.default_rng(6)
+    cam = ir.camera()
+    pid = torch.from_numpy(r.integers(0, 200 * 200, block)).long()
+    o, d, _ = camera_lane_rays(cam, pid.repeat_interleave(spp), 3, 200, 200)
+    u = r.random((md + 1, 4, n), dtype=np.float32)
+    target_scene = ir.build_scene(ir.TRUE_ALBEDO, ir.TRUE_EMIT)
+    scene = ir.build_scene(ir.START_ALBEDO, ir.START_EMIT)
+    light_tex, box_tex = ir.param_tex_rows(scene)
+    cfg = tg.fast_grad_config(scene)
+    albedo = torch.tensor([0.45, 0.55, 0.6], requires_grad=True)
+    emit = torch.tensor(3.5, requires_grad=True)
+    loss = ir.path_matched_loss(target_scene, scene, light_tex, box_tex,
+                                albedo, emit, o, d, _t(u), block=block,
+                                spp=spp, max_depth=md, cfg=cfg)
+    loss.backward()
+
+    jt = _jax_inverse_scene(ir.TRUE_ALBEDO, ir.TRUE_EMIT)
+    js = _jax_inverse_scene(ir.START_ALBEDO, ir.START_EMIT)
+    jo, jd = o.numpy(), d.numpy()
+
+    def img(s):
+        rad = _jax_trace(pg.fast_grad_record(s), jo, jd, u, cfg, md)
+        return rad.reshape(block, spp, 3).sum(axis=1) / spp
+
+    target = jax.lax.stop_gradient(img(jt))
+
+    def loss_fn(p):
+        s2 = dataclasses.replace(
+            js, tex_color=js.tex_color.at[box_tex].set(p["albedo"])
+            .at[light_tex].set(jnp.broadcast_to(p["emit"], (3,))))
+        return jnp.mean((img(s2) - target) ** 2)
+
+    jl, jg = jax.value_and_grad(loss_fn)(
+        {"albedo": jnp.asarray([0.45, 0.55, 0.6], jnp.float32),
+         "emit": jnp.asarray(3.5, jnp.float32)})
+    assert loss.item() > 0
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-6)
+    _assert_scale_close(albedo.grad.numpy(), jg["albedo"], 5e-4, "albedo")
+    _assert_scale_close(emit.grad.numpy(), jg["emit"], 5e-4, "emit")
+
+
+def test_trainer_tiny_cpu_run_moves_toward_target():
+    """24×24, block 64, 4 spp, 15 steps on the CPU: the loss falls and both
+    groups end nearer the truth than they started."""
+    lines = []
+    res = ir.train(steps=15, nx=24, ny=24, spp=4, block=64, device="cpu",
+                   log=lines.append)
+    losses = res["losses"]
+    assert len(losses) == 15 and np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < 0.5 * np.mean(losses[:3])
+    start_a = np.abs(np.subtract(ir.START_ALBEDO, ir.TRUE_ALBEDO)).max()
+    assert np.abs(res["albedo"] - np.asarray(ir.TRUE_ALBEDO)).max() < start_a
+    assert abs(res["emit"] - ir.TRUE_EMIT) < abs(ir.START_EMIT - ir.TRUE_EMIT)
+    assert sum(ln.startswith("step ") for ln in lines) == 2  # steps 9, 14
+
+
+def test_main_prints_the_scripts_summary(capsys):
+    rc = ir.main(["--device", "cpu", "--nx", "16", "--ny", "16", "--block",
+                  "32", "--spp", "2", "--steps", "3"])
+    out = capsys.readouterr().out
+    assert rc in (0, 1)
+    assert "recovered albedo" in out and "step time:" in out
+    with pytest.raises(SystemExit):
+        ir.main(["--device", "cpu", "--nx", "4", "--ny", "4", "--block", "32"])
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, imported in a fresh interpreter, leaves
+    jax out of sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import raytracing_rust_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'raytracing_rust_tpu_torch.') if not m.name.endswith('__main__')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'raytracing_rust_tpu.')))\n"
+        "assert 'raytracing_rust_tpu_torch.inverse_render' in mods, mods\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 15

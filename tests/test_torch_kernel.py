@@ -1,8 +1,9 @@
-"""The K1a CUDA kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (`nvcc`): they build
-`raytracing_rust_tpu_torch/csrc/tracer.cu`, launch it, and hold it against
-`trace_plain` run on the same card, the same records and the same Philox
+`raytracing_rust_tpu_torch/csrc/*.cu`, launch K1a (`tracer.cu`) and K2/K3
+(`grad.cu`), and hold them against `trace_plain`, `trace_tiles_plain` and
+autograd through it, run on the same card, the same records and the same
 draws. Elsewhere they skip. Run them on the card with
 `python -m pytest tests/test_torch_kernel.py -q -m cuda`.
 """
@@ -10,9 +11,10 @@ draws. Elsewhere they skip. Run them on the card with
 import pytest
 import torch
 
+from raytracing_rust_tpu_torch import inverse_render
 from raytracing_rust_tpu_torch.models import builders
 from raytracing_rust_tpu_torch.models.scene import BG_BLACK, SceneBuilder
-from raytracing_rust_tpu_torch.ops import camera, tracer
+from raytracing_rust_tpu_torch.ops import camera, grad, tracer
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +97,79 @@ def test_kernel_wrapper_rejects_bad_operands(cuda):
         tracer.trace(rec, walk.long(), cam_rec, sums, **kw)
     with pytest.raises(ValueError):
         tracer.trace(rec, walk, cam_rec, sums[:, :32], **kw)
+
+
+def _grad_spheres(device):
+    """Lambertian + light with a sphere light, a flipped rect and a
+    rotated-translated cube: the sphere branch of K2/K3."""
+    b = SceneBuilder(background=BG_BLACK)
+    b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.73, 0.73, 0.73)))
+    b.rect("zx", -1, -1, 1, 1, 5.0,
+           b.diffuse_light(b.solid(4.0, 4.0, 4.0)), flip=True)
+    b.sphere((0.9, 1.0, 0.5), 0.8, b.lambertian(b.solid(0.8, 0.7, 0.6)))
+    b.sphere((-1.5, 3.5, 0.0), 0.5, b.diffuse_light(b.solid(3.0, 2.0, 1.0)))
+    xf = b.transform(offset=(0.4, 0.0, 0.2), rotate_axis="y", angle_deg=20.0)
+    b.cube((-2.4, 0.0, -1.4), (-1.4, 1.6, -0.4),
+           b.lambertian(b.solid(0.4, 0.6, 0.3)), xform=xf)
+    return b.build(device)
+
+
+def _grad_operands(scene, device, n=4096, max_depth=6):
+    cam = inverse_render.camera(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(1)
+    pid = torch.randint(0, 200 * 200, (n,), generator=g, device=device)
+    o, d, _ = inverse_render.camera_lane_rays(cam, pid, 5, 200, 200)
+    u = grad.fast_draws(7, n, max_depth + 1, device)
+    ct = torch.rand(n, 3, generator=g, device=device)
+    return (grad.fast_grad_record(scene).detach(), o, d, u, ct,
+            grad.fast_grad_config(scene))
+
+
+@pytest.mark.parametrize("make", [
+    lambda dev: inverse_render.build_scene(device=dev), _grad_spheres])
+def test_k2_matches_twin_and_k3_matches_autograd(cuda, make):
+    """K2 vs trace_tiles_plain: ≥ 99% of lanes within 1e-4 relative, channel
+    means within 1e-4. K3 vs autograd of the twin: d_rec within 1e-4 of its
+    scale (float atomics sum in another order), d_o and d_d exact zeros."""
+    rec, o, d, u, ct, cfg = _grad_operands(make(cuda), cuda)
+    before = (grad.K2_LAUNCHES, grad.K3_LAUNCHES)
+    k = grad.grad_fwd(rec, o, d, u, cfg, 6)
+    dk = grad.grad_bwd(rec, o, d, u, ct, cfg, 6)
+    torch.cuda.synchronize()
+    assert (grad.K2_LAUNCHES, grad.K3_LAUNCHES) == (before[0] + 1,
+                                                    before[1] + 1)
+    p = grad.trace_tiles_plain(rec, o, d, u, cfg, 6)
+    assert torch.isfinite(k).all() and float(k.sum()) > 0
+    close = torch.isclose(k, p, rtol=1e-4, atol=1e-6).all(dim=1)
+    assert float(close.double().mean()) >= 0.99
+    assert torch.allclose(k.mean(dim=0), p.mean(dim=0), rtol=1e-4, atol=0)
+    dp = grad.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, 6)
+    scale = float(dp[0].abs().max())
+    assert scale > 0
+    assert float((dk[0] - dp[0]).abs().max()) <= 1e-4 * scale
+    assert not dk[1].any() and not dk[2].any()
+
+
+def test_trace_fast_on_cuda_backprops_through_k3(cuda):
+    scene = inverse_render.build_scene(device=cuda)
+    rec, o, d, u, ct, cfg = _grad_operands(scene, cuda, n=1024)
+    albedo = torch.tensor([0.3, 0.4, 0.5], device=cuda, requires_grad=True)
+    emit = torch.tensor(4.0, device=cuda, requires_grad=True)
+    light_tex, box_tex = inverse_render.param_tex_rows(scene)
+    s2 = inverse_render.with_params(scene, light_tex, box_tex, albedo, emit)
+    before = grad.K3_LAUNCHES
+    (grad.trace_fast(s2, o, d, 0, max_depth=6, cfg=cfg, u=u) * ct).sum() \
+        .backward()
+    assert grad.K3_LAUNCHES == before + 1
+    assert torch.isfinite(albedo.grad).all() and float(emit.grad) != 0
+
+
+def test_fused_kernels_reject_scenes_outside_scope_on_cuda(cuda):
+    b = SceneBuilder(background=BG_BLACK)
+    b.sphere((0, 1, 0), 1.0, b.metal(b.solid(0.8, 0.7, 0.6), 0.2))
+    scene = b.build(cuda)
+    o = torch.zeros(64, 3, device=cuda)
+    d = torch.ones(64, 3, device=cuda)
+    with pytest.raises(tracer.UnsupportedScene, match="metal"):
+        grad.trace_fast(scene, o, d, 0, max_depth=6)
