@@ -27,7 +27,19 @@ Phases, one JSON line each on stdout:
      "--steps", "40"])` (200×200, block 4,096, 64 spp, depth 6), with K2's
      and K3's launch counts and the recovered albedo and emission;
   9. times by CUDA events at that width: K2, K3, the plain forward, the
-     plain forward + backward, one training step; sample-paths/s.
+     plain forward + backward, one training step; sample-paths/s;
+ 10. the K1b/K1e instantiations of csrc/tracer.cu against their plain
+     version, on each sphere preset the command line renders below, at
+     the preset's size, 2 spp, depth 50, under the same gates as phase 3:
+     random_spheres 1280×720 (checker, sky, metal, glass, 397 dynamic
+     spheres of which 311 move; with the leaf cull on and off) and
+     two_spheres 1280×720 (sky and checker, no dynamic table); both
+     versions' times;
+ 11. the render path through the command line, `render --scene
+     random_spheres --device cuda` (1280×720, 100 spp, depth 50), with its
+     launch count and a check of the image;
+ 12. the same for `render --scene two_spheres --device cuda` (1280×720,
+     10 spp, depth 50).
 Then the kernel table and, as the last line, the device summary.
 
 Any failure exits non-zero before the last line. Without CUDA, or run
@@ -37,6 +49,7 @@ outside the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -53,6 +66,10 @@ import time
 # at 8 spp; at 500 spp the Monte Carlo spread of the mean is far smaller.
 CORNELL_MEAN = 0.22455
 CORNELL_BAND = (0.95 * CORNELL_MEAN, 1.05 * CORNELL_MEAN)
+# the same for random_spheres (128×72, 100 spp, depth 50, seed 0) and
+# two_spheres (128×72, 10 spp, depth 50, seed 0), each at its preset's spp
+RANDOM_SPHERES_MEAN = 0.5859978795051575
+TWO_SPHERES_MEAN = 0.5419976115226746
 
 
 def emit(phase: str, **kw) -> None:
@@ -64,11 +81,12 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card over `reps` calls after one
-    warm-up call, by CUDA events."""
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds of fn() on the card over `reps` calls, after one
+    warm-up call unless warm is False, by CUDA events."""
     import torch
-    fn()
+    if warm:
+        fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
@@ -95,6 +113,36 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    def run_cli(scene: str):
+        """`render --scene <scene> --device cuda` at the preset's size, with
+        every launch count set to 0 just before and read just after →
+        (what to emit, the image)."""
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, f"{scene}.ppm")
+            argv = ["render", "--scene", scene, "--device", "cuda", "--out",
+                    out, "--timers"]
+            buf = io.StringIO()
+            tracer.KERNEL_LAUNCHES = tracer.K1BE_LAUNCHES = 0
+            grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            wall = time.perf_counter() - t
+            launches = {"k1a_static_trace": tracer.KERNEL_LAUNCHES,
+                        "k1be_sphere_trace": tracer.K1BE_LAUNCHES}
+            check(rc == 0, f"cli.main({argv}) returned {rc}")
+            img = read_ppm(out)
+        text = buf.getvalue()
+        rate = re.search(r"\(([0-9.]+)M primary rays/s\)", text)
+        timers = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r"^\s+(\S+)\s+([0-9.]+)s", text, re.M)}
+        return dict(argv=argv, wall_seconds=wall,
+                    render_primary_rays_per_s=(float(rate.group(1)) * 1e6
+                                               if rate else None),
+                    timers=timers, launches=launches,
+                    image_shape=list(img.shape),
+                    mean_luminance=float(img.mean())), img
+
     # -- 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -109,26 +157,30 @@ def main() -> int:
     t = time.perf_counter()
     lib_path, log = _build.build()
     _build.load()
+    ptxas, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            flags = re.search(r"trace_k1I((?:Lb[01]E)+)E", m.group(1))
+            fn = (f"trace_k1<{','.join(re.findall('[01]', flags.group(1)))}>"
+                  if flags else m.group(1))
+        elif fn and ("registers" in ln or "spill" in ln):
+            ptxas.setdefault(fn, []).append(ln.split(" : ")[-1].strip())
     emit("build", seconds=time.perf_counter() - t, nvcc=_build._nvcc(),
-         library=os.path.relpath(lib_path),
-         ptxas=[ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln])
+         library=os.path.relpath(lib_path), ptxas=ptxas)
 
     # -- 3. kernel vs plain, cornell_box 800×800, 4 spp, depth 50
     p = PRESETS["cornell_box_baseline"]
     nx, ny = p.nx, p.ny
-    rec_np, kinds, groups = tracer.build_scene_record(p.build())
-    rec = torch.from_numpy(rec_np).to(dev)
-    walk = torch.from_numpy(tracer.walk_table(kinds, groups)).to(dev)
-    cam = torch.from_numpy(tracer.build_camera_record(p.camera())).to(dev)
+    ops = tracer.trace_operands(tracer.build_scene_record(p.build()),
+                                tracer.build_camera_record(p.camera()), dev)
 
     def sums():
         return torch.zeros((3, nx * ny), dtype=torch.float64, device=dev)
 
     kw = dict(nx=nx, ny=ny, seed=0, max_depth=50)
-    k = tracer.trace(rec, walk, cam, sums(), sample0=0, n_samples=4, **kw)
-    pl = tracer.trace_plain(rec, walk, cam, sums(), sample0=0, n_samples=4,
-                            **kw)
+    k = tracer.trace(ops, sums(), sample0=0, n_samples=4, **kw)
+    pl = tracer.trace_plain(ops, sums(), sample0=0, n_samples=4, **kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(k).all()), "kernel sums are not finite")
     agree = float(torch.isclose(k, pl, rtol=1e-4, atol=0.0)
@@ -148,7 +200,7 @@ def main() -> int:
     for chunk in (2, 4):
         s = sums()
         for s0 in range(0, 4, chunk):
-            tracer.trace(rec, walk, cam, s, sample0=s0, n_samples=chunk, **kw)
+            tracer.trace(ops, s, sample0=s0, n_samples=chunk, **kw)
         chunked[chunk] = s
     same = bool(torch.equal(chunked[2], chunked[4]))
     emit("chunking", spp=4, chunks=[2, 4], bit_identical=same,
@@ -156,30 +208,12 @@ def main() -> int:
     check(same, "spp_chunk 2 and 4 give different kernel sums")
 
     # -- 5. the main path, through the command line
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "cornell_box_baseline.ppm")
-        argv = ["render", "--scene", "cornell_box_baseline", "--device",
-                "cuda", "--out", out, "--timers"]
-        buf = io.StringIO()
-        tracer.KERNEL_LAUNCHES = grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
-        wall = time.perf_counter() - t
-        launches = {"k1a_static_trace": tracer.KERNEL_LAUNCHES}
-        check(rc == 0, f"cli.main returned {rc}")
-        img = read_ppm(out)
-    text = buf.getvalue()
-    rate = re.search(r"\(([0-9.]+)M primary rays/s\)", text)
-    timers = {m.group(1): float(m.group(2)) for m in re.finditer(
-        r"^\s+(\S+)\s+([0-9.]+)s", text, re.M)}
-    lum = float(img.mean())
-    emit("main_path", argv=argv, wall_seconds=wall,
-         render_primary_rays_per_s=float(rate.group(1)) * 1e6 if rate else None,
-         wall_primary_rays_per_s=nx * ny * p.spp / wall, timers=timers,
-         launches=launches, image_shape=list(img.shape), mean_luminance=lum,
-         band=list(CORNELL_BAND))
-    check(all(n > 0 for n in launches.values()),
+    info, img = run_cli("cornell_box_baseline")
+    lum = info["mean_luminance"]
+    launches = info["launches"]
+    emit("main_path", **info, wall_primary_rays_per_s=nx * ny * p.spp
+         / info["wall_seconds"], band=list(CORNELL_BAND))
+    check(launches["k1a_static_trace"] > 0,
           f"a kernel of the path never launched: {launches}")
     check(img.shape == (ny, nx, 3) and bool(((img >= 0) & (img <= 1)).all()),
           "image has the wrong shape or range")
@@ -188,15 +222,14 @@ def main() -> int:
 
     # kernel and plain version at 800×800×8 spp, depth 50
     s8 = sums()
-    k_ms = cuda_ms(lambda: tracer.trace(rec, walk, cam, s8.zero_(), sample0=0,
-                                        n_samples=8, **kw), reps=5)
-    p_ms = cuda_ms(lambda: tracer.trace_plain(rec, walk, cam, s8.zero_(),
-                                              sample0=0, n_samples=8, **kw),
-                   reps=2)
+    k_ms_k1a = cuda_ms(lambda: tracer.trace(ops, s8.zero_(), sample0=0,
+                                            n_samples=8, **kw), reps=5)
+    p_ms = cuda_ms(lambda: tracer.trace_plain(ops, s8.zero_(), sample0=0,
+                                              n_samples=8, **kw), reps=2)
     rays = nx * ny * 8
     emit("kernel_vs_plain_time", shape=[ny, nx], spp=8, depth=50,
-         kernel_ms=k_ms, plain_ms=p_ms,
-         kernel_primary_rays_per_s=rays / (k_ms * 1e-3),
+         kernel_ms=k_ms_k1a, plain_ms=p_ms,
+         kernel_primary_rays_per_s=rays / (k_ms_k1a * 1e-3),
          plain_primary_rays_per_s=rays / (p_ms * 1e-3))
 
     # -- 6. K2 vs plain at the training step's full width
@@ -247,7 +280,8 @@ def main() -> int:
 
     # -- 8. the training path
     buf = io.StringIO()
-    tracer.KERNEL_LAUNCHES = grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
+    tracer.KERNEL_LAUNCHES = tracer.K1BE_LAUNCHES = 0
+    grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
     t = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = ir.main(["--device", "cuda", "--steps", "40"])
@@ -296,12 +330,93 @@ def main() -> int:
          plain_fwd_bwd_sample_paths_per_s=n / (p3_ms * 1e-3),
          step_candidate_sample_paths_per_s=n / (step_ms * 1e-3))
 
+    # -- 10. K1b/K1e vs plain at each sphere preset's size, 2 spp, depth 50
+    def within(a, b):
+        return float(torch.isclose(a, b, rtol=1e-4, atol=0.0)
+                     .all(dim=0).double().mean())
+
+    k1be = {}
+    for scene in ("random_spheres", "two_spheres"):
+        p = PRESETS[scene]
+        nx, ny = p.nx, p.ny
+        srec = tracer.build_scene_record(p.build())
+        ops = tracer.trace_operands(
+            srec, tracer.build_camera_record(p.camera()), dev)
+        kw = dict(nx=nx, ny=ny, seed=0, sample0=0, n_samples=2, max_depth=50)
+
+        def sums():
+            return torch.zeros((3, nx * ny), dtype=torch.float64, device=dev)
+
+        k = tracer.trace(ops, sums(), **kw)
+        pl = sums()
+        pl_ms = cuda_ms(lambda: tracer.trace_plain(ops, pl.zero_(), **kw),
+                        reps=1, warm=False)
+        check(bool(torch.isfinite(k).all()),
+              f"{scene}: K1b/K1e sums are not finite")
+        agree = within(k, pl)
+        km, pm = k.mean(dim=1), pl.mean(dim=1)
+        mean_rel = float(((km - pm).abs() / pm.abs()).max())
+        err = float((k - pl).abs().max())
+        s_k = sums()
+        k_ms = cuda_ms(lambda: tracer.trace(ops, s_k.zero_(), **kw), reps=3)
+        cull = {}
+        if ops.leaves.shape[0]:
+            flat = dataclasses.replace(ops, leaves=ops.leaves[:0])
+            kf = tracer.trace(flat, sums(), **kw)
+            cull = dict(
+                pixels_within_rel_1e4_without_cull=within(kf, pl),
+                pixels_equal_with_and_without_cull=float(
+                    (k == kf).all(dim=0).double().mean()),
+                kernel_without_cull_ms=cuda_ms(
+                    lambda: tracer.trace(flat, s_k.zero_(), **kw), reps=1))
+            del kf
+        emit("k1be_vs_plain", scene=scene, shape=[ny, nx], spp=2, depth=50,
+             feats=ops.feats, unrolled=len(srec.kinds),
+             dynamic=int(ops.dyn.shape[0]), leaves=int(ops.leaves.shape[0]),
+             pixels_within_rel_1e4=agree, kernel_channel_means=km.tolist(),
+             plain_channel_means=pm.tolist(), channel_mean_max_rel=mean_rel,
+             max_abs_err=err, kernel_ms=k_ms, plain_ms=pl_ms,
+             kernel_primary_rays_per_s=nx * ny * 2 / (k_ms * 1e-3), **cull)
+        check(agree >= 0.99, f"{scene}: K1b/K1e: only {agree:.4%} of pixels "
+              "agree")
+        check(mean_rel <= 1e-4,
+              f"{scene}: K1b/K1e: channel means differ by {mean_rel:.2e}")
+        k1be[scene] = dict(max_abs_err=err, ms=k_ms, plain_ms=pl_ms)
+        del k, pl, s_k
+
+    # -- 11, 12. the sphere scenes' render path, through the command line
+    sphere_launches = {}
+    for scene, mean in (("random_spheres", RANDOM_SPHERES_MEAN),
+                        ("two_spheres", TWO_SPHERES_MEAN)):
+        p = PRESETS[scene]
+        band = (0.95 * mean, 1.05 * mean)
+        info, img = run_cli(scene)
+        sphere_launches[scene] = info["launches"]
+        lum = info["mean_luminance"]
+        emit(f"{scene}_path", **info, spp=p.spp, wall_primary_rays_per_s=(
+            p.nx * p.ny * p.spp / info["wall_seconds"]), band=list(band))
+        check(info["launches"]["k1be_sphere_trace"] > 0,
+              f"{scene}: the K1b/K1e kernel never launched: {info['launches']}")
+        check(img.shape == (p.ny, p.nx, 3)
+              and bool(((img >= 0) & (img <= 1)).all()),
+              f"{scene}: image has the wrong shape or range")
+        check(band[0] < lum < band[1],
+              f"{scene}: mean luminance {lum:.4f} outside {band}")
+
     print(json.dumps({"kernels": [{
         "name": "k1a_static_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
         "launches": launches["k1a_static_trace"],
-        "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms}, {
+        "max_abs_err": max_abs_err, "ms": k_ms_k1a, "plain_ms": p_ms}, {
+        "name": "k1be_sphere_trace", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
+        "launches": sum(v["k1be_sphere_trace"]
+                        for v in sphere_launches.values()),
+        "max_abs_err": max(v["max_abs_err"] for v in k1be.values()),
+        "ms": k1be["random_spheres"]["ms"],
+        "plain_ms": k1be["random_spheres"]["plain_ms"]}, {
         "name": "k2_grad_fwd", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:557",

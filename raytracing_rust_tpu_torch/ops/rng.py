@@ -17,9 +17,10 @@ version (`ops/tracer.trace_plain`):
     stream 0 (CAMERA, bounce word 0): word 0 sub-pixel jitter x,
         word 1 jitter y, word 2 lens radius² (r = sqrt(u)), word 3 lens angle
     stream 1 (SCATTER, at each bounce): word 0 cos θ (2u − 1), word 1 φ,
-        word 2 ball radius (cbrt(1 − u)), word 3 unused (reserved for the
-        dielectric branch draw)
-    stream 2 reserved for the shutter time (moving spheres)
+        word 2 ball radius (cbrt(1 − u)), word 3 the dielectric's
+        reflect-or-refract draw
+    stream 2 (TIME, bounce word 0): word 0 the shutter time t0 + u·dt
+        (scenes with moving spheres); words 1-3 unused
     stream 3 (GRAD, the fused differentiable tier `ops/grad.py`): counter
         (lane, 0, bounce, 3); all four words fill the u tensor
         [bounce, word, lane] of `grad.fast_draws`: word 0 cos θ, word 1 φ,
@@ -44,6 +45,7 @@ import torch
 
 STREAM_CAMERA = 0
 STREAM_SCATTER = 1
+STREAM_TIME = 2
 STREAM_GRAD = 3
 
 PHILOX_M0 = 0xD2511F53

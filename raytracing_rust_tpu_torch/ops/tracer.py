@@ -1,15 +1,20 @@
-"""K1a: the static section of the forward megakernel, and its host side.
+"""The forward megakernel's K1a, K1b and sphere-K1e sections, and their host
+side.
 
-Counterpart of `raytracing_rust_tpu/ops/pallas_tracer.py`, cut to the
-kernel's static section: spheres and rect frame groups from a per-primitive
-scalar record, lambertian and diffuse-light materials with solid textures,
-a black background, camera raygen with jitter and a thin lens, and
-per-pixel radiance sums over a runtime sample count and depth cap. That is
-the whole of what cornell_box needs. Anything else raises `UnsupportedScene`.
+Counterpart of `raytracing_rust_tpu/ops/pallas_tracer.py`, cut to what the
+kernel covers: spheres (moving ones included) and rect frame groups from a
+per-primitive scalar record, and, for scenes of more than UNROLL_BUDGET
+prims, a dynamic sphere table in cluster order behind a leaf AABB cull;
+lambertian, metal, dielectric and diffuse-light materials with solid and
+3-D checker textures; a black or sky background; camera raygen with
+jitter, a thin lens and a shutter time; per-pixel radiance sums over a
+runtime sample count and depth cap. That covers cornell_box, two_spheres
+and random_spheres. Anything else raises `UnsupportedScene`.
 
 * `build_scene_record` / `build_camera_record` flatten the scene tables and
   the camera into the JAX kernel's record layouts (`R_*`, `C_*`), column
-  for column.
+  for column, with the JAX package's partition of big scenes.
+* `trace_operands` puts a scene's records on a device for `trace`.
 * `trace` is the wrapper of the hand-written CUDA kernel
   (`csrc/tracer.cu`): on CUDA tensors it launches the kernel, on CPU
   tensors it runs `trace_plain`, the same computation in plain torch.
@@ -22,11 +27,15 @@ Random numbers are Philox4x32-10 keyed by the seed and addressed by
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from ..models.scene import (BG_BLACK, MAT_DIFFUSE_LIGHT, MAT_LAMBERTIAN,
-                            PRIM_RECT, PRIM_SPHERE, TEX_SOLID, SceneTables)
+from ..models.scene import (BG_SKY, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT,
+                            MAT_LAMBERTIAN, MAT_METAL, PRIM_MOVING_SPHERE,
+                            PRIM_RECT, TEX_CHECKER, TEX_IMAGE, TEX_NOISE,
+                            TEX_SOLID, SceneTables)
 from ..render import finalize_image
 from ..utils.timers import Timers
 from . import rng
@@ -72,11 +81,28 @@ C_LENS_R, C_TIME0, C_DTIME = 18, 19, 20
 CAMREC = 21
 
 # prims the static section holds; the kernel's shared-memory record is
-# sized for this many (csrc/tracer.cu MAX_PRIMS)
+# sized for this many (csrc/tracer.cu MAX_PRIMS). Bigger scenes move their
+# spheres to the dynamic table (pallas_tracer.UNROLL_BUDGET)
 UNROLL_BUDGET = 96
+# dynamic spheres per leaf cluster, and leaves per supercluster
+# (pallas_tracer.SPH_LEAF, SUP_FANOUT)
+SPH_LEAF = 16
+SUP_FANOUT = 8
+# cluster table row: AABB lo (3), hi (3), first member, member count
+CLUSW = 8
 
-# launches of the CUDA kernel, counted by `trace` where it launches
+# static kernel features: csrc/tracer.cu runs its K1B instantiations when
+# any is set, and branches on each inside them
+FEAT_SKY = 1
+FEAT_CHECKER = 2
+FEAT_METAL = 4
+FEAT_DIEL = 8
+FEAT_MOVING = 16
+
+# launches of the CUDA kernel, counted by `trace` where it launches: K1a is
+# the instantiation with every feature off (cornell_box), K1BE any other
 KERNEL_LAUNCHES = 0
+K1BE_LAUNCHES = 0
 
 # lanes (pixel × sample) per chunk when the caller names no chunk: the plain
 # version holds every lane's state in memory, the kernel holds none
@@ -85,30 +111,109 @@ _KERNEL_CHUNK_LANES = 1 << 26
 
 
 class UnsupportedScene(ValueError):
-    """Scene uses features outside the kernel's static section (K1a)."""
+    """Scene uses features outside the kernel's coverage."""
 
 
-def build_scene_record(scene: SceneTables):
-    """Flatten SceneTables into the [P, REC] scalar record (host side).
+@dataclass(frozen=True)
+class SceneRecord:
+    """A scene as the kernel sees it (host side, numpy), the parts of
+    `pallas_tracer.build_scene_record` the kernel covers."""
+    rec: np.ndarray      # f32[max(P, 1), REC] unrolled prims (a zero row if none)
+    kinds: tuple         # "sphere" / "moving" / "rect" per unrolled prim
+    rect_groups: tuple   # unrolled rect rows grouped by world plane frame
+    dyn_rec: np.ndarray  # f32[n_dyn, REC] dynamic spheres in cluster order
+    sclus: np.ndarray    # f32[n_leaf + n_sup, CLUSW] leaves, then superclusters
+    n_sclus: tuple       # (n_leaf, n_sup)
+    flags: tuple         # (has_checker, has_metal, has_diel, dyn_moving)
+    background: int
 
-    Returns (rec f32[P, REC], kinds, rect_groups): kinds is a tuple of
-    "sphere" / "rect" per record row; rect_groups groups the rect rows by
-    shared world plane frame (kn, an, bn), so a tracer computes the six
-    ray·frame dot products once per frame (cornell_box's 17 rects share 9
-    frames). The columns are those of `pallas_tracer.build_scene_record`.
-    Raises UnsupportedScene for anything the static section does not
-    cover: a sky background, media, moving spheres, metal, dielectric or
-    isotropic materials, non-solid textures, more than UNROLL_BUDGET prims.
+    @property
+    def feats(self) -> int:
+        """The kernel features (FEAT_* bits) this scene needs."""
+        has_checker, has_metal, has_diel, dyn_moving = self.flags
+        return ((FEAT_SKY if self.background == BG_SKY else 0)
+                | (FEAT_CHECKER if has_checker else 0)
+                | (FEAT_METAL if has_metal else 0)
+                | (FEAT_DIEL if has_diel else 0)
+                | (FEAT_MOVING if dyn_moving or "moving" in self.kinds
+                   else 0))
+
+
+def _cluster_rows(rows, lo, hi, leaf):
+    """Recursive median split on AABB centroids → two-level flat clusters
+    (`pallas_tracer._cluster_rows`, line for line).
+
+    Returns (rows reordered cluster-contiguously, table f32[L+S, 8],
+    n_leaf, n_sup): rows [0, n_leaf) of the table are leaves (lo3, hi3,
+    member_start, member_count), rows [n_leaf, n_leaf+n_sup) superclusters
+    (lo3, hi3, leaf_start, leaf_count); n_sup == 0 when there are at most
+    SUP_FANOUT leaves.
+    """
+    clusters = []
+    supers = []
+    order = []
+
+    def split(idx):
+        if len(idx) <= leaf:
+            start = len(order)
+            order.extend(idx.tolist())
+            clo, chi = lo[idx].min(0), hi[idx].max(0)
+            clusters.append([*clo, *chi, float(start), float(len(idx))])
+            return
+        cen = (lo[idx] + hi[idx]) * 0.5
+        ax = int(np.argmax(cen.max(0) - cen.min(0)))
+        ordax = np.argsort(cen[:, ax], kind="stable")
+        half = len(idx) // 2
+        split(idx[ordax[:half]])
+        split(idx[ordax[half:]])
+
+    def split_top(idx):
+        if len(idx) <= leaf * SUP_FANOUT:
+            first = len(clusters)
+            split(idx)
+            clo, chi = lo[idx].min(0), hi[idx].max(0)
+            supers.append([*clo, *chi, float(first),
+                           float(len(clusters) - first)])
+            return
+        cen = (lo[idx] + hi[idx]) * 0.5
+        ax = int(np.argmax(cen.max(0) - cen.min(0)))
+        ordax = np.argsort(cen[:, ax], kind="stable")
+        half = len(idx) // 2
+        split_top(idx[ordax[:half]])
+        split_top(idx[ordax[half:]])
+
+    if len(rows):
+        split_top(np.arange(len(rows)))
+    if len(clusters) <= SUP_FANOUT:
+        supers = []
+    table = clusters + supers
+    return (rows[np.asarray(order, int)] if order else rows,
+            np.asarray(table, np.float32) if table
+            else np.zeros((1, CLUSW), np.float32),
+            len(clusters), len(supers))
+
+
+def build_scene_record(scene: SceneTables) -> SceneRecord:
+    """Flatten SceneTables into the kernel's records (host side).
+
+    The columns, the partition and the flags are those of
+    `pallas_tracer.build_scene_record`. A scene of at most UNROLL_BUDGET
+    prims unrolls them all. A bigger one keeps its moving spheres in the
+    unroll when they fit, and its "hero" spheres (radius ≥ 4× the median
+    of the rest), and moves the other spheres into the dynamic table,
+    cluster-sorted with its leaf AABB table. Rect frame groups share the
+    six ray·frame dot products of one plane frame.
+
+    Raises UnsupportedScene for what the kernel does not cover: media,
+    isotropic materials, noise and image textures, nested checkers,
+    textured lights, and rects in a scene of more than UNROLL_BUDGET prims
+    (the JAX kernel merges those into boxes, or unrolls them beside the
+    dynamic table).
     """
     scene = scene.to("cpu")
-    if scene.background != BG_BLACK:
-        raise UnsupportedScene("sky background is not in the kernel yet")
     if scene.has_media:
         raise UnsupportedScene("media are not in the kernel yet")
     P = scene.num_prims
-    if P > UNROLL_BUDGET:
-        raise UnsupportedScene(
-            f"{P} prims exceed the static section's {UNROLL_BUDGET}")
     pk = pack_prims(scene)
     pk = {k: v.numpy() for k, v in vars(pk).items()}
     ptype = scene.prim_type.numpy()
@@ -119,16 +224,18 @@ def build_scene_record(scene: SceneTables):
     mat_tex = scene.mat_texture.numpy()
     tex_type = scene.tex_type.numpy()
     tex_color = scene.tex_color.numpy()
+    tex_child = scene.tex_child.numpy()
+    tex_names = {TEX_NOISE: "noise", TEX_IMAGE: "image"}
 
     rec = np.zeros((P, REC), np.float32)
     kinds = []
     for p in range(P):
         if ptype[p] == PRIM_RECT:
             kinds.append("rect")
-        elif ptype[p] == PRIM_SPHERE:
-            kinds.append("sphere")
+        elif ptype[p] == PRIM_MOVING_SPHERE:
+            kinds.append("moving")
         else:
-            raise UnsupportedScene("moving spheres are not in the kernel yet")
+            kinds.append("sphere")
         rec[p, R_IS_SPHERE] = 0.0 if kinds[-1] == "rect" else 1.0
         rec[p, R_C0:R_C0 + 3] = pk["c0"][p]
         rec[p, R_DC:R_DC + 3] = pk["dc"][p]
@@ -150,19 +257,81 @@ def build_scene_record(scene: SceneTables):
 
         m = prim_mat[p]
         mt = int(mat_type[m])
-        if mt not in (MAT_LAMBERTIAN, MAT_DIFFUSE_LIGHT):
+        if mt not in (MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC,
+                      MAT_DIFFUSE_LIGHT):
             raise UnsupportedScene(
                 f"material type {mt} is not in the kernel yet")
-        tx = mat_tex[m]
-        if int(tex_type[tx]) != TEX_SOLID:
-            raise UnsupportedScene(
-                f"texture type {int(tex_type[tx])} is not in the kernel yet")
         rec[p, R_MAT] = float(mt)
         rec[p, R_PARAM] = mat_param[m]
-        if mt == MAT_DIFFUSE_LIGHT:
-            rec[p, R_EMIT:R_EMIT + 3] = tex_color[tx]
+        tx = mat_tex[m]
+        tt = int(tex_type[tx])
+        if tt == TEX_SOLID:
+            if mt == MAT_DIFFUSE_LIGHT:
+                rec[p, R_EMIT:R_EMIT + 3] = tex_color[tx]
+            else:
+                rec[p, R_ALB_EVEN:R_ALB_EVEN + 3] = tex_color[tx]
+        elif mt == MAT_DIFFUSE_LIGHT:
+            raise UnsupportedScene("emissive textures are not in the kernel "
+                                   "yet")
+        elif tt == TEX_CHECKER:
+            odd, even = tex_child[tx]
+            if tex_type[odd] != TEX_SOLID or tex_type[even] != TEX_SOLID:
+                raise UnsupportedScene("nested checker")
+            rec[p, R_ALB_ODD:R_ALB_ODD + 3] = tex_color[odd]
+            rec[p, R_ALB_EVEN:R_ALB_EVEN + 3] = tex_color[even]
+            rec[p, R_CHECKER] = 1.0
         else:
-            rec[p, R_ALB_EVEN:R_ALB_EVEN + 3] = tex_color[tx]
+            raise UnsupportedScene(f"{tex_names.get(tt, tt)} texture is not "
+                                   "in the kernel yet")
+
+    flags = (bool(np.any(rec[:, R_CHECKER] > 0)),
+             bool(np.any(rec[:, R_MAT] == MAT_METAL)),
+             bool(np.any(rec[:, R_MAT] == MAT_DIELECTRIC)))
+
+    # partition (pallas_tracer.py:793-868, spheres only): small scenes unroll
+    # everything; big ones unroll movers (when they fit) and heroes, and run
+    # the other spheres through the cluster-culled dynamic loop
+    dyn_rec = np.zeros((0, REC), np.float32)
+    sclus = np.zeros((1, CLUSW), np.float32)
+    n_sclus = (0, 0)
+    if P > UNROLL_BUDGET:
+        is_rect = np.array([k == "rect" for k in kinds])
+        if is_rect.any():
+            raise UnsupportedScene(
+                f"{int(is_rect.sum())} rects in a scene of {P} prims: box "
+                "merging and rects beside the dynamic table are not in the "
+                "kernel yet")
+        is_moving = np.array([k == "moving" for k in kinds])
+        keep = np.zeros(P, bool)
+        if int(is_moving.sum()) <= UNROLL_BUDGET:
+            keep = is_moving
+        sph_left = ~keep
+        if sph_left.any():
+            radii = rec[:, R_RADIUS]
+            med_r = float(np.median(radii[sph_left]))
+            hero = sph_left & (radii >= 4.0 * max(med_r, 1e-20))
+            room = UNROLL_BUDGET - int(keep.sum())
+            if int(hero.sum()) > room:   # keep only the largest that fit
+                order = np.argsort(-radii * hero)
+                hero = np.zeros_like(hero)
+                hero[order[:room]] = radii[order[:room]] > 0
+                hero &= sph_left
+            keep = keep | hero
+        # dynamic spheres, cluster-sorted; AABB = swept center ± r
+        sph = rec[~keep]
+        if len(sph):
+            c0 = sph[:, R_C0:R_C0 + 3]
+            c1 = c0 + sph[:, R_DC:R_DC + 3]
+            r_ = sph[:, R_RADIUS:R_RADIUS + 1]
+            dyn_rec, sclus, *n_sclus = _cluster_rows(
+                np.ascontiguousarray(sph), np.minimum(c0, c1) - r_,
+                np.maximum(c0, c1) + r_, SPH_LEAF)
+            n_sclus = tuple(n_sclus)
+        rec = np.ascontiguousarray(rec[keep])
+        kinds = [k for i, k in enumerate(kinds) if keep[i]]
+        if not kinds:   # the kernel's record needs at least one row
+            rec = np.zeros((1, REC), np.float32)
+    flags += (bool(len(dyn_rec) and np.any(dyn_rec[:, R_INV_DT] != 0.0)),)
 
     groups = {}
     for i, k in enumerate(kinds):
@@ -170,7 +339,8 @@ def build_scene_record(scene: SceneTables):
             key = tuple(np.round(rec[i, R_KN:R_BN + 3], 5).tolist())
             groups.setdefault(key, []).append(i)
     rect_groups = tuple(tuple(g) for g in groups.values())
-    return rec, tuple(kinds), rect_groups
+    return SceneRecord(rec, tuple(kinds), rect_groups, dyn_rec, sclus,
+                       n_sclus, flags, int(scene.background))
 
 
 def build_camera_record(cam: Camera) -> np.ndarray:
@@ -190,7 +360,7 @@ def build_camera_record(cam: Camera) -> np.ndarray:
 
 
 def walk_table(kinds, rect_groups) -> np.ndarray:
-    """The order in which the tracers test the prims → int32[2, P].
+    """The order in which the tracers test the unrolled prims → int32[2, K].
 
     Row 0 is the record row of each step: the spheres in record order,
     then the rects group by group, which is the JAX kernel's order (its
@@ -206,9 +376,42 @@ def walk_table(kinds, rect_groups) -> np.ndarray:
     return np.asarray([order, lead], np.int32)
 
 
-def trace_plain(rec: torch.Tensor, walk: torch.Tensor, cam_rec: torch.Tensor,
-                sums: torch.Tensor, *, nx: int, ny: int, seed: int,
-                sample0: int, n_samples: int, max_depth: int) -> torch.Tensor:
+@dataclass(frozen=True)
+class TraceOperands:
+    """What `trace` reads of a scene and camera, on one device."""
+    rec: torch.Tensor     # f32[P, REC] unrolled prims, 1 ≤ P ≤ UNROLL_BUDGET
+    walk: torch.Tensor    # int32[2, K] walk_table over rec, K ≤ P
+    dyn: torch.Tensor     # f32[n_dyn, REC] dynamic spheres in cluster order
+    leaves: torch.Tensor  # f32[n_leaf, CLUSW] their leaves; none: no cull
+    cam: torch.Tensor     # f32[CAMREC]
+    feats: int            # FEAT_* bits
+
+
+def trace_operands(srec: SceneRecord, cam_rec: np.ndarray,
+                   device) -> TraceOperands:
+    """The records of `build_scene_record` and `build_camera_record` as
+    `trace` operands on `device`."""
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return TraceOperands(
+        rec=put(srec.rec), walk=put(walk_table(srec.kinds, srec.rect_groups)),
+        dyn=put(srec.dyn_rec), leaves=put(srec.sclus[:srec.n_sclus[0]]),
+        cam=put(cam_rec), feats=srec.feats)
+
+
+def _sphere_center(r, time, moving: bool):
+    """A sphere's center at each lane's time (reference src/sphere.rs:
+    115-118). For a static sphere (dc = 0, inv_dt = 0) the lerp returns c0
+    exactly, so one form serves both."""
+    if not moving:
+        return r[R_C0], r[R_C0 + 1], r[R_C0 + 2]
+    frac = (time - r[R_T0]) * r[R_INV_DT]
+    return tuple(r[R_C0 + a] + frac * r[R_DC + a] for a in range(3))
+
+
+def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
+                seed: int, sample0: int, n_samples: int,
+                max_depth: int) -> torch.Tensor:
     """The kernel's computation in plain torch, on any device.
 
     Adds, for every pixel, the radiance of samples sample0 ..
@@ -217,14 +420,21 @@ def trace_plain(rec: torch.Tensor, walk: torch.Tensor, cam_rec: torch.Tensor,
     are split into calls. The whole chunk is one batch of (pixel × sample)
     lanes; the bounce loop carries only the live lanes and stops when none
     is left. Every f32 operation is the kernel's, in the kernel's order.
+    The dynamic table is scanned whole in cluster order: the kernel's leaf
+    cull skips only leaves that cannot hold a closer hit, so the winners
+    are the same.
     """
     dev = sums.device
     f32 = torch.float32
     n_pix = nx * ny
+    sky, checker, metal, diel, moving = (
+        bool(ops.feats & b) for b in (FEAT_SKY, FEAT_CHECKER, FEAT_METAL,
+                                      FEAT_DIEL, FEAT_MOVING))
     # record cells as Python floats: a torch op with a Python scalar computes
     # in the tensor's f32, and every cell is an f32 value
-    table = rec.cpu().tolist()
-    order, lead = walk.cpu().tolist()
+    table = ops.rec.cpu().tolist()
+    order, lead = ops.walk.cpu().tolist()
+    dyn_table = ops.dyn.cpu().tolist()
 
     pix = torch.arange(n_pix, dtype=torch.int64, device=dev).repeat(n_samples)
     smp = torch.arange(sample0, sample0 + n_samples, dtype=torch.int64,
@@ -240,22 +450,27 @@ def trace_plain(rec: torch.Tensor, walk: torch.Tensor, cam_rec: torch.Tensor,
     # from the kernel's (and the CPU's) true division
     s = (icol + u0) / torch.tensor(float(nx), device=dev)
     t = (jflip + u1) / torch.tensor(float(ny), device=dev)
-    cr = cam_rec.to(dev)
+    cr = ops.cam.to(dev)
     lens = Camera(origin=cr[C_ORIGIN:C_ORIGIN + 3],
                   lower_left=cr[C_LL:C_LL + 3],
                   horizontal=cr[C_HORIZ:C_HORIZ + 3],
                   vertical=cr[C_VERT:C_VERT + 3], u=cr[C_U:C_U + 3],
                   v=cr[C_V:C_V + 3], time0=cr[C_TIME0],
                   time1=cr[C_TIME0] + cr[C_DTIME], lens_radius=cr[C_LENS_R])
-    # the shutter-time uniform is unused: K1a has no moving spheres
     o, d, _ = get_rays(lens, s, t, torch.stack([u2, u3, torch.zeros_like(u2)],
                                                dim=-1))
     o, d = list(o.unbind(-1)), list(d.unbind(-1))
+    time = None
+    if moving:
+        # shutter time t0 + u·dt (pallas_tracer.py:1583-1584)
+        ut = rng.draws(seed, pix, smp, 0, rng.STREAM_TIME)[0]
+        time = cr[C_TIME0] + ut * cr[C_DTIME]
 
     rad = torch.zeros((3, lanes), dtype=f32, device=dev)
     thr = [torch.ones(lanes, dtype=f32, device=dev) for _ in range(3)]
     live = torch.arange(lanes, device=dev)
-    rec_dev = rec.to(dev)
+    rec_dev = ops.rec.to(dev)
+    dyn_dev = ops.dyn.to(dev)
     for bounce in range(max_depth + 1):
         ox, oy, oz = o
         dx, dy, dz = d
@@ -269,7 +484,8 @@ def trace_plain(rec: torch.Tensor, walk: torch.Tensor, cam_rec: torch.Tensor,
             r = table[p]
             if l < 0:
                 # sphere (reference src/sphere.rs:37-77)
-                ocx, ocy, ocz = ox - r[R_C0], oy - r[R_C0 + 1], oz - r[R_C0 + 2]
+                cx, cy, cz = _sphere_center(r, time, moving)
+                ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
                 bq = ocx * dx + ocy * dy + ocz * dz
                 cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2]
                 disc = bq * bq - a_dd * cq
@@ -313,29 +529,123 @@ def trace_plain(rec: torch.Tensor, walk: torch.Tensor, cam_rec: torch.Tensor,
             t_best = torch.where(better, t_p, t_best)
             win = torch.where(better, p, win)
             nrm = [torch.where(better, n_p[a] * flip, nrm[a]) for a in range(3)]
-
-        # emission (reference src/color.rs:8-22); a miss adds nothing on
-        # the black background and ends the path
-        hit = win >= 0
         w = rec_dev[win.clamp(min=0)]
+        hit = win >= 0
+
+        if dyn_table:
+            # the dynamic sphere table, carrying only (t, winner), with its
+            # own root select (pallas_tracer.py:2034-2071)
+            t_d = t_best
+            wd = torch.full(dx.shape, -1, dtype=torch.int64, device=dev)
+            for q, r in enumerate(dyn_table):
+                cx, cy, cz = _sphere_center(r, time, moving)
+                ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+                bq = ocx * dx + ocy * dy + ocz * dz
+                cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2]
+                disc = bq * bq - a_dd * cq
+                pos = disc > 0.0
+                sq = torch.sqrt(torch.where(pos, disc, 1.0))
+                t_near = (-bq - sq) * inv_a
+                t_far = (-bq + sq) * inv_a
+                t_sel = torch.where(t_near > T_MIN, t_near, t_far)
+                ok = pos & (t_sel > T_MIN) & (t_sel < t_d)
+                t_d = torch.where(ok, t_sel, t_d)
+                wd = torch.where(ok, q, wd)
+            # winner resolve: normal (o + t·d − c(time))·inv_r, then the flip
+            # (pallas_tracer.py:2097-2148)
+            dwin = wd >= 0
+            wr = dyn_dev[wd.clamp(min=0)]
+            frac = (time - wr[:, R_T0]) * wr[:, R_INV_DT] if moving else None
+            inv_r = 1.0 / wr[:, R_RADIUS]
+            for a, (oa, da) in enumerate(zip(o, d)):
+                ca = wr[:, R_C0 + a]
+                if moving:
+                    ca = ca + frac * wr[:, R_DC + a]
+                n_a = ((oa + t_d * da - ca) * inv_r) * wr[:, R_FLIP]
+                nrm[a] = torch.where(dwin, n_a, nrm[a])
+            t_best = torch.where(dwin, t_d, t_best)
+            w = torch.where(dwin[:, None], wr, w)
+            hit = hit | dwin
+
+        # emission (reference src/color.rs:8-22); a miss adds the background
+        # and ends the path
+        miss = [0.0, 0.0, 0.0]
+        if sky:
+            inv_len = 1.0 / torch.sqrt(a_dd)
+            ty = 0.5 * (dy * inv_len + 1.0)
+            miss = [thr[0] * (1.0 - 0.5 * ty), thr[1] * (1.0 - 0.3 * ty),
+                    thr[2]]
         for c in range(3):
-            rad[c, live] += torch.where(hit, thr[c] * w[:, R_EMIT + c], 0.0)
-        # lambertian scatter n + ball (reference src/material.rs:49-53) while
-        # below the depth cap (src/color.rs:9); a light ends the path
+            rad[c, live] += torch.where(hit, thr[c] * w[:, R_EMIT + c],
+                                        miss[c])
+        # scatter while below the depth cap (src/color.rs:9); a light ends
+        # the path
         if bounce == max_depth:
             break
-        cont = hit & (w[:, R_MAT] != MAT_DIFFUSE_LIGHT)
+        mat = w[:, R_MAT]
+        cont = hit & (mat != MAT_DIFFUSE_LIGHT)
+        px = [o[a] + t_best * d[a] for a in range(3)]
+        alb = [w[:, R_ALB_EVEN + c] for c in range(3)]
+        if checker:
+            # checker sign at the hit point (reference src/texture.rs:40-47)
+            sines = (torch.sin(10.0 * px[0]) * torch.sin(10.0 * px[1])
+                     * torch.sin(10.0 * px[2]))
+            odd = (sines < 0.0) & (w[:, R_CHECKER] > 0.0)
+            alb = [torch.where(odd, w[:, R_ALB_ODD + c], alb[c])
+                   for c in range(3)]
+        # lambertian: n + a uniform point in the unit ball
+        # (reference src/material.rs:49-53)
+        su = rng.draws(seed, pix[live], smp[live], bounce, rng.STREAM_SCATTER)
+        ball = rng.in_unit_sphere(torch.stack(su[:3], dim=-1)).unbind(-1)
+        nd = [nrm[a] + ball[a] for a in range(3)]
+        if metal or diel:
+            inv_len = 1.0 / torch.sqrt(a_dd)
+            ud = [d[a] * inv_len for a in range(3)]
+            par = w[:, R_PARAM]
+        if metal:
+            # reflect(unit(d), n) + fuzz·ball; the path ends when that
+            # points into the surface (reference src/material.rs:76-87)
+            is_met = mat == MAT_METAL
+            ddn_u = ud[0] * nrm[0] + ud[1] * nrm[1] + ud[2] * nrm[2]
+            md = [ud[a] - 2.0 * ddn_u * nrm[a] + par * ball[a]
+                  for a in range(3)]
+            met_ok = (md[0] * nrm[0] + md[1] * nrm[1] + md[2] * nrm[2]) > 0.0
+            nd = [torch.where(is_met, md[a], nd[a]) for a in range(3)]
+            cont = cont & (~is_met | met_ok)
+        if diel:
+            # dielectric with Schlick's reflect-or-refract draw, the
+            # reference's exit cosine ref_idx·(d·n)/|d| included
+            # (reference src/material.rs:105-126)
+            is_diel = mat == MAT_DIELECTRIC
+            ddn = d[0] * nrm[0] + d[1] * nrm[1] + d[2] * nrm[2]
+            d_len = torch.sqrt(a_dd)
+            exiting = ddn > 0.0
+            on = [torch.where(exiting, -1.0, 1.0) * nrm[a] for a in range(3)]
+            eta = torch.where(exiting, par, 1.0 / par)
+            cosine = torch.where(exiting, par * ddn / d_len, -ddn / d_len)
+            dt_u = ud[0] * on[0] + ud[1] * on[1] + ud[2] * on[2]
+            disc_r = 1.0 - eta * eta * (1.0 - dt_u * dt_u)
+            can = disc_r > 0.0
+            sq_r = torch.sqrt(torch.where(can, disc_r, 1.0))
+            r0 = (1.0 - par) / (1.0 + par)
+            r0 = r0 * r0
+            one_c = 1.0 - cosine
+            one_c2 = one_c * one_c
+            schlick = r0 + (1.0 - r0) * one_c2 * one_c2 * one_c
+            refr = can & (su[3] >= schlick)
+            gd = [torch.where(refr, eta * (ud[a] - on[a] * dt_u) - on[a] * sq_r,
+                              d[a] - 2.0 * ddn * nrm[a]) for a in range(3)]
+            nd = [torch.where(is_diel, gd[a], nd[a]) for a in range(3)]
+            alb = [torch.where(is_diel, 1.0, alb[c]) for c in range(3)]
         keep = torch.nonzero(cont).squeeze(1)
         if keep.numel() == 0:
             break
         live = live[keep]
-        t_k = t_best[keep]
-        o = [o[a][keep] + t_k * d[a][keep] for a in range(3)]
-        su = rng.draws(seed, pix[live], smp[live], bounce,
-                       rng.STREAM_SCATTER)
-        ball = rng.in_unit_sphere(torch.stack(su[:3], dim=-1))
-        d = [nrm[a][keep] + ball[:, a] for a in range(3)]
-        thr = [thr[c][keep] * w[keep, R_ALB_EVEN + c] for c in range(3)]
+        o = [px[a][keep] for a in range(3)]
+        d = [nd[a][keep] for a in range(3)]
+        thr = [thr[c][keep] * alb[c][keep] for c in range(3)]
+        if moving:
+            time = time[keep]
 
     per_sample = rad.view(3, n_samples, n_pix)
     for i in range(n_samples):
@@ -343,11 +653,13 @@ def trace_plain(rec: torch.Tensor, walk: torch.Tensor, cam_rec: torch.Tensor,
     return sums
 
 
-def _check_operands(rec, walk, cam_rec, sums, nx, ny):
+def _check_operands(ops: TraceOperands, sums, nx, ny):
     dev = sums.device
-    for name, x, dtype in (("rec", rec, torch.float32),
-                           ("walk", walk, torch.int32),
-                           ("cam_rec", cam_rec, torch.float32),
+    for name, x, dtype in (("rec", ops.rec, torch.float32),
+                           ("walk", ops.walk, torch.int32),
+                           ("dyn", ops.dyn, torch.float32),
+                           ("leaves", ops.leaves, torch.float32),
+                           ("cam", ops.cam, torch.float32),
                            ("sums", sums, torch.float64)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, sums on {dev}")
@@ -355,35 +667,45 @@ def _check_operands(rec, walk, cam_rec, sums, nx, ny):
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    P = rec.shape[0]
-    if rec.dim() != 2 or rec.shape[1] != REC or not 0 < P <= UNROLL_BUDGET:
+    P = ops.rec.shape[0]
+    if ops.rec.dim() != 2 or ops.rec.shape[1] != REC \
+            or not 0 < P <= UNROLL_BUDGET:
         raise ValueError(f"rec must be [1..{UNROLL_BUDGET}, {REC}], "
-                         f"got {tuple(rec.shape)}")
-    if tuple(walk.shape) != (2, P):
-        raise ValueError(f"walk must be [2, {P}], got {tuple(walk.shape)}")
-    if tuple(cam_rec.shape) != (CAMREC,):
-        raise ValueError(f"cam_rec must be [{CAMREC}], got {tuple(cam_rec.shape)}")
+                         f"got {tuple(ops.rec.shape)}")
+    if ops.walk.dim() != 2 or ops.walk.shape[0] != 2 \
+            or ops.walk.shape[1] > P:
+        raise ValueError(f"walk must be [2, ≤{P}], got "
+                         f"{tuple(ops.walk.shape)}")
+    if ops.dyn.dim() != 2 or ops.dyn.shape[1] != REC:
+        raise ValueError(f"dyn must be [n, {REC}], got {tuple(ops.dyn.shape)}")
+    if ops.leaves.dim() != 2 or ops.leaves.shape[1] != CLUSW:
+        raise ValueError(f"leaves must be [n, {CLUSW}], got "
+                         f"{tuple(ops.leaves.shape)}")
+    if tuple(ops.cam.shape) != (CAMREC,):
+        raise ValueError(f"cam must be [{CAMREC}], got {tuple(ops.cam.shape)}")
     if tuple(sums.shape) != (3, nx * ny):
         raise ValueError(f"sums must be [3, {nx * ny}], got {tuple(sums.shape)}")
+    if not 0 <= ops.feats < 2 * FEAT_MOVING:
+        raise ValueError(f"feats {ops.feats} has unknown bits")
 
 
-def trace(rec: torch.Tensor, walk: torch.Tensor, cam_rec: torch.Tensor,
-          sums: torch.Tensor, *, nx: int, ny: int, seed: int, sample0: int,
-          n_samples: int, max_depth: int) -> torch.Tensor:
-    """Wrapper of the K1a kernel; same contract as `trace_plain`.
+def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
+          seed: int, sample0: int, n_samples: int,
+          max_depth: int) -> torch.Tensor:
+    """Wrapper of the K1 kernel; same contract as `trace_plain`.
 
     On CUDA tensors it launches `csrc/tracer.cu` on the current stream
     (building it at first use) or raises; on CPU tensors it runs
     `trace_plain`.
     """
-    global KERNEL_LAUNCHES
-    _check_operands(rec, walk, cam_rec, sums, nx, ny)
+    global KERNEL_LAUNCHES, K1BE_LAUNCHES
+    _check_operands(ops, sums, nx, ny)
     if not (0 <= seed < 1 << 64 and 0 <= sample0
             and sample0 + n_samples < 1 << 31 and 0 < nx * ny < 1 << 31
             and n_samples >= 0 and max_depth >= 0):
         raise ValueError("seed, sample range, image size or depth out of range")
     if sums.device.type == "cpu":
-        return trace_plain(rec, walk, cam_rec, sums, nx=nx, ny=ny, seed=seed,
+        return trace_plain(ops, sums, nx=nx, ny=ny, seed=seed,
                            sample0=sample0, n_samples=n_samples,
                            max_depth=max_depth)
     if sums.device.type != "cuda":
@@ -391,13 +713,19 @@ def trace(rec: torch.Tensor, walk: torch.Tensor, cam_rec: torch.Tensor,
     from ._build import load
     lib = load()
     with torch.cuda.device(sums.device):
-        err = lib.rt_trace_k1a(
-            rec.data_ptr(), walk.data_ptr(), rec.shape[0], cam_rec.data_ptr(),
-            sums.data_ptr(), nx, ny, seed & 0xFFFFFFFF, seed >> 32, sample0,
-            n_samples, max_depth, torch.cuda.current_stream().cuda_stream)
-    KERNEL_LAUNCHES += 1
+        err = lib.rt_trace_k1(
+            ops.rec.data_ptr(), ops.rec.shape[0], ops.walk.data_ptr(),
+            ops.walk.shape[1], ops.dyn.data_ptr(), ops.dyn.shape[0],
+            ops.leaves.data_ptr(), ops.leaves.shape[0], ops.cam.data_ptr(),
+            ops.feats, sums.data_ptr(), nx, ny, seed & 0xFFFFFFFF, seed >> 32,
+            sample0, n_samples, max_depth,
+            torch.cuda.current_stream().cuda_stream)
+    if ops.feats == 0 and ops.dyn.shape[0] == 0:
+        KERNEL_LAUNCHES += 1
+    else:
+        K1BE_LAUNCHES += 1
     if err != 0:
-        raise RuntimeError(f"K1a launch failed: cudaError {err}")
+        raise RuntimeError(f"K1 launch failed: cudaError {err}")
     return sums
 
 
@@ -405,13 +733,15 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
                   *, device, seed: int = 0, max_depth: int = 50,
                   spp_chunk: int | None = None,
                   timers: Timers | None = None) -> np.ndarray:
-    """Full-image render through K1a → float32 [ny, nx, 3], row 0 at the
-    top, with the reference's gamma (sqrt + clamp, tests/test.rs:72-75).
+    """Full-image render through the K1 kernel → float32 [ny, nx, 3], row 0
+    at the top, with the reference's gamma (sqrt + clamp,
+    tests/test.rs:72-75).
 
     device: where the sums live and the trace runs. "cuda" launches the
     kernel, and raises when CUDA is absent; "cpu" runs the plain version.
     spp_chunk: samples per `trace` call (default: a lane budget). The image
-    does not depend on it. Raises UnsupportedScene for scenes outside K1a.
+    does not depend on it. Raises UnsupportedScene for scenes outside the
+    kernel.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -429,23 +759,20 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
         spp_chunk = max(1, min(spp, budget // n_pix))
 
     with timers.phase("record_build"):
-        rec_np, kinds, rect_groups = build_scene_record(scene)
-        walk_np = walk_table(kinds, rect_groups)
+        srec = build_scene_record(scene)
         cam_np = build_camera_record(cam)
     if device.type == "cuda":
         from ._build import load
         with timers.phase("kernel_build"):
             load()
     with timers.phase("upload"):
-        rec = torch.from_numpy(rec_np).to(device)
-        walk = torch.from_numpy(walk_np).to(device)
-        cam_rec = torch.from_numpy(cam_np).to(device)
+        ops = trace_operands(srec, cam_np, device)
         sums = torch.zeros((3, n_pix), dtype=torch.float64, device=device)
     with timers.phase("trace"):
         for s0 in range(0, spp, spp_chunk):
-            trace(rec, walk, cam_rec, sums, nx=nx, ny=ny, seed=seed,
-                  sample0=s0, n_samples=min(spp_chunk, spp - s0),
-                  max_depth=max_depth)
+            trace(ops, sums, nx=nx, ny=ny, seed=seed, sample0=s0,
+                  n_samples=min(spp_chunk, spp - s0), max_depth=max_depth)
     with timers.phase("finalize"):
         img = finalize_image(sums.T.cpu().numpy(), spp, nx, ny)
     return img
+

@@ -31,12 +31,25 @@ def test_render_cpu_writes_a_valid_p3(tmp_path, capsys):
     assert "primary rays/s" in printed and "trace" in printed
 
 
+def test_render_cpu_random_spheres(tmp_path):
+    """The sky, the checker, metal, glass, moving spheres and the dynamic
+    sphere table through the command line (the kernel's plain version)."""
+    out = tmp_path / "random_spheres.ppm"
+    rc = cli.main(["render", "--scene", "random_spheres", "--nx", "16",
+                   "--ny", "9", "--spp", "2", "--max-depth", "8", "--device",
+                   "cpu", "--out", str(out)])
+    assert rc == 0
+    img = read_ppm(str(out))
+    assert img.shape == (9, 16, 3) and np.isfinite(img).all()
+    assert 0.3 < img.mean() < 0.9
+
+
 def test_render_outside_the_kernel_exits_nonzero(tmp_path, capsys):
-    rc = cli.main(["render", "--scene", "two_spheres", "--nx", "8", "--ny",
-                   "8", "--spp", "1", "--device", "cpu", "--out",
+    rc = cli.main(["render", "--scene", "two_perlin_spheres", "--nx", "8",
+                   "--ny", "8", "--spp", "1", "--device", "cpu", "--out",
                    str(tmp_path / "x.ppm")])
     assert rc == 2
-    assert "sky" in capsys.readouterr().err
+    assert "noise texture" in capsys.readouterr().err
     assert not (tmp_path / "x.ppm").exists()
 
 

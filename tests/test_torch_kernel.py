@@ -1,19 +1,24 @@
 """The CUDA kernels against their plain torch versions, on the card.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (`nvcc`): they build
-`raytracing_rust_tpu_torch/csrc/*.cu`, launch K1a (`tracer.cu`) and K2/K3
-(`grad.cu`), and hold them against `trace_plain`, `trace_tiles_plain` and
-autograd through it, run on the same card, the same records and the same
-draws. Elsewhere they skip. Run them on the card with
+`raytracing_rust_tpu_torch/csrc/*.cu`, launch K1 (`tracer.cu`: the K1a
+instantiation and the K1b/K1e ones) and K2/K3 (`grad.cu`), and hold them
+against `trace_plain`, `trace_tiles_plain` and autograd through it, run on
+the same card, the same records and the same draws. Elsewhere they skip.
+Run them on the card with
 `python -m pytest tests/test_torch_kernel.py -q -m cuda`.
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 from raytracing_rust_tpu_torch import inverse_render
 from raytracing_rust_tpu_torch.models import builders
-from raytracing_rust_tpu_torch.models.scene import BG_BLACK, SceneBuilder
+from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
+                                                    SceneBuilder)
 from raytracing_rust_tpu_torch.ops import camera, grad, tracer
 
 pytestmark = pytest.mark.cuda
@@ -27,10 +32,8 @@ def cuda():
 
 
 def _operands(scene, cam, device):
-    rec, kinds, groups = tracer.build_scene_record(scene)
-    return (torch.from_numpy(rec).to(device),
-            torch.from_numpy(tracer.walk_table(kinds, groups)).to(device),
-            torch.from_numpy(tracer.build_camera_record(cam)).to(device))
+    return tracer.trace_operands(tracer.build_scene_record(scene),
+                                 tracer.build_camera_record(cam), device)
 
 
 def _cornell(nx, ny):
@@ -51,22 +54,67 @@ def _spheres(nx, ny):
                                          nx / ny, 0.1, 8.0, 0.0, 1.0)
 
 
-@pytest.mark.parametrize("make", [_cornell, _spheres])
-def test_kernel_matches_plain(cuda, make):
+def _sky_view(nx, ny):
+    return camera.make_camera((0, 2, 8), (0, 1, 0), (0, 1, 0), 35.0, nx / ny,
+                              0.0, 10.0, 0.0, 1.0)
+
+
+def _oracle_spheres(nx, ny):
+    """Lambertian, metal and glass spheres under the sky (the C++ mirror's
+    scene 1)."""
+    b = SceneBuilder(background=BG_SKY)
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    b.sphere((0, 1, 0), 1.0, b.lambertian(b.solid(0.4, 0.2, 0.1)))
+    b.sphere((2.2, 1, 0), 1.0, b.metal(b.solid(0.7, 0.6, 0.5), 0.2))
+    b.sphere((-2.2, 1, 0), 1.0, b.dielectric(1.5))
+    return b.build(), _sky_view(nx, ny)
+
+
+def _moving_checker(nx, ny):
+    """Checker ground, a moving sphere, a sharp metal hero, the sky (the
+    C++ mirror's scene 3)."""
+    b = SceneBuilder(background=BG_SKY)
+    checker = b.checker(b.solid(0.2, 0.3, 0.1), b.solid(0.9, 0.9, 0.9))
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(checker))
+    b.moving_sphere((0, 1, 0), (0, 1.5, 0), 0.0, 1.0, 1.0,
+                    b.lambertian(b.solid(0.4, 0.2, 0.1)))
+    b.sphere((2.2, 1, 0), 1.0, b.metal(b.solid(0.7, 0.6, 0.5), 0.0))
+    return b.build(), _sky_view(nx, ny)
+
+
+def _random_spheres(nx, ny):
+    p = builders.PRESETS["random_spheres"]
+    return p.build(), camera.make_camera(
+        p.look_from, p.look_at, p.view_up, p.vfov, nx / ny, p.aperture,
+        p.focus_dist, p.time0, p.time1)
+
+
+def _small_spheres(n):
+    """n small spheres of every material over a checker ground, half of
+    them moving, under the sky: a dynamic table of n rows, far beyond
+    shared memory (and the TPU kernel's ~2k-prim SMEM cap)."""
+    def make(nx, ny):
+        r = np.random.default_rng(5)
+        b = SceneBuilder(background=BG_SKY)
+        checker = b.checker(b.solid(0.2, 0.3, 0.1), b.solid(0.9, 0.9, 0.9))
+        b.sphere((0, -1000, 0), 1000.0, b.lambertian(checker))
+        mats = [b.lambertian(b.solid(0.8, 0.3, 0.3)),
+                b.metal(b.solid(0.7, 0.7, 0.7), 0.1), b.dielectric(1.5)]
+        for i in range(n):
+            c = r.uniform((-6.0, 0.05, -6.0), (6.0, 3.0, 6.0))
+            m = mats[i % 3]
+            if i % 2:
+                b.moving_sphere(c, c + (0.0, 0.2, 0.0), 0.0, 1.0, 0.05, m)
+            else:
+                b.sphere(c, 0.05, m)
+        return b.build(), _sky_view(nx, ny)
+    return make
+
+
+def _assert_kernel_matches_plain(k, p):
     """Per-pixel sums within 1e-4 relative for ≥ 99% of pixels (a path whose
     hit test lands within an ulp of an edge may take another branch when
     sin/cos or pow round differently), channel means within 1e-4."""
-    nx, ny = 96, 64
-    rec, walk, cam_rec = _operands(*make(nx, ny), cuda)
-    kw = dict(nx=nx, ny=ny, seed=3, sample0=0, n_samples=4, max_depth=50)
-    before = tracer.KERNEL_LAUNCHES
-    k = tracer.trace(rec, walk, cam_rec,
-                     torch.zeros((3, nx * ny), dtype=torch.float64,
-                                 device=cuda), **kw)
-    assert tracer.KERNEL_LAUNCHES == before + 1
-    p = tracer.trace_plain(rec, walk, cam_rec,
-                           torch.zeros_like(k), **kw)
-    torch.cuda.synchronize()
     assert torch.isfinite(k).all() and float(k.sum()) > 0
     close = torch.isclose(k, p, rtol=1e-4, atol=1e-6).all(dim=0)
     assert float(close.double().mean()) >= 0.99
@@ -74,29 +122,68 @@ def test_kernel_matches_plain(cuda, make):
     assert torch.allclose(km, pm, rtol=1e-4, atol=0), (km, pm)
 
 
-def test_kernel_chunking_is_bit_identical(cuda):
+@pytest.mark.parametrize("make", [_cornell, _spheres, _oracle_spheres,
+                                  _moving_checker, _random_spheres,
+                                  _small_spheres(3000)])
+def test_kernel_matches_plain(cuda, make):
+    nx, ny = 96, 64
+    ops = _operands(*make(nx, ny), cuda)
+    kw = dict(nx=nx, ny=ny, seed=3, sample0=0, n_samples=4, max_depth=50)
+    before = (tracer.KERNEL_LAUNCHES, tracer.K1BE_LAUNCHES)
+    k = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
+                                      device=cuda), **kw)
+    k1a = ops.feats == 0 and ops.dyn.shape[0] == 0
+    assert (tracer.KERNEL_LAUNCHES, tracer.K1BE_LAUNCHES) == (
+        before[0] + k1a, before[1] + (not k1a))
+    p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(k, p)
+
+
+def test_kernel_leaf_cull_keeps_the_winners(cuda):
+    """20,000 small spheres: 2,048 leaves, more than shared memory holds
+    beside the record, so the kernel reads them from device memory. The
+    cull may skip only leaves that cannot hold a closer hit: the sums with
+    and without it agree as the kernel and its plain version do."""
+    nx, ny = 96, 64
+    ops = _operands(*_small_spheres(20000)(nx, ny), cuda)
+    assert ops.leaves.shape[0] * tracer.CLUSW * 4 > 48 * 1024
+    kw = dict(nx=nx, ny=ny, seed=4, sample0=0, n_samples=2, max_depth=50)
+    culled = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
+                                           device=cuda), **kw)
+    flat = tracer.trace(dataclasses.replace(ops, leaves=ops.leaves[:0]),
+                        torch.zeros_like(culled), **kw)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(culled, flat)
+
+
+@pytest.mark.parametrize("make", [_cornell, _moving_checker])
+def test_kernel_chunking_is_bit_identical(cuda, make):
     nx, ny = 64, 64
-    rec, walk, cam_rec = _operands(*_cornell(nx, ny), cuda)
+    ops = _operands(*make(nx, ny), cuda)
     out = []
     for chunk in (2, 4):
         sums = torch.zeros((3, nx * ny), dtype=torch.float64, device=cuda)
         for s0 in range(0, 4, chunk):
-            tracer.trace(rec, walk, cam_rec, sums, nx=nx, ny=ny, seed=9,
-                         sample0=s0, n_samples=chunk, max_depth=50)
+            tracer.trace(ops, sums, nx=nx, ny=ny, seed=9, sample0=s0,
+                         n_samples=chunk, max_depth=50)
         out.append(sums)
     assert torch.equal(out[0], out[1])
 
 
 def test_kernel_wrapper_rejects_bad_operands(cuda):
-    rec, walk, cam_rec = _operands(*_cornell(8, 8), cuda)
+    ops = _operands(*_cornell(8, 8), cuda)
     sums = torch.zeros((3, 64), dtype=torch.float64, device=cuda)
     kw = dict(nx=8, ny=8, seed=0, sample0=0, n_samples=1, max_depth=1)
     with pytest.raises(ValueError):
-        tracer.trace(rec.cpu(), walk, cam_rec, sums, **kw)
+        tracer.trace(dataclasses.replace(ops, rec=ops.rec.cpu()), sums, **kw)
     with pytest.raises(TypeError):
-        tracer.trace(rec, walk.long(), cam_rec, sums, **kw)
+        tracer.trace(dataclasses.replace(ops, walk=ops.walk.long()), sums,
+                     **kw)
     with pytest.raises(ValueError):
-        tracer.trace(rec, walk, cam_rec, sums[:, :32], **kw)
+        tracer.trace(ops, sums[:, :32], **kw)
+    with pytest.raises(ValueError):
+        tracer.trace(dataclasses.replace(ops, feats=64), sums, **kw)
 
 
 def _grad_spheres(device):

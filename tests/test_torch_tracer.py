@@ -1,13 +1,15 @@
-"""The port's K1a path (ops/tracer.py) against the JAX package.
+"""The port's K1 path (ops/tracer.py) against the JAX package.
 
 The kernel itself runs only on a CUDA card (tests/test_torch_kernel.py and
 chip_smoke.py hold it against `trace_plain` there). Here, on the CPU:
-the scene and camera records equal the JAX kernel's cell by cell; the
-Philox generator reproduces Random123's known answers; the samplers agree
-with the JAX ones on shared uniforms; `trace_plain` renders cornell_box to
-the same radiometry as the JAX XLA tier and as the independent C++ mirror
-of the reference, within Monte Carlo tolerance; and the image contract is
-byte-identical.
+the scene and camera records equal the JAX kernel's cell by cell, the
+partition of big scenes (dynamic sphere table, cluster table, flags)
+included; the Philox generator reproduces Random123's known answers; the
+samplers agree with the JAX ones on shared uniforms; `trace_plain` renders
+cornell_box, two_spheres, random_spheres and the metal / glass / moving /
+checker oracle scenes to the same radiometry as the JAX XLA tier or the
+independent C++ mirror of the reference, within Monte Carlo tolerance;
+and the image contract is byte-identical.
 """
 
 import numpy as np
@@ -25,7 +27,8 @@ from raytracing_rust_tpu.render import render as jax_render
 from raytracing_rust_tpu.utils import image_io as jio
 from raytracing_rust_tpu_torch import render as trender
 from raytracing_rust_tpu_torch.models import builders as tb
-from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, SceneBuilder)
+from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
+                                                    SceneBuilder)
 from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import rng, tracer
 from raytracing_rust_tpu_torch.utils import image_io as tio
@@ -47,22 +50,87 @@ def _sphere_scene(builder_cls):
 _SPHERE_VIEW = ((0.0, 2.0, 8.0), (0.0, 1.0, 0.0), (0, 1, 0), 35.0)
 
 
+def _oracle_spheres(builder_cls):
+    """Lambertian, metal and glass spheres under the sky: the C++ mirror's
+    scene 1 (tests/test_e2e_oracle.py:49-75)."""
+    b = builder_cls(background=BG_SKY)
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    b.sphere((0, 1, 0), 1.0, b.lambertian(b.solid(0.4, 0.2, 0.1)))
+    b.sphere((2.2, 1, 0), 1.0, b.metal(b.solid(0.7, 0.6, 0.5), 0.2))
+    b.sphere((-2.2, 1, 0), 1.0, b.dielectric(1.5))
+    return b.build()
+
+
+def _moving_checker(builder_cls):
+    """Checker ground, a moving sphere rising over the shutter, a sharp metal
+    hero, the sky: the C++ mirror's scene 3 (tests/test_e2e_oracle.py:
+    259-294)."""
+    b = builder_cls(background=BG_SKY)
+    checker = b.checker(b.solid(0.2, 0.3, 0.1), b.solid(0.9, 0.9, 0.9))
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(checker))
+    b.moving_sphere((0, 1, 0), (0, 1.5, 0), 0.0, 1.0, 1.0,
+                    b.lambertian(b.solid(0.4, 0.2, 0.1)))
+    b.sphere((2.2, 1, 0), 1.0, b.metal(b.solid(0.7, 0.6, 0.5), 0.0))
+    return b.build()
+
+
+_ORACLE_SCENES = {"oracle_spheres": _oracle_spheres,
+                  "moving_checker": _moving_checker}
+
+
 def test_cornell_record_equals_jax():
-    rec, kinds, groups = tracer.build_scene_record(tb.cornell_box())
+    srec = tracer.build_scene_record(tb.cornell_box())
     jrec, jkinds, jgroups = pt.build_scene_record(jb.cornell_box())[0:3]
-    assert rec.dtype == jrec.dtype == np.float32
-    np.testing.assert_array_equal(rec, jrec)
-    assert kinds == jkinds == ("rect",) * 17
-    assert groups == jgroups and len(groups) == 9
+    assert srec.rec.dtype == jrec.dtype == np.float32
+    np.testing.assert_array_equal(srec.rec, jrec)
+    assert srec.kinds == jkinds == ("rect",) * 17
+    assert srec.rect_groups == jgroups and len(jgroups) == 9
+    assert srec.feats == 0 and len(srec.dyn_rec) == 0
 
 
 def test_sphere_scene_record_equals_jax():
-    rec, kinds, groups = tracer.build_scene_record(_sphere_scene(SceneBuilder))
-    jrec, jkinds, jgroups = pt.build_scene_record(_sphere_scene(JSceneBuilder))[0:3]
-    np.testing.assert_array_equal(rec, jrec)
+    srec = tracer.build_scene_record(_sphere_scene(SceneBuilder))
+    jrec, jkinds, jgroups = pt.build_scene_record(
+        _sphere_scene(JSceneBuilder))[0:3]
+    np.testing.assert_array_equal(srec.rec, jrec)
     # the builder drops the coincident second sphere (first one wins)
-    assert kinds == jkinds == ("sphere",) * 3 + ("rect",)
-    assert groups == jgroups
+    assert srec.kinds == jkinds == ("sphere",) * 3 + ("rect",)
+    assert srec.rect_groups == jgroups
+
+
+@pytest.mark.parametrize("name", ["random_spheres", "two_spheres",
+                                  "oracle_spheres", "moving_checker"])
+def test_record_parts_equal_jax(name):
+    """The unrolled record, its kinds and groups, the dynamic sphere table,
+    the cluster table and the flags equal pallas_tracer.build_scene_record's
+    field by field."""
+    if name in _ORACLE_SCENES:
+        scene, jscene = (_ORACLE_SCENES[name](c)
+                         for c in (SceneBuilder, JSceneBuilder))
+    else:
+        scene, jscene = tb.PRESETS[name].build(), jb.PRESETS[name].build()
+    srec = tracer.build_scene_record(scene)
+    (jrec, jkinds, jgroups, jdyn, n_dyn, _, n_box, jsclus, n_sclus, _, _,
+     _, med_kinds, jflags) = pt.build_scene_record(jscene)[:14]
+    assert n_box == 0 and med_kinds == ()
+    np.testing.assert_array_equal(srec.rec, jrec)
+    assert srec.kinds == jkinds and srec.rect_groups == jgroups
+    assert srec.dyn_rec.dtype == np.float32
+    np.testing.assert_array_equal(srec.dyn_rec, jdyn[:n_dyn])
+    np.testing.assert_array_equal(srec.sclus, jsclus)
+    assert srec.n_sclus == tuple(n_sclus)
+    assert srec.flags == (jflags[0], jflags[1], jflags[2], jflags[5])
+    if name == "random_spheres":
+        # tests/test_pallas_record.py:42-59: four unrolled heroes, 397
+        # dynamic spheres in 32 leaves, 311 of them moving
+        assert srec.kinds == ("sphere",) * 4 and n_dyn == 397
+        assert srec.n_sclus == (32, 4)
+        assert int((srec.dyn_rec[:, tracer.R_INV_DT] != 0).sum()) == 311
+        assert srec.feats == (tracer.FEAT_SKY | tracer.FEAT_CHECKER
+                              | tracer.FEAT_METAL | tracer.FEAT_DIEL
+                              | tracer.FEAT_MOVING)
+    if name == "moving_checker":
+        assert "moving" in srec.kinds and srec.feats & tracer.FEAT_MOVING
 
 
 def test_walk_table_order():
@@ -81,30 +149,45 @@ def test_camera_record_equals_jax(name):
     np.testing.assert_array_equal(got, want)
 
 
+def _textured_light():
+    b = SceneBuilder(background=BG_BLACK)
+    b.sphere((0, 0, 0), 1.0, b.diffuse_light(
+        b.checker(b.solid(1, 1, 1), b.solid(4, 4, 4))))
+    return b.build()
+
+
 @pytest.mark.parametrize("name,why", [
-    ("two_spheres", "sky"), ("cornell_smoke", "media"),
-    ("random_spheres", "sky"), ("simple_light", "texture"),
-    ("earth", "sky"), ("final_scene", "media")])
+    ("two_perlin_spheres", "noise texture"), ("cornell_smoke", "media"),
+    ("textured_light", "emissive texture"), ("simple_light", "texture"),
+    ("earth", "image texture"), ("final_scene", "media")])
 def test_scenes_outside_k1a_raise(name, why):
+    build = (_textured_light if name == "textured_light"
+             else tb.PRESETS[name].build)
     with pytest.raises(tracer.UnsupportedScene, match=why):
-        tracer.build_scene_record(tb.PRESETS[name].build())
+        tracer.build_scene_record(build())
 
 
 def test_metal_moving_and_too_many_prims_raise():
+    """Metal and moving spheres are in the kernel now; what still raises:
+    more than UNROLL_BUDGET rects (the JAX kernel's box merge), a rect
+    beside a dynamic sphere table, a nested checker."""
     b = SceneBuilder(background=BG_BLACK)
     m = b.lambertian(b.solid(0.5, 0.5, 0.5))
     for i in range(tracer.UNROLL_BUDGET + 1):
         b.rect("xy", 0, 0, 1, 1, float(i), m)
-    with pytest.raises(tracer.UnsupportedScene, match="prims"):
+    with pytest.raises(tracer.UnsupportedScene, match="97 rects"):
+        tracer.build_scene_record(b.build())
+    b = SceneBuilder(background=BG_SKY)
+    for i in range(tracer.UNROLL_BUDGET):
+        b.moving_sphere((i, 0, 0), (i, 1, 0), 0.0, 1.0, 0.2,
+                        b.metal(b.solid(0.5, 0.5, 0.5), 0.1))
+    b.rect("xy", 0, 0, 1, 1, -5.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    with pytest.raises(tracer.UnsupportedScene, match="1 rects"):
         tracer.build_scene_record(b.build())
     b = SceneBuilder(background=BG_BLACK)
-    b.sphere((0, 0, 0), 1.0, b.metal(b.solid(0.5, 0.5, 0.5), 0.1))
-    with pytest.raises(tracer.UnsupportedScene, match="material"):
-        tracer.build_scene_record(b.build())
-    b = SceneBuilder(background=BG_BLACK)
-    b.moving_sphere((0, 0, 0), (0, 1, 0), 0.0, 1.0, 1.0,
-                    b.lambertian(b.solid(0.5, 0.5, 0.5)))
-    with pytest.raises(tracer.UnsupportedScene, match="moving"):
+    inner = b.checker(b.solid(0, 0, 0), b.solid(1, 1, 1))
+    b.sphere((0, 0, 0), 1.0, b.lambertian(b.checker(inner, b.solid(1, 0, 0))))
+    with pytest.raises(tracer.UnsupportedScene, match="nested checker"):
         tracer.build_scene_record(b.build())
 
 
@@ -230,6 +313,54 @@ def test_sphere_scene_plain_matches_jax_per_half():
     _assert_halves_agree(ours, ref, 0.012)
 
 
+@pytest.mark.parametrize("name", ["two_spheres", "random_spheres"])
+def test_sphere_presets_plain_match_jax_per_half(name):
+    """trace_plain on the One Weekend sphere presets at 48×27, 16 spp,
+    depth 8 (tests/test_scene_stats.py's size) against the JAX XLA tier,
+    per image half within max(6σ, 0.012) in linear space: checker, sky,
+    metal, glass, moving spheres and random_spheres' dynamic table."""
+    nx, ny, spp = 48, 27, 16
+    p = tb.PRESETS[name]
+    args = (p.look_from, p.look_at, p.view_up, p.vfov, nx / ny, p.aperture,
+            p.focus_dist, p.time0, p.time1)
+    ours = tracer.render_kernel(p.build(), tcam.make_camera(*args), nx, ny,
+                                spp, device="cpu", seed=11,
+                                max_depth=8) ** 2
+    assert ours.shape == (ny, nx, 3) and np.isfinite(ours).all()
+    ref = np.asarray(jax_render(jb.PRESETS[name].build(),
+                                jcam.make_camera(*args), nx, ny, spp,
+                                seed=11, max_depth=8)) ** 2
+    _assert_halves_agree(ours, ref, 0.012)
+
+
+@pytest.mark.parametrize("name,scene_id,seed", [
+    ("oracle_spheres", 1, 3), ("moving_checker", 3, 9)])
+def test_oracle_scenes_plain_match_mirror_per_half(name, scene_id, seed):
+    """trace_plain against native.ref_trace, the f64 C++ mirror of the
+    reference, at 64×36, 64 spp, depth 50, per image half within
+    max(6σ, 0.01) (tests/test_e2e_oracle.py:49-77, 259-294): lambertian,
+    metal and glass under the sky; the checker and a moving sphere."""
+    nx, ny, spp = 64, 36, 64
+    look_from, look_at, vfov = _SPHERE_VIEW[0], _SPHERE_VIEW[1], 35.0
+    cam = tcam.make_camera(look_from, look_at, (0, 1, 0), vfov, nx / ny,
+                           0.0, 10.0, 0.0, 1.0)
+    ours = _plain_image(_ORACLE_SCENES[name](SceneBuilder), cam, nx, ny, spp,
+                        seed=seed) ** 2
+    ref, _ = native.ref_trace(scene_id, nx, ny, spp, look_from, look_at,
+                              vfov, aperture=0.0, background=1)
+    _assert_halves_agree(ours, ref, 0.01)
+
+
+def _chunked_sums(scene, cam, chunk, *, n=16, spp=8, seed=11):
+    ops = tracer.trace_operands(tracer.build_scene_record(scene),
+                                tracer.build_camera_record(cam), "cpu")
+    sums = torch.zeros((3, n * n), dtype=torch.float64)
+    for s0 in range(0, spp, chunk):
+        tracer.trace(ops, sums, nx=n, ny=n, seed=seed, sample0=s0,
+                     n_samples=min(chunk, spp - s0), max_depth=50)
+    return sums
+
+
 def test_chunking_is_bit_identical():
     """Sums are added in sample order in f64, and a draw is addressed by its
     global sample index, so chunks of 2 and of 8 give the same bits."""
@@ -237,17 +368,7 @@ def test_chunking_is_bit_identical():
     scene, cam = p.build(), tcam.make_camera(
         p.look_from, p.look_at, p.view_up, p.vfov, 1.0, p.aperture,
         p.focus_dist, p.time0, p.time1)
-    rec, kinds, groups = tracer.build_scene_record(scene)
-    walk = torch.from_numpy(tracer.walk_table(kinds, groups))
-    cam_rec = torch.from_numpy(tracer.build_camera_record(cam))
-    rec = torch.from_numpy(rec)
-    out = []
-    for chunk in (2, 8):
-        sums = torch.zeros((3, 16 * 16), dtype=torch.float64)
-        for s0 in range(0, 8, chunk):
-            tracer.trace(rec, walk, cam_rec, sums, nx=16, ny=16, seed=11,
-                         sample0=s0, n_samples=chunk, max_depth=50)
-        out.append(sums)
+    out = [_chunked_sums(scene, cam, chunk) for chunk in (2, 8)]
     assert torch.equal(out[0], out[1])
     assert float(out[0].sum()) > 0
     img = _plain_image(scene, cam, 16, 16, 8, seed=11, spp_chunk=3)
@@ -255,26 +376,51 @@ def test_chunking_is_bit_identical():
         img, trender.finalize_image(out[0].T.numpy(), 8, 16, 16))
 
 
+def test_chunking_with_moving_spheres_is_bit_identical():
+    """The shutter time is drawn per (pixel, sample) like the camera ray, so
+    a moving sphere keeps the sums independent of the chunking."""
+    scene = _moving_checker(SceneBuilder)
+    cam = tcam.make_camera(*_SPHERE_VIEW, 1.0, 0.1, 8.0, 0.0, 1.0)
+    out = [_chunked_sums(scene, cam, chunk) for chunk in (1, 3, 8)]
+    assert torch.equal(out[0], out[1]) and torch.equal(out[0], out[2])
+    img = _plain_image(scene, cam, 16, 16, 8, seed=11, spp_chunk=5)
+    np.testing.assert_array_equal(
+        img, trender.finalize_image(out[0].T.numpy(), 8, 16, 16))
+
+
+def test_shutter_time_moves_the_sphere():
+    """The same draws with a static copy of the mover give other sums: the
+    shutter time reaches the moving sphere's center."""
+    cam = tcam.make_camera(*_SPHERE_VIEW, 1.0, 0.0, 8.0, 0.0, 1.0)
+    moving = _chunked_sums(_moving_checker(SceneBuilder), cam, 8)
+    b = SceneBuilder(background=BG_SKY)
+    checker = b.checker(b.solid(0.2, 0.3, 0.1), b.solid(0.9, 0.9, 0.9))
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(checker))
+    b.sphere((0, 1, 0), 1.0, b.lambertian(b.solid(0.4, 0.2, 0.1)))
+    b.sphere((2.2, 1, 0), 1.0, b.metal(b.solid(0.7, 0.6, 0.5), 0.0))
+    static = _chunked_sums(b.build(), cam, 8)
+    assert not torch.equal(moving, static)
+
+
 def test_trace_on_cpu_runs_plain_and_launches_nothing():
-    rec, kinds, groups = tracer.build_scene_record(tb.cornell_box())
-    walk = torch.from_numpy(tracer.walk_table(kinds, groups))
-    cam_rec = torch.from_numpy(tracer.build_camera_record(
-        tb.PRESETS["cornell_box"].camera()))
-    rec = torch.from_numpy(rec)
-    before = tracer.KERNEL_LAUNCHES
+    ops = tracer.trace_operands(
+        tracer.build_scene_record(tb.cornell_box()),
+        tracer.build_camera_record(tb.PRESETS["cornell_box"].camera()), "cpu")
+    before = (tracer.KERNEL_LAUNCHES, tracer.K1BE_LAUNCHES)
     a = torch.zeros((3, 64), dtype=torch.float64)
     b = torch.zeros((3, 64), dtype=torch.float64)
-    tracer.trace(rec, walk, cam_rec, a, nx=8, ny=8, seed=1, sample0=0,
-                 n_samples=2, max_depth=5)
-    tracer.trace_plain(rec, walk, cam_rec, b, nx=8, ny=8, seed=1, sample0=0,
-                       n_samples=2, max_depth=5)
-    assert torch.equal(a, b) and tracer.KERNEL_LAUNCHES == before
+    tracer.trace(ops, a, nx=8, ny=8, seed=1, sample0=0, n_samples=2,
+                 max_depth=5)
+    tracer.trace_plain(ops, b, nx=8, ny=8, seed=1, sample0=0, n_samples=2,
+                       max_depth=5)
+    assert torch.equal(a, b)
+    assert (tracer.KERNEL_LAUNCHES, tracer.K1BE_LAUNCHES) == before
     with pytest.raises(TypeError):
-        tracer.trace(rec, walk, cam_rec, a.float(), nx=8, ny=8, seed=1,
-                     sample0=0, n_samples=1, max_depth=5)
-    with pytest.raises(ValueError):
-        tracer.trace(rec, walk, cam_rec, a, nx=4, ny=8, seed=1, sample0=0,
+        tracer.trace(ops, a.float(), nx=8, ny=8, seed=1, sample0=0,
                      n_samples=1, max_depth=5)
+    with pytest.raises(ValueError):
+        tracer.trace(ops, a, nx=4, ny=8, seed=1, sample0=0, n_samples=1,
+                     max_depth=5)
 
 
 def test_render_kernel_on_cuda_without_cuda_raises():
