@@ -39,8 +39,22 @@ Phases, one JSON line each on stdout:
      random_spheres --device cuda` (1280×720, 100 spp, depth 50), with its
      launch count and a check of the image;
  12. the same for `render --scene two_spheres --device cuda` (1280×720,
-     10 spp, depth 50).
-Then the kernel table and, as the last line, the device summary.
+     10 spp, depth 50);
+ 13. the K1c and K1d sections of the K1B instantiations against their
+     plain version, on each Next Week preset the command line renders
+     below, at the preset's size, 2 spp, depth 50, under phase 3's gates:
+     two_perlin_spheres and simple_light 1280×720 (Perlin marble),
+     earth 1280×720 (sphere UV and the 512×1024 texel atlas) and
+     cornell_smoke 800×800 (two rotated constant-density boxes); both
+     versions' times, and the work the paths needed (lane bounces, noise
+     and image lanes) for the kernels' bounds;
+ 14-17. the render path through the command line, `render --scene S
+     --device cuda` at each of those presets' size and spp, depth 50, with
+     the launch counts and a check of the image.
+Then the kernel table and, as the last line, the device summary. Each
+row of the table carries the kernel's bound: the larger of the bytes it
+must move over the card's memory rate and the f32 operations this run's
+paths needed over the card's f32 rate (`bound`).
 
 Any failure exits non-zero before the last line. Without CUDA, or run
 outside the repository, it exits non-zero and prints no result.
@@ -70,6 +84,64 @@ CORNELL_BAND = (0.95 * CORNELL_MEAN, 1.05 * CORNELL_MEAN)
 # two_spheres (128×72, 10 spp, depth 50, seed 0), each at its preset's spp
 RANDOM_SPHERES_MEAN = 0.5859978795051575
 TWO_SPHERES_MEAN = 0.5419976115226746
+# the Next Week presets, each at its preset's spp, depth 50, seed 0, at
+# half its width and height: the mean of a gamma-space image falls as the
+# pixels shrink (√ of a mean exceeds the mean of √s), by 4.6% for
+# simple_light between a tenth and the full size; printed by
+# `PYTHONPATH=. python tests/test_torch_textures.py`
+NEXT_WEEK_MEANS = {"two_perlin_spheres": 0.603892982006073,
+                   "simple_light": 0.14997467398643494,
+                   "earth": 0.7475132346153259,
+                   "cornell_smoke": 0.297309011220932}
+
+# NVIDIA H100 SXM published peaks (NVIDIA's data sheet, at 700 W): HBM
+# bytes/s and f32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 and integer operations of csrc/tracer.cu per item, counted from its
+# source (an add, multiply, compare or transcendental is one): a lane
+# bounce's fixed work (scatter Philox, ball sample, emission, new ray), a
+# camera sample, a sphere test, a rect test, a rect frame, a leaf slab, a
+# dynamic member, a medium, a Perlin marble (7 octaves × 8 corners), a
+# texel
+K1_OPS = dict(segment=160, sample=140, sphere=20, rect=14, frame=32,
+              leaf=24, member=20, medium=70, noise=2455, image=30)
+# csrc/grad.cu per alive lane bounce: the fixed work, and each prim's test
+K2_OPS = dict(segment=60, prim=16)
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of bytes over its
+    memory rate and operations over its f32 rate."""
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound(ops, counts: dict, n_pix: int, n_samples: int) -> dict:
+    """K1's bound on this run's paths: trace_plain's counts of lane bounces
+    and of noise and image lanes, the scene's structure per lane bounce
+    (the leaf cull's members counted as one leaf's), the sums read and
+    written once, every record and the atlas read once."""
+    rows = ops.walk[0].tolist()   # the unrolled prims a ray tests
+    n_sph = int((ops.rec[rows, 0] > 0).sum()) if rows else 0   # R_IS_SPHERE
+    n_rect = len(rows) - n_sph
+    n_frame = len(set(ops.walk[1].tolist()) - {-1})
+    n_leaf = int(ops.leaves.shape[0])
+    per_seg = (K1_OPS["segment"] + n_sph * K1_OPS["sphere"]
+               + n_rect * K1_OPS["rect"] + n_frame * K1_OPS["frame"]
+               + n_leaf * K1_OPS["leaf"]
+               + min(int(ops.dyn.shape[0]), 16) * K1_OPS["member"]
+               + int(ops.med.shape[0]) * K1_OPS["medium"])
+    n_ops = (counts["segments"] * per_seg
+             + n_pix * n_samples * K1_OPS["sample"]
+             + counts["noise"] * K1_OPS["noise"]
+             + counts["image"] * K1_OPS["image"])
+    nbytes = 2 * 3 * 8 * n_pix + sum(
+        t.numel() * t.element_size()
+        for t in (ops.rec, ops.walk, ops.dyn, ops.leaves, ops.cam, ops.med,
+                  ops.atlas))
+    return bound(n_ops, nbytes)
 
 
 def emit(phase: str, **kw) -> None:
@@ -113,6 +185,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    def reset_launches():
+        tracer.KERNEL_LAUNCHES = tracer.K1BE_LAUNCHES = 0
+        tracer.K1C_LAUNCHES = tracer.K1D_LAUNCHES = 0
+        grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
+
     def run_cli(scene: str):
         """`render --scene <scene> --device cuda` at the preset's size, with
         every launch count set to 0 just before and read just after →
@@ -122,14 +199,15 @@ def main() -> int:
             argv = ["render", "--scene", scene, "--device", "cuda", "--out",
                     out, "--timers"]
             buf = io.StringIO()
-            tracer.KERNEL_LAUNCHES = tracer.K1BE_LAUNCHES = 0
-            grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
+            reset_launches()
             t = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(argv)
             wall = time.perf_counter() - t
             launches = {"k1a_static_trace": tracer.KERNEL_LAUNCHES,
-                        "k1be_sphere_trace": tracer.K1BE_LAUNCHES}
+                        "k1be_sphere_trace": tracer.K1BE_LAUNCHES,
+                        "k1c_texture_trace": tracer.K1C_LAUNCHES,
+                        "k1d_media_trace": tracer.K1D_LAUNCHES}
             check(rc == 0, f"cli.main({argv}) returned {rc}")
             img = read_ppm(out)
         text = buf.getvalue()
@@ -226,9 +304,13 @@ def main() -> int:
                                             n_samples=8, **kw), reps=5)
     p_ms = cuda_ms(lambda: tracer.trace_plain(ops, s8.zero_(), sample0=0,
                                               n_samples=8, **kw), reps=2)
+    c8 = {}
+    tracer.trace_plain(ops, s8.zero_(), sample0=0, n_samples=8, counts=c8,
+                       **kw)
+    k1a_bound = k1_bound(ops, c8, nx * ny, 8)
     rays = nx * ny * 8
     emit("kernel_vs_plain_time", shape=[ny, nx], spp=8, depth=50,
-         kernel_ms=k_ms_k1a, plain_ms=p_ms,
+         kernel_ms=k_ms_k1a, plain_ms=p_ms, work=c8, **k1a_bound,
          kernel_primary_rays_per_s=rays / (k_ms_k1a * 1e-3),
          plain_primary_rays_per_s=rays / (p_ms * 1e-3))
 
@@ -240,7 +322,12 @@ def main() -> int:
     o, d, u = ir.step_inputs(ir.camera(dev), 0, device=dev, **kw)
     n = o.shape[0]
     k2 = grad.grad_fwd(rec, o, d, u, cfg, 6)
-    p2 = grad.trace_tiles_plain(rec, o, d, u, cfg, 6)
+    c2 = {}
+    p2 = grad.trace_tiles_plain(rec, o, d, u, cfg, 6, counts=c2)
+    k2_ops = c2["segments"] * (K2_OPS["segment"]
+                               + rec.shape[0] * K2_OPS["prim"])
+    io_bytes = sum(t.numel() * t.element_size() for t in (rec, o, d, u))
+    k2_bound = bound(k2_ops, io_bytes + 3 * 4 * n)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(k2).all()), "K2 radiance is not finite")
     agree = float(torch.isclose(k2, p2, rtol=1e-4, atol=0.0)
@@ -277,11 +364,13 @@ def main() -> int:
           f"K3: d_rec off by {k3_err:.3e} at scale {scale:.3e}")
     check(min(lanes_ok) >= 0.99, f"K3: d_o/d_d lanes within 1e-4: {lanes_ok}")
     del p3
+    # K3 replays K2's bounces, then sweeps them back
+    k3_bound = bound(2 * k2_ops, io_bytes + 3 * 4 * n + 6 * 4 * n
+                     + k3[0].numel() * k3[0].element_size())
 
     # -- 8. the training path
     buf = io.StringIO()
-    tracer.KERNEL_LAUNCHES = tracer.K1BE_LAUNCHES = 0
-    grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
+    reset_launches()
     t = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = ir.main(["--device", "cuda", "--steps", "40"])
@@ -330,13 +419,16 @@ def main() -> int:
          plain_fwd_bwd_sample_paths_per_s=n / (p3_ms * 1e-3),
          step_candidate_sample_paths_per_s=n / (step_ms * 1e-3))
 
-    # -- 10. K1b/K1e vs plain at each sphere preset's size, 2 spp, depth 50
+    # -- 10, 13. K1B's sections vs plain at each preset's size, 2 spp,
+    # depth 50
     def within(a, b):
         return float(torch.isclose(a, b, rtol=1e-4, atol=0.0)
                      .all(dim=0).double().mean())
 
-    k1be = {}
-    for scene in ("random_spheres", "two_spheres"):
+    def hold(phase: str, scene: str) -> dict:
+        """The K1B kernel against trace_plain on `scene` at its preset's
+        size, 2 spp, depth 50: gates, times, the paths' work and the
+        bound, emitted as one line; returns what the table needs."""
         p = PRESETS[scene]
         nx, ny = p.nx, p.ny
         srec = tracer.build_scene_record(p.build())
@@ -349,84 +441,119 @@ def main() -> int:
 
         k = tracer.trace(ops, sums(), **kw)
         pl = sums()
-        pl_ms = cuda_ms(lambda: tracer.trace_plain(ops, pl.zero_(), **kw),
+        work = {}
+        pl_ms = cuda_ms(lambda: tracer.trace_plain(ops, pl.zero_(),
+                                                   counts=work, **kw),
                         reps=1, warm=False)
-        check(bool(torch.isfinite(k).all()),
-              f"{scene}: K1b/K1e sums are not finite")
+        check(bool(torch.isfinite(k).all()), f"{scene}: K1 sums are not "
+              "finite")
         agree = within(k, pl)
         km, pm = k.mean(dim=1), pl.mean(dim=1)
         mean_rel = float(((km - pm).abs() / pm.abs()).max())
         err = float((k - pl).abs().max())
         s_k = sums()
         k_ms = cuda_ms(lambda: tracer.trace(ops, s_k.zero_(), **kw), reps=3)
-        cull = {}
+        extra = {}
         if ops.leaves.shape[0]:
             flat = dataclasses.replace(ops, leaves=ops.leaves[:0])
             kf = tracer.trace(flat, sums(), **kw)
-            cull = dict(
+            extra = dict(
                 pixels_within_rel_1e4_without_cull=within(kf, pl),
                 pixels_equal_with_and_without_cull=float(
                     (k == kf).all(dim=0).double().mean()),
                 kernel_without_cull_ms=cuda_ms(
                     lambda: tracer.trace(flat, s_k.zero_(), **kw), reps=1))
             del kf
-        emit("k1be_vs_plain", scene=scene, shape=[ny, nx], spp=2, depth=50,
+        row = dict(max_abs_err=err, ms=k_ms, plain_ms=pl_ms,
+                   **k1_bound(ops, work, nx * ny, 2))
+        emit(phase, scene=scene, shape=[ny, nx], spp=2, depth=50,
              feats=ops.feats, unrolled=len(srec.kinds),
              dynamic=int(ops.dyn.shape[0]), leaves=int(ops.leaves.shape[0]),
-             pixels_within_rel_1e4=agree, kernel_channel_means=km.tolist(),
-             plain_channel_means=pm.tolist(), channel_mean_max_rel=mean_rel,
-             max_abs_err=err, kernel_ms=k_ms, plain_ms=pl_ms,
-             kernel_primary_rays_per_s=nx * ny * 2 / (k_ms * 1e-3), **cull)
-        check(agree >= 0.99, f"{scene}: K1b/K1e: only {agree:.4%} of pixels "
-              "agree")
+             media=int(ops.med.shape[0]), atlas=list(ops.atlas.shape),
+             pixels_within_rel_1e4=agree,
+             pixels_bit_equal=float((k == pl).all(dim=0).double().mean()),
+             kernel_channel_means=km.tolist(), plain_channel_means=pm.tolist(),
+             channel_mean_max_rel=mean_rel, work=work,
+             kernel_primary_rays_per_s=nx * ny * 2 / (k_ms * 1e-3), **row,
+             **extra)
+        check(agree >= 0.99, f"{scene}: only {agree:.4%} of pixels agree")
         check(mean_rel <= 1e-4,
-              f"{scene}: K1b/K1e: channel means differ by {mean_rel:.2e}")
-        k1be[scene] = dict(max_abs_err=err, ms=k_ms, plain_ms=pl_ms)
-        del k, pl, s_k
+              f"{scene}: channel means differ by {mean_rel:.2e}")
+        return row
 
-    # -- 11, 12. the sphere scenes' render path, through the command line
-    sphere_launches = {}
-    for scene, mean in (("random_spheres", RANDOM_SPHERES_MEAN),
-                        ("two_spheres", TWO_SPHERES_MEAN)):
+    k1be = {scene: hold("k1be_vs_plain", scene)
+            for scene in ("random_spheres", "two_spheres")}
+
+    # -- 11, 12, 14-17. the render path of the sphere and Next Week scenes,
+    # through the command line
+    def cli_path(scene: str, mean: float, section: str) -> dict:
         p = PRESETS[scene]
         band = (0.95 * mean, 1.05 * mean)
         info, img = run_cli(scene)
-        sphere_launches[scene] = info["launches"]
         lum = info["mean_luminance"]
         emit(f"{scene}_path", **info, spp=p.spp, wall_primary_rays_per_s=(
             p.nx * p.ny * p.spp / info["wall_seconds"]), band=list(band))
-        check(info["launches"]["k1be_sphere_trace"] > 0,
-              f"{scene}: the K1b/K1e kernel never launched: {info['launches']}")
+        check(info["launches"][section] > 0,
+              f"{scene}: {section} never launched: {info['launches']}")
         check(img.shape == (p.ny, p.nx, 3)
               and bool(((img >= 0) & (img <= 1)).all()),
               f"{scene}: image has the wrong shape or range")
         check(band[0] < lum < band[1],
               f"{scene}: mean luminance {lum:.4f} outside {band}")
+        return info["launches"]
+
+    sphere_launches = {
+        scene: cli_path(scene, mean, "k1be_sphere_trace")
+        for scene, mean in (("random_spheres", RANDOM_SPHERES_MEAN),
+                            ("two_spheres", TWO_SPHERES_MEAN))}
+
+    k1cd = {scene: hold("k1cd_vs_plain", scene) for scene in NEXT_WEEK_MEANS}
+    next_launches = {
+        scene: cli_path(scene, mean, "k1d_media_trace"
+                        if scene == "cornell_smoke" else "k1c_texture_trace")
+        for scene, mean in NEXT_WEEK_MEANS.items()}
+    textured = ("two_perlin_spheres", "simple_light", "earth")
 
     print(json.dumps({"kernels": [{
         "name": "k1a_static_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
         "launches": launches["k1a_static_trace"],
-        "max_abs_err": max_abs_err, "ms": k_ms_k1a, "plain_ms": p_ms}, {
+        "max_abs_err": max_abs_err, "ms": k_ms_k1a, "plain_ms": p_ms,
+        **k1a_bound, "library_ms": None}, {
         "name": "k1be_sphere_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
         "launches": sum(v["k1be_sphere_trace"]
                         for v in sphere_launches.values()),
+        **k1be["random_spheres"],
         "max_abs_err": max(v["max_abs_err"] for v in k1be.values()),
-        "ms": k1be["random_spheres"]["ms"],
-        "plain_ms": k1be["random_spheres"]["plain_ms"]}, {
+        "library_ms": None}, {
+        "name": "k1c_texture_trace", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
+        "launches": sum(next_launches[sc]["k1c_texture_trace"]
+                        for sc in textured),
+        **k1cd["simple_light"],
+        "max_abs_err": max(k1cd[sc]["max_abs_err"] for sc in textured),
+        "library_ms": None}, {
+        "name": "k1d_media_trace", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
+        "launches": next_launches["cornell_smoke"]["k1d_media_trace"],
+        **k1cd["cornell_smoke"], "library_ms": None}, {
         "name": "k2_grad_fwd", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:557",
         "launches": train_launches["k2_grad_fwd"],
-        "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": p2_ms}, {
+        "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": p2_ms, **k2_bound,
+        "library_ms": None}, {
         "name": "k3_grad_bwd", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:567",
         "launches": train_launches["k3_grad_bwd"],
-        "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": p3_ms}]}),
+        "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": p3_ms, **k3_bound,
+        "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,38 +1,49 @@
 // K1: the forward path-tracing megakernel for Hopper (sm_90a): its static
-// section (K1a), its materials, checker and sky (K1b) and its dynamic
-// sphere loop with moving spheres (the sphere half of K1e).
+// section (K1a), its materials, checker and sky (K1b), its noise and image
+// textures (K1c), its constant-density media on the event path (K1d) and
+// its dynamic sphere loop with moving spheres (the sphere half of K1e).
 //
 // Replaces raytracing_rust_tpu/ops/pallas_tracer.py `_make_kernel` (its
 // body `kernel`, launched by `_trace_call`) for scenes of spheres, moving
-// spheres and rects: camera raygen with sub-pixel jitter, a thin lens and
-// a shutter time; closest hit over the unrolled spheres and rect
+// spheres, rects and media: camera raygen with sub-pixel jitter, a thin
+// lens and a shutter time; closest hit over the unrolled spheres and rect
 // plane-frame groups, then over the dynamic sphere table in cluster order
 // behind a per-leaf AABB cull, carrying only (t, winner) and resolving the
-// winner's normal afterwards; emission; a black or sky background;
-// lambertian, metal, dielectric and diffuse-light scatter with solid or
-// 3-D checker albedo; the depth cap; per-pixel sums over the samples. The
-// host side and the plain torch version of the same computation are in
-// ops/tracer.py (`trace_plain`).
+// winner's normal afterwards; the nearest medium scatter event before that
+// hit (`media_events`: sphere or slab boundary in object space, free
+// flight −(1/ρ)·ln u), which takes the hit over as an isotropic scatter
+// with the medium's solid albedo; emission; a black or sky background;
+// lambertian, metal, dielectric and diffuse-light scatter with solid, 3-D
+// checker, Perlin marble (`_noise3`/`_turb3`) or image albedo (sphere UV,
+// one texel read from the packed atlas); the depth cap; per-pixel sums
+// over the samples. The host side and the plain torch version of the same
+// computation are in ops/tracer.py (`trace_plain`).
 //
 // The kernel is a template over three flags: K1B (any of sky, checker,
-// metal, dielectric, moving spheres), DYN (a dynamic table) and LEAF_SMEM
-// (its leaf table sits in shared memory). cornell_box runs the
-// instantiation with all of them off, which is K1a as it was. Inside the
-// K1B instantiations the five features are branches on the launch's
-// feature bits, the same for every thread.
+// metal, dielectric, moving spheres, noise, image, media), DYN (a dynamic
+// table) and LEAF_SMEM (its leaf table sits in shared memory). cornell_box
+// runs the instantiation with all of them off, which is K1a as it was.
+// Inside the K1B instantiations the nine features (the compat sphere-UV
+// constant counted) are branches on the launch's feature bits, the same
+// for every thread.
 //
 // What bounds it on this card: f32 ALU issue and warp divergence, not
 // bytes. Each thread owns one pixel and carries its ray in registers
 // through every sample and bounce. The unrolled record (P ≤ 96 rows × 46
 // f32, 17.7 KB), its walk order, the camera record and, when they fit,
 // the leaf AABBs sit in shared memory, where the lanes of a warp mostly
-// read the same cell (a broadcast). The dynamic sphere table stays in
-// device memory, read through the read-only cache, so its size is not
-// capped by shared memory (the TPU kernel's ~2k-prim SMEM cap does not
-// carry over); a leaf table too big for shared memory is read the same
-// way. The leaf cull is a per-thread slab test against the thread's own
-// best hit; the TPU kernel's lane-coherent supercluster level and its
-// OR-tree have no counterpart here yet (a warp vote is later work).
+// read the same cell (a broadcast); so do the media records (≤ MAX_MEDIA
+// rows of 32 f32). The dynamic sphere table stays in device memory, read
+// through the read-only cache, so its size is not capped by shared memory
+// (the TPU kernel's ~2k-prim SMEM cap does not carry over); a leaf table
+// too big for shared memory is read the same way, and so is the texel
+// atlas, one 4-byte load per textured hit (the TPU kernel's 8 MB VMEM cap
+// and its 8×128 gather construction do not carry over). The 7-octave
+// turbulence is ~2k f32 and SFU operations per noise hit, so noise scenes
+// are bound by issue even more than the others. The leaf cull is a
+// per-thread slab test against the thread's own best hit; the TPU kernel's
+// lane-coherent supercluster level and its OR-tree have no counterpart
+// here yet (a warp vote is later work).
 // Paths end at different bounces and cross different leaves, so a warp
 // runs until its longest path ends: this first version takes that cost.
 //
@@ -55,7 +66,12 @@ constexpr int R_C0 = 1, R_DC = 4, R_T0 = 7, R_INV_DT = 8, R_RADIUS = 9,
               R_R2 = 10, R_KN = 11, R_AN = 14, R_BN = 17, R_KOFF = 20,
               R_AOFF = 21, R_BOFF = 22, R_A0 = 23, R_A1 = 24, R_B0 = 25,
               R_B1 = 26, R_FLIP = 27, R_MAT = 28, R_PARAM = 29, R_EMIT = 30,
-              R_ALB = 33, R_ALB_ODD = 36, R_CHECKER = 39, REC = 46;
+              R_ALB = 33, R_ALB_ODD = 36, R_CHECKER = 39, R_NOISE = 40,
+              R_NSCALE = 41, R_IMG = 42, R_IMG_BASE = 43, R_IMG_H = 44,
+              R_IMG_W = 45, REC = 46;
+// medium columns (ops/tracer.py M_*)
+constexpr int M_DATA = 0, M_INV_RHO = 6, M_ROT = 7, M_OFF = 16, M_ALB = 19,
+              MEDREC = 32;
 // camera columns (ops/tracer.py C_*)
 constexpr int C_ORIGIN = 0, C_LL = 3, C_HORIZ = 6, C_VERT = 9, C_U = 12,
               C_V = 15, C_LENS_R = 18, C_TIME0 = 19, C_DTIME = 20,
@@ -65,6 +81,8 @@ constexpr int C_ORIGIN = 0, C_LL = 3, C_HORIZ = 6, C_VERT = 9, C_U = 12,
 constexpr int CLUSW = 8;
 // ops/tracer.py UNROLL_BUDGET
 constexpr int MAX_PRIMS = 96;
+// ops/tracer.py MAX_MEDIA
+constexpr int MAX_MEDIA = 8;
 constexpr int THREADS = 128;
 // shared memory a launch gets without opting in; the leaf table goes there
 // when it fits beside the record
@@ -72,17 +90,29 @@ constexpr size_t SMEM_BUDGET = 48 * 1024;
 
 // ops/tracer.py FEAT_*
 constexpr int FEAT_SKY = 1, FEAT_CHECKER = 2, FEAT_METAL = 4, FEAT_DIEL = 8,
-              FEAT_MOVING = 16, FEAT_ALL = 31;
+              FEAT_MOVING = 16, FEAT_NOISE = 32, FEAT_IMAGE = 64,
+              FEAT_MEDIA = 128, FEAT_COMPAT_UV = 256, FEAT_ALL = 511;
 
 constexpr float BIG = 3.0e38f;
 constexpr float T_MIN = 1e-3f;
 constexpr float MAT_METAL = 1.0f, MAT_DIELECTRIC = 2.0f,
-                MAT_DIFFUSE_LIGHT = 3.0f;
+                MAT_DIFFUSE_LIGHT = 3.0f, MAT_ISOTROPIC = 4.0f;
 constexpr float TWO_PI = 6.28318548202514648f;      // f32(2π), rng.TWO_PI
 constexpr float ONE_THIRD = 0.333333343267440796f;  // f32(1/3), rng.ONE_THIRD
 constexpr float U24 = 5.9604644775390625e-08f;      // 2^-24
+// f32 constants of the sphere UV (ops/tracer.py PI, HALF_PI, ...)
+constexpr float PI_F = 3.1415927410125732421875f;
+constexpr float HALF_PI = 1.57079637050628662109375f;
+constexpr float TWO_OVER_PI = 0.636619746685028076171875f;
+constexpr float INV_PI = 0.3183098733425140380859375f;
+constexpr float INV_2PI = 0.15915493667125701904296875f;
 
-constexpr uint32_t STREAM_CAMERA = 0, STREAM_SCATTER = 1, STREAM_TIME = 2;
+constexpr uint32_t STREAM_CAMERA = 0, STREAM_SCATTER = 1, STREAM_TIME = 2,
+                   STREAM_MEDIUM = 4;
+
+// Perlin lattice hash (ops/perlin.py HA.., HM3)
+constexpr uint32_t HA = 0x8DA6B343u, HB = 0xD8163841u, HC = 0xCB1AB31Fu,
+                   HM1 = 0x9E3779B1u, HM2 = 0x85EBCA6Bu, HM3 = 0xC2B2AE35u;
 
 struct Uniforms { float x, y, z, w; };
 
@@ -128,6 +158,68 @@ __device__ __forceinline__ void center(const float* r, bool moving,
   }
 }
 
+// Hash-gradient Perlin noise at p (pallas_tracer.py `_noise3`, ops/perlin.py
+// `noise3`, reference src/perlin.rs:58-97): the eight lattice corners'
+// unit gradients from a murmur-style hash of (i & 255, j & 255, k & 255)
+// and the seed word, Hermite-weighted dot products summed corner by corner.
+__device__ __forceinline__ float noise3(float px, float py, float pz,
+                                        uint32_t seed_word) {
+  const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+  const float ux = px - fx, uy = py - fy, uz = pz - fz;
+  const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
+  // Hermite smoothing (reference src/perlin.rs:39-41)
+  const float sx = ux * ux * (3.0f - 2.0f * ux);
+  const float sy = uy * uy * (3.0f - 2.0f * uy);
+  const float sz = uz * uz * (3.0f - 2.0f * uz);
+  float accum = 0.0f;
+#pragma unroll
+  for (int di = 0; di < 2; ++di) {
+    const float wu = di ? sx : 1.0f - sx;
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj) {
+      const float wv = dj ? sy : 1.0f - sy;
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        const float ww = dk ? sz : 1.0f - sz;
+        uint32_t h = ((uint32_t)((ix + di) & 255) * HA) ^
+                     ((uint32_t)((iy + dj) & 255) * HB) ^
+                     ((uint32_t)((iz + dk) & 255) * HC) ^ seed_word;
+        h = h ^ (h >> 13);
+        h = h * HM1;
+        h = h ^ (h >> 16);
+        uint32_t g = (h ^ HM2) * HM3;
+        g = g ^ (g >> 16);
+        const float u1 = (float)(h >> 8) * U24;
+        const float u2 = (float)(g >> 8) * U24;
+        const float gz = 2.0f * u1 - 1.0f;
+        const float gs = sqrtf(fmaxf(1.0f - gz * gz, 0.0f));
+        const float phi = TWO_PI * u2;
+        const float gx = gs * cosf(phi), gy = gs * sinf(phi);
+        const float dot = gx * (ux - (float)di) + gy * (uy - (float)dj) +
+                          gz * (uz - (float)dk);
+        accum = accum + wu * wv * ww * dot;
+      }
+    }
+  }
+  return accum;
+}
+
+// |Σ 0.5^k noise(2^k p)| over 7 octaves (`_turb3`, reference
+// src/perlin.rs:99-109)
+__device__ __forceinline__ float turb3(float px, float py, float pz,
+                                       uint32_t seed_word) {
+  float accum = 0.0f, weight = 1.0f;
+#pragma unroll 1
+  for (int k = 0; k < 7; ++k) {
+    accum = accum + weight * noise3(px, py, pz, seed_word);
+    weight *= 0.5f;
+    px = px * 2.0f;
+    py = py * 2.0f;
+    pz = pz * 2.0f;
+  }
+  return fabsf(accum);
+}
+
 // Reciprocal direction for slab tests: an exact-zero component gets a
 // huge signed inverse so a parallel ray outside a slab misses and one
 // inside passes (pallas_tracer.py `_safe_inv`, 1368-1376).
@@ -143,20 +235,28 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          const float* __restrict__ leaves, int n_leaf,
          const float* __restrict__ cam, int feats,
          double* __restrict__ sums, int nx, int ny, uint32_t k0,
-         uint32_t k1, int sample0, int n_samples, int max_depth) {
+         uint32_t k1, int sample0, int n_samples, int max_depth,
+         const float* __restrict__ med, int n_med, int med_box,
+         const int* __restrict__ atlas, int atlas_rows, int atlas_w,
+         uint32_t perlin_word) {
   // the scene's features; all off outside the K1B instantiations
   const bool sky = K1B && (feats & FEAT_SKY),
              checker = K1B && (feats & FEAT_CHECKER),
              metal = K1B && (feats & FEAT_METAL),
              diel = K1B && (feats & FEAT_DIEL),
-             moving = K1B && (feats & FEAT_MOVING);
+             moving = K1B && (feats & FEAT_MOVING),
+             noise = K1B && (feats & FEAT_NOISE),
+             image = K1B && (feats & FEAT_IMAGE),
+             media = K1B && (feats & FEAT_MEDIA),
+             compat_uv = K1B && (feats & FEAT_COMPAT_UV);
   // dynamic shared memory, sized by the launch: record, camera, leaves
-  // (LEAF_SMEM), walk
+  // (LEAF_SMEM), media (K1B), walk
   extern __shared__ float smem[];
   float* s_rec = smem;
   float* s_cam = s_rec + n_rec * REC;
   float* s_leaf = s_cam + CAMREC;
-  int* s_walk = (int*)(s_leaf + (LEAF_SMEM ? n_leaf * CLUSW : 0));
+  float* s_med = s_leaf + (LEAF_SMEM ? n_leaf * CLUSW : 0);
+  int* s_walk = (int*)(s_med + (K1B ? n_med * MEDREC : 0));
   for (int i = threadIdx.x; i < n_rec * REC; i += blockDim.x)
     s_rec[i] = rec[i];
   for (int i = threadIdx.x; i < 2 * n_walk; i += blockDim.x)
@@ -165,6 +265,9 @@ trace_k1(const float* __restrict__ rec, int n_rec,
   if (LEAF_SMEM)
     for (int i = threadIdx.x; i < n_leaf * CLUSW; i += blockDim.x)
       s_leaf[i] = leaves[i];
+  if (K1B)
+    for (int i = threadIdx.x; i < n_med * MEDREC; i += blockDim.x)
+      s_med[i] = med[i];
   __syncthreads();
   const float* leaf = LEAF_SMEM ? s_leaf : leaves;
 
@@ -351,7 +454,93 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         }
       }
 
-      if (win < 0 && !(DYN && w_dyn != nullptr)) {
+      // the nearest medium scatter event on [T_MIN, closest surface]
+      // (pallas_tracer.py `media_events`, 1431-1525; reference
+      // src/medium.rs:28-56) takes the hit over: isotropic, the medium's
+      // solid albedo, no emission (pallas_tracer.py:2204-2236)
+      bool med_event = false;
+      float m_alb_r = 0.0f, m_alb_g = 0.0f, m_alb_b = 0.0f;
+      if (media) {
+        const float d_len = sqrtf(a_dd);
+        const float inv_dlen = 1.0f / d_len;
+        float t_med = BIG;
+        int m_win = -1, group = -1;
+        Uniforms um = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int i = 0; i < n_med; ++i) {
+          const float* m = s_med + i * MEDREC;
+          // world → object: R₋ (o − offset), R₋ d
+          const float wx = ox - m[M_OFF], wy = oy - m[M_OFF + 1],
+                      wz = oz - m[M_OFF + 2];
+          const float o0x = m[M_ROT] * wx + m[M_ROT + 1] * wy +
+                            m[M_ROT + 2] * wz;
+          const float o0y = m[M_ROT + 3] * wx + m[M_ROT + 4] * wy +
+                            m[M_ROT + 5] * wz;
+          const float o0z = m[M_ROT + 6] * wx + m[M_ROT + 7] * wy +
+                            m[M_ROT + 8] * wz;
+          const float d0x = m[M_ROT] * dx + m[M_ROT + 1] * dy +
+                            m[M_ROT + 2] * dz;
+          const float d0y = m[M_ROT + 3] * dx + m[M_ROT + 4] * dy +
+                            m[M_ROT + 5] * dz;
+          const float d0z = m[M_ROT + 6] * dx + m[M_ROT + 7] * dy +
+                            m[M_ROT + 8] * dz;
+          float enter, exit_;
+          bool ok;
+          if ((med_box >> i) & 1) {
+            // slabs on the ray's line; a tiny component becomes +1e-30
+            const float sx = fabsf(d0x) < 1e-30f ? 1e-30f : d0x;
+            const float sy = fabsf(d0y) < 1e-30f ? 1e-30f : d0y;
+            const float sz = fabsf(d0z) < 1e-30f ? 1e-30f : d0z;
+            const float lx = (m[M_DATA] - o0x) / sx,
+                        hx = (m[M_DATA + 3] - o0x) / sx;
+            const float ly = (m[M_DATA + 1] - o0y) / sy,
+                        hy = (m[M_DATA + 4] - o0y) / sy;
+            const float lz = (m[M_DATA + 2] - o0z) / sz,
+                        hz = (m[M_DATA + 5] - o0z) / sz;
+            enter = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
+            exit_ = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
+            ok = enter < exit_;
+          } else {
+            // both sphere roots on the ray's line
+            const float ocx = o0x - m[M_DATA], ocy = o0y - m[M_DATA + 1],
+                        ocz = o0z - m[M_DATA + 2];
+            const float bq = ocx * d0x + ocy * d0y + ocz * d0z;
+            const float cq = ocx * ocx + ocy * ocy + ocz * ocz - m[M_DATA + 3];
+            const float disc = bq * bq - a_dd * cq;
+            ok = disc > 0.0f;
+            const float sq = sqrtf(ok ? disc : 1.0f);
+            enter = (-bq - sq) * inv_a;
+            exit_ = (-bq + sq) * inv_a;
+          }
+          enter = fmaxf(enter, T_MIN);
+          exit_ = fminf(exit_, t_best);
+          if (!(ok && enter < exit_)) continue;
+          // free flight −(1/ρ)·ln u, word i % 4 of the MEDIUM stream i / 4
+          if (i >> 2 != group) {
+            group = i >> 2;
+            um = philox(pix, sample, (uint32_t)bounce,
+                        STREAM_MEDIUM + (uint32_t)group, k0, k1);
+          }
+          const int wi = i & 3;
+          const float u = wi == 0 ? um.x : wi == 1 ? um.y : wi == 2 ? um.z
+                                                                    : um.w;
+          const float flight = -m[M_INV_RHO] * logf(fmaxf(u, 1e-37f));
+          if (!(flight < (exit_ - enter) * d_len)) continue;
+          const float t_i = enter + flight * inv_dlen;
+          if (t_i < t_med) {
+            t_med = t_i;
+            m_win = i;
+          }
+        }
+        if (t_med < t_best) {
+          med_event = true;
+          t_best = t_med;
+          m_alb_r = s_med[m_win * MEDREC + M_ALB];
+          m_alb_g = s_med[m_win * MEDREC + M_ALB + 1];
+          m_alb_b = s_med[m_win * MEDREC + M_ALB + 2];
+        }
+      }
+
+      if (win < 0 && !(DYN && w_dyn != nullptr) && !med_event) {
         // a miss adds the background and ends the path (reference
         // src/color.rs:14-22); black adds nothing
         if (sky) {
@@ -364,15 +553,18 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         break;
       }
       // the winner's record row, in shared (unrolled) or device (dynamic)
-      // memory
+      // memory; not read after a medium event
       const float* w = DYN && w_dyn != nullptr ? w_dyn : s_rec + win * REC;
-      // emission (reference src/color.rs:8-22)
-      rad_r += thr_r * w[R_EMIT];
-      rad_g += thr_g * w[R_EMIT + 1];
-      rad_b += thr_b * w[R_EMIT + 2];
+      float mat = MAT_ISOTROPIC;
+      if (!med_event) {
+        // emission (reference src/color.rs:8-22)
+        rad_r += thr_r * w[R_EMIT];
+        rad_g += thr_g * w[R_EMIT + 1];
+        rad_b += thr_b * w[R_EMIT + 2];
+        mat = w[R_MAT];
+      }
       // a light does not scatter; scatter only below the depth cap
       // (src/color.rs:9)
-      const float mat = w[R_MAT];
       if (mat == MAT_DIFFUSE_LIGHT || bounce >= max_depth) break;
       const float px = ox + t_best * dx, py = oy + t_best * dy,
                   pz = oz + t_best * dz;
@@ -388,6 +580,12 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       const float by = ball_r * (sin_t * sinf(sphi));
       const float bz = ball_r * cos_t;
       float ndx = nbx + bx, ndy = nby + by, ndz = nbz + bz;
+      if (med_event) {
+        // isotropic: the bare ball sample (reference src/material.rs:164-168)
+        ndx = bx;
+        ndy = by;
+        ndz = bz;
+      }
       if (metal && mat == MAT_METAL) {
         // reflect(unit(d), n) + fuzz·ball; the path ends when that points
         // into the surface (reference src/material.rs:76-87)
@@ -438,15 +636,48 @@ trace_k1(const float* __restrict__ rec, int n_rec,
           ndz = dz - 2.0f * ddn * nbz;
         }
       }
-      float alb_r = w[R_ALB], alb_g = w[R_ALB + 1], alb_b = w[R_ALB + 2];
-      if (checker && w[R_CHECKER] > 0.0f) {
-        // checker sign at the hit point (reference src/texture.rs:40-47)
-        const float sines =
-            sinf(10.0f * px) * sinf(10.0f * py) * sinf(10.0f * pz);
-        if (sines < 0.0f) {
-          alb_r = w[R_ALB_ODD];
-          alb_g = w[R_ALB_ODD + 1];
-          alb_b = w[R_ALB_ODD + 2];
+      float alb_r = m_alb_r, alb_g = m_alb_g, alb_b = m_alb_b;
+      if (!med_event) {
+        alb_r = w[R_ALB];
+        alb_g = w[R_ALB + 1];
+        alb_b = w[R_ALB + 2];
+        if (checker && w[R_CHECKER] > 0.0f) {
+          // checker sign at the hit point (reference src/texture.rs:40-47)
+          const float sines =
+              sinf(10.0f * px) * sinf(10.0f * py) * sinf(10.0f * pz);
+          if (sines < 0.0f) {
+            alb_r = w[R_ALB_ODD];
+            alb_g = w[R_ALB_ODD + 1];
+            alb_b = w[R_ALB_ODD + 2];
+          }
+        }
+        if (noise && w[R_NOISE] > 0.0f) {
+          // marble, 0.5·(1 + sin(scale·x + 5·turb(p))) (reference
+          // src/texture.rs:66-70)
+          const float turb = turb3(px, py, pz, perlin_word);
+          alb_r = alb_g = alb_b =
+              0.5f * (1.0f + sinf(w[R_NSCALE] * px + 5.0f * turb));
+        }
+        if (image && w[R_IMG] > 0.0f) {
+          // nearest texel (reference src/texture.rs:86-108) at the sphere
+          // UV of the unit normal (src/sphere.rs:7-15; `_atan2`/`_asin`
+          // are the math library's here), v flipped, clamped to the
+          // image's true size; one read of the packed atlas
+          const float phi = atan2f(nbz, nbx);
+          const float theta = asinf(fminf(fmaxf(nby, -1.0f), 1.0f));
+          const float uu = 1.0f - (phi + PI_F) * INV_2PI;
+          const float vv = (theta + (compat_uv ? TWO_OVER_PI : HALF_PI)) *
+                           INV_PI;
+          const float iw = w[R_IMG_W], ih = w[R_IMG_H];
+          const int ii = min(max((int)(uu * iw), 0), (int)iw - 1);
+          const int jj = min(max((int)((1.0f - vv) * ih), 0), (int)ih - 1);
+          const int jrow =
+              min(max((int)w[R_IMG_BASE] + jj, 0), atlas_rows - 1);
+          const int texel = __ldg(atlas + (size_t)jrow * atlas_w +
+                                  min(max(ii, 0), atlas_w - 1));
+          alb_r = (float)((texel >> 16) & 255) / 255.0f;
+          alb_g = (float)((texel >> 8) & 255) / 255.0f;
+          alb_b = (float)(texel & 255) / 255.0f;
         }
       }
       if (diel && mat == MAT_DIELECTRIC) alb_r = alb_g = alb_b = 1.0f;
@@ -471,7 +702,9 @@ trace_k1(const float* __restrict__ rec, int n_rec,
 
 using TraceFn = void (*)(const float*, int, const int*, int, const float*,
                          int, const float*, int, const float*, int, double*,
-                         int, int, uint32_t, uint32_t, int, int, int);
+                         int, int, uint32_t, uint32_t, int, int, int,
+                         const float*, int, int, const int*, int, int,
+                         uint32_t);
 
 // the instantiations, indexed [K1B][DYN][LEAF_SMEM]; without a dynamic
 // table there is no leaf table
@@ -485,20 +718,28 @@ const TraceFn KERNELS[2][2][2] = {
 
 // Adds the radiance of samples [sample0, sample0 + n_samples) of every
 // pixel to sums (f64[3, nx·ny]). feats: ops/tracer.py FEAT_* bits.
-// n_leaf = 0 scans the dynamic table without the cull. Launches on
-// `stream`; returns cudaGetLastError() after the launch.
+// n_leaf = 0 scans the dynamic table without the cull. med: f32[n_med,
+// MEDREC], bit i of med_box set for a box boundary; atlas: int32[atlas_rows,
+// atlas_w] packed texels; perlin_word: (perlin seed · HSEED) mod 2^32.
+// Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int n_walk, const float* dyn, int n_dyn,
                            const float* leaves, int n_leaf, const float* cam,
                            int feats, double* sums, int nx, int ny,
                            uint32_t seed_lo, uint32_t seed_hi, int sample0,
-                           int n_samples, int max_depth, void* stream) {
+                           int n_samples, int max_depth, const float* med,
+                           int n_med, int med_box, const int* atlas,
+                           int atlas_rows, int atlas_w, uint32_t perlin_word,
+                           void* stream) {
   if (n_rec <= 0 || n_rec > MAX_PRIMS || n_walk < 0 || n_walk > n_rec ||
-      n_dyn < 0 || n_leaf < 0 || feats < 0 || feats > FEAT_ALL)
+      n_dyn < 0 || n_leaf < 0 || feats < 0 || feats > FEAT_ALL ||
+      n_med < 0 || n_med > MAX_MEDIA || ((feats & FEAT_MEDIA) != 0) !=
+      (n_med > 0) || ((feats & FEAT_IMAGE) &&
+                      (atlas_rows <= 0 || atlas_w <= 0)))
     return (int)cudaErrorInvalidValue;
   if (n_dyn == 0) n_leaf = 0;
-  const size_t base =
-      sizeof(float) * (n_rec * REC + CAMREC) + sizeof(int) * 2 * n_walk;
+  const size_t base = sizeof(float) * (n_rec * REC + CAMREC + n_med * MEDREC) +
+                      sizeof(int) * 2 * n_walk;
   const size_t leaf_bytes = sizeof(float) * (size_t)n_leaf * CLUSW;
   const bool leaf_smem = n_leaf > 0 && base + leaf_bytes <= SMEM_BUDGET;
   const size_t smem = base + (leaf_smem ? leaf_bytes : 0);
@@ -507,6 +748,7 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
   KERNELS[feats != 0][n_dyn > 0][leaf_smem]<<<blocks, THREADS, smem,
                                               (cudaStream_t)stream>>>(
       rec, n_rec, walk, n_walk, dyn, n_dyn, leaves, n_leaf, cam, feats, sums,
-      nx, ny, seed_lo, seed_hi, sample0, n_samples, max_depth);
+      nx, ny, seed_lo, seed_hi, sample0, n_samples, max_depth, med, n_med,
+      med_box, atlas, atlas_rows, atlas_w, perlin_word);
   return (int)cudaGetLastError();
 }

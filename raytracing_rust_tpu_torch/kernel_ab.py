@@ -1,0 +1,128 @@
+"""Same-call A/B of the K1 kernel between this checkout and another one.
+
+    python -m raytracing_rust_tpu_torch.kernel_ab --other DIR [--out FILE]
+
+DIR is another checkout of the repository, e.g. the parent commit unpacked
+with `git archive` into a directory `.gitignore` lists. On one CUDA card the
+script builds both checkouts' kernels, compares the SASS of the K1a
+instantiation (`trace_k1<false, false, false>`, cornell_box's kernel) line
+by line without addresses, and times the kernel in each checkout in turns
+(other, this, this, other) on cornell_box_baseline 800×800 at 100 spp,
+random_spheres 1280×720 at 100 spp and two_spheres 1280×720 at 10 spp,
+depth 50, by CUDA events over repeated launches after a warm-up. Each
+timing run is a fresh process in that checkout, so each imports its own
+package. The sums' totals show whether both checkouts compute the same
+image. Prints one JSON object, also written to FILE when given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (preset, samples per launch, launches timed)
+SCENES = (("cornell_box_baseline", 100, 5), ("random_spheres", 100, 5),
+          ("two_spheres", 10, 10))
+
+_TIMING = r"""
+import json, statistics, sys
+import torch
+sys.path.insert(0, ".")
+from raytracing_rust_tpu_torch.models.builders import PRESETS
+from raytracing_rust_tpu_torch.ops import _build, tracer
+out = {"library": _build.build()[0]}
+dev = torch.device("cuda")
+for scene, spp, reps in SCENES:
+    p = PRESETS[scene]
+    ops = tracer.trace_operands(tracer.build_scene_record(p.build()),
+                                tracer.build_camera_record(p.camera()), dev)
+    sums = torch.zeros((3, p.nx * p.ny), dtype=torch.float64, device=dev)
+    kw = dict(nx=p.nx, ny=p.ny, seed=0, sample0=0, n_samples=spp,
+              max_depth=50)
+    tracer.trace(ops, sums, **kw)
+    ms = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        tracer.trace(ops, sums.zero_(), **kw)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    out[scene] = dict(spp=spp, ms=ms, median_ms=statistics.median(ms),
+                      sum=float(sums.sum()))
+print(json.dumps(out))
+"""
+
+
+def _time_checkout(path: str) -> dict:
+    res = subprocess.run(
+        [sys.executable, "-c", f"SCENES = {SCENES!r}\n{_TIMING}"], cwd=path,
+        capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"timing in {path} failed:\n{res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _k1a_sass(library: str) -> list[str]:
+    """The K1a instantiation's SASS instructions, addresses and encodings
+    stripped."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, inside = [], False
+    for line in text.splitlines():
+        if line.strip().startswith("Function :"):
+            inside = "trace_k1ILb0ELb0ELb0E" in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if inside and m:
+            out.append(m.group(1))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="raytracing_rust_tpu_torch.kernel_ab")
+    ap.add_argument("--other", required=True,
+                    help="another checkout of the repository")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    other = os.path.abspath(args.other)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    runs = [(who, _time_checkout(path)) for who, path in
+            (("other", other), ("this", _ROOT), ("this", _ROOT),
+             ("other", other))]
+    sass = {who: _k1a_sass(r["library"]) for who, r in runs[:2]}
+    differ = sum(a != b for a, b in zip(sass["other"], sass["this"])) + abs(
+        len(sass["other"]) - len(sass["this"]))
+    result = dict(
+        device=smi, order=[who for who, _ in runs],
+        k1a_sass=dict(instructions_other=len(sass["other"]),
+                      instructions_this=len(sass["this"]),
+                      differing=differ),
+        scenes={scene: dict(
+            spp=spp,
+            median_ms={who: [r[scene]["median_ms"] for w, r in runs
+                             if w == who] for who in ("other", "this")},
+            sums_equal=len({r[scene]["sum"] for _, r in runs}) == 1)
+            for scene, spp, _ in SCENES},
+        runs=[dict(who=who, **r) for who, r in runs])
+    text = json.dumps(result)
+    print(text)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -198,7 +198,8 @@ def _dot3(ax, ay, az, bx, by, bz):
 
 
 def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
-                      u: torch.Tensor, cfg, max_depth: int) -> torch.Tensor:
+                      u: torch.Tensor, cfg, max_depth: int,
+                      counts: dict | None = None) -> torch.Tensor:
     """The whole multi-bounce trace in plain torch → radiance f32[N, 3].
 
     rec f32[P, REC_C]; o, d f32[N, 3]; u f32[n_bounce, 4, N]; cfg the
@@ -206,7 +207,8 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     `_trace_tiles` for the kernels' scope, op for op in its order, with its
     constants; every division has a tensor divisor (torch's CUDA division
     by a Python scalar multiplies by a reciprocal). Differentiable in rec,
-    o and d."""
+    o and d. counts, when given, gathers the lane bounces a path was alive
+    at ("segments"): the bounces K2 runs before a lane's loop ends."""
     check_kernel_scope(cfg)
     kinds, feats = cfg
     if rec.shape[0] != len(kinds):
@@ -226,6 +228,9 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
 
     for b in range(n_bounce):
         u0, u1, u2, _ = u[b].unbind(0)
+        if counts is not None:
+            counts["segments"] = (counts.get("segments", 0)
+                                  + int((alive != 0.0).sum()))
 
         # closest hit: first strict minimum over the prims; each kind
         # updates only the attributes it can win

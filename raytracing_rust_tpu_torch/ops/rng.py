@@ -26,6 +26,9 @@ version (`ops/tracer.trace_plain`):
         [bounce, word, lane] of `grad.fast_draws`: word 0 cos θ, word 1 φ,
         word 2 ball radius, word 3 the dielectric's reflect-or-refract
         draw (read by no family the kernels cover yet)
+    streams 4, 5, ... (MEDIUM, at each bounce, scenes with constant-density
+        media): medium i draws its free flight −(1/ρ)·ln u from word i % 4 of
+        counter (pixel, sample, bounce, STREAM_MEDIUM + i // 4)
 
 `render.camera_lane_rays` keys the camera stream by lane instead of pixel:
 counter (lane, 0, 0, 0).
@@ -47,6 +50,7 @@ STREAM_CAMERA = 0
 STREAM_SCATTER = 1
 STREAM_TIME = 2
 STREAM_GRAD = 3
+STREAM_MEDIUM = 4   # and up: one counter for every four media
 
 PHILOX_M0 = 0xD2511F53
 PHILOX_M1 = 0xCD9E8D57

@@ -1,19 +1,25 @@
-"""The forward megakernel's K1a, K1b and sphere-K1e sections, and their host
-side.
+"""The forward megakernel's K1a, K1b, K1c, K1d-event and sphere-K1e
+sections, and their host side.
 
 Counterpart of `raytracing_rust_tpu/ops/pallas_tracer.py`, cut to what the
 kernel covers: spheres (moving ones included) and rect frame groups from a
 per-primitive scalar record, and, for scenes of more than UNROLL_BUDGET
 prims, a dynamic sphere table in cluster order behind a leaf AABB cull;
-lambertian, metal, dielectric and diffuse-light materials with solid and
-3-D checker textures; a black or sky background; camera raygen with
-jitter, a thin lens and a shutter time; per-pixel radiance sums over a
-runtime sample count and depth cap. That covers cornell_box, two_spheres
-and random_spheres. Anything else raises `UnsupportedScene`.
+lambertian, metal, dielectric and diffuse-light materials with solid, 3-D
+checker, Perlin marble and image textures (sphere UV, nearest texel from a
+packed 8-bit atlas); constant-density media with sphere or box boundaries
+under a rotation and offset, on the event path (free flight against the
+closest surface, isotropic scatter, solid albedo); a black or sky
+background; camera raygen with jitter, a thin lens and a shutter time;
+per-pixel radiance sums over a runtime sample count and depth cap. That
+covers cornell_box, two_spheres, random_spheres, two_perlin_spheres,
+simple_light, earth and cornell_smoke. Anything else raises
+`UnsupportedScene`.
 
 * `build_scene_record` / `build_camera_record` flatten the scene tables and
-  the camera into the JAX kernel's record layouts (`R_*`, `C_*`), column
-  for column, with the JAX package's partition of big scenes.
+  the camera into the JAX kernel's record layouts (`R_*`, `M_*`, `C_*`),
+  column for column, with the JAX package's partition of big scenes and
+  its packed texel atlas.
 * `trace_operands` puts a scene's records on a device for `trace`.
 * `trace` is the wrapper of the hand-written CUDA kernel
   (`csrc/tracer.cu`): on CUDA tensors it launches the kernel, on CPU
@@ -27,23 +33,31 @@ Random numbers are Philox4x32-10 keyed by the seed and addressed by
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..models.scene import (BG_SKY, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT,
-                            MAT_LAMBERTIAN, MAT_METAL, PRIM_MOVING_SPHERE,
-                            PRIM_RECT, TEX_CHECKER, TEX_IMAGE, TEX_NOISE,
-                            TEX_SOLID, SceneTables)
+                            MAT_ISOTROPIC, MAT_LAMBERTIAN, MAT_METAL,
+                            MED_SPHERE, PRIM_MOVING_SPHERE, PRIM_RECT,
+                            TEX_CHECKER, TEX_IMAGE, TEX_NOISE, TEX_SOLID,
+                            SceneTables)
 from ..render import finalize_image
 from ..utils.timers import Timers
-from . import rng
+from . import perlin, rng
 from .camera import Camera, get_rays
 from .intersect import pack_prims
 
 BIG = 3.0e38
 T_MIN = 1e-3   # reference src/color.rs:7
+# f32 constants of the sphere UV (pallas_tracer.py:2318-2324)
+PI = float(np.float32(math.pi))
+HALF_PI = float(np.float32(math.pi / 2.0))
+TWO_OVER_PI = float(np.float32(2.0 / math.pi))   # compat_uv's v offset
+INV_PI = float(np.float32(1.0 / math.pi))
+INV_2PI = float(np.float32(0.5 / math.pi))
 
 # per-primitive scalar record layout (f32[P, REC]), the JAX kernel's
 R_IS_SPHERE = 0
@@ -75,6 +89,25 @@ R_IMG_H = 44
 R_IMG_W = 45
 REC = 46
 
+# per-medium record layout (f32[M, MEDREC]), the JAX kernel's
+M_DATA = 0        # sphere: cx, cy, cz, r² | box: pmin3, pmax3 (object space)
+M_INV_RHO = 6     # 1 / density
+M_ROT = 7         # 7..15 world→object rotation R₋, row-major
+M_OFF = 16        # 16..18 translate offset
+M_ALB = 19        # 19..21 isotropic albedo (solid)
+M_ALB_ODD = 22    # 22..31 the JAX kernel's textured-albedo fields (checker
+M_CHK = 25        # odd colour, flags, noise scale, image base and size):
+M_NOISE = 26      # zero here, since textured media raise UnsupportedScene
+M_NSCALE = 27
+M_IMG = 28
+M_IMG_BASE = 29
+M_IMG_H = 30
+M_IMG_W = 31
+MEDREC = 32
+# media a scene may hold; the kernel keeps their records in shared memory
+# (csrc/tracer.cu MAX_MEDIA)
+MAX_MEDIA = 8
+
 # camera scalar record (f32[CAMREC])
 C_ORIGIN, C_LL, C_HORIZ, C_VERT, C_U, C_V = 0, 3, 6, 9, 12, 15
 C_LENS_R, C_TIME0, C_DTIME = 18, 19, 20
@@ -98,11 +131,22 @@ FEAT_CHECKER = 2
 FEAT_METAL = 4
 FEAT_DIEL = 8
 FEAT_MOVING = 16
+FEAT_NOISE = 32       # Perlin marble albedo (K1c)
+FEAT_IMAGE = 64       # image albedo: sphere UV, texel atlas (K1c)
+FEAT_MEDIA = 128      # constant-density media, event path (K1d)
+FEAT_COMPAT_UV = 256  # the reference's sphere-UV constant (src/sphere.rs:13)
+FEAT_ALL = 511
+K1BE_FEATS = FEAT_SKY | FEAT_CHECKER | FEAT_METAL | FEAT_DIEL | FEAT_MOVING
 
-# launches of the CUDA kernel, counted by `trace` where it launches: K1a is
-# the instantiation with every feature off (cornell_box), K1BE any other
+# launches of the CUDA kernel, counted by `trace` where it launches, once
+# for each section the launch runs: K1a is the instantiation with every
+# feature off (cornell_box); a K1B launch counts as K1BE when it runs sky,
+# checker, metal, dielectric, moving spheres or the dynamic table, as K1C
+# when it shades noise or image textures, as K1D when it holds media
 KERNEL_LAUNCHES = 0
 K1BE_LAUNCHES = 0
+K1C_LAUNCHES = 0
+K1D_LAUNCHES = 0
 
 # lanes (pixel × sample) per chunk when the caller names no chunk: the plain
 # version holds every lane's state in memory, the kernel holds none
@@ -124,19 +168,31 @@ class SceneRecord:
     dyn_rec: np.ndarray  # f32[n_dyn, REC] dynamic spheres in cluster order
     sclus: np.ndarray    # f32[n_leaf + n_sup, CLUSW] leaves, then superclusters
     n_sclus: tuple       # (n_leaf, n_sup)
-    flags: tuple         # (has_checker, has_metal, has_diel, dyn_moving)
+    # the JAX kernel's flags: (has_checker, has_metal, has_diel, has_noise,
+    # has_image, dyn_moving, compat_uv, emis_tex, uv_carry, img_flip,
+    # med_tex); the last four are always False here (those scenes raise)
+    flags: tuple
     background: int
+    med_rec: np.ndarray  # f32[M, MEDREC] media of nonzero density
+    med_kinds: tuple     # "msphere" / "mbox" per medium
+    atlas: np.ndarray    # int32[I·H, W] texels r<<16 | g<<8 | b ([0, 0]: none)
+    perlin_seed: int
 
     @property
     def feats(self) -> int:
         """The kernel features (FEAT_* bits) this scene needs."""
-        has_checker, has_metal, has_diel, dyn_moving = self.flags
+        (has_checker, has_metal, has_diel, has_noise, has_image, dyn_moving,
+         compat_uv) = self.flags[:7]
         return ((FEAT_SKY if self.background == BG_SKY else 0)
                 | (FEAT_CHECKER if has_checker else 0)
                 | (FEAT_METAL if has_metal else 0)
                 | (FEAT_DIEL if has_diel else 0)
                 | (FEAT_MOVING if dyn_moving or "moving" in self.kinds
-                   else 0))
+                   else 0)
+                | (FEAT_NOISE if has_noise else 0)
+                | (FEAT_IMAGE if has_image else 0)
+                | (FEAT_MEDIA if self.med_kinds else 0)
+                | (FEAT_COMPAT_UV if compat_uv and has_image else 0))
 
 
 def _cluster_rows(rows, lo, hi, leaf):
@@ -204,28 +260,40 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
     cluster-sorted with its leaf AABB table. Rect frame groups share the
     six ray·frame dot products of one plane frame.
 
-    Raises UnsupportedScene for what the kernel does not cover: media,
-    isotropic materials, noise and image textures, nested checkers,
-    textured lights, and rects in a scene of more than UNROLL_BUDGET prims
+    Media of nonzero density fill the per-medium record (`M_*`, the
+    boundary in object space, 1/ρ, the world→object rotation and offset,
+    the solid albedo); image textures fill the texel atlas.
+
+    Raises UnsupportedScene for what the kernel does not cover, each with
+    its own reason: isotropic surfaces, nested checkers, textured lights,
+    image textures on rects, on rotated spheres or on flipped spheres,
+    textured medium albedo, images that are not 8-bit exact, more than
+    MAX_MEDIA media, and rects in a scene of more than UNROLL_BUDGET prims
     (the JAX kernel merges those into boxes, or unrolls them beside the
     dynamic table).
     """
     scene = scene.to("cpu")
-    if scene.has_media:
-        raise UnsupportedScene("media are not in the kernel yet")
     P = scene.num_prims
     pk = pack_prims(scene)
     pk = {k: v.numpy() for k, v in vars(pk).items()}
     ptype = scene.prim_type.numpy()
     prim_mat = scene.prim_material.numpy()
     prim_flip = scene.prim_flip.numpy()
+    prim_xf = scene.prim_xform.numpy()
+    xf_axis = scene.xf_axis.numpy()
+    xf_sin = scene.xf_sin.numpy()
+    xf_cos = scene.xf_cos.numpy()
+    xf_off = scene.xf_offset.numpy()
     mat_type = scene.mat_type.numpy()
     mat_param = scene.mat_param.numpy()
     mat_tex = scene.mat_texture.numpy()
     tex_type = scene.tex_type.numpy()
     tex_color = scene.tex_color.numpy()
     tex_child = scene.tex_child.numpy()
-    tex_names = {TEX_NOISE: "noise", TEX_IMAGE: "image"}
+    tex_scale = scene.tex_scale.numpy()
+    tex_image = scene.tex_image.numpy()
+    image_hw = scene.image_hw.numpy()
+    img_h = scene.images.shape[1]
 
     rec = np.zeros((P, REC), np.float32)
     kinds = []
@@ -271,8 +339,8 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
             else:
                 rec[p, R_ALB_EVEN:R_ALB_EVEN + 3] = tex_color[tx]
         elif mt == MAT_DIFFUSE_LIGHT:
-            raise UnsupportedScene("emissive textures are not in the kernel "
-                                   "yet")
+            raise UnsupportedScene("emissive textures (a textured light) are "
+                                   "not in the kernel yet")
         elif tt == TEX_CHECKER:
             odd, even = tex_child[tx]
             if tex_type[odd] != TEX_SOLID or tex_type[even] != TEX_SOLID:
@@ -280,13 +348,93 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
             rec[p, R_ALB_ODD:R_ALB_ODD + 3] = tex_color[odd]
             rec[p, R_ALB_EVEN:R_ALB_EVEN + 3] = tex_color[even]
             rec[p, R_CHECKER] = 1.0
+        elif tt == TEX_NOISE:
+            # marble albedo (reference src/texture.rs:66-70)
+            rec[p, R_NOISE] = 1.0
+            rec[p, R_NSCALE] = tex_scale[tx]
+        elif tt == TEX_IMAGE:
+            # nearest-texel albedo from the atlas (reference
+            # src/texture.rs:73-108), UV from the winner's world normal: an
+            # unrotated, unflipped sphere only
+            if kinds[-1] == "rect":
+                raise UnsupportedScene("image texture on a rect (selection-"
+                                       "time UV) is not in the kernel yet")
+            xf = prim_xf[p]
+            if xf_sin[xf] != 0.0 or xf_cos[xf] != 1.0:
+                raise UnsupportedScene("image texture on a rotated sphere")
+            if prim_flip[p] < 0:
+                raise UnsupportedScene("image texture on a flipped sphere "
+                                       "(pre-flip UV) is not in the kernel "
+                                       "yet")
+            img_id = int(tex_image[tx])
+            rec[p, R_IMG] = 1.0
+            rec[p, R_IMG_BASE] = float(img_id * img_h)
+            rec[p, R_IMG_H] = float(image_hw[img_id, 0])
+            rec[p, R_IMG_W] = float(image_hw[img_id, 1])
         else:
-            raise UnsupportedScene(f"{tex_names.get(tt, tt)} texture is not "
-                                   "in the kernel yet")
+            raise UnsupportedScene(f"texture type {tt} is not in the kernel")
+
+    # media (reference src/medium.rs: ConstantMedium with a convex boundary,
+    # possibly under Traslate∘Rotate), pallas_tracer.py:698-760
+    med_density = scene.med_density.numpy()
+    live = [m for m in range(scene.num_media)
+            if float(med_density[m]) != 0.0]
+    if len(live) > MAX_MEDIA:
+        raise UnsupportedScene(f"{len(live)} media: the kernel holds at most "
+                               f"{MAX_MEDIA}")
+    med_type = scene.med_type.numpy()
+    med_data = scene.med_data.numpy()
+    med_material = scene.med_material.numpy()
+    med_xform = scene.med_xform.numpy()
+    med_rec = np.zeros((len(live), MEDREC), np.float32)
+    med_kinds = []
+    for i, m in enumerate(live):
+        iso_tex = mat_tex[med_material[m]]
+        if tex_type[iso_tex] != TEX_SOLID:
+            raise UnsupportedScene("textured medium albedo is not in the "
+                                   "kernel yet")
+        if med_type[m] == MED_SPHERE:
+            med_kinds.append("msphere")
+            med_rec[i, M_DATA:M_DATA + 3] = med_data[m, 0:3]
+            med_rec[i, M_DATA + 3] = med_data[m, 3] ** 2
+        else:
+            med_kinds.append("mbox")
+            med_rec[i, M_DATA:M_DATA + 6] = med_data[m, 0:6]
+        med_rec[i, M_INV_RHO] = 1.0 / med_density[m]
+        # world→object rotation R₋ (reference src/rotate.rs:87-97): about
+        # axis r with (a, b) = ((r+1)%3, (r+2)%3), out[a] = c·v[a] + s·v[b],
+        # out[b] = −s·v[a] + c·v[b], out[r] = v[r]
+        xf = med_xform[m]
+        ax, sn, cs = int(xf_axis[xf]), float(xf_sin[xf]), float(xf_cos[xf])
+        a, b = (ax + 1) % 3, (ax + 2) % 3
+        rot = np.zeros((3, 3), np.float32)
+        rot[ax, ax] = 1.0
+        rot[a, a], rot[a, b] = cs, sn
+        rot[b, a], rot[b, b] = -sn, cs
+        med_rec[i, M_ROT:M_ROT + 9] = rot.reshape(-1)
+        med_rec[i, M_OFF:M_OFF + 3] = xf_off[xf]
+        med_rec[i, M_ALB:M_ALB + 3] = tex_color[iso_tex]
 
     flags = (bool(np.any(rec[:, R_CHECKER] > 0)),
              bool(np.any(rec[:, R_MAT] == MAT_METAL)),
-             bool(np.any(rec[:, R_MAT] == MAT_DIELECTRIC)))
+             bool(np.any(rec[:, R_MAT] == MAT_DIELECTRIC)),
+             bool(np.any(rec[:, R_NOISE] > 0)),
+             bool(np.any(rec[:, R_IMG] > 0)))
+
+    # the texel atlas, one int32 r<<16 | g<<8 | b per texel
+    # (pallas_tracer.py:772-791): images are stored as f32(u8 / 255), and
+    # the exact u8 round trip keeps the kernel's texels bit-identical to the
+    # tables'. It lives in device memory: no size cap.
+    atlas = np.zeros((0, 0), np.int32)
+    if flags[4]:
+        pix = scene.images.numpy()                          # [I, H, W, 3]
+        q = np.clip(np.rint(pix * 255.0), 0, 255).astype(np.int32)
+        if not np.array_equal(q.astype(np.float32) / np.float32(255.0), pix):
+            raise UnsupportedScene("image texture is not 8-bit exact")
+        n_img, h, w, _ = q.shape
+        atlas = np.ascontiguousarray(
+            ((q[..., 0] << 16) | (q[..., 1] << 8) | q[..., 2])
+            .reshape(n_img * h, w))
 
     # partition (pallas_tracer.py:793-868, spheres only): small scenes unroll
     # everything; big ones unroll movers (when they fit) and heroes, and run
@@ -331,7 +479,8 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
         kinds = [k for i, k in enumerate(kinds) if keep[i]]
         if not kinds:   # the kernel's record needs at least one row
             rec = np.zeros((1, REC), np.float32)
-    flags += (bool(len(dyn_rec) and np.any(dyn_rec[:, R_INV_DT] != 0.0)),)
+    flags += (bool(len(dyn_rec) and np.any(dyn_rec[:, R_INV_DT] != 0.0)),
+              bool(scene.compat_uv_bug), False, False, False, False)
 
     groups = {}
     for i, k in enumerate(kinds):
@@ -340,7 +489,8 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
             groups.setdefault(key, []).append(i)
     rect_groups = tuple(tuple(g) for g in groups.values())
     return SceneRecord(rec, tuple(kinds), rect_groups, dyn_rec, sclus,
-                       n_sclus, flags, int(scene.background))
+                       n_sclus, flags, int(scene.background), med_rec,
+                       tuple(med_kinds), atlas, int(scene.perlin_seed))
 
 
 def build_camera_record(cam: Camera) -> np.ndarray:
@@ -385,6 +535,10 @@ class TraceOperands:
     leaves: torch.Tensor  # f32[n_leaf, CLUSW] their leaves; none: no cull
     cam: torch.Tensor     # f32[CAMREC]
     feats: int            # FEAT_* bits
+    med: torch.Tensor     # f32[M, MEDREC] media, M ≤ MAX_MEDIA
+    med_box: int          # bit i set: medium i has a box boundary, else a sphere
+    atlas: torch.Tensor   # int32[rows, W] packed texels
+    perlin_seed: int
 
 
 def trace_operands(srec: SceneRecord, cam_rec: np.ndarray,
@@ -396,7 +550,10 @@ def trace_operands(srec: SceneRecord, cam_rec: np.ndarray,
     return TraceOperands(
         rec=put(srec.rec), walk=put(walk_table(srec.kinds, srec.rect_groups)),
         dyn=put(srec.dyn_rec), leaves=put(srec.sclus[:srec.n_sclus[0]]),
-        cam=put(cam_rec), feats=srec.feats)
+        cam=put(cam_rec), feats=srec.feats, med=put(srec.med_rec),
+        med_box=sum(1 << i for i, k in enumerate(srec.med_kinds)
+                    if k == "mbox"),
+        atlas=put(srec.atlas), perlin_seed=srec.perlin_seed)
 
 
 def _sphere_center(r, time, moving: bool):
@@ -409,9 +566,105 @@ def _sphere_center(r, time, moving: bool):
     return tuple(r[R_C0 + a] + frac * r[R_DC + a] for a in range(3))
 
 
+def _media_events(ops: TraceOperands, med_table, o, d, a_dd, inv_a, t_cap,
+                  draw):
+    """Nearest constant-density medium scatter event on [T_MIN, t_cap]
+    (pallas_tracer.py `media_events`, 1431-1525; reference
+    src/medium.rs:28-56) → (t (BIG where none), winning medium, -1 where
+    none).
+
+    Each medium's boundary is entered and left on the ray's infinite line
+    (sphere roots, or slabs in object space after the world→object
+    rotation and offset), the interval is clamped to [T_MIN, t_cap], and
+    the free flight −(1/ρ)·ln u is drawn from medium i's slot of the
+    MEDIUM streams (`draw(stream)` → four uniforms). The first strict
+    minimum wins.
+    """
+    ox, oy, oz = o
+    dx, dy, dz = d
+    d_len = torch.sqrt(a_dd)
+    inv_dlen = 1.0 / d_len
+    t_med = torch.full_like(dx, BIG)
+    m_win = torch.full(dx.shape, -1, dtype=torch.int64, device=dx.device)
+    for i, m in enumerate(med_table):
+        if i % 4 == 0:
+            words = draw(rng.STREAM_MEDIUM + i // 4)
+        wx, wy, wz = ox - m[M_OFF], oy - m[M_OFF + 1], oz - m[M_OFF + 2]
+        r = m[M_ROT:M_ROT + 9]
+        o0 = [r[3 * k] * wx + r[3 * k + 1] * wy + r[3 * k + 2] * wz
+              for k in range(3)]
+        d0 = [r[3 * k] * dx + r[3 * k + 1] * dy + r[3 * k + 2] * dz
+              for k in range(3)]
+        if ops.med_box >> i & 1:
+            # slabs; a tiny direction component is replaced by +1e-30 so a
+            # parallel ray stays finite (pallas_tracer.py:1480-1498)
+            sd = [torch.where(torch.abs(c) < 1e-30, 1e-30, c) for c in d0]
+            lo = [(m[M_DATA + k] - o0[k]) / sd[k] for k in range(3)]
+            hi = [(m[M_DATA + 3 + k] - o0[k]) / sd[k] for k in range(3)]
+            enter = torch.maximum(
+                torch.maximum(torch.minimum(lo[0], hi[0]),
+                              torch.minimum(lo[1], hi[1])),
+                torch.minimum(lo[2], hi[2]))
+            exit_ = torch.minimum(
+                torch.minimum(torch.maximum(lo[0], hi[0]),
+                              torch.maximum(lo[1], hi[1])),
+                torch.maximum(lo[2], hi[2]))
+            ok = enter < exit_
+        else:
+            oc = [o0[k] - m[M_DATA + k] for k in range(3)]
+            bq = oc[0] * d0[0] + oc[1] * d0[1] + oc[2] * d0[2]
+            cq = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - m[M_DATA + 3]
+            disc = bq * bq - a_dd * cq
+            ok = disc > 0.0
+            sq = torch.sqrt(torch.where(ok, disc, 1.0))
+            enter = (-bq - sq) * inv_a
+            exit_ = (-bq + sq) * inv_a
+        enter = torch.clamp(enter, min=T_MIN)
+        exit_ = torch.minimum(exit_, t_cap)
+        ok = ok & (enter < exit_)
+        flight = -m[M_INV_RHO] * torch.log(torch.clamp(words[i % 4],
+                                                       min=1e-37))
+        scat = ok & (flight < (exit_ - enter) * d_len)
+        t_i = torch.where(scat, enter + flight * inv_dlen, BIG)
+        better = t_i < t_med
+        t_med = torch.where(better, t_i, t_med)
+        m_win = torch.where(better, i, m_win)
+    return t_med, m_win
+
+
+def sphere_uv(nx, ny, nz, compat_uv: bool = False):
+    """Sphere UV of unit normals (reference src/sphere.rs:7-15,
+    pallas_tracer.py:2318-2324): u = 1 − (φ + π)/(2π), v = (θ + π/2)/π with
+    φ = atan2(z, x), θ = asin(y); under compat_uv the reference's 2/π takes
+    π/2's place."""
+    phi = torch.atan2(nz, nx)
+    theta = torch.asin(torch.clamp(ny, -1.0, 1.0))
+    uu = 1.0 - (phi + PI) * INV_2PI
+    vv = (theta + (TWO_OVER_PI if compat_uv else HALF_PI)) * INV_PI
+    return uu, vv
+
+
+def texel_rgb(atlas, base, h, w, uu, vv):
+    """Nearest texel (reference src/texture.rs:86-108, pallas_tracer.py:
+    2329-2357) of the image whose rows start at atlas row `base`, of true
+    size h × w (f32 per lane): column ⌊u·w⌋ and v-flipped row ⌊(1 − v)·h⌋,
+    each clamped to the image, then r, g, b = u8 / 255."""
+    ii = torch.minimum(torch.clamp((uu * w).to(torch.int64), min=0),
+                       w.to(torch.int64) - 1)
+    jj = torch.minimum(torch.clamp(((1.0 - vv) * h).to(torch.int64), min=0),
+                       h.to(torch.int64) - 1)
+    rows, width = atlas.shape
+    jrow = torch.clamp(base.to(torch.int64) + jj, 0, rows - 1)
+    packed = atlas[jrow, torch.clamp(ii, 0, width - 1)]
+    # a device divisor: see the camera's division in trace_plain
+    d255 = torch.tensor(255.0, device=packed.device)
+    return [((packed >> sh) & 255).to(torch.float32) / d255
+            for sh in (16, 8, 0)]
+
+
 def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
-                seed: int, sample0: int, n_samples: int,
-                max_depth: int) -> torch.Tensor:
+                seed: int, sample0: int, n_samples: int, max_depth: int,
+                counts: dict | None = None) -> torch.Tensor:
     """The kernel's computation in plain torch, on any device.
 
     Adds, for every pixel, the radiance of samples sample0 ..
@@ -423,18 +676,27 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     The dynamic table is scanned whole in cluster order: the kernel's leaf
     cull skips only leaves that cannot hold a closer hit, so the winners
     are the same.
+
+    counts, when given, gathers the work this run's paths needed: lane
+    bounces traced ("segments"), and lanes shaded by noise ("noise") and by
+    an image ("image").
     """
     dev = sums.device
     f32 = torch.float32
     n_pix = nx * ny
-    sky, checker, metal, diel, moving = (
-        bool(ops.feats & b) for b in (FEAT_SKY, FEAT_CHECKER, FEAT_METAL,
-                                      FEAT_DIEL, FEAT_MOVING))
+    (sky, checker, metal, diel, moving, noise, image, media,
+     compat_uv) = (bool(ops.feats & b) for b in (
+         FEAT_SKY, FEAT_CHECKER, FEAT_METAL, FEAT_DIEL, FEAT_MOVING,
+         FEAT_NOISE, FEAT_IMAGE, FEAT_MEDIA, FEAT_COMPAT_UV))
+    if counts is not None:
+        for k in ("segments", "noise", "image"):
+            counts.setdefault(k, 0)
     # record cells as Python floats: a torch op with a Python scalar computes
     # in the tensor's f32, and every cell is an f32 value
     table = ops.rec.cpu().tolist()
     order, lead = ops.walk.cpu().tolist()
     dyn_table = ops.dyn.cpu().tolist()
+    med_table = ops.med.cpu().tolist() if media else []
 
     pix = torch.arange(n_pix, dtype=torch.int64, device=dev).repeat(n_samples)
     smp = torch.arange(sample0, sample0 + n_samples, dtype=torch.int64,
@@ -471,9 +733,12 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     live = torch.arange(lanes, device=dev)
     rec_dev = ops.rec.to(dev)
     dyn_dev = ops.dyn.to(dev)
+    med_dev = ops.med.to(dev)
     for bounce in range(max_depth + 1):
         ox, oy, oz = o
         dx, dy, dz = d
+        if counts is not None:
+            counts["segments"] += dx.numel()
         a_dd = dx * dx + dy * dy + dz * dz
         inv_a = 1.0 / a_dd
         t_best = torch.full_like(dx, BIG)
@@ -567,6 +832,18 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             w = torch.where(dwin[:, None], wr, w)
             hit = hit | dwin
 
+        # a medium event before the closest surface takes the hit over
+        # (pallas_tracer.py:2204-2236): isotropic, its own solid albedo, no
+        # emission, no surface texture
+        med_ev = None
+        if media:
+            def draw(stream):
+                return rng.draws(seed, pix[live], smp[live], bounce, stream)
+            t_med, m_win = _media_events(ops, med_table, o, d, a_dd, inv_a,
+                                         t_best, draw)
+            med_ev = t_med < t_best
+            t_best = torch.where(med_ev, t_med, t_best)
+
         # emission (reference src/color.rs:8-22); a miss adds the background
         # and ends the path
         miss = [0.0, 0.0, 0.0]
@@ -575,14 +852,20 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             ty = 0.5 * (dy * inv_len + 1.0)
             miss = [thr[0] * (1.0 - 0.5 * ty), thr[1] * (1.0 - 0.3 * ty),
                     thr[2]]
+        surf = hit if med_ev is None else hit & ~med_ev
         for c in range(3):
-            rad[c, live] += torch.where(hit, thr[c] * w[:, R_EMIT + c],
-                                        miss[c])
+            other = miss[c] if med_ev is None else torch.where(med_ev, 0.0,
+                                                                miss[c])
+            rad[c, live] += torch.where(surf, thr[c] * w[:, R_EMIT + c],
+                                        other)
         # scatter while below the depth cap (src/color.rs:9); a light ends
         # the path
         if bounce == max_depth:
             break
         mat = w[:, R_MAT]
+        if med_ev is not None:
+            mat = torch.where(med_ev, float(MAT_ISOTROPIC), mat)
+            hit = hit | med_ev
         cont = hit & (mat != MAT_DIFFUSE_LIGHT)
         px = [o[a] + t_best * d[a] for a in range(3)]
         alb = [w[:, R_ALB_EVEN + c] for c in range(3)]
@@ -593,11 +876,44 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             odd = (sines < 0.0) & (w[:, R_CHECKER] > 0.0)
             alb = [torch.where(odd, w[:, R_ALB_ODD + c], alb[c])
                    for c in range(3)]
+        if noise:
+            # marble at the hit point, 0.5·(1 + sin(scale·x + 5·turb(p)))
+            # (reference src/texture.rs:66-70), on the lanes that need it
+            sel = (w[:, R_NOISE] > 0.0) & surf
+            idx = torch.nonzero(sel).squeeze(1)
+            if counts is not None:
+                counts["noise"] += idx.numel()
+            qx, qy, qz = (px[a][idx] for a in range(3))
+            turb = perlin.turb3(qx, qy, qz, ops.perlin_seed)
+            marble = torch.zeros_like(dx)
+            marble[idx] = 0.5 * (1.0 + torch.sin(w[idx, R_NSCALE] * qx
+                                                 + 5.0 * turb))
+            alb = [torch.where(sel, marble, alb[c]) for c in range(3)]
+        if image:
+            sel = (w[:, R_IMG] > 0.0) & surf
+            idx = torch.nonzero(sel).squeeze(1)
+            if counts is not None:
+                counts["image"] += idx.numel()
+            wi = w[idx]
+            tex = texel_rgb(ops.atlas.to(dev), wi[:, R_IMG_BASE],
+                            wi[:, R_IMG_H], wi[:, R_IMG_W],
+                            *sphere_uv(*(n[idx] for n in nrm), compat_uv))
+            for c in range(3):
+                full = torch.zeros_like(dx)
+                full[idx] = tex[c]
+                alb[c] = torch.where(sel, full, alb[c])
+        if med_ev is not None:
+            mw = med_dev[m_win.clamp(min=0)]
+            alb = [torch.where(med_ev, mw[:, M_ALB + c], alb[c])
+                   for c in range(3)]
         # lambertian: n + a uniform point in the unit ball
-        # (reference src/material.rs:49-53)
+        # (reference src/material.rs:49-53); isotropic: the bare ball
+        # sample (src/material.rs:164-168)
         su = rng.draws(seed, pix[live], smp[live], bounce, rng.STREAM_SCATTER)
         ball = rng.in_unit_sphere(torch.stack(su[:3], dim=-1)).unbind(-1)
         nd = [nrm[a] + ball[a] for a in range(3)]
+        if med_ev is not None:
+            nd = [torch.where(med_ev, ball[a], nd[a]) for a in range(3)]
         if metal or diel:
             inv_len = 1.0 / torch.sqrt(a_dd)
             ud = [d[a] * inv_len for a in range(3)]
@@ -660,6 +976,8 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
                            ("dyn", ops.dyn, torch.float32),
                            ("leaves", ops.leaves, torch.float32),
                            ("cam", ops.cam, torch.float32),
+                           ("med", ops.med, torch.float32),
+                           ("atlas", ops.atlas, torch.int32),
                            ("sums", sums, torch.float64)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, sums on {dev}")
@@ -685,8 +1003,21 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
         raise ValueError(f"cam must be [{CAMREC}], got {tuple(ops.cam.shape)}")
     if tuple(sums.shape) != (3, nx * ny):
         raise ValueError(f"sums must be [3, {nx * ny}], got {tuple(sums.shape)}")
-    if not 0 <= ops.feats < 2 * FEAT_MOVING:
+    if not 0 <= ops.feats <= FEAT_ALL:
         raise ValueError(f"feats {ops.feats} has unknown bits")
+    M = ops.med.shape[0]
+    if ops.med.dim() != 2 or ops.med.shape[1] != MEDREC or M > MAX_MEDIA:
+        raise ValueError(f"med must be [0..{MAX_MEDIA}, {MEDREC}], got "
+                         f"{tuple(ops.med.shape)}")
+    if not 0 <= ops.med_box < 1 << M:
+        raise ValueError(f"med_box {ops.med_box} names media beyond {M}")
+    if bool(ops.feats & FEAT_MEDIA) != (M > 0):
+        raise ValueError(f"FEAT_MEDIA is {bool(ops.feats & FEAT_MEDIA)} "
+                         f"with {M} media")
+    if ops.atlas.dim() != 2 or ops.atlas.numel() >= 1 << 31 or (
+            ops.feats & FEAT_IMAGE and ops.atlas.numel() == 0):
+        raise ValueError(f"atlas must be a 2-D texel table (non-empty for "
+                         f"image textures), got {tuple(ops.atlas.shape)}")
 
 
 def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
@@ -698,7 +1029,7 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     (building it at first use) or raises; on CPU tensors it runs
     `trace_plain`.
     """
-    global KERNEL_LAUNCHES, K1BE_LAUNCHES
+    global KERNEL_LAUNCHES, K1BE_LAUNCHES, K1C_LAUNCHES, K1D_LAUNCHES
     _check_operands(ops, sums, nx, ny)
     if not (0 <= seed < 1 << 64 and 0 <= sample0
             and sample0 + n_samples < 1 << 31 and 0 < nx * ny < 1 << 31
@@ -718,12 +1049,19 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             ops.walk.shape[1], ops.dyn.data_ptr(), ops.dyn.shape[0],
             ops.leaves.data_ptr(), ops.leaves.shape[0], ops.cam.data_ptr(),
             ops.feats, sums.data_ptr(), nx, ny, seed & 0xFFFFFFFF, seed >> 32,
-            sample0, n_samples, max_depth,
+            sample0, n_samples, max_depth, ops.med.data_ptr(),
+            ops.med.shape[0], ops.med_box, ops.atlas.data_ptr(),
+            ops.atlas.shape[0], ops.atlas.shape[1],
+            perlin.seed_word(ops.perlin_seed),
             torch.cuda.current_stream().cuda_stream)
     if ops.feats == 0 and ops.dyn.shape[0] == 0:
         KERNEL_LAUNCHES += 1
-    else:
+    if ops.feats & K1BE_FEATS or ops.dyn.shape[0]:
         K1BE_LAUNCHES += 1
+    if ops.feats & (FEAT_NOISE | FEAT_IMAGE):
+        K1C_LAUNCHES += 1
+    if ops.feats & FEAT_MEDIA:
+        K1D_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     return sums

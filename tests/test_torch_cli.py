@@ -44,12 +44,28 @@ def test_render_cpu_random_spheres(tmp_path):
     assert 0.3 < img.mean() < 0.9
 
 
+@pytest.mark.parametrize("scene,lo,hi", [
+    ("two_perlin_spheres", 0.4, 0.8), ("simple_light", 0.02, 0.4),
+    ("earth", 0.5, 0.95), ("cornell_smoke", 0.05, 0.6)])
+def test_render_cpu_next_week(tmp_path, scene, lo, hi):
+    """The Perlin marble, the image texture and the smoke boxes through the
+    command line (the kernel's plain version), at a tiny size."""
+    out = tmp_path / f"{scene}.ppm"
+    rc = cli.main(["render", "--scene", scene, "--nx", "16", "--ny", "12",
+                   "--spp", "4", "--max-depth", "8", "--device", "cpu",
+                   "--out", str(out)])
+    assert rc == 0
+    img = read_ppm(str(out))
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+    assert lo < img.mean() < hi
+
+
 def test_render_outside_the_kernel_exits_nonzero(tmp_path, capsys):
-    rc = cli.main(["render", "--scene", "two_perlin_spheres", "--nx", "8",
+    rc = cli.main(["render", "--scene", "final_scene", "--nx", "8",
                    "--ny", "8", "--spp", "1", "--device", "cpu", "--out",
                    str(tmp_path / "x.ppm")])
     assert rc == 2
-    assert "noise texture" in capsys.readouterr().err
+    assert "rects in a scene of" in capsys.readouterr().err
     assert not (tmp_path / "x.ppm").exists()
 
 

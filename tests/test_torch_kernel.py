@@ -2,7 +2,9 @@
 
 These tests need an NVIDIA GPU with the CUDA toolkit (`nvcc`): they build
 `raytracing_rust_tpu_torch/csrc/*.cu`, launch K1 (`tracer.cu`: the K1a
-instantiation and the K1b/K1e ones) and K2/K3 (`grad.cu`), and hold them
+instantiation and the K1B ones with their checker, sky, metal, glass,
+moving-sphere, dynamic-table, noise, image and media sections) and K2/K3
+(`grad.cu`), and hold them
 against `trace_plain`, `trace_tiles_plain` and autograd through it, run on
 the same card, the same records and the same draws. Elsewhere they skip.
 Run them on the card with
@@ -111,6 +113,78 @@ def _small_spheres(n):
     return make
 
 
+def _preset(name):
+    def make(nx, ny):
+        p = builders.PRESETS[name]
+        return p.build(), camera.make_camera(
+            p.look_from, p.look_at, p.view_up, p.vfov, nx / ny, p.aperture,
+            p.focus_dist, p.time0, p.time1)
+    make.__name__ = name
+    return make
+
+
+def _image_sphere(h, w, compat=False):
+    """An image sphere of random texels (every texel its own colour) under
+    the sky: the texel fetch is the K1c path a wrong index shows in."""
+    def make(nx, ny):
+        pix = np.random.default_rng(h * w).integers(0, 256, (h, w, 3),
+                                                    np.uint8)
+        b = SceneBuilder(background=BG_SKY, compat_uv_bug=compat)
+        b.sphere((0, -1000, 0), 1000.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+        b.sphere((0, 1, 0), 1.0, b.lambertian(b.image(pix)))
+        return b.build(), _sky_view(nx, ny)
+    return make
+
+
+def _every_feature(nx, ny):
+    """Noise, image, checker, metal, glass, a moving sphere, a rect and two
+    media (a sphere around the scene and a rotated box) under the sky."""
+    pix = np.random.default_rng(2).integers(0, 256, (32, 64, 3), np.uint8)
+    b = SceneBuilder(background=BG_SKY, perlin_seed=3)
+    checker = b.checker(b.solid(0.2, 0.3, 0.1), b.solid(0.9, 0.9, 0.9))
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(checker))
+    b.sphere((0, 1, 0), 1.0, b.lambertian(b.noise(4.0)))
+    b.sphere((2.2, 1, 0), 1.0, b.lambertian(b.image(pix)))
+    b.sphere((-2.2, 1, 0), 1.0, b.dielectric(1.5))
+    b.moving_sphere((0, 1, 2), (0, 1.5, 2), 0.0, 1.0, 0.5,
+                    b.metal(b.solid(0.7, 0.6, 0.5), 0.1))
+    b.rect("xy", -3, 0, 3, 3, -2, b.lambertian(b.solid(0.2, 0.6, 0.3)))
+    b.medium_sphere((0, 1, 0), 6.0, 0.02, b.solid(0.9, 0.9, 0.9))
+    xf = b.transform(offset=(0, 0, 1), rotate_axis="y", angle_deg=30.0)
+    b.medium_box((-0.5, 0, -0.5), (0.5, 1, 0.5), 0.8, b.solid(0.3, 0.5, 0.7),
+                 xform=xf)
+    return b.build(), _sky_view(nx, ny)
+
+
+def _textured_crowd(nx, ny):
+    """200 small noise and image spheres: textures read from the dynamic
+    table's rows in device memory, inside a sphere medium."""
+    r = np.random.default_rng(6)
+    pix = r.integers(0, 256, (16, 32, 3), np.uint8)
+    b = SceneBuilder(background=BG_SKY)
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(b.noise(2.0)))
+    mats = [b.lambertian(b.noise(8.0)), b.lambertian(b.image(pix))]
+    for i in range(200):
+        b.sphere(r.uniform((-4.0, 0.1, -4.0), (4.0, 2.0, 4.0)), 0.1,
+                 mats[i % 2])
+    b.medium_sphere((0, 1, 0), 8.0, 0.01, b.solid(1, 1, 1))
+    return b.build(), _sky_view(nx, ny)
+
+
+def _expected_launches(ops):
+    """The counts one launch adds: K1a, K1BE, K1C, K1D."""
+    f = ops.feats
+    return ((f == 0 and ops.dyn.shape[0] == 0),
+            bool(f & tracer.K1BE_FEATS or ops.dyn.shape[0]),
+            bool(f & (tracer.FEAT_NOISE | tracer.FEAT_IMAGE)),
+            bool(f & tracer.FEAT_MEDIA))
+
+
+def _launches():
+    return (tracer.KERNEL_LAUNCHES, tracer.K1BE_LAUNCHES,
+            tracer.K1C_LAUNCHES, tracer.K1D_LAUNCHES)
+
+
 def _assert_kernel_matches_plain(k, p):
     """Per-pixel sums within 1e-4 relative for ≥ 99% of pixels (a path whose
     hit test lands within an ulp of an edge may take another branch when
@@ -122,19 +196,20 @@ def _assert_kernel_matches_plain(k, p):
     assert torch.allclose(km, pm, rtol=1e-4, atol=0), (km, pm)
 
 
-@pytest.mark.parametrize("make", [_cornell, _spheres, _oracle_spheres,
-                                  _moving_checker, _random_spheres,
-                                  _small_spheres(3000)])
+@pytest.mark.parametrize("make", [
+    _cornell, _spheres, _oracle_spheres, _moving_checker, _random_spheres,
+    _small_spheres(3000), _preset("two_perlin_spheres"),
+    _preset("simple_light"), _preset("earth"), _preset("cornell_smoke"),
+    _image_sphere(16, 32, compat=True), _every_feature, _textured_crowd])
 def test_kernel_matches_plain(cuda, make):
     nx, ny = 96, 64
     ops = _operands(*make(nx, ny), cuda)
     kw = dict(nx=nx, ny=ny, seed=3, sample0=0, n_samples=4, max_depth=50)
-    before = (tracer.KERNEL_LAUNCHES, tracer.K1BE_LAUNCHES)
+    before = _launches()
     k = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
                                       device=cuda), **kw)
-    k1a = ops.feats == 0 and ops.dyn.shape[0] == 0
-    assert (tracer.KERNEL_LAUNCHES, tracer.K1BE_LAUNCHES) == (
-        before[0] + k1a, before[1] + (not k1a))
+    assert _launches() == tuple(b + e for b, e in
+                                zip(before, _expected_launches(ops)))
     p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
     torch.cuda.synchronize()
     _assert_kernel_matches_plain(k, p)
@@ -157,7 +232,8 @@ def test_kernel_leaf_cull_keeps_the_winners(cuda):
     _assert_kernel_matches_plain(culled, flat)
 
 
-@pytest.mark.parametrize("make", [_cornell, _moving_checker])
+@pytest.mark.parametrize("make", [_cornell, _moving_checker,
+                                  _preset("cornell_smoke"), _every_feature])
 def test_kernel_chunking_is_bit_identical(cuda, make):
     nx, ny = 64, 64
     ops = _operands(*make(nx, ny), cuda)
@@ -169,6 +245,24 @@ def test_kernel_chunking_is_bit_identical(cuda, make):
                          n_samples=chunk, max_depth=50)
         out.append(sums)
     assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("h,w", [(300, 517), (4096, 1024)])
+def test_kernel_texel_fetch_is_exact(cuda, h, w):
+    """The GPU counterpart of tests/test_pallas_image.py's `_image_fetch`
+    harnesses: on an image of random texels the kernel's one-load fetch
+    gives the plain version's gather, pixel by pixel, at an odd size and at
+    4096×1024 (a 16 MB atlas, twice the TPU kernel's 8 MB VMEM cap)."""
+    nx, ny = 128, 96
+    ops = _operands(*_image_sphere(h, w)(nx, ny), cuda)
+    assert ops.atlas.shape == (h, w)
+    kw = dict(nx=nx, ny=ny, seed=8, sample0=0, n_samples=2, max_depth=50)
+    k = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
+                                      device=cuda), **kw)
+    p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(k, p)
+    assert float((k == p).all(dim=0).double().mean()) >= 0.99
 
 
 def test_kernel_wrapper_rejects_bad_operands(cuda):
@@ -184,6 +278,18 @@ def test_kernel_wrapper_rejects_bad_operands(cuda):
         tracer.trace(ops, sums[:, :32], **kw)
     with pytest.raises(ValueError):
         tracer.trace(dataclasses.replace(ops, feats=64), sums, **kw)
+    with pytest.raises(ValueError):
+        tracer.trace(dataclasses.replace(ops, feats=tracer.FEAT_ALL + 1),
+                     sums, **kw)
+    with pytest.raises(ValueError):
+        tracer.trace(dataclasses.replace(ops, feats=tracer.FEAT_MEDIA), sums,
+                     **kw)
+    smoke = _operands(*_preset("cornell_smoke")(8, 8), cuda)
+    with pytest.raises(TypeError):
+        tracer.trace(dataclasses.replace(smoke, med=smoke.med.double()), sums,
+                     **kw)
+    with pytest.raises(ValueError):
+        tracer.trace(dataclasses.replace(smoke, med_box=4), sums, **kw)
 
 
 def _grad_spheres(device):
