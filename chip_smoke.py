@@ -50,8 +50,19 @@ Phases, one JSON line each on stdout:
      and image lanes) for the kernels' bounds;
  14-17. the render path through the command line, `render --scene S
      --device cuda` at each of those presets' size and spp, depth 50, with
-     the launch counts and a check of the image.
-Then the kernel table and, as the last line, the device summary. Each
+     the launch counts and a check of the image;
+ 18. the K1e box and K1d walk sections against their plain version on
+     final_scene at its preset's size, 800×800, 1 spp, depth 50, under
+     phase 3's gates, with the walk on and with it off (the event path
+     alone); both kernel times, the plain version's, the paths' work, and
+     whether the two kernel runs give the same sums;
+ 19. the render path through the command line, `render --scene
+     final_scene --device cuda` (800×800, 100 spp, depth 50), with the
+     launch counts and a check of the image, and a render at 128×128, 100
+     spp whose mean is held to the JAX XLA tier's.
+Every command-line phase prints its per-phase seconds, the PPM encode
+included. Then the kernel table and, as the last line, the device
+summary. Each
 row of the table carries the kernel's bound: the larger of the bytes it
 must move over the card's memory rate and the f32 operations this run's
 paths needed over the card's f32 rate (`bound`).
@@ -93,6 +104,12 @@ NEXT_WEEK_MEANS = {"two_perlin_spheres": 0.603892982006073,
                    "simple_light": 0.14997467398643494,
                    "earth": 0.7475132346153259,
                    "cornell_smoke": 0.297309011220932}
+# final_scene at 128×128, its preset's 100 spp, depth 50, seed 0: the mean
+# of this scene's gamma-space image moves with size and spp (0.135 at
+# 32×32×4, 0.203 at 64×64×16), so the card renders at this size and spp
+# for the check; printed by `PYTHONPATH=. python tests/test_torch_final.py`
+FINAL_SCENE_MEAN = 0.26402905583381653
+FINAL_SCENE_CHECK = (128, 128)
 
 # NVIDIA H100 SXM published peaks (NVIDIA's data sheet, at 700 W): HBM
 # bytes/s and f32 operations/s outside the tensor cores
@@ -103,9 +120,12 @@ F32_OPS_PER_S = 67e12
 # bounce's fixed work (scatter Philox, ball sample, emission, new ray), a
 # camera sample, a sphere test, a rect test, a rect frame, a leaf slab, a
 # dynamic member, a medium, a Perlin marble (7 octaves × 8 corners), a
-# texel
+# texel, a box member, a box leaf slab, a walk bounce's fixed work
+# (its scatter Philox, ball sample, new ray) and each interior row it
+# tests
 K1_OPS = dict(segment=160, sample=140, sphere=20, rect=14, frame=32,
-              leaf=24, member=20, medium=70, noise=2455, image=30)
+              leaf=24, member=20, medium=70, noise=2455, image=30, box=26,
+              box_leaf=24, walk=120, interior=22)
 # csrc/grad.cu per alive lane bounce: the fixed work, and each prim's test
 K2_OPS = dict(segment=60, prim=16)
 
@@ -119,10 +139,11 @@ def bound(ops: float, nbytes: float) -> dict:
 
 
 def k1_bound(ops, counts: dict, n_pix: int, n_samples: int) -> dict:
-    """K1's bound on this run's paths: trace_plain's counts of lane bounces
-    and of noise and image lanes, the scene's structure per lane bounce
-    (the leaf cull's members counted as one leaf's), the sums read and
-    written once, every record and the atlas read once."""
+    """K1's bound on this run's paths: trace_plain's counts of lane bounces,
+    of noise and image lanes, of the box members an exact leaf cull tests
+    and of walk bounces, the scene's structure per lane bounce (the sphere
+    leaf cull's members counted as one leaf's), the sums read and written
+    once, every record and the atlas read once."""
     rows = ops.walk[0].tolist()   # the unrolled prims a ray tests
     n_sph = int((ops.rec[rows, 0] > 0).sum()) if rows else 0   # R_IS_SPHERE
     n_rect = len(rows) - n_sph
@@ -132,15 +153,22 @@ def k1_bound(ops, counts: dict, n_pix: int, n_samples: int) -> dict:
                + n_rect * K1_OPS["rect"] + n_frame * K1_OPS["frame"]
                + n_leaf * K1_OPS["leaf"]
                + min(int(ops.dyn.shape[0]), 16) * K1_OPS["member"]
+               + int(ops.bleaves.shape[0]) * K1_OPS["box_leaf"]
                + int(ops.med.shape[0]) * K1_OPS["medium"])
+    per_walk = (K1_OPS["walk"] + int(ops.interior.shape[0])
+                * K1_OPS["interior"] + int(ops.med.shape[0])
+                * K1_OPS["medium"])
     n_ops = (counts["segments"] * per_seg
              + n_pix * n_samples * K1_OPS["sample"]
              + counts["noise"] * K1_OPS["noise"]
-             + counts["image"] * K1_OPS["image"])
+             + counts["image"] * K1_OPS["image"]
+             + counts["box"] * K1_OPS["box"]
+             + counts["walk"] * per_walk)
     nbytes = 2 * 3 * 8 * n_pix + sum(
         t.numel() * t.element_size()
         for t in (ops.rec, ops.walk, ops.dyn, ops.leaves, ops.cam, ops.med,
-                  ops.atlas))
+                  ops.atlas, ops.box, ops.bleaves, ops.interior,
+                  ops.interior_kind))
     return bound(n_ops, nbytes)
 
 
@@ -188,16 +216,18 @@ def main() -> int:
     def reset_launches():
         tracer.KERNEL_LAUNCHES = tracer.K1BE_LAUNCHES = 0
         tracer.K1C_LAUNCHES = tracer.K1D_LAUNCHES = 0
+        tracer.K1E_BOX_LAUNCHES = tracer.K1D_WALK_LAUNCHES = 0
         grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
 
-    def run_cli(scene: str):
-        """`render --scene <scene> --device cuda` at the preset's size, with
-        every launch count set to 0 just before and read just after →
-        (what to emit, the image)."""
+    def run_cli(scene: str, *size: str):
+        """`render --scene <scene> --device cuda` at the preset's size (or
+        at `size`: the --nx/--ny arguments), with every launch count set
+        to 0 just before and read just after → (what to emit, the
+        image)."""
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, f"{scene}.ppm")
             argv = ["render", "--scene", scene, "--device", "cuda", "--out",
-                    out, "--timers"]
+                    out, "--timers", *size]
             buf = io.StringIO()
             reset_launches()
             t = time.perf_counter()
@@ -207,7 +237,9 @@ def main() -> int:
             launches = {"k1a_static_trace": tracer.KERNEL_LAUNCHES,
                         "k1be_sphere_trace": tracer.K1BE_LAUNCHES,
                         "k1c_texture_trace": tracer.K1C_LAUNCHES,
-                        "k1d_media_trace": tracer.K1D_LAUNCHES}
+                        "k1d_media_trace": tracer.K1D_LAUNCHES,
+                        "k1e_box_trace": tracer.K1E_BOX_LAUNCHES,
+                        "k1d_walk_trace": tracer.K1D_WALK_LAUNCHES}
             check(rc == 0, f"cli.main({argv}) returned {rc}")
             img = read_ppm(out)
         text = buf.getvalue()
@@ -514,6 +546,79 @@ def main() -> int:
         for scene, mean in NEXT_WEEK_MEANS.items()}
     textured = ("two_perlin_spheres", "simple_light", "earth")
 
+    # -- 18. final_scene's boxes and walk vs plain, 800×800, 1 spp, depth 50,
+    # the walk on and off
+    p = PRESETS["final_scene"]
+    nx, ny = p.nx, p.ny
+    fops = tracer.trace_operands(
+        tracer.build_scene_record(p.build()),
+        tracer.build_camera_record(p.camera()), dev)
+    check(bool(fops.feats & tracer.FEAT_DENSE_WALK), "final_scene does not "
+          "walk")
+    kw = dict(nx=nx, ny=ny, seed=0, sample0=0, n_samples=1, max_depth=50)
+    final, final_k = {}, {}
+    for name, o in (("walk", fops), ("event", dataclasses.replace(
+            fops, feats=fops.feats & ~tracer.FEAT_DENSE_WALK))):
+        k = tracer.trace(o, sums(), **kw)
+        pl, work = sums(), {}
+        pl_ms = cuda_ms(lambda: tracer.trace_plain(o, pl.zero_(),
+                                                   counts=work, **kw),
+                        reps=1, warm=False)
+        check(bool(torch.isfinite(k).all()), f"final_scene ({name}): K1 "
+              "sums are not finite")
+        agree = within(k, pl)
+        km, pm = k.mean(dim=1), pl.mean(dim=1)
+        mean_rel = float(((km - pm).abs() / pm.abs()).max())
+        s_k = sums()
+        k_ms = cuda_ms(lambda: tracer.trace(o, s_k.zero_(), **kw), reps=3)
+        final[name] = dict(max_abs_err=float((k - pl).abs().max()),
+                           ms=k_ms, plain_ms=pl_ms,
+                           **k1_bound(o, work, nx * ny, 1))
+        final_k[name] = k
+        emit("k1e_k1d_walk_vs_plain", scene="final_scene", path=name,
+             shape=[ny, nx], spp=1, depth=50, feats=o.feats,
+             unrolled=int(o.walk.shape[1]), dynamic=int(o.dyn.shape[0]),
+             leaves=int(o.leaves.shape[0]), boxes=int(o.box.shape[0]),
+             box_leaves=int(o.bleaves.shape[0]),
+             interior=int(o.interior.shape[0]), media=int(o.med.shape[0]),
+             pixels_within_rel_1e4=agree,
+             pixels_bit_equal=float((k == pl).all(dim=0).double().mean()),
+             kernel_channel_means=km.tolist(),
+             plain_channel_means=pm.tolist(), channel_mean_max_rel=mean_rel,
+             work=work, **final[name])
+        check(agree >= 0.99, f"final_scene ({name}): only {agree:.4%} of "
+              "pixels agree")
+        check(mean_rel <= 1e-4, f"final_scene ({name}): channel means "
+              f"differ by {mean_rel:.2e}")
+    same = bool(torch.equal(final_k["walk"], final_k["event"]))
+    emit("k1d_walk_vs_event", scene="final_scene", spp=1,
+         walk_equals_event=same,
+         pixels_equal=float((final_k["walk"] == final_k["event"])
+                            .all(dim=0).double().mean()),
+         walk_ms=final["walk"]["ms"], event_ms=final["event"]["ms"])
+    del final_k
+
+    # -- 19. the render path of final_scene through the command line, and
+    # its mean at the JAX reference's size and spp
+    info, img = run_cli("final_scene")
+    emit("final_scene_path", **info, spp=p.spp, wall_primary_rays_per_s=(
+        nx * ny * p.spp / info["wall_seconds"]))
+    final_launches = info["launches"]
+    check(all(final_launches[k] > 0 for k in (
+        "k1be_sphere_trace", "k1c_texture_trace", "k1d_media_trace",
+        "k1e_box_trace", "k1d_walk_trace")),
+        f"final_scene: a kernel section never launched: {final_launches}")
+    check(img.shape == (ny, nx, 3) and bool(((img >= 0) & (img <= 1)).all()),
+          "final_scene: image has the wrong shape or range")
+    band = (0.95 * FINAL_SCENE_MEAN, 1.05 * FINAL_SCENE_MEAN)
+    cnx, cny = FINAL_SCENE_CHECK
+    info, img = run_cli("final_scene", "--nx", str(cnx), "--ny", str(cny))
+    lum = info["mean_luminance"]
+    emit("final_scene_mean", **info, spp=p.spp, band=list(band))
+    check(img.shape == (cny, cnx, 3) and band[0] < lum < band[1],
+          f"final_scene {cnx}x{cny}: mean luminance {lum:.4f} outside "
+          f"{band}")
+
     print(json.dumps({"kernels": [{
         "name": "k1a_static_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
@@ -542,6 +647,16 @@ def main() -> int:
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
         "launches": next_launches["cornell_smoke"]["k1d_media_trace"],
         **k1cd["cornell_smoke"], "library_ms": None}, {
+        "name": "k1e_box_trace", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
+        "launches": final_launches["k1e_box_trace"], **final["event"],
+        "library_ms": None}, {
+        "name": "k1d_walk_trace", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
+        "launches": final_launches["k1d_walk_trace"], **final["walk"],
+        "library_ms": None}, {
         "name": "k2_grad_fwd", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:557",

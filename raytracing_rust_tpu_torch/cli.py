@@ -2,9 +2,10 @@
 
 Counterpart of `raytracing_rust_tpu/cli.py` for what the port covers:
 `scenes` lists the presets; `render` renders one through the K1 kernel
-(`--engine kernel`, the only engine so far): every preset but final_scene.
-A scene outside the kernel's coverage exits 2 with the reason; there is no
-other engine to fall back on. `--device cuda` (the default) needs CUDA and
+(`--engine kernel`, the only engine so far): every preset renders. A scene
+outside the kernel's coverage (the lattice corners: textured lights, image
+rects, rotated or flipped image spheres, textured media) exits 2 with the
+reason; there is no other engine to fall back on. `--device cuda` (the default) needs CUDA and
 raises without it; `--device cpu` runs the kernel's plain torch version.
 """
 

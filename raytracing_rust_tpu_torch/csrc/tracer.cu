@@ -1,31 +1,39 @@
 // K1: the forward path-tracing megakernel for Hopper (sm_90a): its static
 // section (K1a), its materials, checker and sky (K1b), its noise and image
-// textures (K1c), its constant-density media on the event path (K1d) and
-// its dynamic sphere loop with moving spheres (the sphere half of K1e).
+// textures (K1c), its constant-density media on the event path and the
+// dense-medium walk (K1d), and its dynamic sphere and box loops with
+// moving spheres (K1e).
 //
 // Replaces raytracing_rust_tpu/ops/pallas_tracer.py `_make_kernel` (its
-// body `kernel`, launched by `_trace_call`) for scenes of spheres, moving
-// spheres, rects and media: camera raygen with sub-pixel jitter, a thin
-// lens and a shutter time; closest hit over the unrolled spheres and rect
-// plane-frame groups, then over the dynamic sphere table in cluster order
-// behind a per-leaf AABB cull, carrying only (t, winner) and resolving the
-// winner's normal afterwards; the nearest medium scatter event before that
-// hit (`media_events`: sphere or slab boundary in object space, free
-// flight −(1/ρ)·ln u), which takes the hit over as an isotropic scatter
-// with the medium's solid albedo; emission; a black or sky background;
+// body `kernel`, launched by `_trace_call`): camera raygen with sub-pixel
+// jitter, a thin lens and a shutter time; closest hit over the unrolled
+// spheres and rect plane-frame groups, then over the box table (`box_thin`:
+// one slab test per merged cube, entry face beyond T_MIN else exit face)
+// and the dynamic sphere table, each in cluster order behind a per-leaf
+// AABB cull, carrying only (t, winner) and resolving the winner's normal
+// afterwards (a box's face by an exact t-match, ties x → y → z); the
+// nearest medium scatter event before that hit (`media_events`: sphere or
+// slab boundary in object space, free flight −(1/ρ)·ln u), which takes the
+// hit over as an isotropic scatter with the medium's solid albedo; after a
+// scatter in a dense sealed medium, the walk (2540-2687): bounces that test
+// only the medium's interior rows and race the media up to the nearest of
+// them, with the main step's draws at the same bounce, until a segment
+// has no scatter, which the next main step then traces against the whole
+// scene with no medium event; emission; a black or sky background;
 // lambertian, metal, dielectric and diffuse-light scatter with solid, 3-D
 // checker, Perlin marble (`_noise3`/`_turb3`) or image albedo (sphere UV,
 // one texel read from the packed atlas); the depth cap; per-pixel sums
 // over the samples. The host side and the plain torch version of the same
 // computation are in ops/tracer.py (`trace_plain`).
 //
-// The kernel is a template over three flags: K1B (any of sky, checker,
-// metal, dielectric, moving spheres, noise, image, media), DYN (a dynamic
-// table) and LEAF_SMEM (its leaf table sits in shared memory). cornell_box
-// runs the instantiation with all of them off, which is K1a as it was.
-// Inside the K1B instantiations the nine features (the compat sphere-UV
-// constant counted) are branches on the launch's feature bits, the same
-// for every thread.
+// The kernel is a template over three flags: K1B (any feature bit: sky,
+// checker, metal, dielectric, moving spheres, noise, image, media, the
+// walk), DYN (a dynamic sphere table or a box table) and LEAF_SMEM (their
+// leaf tables sit in shared memory). cornell_box runs the instantiation
+// with all of them off, which is K1a as it was. Inside the K1B
+// instantiations the ten features (the compat sphere-UV constant counted)
+// are branches on the launch's feature bits, the same for every thread;
+// inside DYN the box loop is a runtime loop, zero-trip without boxes.
 //
 // What bounds it on this card: f32 ALU issue and warp divergence, not
 // bytes. Each thread owns one pixel and carries its ray in registers
@@ -33,19 +41,24 @@
 // f32, 17.7 KB), its walk order, the camera record and, when they fit,
 // the leaf AABBs sit in shared memory, where the lanes of a warp mostly
 // read the same cell (a broadcast); so do the media records (≤ MAX_MEDIA
-// rows of 32 f32). The dynamic sphere table stays in device memory, read
-// through the read-only cache, so its size is not capped by shared memory
-// (the TPU kernel's ~2k-prim SMEM cap does not carry over); a leaf table
-// too big for shared memory is read the same way, and so is the texel
-// atlas, one 4-byte load per textured hit (the TPU kernel's 8 MB VMEM cap
-// and its 8×128 gather construction do not carry over). The 7-octave
-// turbulence is ~2k f32 and SFU operations per noise hit, so noise scenes
-// are bound by issue even more than the others. The leaf cull is a
-// per-thread slab test against the thread's own best hit; the TPU kernel's
-// lane-coherent supercluster level and its OR-tree have no counterpart
-// here yet (a warp vote is later work).
-// Paths end at different bounces and cross different leaves, so a warp
-// runs until its longest path ends: this first version takes that cost.
+// rows of 32 f32) and the walk's interior rows (≤ MAX_INTERIOR rows). The
+// dynamic sphere and box tables stay in device memory, read through the
+// read-only cache, so their size is not capped by shared memory (the TPU
+// kernel's ~2k-prim SMEM cap does not carry over); leaf tables too big for
+// shared memory are read the same way, and so is the texel atlas, one
+// 4-byte load per textured hit (the TPU kernel's 8 MB VMEM cap and its
+// 8×128 gather construction do not carry over); the box winner's
+// attributes are read from its row, not through the TPU kernel's
+// transposed attribute gather. The 7-octave turbulence is ~2k f32 and SFU
+// operations per noise hit, so noise scenes are bound by issue even more
+// than the others. The leaf cull is a per-thread slab test against the
+// thread's own best hit; the TPU kernel's lane-coherent supercluster level
+// and its OR-tree have no counterpart here yet (a warp vote is later
+// work), nor has its strip pass over a regular box grid (measured a wash
+// on the TPU). Paths end at different bounces and cross different leaves,
+// so a warp runs until its longest path ends, and a thread on a walk runs
+// its cheap walk bounces while its warp-mates trace full ones: this first
+// version takes that cost.
 //
 // Numerics: no fast math, and compiled with -fmad=false, so every multiply
 // and add rounds on its own, as torch's elementwise ops do; each f32
@@ -83,6 +96,9 @@ constexpr int CLUSW = 8;
 constexpr int MAX_PRIMS = 96;
 // ops/tracer.py MAX_MEDIA
 constexpr int MAX_MEDIA = 8;
+// ops/tracer.py MAX_INTERIOR, and the interior row kinds (INT_*)
+constexpr int MAX_INTERIOR = 24;
+constexpr int INT_RECT = 1, INT_BOX = 2;
 constexpr int THREADS = 128;
 // shared memory a launch gets without opting in; the leaf table goes there
 // when it fits beside the record
@@ -91,7 +107,8 @@ constexpr size_t SMEM_BUDGET = 48 * 1024;
 // ops/tracer.py FEAT_*
 constexpr int FEAT_SKY = 1, FEAT_CHECKER = 2, FEAT_METAL = 4, FEAT_DIEL = 8,
               FEAT_MOVING = 16, FEAT_NOISE = 32, FEAT_IMAGE = 64,
-              FEAT_MEDIA = 128, FEAT_COMPAT_UV = 256, FEAT_ALL = 511;
+              FEAT_MEDIA = 128, FEAT_COMPAT_UV = 256, FEAT_DENSE_WALK = 512,
+              FEAT_ALL = 1023;
 
 constexpr float BIG = 3.0e38f;
 constexpr float T_MIN = 1e-3f;
@@ -227,6 +244,119 @@ __device__ __forceinline__ float safe_inv(float dc) {
   return fabsf(dc) < 1e-30f ? (dc >= 0.0f ? 1e30f : -1e30f) : 1.0f / dc;
 }
 
+// Entry and exit t of a ray against the box [lo, hi] (`_slab`, 1741-1754),
+// x, then y, then z.
+__device__ __forceinline__ void slab(float lx, float ly, float lz, float hx,
+                                     float hy, float hz, float ox, float oy,
+                                     float oz, float inv_dx, float inv_dy,
+                                     float inv_dz, float& tmn, float& tmx) {
+  float t0 = (lx - ox) * inv_dx, t1 = (hx - ox) * inv_dx;
+  tmn = fminf(t0, t1);
+  tmx = fmaxf(t0, t1);
+  t0 = (ly - oy) * inv_dy;
+  t1 = (hy - oy) * inv_dy;
+  tmn = fmaxf(tmn, fminf(t0, t1));
+  tmx = fminf(tmx, fmaxf(t0, t1));
+  t0 = (lz - oz) * inv_dz;
+  t1 = (hz - oz) * inv_dz;
+  tmn = fmaxf(tmn, fminf(t0, t1));
+  tmx = fminf(tmx, fmaxf(t0, t1));
+}
+
+// A uniform point in the unit ball from a scatter draw (ops/rng.py
+// in_unit_sphere): cos θ = 2u₀ − 1, φ = 2πu₁, radius cbrt(1 − u₂).
+__device__ __forceinline__ void ball(const Uniforms& us, float& bx,
+                                     float& by, float& bz) {
+  const float cos_t = 2.0f * us.x - 1.0f;
+  const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+  const float sphi = TWO_PI * us.y;
+  const float ball_r = powf(1.0f - us.z, ONE_THIRD);
+  bx = ball_r * (sin_t * cosf(sphi));
+  by = ball_r * (sin_t * sinf(sphi));
+  bz = ball_r * cos_t;
+}
+
+// The nearest constant-density medium scatter event on [T_MIN, t_cap]
+// (pallas_tracer.py `media_events`, 1431-1525; reference
+// src/medium.rs:28-56) → its t (BIG where none), and its medium in m_win.
+// Each medium's boundary is entered and left on the ray's line (sphere
+// roots, or slabs after the world→object rotation and offset); the free
+// flight −(1/ρ)·ln u takes word i % 4 of counter (pixel, sample, bounce,
+// MEDIUM + i / 4), drawn only for a medium whose interval is non-empty.
+__device__ __forceinline__ float media_race(
+    const float* s_med, int n_med, int med_box, float ox, float oy,
+    float oz, float dx, float dy, float dz, float a_dd, float inv_a,
+    float t_cap, uint32_t pix, uint32_t sample, uint32_t bounce,
+    uint32_t k0, uint32_t k1, int& m_win) {
+  const float d_len = sqrtf(a_dd);
+  const float inv_dlen = 1.0f / d_len;
+  float t_med = BIG;
+  int group = -1;
+  m_win = -1;
+  Uniforms um = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < n_med; ++i) {
+    const float* m = s_med + i * MEDREC;
+    // world → object: R₋ (o − offset), R₋ d
+    const float wx = ox - m[M_OFF], wy = oy - m[M_OFF + 1],
+                wz = oz - m[M_OFF + 2];
+    const float o0x = m[M_ROT] * wx + m[M_ROT + 1] * wy + m[M_ROT + 2] * wz;
+    const float o0y =
+        m[M_ROT + 3] * wx + m[M_ROT + 4] * wy + m[M_ROT + 5] * wz;
+    const float o0z =
+        m[M_ROT + 6] * wx + m[M_ROT + 7] * wy + m[M_ROT + 8] * wz;
+    const float d0x = m[M_ROT] * dx + m[M_ROT + 1] * dy + m[M_ROT + 2] * dz;
+    const float d0y =
+        m[M_ROT + 3] * dx + m[M_ROT + 4] * dy + m[M_ROT + 5] * dz;
+    const float d0z =
+        m[M_ROT + 6] * dx + m[M_ROT + 7] * dy + m[M_ROT + 8] * dz;
+    float enter, exit_;
+    bool ok;
+    if ((med_box >> i) & 1) {
+      // slabs on the ray's line; a tiny component becomes +1e-30
+      const float sx = fabsf(d0x) < 1e-30f ? 1e-30f : d0x;
+      const float sy = fabsf(d0y) < 1e-30f ? 1e-30f : d0y;
+      const float sz = fabsf(d0z) < 1e-30f ? 1e-30f : d0z;
+      const float lx = (m[M_DATA] - o0x) / sx, hx = (m[M_DATA + 3] - o0x) / sx;
+      const float ly = (m[M_DATA + 1] - o0y) / sy,
+                  hy = (m[M_DATA + 4] - o0y) / sy;
+      const float lz = (m[M_DATA + 2] - o0z) / sz,
+                  hz = (m[M_DATA + 5] - o0z) / sz;
+      enter = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
+      exit_ = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
+      ok = enter < exit_;
+    } else {
+      // both sphere roots on the ray's line
+      const float ocx = o0x - m[M_DATA], ocy = o0y - m[M_DATA + 1],
+                  ocz = o0z - m[M_DATA + 2];
+      const float bq = ocx * d0x + ocy * d0y + ocz * d0z;
+      const float cq = ocx * ocx + ocy * ocy + ocz * ocz - m[M_DATA + 3];
+      const float disc = bq * bq - a_dd * cq;
+      ok = disc > 0.0f;
+      const float sq = sqrtf(ok ? disc : 1.0f);
+      enter = (-bq - sq) * inv_a;
+      exit_ = (-bq + sq) * inv_a;
+    }
+    enter = fmaxf(enter, T_MIN);
+    exit_ = fminf(exit_, t_cap);
+    if (!(ok && enter < exit_)) continue;
+    if (i >> 2 != group) {
+      group = i >> 2;
+      um = philox(pix, sample, bounce, STREAM_MEDIUM + (uint32_t)group, k0,
+                  k1);
+    }
+    const int wi = i & 3;
+    const float u = wi == 0 ? um.x : wi == 1 ? um.y : wi == 2 ? um.z : um.w;
+    const float flight = -m[M_INV_RHO] * logf(fmaxf(u, 1e-37f));
+    if (!(flight < (exit_ - enter) * d_len)) continue;
+    const float t_i = enter + flight * inv_dlen;
+    if (t_i < t_med) {
+      t_med = t_i;
+      m_win = i;
+    }
+  }
+  return t_med;
+}
+
 template <bool K1B, bool DYN, bool LEAF_SMEM>
 __global__ void __launch_bounds__(THREADS)
 trace_k1(const float* __restrict__ rec, int n_rec,
@@ -238,7 +368,10 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          uint32_t k1, int sample0, int n_samples, int max_depth,
          const float* __restrict__ med, int n_med, int med_box,
          const int* __restrict__ atlas, int atlas_rows, int atlas_w,
-         uint32_t perlin_word) {
+         uint32_t perlin_word, const float* __restrict__ box, int n_box,
+         const float* __restrict__ bleaves, int n_bleaf,
+         const float* __restrict__ interior, int n_int,
+         const int* __restrict__ interior_kind, int dense) {
   // the scene's features; all off outside the K1B instantiations
   const bool sky = K1B && (feats & FEAT_SKY),
              checker = K1B && (feats & FEAT_CHECKER),
@@ -248,28 +381,42 @@ trace_k1(const float* __restrict__ rec, int n_rec,
              noise = K1B && (feats & FEAT_NOISE),
              image = K1B && (feats & FEAT_IMAGE),
              media = K1B && (feats & FEAT_MEDIA),
-             compat_uv = K1B && (feats & FEAT_COMPAT_UV);
-  // dynamic shared memory, sized by the launch: record, camera, leaves
-  // (LEAF_SMEM), media (K1B), walk
+             compat_uv = K1B && (feats & FEAT_COMPAT_UV),
+             dense_walk = K1B && (feats & FEAT_DENSE_WALK);
+  // dynamic shared memory, sized by the launch: record, camera, sphere and
+  // box leaves (LEAF_SMEM), media and interior rows (K1B), walk order,
+  // interior kinds (K1B)
   extern __shared__ float smem[];
   float* s_rec = smem;
   float* s_cam = s_rec + n_rec * REC;
   float* s_leaf = s_cam + CAMREC;
-  float* s_med = s_leaf + (LEAF_SMEM ? n_leaf * CLUSW : 0);
-  int* s_walk = (int*)(s_med + (K1B ? n_med * MEDREC : 0));
+  float* s_bleaf = s_leaf + (LEAF_SMEM ? n_leaf * CLUSW : 0);
+  float* s_med = s_bleaf + (LEAF_SMEM ? n_bleaf * CLUSW : 0);
+  float* s_int = s_med + (K1B ? n_med * MEDREC : 0);
+  int* s_walk = (int*)(s_int + (K1B ? n_int * REC : 0));
+  int* s_ikind = s_walk + 2 * n_walk;
   for (int i = threadIdx.x; i < n_rec * REC; i += blockDim.x)
     s_rec[i] = rec[i];
   for (int i = threadIdx.x; i < 2 * n_walk; i += blockDim.x)
     s_walk[i] = walk[i];
   for (int i = threadIdx.x; i < CAMREC; i += blockDim.x) s_cam[i] = cam[i];
-  if (LEAF_SMEM)
+  if (LEAF_SMEM) {
     for (int i = threadIdx.x; i < n_leaf * CLUSW; i += blockDim.x)
       s_leaf[i] = leaves[i];
-  if (K1B)
+    for (int i = threadIdx.x; i < n_bleaf * CLUSW; i += blockDim.x)
+      s_bleaf[i] = bleaves[i];
+  }
+  if (K1B) {
     for (int i = threadIdx.x; i < n_med * MEDREC; i += blockDim.x)
       s_med[i] = med[i];
+    for (int i = threadIdx.x; i < n_int * REC; i += blockDim.x)
+      s_int[i] = interior[i];
+    for (int i = threadIdx.x; i < n_int; i += blockDim.x)
+      s_ikind[i] = interior_kind[i];
+  }
   __syncthreads();
   const float* leaf = LEAF_SMEM ? s_leaf : leaves;
+  const float* bleaf = LEAF_SMEM ? s_bleaf : bleaves;
 
   const int n_pix = nx * ny;
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
@@ -310,6 +457,8 @@ trace_k1(const float* __restrict__ rec, int n_rec,
 
     float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
     float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
+    // the walk ruled out a medium event on the next segment (`skip_med`)
+    bool skip_med = false;
     for (int bounce = 0;; ++bounce) {
       const float a_dd = dx * dx + dy * dy + dz * dz;
       const float inv_a = 1.0f / a_dd;
@@ -380,17 +529,47 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         }
       }
 
-      const float* w_dyn = nullptr;  // the dynamic winner's row
+      const float* w_dyn = nullptr;  // the box or dynamic winner's row
       if (DYN) {
-        // the dynamic sphere table in cluster order, carrying only
-        // (t, winner) with its own root select (pallas_tracer.py:
-        // 2034-2071); a leaf whose AABB the ray does not cross before its
-        // best hit is skipped whole (`_slab`/`_clus_guard`, 1741-1776).
-        // With no leaf table the members are scanned flat.
+        // the box table, then the dynamic sphere table, each in cluster
+        // order, carrying only (t, winner) (pallas_tracer.py:1906-2071;
+        // boxes first, so a box keeps a tie); a leaf whose AABB the ray
+        // does not cross before its best hit is skipped whole
+        // (`_slab`/`_clus_guard`, 1741-1776). With no leaf table the
+        // members are scanned flat.
         float t_d = t_best;
-        int wd = -1;
         const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy),
                     inv_dz = safe_inv(dz);
+        int wb = -1;
+        const int n_bgroups = n_bleaf > 0 ? n_bleaf : 1;
+        for (int c = 0; c < n_bgroups; ++c) {
+          int start = 0, cnt = n_box;
+          if (n_bleaf > 0) {
+            const float* L = bleaf + c * CLUSW;
+            float tmn, tmx;
+            slab(L[0], L[1], L[2], L[3], L[4], L[5], ox, oy, oz, inv_dx,
+                 inv_dy, inv_dz, tmn, tmx);
+            if (!(tmx > fmaxf(tmn, T_MIN) && tmn < t_d)) continue;
+            start = (int)L[6];
+            cnt = (int)L[7];
+          }
+          for (int q = start; q < start + cnt; ++q) {
+            // merged cube (reference src/cube.rs:20-74): one slab test,
+            // the entry face when beyond T_MIN, else the exit face
+            const float* r = box + (size_t)q * REC;
+            float tmn, tmx;
+            slab(__ldg(r + R_C0), __ldg(r + R_C0 + 1), __ldg(r + R_C0 + 2),
+                 __ldg(r + R_DC), __ldg(r + R_DC + 1), __ldg(r + R_DC + 2),
+                 ox, oy, oz, inv_dx, inv_dy, inv_dz, tmn, tmx);
+            const float t_p = tmn > T_MIN ? tmn : tmx;
+            if (tmx > tmn && t_p > T_MIN && t_p < t_d) {
+              t_d = t_p;
+              wb = q;
+            }
+          }
+        }
+        const float t_box = t_d;
+        int wd = -1;
         const int n_groups = n_leaf > 0 ? n_leaf : 1;
         for (int c = 0; c < n_groups; ++c) {
           int start = 0, cnt = n_dyn;
@@ -451,94 +630,55 @@ trace_k1(const float* __restrict__ rec, int n_rec,
           nbz = (((oz + t_d * dz) - cz) * inv_r) * flip;
           t_best = t_d;
           w_dyn = r;
+        } else if (wb >= 0) {
+          // box winner resolve: the face whose slab t on the chosen side
+          // (entry beyond T_MIN, else exit) equals t, ties x → y → z; the
+          // normal +axis like the reference's rects, then the flip
+          // (pallas_tracer.py:2110-2150)
+          const float* r = box + (size_t)wb * REC;
+          const float t0x = (r[R_C0] - ox) * inv_dx,
+                      t1x = (r[R_DC] - ox) * inv_dx;
+          const float t0y = (r[R_C0 + 1] - oy) * inv_dy,
+                      t1y = (r[R_DC + 1] - oy) * inv_dy;
+          const float t0z = (r[R_C0 + 2] - oz) * inv_dz,
+                      t1z = (r[R_DC + 2] - oz) * inv_dz;
+          const bool use_en =
+              fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                    fminf(t0z, t1z)) > T_MIN;
+          const float tx_c = use_en ? fminf(t0x, t1x) : fmaxf(t0x, t1x);
+          const float ty_c = use_en ? fminf(t0y, t1y) : fmaxf(t0y, t1y);
+          const bool is_x = t_box == tx_c;
+          const bool is_y = t_box == ty_c && t_box != tx_c;
+          const float flip = r[R_FLIP];
+          nbx = (is_x ? 1.0f : 0.0f) * flip;
+          nby = (is_y ? 1.0f : 0.0f) * flip;
+          nbz = (is_x || is_y ? 0.0f : 1.0f) * flip;
+          t_best = t_box;
+          w_dyn = r;
         }
       }
 
       // the nearest medium scatter event on [T_MIN, closest surface]
-      // (pallas_tracer.py `media_events`, 1431-1525; reference
-      // src/medium.rs:28-56) takes the hit over: isotropic, the medium's
-      // solid albedo, no emission (pallas_tracer.py:2204-2236)
+      // takes the hit over: isotropic, the medium's solid albedo, no
+      // emission (pallas_tracer.py:2204-2236); none on a segment the walk
+      // handed over
       bool med_event = false;
+      int m_ev = -1;
       float m_alb_r = 0.0f, m_alb_g = 0.0f, m_alb_b = 0.0f;
-      if (media) {
-        const float d_len = sqrtf(a_dd);
-        const float inv_dlen = 1.0f / d_len;
-        float t_med = BIG;
-        int m_win = -1, group = -1;
-        Uniforms um = {0.0f, 0.0f, 0.0f, 0.0f};
-        for (int i = 0; i < n_med; ++i) {
-          const float* m = s_med + i * MEDREC;
-          // world → object: R₋ (o − offset), R₋ d
-          const float wx = ox - m[M_OFF], wy = oy - m[M_OFF + 1],
-                      wz = oz - m[M_OFF + 2];
-          const float o0x = m[M_ROT] * wx + m[M_ROT + 1] * wy +
-                            m[M_ROT + 2] * wz;
-          const float o0y = m[M_ROT + 3] * wx + m[M_ROT + 4] * wy +
-                            m[M_ROT + 5] * wz;
-          const float o0z = m[M_ROT + 6] * wx + m[M_ROT + 7] * wy +
-                            m[M_ROT + 8] * wz;
-          const float d0x = m[M_ROT] * dx + m[M_ROT + 1] * dy +
-                            m[M_ROT + 2] * dz;
-          const float d0y = m[M_ROT + 3] * dx + m[M_ROT + 4] * dy +
-                            m[M_ROT + 5] * dz;
-          const float d0z = m[M_ROT + 6] * dx + m[M_ROT + 7] * dy +
-                            m[M_ROT + 8] * dz;
-          float enter, exit_;
-          bool ok;
-          if ((med_box >> i) & 1) {
-            // slabs on the ray's line; a tiny component becomes +1e-30
-            const float sx = fabsf(d0x) < 1e-30f ? 1e-30f : d0x;
-            const float sy = fabsf(d0y) < 1e-30f ? 1e-30f : d0y;
-            const float sz = fabsf(d0z) < 1e-30f ? 1e-30f : d0z;
-            const float lx = (m[M_DATA] - o0x) / sx,
-                        hx = (m[M_DATA + 3] - o0x) / sx;
-            const float ly = (m[M_DATA + 1] - o0y) / sy,
-                        hy = (m[M_DATA + 4] - o0y) / sy;
-            const float lz = (m[M_DATA + 2] - o0z) / sz,
-                        hz = (m[M_DATA + 5] - o0z) / sz;
-            enter = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
-            exit_ = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
-            ok = enter < exit_;
-          } else {
-            // both sphere roots on the ray's line
-            const float ocx = o0x - m[M_DATA], ocy = o0y - m[M_DATA + 1],
-                        ocz = o0z - m[M_DATA + 2];
-            const float bq = ocx * d0x + ocy * d0y + ocz * d0z;
-            const float cq = ocx * ocx + ocy * ocy + ocz * ocz - m[M_DATA + 3];
-            const float disc = bq * bq - a_dd * cq;
-            ok = disc > 0.0f;
-            const float sq = sqrtf(ok ? disc : 1.0f);
-            enter = (-bq - sq) * inv_a;
-            exit_ = (-bq + sq) * inv_a;
-          }
-          enter = fmaxf(enter, T_MIN);
-          exit_ = fminf(exit_, t_best);
-          if (!(ok && enter < exit_)) continue;
-          // free flight −(1/ρ)·ln u, word i % 4 of the MEDIUM stream i / 4
-          if (i >> 2 != group) {
-            group = i >> 2;
-            um = philox(pix, sample, (uint32_t)bounce,
-                        STREAM_MEDIUM + (uint32_t)group, k0, k1);
-          }
-          const int wi = i & 3;
-          const float u = wi == 0 ? um.x : wi == 1 ? um.y : wi == 2 ? um.z
-                                                                    : um.w;
-          const float flight = -m[M_INV_RHO] * logf(fmaxf(u, 1e-37f));
-          if (!(flight < (exit_ - enter) * d_len)) continue;
-          const float t_i = enter + flight * inv_dlen;
-          if (t_i < t_med) {
-            t_med = t_i;
-            m_win = i;
-          }
-        }
+      if (media && !skip_med) {
+        const float t_med =
+            media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a_dd,
+                       inv_a, t_best, pix, sample, (uint32_t)bounce, k0, k1,
+                       m_ev);
         if (t_med < t_best) {
           med_event = true;
           t_best = t_med;
-          m_alb_r = s_med[m_win * MEDREC + M_ALB];
-          m_alb_g = s_med[m_win * MEDREC + M_ALB + 1];
-          m_alb_b = s_med[m_win * MEDREC + M_ALB + 2];
+          m_alb_r = s_med[m_ev * MEDREC + M_ALB];
+          m_alb_g = s_med[m_ev * MEDREC + M_ALB + 1];
+          m_alb_b = s_med[m_ev * MEDREC + M_ALB + 2];
         }
       }
+      skip_med = false;
 
       if (win < 0 && !(DYN && w_dyn != nullptr) && !med_event) {
         // a miss adds the background and ends the path (reference
@@ -552,8 +692,8 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         }
         break;
       }
-      // the winner's record row, in shared (unrolled) or device (dynamic)
-      // memory; not read after a medium event
+      // the winner's record row, in shared (unrolled) or device (box,
+      // dynamic) memory; not read after a medium event
       const float* w = DYN && w_dyn != nullptr ? w_dyn : s_rec + win * REC;
       float mat = MAT_ISOTROPIC;
       if (!med_event) {
@@ -572,13 +712,8 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       // (reference src/material.rs:49-53; ops/rng.in_unit_sphere)
       const Uniforms us =
           philox(pix, sample, (uint32_t)bounce, STREAM_SCATTER, k0, k1);
-      const float cos_t = 2.0f * us.x - 1.0f;
-      const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-      const float sphi = TWO_PI * us.y;
-      const float ball_r = powf(1.0f - us.z, ONE_THIRD);
-      const float bx = ball_r * (sin_t * cosf(sphi));
-      const float by = ball_r * (sin_t * sinf(sphi));
-      const float bz = ball_r * cos_t;
+      float bx, by, bz;
+      ball(us, bx, by, bz);
       float ndx = nbx + bx, ndy = nby + by, ndz = nbz + bz;
       if (med_event) {
         // isotropic: the bare ball sample (reference src/material.rs:164-168)
@@ -690,6 +825,92 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       thr_r = thr_r * alb_r;
       thr_g = thr_g * alb_g;
       thr_b = thr_b * alb_b;
+
+      if (dense_walk && med_event && ((dense >> m_ev) & 1) &&
+          bounce + 1 < max_depth) {
+        // the dense-medium walk (pallas_tracer.py:2540-2687): the next
+        // bounces test only the interior rows and race the media up to
+        // the nearest of them, with the main step's draws at the same
+        // bounce (MEDIUM for the flights, SCATTER for the direction)
+        int b = bounce + 1;
+        for (;;) {
+          const float a2 = dx * dx + dy * dy + dz * dz;
+          const float ia2 = 1.0f / a2;
+          const float iwx = safe_inv(dx), iwy = safe_inv(dy),
+                      iwz = safe_inv(dz);
+          // the nearest interior hit, each kind's t as the main step
+          // computes it for that row
+          float t_s = BIG;
+          for (int j = 0; j < n_int; ++j) {
+            const float* r = s_int + j * REC;
+            float t_p;
+            bool ok;
+            if (s_ikind[j] == INT_BOX) {
+              float tmn, tmx;
+              slab(r[R_C0], r[R_C0 + 1], r[R_C0 + 2], r[R_DC], r[R_DC + 1],
+                   r[R_DC + 2], ox, oy, oz, iwx, iwy, iwz, tmn, tmx);
+              t_p = tmn > T_MIN ? tmn : tmx;
+              ok = tmx > tmn && t_p > T_MIN;
+            } else if (s_ikind[j] == INT_RECT) {
+              const float d_kn = dx * r[R_KN] + dy * r[R_KN + 1] +
+                                 dz * r[R_KN + 2];
+              const bool np = d_kn != 0.0f;
+              const float ikn = 1.0f / (np ? d_kn : 1.0f);
+              t_p = (r[R_KOFF] -
+                     (ox * r[R_KN] + oy * r[R_KN + 1] + oz * r[R_KN + 2])) *
+                    ikn;
+              const float xa =
+                  (ox * r[R_AN] + oy * r[R_AN + 1] + oz * r[R_AN + 2]) +
+                  t_p * (dx * r[R_AN] + dy * r[R_AN + 1] + dz * r[R_AN + 2]) -
+                  r[R_AOFF];
+              const float yb =
+                  (ox * r[R_BN] + oy * r[R_BN + 1] + oz * r[R_BN + 2]) +
+                  t_p * (dx * r[R_BN] + dy * r[R_BN + 1] + dz * r[R_BN + 2]) -
+                  r[R_BOFF];
+              ok = np && t_p > T_MIN && xa >= r[R_A0] && xa <= r[R_A1] &&
+                   yb >= r[R_B0] && yb <= r[R_B1];
+            } else {
+              float cx, cy, cz;
+              center(r, moving, time, cx, cy, cz);
+              const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+              const float bq = ocx * dx + ocy * dy + ocz * dz;
+              const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2];
+              const float disc = bq * bq - a2 * cq;
+              ok = disc > 0.0f;
+              const float sq = sqrtf(ok ? disc : 1.0f);
+              const float t_near = (-bq - sq) * ia2;
+              const float t_far = (-bq + sq) * ia2;
+              t_p = t_near > T_MIN ? t_near : t_far;
+              ok = ok && t_p > T_MIN;
+            }
+            if (ok) t_s = fminf(t_s, t_p);
+          }
+          int mw;
+          const float t_m =
+              media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a2,
+                         ia2, t_s, pix, sample, (uint32_t)b, k0, k1, mw);
+          if (!(t_m < BIG)) {
+            // no scatter before the nearest interior surface: the next
+            // main step traces this segment with no medium event
+            skip_med = true;
+            break;
+          }
+          // isotropic rescatter at the event (reference
+          // src/material.rs:164-168)
+          const Uniforms uw =
+              philox(pix, sample, (uint32_t)b, STREAM_SCATTER, k0, k1);
+          ox = ox + t_m * dx;
+          oy = oy + t_m * dy;
+          oz = oz + t_m * dz;
+          ball(uw, dx, dy, dz);
+          thr_r = thr_r * s_med[mw * MEDREC + M_ALB];
+          thr_g = thr_g * s_med[mw * MEDREC + M_ALB + 1];
+          thr_b = thr_b * s_med[mw * MEDREC + M_ALB + 2];
+          ++b;
+          if (!((dense >> mw) & 1) || b >= max_depth) break;
+        }
+        bounce = b - 1;
+      }
     }
     acc_r += (double)rad_r;
     acc_g += (double)rad_g;
@@ -704,7 +925,8 @@ using TraceFn = void (*)(const float*, int, const int*, int, const float*,
                          int, const float*, int, const float*, int, double*,
                          int, int, uint32_t, uint32_t, int, int, int,
                          const float*, int, int, const int*, int, int,
-                         uint32_t);
+                         uint32_t, const float*, int, const float*, int,
+                         const float*, int, const int*, int);
 
 // the instantiations, indexed [K1B][DYN][LEAF_SMEM]; without a dynamic
 // table there is no leaf table
@@ -718,10 +940,13 @@ const TraceFn KERNELS[2][2][2] = {
 
 // Adds the radiance of samples [sample0, sample0 + n_samples) of every
 // pixel to sums (f64[3, nx·ny]). feats: ops/tracer.py FEAT_* bits.
-// n_leaf = 0 scans the dynamic table without the cull. med: f32[n_med,
-// MEDREC], bit i of med_box set for a box boundary; atlas: int32[atlas_rows,
-// atlas_w] packed texels; perlin_word: (perlin seed · HSEED) mod 2^32.
-// Launches on `stream`; returns cudaGetLastError() after the launch.
+// n_leaf = 0 scans the dynamic sphere table without the cull, n_bleaf = 0
+// the box table. med: f32[n_med, MEDREC], bit i of med_box set for a box
+// boundary, bit i of dense for a medium the walk serves; atlas:
+// int32[atlas_rows, atlas_w] packed texels; perlin_word: (perlin seed ·
+// HSEED) mod 2^32; box: f32[n_box, REC]; interior: f32[n_int, REC] with
+// interior_kind int32[n_int] (ops/tracer.py INT_*). Launches on `stream`;
+// returns cudaGetLastError() after the launch.
 extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int n_walk, const float* dyn, int n_dyn,
                            const float* leaves, int n_leaf, const float* cam,
@@ -730,25 +955,36 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int n_samples, int max_depth, const float* med,
                            int n_med, int med_box, const int* atlas,
                            int atlas_rows, int atlas_w, uint32_t perlin_word,
+                           const float* box, int n_box, const float* bleaves,
+                           int n_bleaf, const float* interior, int n_int,
+                           const int* interior_kind, int dense,
                            void* stream) {
   if (n_rec <= 0 || n_rec > MAX_PRIMS || n_walk < 0 || n_walk > n_rec ||
       n_dyn < 0 || n_leaf < 0 || feats < 0 || feats > FEAT_ALL ||
       n_med < 0 || n_med > MAX_MEDIA || ((feats & FEAT_MEDIA) != 0) !=
       (n_med > 0) || ((feats & FEAT_IMAGE) &&
-                      (atlas_rows <= 0 || atlas_w <= 0)))
+                      (atlas_rows <= 0 || atlas_w <= 0)) ||
+      n_box < 0 || n_bleaf < 0 || n_int < 0 || n_int > MAX_INTERIOR ||
+      ((feats & FEAT_DENSE_WALK) && (n_int == 0 || dense == 0 ||
+                                     !(feats & FEAT_MEDIA))))
     return (int)cudaErrorInvalidValue;
   if (n_dyn == 0) n_leaf = 0;
-  const size_t base = sizeof(float) * (n_rec * REC + CAMREC + n_med * MEDREC) +
-                      sizeof(int) * 2 * n_walk;
-  const size_t leaf_bytes = sizeof(float) * (size_t)n_leaf * CLUSW;
-  const bool leaf_smem = n_leaf > 0 && base + leaf_bytes <= SMEM_BUDGET;
+  if (n_box == 0) n_bleaf = 0;
+  const size_t base =
+      sizeof(float) * (n_rec * REC + CAMREC + n_med * MEDREC + n_int * REC) +
+      sizeof(int) * (2 * n_walk + n_int);
+  const size_t leaf_bytes = sizeof(float) * (size_t)(n_leaf + n_bleaf) *
+                            CLUSW;
+  const bool leaf_smem = n_leaf + n_bleaf > 0 &&
+                         base + leaf_bytes <= SMEM_BUDGET;
   const size_t smem = base + (leaf_smem ? leaf_bytes : 0);
   const int n_pix = nx * ny;
   const int blocks = (n_pix + THREADS - 1) / THREADS;
-  KERNELS[feats != 0][n_dyn > 0][leaf_smem]<<<blocks, THREADS, smem,
-                                              (cudaStream_t)stream>>>(
+  KERNELS[feats != 0][n_dyn > 0 || n_box > 0][leaf_smem]<<<
+      blocks, THREADS, smem, (cudaStream_t)stream>>>(
       rec, n_rec, walk, n_walk, dyn, n_dyn, leaves, n_leaf, cam, feats, sums,
       nx, ny, seed_lo, seed_hi, sample0, n_samples, max_depth, med, n_med,
-      med_box, atlas, atlas_rows, atlas_w, perlin_word);
+      med_box, atlas, atlas_rows, atlas_w, perlin_word, box, n_box, bleaves,
+      n_bleaf, interior, n_int, interior_kind, dense);
   return (int)cudaGetLastError();
 }

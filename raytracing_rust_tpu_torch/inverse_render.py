@@ -13,7 +13,7 @@ paths that differ only through the parameters (an L2 between independent
 Monte Carlo estimates would reward a darker, less noisy albedo).
 
     python -m raytracing_rust_tpu_torch.inverse_render [--device cuda|cpu]
-        [--steps 40] [--spp 64] [--block 4096]
+        [--steps 40] [--spp 64] [--block 4096] [--seed 0]
 
 Exits 0 iff the recovered albedo is within 0.1 (max abs) and the emission
 within 0.5 of the truth, the JAX script's criterion. Not ported: the
@@ -85,17 +85,19 @@ def with_params(scene: SceneTables, light_tex: int, box_tex: int,
 
 
 def step_inputs(cam, step: int, *, nx: int, ny: int, spp: int, block: int,
-                max_depth: int, device):
+                max_depth: int, device, seed: int = 0):
     """The step's pixel block, camera rays and trace draws, shared by the
     target and the candidate. The pixel block is a permutation prefix from
-    a generator seeded with the step; rays and draws come from Philox under
-    the key `step` (their streams differ, ops/rng.py)."""
+    a generator seeded with the key (seed << 32) | step; rays and draws come
+    from Philox under the same key (their streams differ, ops/rng.py).
+    Seed 0 keys each step by its index alone."""
+    key = (seed << 32) | step
     g = torch.Generator(device=device)
-    g.manual_seed(step)
+    g.manual_seed(key)
     pix = torch.randperm(nx * ny, generator=g, device=device)[:block]
     pid = pix.repeat_interleave(spp)
-    o, d, _ = camera_lane_rays(cam, pid, step, nx, ny)
-    u = fast_draws(step, pid.shape[0], max_depth + 1, device)
+    o, d, _ = camera_lane_rays(cam, pid, key, nx, ny)
+    u = fast_draws(key, pid.shape[0], max_depth + 1, device)
     return o, d, u
 
 
@@ -122,9 +124,12 @@ def cosine_decay(total: int, alpha: float):
 
 
 def train(*, steps: int = 40, nx: int = 200, ny: int = 200, spp: int = 64,
-          block: int = 4096, max_depth: int = 6, device="cuda",
+          block: int = 4096, max_depth: int = 6, device="cuda", seed: int = 0,
           log=print) -> dict:
     """Run the inverse render → dict(albedo, emit, losses, step_walls).
+
+    seed picks the pixel blocks, rays and draws of every step
+    (`step_inputs`); 0 is the default run.
 
     losses: the loss of every step, pulled to the host every 10 steps;
     step_walls: seconds per step of each chunk of up to 10 steps (the
@@ -153,7 +158,7 @@ def train(*, steps: int = 40, nx: int = 200, ny: int = 200, spp: int = 64,
     log(f"device: {device.type} "
         f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}), "
         f"image {nx}x{ny}, spp {spp}/step, block {block} pixels, "
-        f"depth {max_depth}")
+        f"depth {max_depth}, seed {seed}")
     log(f"target: albedo [{TRUE_ALBEDO[0]:.2f} {TRUE_ALBEDO[1]:.2f} "
         f"{TRUE_ALBEDO[2]:.2f}], emission {TRUE_EMIT:.2f}; start: albedo "
         f"[0.50 0.50 0.50], emission 3.00")
@@ -165,7 +170,7 @@ def train(*, steps: int = 40, nx: int = 200, ny: int = 200, spp: int = 64,
     losses, pending, walls = [], [], []
     t0 = time.perf_counter()
     for i in range(steps):
-        o, d, u = step_inputs(cam, i, device=device, **kw)
+        o, d, u = step_inputs(cam, i, device=device, seed=seed, **kw)
         opt.zero_grad(set_to_none=True)
         loss = path_matched_loss(target_scene, scene, light_tex, box_tex,
                                  albedo, emit, o, d, u, block=block, spp=spp,
@@ -204,11 +209,15 @@ def main(argv=None) -> int:
     ap.add_argument("--block", type=int, default=4096)
     ap.add_argument("--nx", type=int, default=200)
     ap.add_argument("--ny", type=int, default=200)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="offset of every step's pixel blocks, rays and draws")
     args = ap.parse_args(argv)
+    if not 0 <= args.seed < 1 << 31:
+        ap.error(f"--seed {args.seed} must lie in [0, 2^31)")
     if args.block > args.nx * args.ny:
         ap.error(f"--block {args.block} exceeds the {args.nx * args.ny} pixels")
     res = train(steps=args.steps, nx=args.nx, ny=args.ny, spp=args.spp,
-                block=args.block, device=args.device)
+                block=args.block, device=args.device, seed=args.seed)
     a, e = res["albedo"], res["emit"]
     err_a = float(np.abs(a - np.asarray(TRUE_ALBEDO)).max())
     err_e = abs(e - TRUE_EMIT)

@@ -82,7 +82,8 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()[0])
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.rt_trace_k1.argtypes = [p, i, p, i, p, i, p, i, p, i, p, i, i, u, u,
-                                i, i, i, p, i, i, p, i, i, u, p]
+                                i, i, i, p, i, i, p, i, i, u, p, i, p, i, p,
+                                i, p, i, p]
     lib.rt_trace_k1.restype = i
     lib.rt_grad_fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, p]
     lib.rt_grad_fwd.restype = i

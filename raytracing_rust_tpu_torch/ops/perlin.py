@@ -26,6 +26,8 @@ import math
 import numpy as np
 import torch
 
+from .rng import lanewise
+
 # hash constants (ops/perlin.py of the JAX package)
 HA, HB, HC = 0x8DA6B343, 0xD8163841, 0xCB1AB31F
 HSEED = 0x27D4EB2F
@@ -67,7 +69,8 @@ def gradient(ci, cj, ck, seed: int):
     cz = 2.0 * u1 - 1.0
     sz = torch.sqrt(torch.clamp(1.0 - cz * cz, min=0.0))
     phi = TWO_PI * u2
-    return sz * torch.cos(phi), sz * torch.sin(phi), cz
+    return (sz * lanewise(torch.cos, phi), sz * lanewise(torch.sin, phi),
+            cz)
 
 
 def noise3(px, py, pz, seed: int = 0):

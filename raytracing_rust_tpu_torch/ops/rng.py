@@ -37,6 +37,10 @@ Each 32-bit word becomes a uniform in [0, 1) as the TPU kernel's `_uniform`
 does it (`ops/pallas_tracer.py:1028-1036`): `(bits >> 8) · 2⁻²⁴`.
 The ball radius is `cbrt(1 − u)` (the XLA tier's form), not the TPU kernel's
 max of three uniforms: one Philox call then serves a whole bounce.
+
+`lanewise` evaluates the transcendental functions of the plain versions so
+that a lane's result does not depend on where it lies in its tensor (see
+there).
 """
 
 from __future__ import annotations
@@ -62,6 +66,37 @@ _MASK32 = 0xFFFFFFFF
 TWO_PI = float(np.float32(2.0 * math.pi))
 ONE_THIRD = float(np.float32(1.0) / np.float32(3.0))
 U24 = 1.0 / (1 << 24)
+
+# lanewise: pad to a multiple of this many elements, and call the function
+# on blocks of at most _LANE_BLOCK elements (a multiple of _LANE_PAD, below
+# torch's intra-op grain of 32,768, so no block is split between threads)
+_LANE_PAD = 64
+_LANE_BLOCK = 1 << 14
+
+
+def lanewise(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """fn(*xs) for an elementwise fn of same-shape tensors, computed so that
+    an element's result does not depend on its position in the tensor.
+
+    On the CPU, torch runs an elementwise function over a tensor in
+    vector-width steps and the last few elements of each thread's range
+    with a scalar routine; for some inputs of pow, atan2, sin, cos and log
+    the two round apart in the last bit, so the same lane could get other
+    bits in another chunk of samples.
+    Padding to a multiple of 64 and calling fn on blocks that are
+    multiples of 64 below the grain size puts every element on the vector
+    path. On other devices fn runs as it is: a CUDA elementwise kernel
+    computes every element alike.
+    """
+    x0 = xs[0]
+    if x0.device.type != "cpu" or x0.numel() == 0:
+        return fn(*xs)
+    n = x0.numel()
+    pad = (-n) % _LANE_PAD
+    flat = [torch.cat([x.reshape(-1), x.new_ones(pad)]) for x in xs]
+    out = torch.cat([fn(*(x[i:i + _LANE_BLOCK] for x in flat))
+                     for i in range(0, n + pad, _LANE_BLOCK)])
+    return out[:n].reshape(x0.shape)
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -127,9 +162,9 @@ def in_unit_sphere(u: torch.Tensor) -> torch.Tensor:
     cos_t = 2.0 * u[..., 0] - 1.0
     sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
     phi = TWO_PI * u[..., 1]
-    r = torch.pow(1.0 - u[..., 2], ONE_THIRD)
-    return torch.stack([r * (sin_t * torch.cos(phi)),
-                        r * (sin_t * torch.sin(phi)),
+    r = lanewise(lambda x: torch.pow(x, ONE_THIRD), 1.0 - u[..., 2])
+    return torch.stack([r * (sin_t * lanewise(torch.cos, phi)),
+                        r * (sin_t * lanewise(torch.sin, phi)),
                         r * cos_t], dim=-1)
 
 
@@ -138,5 +173,6 @@ def in_unit_disk(u: torch.Tensor) -> torch.Tensor:
     (closed form replacement for reference src/util.rs:15-24)."""
     r = torch.sqrt(u[..., 0])
     phi = TWO_PI * u[..., 1]
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+    return torch.stack([r * lanewise(torch.cos, phi),
+                        r * lanewise(torch.sin, phi),
                         torch.zeros_like(r)], dim=-1)

@@ -1,24 +1,26 @@
-"""The forward megakernel's K1a, K1b, K1c, K1d-event and sphere-K1e
-sections, and their host side.
+"""The forward megakernel (K1a-K1e) and its host side.
 
 Counterpart of `raytracing_rust_tpu/ops/pallas_tracer.py`, cut to what the
 kernel covers: spheres (moving ones included) and rect frame groups from a
 per-primitive scalar record, and, for scenes of more than UNROLL_BUDGET
-prims, a dynamic sphere table in cluster order behind a leaf AABB cull;
-lambertian, metal, dielectric and diffuse-light materials with solid, 3-D
-checker, Perlin marble and image textures (sphere UV, nearest texel from a
-packed 8-bit atlas); constant-density media with sphere or box boundaries
-under a rotation and offset, on the event path (free flight against the
-closest surface, isotropic scatter, solid albedo); a black or sky
-background; camera raygen with jitter, a thin lens and a shutter time;
-per-pixel radiance sums over a runtime sample count and depth cap. That
-covers cornell_box, two_spheres, random_spheres, two_perlin_spheres,
-simple_light, earth and cornell_smoke. Anything else raises
+prims, a dynamic sphere table and a table of axis-aligned boxes (cubes of
+six rects merged into one row), each in cluster order behind a leaf AABB
+cull; lambertian, metal, dielectric and diffuse-light materials with solid,
+3-D checker, Perlin marble and image textures (sphere UV, nearest texel
+from a packed 8-bit atlas); constant-density media with sphere or box
+boundaries under a rotation and offset (free flight against the closest
+surface, isotropic scatter, solid albedo), with the dense-medium walk for a
+medium sealed by a coincident sphere; a black or sky background; camera
+raygen with jitter, a thin lens and a shutter time; per-pixel radiance
+sums over a runtime sample count and depth cap. That covers all eight
+presets. Anything else (the lattice corners: textured lights, image
+rects, rotated or flipped image spheres, textured media) raises
 `UnsupportedScene`.
 
 * `build_scene_record` / `build_camera_record` flatten the scene tables and
   the camera into the JAX kernel's record layouts (`R_*`, `M_*`, `C_*`),
-  column for column, with the JAX package's partition of big scenes and
+  column for column, with the JAX package's partition of big scenes (box
+  merge, dynamic tables, cluster tables), its dense-medium analysis and
   its packed texel atlas.
 * `trace_operands` puts a scene's records on a device for `trace`.
 * `trace` is the wrapper of the hand-written CUDA kernel
@@ -117,12 +119,19 @@ CAMREC = 21
 # sized for this many (csrc/tracer.cu MAX_PRIMS). Bigger scenes move their
 # spheres to the dynamic table (pallas_tracer.UNROLL_BUDGET)
 UNROLL_BUDGET = 96
-# dynamic spheres per leaf cluster, and leaves per supercluster
-# (pallas_tracer.SPH_LEAF, SUP_FANOUT)
+# dynamic spheres per leaf cluster, boxes per leaf cluster, and leaves per
+# supercluster (pallas_tracer.SPH_LEAF, BOX_LEAF, SUP_FANOUT)
 SPH_LEAF = 16
+BOX_LEAF = 8
 SUP_FANOUT = 8
 # cluster table row: AABB lo (3), hi (3), first member, member count
 CLUSW = 8
+# rows of the dense-medium walk's interior set; a bigger set is dropped
+# whole and the medium takes the event path (pallas_tracer.py:980-982).
+# The kernel keeps the rows in shared memory (csrc/tracer.cu MAX_INTERIOR)
+MAX_INTERIOR = 24
+# interior row kinds (TraceOperands.interior_kind)
+INT_SPHERE, INT_RECT, INT_BOX = 0, 1, 2
 
 # static kernel features: csrc/tracer.cu runs its K1B instantiations when
 # any is set, and branches on each inside them
@@ -135,18 +144,24 @@ FEAT_NOISE = 32       # Perlin marble albedo (K1c)
 FEAT_IMAGE = 64       # image albedo: sphere UV, texel atlas (K1c)
 FEAT_MEDIA = 128      # constant-density media, event path (K1d)
 FEAT_COMPAT_UV = 256  # the reference's sphere-UV constant (src/sphere.rs:13)
-FEAT_ALL = 511
+FEAT_DENSE_WALK = 512  # the dense-medium walk (K1d walk); clearing it runs
+                       # the same scene on the event path alone
+FEAT_ALL = 1023
 K1BE_FEATS = FEAT_SKY | FEAT_CHECKER | FEAT_METAL | FEAT_DIEL | FEAT_MOVING
 
-# launches of the CUDA kernel, counted by `trace` where it launches, once
-# for each section the launch runs: K1a is the instantiation with every
-# feature off (cornell_box); a K1B launch counts as K1BE when it runs sky,
-# checker, metal, dielectric, moving spheres or the dynamic table, as K1C
-# when it shades noise or image textures, as K1D when it holds media
+# launches of the CUDA kernel, counted by `trace` after a launch succeeds,
+# once for each section the launch runs: K1a is the instantiation with
+# every feature off and no table (cornell_box); a launch counts as K1BE
+# when it runs sky, checker, metal, dielectric, moving spheres or the
+# dynamic sphere table, as K1E_BOX when it holds boxes, as K1C when it
+# shades noise or image textures, as K1D when it holds media, and as
+# K1D_WALK when it runs the dense-medium walk
 KERNEL_LAUNCHES = 0
 K1BE_LAUNCHES = 0
 K1C_LAUNCHES = 0
 K1D_LAUNCHES = 0
+K1E_BOX_LAUNCHES = 0
+K1D_WALK_LAUNCHES = 0
 
 # lanes (pixel × sample) per chunk when the caller names no chunk: the plain
 # version holds every lane's state in memory, the kernel holds none
@@ -177,6 +192,12 @@ class SceneRecord:
     med_kinds: tuple     # "msphere" / "mbox" per medium
     atlas: np.ndarray    # int32[I·H, W] texels r<<16 | g<<8 | b ([0, 0]: none)
     perlin_seed: int
+    box_rec: np.ndarray  # f32[n_box, REC] merged boxes in cluster order
+    bclus: np.ndarray    # f32[n_leaf + n_sup, CLUSW] their leaves, then supers
+    n_bclus: tuple       # (n_leaf, n_sup)
+    med_dense: tuple     # per medium: the dense-medium walk serves it
+    int_rec: np.ndarray  # f32[≤ MAX_INTERIOR, REC] the walk's interior rows
+    int_kinds: tuple     # "sphere" / "moving" / "rect" / "box" per row
 
     @property
     def feats(self) -> int:
@@ -192,7 +213,86 @@ class SceneRecord:
                 | (FEAT_NOISE if has_noise else 0)
                 | (FEAT_IMAGE if has_image else 0)
                 | (FEAT_MEDIA if self.med_kinds else 0)
-                | (FEAT_COMPAT_UV if compat_uv and has_image else 0))
+                | (FEAT_COMPAT_UV if compat_uv and has_image else 0)
+                | (FEAT_DENSE_WALK if any(self.med_dense) else 0))
+
+
+def _merge_boxes(rec, kinds):
+    """Collapse runs of 6 axis-aligned rects that tile a box (the
+    reference's Cube, src/cube.rs:20-74) into single box rows
+    (`pallas_tracer._merge_boxes`, line for line).
+
+    A run merges when its six shading fields (R_FLIP onwards) are exactly
+    equal, no face is image-textured (an image face needs its own UV
+    frame), each face is a +axis rect, and the faces cover the three axes
+    twice and span the box's extent. A box row keeps the REC layout: lo in
+    R_C0..+3, hi in R_DC..+3, the columns before R_FLIP otherwise zero, the
+    shading fields verbatim. Returns (box_rows f32[B, REC], member mask
+    bool[P]).
+    """
+    P = len(kinds)
+    member = np.zeros(P, bool)
+    boxes = []
+    tol = 1e-4
+
+    def unit_axis(v):
+        a = int(np.argmax(np.abs(v)))
+        if abs(abs(v[a]) - 1.0) > 1e-6 or np.sum(np.abs(v)) > 1.0 + 1e-6:
+            return None, 0.0
+        return a, float(np.sign(v[a]))
+
+    p = 0
+    while p + 6 <= P:
+        run = list(range(p, p + 6))
+        if (any(kinds[q] != "rect" for q in run)
+                or not np.array_equal(rec[run, R_FLIP:REC],
+                                      np.broadcast_to(rec[p, R_FLIP:REC],
+                                                      (6, REC - R_FLIP)))
+                or rec[p, R_IMG] != 0.0):
+            p += 1
+            continue
+        faces = {}   # k axis → plane offsets
+        ok = True
+        lo = np.full(3, np.inf)
+        hi = np.full(3, -np.inf)
+        planes = []
+        for q in run:
+            ka, ks = unit_axis(rec[q, R_KN:R_KN + 3])
+            aa, _ = unit_axis(rec[q, R_AN:R_AN + 3])
+            ba, _ = unit_axis(rec[q, R_BN:R_BN + 3])
+            if ka is None or aa is None or ba is None or ks < 0:
+                ok = False
+                break
+            koff = rec[q, R_KOFF] * ks
+            a0 = rec[q, R_A0] + rec[q, R_AOFF]
+            a1 = rec[q, R_A1] + rec[q, R_AOFF]
+            b0 = rec[q, R_B0] + rec[q, R_BOFF]
+            b1 = rec[q, R_B1] + rec[q, R_BOFF]
+            faces.setdefault(ka, []).append(koff)
+            planes.append((ka, aa, ba, a0, a1, b0, b1))
+            lo[ka] = min(lo[ka], koff)
+            hi[ka] = max(hi[ka], koff)
+            lo[aa], hi[aa] = min(lo[aa], a0), max(hi[aa], a1)
+            lo[ba], hi[ba] = min(lo[ba], b0), max(hi[ba], b1)
+        ok = ok and sorted(faces) == [0, 1, 2] and all(
+            len(v) == 2 for v in faces.values())
+        ok = ok and all(
+            abs(a0 - lo[aa]) <= tol and abs(a1 - hi[aa]) <= tol
+            and abs(b0 - lo[ba]) <= tol and abs(b1 - hi[ba]) <= tol
+            for _, aa, ba, a0, a1, b0, b1 in planes)
+        if not ok:
+            p += 1
+            continue
+        row = rec[p].copy()
+        row[:R_FLIP] = 0.0
+        row[R_C0:R_C0 + 3] = lo
+        row[R_DC:R_DC + 3] = hi
+        boxes.append(row)
+        member[run] = True
+        p += 6
+    box_rows = (np.stack(boxes).astype(np.float32) if boxes
+                else np.zeros((0, REC), np.float32))
+    return box_rows, member
 
 
 def _cluster_rows(rows, lo, hi, leaf):
@@ -253,24 +353,30 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
     """Flatten SceneTables into the kernel's records (host side).
 
     The columns, the partition and the flags are those of
-    `pallas_tracer.build_scene_record`. A scene of at most UNROLL_BUDGET
-    prims unrolls them all. A bigger one keeps its moving spheres in the
-    unroll when they fit, and its "hero" spheres (radius ≥ 4× the median
-    of the rest), and moves the other spheres into the dynamic table,
-    cluster-sorted with its leaf AABB table. Rect frame groups share the
-    six ray·frame dot products of one plane frame.
+    `pallas_tracer.build_scene_record` with its strip grid off
+    (`pallas_tracer.GRID` False: the boxes are clustered like the
+    spheres). A scene of at most UNROLL_BUDGET prims unrolls them all. A
+    bigger one merges its cubes into box rows (`_merge_boxes`), unrolls
+    the rects left over, its moving spheres when they fit beside them, and
+    its "hero" spheres (radius ≥ 4× the median of the rest), and moves the
+    other spheres into the dynamic table; the dynamic spheres and the
+    boxes are each cluster-sorted with a leaf AABB table. Rect frame
+    groups share the six ray·frame dot products of one plane frame.
 
     Media of nonzero density fill the per-medium record (`M_*`, the
     boundary in object space, 1/ρ, the world→object rotation and offset,
-    the solid albedo); image textures fill the texel atlas.
+    the solid albedo); image textures fill the texel atlas. A medium is
+    served by the dense-medium walk (pallas_tracer.py:889-987) when its
+    mean free path is short (4/ρ under its extent), a coincident
+    unrotated sphere seals it, and at most MAX_INTERIOR unrolled, dynamic
+    and box rows overlap the AABB of the dense media (the interior set).
 
     Raises UnsupportedScene for what the kernel does not cover, each with
     its own reason: isotropic surfaces, nested checkers, textured lights,
     image textures on rects, on rotated spheres or on flipped spheres,
     textured medium albedo, images that are not 8-bit exact, more than
-    MAX_MEDIA media, and rects in a scene of more than UNROLL_BUDGET prims
-    (the JAX kernel merges those into boxes, or unrolls them beside the
-    dynamic table).
+    MAX_MEDIA media, and more than UNROLL_BUDGET rects that form no box in
+    a scene of more than UNROLL_BUDGET prims.
     """
     scene = scene.to("cpu")
     P = scene.num_prims
@@ -436,24 +542,30 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
             ((q[..., 0] << 16) | (q[..., 1] << 8) | q[..., 2])
             .reshape(n_img * h, w))
 
-    # partition (pallas_tracer.py:793-868, spheres only): small scenes unroll
-    # everything; big ones unroll movers (when they fit) and heroes, and run
-    # the other spheres through the cluster-culled dynamic loop
+    # partition (pallas_tracer.py:793-868): small scenes unroll everything;
+    # big ones merge cubes into boxes, unroll the rects left over, movers
+    # (when they fit) and heroes, and run the other spheres and the boxes
+    # through cluster-culled dynamic loops
     dyn_rec = np.zeros((0, REC), np.float32)
     sclus = np.zeros((1, CLUSW), np.float32)
     n_sclus = (0, 0)
+    box_rec = np.zeros((0, REC), np.float32)
+    bclus = np.zeros((1, CLUSW), np.float32)
+    n_bclus = (0, 0)
     if P > UNROLL_BUDGET:
         is_rect = np.array([k == "rect" for k in kinds])
-        if is_rect.any():
+        box_rows, in_box = _merge_boxes(rec, kinds)
+        rect_left = is_rect & ~in_box
+        if int(rect_left.sum()) > UNROLL_BUDGET:
             raise UnsupportedScene(
-                f"{int(is_rect.sum())} rects in a scene of {P} prims: box "
-                "merging and rects beside the dynamic table are not in the "
-                "kernel yet")
+                f"{int(rect_left.sum())} rects that form no box in a scene "
+                f"of {P} prims exceed the unroll budget of {UNROLL_BUDGET}")
+        # movers prefer the unroll, all or none (pallas_tracer.py:812-820)
         is_moving = np.array([k == "moving" for k in kinds])
-        keep = np.zeros(P, bool)
-        if int(is_moving.sum()) <= UNROLL_BUDGET:
-            keep = is_moving
-        sph_left = ~keep
+        keep = rect_left
+        if int(rect_left.sum() + is_moving.sum()) <= UNROLL_BUDGET:
+            keep = rect_left | is_moving
+        sph_left = ~is_rect & ~keep
         if sph_left.any():
             radii = rec[:, R_RADIUS]
             med_r = float(np.median(radii[sph_left]))
@@ -466,7 +578,7 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
                 hero &= sph_left
             keep = keep | hero
         # dynamic spheres, cluster-sorted; AABB = swept center ± r
-        sph = rec[~keep]
+        sph = rec[~is_rect & ~keep]
         if len(sph):
             c0 = sph[:, R_C0:R_C0 + 3]
             c1 = c0 + sph[:, R_DC:R_DC + 3]
@@ -475,12 +587,22 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
                 np.ascontiguousarray(sph), np.minimum(c0, c1) - r_,
                 np.maximum(c0, c1) + r_, SPH_LEAF)
             n_sclus = tuple(n_sclus)
+        if len(box_rows):
+            box_rec, bclus, *n_bclus = _cluster_rows(
+                box_rows, box_rows[:, R_C0:R_C0 + 3],
+                box_rows[:, R_DC:R_DC + 3], BOX_LEAF)
+            n_bclus = tuple(n_bclus)
         rec = np.ascontiguousarray(rec[keep])
         kinds = [k for i, k in enumerate(kinds) if keep[i]]
         if not kinds:   # the kernel's record needs at least one row
             rec = np.zeros((1, REC), np.float32)
     flags += (bool(len(dyn_rec) and np.any(dyn_rec[:, R_INV_DT] != 0.0)),
               bool(scene.compat_uv_bug), False, False, False, False)
+    med_dense, int_rec, int_kinds = _dense_media(
+        med_rec, med_kinds,
+        [(rec[i], k) for i, k in enumerate(kinds)]
+        + [(r, "moving" if r[R_INV_DT] != 0.0 else "sphere") for r in dyn_rec]
+        + [(r, "box") for r in box_rec])
 
     groups = {}
     for i, k in enumerate(kinds):
@@ -490,7 +612,87 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
     rect_groups = tuple(tuple(g) for g in groups.values())
     return SceneRecord(rec, tuple(kinds), rect_groups, dyn_rec, sclus,
                        n_sclus, flags, int(scene.background), med_rec,
-                       tuple(med_kinds), atlas, int(scene.perlin_seed))
+                       tuple(med_kinds), atlas, int(scene.perlin_seed),
+                       box_rec, bclus, n_bclus, med_dense, int_rec, int_kinds)
+
+
+def _row_aabb(row, kind):
+    """World AABB of a record row (pallas_tracer.py:897-913): a sphere's
+    swept center ± |r|, a box's lo/hi, a rect's four corners ± 1e-4."""
+    if kind in ("sphere", "moving"):
+        c0 = row[R_C0:R_C0 + 3]
+        c1 = c0 + row[R_DC:R_DC + 3]
+        r = abs(row[R_RADIUS])
+        return np.minimum(c0, c1) - r, np.maximum(c0, c1) + r
+    if kind == "box":
+        return row[R_C0:R_C0 + 3].copy(), row[R_DC:R_DC + 3].copy()
+    kn, an, bn = row[R_KN:R_KN + 3], row[R_AN:R_AN + 3], row[R_BN:R_BN + 3]
+    pts = np.stack([(a + row[R_AOFF]) * an + (b + row[R_BOFF]) * bn
+                    + row[R_KOFF] * kn
+                    for a in (row[R_A0], row[R_A1])
+                    for b in (row[R_B0], row[R_B1])])
+    return pts.min(0) - 1e-4, pts.max(0) + 1e-4
+
+
+def _dense_media(med_rec, med_kinds, cand):
+    """The dense-medium walk's host analysis (pallas_tracer.py:889-987) →
+    (dense flag per medium, interior rows f32[n, REC], their kinds).
+
+    A medium is dense when 4·(1/ρ) is under its extent (a sphere's
+    diameter, a box's shortest side). The walk is sound only where a
+    coincident, unrotated sphere among the candidate rows `cand` ((row,
+    kind) of the unrolled, dynamic and box tables) seals the medium, so
+    an unsealed dense medium stays on the event path. The interior set is
+    every candidate whose AABB overlaps a dense medium's world AABB (the
+    rotated object-space corners); above MAX_INTERIOR rows it is dropped
+    and every medium takes the event path. (Textured media never walk,
+    935-940; they raise in `build_scene_record`.)
+    """
+    dense, aabbs = [], []
+    for i, mk in enumerate(med_kinds):
+        rot = med_rec[i, M_ROT:M_ROT + 9].reshape(3, 3)
+        off = med_rec[i, M_OFF:M_OFF + 3]
+        if mk == "msphere":
+            c = med_rec[i, M_DATA:M_DATA + 3]
+            r = float(np.sqrt(med_rec[i, M_DATA + 3]))
+            olo, ohi = c - r, c + r
+            extent = 2.0 * r
+        else:
+            olo, ohi = (med_rec[i, M_DATA:M_DATA + 3],
+                        med_rec[i, M_DATA + 3:M_DATA + 6])
+            extent = float((ohi - olo).min())
+        corners = np.stack([
+            rot.T @ np.array([(olo, ohi)[a][0], (olo, ohi)[b][1],
+                              (olo, ohi)[c_][2]]) + off
+            for a in (0, 1) for b in (0, 1) for c_ in (0, 1)])
+        aabbs.append((corners.min(0), corners.max(0)))
+        is_dense = bool(4.0 * med_rec[i, M_INV_RHO] < extent)
+        sealed = False
+        if is_dense and mk == "msphere" and np.allclose(rot, np.eye(3),
+                                                        atol=1e-6):
+            cw = med_rec[i, M_DATA:M_DATA + 3] + off
+            sealed = any(
+                k == "sphere"
+                and np.allclose(row[R_C0:R_C0 + 3], cw,
+                                atol=1e-3 * max(r, 1.0))
+                and abs(row[R_RADIUS] - r) < 1e-3 * r
+                for row, k in cand)
+        dense.append(is_dense and sealed)
+    int_rows, int_kinds = [], []
+    if any(dense):
+        for row, k in cand:
+            plo, phi = _row_aabb(row, k)
+            if any(d and (plo <= mhi).all() and (mlo <= phi).all()
+                   for d, (mlo, mhi) in zip(dense, aabbs)):
+                int_rows.append(row)
+                int_kinds.append(k)
+        if len(int_rows) > MAX_INTERIOR:
+            int_rows, int_kinds = [], []
+    if not int_rows:
+        dense = [False] * len(dense)
+    int_rec = (np.stack(int_rows).astype(np.float32) if int_rows
+               else np.zeros((0, REC), np.float32))
+    return tuple(dense), int_rec, tuple(int_kinds)
 
 
 def build_camera_record(cam: Camera) -> np.ndarray:
@@ -539,6 +741,11 @@ class TraceOperands:
     med_box: int          # bit i set: medium i has a box boundary, else a sphere
     atlas: torch.Tensor   # int32[rows, W] packed texels
     perlin_seed: int
+    box: torch.Tensor     # f32[n_box, REC] boxes in cluster order
+    bleaves: torch.Tensor  # f32[n_bleaf, CLUSW] their leaves; none: no cull
+    interior: torch.Tensor  # f32[n_int ≤ MAX_INTERIOR, REC] the walk's rows
+    interior_kind: torch.Tensor  # int32[n_int] INT_SPHERE / INT_RECT / INT_BOX
+    dense: int            # bit i set: medium i is served by the walk
 
 
 def trace_operands(srec: SceneRecord, cam_rec: np.ndarray,
@@ -547,13 +754,20 @@ def trace_operands(srec: SceneRecord, cam_rec: np.ndarray,
     `trace` operands on `device`."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    kind = {"sphere": INT_SPHERE, "moving": INT_SPHERE, "rect": INT_RECT,
+            "box": INT_BOX}
     return TraceOperands(
         rec=put(srec.rec), walk=put(walk_table(srec.kinds, srec.rect_groups)),
         dyn=put(srec.dyn_rec), leaves=put(srec.sclus[:srec.n_sclus[0]]),
         cam=put(cam_rec), feats=srec.feats, med=put(srec.med_rec),
         med_box=sum(1 << i for i, k in enumerate(srec.med_kinds)
                     if k == "mbox"),
-        atlas=put(srec.atlas), perlin_seed=srec.perlin_seed)
+        atlas=put(srec.atlas), perlin_seed=srec.perlin_seed,
+        box=put(srec.box_rec), bleaves=put(srec.bclus[:srec.n_bclus[0]]),
+        interior=put(srec.int_rec),
+        interior_kind=put(np.asarray([kind[k] for k in srec.int_kinds],
+                                     np.int32)),
+        dense=sum(1 << i for i, d in enumerate(srec.med_dense) if d))
 
 
 def _sphere_center(r, time, moving: bool):
@@ -566,7 +780,7 @@ def _sphere_center(r, time, moving: bool):
     return tuple(r[R_C0 + a] + frac * r[R_DC + a] for a in range(3))
 
 
-def _media_events(ops: TraceOperands, med_table, o, d, a_dd, inv_a, t_cap,
+def _media_events(med_box: int, med_table, o, d, a_dd, inv_a, t_cap,
                   draw):
     """Nearest constant-density medium scatter event on [T_MIN, t_cap]
     (pallas_tracer.py `media_events`, 1431-1525; reference
@@ -595,7 +809,7 @@ def _media_events(ops: TraceOperands, med_table, o, d, a_dd, inv_a, t_cap,
               for k in range(3)]
         d0 = [r[3 * k] * dx + r[3 * k + 1] * dy + r[3 * k + 2] * dz
               for k in range(3)]
-        if ops.med_box >> i & 1:
+        if med_box >> i & 1:
             # slabs; a tiny direction component is replaced by +1e-30 so a
             # parallel ray stays finite (pallas_tracer.py:1480-1498)
             sd = [torch.where(torch.abs(c) < 1e-30, 1e-30, c) for c in d0]
@@ -622,8 +836,8 @@ def _media_events(ops: TraceOperands, med_table, o, d, a_dd, inv_a, t_cap,
         enter = torch.clamp(enter, min=T_MIN)
         exit_ = torch.minimum(exit_, t_cap)
         ok = ok & (enter < exit_)
-        flight = -m[M_INV_RHO] * torch.log(torch.clamp(words[i % 4],
-                                                       min=1e-37))
+        flight = -m[M_INV_RHO] * rng.lanewise(
+            torch.log, torch.clamp(words[i % 4], min=1e-37))
         scat = ok & (flight < (exit_ - enter) * d_len)
         t_i = torch.where(scat, enter + flight * inv_dlen, BIG)
         better = t_i < t_med
@@ -637,8 +851,8 @@ def sphere_uv(nx, ny, nz, compat_uv: bool = False):
     pallas_tracer.py:2318-2324): u = 1 − (φ + π)/(2π), v = (θ + π/2)/π with
     φ = atan2(z, x), θ = asin(y); under compat_uv the reference's 2/π takes
     π/2's place."""
-    phi = torch.atan2(nz, nx)
-    theta = torch.asin(torch.clamp(ny, -1.0, 1.0))
+    phi = rng.lanewise(torch.atan2, nz, nx)
+    theta = rng.lanewise(torch.asin, torch.clamp(ny, -1.0, 1.0))
     uu = 1.0 - (phi + PI) * INV_2PI
     vv = (theta + (TWO_OVER_PI if compat_uv else HALF_PI)) * INV_PI
     return uu, vv
@@ -662,6 +876,162 @@ def texel_rgb(atlas, base, h, w, uu, vv):
             for sh in (16, 8, 0)]
 
 
+def _safe_inv(c):
+    """Reciprocal direction for slab tests (pallas_tracer.py `_safe_inv`,
+    1368-1376; csrc/tracer.cu `safe_inv`): an exact-zero component gets a
+    huge signed inverse, so a parallel ray outside a slab misses and one
+    inside passes."""
+    return torch.where(torch.abs(c) < 1e-30,
+                       torch.where(c >= 0.0, 1e30, -1e30), 1.0 / c)
+
+
+def _slab(lo, hi, o, inv_d):
+    """Entry and exit t of rays against axis-aligned boxes, in the kernel's
+    order (x, then y, then z); lo, hi: three per-axis box bounds and o,
+    inv_d: three per-axis ray values, broadcastable."""
+    tmn = tmx = None
+    for a in range(3):
+        t0 = (lo[a] - o[a]) * inv_d[a]
+        t1 = (hi[a] - o[a]) * inv_d[a]
+        if tmn is None:
+            tmn, tmx = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        else:
+            tmn = torch.maximum(tmn, torch.minimum(t0, t1))
+            tmx = torch.minimum(tmx, torch.maximum(t0, t1))
+    return tmn, tmx
+
+
+def _box_t(lo, hi, o, inv_d):
+    """A box's hit t (reference src/cube.rs through the slab test): the
+    entry face when it lies beyond T_MIN, else the exit face
+    (pallas_tracer.py `box_thin`, 1914-1923) → (t, ok)."""
+    tmn, tmx = _slab(lo, hi, o, inv_d)
+    t_p = torch.where(tmn > T_MIN, tmn, tmx)
+    return t_p, (tmx > tmn) & (t_p > T_MIN)
+
+
+def _sphere_t(c, r2, o, d, a_dd, inv_a):
+    """A sphere's hit t with the dynamic loop's root select: the near root
+    when it clears T_MIN, else the far one (pallas_tracer.py:2049-2061)
+    → (t, ok). c, r2, o, d, a_dd, inv_a broadcastable."""
+    ocx, ocy, ocz = o[0] - c[0], o[1] - c[1], o[2] - c[2]
+    bq = ocx * d[0] + ocy * d[1] + ocz * d[2]
+    cq = ocx * ocx + ocy * ocy + ocz * ocz - r2
+    disc = bq * bq - a_dd * cq
+    pos = disc > 0.0
+    sq = torch.sqrt(torch.where(pos, disc, 1.0))
+    t_near = (-bq - sq) * inv_a
+    t_far = (-bq + sq) * inv_a
+    t_sel = torch.where(t_near > T_MIN, t_near, t_far)
+    return t_sel, pos & (t_sel > T_MIN)
+
+
+def _block(lanes: int, device: torch.device) -> int:
+    """Table rows per broadcast block of the table loops: about 2²³ lane ×
+    row cells per temporary on the CPU, 2²⁶ on a card (where the block
+    count, not the cells, sets the time)."""
+    cells = 1 << (23 if device.type == "cpu" else 26)
+    return max(1, min(128, cells // max(lanes, 1)))
+
+
+def _crossed(leaves, o, inv_d, t_d):
+    """bool[lanes, n_leaf]: the leaf guard of the kernel's cull
+    (`_clus_guard`): the ray crosses the leaf's AABB beyond T_MIN and
+    before t_d."""
+    tmn, tmx = _slab([leaves[None, :, a] for a in range(3)],
+                     [leaves[None, :, 3 + a] for a in range(3)],
+                     [x[:, None] for x in o], [x[:, None] for x in inv_d])
+    return (tmx > torch.clamp(tmn, min=T_MIN)) & (tmn < t_d[:, None])
+
+
+def _closest_rows(hit_fn, table, leaves, o, inv_d, t_d):
+    """The first strict minimum of a table's hits below t_d → (t, winner
+    row or -1), as the kernel's culled scan in table order finds it.
+
+    hit_fn(rows, lanes) gives (t, ok) of the lanes (an index tensor)
+    against a block of rows as [lanes, block] tensors. The rows go in
+    blocks of whole leaves, each tested only on the lanes that cross one
+    of its leaves before their t_d at the start (with no leaf table, on
+    every lane): a skipped row cannot hold a hit below t_d, so the cull
+    changes the work, not the winner. Within a block the first minimum
+    wins (torch.min returns its first index), across blocks a strict <,
+    so the winner is the one a sequential scan in table order keeps.
+    """
+    t_d = t_d.clone()
+    win = torch.full(t_d.shape, -1, dtype=torch.int64, device=t_d.device)
+    step = _block(t_d.numel(), t_d.device)
+    if leaves.shape[0]:
+        cross = _crossed(leaves, o, inv_d, t_d)
+        bounds = leaves[:, 6:8].to(torch.int64).tolist()
+    else:
+        cross = torch.ones((t_d.numel(), 1), dtype=torch.bool,
+                           device=t_d.device)
+        bounds = [[0, table.shape[0]]]
+    c0 = 0
+    while c0 < len(bounds):
+        c1 = c0 + 1   # whole leaves, up to `step` rows
+        while (c1 < len(bounds)
+               and bounds[c1][0] + bounds[c1][1] - bounds[c0][0] <= step):
+            c1 += 1
+        r0, r1 = bounds[c0][0], bounds[c1 - 1][0] + bounds[c1 - 1][1]
+        lanes = torch.nonzero(cross[:, c0:c1].any(dim=1)).squeeze(1)
+        for q0 in range(r0, r1 if lanes.numel() else r0, step):
+            t_p, ok = hit_fn(table[q0:min(q0 + step, r1)], lanes)
+            mn, idx = torch.where(ok, t_p, BIG).min(dim=1)
+            cur = t_d[lanes]
+            better = mn < cur
+            t_d[lanes] = torch.where(better, mn, cur)
+            win[lanes] = torch.where(better, q0 + idx, win[lanes])
+        c0 = c1
+    return t_d, win
+
+
+def _leaf_members(leaves, o, inv_d, t_final):
+    """Members of the leaves a ray crosses before its closest hit, summed
+    over the lanes: the box member tests an exact leaf cull needs (the
+    kernel's cull, against a running best hit, tests at least these)."""
+    if leaves.shape[0] == 0:
+        return 0
+    return int((_crossed(leaves, o, inv_d, t_final)
+                * leaves[None, :, 7]).sum())
+
+
+def _interior_t(rows, kinds, o, d, a_dd, inv_a, time, moving):
+    """The nearest hit t over the dense-medium walk's interior rows (t
+    only, BIG where none; pallas_tracer.py:2571-2641). Each kind's t is the
+    expression the main step computes for that row: a sphere's as the
+    dynamic loop's (the unrolled loop's near/far select keeps the same
+    minimum), a rect's in its own plane frame as the unrolled loop does in
+    its group's, a box's as the box loop's."""
+    t_s = torch.full_like(d[0], BIG)
+    inv_d = None
+    for r, k in zip(rows, kinds):
+        if k == INT_BOX:
+            if inv_d is None:
+                inv_d = [_safe_inv(c) for c in d]
+            t_p, ok = _box_t(r[R_C0:R_C0 + 3], r[R_DC:R_DC + 3], o, inv_d)
+        elif k == INT_RECT:
+            kn, an, bn = r[R_KN:R_KN + 3], r[R_AN:R_AN + 3], r[R_BN:R_BN + 3]
+            d_kn = d[0] * kn[0] + d[1] * kn[1] + d[2] * kn[2]
+            nonpar = d_kn != 0.0
+            inv_kn = 1.0 / torch.where(nonpar, d_kn, 1.0)
+            t_p = (r[R_KOFF] - (o[0] * kn[0] + o[1] * kn[1] + o[2] * kn[2])
+                   ) * inv_kn
+            xa = ((o[0] * an[0] + o[1] * an[1] + o[2] * an[2])
+                  + t_p * (d[0] * an[0] + d[1] * an[1] + d[2] * an[2])
+                  - r[R_AOFF])
+            yb = ((o[0] * bn[0] + o[1] * bn[1] + o[2] * bn[2])
+                  + t_p * (d[0] * bn[0] + d[1] * bn[1] + d[2] * bn[2])
+                  - r[R_BOFF])
+            ok = (nonpar & (t_p > T_MIN) & (xa >= r[R_A0]) & (xa <= r[R_A1])
+                  & (yb >= r[R_B0]) & (yb <= r[R_B1]))
+        else:
+            t_p, ok = _sphere_t(_sphere_center(r, time, moving), r[R_R2], o,
+                                d, a_dd, inv_a)
+        t_s = torch.minimum(t_s, torch.where(ok, t_p, BIG))
+    return t_s
+
+
 def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
                 seed: int, sample0: int, n_samples: int, max_depth: int,
                 counts: dict | None = None) -> torch.Tensor:
@@ -671,32 +1041,38 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     sample0+n_samples−1 to sums (f64[3, nx·ny], updated in place and
     returned), in sample order, so the sums do not depend on how samples
     are split into calls. The whole chunk is one batch of (pixel × sample)
-    lanes; the bounce loop carries only the live lanes and stops when none
-    is left. Every f32 operation is the kernel's, in the kernel's order.
-    The dynamic table is scanned whole in cluster order: the kernel's leaf
-    cull skips only leaves that cannot hold a closer hit, so the winners
-    are the same.
+    lanes; each step traces one segment of every live lane, each lane at
+    its own bounce (the dense-medium walk advances its lanes by several
+    bounces between two steps), and the loop stops when no lane is left.
+    Every f32 operation is the kernel's, in the kernel's order. The box and
+    dynamic sphere tables are scanned whole, in broadcast blocks, keeping
+    the first strict minimum in table order: the kernel's leaf cull skips
+    only leaves that cannot hold a closer hit, so the winners are the same.
+    On the CPU the transcendental functions go through `rng.lanewise`, so
+    the sums do not depend on the chunking there either.
 
     counts, when given, gathers the work this run's paths needed: lane
-    bounces traced ("segments"), and lanes shaded by noise ("noise") and by
-    an image ("image").
+    bounces traced ("segments"), lanes shaded by noise ("noise") and by an
+    image ("image"), box member tests an exact leaf cull needs ("box"),
+    and lane bounces of the dense-medium walk ("walk").
     """
     dev = sums.device
     f32 = torch.float32
     n_pix = nx * ny
     (sky, checker, metal, diel, moving, noise, image, media,
-     compat_uv) = (bool(ops.feats & b) for b in (
+     compat_uv, walk) = (bool(ops.feats & b) for b in (
          FEAT_SKY, FEAT_CHECKER, FEAT_METAL, FEAT_DIEL, FEAT_MOVING,
-         FEAT_NOISE, FEAT_IMAGE, FEAT_MEDIA, FEAT_COMPAT_UV))
+         FEAT_NOISE, FEAT_IMAGE, FEAT_MEDIA, FEAT_COMPAT_UV, FEAT_DENSE_WALK))
     if counts is not None:
-        for k in ("segments", "noise", "image"):
+        for k in ("segments", "noise", "image", "box", "walk"):
             counts.setdefault(k, 0)
     # record cells as Python floats: a torch op with a Python scalar computes
     # in the tensor's f32, and every cell is an f32 value
     table = ops.rec.cpu().tolist()
     order, lead = ops.walk.cpu().tolist()
-    dyn_table = ops.dyn.cpu().tolist()
     med_table = ops.med.cpu().tolist() if media else []
+    interior = ops.interior.cpu().tolist() if walk else []
+    int_kind = ops.interior_kind.cpu().tolist() if walk else []
 
     pix = torch.arange(n_pix, dtype=torch.int64, device=dev).repeat(n_samples)
     smp = torch.arange(sample0, sample0 + n_samples, dtype=torch.int64,
@@ -731,14 +1107,25 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     rad = torch.zeros((3, lanes), dtype=f32, device=dev)
     thr = [torch.ones(lanes, dtype=f32, device=dev) for _ in range(3)]
     live = torch.arange(lanes, device=dev)
+    # each live lane's bounce, and whether the walk already ruled out a
+    # medium event on its next segment (pallas_tracer.py `skip_med`)
+    bnc = torch.zeros(lanes, dtype=torch.int64, device=dev)
+    skip = torch.zeros(lanes, dtype=torch.bool, device=dev)
     rec_dev = ops.rec.to(dev)
     dyn_dev = ops.dyn.to(dev)
+    box_dev = ops.box.to(dev)
+    leaf_dev = ops.leaves.to(dev)
+    bleaf_dev = ops.bleaves.to(dev)
     med_dev = ops.med.to(dev)
-    for bounce in range(max_depth + 1):
+    dense_of = torch.tensor([bool(ops.dense >> i & 1)
+                             for i in range(len(med_table))],
+                            dtype=torch.bool, device=dev)
+    while True:
         ox, oy, oz = o
         dx, dy, dz = d
+        n_live = dx.numel()
         if counts is not None:
-            counts["segments"] += dx.numel()
+            counts["segments"] += n_live
         a_dd = dx * dx + dy * dy + dz * dz
         inv_a = 1.0 / a_dd
         t_best = torch.full_like(dx, BIG)
@@ -797,25 +1184,59 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         w = rec_dev[win.clamp(min=0)]
         hit = win >= 0
 
-        if dyn_table:
-            # the dynamic sphere table, carrying only (t, winner), with its
-            # own root select (pallas_tracer.py:2034-2071)
-            t_d = t_best
-            wd = torch.full(dx.shape, -1, dtype=torch.int64, device=dev)
-            for q, r in enumerate(dyn_table):
-                cx, cy, cz = _sphere_center(r, time, moving)
-                ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-                bq = ocx * dx + ocy * dy + ocz * dz
-                cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2]
-                disc = bq * bq - a_dd * cq
-                pos = disc > 0.0
-                sq = torch.sqrt(torch.where(pos, disc, 1.0))
-                t_near = (-bq - sq) * inv_a
-                t_far = (-bq + sq) * inv_a
-                t_sel = torch.where(t_near > T_MIN, t_near, t_far)
-                ok = pos & (t_sel > T_MIN) & (t_sel < t_d)
-                t_d = torch.where(ok, t_sel, t_d)
-                wd = torch.where(ok, q, wd)
+        if box_dev.shape[0] or dyn_dev.shape[0]:
+            inv_d = [_safe_inv(c) for c in d]
+        if box_dev.shape[0]:
+            # the box table, then (below) the dynamic sphere table, each
+            # carrying only (t, winner) (pallas_tracer.py:1906-1942, boxes
+            # first, so the first strict minimum keeps a box on a tie)
+            t_b, wb = _closest_rows(
+                lambda rows, ln: _box_t(
+                    [rows[None, :, R_C0 + a] for a in range(3)],
+                    [rows[None, :, R_DC + a] for a in range(3)],
+                    [x[ln, None] for x in o], [x[ln, None] for x in inv_d]),
+                box_dev, bleaf_dev, o, inv_d, t_best)
+            # winner resolve: the face whose slab t on the chosen side
+            # (entry beyond T_MIN, else exit) equals t, ties x → y → z,
+            # normal +axis like the reference's rects, then the flip
+            # (pallas_tracer.py:2110-2150)
+            bwin = wb >= 0
+            wr = box_dev[wb.clamp(min=0)]
+            t0 = [(wr[:, R_C0 + a] - o[a]) * inv_d[a] for a in range(3)]
+            t1 = [(wr[:, R_DC + a] - o[a]) * inv_d[a] for a in range(3)]
+            near = [torch.minimum(t0[a], t1[a]) for a in range(3)]
+            far = [torch.maximum(t0[a], t1[a]) for a in range(3)]
+            use_en = torch.maximum(torch.maximum(near[0], near[1]),
+                                   near[2]) > T_MIN
+            tx_c = torch.where(use_en, near[0], far[0])
+            ty_c = torch.where(use_en, near[1], far[1])
+            is_x = t_b == tx_c
+            is_y = (t_b == ty_c) & (t_b != tx_c)
+            face = (is_x, is_y, ~is_x & ~is_y)
+            for a in range(3):
+                n_a = torch.where(face[a], 1.0, 0.0) * wr[:, R_FLIP]
+                nrm[a] = torch.where(bwin, n_a, nrm[a])
+            t_best = torch.where(bwin, t_b, t_best)
+            w = torch.where(bwin[:, None], wr, w)
+            hit = hit | bwin
+
+        if dyn_dev.shape[0]:
+            # the dynamic sphere table with its own root select
+            # (pallas_tracer.py:2034-2071)
+            def sphere_rows(rows, ln):
+                if moving:
+                    frac = ((time[ln, None] - rows[None, :, R_T0])
+                            * rows[None, :, R_INV_DT])
+                    c = [rows[None, :, R_C0 + a] + frac * rows[None, :, R_DC + a]
+                         for a in range(3)]
+                else:
+                    c = [rows[None, :, R_C0 + a] for a in range(3)]
+                return _sphere_t(c, rows[None, :, R_R2],
+                                 [x[ln, None] for x in o],
+                                 [x[ln, None] for x in d], a_dd[ln, None],
+                                 inv_a[ln, None])
+            t_d, wd = _closest_rows(sphere_rows, dyn_dev, leaf_dev, o, inv_d,
+                                    t_best)
             # winner resolve: normal (o + t·d − c(time))·inv_r, then the flip
             # (pallas_tracer.py:2097-2148)
             dwin = wd >= 0
@@ -831,17 +1252,20 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             t_best = torch.where(dwin, t_d, t_best)
             w = torch.where(dwin[:, None], wr, w)
             hit = hit | dwin
+        if counts is not None and box_dev.shape[0]:
+            counts["box"] += _leaf_members(bleaf_dev, o, inv_d, t_best)
 
         # a medium event before the closest surface takes the hit over
         # (pallas_tracer.py:2204-2236): isotropic, its own solid albedo, no
-        # emission, no surface texture
+        # emission, no surface texture; a lane the walk handed over with
+        # skip set has no event on this segment
         med_ev = None
         if media:
             def draw(stream):
-                return rng.draws(seed, pix[live], smp[live], bounce, stream)
-            t_med, m_win = _media_events(ops, med_table, o, d, a_dd, inv_a,
-                                         t_best, draw)
-            med_ev = t_med < t_best
+                return rng.draws(seed, pix[live], smp[live], bnc, stream)
+            t_med, m_win = _media_events(ops.med_box, med_table, o, d, a_dd,
+                                         inv_a, t_best, draw)
+            med_ev = (t_med < t_best) & ~skip
             t_best = torch.where(med_ev, t_med, t_best)
 
         # emission (reference src/color.rs:8-22); a miss adds the background
@@ -860,37 +1284,39 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
                                         other)
         # scatter while below the depth cap (src/color.rs:9); a light ends
         # the path
-        if bounce == max_depth:
+        below = bnc < max_depth
+        if not bool(below.any()):
             break
         mat = w[:, R_MAT]
         if med_ev is not None:
             mat = torch.where(med_ev, float(MAT_ISOTROPIC), mat)
             hit = hit | med_ev
-        cont = hit & (mat != MAT_DIFFUSE_LIGHT)
+        cont = hit & (mat != MAT_DIFFUSE_LIGHT) & below
         px = [o[a] + t_best * d[a] for a in range(3)]
         alb = [w[:, R_ALB_EVEN + c] for c in range(3)]
         if checker:
             # checker sign at the hit point (reference src/texture.rs:40-47)
-            sines = (torch.sin(10.0 * px[0]) * torch.sin(10.0 * px[1])
-                     * torch.sin(10.0 * px[2]))
+            sines = (rng.lanewise(torch.sin, 10.0 * px[0])
+                     * rng.lanewise(torch.sin, 10.0 * px[1])
+                     * rng.lanewise(torch.sin, 10.0 * px[2]))
             odd = (sines < 0.0) & (w[:, R_CHECKER] > 0.0)
             alb = [torch.where(odd, w[:, R_ALB_ODD + c], alb[c])
                    for c in range(3)]
         if noise:
             # marble at the hit point, 0.5·(1 + sin(scale·x + 5·turb(p)))
             # (reference src/texture.rs:66-70), on the lanes that need it
-            sel = (w[:, R_NOISE] > 0.0) & surf
+            sel = (w[:, R_NOISE] > 0.0) & surf & below
             idx = torch.nonzero(sel).squeeze(1)
             if counts is not None:
                 counts["noise"] += idx.numel()
             qx, qy, qz = (px[a][idx] for a in range(3))
             turb = perlin.turb3(qx, qy, qz, ops.perlin_seed)
             marble = torch.zeros_like(dx)
-            marble[idx] = 0.5 * (1.0 + torch.sin(w[idx, R_NSCALE] * qx
-                                                 + 5.0 * turb))
+            marble[idx] = 0.5 * (1.0 + rng.lanewise(
+                torch.sin, w[idx, R_NSCALE] * qx + 5.0 * turb))
             alb = [torch.where(sel, marble, alb[c]) for c in range(3)]
         if image:
-            sel = (w[:, R_IMG] > 0.0) & surf
+            sel = (w[:, R_IMG] > 0.0) & surf & below
             idx = torch.nonzero(sel).squeeze(1)
             if counts is not None:
                 counts["image"] += idx.numel()
@@ -909,7 +1335,7 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         # lambertian: n + a uniform point in the unit ball
         # (reference src/material.rs:49-53); isotropic: the bare ball
         # sample (src/material.rs:164-168)
-        su = rng.draws(seed, pix[live], smp[live], bounce, rng.STREAM_SCATTER)
+        su = rng.draws(seed, pix[live], smp[live], bnc, rng.STREAM_SCATTER)
         ball = rng.in_unit_sphere(torch.stack(su[:3], dim=-1)).unbind(-1)
         nd = [nrm[a] + ball[a] for a in range(3)]
         if med_ev is not None:
@@ -962,11 +1388,66 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         thr = [thr[c][keep] * alb[c][keep] for c in range(3)]
         if moving:
             time = time[keep]
+        bnc = bnc[keep] + 1
+        skip = torch.zeros_like(bnc, dtype=torch.bool)
+        if walk:
+            # a lane that just scattered in a dense medium, below the cap,
+            # walks (pallas_tracer.py:2540-2562)
+            dense_ev = med_ev & dense_of[m_win.clamp(min=0)]
+            _walk(ops.med_box, dense_of, med_table, med_dev, interior,
+                  int_kind, o, d, thr, bnc, skip, time, moving,
+                  torch.nonzero(dense_ev[keep] & (bnc < max_depth)).squeeze(1),
+                  lambda idx, b, stream: rng.draws(seed, pix[live[idx]],
+                                                   smp[live[idx]], b, stream),
+                  max_depth, counts)
 
     per_sample = rad.view(3, n_samples, n_pix)
     for i in range(n_samples):
         sums += per_sample[:, i].double()
     return sums
+
+
+def _walk(med_box, dense_of, med_table, med_dev, interior, int_kind, o, d,
+          thr, bnc, skip, time, moving, idx, draws, max_depth, counts):
+    """The dense-medium walk (pallas_tracer.py:2543-2687) of the lanes idx,
+    updating o, d, thr (lists of per-lane tensors), bnc and skip in place.
+
+    Each walk bounce tests only the interior rows, then races the media on
+    [T_MIN, nearest interior hit] with the main step's draws at the lane's
+    bounce (`draws(idx, bounce, stream)`: MEDIUM for the flights, SCATTER
+    for the direction). A scatter advances the lane to the event, takes
+    the isotropic direction, multiplies the throughput by the medium's
+    albedo and counts a bounce; the lane walks on while the event's
+    medium is dense and it is below the cap. No scatter ends the walk with
+    skip set: the next main step traces the same segment against the whole
+    scene and takes no medium event on it.
+    """
+    while idx.numel():
+        if counts is not None:
+            counts["walk"] += idx.numel()
+        wo = [x[idx] for x in o]
+        wd = [x[idx] for x in d]
+        wb = bnc[idx]
+        a2 = wd[0] * wd[0] + wd[1] * wd[1] + wd[2] * wd[2]
+        ia2 = 1.0 / a2
+        t_s = _interior_t(interior, int_kind, wo, wd, a2, ia2,
+                          time[idx] if moving else None, moving)
+        t_m, m_w = _media_events(med_box, med_table, wo, wd, a2, ia2, t_s,
+                                 lambda stream: draws(idx, wb, stream))
+        adv = t_m < BIG
+        skip[idx[~adv]] = True
+        sel = torch.nonzero(adv).squeeze(1)
+        ai = idx[sel]
+        su = draws(ai, wb[sel], rng.STREAM_SCATTER)
+        ball = rng.in_unit_sphere(torch.stack(su[:3], dim=-1)).unbind(-1)
+        mw = med_dev[m_w[sel]]
+        for a in range(3):
+            o[a][ai] = wo[a][sel] + t_m[sel] * wd[a][sel]
+            d[a][ai] = ball[a]
+            thr[a][ai] = thr[a][ai] * mw[:, M_ALB + a]
+        bnc[ai] = wb[sel] + 1
+        go = dense_of[m_w[sel]] & (bnc[ai] < max_depth)
+        idx = ai[go]
 
 
 def _check_operands(ops: TraceOperands, sums, nx, ny):
@@ -978,6 +1459,10 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
                            ("cam", ops.cam, torch.float32),
                            ("med", ops.med, torch.float32),
                            ("atlas", ops.atlas, torch.int32),
+                           ("box", ops.box, torch.float32),
+                           ("bleaves", ops.bleaves, torch.float32),
+                           ("interior", ops.interior, torch.float32),
+                           ("interior_kind", ops.interior_kind, torch.int32),
                            ("sums", sums, torch.float64)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, sums on {dev}")
@@ -994,11 +1479,12 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
             or ops.walk.shape[1] > P:
         raise ValueError(f"walk must be [2, ≤{P}], got "
                          f"{tuple(ops.walk.shape)}")
-    if ops.dyn.dim() != 2 or ops.dyn.shape[1] != REC:
-        raise ValueError(f"dyn must be [n, {REC}], got {tuple(ops.dyn.shape)}")
-    if ops.leaves.dim() != 2 or ops.leaves.shape[1] != CLUSW:
-        raise ValueError(f"leaves must be [n, {CLUSW}], got "
-                         f"{tuple(ops.leaves.shape)}")
+    for name, x, width in (("dyn", ops.dyn, REC), ("box", ops.box, REC),
+                           ("leaves", ops.leaves, CLUSW),
+                           ("bleaves", ops.bleaves, CLUSW)):
+        if x.dim() != 2 or x.shape[1] != width:
+            raise ValueError(f"{name} must be [n, {width}], got "
+                             f"{tuple(x.shape)}")
     if tuple(ops.cam.shape) != (CAMREC,):
         raise ValueError(f"cam must be [{CAMREC}], got {tuple(ops.cam.shape)}")
     if tuple(sums.shape) != (3, nx * ny):
@@ -1009,15 +1495,63 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
     if ops.med.dim() != 2 or ops.med.shape[1] != MEDREC or M > MAX_MEDIA:
         raise ValueError(f"med must be [0..{MAX_MEDIA}, {MEDREC}], got "
                          f"{tuple(ops.med.shape)}")
-    if not 0 <= ops.med_box < 1 << M:
-        raise ValueError(f"med_box {ops.med_box} names media beyond {M}")
+    if not 0 <= ops.med_box < 1 << M or not 0 <= ops.dense < 1 << M:
+        raise ValueError(f"med_box {ops.med_box} or dense {ops.dense} names "
+                         f"media beyond {M}")
     if bool(ops.feats & FEAT_MEDIA) != (M > 0):
         raise ValueError(f"FEAT_MEDIA is {bool(ops.feats & FEAT_MEDIA)} "
                          f"with {M} media")
+    n_int = ops.interior.shape[0]
+    if ops.interior.dim() != 2 or ops.interior.shape[1] != REC \
+            or n_int > MAX_INTERIOR \
+            or tuple(ops.interior_kind.shape) != (n_int,):
+        raise ValueError(f"interior must be [0..{MAX_INTERIOR}, {REC}] with "
+                         f"one kind per row, got {tuple(ops.interior.shape)} "
+                         f"and {tuple(ops.interior_kind.shape)}")
+    if ops.feats & FEAT_DENSE_WALK and not (n_int and ops.dense):
+        raise ValueError("FEAT_DENSE_WALK needs interior rows and a dense "
+                         "medium")
     if ops.atlas.dim() != 2 or ops.atlas.numel() >= 1 << 31 or (
             ops.feats & FEAT_IMAGE and ops.atlas.numel() == 0):
         raise ValueError(f"atlas must be a 2-D texel table (non-empty for "
                          f"image textures), got {tuple(ops.atlas.shape)}")
+
+
+def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
+            seed: int, sample0: int, n_samples: int, max_depth: int,
+            stream) -> None:
+    """One launch of the K1 kernel through `lib` (the library of
+    `_build.load`) on `stream`; raises if it fails, and only then counts
+    the sections it ran."""
+    global KERNEL_LAUNCHES, K1BE_LAUNCHES, K1C_LAUNCHES, K1D_LAUNCHES
+    global K1E_BOX_LAUNCHES, K1D_WALK_LAUNCHES
+    err = lib.rt_trace_k1(
+        ops.rec.data_ptr(), ops.rec.shape[0], ops.walk.data_ptr(),
+        ops.walk.shape[1], ops.dyn.data_ptr(), ops.dyn.shape[0],
+        ops.leaves.data_ptr(), ops.leaves.shape[0], ops.cam.data_ptr(),
+        ops.feats, sums.data_ptr(), nx, ny, seed & 0xFFFFFFFF, seed >> 32,
+        sample0, n_samples, max_depth, ops.med.data_ptr(),
+        ops.med.shape[0], ops.med_box, ops.atlas.data_ptr(),
+        ops.atlas.shape[0], ops.atlas.shape[1],
+        perlin.seed_word(ops.perlin_seed), ops.box.data_ptr(),
+        ops.box.shape[0], ops.bleaves.data_ptr(), ops.bleaves.shape[0],
+        ops.interior.data_ptr(), ops.interior.shape[0],
+        ops.interior_kind.data_ptr(), ops.dense, stream)
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: cudaError {err}")
+    n_dyn, n_box = ops.dyn.shape[0], ops.box.shape[0]
+    if ops.feats == 0 and n_dyn == 0 and n_box == 0:
+        KERNEL_LAUNCHES += 1
+    if ops.feats & K1BE_FEATS or n_dyn:
+        K1BE_LAUNCHES += 1
+    if n_box:
+        K1E_BOX_LAUNCHES += 1
+    if ops.feats & (FEAT_NOISE | FEAT_IMAGE):
+        K1C_LAUNCHES += 1
+    if ops.feats & FEAT_MEDIA:
+        K1D_LAUNCHES += 1
+    if ops.feats & FEAT_DENSE_WALK:
+        K1D_WALK_LAUNCHES += 1
 
 
 def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
@@ -1029,7 +1563,6 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     (building it at first use) or raises; on CPU tensors it runs
     `trace_plain`.
     """
-    global KERNEL_LAUNCHES, K1BE_LAUNCHES, K1C_LAUNCHES, K1D_LAUNCHES
     _check_operands(ops, sums, nx, ny)
     if not (0 <= seed < 1 << 64 and 0 <= sample0
             and sample0 + n_samples < 1 << 31 and 0 < nx * ny < 1 << 31
@@ -1044,26 +1577,9 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     from ._build import load
     lib = load()
     with torch.cuda.device(sums.device):
-        err = lib.rt_trace_k1(
-            ops.rec.data_ptr(), ops.rec.shape[0], ops.walk.data_ptr(),
-            ops.walk.shape[1], ops.dyn.data_ptr(), ops.dyn.shape[0],
-            ops.leaves.data_ptr(), ops.leaves.shape[0], ops.cam.data_ptr(),
-            ops.feats, sums.data_ptr(), nx, ny, seed & 0xFFFFFFFF, seed >> 32,
-            sample0, n_samples, max_depth, ops.med.data_ptr(),
-            ops.med.shape[0], ops.med_box, ops.atlas.data_ptr(),
-            ops.atlas.shape[0], ops.atlas.shape[1],
-            perlin.seed_word(ops.perlin_seed),
-            torch.cuda.current_stream().cuda_stream)
-    if ops.feats == 0 and ops.dyn.shape[0] == 0:
-        KERNEL_LAUNCHES += 1
-    if ops.feats & K1BE_FEATS or ops.dyn.shape[0]:
-        K1BE_LAUNCHES += 1
-    if ops.feats & (FEAT_NOISE | FEAT_IMAGE):
-        K1C_LAUNCHES += 1
-    if ops.feats & FEAT_MEDIA:
-        K1D_LAUNCHES += 1
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {err}")
+        _launch(lib, ops, sums, nx=nx, ny=ny, seed=seed, sample0=sample0,
+                n_samples=n_samples, max_depth=max_depth,
+                stream=torch.cuda.current_stream().cuda_stream)
     return sums
 
 

@@ -18,15 +18,32 @@ def quantize(img: np.ndarray) -> np.ndarray:
     return (255.99 * np.asarray(img)).astype(np.int32)
 
 
+# each channel value 0..255 as its decimal digits, right-padded with zero
+# bytes to 3, then a zero byte where the separator goes; read as one
+# little-endian uint32 per value, and the separators (a space after r and
+# g, a newline after b) as the high byte of one
+_TOKENS = np.zeros((256, 4), np.uint8)
+for _v in range(256):
+    _d = str(_v).encode()
+    _TOKENS[_v, :len(_d)] = np.frombuffer(_d, np.uint8)
+_TOKENS32 = _TOKENS.view("<u4").reshape(256)
+_SEPS32 = np.frombuffer(b"  \n", np.uint8).astype("<u4") << 24
+
+
 def to_ppm(img: np.ndarray) -> str:
     """float [ny, nx, 3] (row 0 = top) → P3 PPM text (tests/test.rs:59,79).
     Clipped to [0, 1] first, so an out-of-range value cannot emit an
-    invalid channel."""
+    invalid channel.
+
+    Vectorised: every channel becomes its 4-byte token from a lookup
+    (digits, zero padding, separator: a space after r and g, a newline
+    after b), and deleting the zero padding gives the bytes of the
+    reference's `r g b` lines joined by newlines."""
     img = np.clip(np.asarray(img), 0.0, 1.0)
     ny, nx, _ = img.shape
-    q = quantize(img).reshape(-1, 3)
-    body = "\n".join(f"{r} {g} {b}" for r, g, b in q.tolist())
-    return f"P3\n{nx} {ny}\n255\n{body}\n"
+    tok = _TOKENS32[quantize(img).reshape(-1, 3)] | _SEPS32   # [N, 3]
+    body = tok.tobytes().translate(None, b"\0").decode("ascii") or "\n"
+    return f"P3\n{nx} {ny}\n255\n{body}"
 
 
 def write_ppm(path: str, img: np.ndarray) -> None:

@@ -1,11 +1,14 @@
 """The port's command line: `python -m raytracing_rust_tpu_torch`."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from raytracing_rust_tpu_torch import cli
 from raytracing_rust_tpu_torch.models.builders import PRESETS
+from raytracing_rust_tpu_torch.models.scene import BG_BLACK, SceneBuilder
 from raytracing_rust_tpu_torch.utils.image_io import read_ppm
 
 
@@ -60,12 +63,39 @@ def test_render_cpu_next_week(tmp_path, scene, lo, hi):
     assert lo < img.mean() < hi
 
 
-def test_render_outside_the_kernel_exits_nonzero(tmp_path, capsys):
-    rc = cli.main(["render", "--scene", "final_scene", "--nx", "8",
+def test_render_cpu_final_scene(tmp_path):
+    """final_scene's boxes, dynamic spheres, textures, media and the
+    dense-medium walk through the command line (the kernel's plain
+    version), at a tiny size."""
+    out = tmp_path / "final_scene.ppm"
+    rc = cli.main(["render", "--scene", "final_scene", "--nx", "10", "--ny",
+                   "10", "--spp", "2", "--device", "cpu", "--out", str(out)])
+    assert rc == 0
+    img = read_ppm(str(out))
+    assert img.shape == (10, 10, 3) and np.isfinite(img).all()
+    assert 0.02 < img.mean() < 0.8
+
+
+def _textured_light_scene(device="cpu"):
+    b = SceneBuilder(background=BG_BLACK)
+    b.sphere((0, 0, 0), 1.0, b.diffuse_light(
+        b.checker(b.solid(1, 1, 1), b.solid(4, 4, 4))))
+    return b.build(device)
+
+
+def test_render_outside_the_kernel_exits_nonzero(tmp_path, capsys,
+                                                 monkeypatch):
+    """Every preset renders; a scene outside the kernel (here a preset
+    patched to a textured light, a lattice corner) exits 2 with the
+    reason, with no CPU or plain fallback and no image."""
+    p = PRESETS["cornell_box"]
+    monkeypatch.setitem(PRESETS, "cornell_box", dataclasses.replace(
+        p, build=_textured_light_scene))
+    rc = cli.main(["render", "--scene", "cornell_box", "--nx", "8",
                    "--ny", "8", "--spp", "1", "--device", "cpu", "--out",
                    str(tmp_path / "x.ppm")])
     assert rc == 2
-    assert "rects in a scene of" in capsys.readouterr().err
+    assert "emissive textures" in capsys.readouterr().err
     assert not (tmp_path / "x.ppm").exists()
 
 

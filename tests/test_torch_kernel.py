@@ -3,8 +3,8 @@
 These tests need an NVIDIA GPU with the CUDA toolkit (`nvcc`): they build
 `raytracing_rust_tpu_torch/csrc/*.cu`, launch K1 (`tracer.cu`: the K1a
 instantiation and the K1B ones with their checker, sky, metal, glass,
-moving-sphere, dynamic-table, noise, image and media sections) and K2/K3
-(`grad.cu`), and hold them
+moving-sphere, dynamic-table, box-table, noise, image, media and
+dense-medium walk sections) and K2/K3 (`grad.cu`), and hold them
 against `trace_plain`, `trace_tiles_plain` and autograd through it, run on
 the same card, the same records and the same draws. Elsewhere they skip.
 Run them on the card with
@@ -171,18 +171,71 @@ def _textured_crowd(nx, ny):
     return b.build(), _sky_view(nx, ny)
 
 
+def _cubes(nx, ny):
+    """20 cubes of three materials under the sky: 120 rects, merged into
+    20 boxes, with no unrolled prim and no dynamic sphere."""
+    r = np.random.default_rng(1)
+    b = SceneBuilder(background=BG_SKY)
+    mats = [b.lambertian(b.solid(0.7, 0.3, 0.3)),
+            b.metal(b.solid(0.8, 0.8, 0.8), 0.1),
+            b.lambertian(b.solid(0.3, 0.7, 0.3))]
+    for k in range(20):
+        x, z = k % 5 - 2.5, k // 5 - 2.0
+        b.cube((x, 0.0, z), (x + 1.0, float(r.uniform(0.2, 1.5)), z + 1.0),
+               mats[k % 3])
+    return b.build(), camera.make_camera((3, 4, 6), (0, 0.5, 0), (0, 1, 0),
+                                         40.0, nx / ny, 0.0, 6.0, 0.0, 1.0)
+
+
+def _shared_faces(nx, ny):
+    """Overlapping boxes of two colours whose top and front faces lie in
+    one plane, beside 100 small spheres (so the scene is big enough for
+    the box table): a ray through the overlap hits both boxes at exactly
+    the same t, and the first in table order must win in both versions,
+    with the same face normal."""
+    b = SceneBuilder(background=BG_SKY)
+    red = b.lambertian(b.solid(0.8, 0.1, 0.1))
+    blue = b.lambertian(b.solid(0.1, 0.1, 0.8))
+    for i in range(16):
+        b.cube((-2.0 + 0.3 * i, 0.0, -1.0), (-1.0 + 0.3 * i, 1.0, 0.0),
+               red if i % 2 else blue)
+    r = np.random.default_rng(3)
+    for _ in range(100):
+        b.sphere(r.uniform((-4, 0.05, 1), (4, 0.3, 3)), 0.05, red)
+    return b.build(), camera.make_camera((0.5, 3, 4), (0.5, 0.5, -0.5),
+                                         (0, 1, 0), 40.0, nx / ny, 0.0, 5.0,
+                                         0.0, 1.0)
+
+
+def _sealed(nx, ny):
+    """A glass sphere sealing a coincident medium of ρ 1 (walk-dense) on
+    a gray ground under a sphere light."""
+    b = SceneBuilder(background=BG_BLACK)
+    b.sphere((0, -1000, 0), 999.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    b.sphere((0, 3, 0), 3.0, b.dielectric(1.5))
+    b.medium_sphere((0, 3, 0), 3.0, 1.0, b.solid(0.8, 0.9, 0.95))
+    b.sphere((0, 9, 1), 1.5, b.diffuse_light(b.solid(6, 6, 6)))
+    return b.build(), camera.make_camera((0, 4, 14), (0, 3, 0), (0, 1, 0),
+                                         35.0, nx / ny, 0.0, 10.0, 0.0, 1.0)
+
+
+_COUNTERS = ("KERNEL_LAUNCHES", "K1BE_LAUNCHES", "K1C_LAUNCHES",
+             "K1D_LAUNCHES", "K1E_BOX_LAUNCHES", "K1D_WALK_LAUNCHES")
+
+
 def _expected_launches(ops):
-    """The counts one launch adds: K1a, K1BE, K1C, K1D."""
-    f = ops.feats
-    return ((f == 0 and ops.dyn.shape[0] == 0),
-            bool(f & tracer.K1BE_FEATS or ops.dyn.shape[0]),
+    """The counts one launch adds: K1a, K1BE, K1C, K1D, K1E boxes, K1D
+    walk."""
+    f, n_dyn, n_box = ops.feats, ops.dyn.shape[0], ops.box.shape[0]
+    return ((f == 0 and n_dyn == 0 and n_box == 0),
+            bool(f & tracer.K1BE_FEATS or n_dyn),
             bool(f & (tracer.FEAT_NOISE | tracer.FEAT_IMAGE)),
-            bool(f & tracer.FEAT_MEDIA))
+            bool(f & tracer.FEAT_MEDIA), bool(n_box),
+            bool(f & tracer.FEAT_DENSE_WALK))
 
 
 def _launches():
-    return (tracer.KERNEL_LAUNCHES, tracer.K1BE_LAUNCHES,
-            tracer.K1C_LAUNCHES, tracer.K1D_LAUNCHES)
+    return tuple(getattr(tracer, n) for n in _COUNTERS)
 
 
 def _assert_kernel_matches_plain(k, p):
@@ -200,7 +253,8 @@ def _assert_kernel_matches_plain(k, p):
     _cornell, _spheres, _oracle_spheres, _moving_checker, _random_spheres,
     _small_spheres(3000), _preset("two_perlin_spheres"),
     _preset("simple_light"), _preset("earth"), _preset("cornell_smoke"),
-    _image_sphere(16, 32, compat=True), _every_feature, _textured_crowd])
+    _image_sphere(16, 32, compat=True), _every_feature, _textured_crowd,
+    _preset("final_scene"), _cubes, _shared_faces, _sealed])
 def test_kernel_matches_plain(cuda, make):
     nx, ny = 96, 64
     ops = _operands(*make(nx, ny), cuda)
@@ -233,7 +287,8 @@ def test_kernel_leaf_cull_keeps_the_winners(cuda):
 
 
 @pytest.mark.parametrize("make", [_cornell, _moving_checker,
-                                  _preset("cornell_smoke"), _every_feature])
+                                  _preset("cornell_smoke"), _every_feature,
+                                  _preset("final_scene")])
 def test_kernel_chunking_is_bit_identical(cuda, make):
     nx, ny = 64, 64
     ops = _operands(*make(nx, ny), cuda)
@@ -245,6 +300,31 @@ def test_kernel_chunking_is_bit_identical(cuda, make):
                          n_samples=chunk, max_depth=50)
         out.append(sums)
     assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("make", [_sealed, _preset("final_scene")])
+def test_kernel_walk_on_and_off(cuda, make):
+    """The dense-medium walk and the event path alone (FEAT_DENSE_WALK
+    cleared), each held to the plain version, and to each other bit for
+    bit: the walk reads the event path's draws at the same bounces and
+    its interior set holds every surface a walking ray reaches first."""
+    nx, ny = 96, 64
+    ops = _operands(*make(nx, ny), cuda)
+    assert ops.feats & tracer.FEAT_DENSE_WALK and ops.interior.shape[0]
+    event = dataclasses.replace(ops, feats=ops.feats
+                                & ~tracer.FEAT_DENSE_WALK)
+    kw = dict(nx=nx, ny=ny, seed=6, sample0=0, n_samples=4, max_depth=50)
+    out = {}
+    for name, o in (("walk", ops), ("event", event)):
+        before = tracer.K1D_WALK_LAUNCHES
+        k = tracer.trace(o, torch.zeros((3, nx * ny), dtype=torch.float64,
+                                        device=cuda), **kw)
+        assert tracer.K1D_WALK_LAUNCHES == before + (name == "walk")
+        p = tracer.trace_plain(o, torch.zeros_like(k), **kw)
+        torch.cuda.synchronize()
+        _assert_kernel_matches_plain(k, p)
+        out[name] = k
+    assert torch.equal(out["walk"], out["event"])
 
 
 @pytest.mark.parametrize("h,w", [(300, 517), (4096, 1024)])
@@ -290,6 +370,22 @@ def test_kernel_wrapper_rejects_bad_operands(cuda):
                      **kw)
     with pytest.raises(ValueError):
         tracer.trace(dataclasses.replace(smoke, med_box=4), sums, **kw)
+    final = _operands(*_preset("final_scene")(8, 8), cuda)
+    with pytest.raises(ValueError):   # more interior rows than the walk holds
+        tracer.trace(dataclasses.replace(final, interior=final.dyn[:25],
+                                         interior_kind=torch.zeros(
+                                             25, dtype=torch.int32,
+                                             device=cuda)), sums, **kw)
+    with pytest.raises(ValueError):   # the walk without interior rows
+        tracer.trace(dataclasses.replace(final, interior=final.dyn[:0],
+                                         interior_kind=final.interior_kind[
+                                             :0]), sums, **kw)
+    with pytest.raises(ValueError):
+        tracer.trace(dataclasses.replace(final, box=final.box[:, :40]),
+                     sums, **kw)
+    with pytest.raises(TypeError):
+        tracer.trace(dataclasses.replace(final, bleaves=final.bleaves.int()),
+                     sums, **kw)
 
 
 def _grad_spheres(device):

@@ -297,19 +297,35 @@ def test_oracle_scenes_plain_match_mirror_per_half(scene_id):
     _assert_halves_agree(ours, ref, floor)
 
 
+def _sphere_fog_scene():
+    """A ground, a marble sphere and a sphere light inside a sphere of
+    thin medium (not walk-dense: 4/ρ = 10 > its diameter 8)."""
+    b = SceneBuilder(background=BG_BLACK)
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    b.sphere((0, 1, 0), 1.0, b.lambertian(b.noise(4.0)))
+    b.sphere((0, 4, 1), 1.0, b.diffuse_light(b.solid(5, 5, 5)))
+    b.medium_sphere((0, 1, 0), 4.0, 0.4, b.solid(0.9, 0.8, 0.7))
+    return b.build()
+
+
 def test_chunking_with_media_is_bit_identical():
     """The medium draws are addressed by (pixel, sample, bounce, stream), so
     chunks of 1, 3 and 8 samples give the same sums: cornell_smoke's two
-    boxes and the fog slab. (On the CPU, torch evaluates log, sin and cos
-    of a tensor's vector-width tail with the scalar library, which may
-    round an ulp apart, so a scene of many transcendental draws at shifting
-    lane positions is held bit for bit on the card instead:
-    tests/test_torch_kernel.py.)"""
+    boxes, the fog slab, two_perlin_spheres' marble and a sphere of
+    medium. On the CPU the transcendental functions go through
+    `rng.lanewise`, so a lane's pow, atan2, sin, cos and log do not depend
+    on where the chunk puts it in its tensor."""
     p = tb.PRESETS["cornell_smoke"]
+    perlin_p = tb.PRESETS["two_perlin_spheres"]
     fog_cam = tcam.make_camera((0.0, 0.0, 300.0), (0.0, 0.0, 0.0), (0, 1, 0),
                                30.0, 1.0, 0.0, 10.0, 0.0, 1.0)
     for scene, c in ((p.build(), tcam.make_camera(*_camera_args(p, 16, 16))),
-                     (_fog_slab_scene(), fog_cam)):
+                     (_fog_slab_scene(), fog_cam),
+                     (perlin_p.build(),
+                      tcam.make_camera(*_camera_args(perlin_p, 16, 16))),
+                     (_sphere_fog_scene(),
+                      tcam.make_camera((0, 2, 9), (0, 1, 0), (0, 1, 0), 40.0,
+                                       1.0, 0.1, 9.0, 0.0, 1.0))):
         ops = tracer.trace_operands(tracer.build_scene_record(scene),
                                     tracer.build_camera_record(c), "cpu")
         out = []

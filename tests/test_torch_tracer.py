@@ -195,6 +195,15 @@ def _inexact_image():
     return b.build()
 
 
+def _many_rects():
+    """One more rect than the unroll budget, none of them forming a box."""
+    b = SceneBuilder(background=BG_BLACK)
+    m = b.lambertian(b.solid(0.5, 0.5, 0.5))
+    for i in range(tracer.UNROLL_BUDGET + 1):
+        b.rect("xy", 0, 0, 1, 1, float(i), m)
+    return b.build()
+
+
 def _nine_media():
     b = SceneBuilder(background=BG_BLACK)
     b.sphere((0, -100, 0), 99.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
@@ -211,40 +220,39 @@ def _nine_media():
     ("textured_medium", "textured medium albedo"),
     ("inexact_image", "not 8-bit exact"),
     ("nine_media", "9 media"),
-    ("final_scene", "rects in a scene of")])
+    ("many_rects", "97 rects that form no box")])
 def test_scenes_outside_k1a_raise(name, why):
     """What the kernel still does not take raises, each with its reason:
     the lattice corners (textured lights, image rects, flipped image
     spheres, textured media), rotated image spheres, images that are not
-    8-bit exact, more media than the kernel holds, and final_scene's boxes
-    (rects beside the dynamic table)."""
+    8-bit exact, more media than the kernel holds, and more rects that
+    form no box than the unroll holds."""
     build = {"textured_light": _textured_light, "image_rect": _image_rect,
              "flipped_image_sphere": _flipped_image_sphere,
              "rotated_image_sphere": _rotated_image_sphere,
              "textured_medium": _textured_medium,
              "inexact_image": _inexact_image, "nine_media": _nine_media,
-             "final_scene": tb.PRESETS["final_scene"].build}[name]
+             "many_rects": _many_rects}[name]
     with pytest.raises(tracer.UnsupportedScene, match=why):
         tracer.build_scene_record(build())
 
 
 def test_metal_moving_and_too_many_prims_raise():
-    """Metal and moving spheres are in the kernel now; what still raises:
-    more than UNROLL_BUDGET rects (the JAX kernel's box merge), a rect
-    beside a dynamic sphere table, a nested checker."""
-    b = SceneBuilder(background=BG_BLACK)
-    m = b.lambertian(b.solid(0.5, 0.5, 0.5))
-    for i in range(tracer.UNROLL_BUDGET + 1):
-        b.rect("xy", 0, 0, 1, 1, float(i), m)
+    """Metal and moving spheres are in the kernel, and so are rects beside
+    a dynamic sphere table (the JAX kernel's partition: the rect unrolls,
+    and the movers that no longer fit beside it go dynamic); what still
+    raises: more than UNROLL_BUDGET rects that form no box, a nested
+    checker."""
     with pytest.raises(tracer.UnsupportedScene, match="97 rects"):
-        tracer.build_scene_record(b.build())
+        tracer.build_scene_record(_many_rects())
     b = SceneBuilder(background=BG_SKY)
     for i in range(tracer.UNROLL_BUDGET):
         b.moving_sphere((i, 0, 0), (i, 1, 0), 0.0, 1.0, 0.2,
                         b.metal(b.solid(0.5, 0.5, 0.5), 0.1))
     b.rect("xy", 0, 0, 1, 1, -5.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
-    with pytest.raises(tracer.UnsupportedScene, match="1 rects"):
-        tracer.build_scene_record(b.build())
+    srec = tracer.build_scene_record(b.build())
+    assert srec.kinds == ("rect",) and len(srec.dyn_rec) == 96
+    assert srec.flags[5] and srec.feats & tracer.FEAT_MOVING
     b = SceneBuilder(background=BG_BLACK)
     inner = b.checker(b.solid(0, 0, 0), b.solid(1, 1, 1))
     b.sphere((0, 0, 0), 1.0, b.lambertian(b.checker(inner, b.solid(1, 0, 0))))
@@ -467,7 +475,9 @@ def test_trace_on_cpu_runs_plain_and_launches_nothing():
     ops = tracer.trace_operands(
         tracer.build_scene_record(tb.cornell_box()),
         tracer.build_camera_record(tb.PRESETS["cornell_box"].camera()), "cpu")
-    before = (tracer.KERNEL_LAUNCHES, tracer.K1BE_LAUNCHES)
+    names = ("KERNEL_LAUNCHES", "K1BE_LAUNCHES", "K1C_LAUNCHES",
+             "K1D_LAUNCHES", "K1E_BOX_LAUNCHES", "K1D_WALK_LAUNCHES")
+    before = [getattr(tracer, n) for n in names]
     a = torch.zeros((3, 64), dtype=torch.float64)
     b = torch.zeros((3, 64), dtype=torch.float64)
     tracer.trace(ops, a, nx=8, ny=8, seed=1, sample0=0, n_samples=2,
@@ -475,7 +485,7 @@ def test_trace_on_cpu_runs_plain_and_launches_nothing():
     tracer.trace_plain(ops, b, nx=8, ny=8, seed=1, sample0=0, n_samples=2,
                        max_depth=5)
     assert torch.equal(a, b)
-    assert (tracer.KERNEL_LAUNCHES, tracer.K1BE_LAUNCHES) == before
+    assert [getattr(tracer, n) for n in names] == before
     with pytest.raises(TypeError):
         tracer.trace(ops, a.float(), nx=8, ny=8, seed=1, sample0=0,
                      n_samples=1, max_depth=5)
