@@ -126,8 +126,36 @@ F32_OPS_PER_S = 67e12
 K1_OPS = dict(segment=160, sample=140, sphere=20, rect=14, frame=32,
               leaf=24, member=20, medium=70, noise=2455, image=30, box=26,
               box_leaf=24, walk=120, interior=22)
-# csrc/grad.cu per alive lane bounce: the fixed work, and each prim's test
-K2_OPS = dict(segment=60, prim=16)
+# csrc/grad.cu, counted from its source: per alive lane bounce of K2 the
+# fixed work, each prim's test and a miss's sky. K3 replays K2's bounces
+# without the sky, then per lane bounce sweeps back the color chain (keep,
+# emission, the warp sums of the light and albedo columns); with the sky
+# also, per lane bounce, |d|² and the warp sums of the geometric columns,
+# and a miss's sky, a sphere winner's or a rect winner's geometric chain
+K2_OPS = dict(segment=60, prim=16, sky=27, adjoint=61, adjoint_sky=39,
+              adjoint_miss=52, adjoint_sphere=113, adjoint_rect=54)
+
+
+def k2_k3_bound(counts: dict, n_prims: int, n: int,
+                sky: bool) -> tuple[dict, dict]:
+    """(K2's, K3's) bound on the paths `trace_tiles_plain` counted: its
+    segments (lane bounces), misses, sphere hits and scatters. Operations
+    from K2_OPS; bytes: the record and each lane's o, d read once, draws
+    u words 0-2 read only on a bounce that scatters, K2's radiance written;
+    K3 reads the cotangent besides and writes d_o, d_d and d_rec once."""
+    seg, miss, sph = (counts["segments"], counts["misses"],
+                      counts["sphere_hits"])
+    replay = seg * (K2_OPS["segment"] + n_prims * K2_OPS["prim"])
+    k2 = replay + (miss * K2_OPS["sky"] if sky else 0)
+    k3 = replay + seg * K2_OPS["adjoint"]
+    if sky:
+        k3 += (seg * K2_OPS["adjoint_sky"] + miss * K2_OPS["adjoint_miss"]
+               + sph * K2_OPS["adjoint_sphere"]
+               + (seg - miss - sph) * K2_OPS["adjoint_rect"])
+    rec_bytes = 4 * n_prims * 35   # ops/grad.py REC_C f32 columns
+    read = rec_bytes + 4 * 6 * n + 4 * 3 * counts["scatters"]
+    return (bound(k2, read + 4 * 3 * n),
+            bound(k3, read + 4 * 3 * n + 4 * 6 * n + rec_bytes))
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -271,9 +299,11 @@ def main() -> int:
     for ln in log.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
-            flags = re.search(r"trace_k1I((?:Lb[01]E)+)E", m.group(1))
-            fn = (f"trace_k1<{','.join(re.findall('[01]', flags.group(1)))}>"
-                  if flags else m.group(1))
+            flags = re.search(r"(trace_k1)I((?:Lb[01]E)+)E", m.group(1))
+            plain = re.search(r"grad_fwd|grad_bwd", m.group(1))
+            fn = (f"{flags.group(1)}<"
+                  f"{','.join(re.findall('[01]', flags.group(2)))}>"
+                  if flags else plain.group(0) if plain else m.group(1))
         elif fn and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(fn, []).append(ln.split(" : ")[-1].strip())
     emit("build", seconds=time.perf_counter() - t, nvcc=_build._nvcc(),
@@ -356,10 +386,7 @@ def main() -> int:
     k2 = grad.grad_fwd(rec, o, d, u, cfg, 6)
     c2 = {}
     p2 = grad.trace_tiles_plain(rec, o, d, u, cfg, 6, counts=c2)
-    k2_ops = c2["segments"] * (K2_OPS["segment"]
-                               + rec.shape[0] * K2_OPS["prim"])
-    io_bytes = sum(t.numel() * t.element_size() for t in (rec, o, d, u))
-    k2_bound = bound(k2_ops, io_bytes + 3 * 4 * n)
+    k2_bound, k3_bound = k2_k3_bound(c2, rec.shape[0], n, "sky" in cfg[1])
     torch.cuda.synchronize()
     check(bool(torch.isfinite(k2).all()), "K2 radiance is not finite")
     agree = float(torch.isclose(k2, p2, rtol=1e-4, atol=0.0)
@@ -369,7 +396,7 @@ def main() -> int:
     k2_err = float((k2 - p2).abs().max())
     emit("k2_vs_plain", lanes=n, depth=6, lanes_within_rel_1e4=agree,
          kernel_channel_means=km.tolist(), plain_channel_means=pm.tolist(),
-         channel_mean_max_rel=mean_rel, max_abs_err=k2_err)
+         channel_mean_max_rel=mean_rel, max_abs_err=k2_err, work=c2)
     check(agree >= 0.99, f"K2: only {agree:.4%} of lanes agree within 1e-4")
     check(mean_rel <= 1e-4, f"K2: channel means differ by {mean_rel:.2e}")
 
@@ -396,9 +423,6 @@ def main() -> int:
           f"K3: d_rec off by {k3_err:.3e} at scale {scale:.3e}")
     check(min(lanes_ok) >= 0.99, f"K3: d_o/d_d lanes within 1e-4: {lanes_ok}")
     del p3
-    # K3 replays K2's bounces, then sweeps them back
-    k3_bound = bound(2 * k2_ops, io_bytes + 3 * 4 * n + 6 * 4 * n
-                     + k3[0].numel() * k3[0].element_size())
 
     # -- 8. the training path
     buf = io.StringIO()
@@ -619,6 +643,123 @@ def main() -> int:
           f"final_scene {cnx}x{cny}: mean luminance {lum:.4f} outside "
           f"{band}")
 
+    # -- 20. K2 with the sky vs plain, the geometry scene at full width
+    kw = dict(nx=200, ny=200, spp=64, block=4096, max_depth=6)
+    gtarget = ir.build_geo_scene(ir.TRUE_GEO_ALBEDO, ir.TRUE_GEO_EMIT,
+                                 ir.TRUE_TILT_DEG, device=dev)
+    gcfg = grad.fast_grad_config(gtarget)
+    grec = grad.fast_grad_record(gtarget).detach()
+    gcam = ir.geo_camera(dev)
+    o, d, u = ir.step_inputs(gcam, 0, device=dev, **kw)
+    n = o.shape[0]
+    k2 = grad.grad_fwd(grec, o, d, u, gcfg, 6)
+    c2 = {}
+    p2 = grad.trace_tiles_plain(grec, o, d, u, gcfg, 6, counts=c2)
+    torch.cuda.synchronize()
+    gk2_bound, gk3_bound = k2_k3_bound(c2, grec.shape[0], n,
+                                       "sky" in gcfg[1])
+    check(bool(torch.isfinite(k2).all()), "K2b radiance is not finite")
+    gk2_err = float((k2 - p2).abs().max())
+    bit_equal = float((k2 == p2).all(dim=1).double().mean())
+    emit("k2b_sky_vs_plain", scene="geometry", feats=sorted(gcfg[1]),
+         kinds="".join(gcfg[0]), lanes=n, depth=6,
+         lanes_bit_equal=bit_equal, max_abs_err=gk2_err,
+         kernel_channel_means=k2.mean(dim=0).tolist(),
+         plain_channel_means=p2.mean(dim=0).tolist(), work=c2)
+    check(bool(torch.equal(k2, p2)),
+          f"K2b: {bit_equal:.4%} of lanes bit-equal, max abs err {gk2_err}")
+
+    # -- 21. K3 with the geometric adjoint vs autograd, column by column
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    ct = torch.rand(n, 3, generator=g, device=dev)
+    k3 = grad.grad_bwd(grec, o, d, u, ct, gcfg, 6)
+    p3 = grad.trace_tiles_plain_vjp(grec, o, d, u, ct, gcfg, 6)
+    torch.cuda.synchronize()
+    cols, live_k, live_p = {}, [], []
+    for col in range(grad.REC_C):
+        a, b = k3[0][:, col], p3[0][:, col]
+        if a.any():
+            live_k.append(col)
+        scale = float(b.abs().max())
+        if scale > 0:
+            live_p.append(col)
+            cols[col] = dict(scale=scale,
+                             err_over_scale=float((a - b).abs().max()) / scale)
+    leaf = {}
+    for name, a, b in (("d_o", k3[1], p3[1]), ("d_d", k3[2], p3[2])):
+        scale = float(b.abs().max())
+        leaf[name] = dict(scale=scale, err_over_scale=(
+            float((a - b).abs().max()) / scale if scale else None))
+    gk3_err = float((k3[0] - p3[0]).abs().max())
+    finite = all(bool(torch.isfinite(x).all()) for x in (*k3, *p3))
+    emit("k3b_vs_autograd", scene="geometry", lanes=n, depth=6,
+         d_rec_columns=cols, live_columns=live_k, autograd_live_columns=live_p,
+         finite=finite, d_rec_max_abs_err=gk3_err, **leaf,
+         d_rec_kn_koff=k3[0][:, [grad.C_KN, grad.C_KN + 1, grad.C_KN + 2,
+                                 grad.C_KOFF]].tolist())
+    check(finite, "K3b: a gradient is not finite")
+    check(live_k == live_p, f"K3b: live columns {live_k} vs {live_p}")
+    check(all(v["err_over_scale"] <= 1e-4 for v in cols.values()),
+          f"K3b: a d_rec column off by more than 1e-4 of its scale: {cols}")
+    check(all(v["scale"] > 0 and v["err_over_scale"] <= 1e-4
+              for v in leaf.values()), f"K3b: d_o/d_d off: {leaf}")
+    del p3
+
+    # -- 22. the geometry training path
+    argv = ["--geometry", "--device", "cuda"]
+    buf = io.StringIO()
+    reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = ir.main(argv)
+    wall = time.perf_counter() - t
+    geo_launches = {"k2b_sky_fwd": grad.K2_LAUNCHES,
+                    "k3b_geometric_bwd": grad.K3_LAUNCHES}
+    text = buf.getvalue()
+    rec_line = re.search(r"max abs err ([0-9.]+)\), emission ([0-9.]+) "
+                         r"\(err ([0-9.]+)\), tilt (-?[0-9.]+)° "
+                         r"\(err ([0-9.]+)°\)", text)
+    step_line = re.search(r"step time: ([0-9.]+)s", text)
+    vals = ([float(x) for x in rec_line.groups()] if rec_line
+            else [None] * 5)
+    emit("geometry_train_path", argv=argv, rc=rc, wall_seconds=wall,
+         launches=geo_launches, albedo_max_abs_err=vals[0],
+         emission=vals[1], emission_err=vals[2], tilt_deg=vals[3],
+         tilt_err_deg=vals[4],
+         median_step_seconds=float(step_line.group(1)) if step_line else None,
+         log=text.splitlines())
+    check(all(v > 0 for v in geo_launches.values()),
+          f"a kernel of the geometry path never launched: {geo_launches}")
+    check(rc == 0 and rec_line is not None,
+          f"inverse_render.main({argv}) returned {rc}")
+
+    # -- 23. times at the geometry step's full width
+    gk2_ms = cuda_ms(lambda: grad.grad_fwd(grec, o, d, u, gcfg, 6), reps=20)
+    gk3_ms = cuda_ms(lambda: grad.grad_bwd(grec, o, d, u, ct, gcfg, 6),
+                     reps=20)
+    gp2_ms = cuda_ms(lambda: grad.trace_tiles_plain(grec, o, d, u, gcfg, 6),
+                     reps=3)
+    gp3_ms = cuda_ms(lambda: grad.trace_tiles_plain_vjp(grec, o, d, u, ct,
+                                                        gcfg, 6), reps=3)
+    gscene = ir.build_geo_scene(device=dev)
+    light_tex, cube_tex = ir.geo_param_rows(gscene)
+    albedo = torch.tensor(ir.START_GEO_ALBEDO, device=dev, requires_grad=True)
+    emission = torch.tensor(ir.START_GEO_EMIT, device=dev, requires_grad=True)
+    theta = torch.tensor(ir.START_THETA, device=dev, requires_grad=True)
+
+    def geo_step():
+        oo, dd, uu = ir.step_inputs(gcam, 1, device=dev, **kw)
+        ir.path_matched_loss(gtarget, gscene, light_tex, cube_tex, albedo,
+                             emission, oo, dd, uu, block=4096, spp=64,
+                             max_depth=6, cfg=gcfg, theta=theta).backward()
+    gstep_ms = cuda_ms(geo_step, reps=10)
+    emit("geometry_grad_times", lanes=n, depth=6, k2_ms=gk2_ms, k3_ms=gk3_ms,
+         plain_fwd_ms=gp2_ms, plain_fwd_bwd_ms=gp3_ms, step_ms=gstep_ms,
+         k2_bound_ms=gk2_bound["bound_ms"], k3_bound_ms=gk3_bound["bound_ms"],
+         kernel_fwd_bwd_sample_paths_per_s=n / ((gk2_ms + gk3_ms) * 1e-3),
+         step_candidate_sample_paths_per_s=n / (gstep_ms * 1e-3))
+
     print(json.dumps({"kernels": [{
         "name": "k1a_static_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
@@ -668,7 +809,19 @@ def main() -> int:
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:567",
         "launches": train_launches["k3_grad_bwd"],
         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": p3_ms, **k3_bound,
-        "library_ms": None}]}),
+        "library_ms": None}, {
+        "name": "k2b_sky_fwd", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:557",
+        "launches": geo_launches["k2b_sky_fwd"],
+        "max_abs_err": gk2_err, "ms": gk2_ms, "plain_ms": gp2_ms,
+        **gk2_bound, "library_ms": None}, {
+        "name": "k3b_geometric_bwd", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:567",
+        "launches": geo_launches["k3b_geometric_bwd"],
+        "max_abs_err": gk3_err, "ms": gk3_ms, "plain_ms": gp3_ms,
+        **gk3_bound, "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

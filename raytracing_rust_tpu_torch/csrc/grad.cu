@@ -7,7 +7,8 @@
 // `trace_tiles_plain` in ops/grad.py, a torch twin of `_trace_tiles`, and
 // torch autograd through it is K3's. Scope: spheres and rects from the
 // per-prim record f32[P, 35] (ops/grad.py C_*), lambertian and
-// diffuse-light materials, solid textures, the black background.
+// diffuse-light materials, solid textures, the black background or the
+// sky (`has_sky`, launch-uniform).
 //
 // Layout: one thread per lane; rays o, d f32[3, N], draws u
 // f32[n_bounce, 4, N] and radiance f32[3, N] are lane-major, so a warp reads
@@ -19,30 +20,44 @@
 //
 // What bounds them on this card: f32 issue in the closest-hit loop and
 // warp divergence (a warp runs until its longest path ends), not bytes:
-// per lane K2 reads 6 + 4·n_bounce floats and writes 3.
+// per lane K2 reads o and d (6 floats) and, on each bounce that scatters,
+// draws 0-2 of u (3 floats; word 3 is never read), and writes 3.
 //
-// The adjoint (K3). In this scope the radiance is
-//     rad = sum_b  alive_b · hit_b · light_b · thr_b · albedo_b
-// where every factor but alive and thr is a record value picked by the
-// bounce's winner, and hit, keep and the winner come from comparisons.
-// o, d and the geometric columns reach the radiance only through those
-// comparisons, so their exact cotangent is zero (jax.vjp of _trace_tiles
-// gives the same zeros; tests/test_torch_grad.py holds it): K3 writes
-// d_o = d_d = 0 and carries the color chain only. It replays the forward
-// and keeps a per-lane tape (winner, throughput, alive) of each bounce, then
-// sweeps the bounces in reverse with the masks that carry gradient: alive,
-// the light column both as emission gain and as ok = 1 − light, and
-// cont = gain · ok. Each bounce adds into one row of d_rec, its winner's:
-// lanes of a warp with the same winner are summed by shuffles, then one
-// lane adds the sum to the block's shared-memory d_rec; each block writes
-// its partial d_rec[blockIdx] and torch sums the partials. The replay stops
-// one bounce after a path dies (the "ghost" bounce): a dead path re-hits the
-// same prim, whose light column (1 for a light, 0 else) zeroes every later
-// cotangent, so the sweep is exact.
+// The adjoint (K3), written by hand: what jax.vjp derives from
+// _trace_tiles for this scope. K3 replays the forward and keeps a per-lane
+// tape of each bounce (winner and sphere root, throughput, alive, o, d, t:
+// 13 words × 17 bounces in local memory), then sweeps the bounces in
+// reverse carrying the cotangents of the state (o, d, throughput, alive)
+// from bounce b+1 back to bounce b:
+//   * keep (cont = gain · ok > 0.5): o' = p, d' = n + ball, thr' = thr ·
+//     albedo; otherwise o, d, thr pass their cotangents through; cont =
+//     gain · ok feeds gain and the light column (ok = 1 − light);
+//   * emission rad += (gain · light · thr) · albedo;
+//   * sky, on a miss: rad += (alive · thr) · bg, bg = (1 − tt) + tt · (0.5,
+//     0.7, 1), tt = 0.5 (dy · rsqrt(d·d) + 1): into alive, thr and all of d;
+//   * normal × flip: rect kn · flip; sphere (p − c) · invr · flip;
+//   * the hit point p = o + t · d, and t of the winner's candidate only
+//     (`where(better, ...)` transposes to the winner): a rect's
+//     (koff − o·kn) / (d·kn), a sphere's root (−bq ∓ √disc) / (d·d), into
+//     the record, o and d. Comparisons carry nothing: C_IS_SPHERE, the rect
+//     axes, offsets and bounds get exact zeros, as in JAX.
+// Each bounce adds into one row of d_rec, its winner's, only the columns
+// the winner's kind can carry (a sphere 10: centre, r², 1/r, flip, light,
+// albedo; a rect 9: normal, offset, flip, light, albedo): lanes of a warp
+// with the same winner are summed by shuffles, then one lane adds each sum
+// to the block's shared-memory d_rec; each block writes its partial
+// d_rec[blockIdx] and torch sums the partials. d_o and d_d are written per
+// lane. The replay stops one bounce after a path dies (the "ghost" bounce),
+// and that is exact under the sky too: a path that dies by a miss has
+// gain = alive · hit = 0 at its last bounce, so no cotangent gets past it;
+// a path that dies on a light re-traces the same ray into the same light
+// (hit = 1, miss = 0), whose light column (ok = 0) zeroes every later
+// cotangent.
 //
 // Numerics: no fast math, -fmad=false, every f32 expression in the twin's
-// (the JAX kernel's) order, so K2 agrees with the twin path by path; the
-// float atomics make K3's sums differ from autograd's in order only.
+// (the JAX kernel's) order, so K2 agrees with the twin path by path. The
+// sky's 1/|d| is rsqrtf, which is what torch.rsqrt computes on the card;
+// the float atomics make K3's sums differ from autograd's in order only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,18 +80,22 @@ constexpr float TWO_PI = 6.28318548202514648f;      // f32(2π), rng.TWO_PI
 constexpr float ONE_THIRD = 0.333333343267440796f;  // f32(1/3), rng.ONE_THIRD
 
 // Closest hit of ray (o, d) over the record: the first strict minimum of
-// the prims' hit distances (pallas_grad.py:263-328). win = -1 on a miss.
+// the prims' hit distances (pallas_grad.py:263-328). win = -1 on a miss;
+// far: a sphere winner's far root was taken.
 __device__ __forceinline__ void closest_hit(const float* s_rec, int n_prims,
                                             float ox, float oy, float oz,
                                             float dx, float dy, float dz,
-                                            float& t_best, int& win) {
+                                            float& t_best, int& win,
+                                            bool& far) {
   const float a_dd = dx * dx + dy * dy + dz * dz;
   const float inv_a = 1.0f / a_dd;
   t_best = BIG;
   win = -1;
+  far = false;
   for (int p = 0; p < n_prims; ++p) {
     const float* r = s_rec + p * REC_C;
     float t_p;
+    bool far_p = false;
     if (r[C_IS_SPHERE] > 0.5f) {
       // sphere (reference src/sphere.rs:37-77), oc formed difference-first
       const float ocx = ox - r[C_CX], ocy = oy - r[C_CX + 1],
@@ -91,6 +110,7 @@ __device__ __forceinline__ void closest_hit(const float* s_rec, int n_prims,
       const bool near_ok = pos && t_near > T_MIN && t_near < BIG;
       const bool far_ok = pos && t_far > T_MIN && t_far < BIG;
       t_p = near_ok ? t_near : (far_ok ? t_far : BIG);
+      far_p = !near_ok && far_ok;
     } else {
       // rect in its world frame (reference src/rect.rs:39-69)
       const float kx = r[C_KN], ky = r[C_KN + 1], kz = r[C_KN + 2];
@@ -113,8 +133,18 @@ __device__ __forceinline__ void closest_hit(const float* s_rec, int n_prims,
     if (t_p < t_best) {
       t_best = t_p;
       win = p;
+      far = far_p;
     }
   }
+}
+
+// The sky at a miss of direction d (pallas_grad.py:373-382): tt = 0.5 ·
+// (dy / |d| + 1), bg = (1 − tt) + tt · (0.5, 0.7, 1.0).
+__device__ __forceinline__ float sky_tt(float dx, float dy, float dz,
+                                        float& inv_len) {
+  const float a_dd = dx * dx + dy * dy + dz * dz;
+  inv_len = rsqrtf(a_dd);
+  return 0.5f * (dy * inv_len + 1.0f);
 }
 
 // One bounce's state change after the hit test: the hit point, the
@@ -159,7 +189,7 @@ __global__ void __launch_bounds__(THREADS)
 grad_fwd(const float* __restrict__ rec, int n_prims,
          const float* __restrict__ o, const float* __restrict__ d,
          const float* __restrict__ u, float* __restrict__ rad, int n,
-         int n_bounce, int max_depth, int has_light) {
+         int n_bounce, int max_depth, int has_light, int has_sky) {
   extern __shared__ float s_rec[];
   load_record(s_rec, rec, n_prims * REC_C);
   __syncthreads();
@@ -176,8 +206,20 @@ grad_fwd(const float* __restrict__ rec, int n_prims,
     if (alive == 0.0f) break;
     float t_best;
     int win;
-    closest_hit(s_rec, n_prims, ox, oy, oz, dx, dy, dz, t_best, win);
-    if (win < 0) break;  // a miss adds nothing on black, and dies
+    bool far;
+    closest_hit(s_rec, n_prims, ox, oy, oz, dx, dy, dz, t_best, win, far);
+    if (win < 0) {
+      // a miss adds the background (nothing on black) and dies
+      if (has_sky) {
+        float inv_len;
+        const float tt = sky_tt(dx, dy, dz, inv_len);
+        // miss = alive · (1 − hit) = alive
+        rad_r = rad_r + alive * thr_r * ((1.0f - tt) + tt * 0.5f);
+        rad_g = rad_g + alive * thr_g * ((1.0f - tt) + tt * 0.7f);
+        rad_b = rad_b + alive * thr_b * ((1.0f - tt) + tt * 1.0f);
+      }
+      break;
+    }
     const float* w = s_rec + win * REC_C;
     const float wl = has_light ? w[C_LIGHT] : 0.0f;
     const float gain = alive * 1.0f;
@@ -210,13 +252,36 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The d_rec column of reduction slot j for a winner of kind sph: slots 0-2
+// the centre (sphere) or plane normal (rect), 3 r² or the plane offset, 4
+// 1/r (spheres only), 5 flip, 6 light, 7-9 the albedo.
+__device__ __forceinline__ int slot_col(bool sph, int j) {
+  if (j < 3) return (sph ? C_CX : C_KN) + j;
+  if (j == 3) return sph ? C_R2 : C_KOFF;
+  if (j == 4) return C_INVR;
+  if (j == 5) return C_FLIP;
+  if (j == 6) return C_LIGHT;
+  return C_TEX_E + (j - 7);
+}
+
+constexpr int SLOTS = 10;
+
+// has_sky (launch-uniform, as in K2): without the sky nothing reaches o
+// or d, no cotangent enters their chain, and it stays exactly zero: the
+// replay keeps no (o, d, t) tape and the sweep only the color chain
+// (d_o = d_d = 0). One kernel serves both backgrounds: a template with an
+// instantiation per background (39 registers and 368 B of stack without
+// the sky, against 55 and 848 B) ran the default inverse render's K3 5%
+// faster by the medians of ten alternating runs on an H100, inside the
+// runs' spread, and K3 is about 1% of a training step.
 __global__ void __launch_bounds__(THREADS)
 grad_bwd(const float* __restrict__ rec, int n_prims,
          const float* __restrict__ o, const float* __restrict__ d,
          const float* __restrict__ u, const float* __restrict__ ct,
          float* __restrict__ d_o, float* __restrict__ d_d,
          float* __restrict__ d_rec, int n, int n_bounce, int max_depth,
-         int has_light) {
+         int has_light, int has_sky) {
+  const bool sky = has_sky != 0;
   extern __shared__ float smem[];
   float* s_rec = smem;
   float* s_drec = smem + n_prims * REC_C;
@@ -231,9 +296,11 @@ grad_bwd(const float* __restrict__ rec, int n_prims,
   const bool valid = i < n;
   const int lane = threadIdx.x & 31;
 
-  // -- forward replay, keeping the tape of each bounce
+  // -- forward replay, keeping the tape of each bounce: t_win is the
+  // winner, with the sky (winner << 1) | far root; -1 on a miss
   int t_win[MAX_BOUNCE];
   float t_thr[MAX_BOUNCE][3], t_alive[MAX_BOUNCE];
+  float t_o[MAX_BOUNCE][3], t_d[MAX_BOUNCE][3], t_t[MAX_BOUNCE];
   int n_rep = 0;
   float ct_r = 0.0f, ct_g = 0.0f, ct_b = 0.0f;
   if (valid) {
@@ -248,12 +315,22 @@ grad_bwd(const float* __restrict__ rec, int n_prims,
       const bool ghost = alive == 0.0f;
       float t_best;
       int win;
-      closest_hit(s_rec, n_prims, ox, oy, oz, dx, dy, dz, t_best, win);
-      t_win[b] = win;
+      bool far;
+      closest_hit(s_rec, n_prims, ox, oy, oz, dx, dy, dz, t_best, win, far);
+      t_win[b] = (sky && win >= 0) ? (win << 1) | (far ? 1 : 0) : win;
       t_thr[b][0] = thr_r;
       t_thr[b][1] = thr_g;
       t_thr[b][2] = thr_b;
       t_alive[b] = alive;
+      if (sky) {
+        t_o[b][0] = ox;
+        t_o[b][1] = oy;
+        t_o[b][2] = oz;
+        t_d[b][0] = dx;
+        t_d[b][1] = dy;
+        t_d[b][2] = dz;
+        t_t[b] = t_best;
+      }
       n_rep = b + 1;
       if (ghost || b == max_depth) break;
       float cont = 0.0f;
@@ -274,47 +351,70 @@ grad_bwd(const float* __restrict__ rec, int n_prims,
   }
 
   // -- reverse sweep over the bounces, warp-uniform so the shuffles see
-  // every lane; a lane past its own tape adds zeros
+  // every lane; a lane past its own tape adds zeros. g_* are the
+  // cotangents of the state after the bounce being swept.
   const int n_max = __reduce_max_sync(FULL, n_rep);
+  float g_ox = 0.0f, g_oy = 0.0f, g_oz = 0.0f;
+  float g_dx = 0.0f, g_dy = 0.0f, g_dz = 0.0f;
   float g_thr_r = 0.0f, g_thr_g = 0.0f, g_thr_b = 0.0f, g_alive = 0.0f;
   for (int b = n_max - 1; b >= 0; --b) {
     int key = -1;
-    float v_light = 0.0f, v_r = 0.0f, v_g = 0.0f, v_b = 0.0f;
+    float v[SLOTS];
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) v[j] = 0.0f;
     if (b < n_rep) {
-      const int win = t_win[b];
+      const int code = t_win[b];
+      const bool hit = code >= 0;
+      const int win = hit ? (sky ? code >> 1 : code) : 0;
+      const float* w = s_rec + win * REC_C;
       const float thr_r = t_thr[b][0], thr_g = t_thr[b][1],
                   thr_b = t_thr[b][2];
       const float alive = t_alive[b];
-      const bool hit = win >= 0;
-      const float* w = s_rec + (hit ? win : 0) * REC_C;
       const float al_r = hit ? w[C_TEX_E] : 0.0f;
       const float al_g = hit ? w[C_TEX_E + 1] : 0.0f;
       const float al_b = hit ? w[C_TEX_E + 2] : 0.0f;
       const float wl = (has_light && hit) ? w[C_LIGHT] : 0.0f;
       const float hitf = hit ? 1.0f : 0.0f;
       const float gain = alive * hitf;
-      float n_thr_r, n_thr_g, n_thr_b;
+      // the cotangents of the state before this bounce (n_*) and of the
+      // hit point, the normal and the winner's albedo and light
+      float n_ox = 0.0f, n_oy = 0.0f, n_oz = 0.0f;
+      float n_dx = 0.0f, n_dy = 0.0f, n_dz = 0.0f;
+      float n_thr_r = 0.0f, n_thr_g = 0.0f, n_thr_b = 0.0f;
+      float g_px = 0.0f, g_py = 0.0f, g_pz = 0.0f;
+      float g_nx = 0.0f, g_ny = 0.0f, g_nz = 0.0f;
       float g_gain = 0.0f, g_wl = 0.0f;
       if (b < max_depth) {
+        // o' = keep ? p : o;  d' = keep ? n + ball : d;
         // thr' = keep ? thr · albedo : thr;  alive' = cont = gain · ok
         const float ok = has_light ? 1.0f - wl : 1.0f;
         const float cont = gain * ok;
         if (cont > 0.5f) {
+          g_px = g_ox;
+          g_py = g_oy;
+          g_pz = g_oz;
+          g_nx = g_dx;
+          g_ny = g_dy;
+          g_nz = g_dz;
           n_thr_r = g_thr_r * al_r;
           n_thr_g = g_thr_g * al_g;
           n_thr_b = g_thr_b * al_b;
-          v_r = g_thr_r * thr_r;
-          v_g = g_thr_g * thr_g;
-          v_b = g_thr_b * thr_b;
+          v[7] = g_thr_r * thr_r;
+          v[8] = g_thr_g * thr_g;
+          v[9] = g_thr_b * thr_b;
         } else {
+          n_ox = g_ox;
+          n_oy = g_oy;
+          n_oz = g_oz;
+          n_dx = g_dx;
+          n_dy = g_dy;
+          n_dz = g_dz;
           n_thr_r = g_thr_r;
           n_thr_g = g_thr_g;
           n_thr_b = g_thr_b;
         }
         g_gain = g_alive * ok;
         if (has_light) g_wl = -(g_alive * gain);
-      } else {
-        n_thr_r = n_thr_g = n_thr_b = 0.0f;
       }
       if (has_light) {
         // rad += (gl · thr) · albedo, gl = gain · light
@@ -324,46 +424,164 @@ grad_bwd(const float* __restrict__ rec, int n_prims,
         n_thr_r = n_thr_r + a_r * gl;
         n_thr_g = n_thr_g + a_g * gl;
         n_thr_b = n_thr_b + a_b * gl;
-        v_r = v_r + ct_r * (gl * thr_r);
-        v_g = v_g + ct_g * (gl * thr_g);
-        v_b = v_b + ct_b * (gl * thr_b);
+        v[7] = v[7] + ct_r * (gl * thr_r);
+        v[8] = v[8] + ct_g * (gl * thr_g);
+        v[9] = v[9] + ct_b * (gl * thr_b);
         g_gain = g_gain + g_gl * wl;
         g_wl = g_wl + g_gl * gain;
       }
-      v_light = g_wl;
-      g_alive = g_gain * hitf;  // gain = alive · hit
+      v[6] = g_wl;
+      float n_alive = g_gain * hitf;  // gain = alive · hit
+      if (sky) {
+        const float ox = t_o[b][0], oy = t_o[b][1], oz = t_o[b][2];
+        const float dx = t_d[b][0], dy = t_d[b][1], dz = t_d[b][2];
+        const float a_dd = dx * dx + dy * dy + dz * dz;
+        float g_a_dd = 0.0f;
+        if (!hit) {
+          // rad += (miss · thr) · bg, miss = alive · (1 − hit)
+          float inv_len;
+          const float tt = sky_tt(dx, dy, dz, inv_len);
+          const float bg_r = (1.0f - tt) + tt * 0.5f;
+          const float bg_g = (1.0f - tt) + tt * 0.7f;
+          const float bg_b = (1.0f - tt) + tt * 1.0f;
+          const float miss = alive;
+          const float m_r = ct_r * bg_r, m_g = ct_g * bg_g, m_b = ct_b * bg_b;
+          n_thr_r = n_thr_r + m_r * miss;
+          n_thr_g = n_thr_g + m_g * miss;
+          n_thr_b = n_thr_b + m_b * miss;
+          n_alive = n_alive + (m_r * thr_r + m_g * thr_g + m_b * thr_b);
+          // bg = (1 − tt) + tt · sky, tt = 0.5 · (dy · inv_len + 1)
+          const float g_s =
+              0.5f * ((miss * thr_r) * ct_r * (0.5f - 1.0f) +
+                      (miss * thr_g) * ct_g * (0.7f - 1.0f) +
+                      (miss * thr_b) * ct_b * (1.0f - 1.0f));
+          n_dy = n_dy + g_s * inv_len;
+          g_a_dd = g_a_dd + (g_s * dy) * (-0.5f * inv_len * inv_len * inv_len);
+        }
+        if (hit) {
+          const float t = t_t[b];
+          const float flip = w[C_FLIP];
+          const bool sph = w[C_IS_SPHERE] > 0.5f;
+          float g_t;
+          if (sph) {
+            // n = (p − c) · invr · flip
+            const float cx = w[C_CX], cy = w[C_CX + 1], cz = w[C_CX + 2];
+            const float invr = w[C_INVR];
+            const float qx = (ox + t * dx) - cx, qy = (oy + t * dy) - cy,
+                        qz = (oz + t * dz) - cz;
+            const float gmx = g_nx * flip, gmy = g_ny * flip, gmz = g_nz * flip;
+            v[5] = g_nx * (qx * invr) + g_ny * (qy * invr) + g_nz * (qz * invr);
+            v[4] = gmx * qx + gmy * qy + gmz * qz;
+            const float gqx = gmx * invr, gqy = gmy * invr, gqz = gmz * invr;
+            g_px = g_px + gqx;
+            g_py = g_py + gqy;
+            g_pz = g_pz + gqz;
+            // p = o + t · d
+            n_ox = n_ox + g_px;
+            n_oy = n_oy + g_py;
+            n_oz = n_oz + g_pz;
+            n_dx = n_dx + t * g_px;
+            n_dy = n_dy + t * g_py;
+            n_dz = n_dz + t * g_pz;
+            g_t = g_px * dx + g_py * dy + g_pz * dz;
+            // t = (−bq ∓ sq) · inv_a: sq = √(bq² − a_dd · cc), bq = oc·d,
+            // cc = oc·oc − r², oc = o − c, inv_a = 1 / a_dd
+            const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+            const float bq = ocx * dx + ocy * dy + ocz * dz;
+            const float cc = ocx * ocx + ocy * ocy + ocz * ocz - w[C_R2];
+            const float sq = sqrtf(bq * bq - a_dd * cc);
+            const float inv_a = 1.0f / a_dd;
+            const float sgn = (code & 1) ? 1.0f : -1.0f;
+            const float g_inv_a = g_t * (-bq + sgn * sq);
+            const float gti = g_t * inv_a;
+            const float g_disc = (sgn * gti) * 0.5f / sq;
+            const float g_bq = -gti + 2.0f * bq * g_disc;
+            const float g_cc = -(a_dd * g_disc);
+            g_a_dd = g_a_dd - cc * g_disc - g_inv_a * inv_a * inv_a;
+            const float g_ocx = g_bq * dx + 2.0f * g_cc * ocx;
+            const float g_ocy = g_bq * dy + 2.0f * g_cc * ocy;
+            const float g_ocz = g_bq * dz + 2.0f * g_cc * ocz;
+            n_dx = n_dx + g_bq * ocx;
+            n_dy = n_dy + g_bq * ocy;
+            n_dz = n_dz + g_bq * ocz;
+            n_ox = n_ox + g_ocx;
+            n_oy = n_oy + g_ocy;
+            n_oz = n_oz + g_ocz;
+            v[0] = -gqx - g_ocx;
+            v[1] = -gqy - g_ocy;
+            v[2] = -gqz - g_ocz;
+            v[3] = -g_cc;
+          } else {
+            // n = kn · flip
+            const float kx = w[C_KN], ky = w[C_KN + 1], kz = w[C_KN + 2];
+            v[5] = g_nx * kx + g_ny * ky + g_nz * kz;
+            // p = o + t · d
+            n_ox = n_ox + g_px;
+            n_oy = n_oy + g_py;
+            n_oz = n_oz + g_pz;
+            n_dx = n_dx + t * g_px;
+            n_dy = n_dy + t * g_py;
+            n_dz = n_dz + t * g_pz;
+            g_t = g_px * dx + g_py * dy + g_pz * dz;
+            // t = (koff − o·kn) / (d·kn)
+            const float g_num = g_t / (dx * kx + dy * ky + dz * kz);
+            const float g_den = -(g_num * t);
+            n_ox = n_ox - g_num * kx;
+            n_oy = n_oy - g_num * ky;
+            n_oz = n_oz - g_num * kz;
+            n_dx = n_dx + g_den * kx;
+            n_dy = n_dy + g_den * ky;
+            n_dz = n_dz + g_den * kz;
+            v[0] = g_nx * flip - g_num * ox + g_den * dx;
+            v[1] = g_ny * flip - g_num * oy + g_den * dy;
+            v[2] = g_nz * flip - g_num * oz + g_den * dz;
+            v[3] = g_num;
+          }
+        }
+        // a_dd = d·d
+        n_dx = n_dx + 2.0f * g_a_dd * dx;
+        n_dy = n_dy + 2.0f * g_a_dd * dy;
+        n_dz = n_dz + 2.0f * g_a_dd * dz;
+      }
+      g_ox = n_ox;
+      g_oy = n_oy;
+      g_oz = n_oz;
+      g_dx = n_dx;
+      g_dy = n_dy;
+      g_dz = n_dz;
       g_thr_r = n_thr_r;
       g_thr_g = n_thr_g;
       g_thr_b = n_thr_b;
+      g_alive = n_alive;
       key = hit ? win : -1;
     }
-    // one shared-memory add per (winner, column) per warp
+    // one shared-memory add per (winner, column) per warp: only the
+    // columns the winner's kind can carry
     unsigned todo = __ballot_sync(FULL, key >= 0);
     while (todo) {
       const int leader = __ffs(todo) - 1;
       const int wk = __shfl_sync(FULL, key, leader);
       const bool mine = key == wk;
-      const float s_l = warp_sum(mine ? v_light : 0.0f);
-      const float s_r = warp_sum(mine ? v_r : 0.0f);
-      const float s_g = warp_sum(mine ? v_g : 0.0f);
-      const float s_b = warp_sum(mine ? v_b : 0.0f);
-      if (lane == leader) {
-        float* row = s_drec + wk * REC_C;
-        atomicAdd(row + C_LIGHT, s_l);
-        atomicAdd(row + C_TEX_E, s_r);
-        atomicAdd(row + C_TEX_E + 1, s_g);
-        atomicAdd(row + C_TEX_E + 2, s_b);
+      const bool wsph = s_rec[wk * REC_C + C_IS_SPHERE] > 0.5f;
+      float* row = s_drec + wk * REC_C;
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) {
+        if (j == 4 && !wsph) continue;  // 1/r: spheres only
+        if (j < 6 && !sky) continue;  // the geometric chain: sky only
+        const float s = warp_sum(mine ? v[j] : 0.0f);
+        if (lane == leader) atomicAdd(row + slot_col(wsph, j), s);
       }
       todo &= ~__ballot_sync(FULL, mine);
     }
   }
 
   if (valid) {
-    // geometry reaches the radiance only through comparisons: exact zeros
-    for (int c = 0; c < 3; ++c) {
-      d_o[c * n + i] = 0.0f;
-      d_d[c * n + i] = 0.0f;
-    }
+    d_o[i] = g_ox;
+    d_o[n + i] = g_oy;
+    d_o[2 * n + i] = g_oz;
+    d_d[i] = g_dx;
+    d_d[n + i] = g_dy;
+    d_d[2 * n + i] = g_dz;
   }
   __syncthreads();
   float* out = d_rec + (size_t)blockIdx.x * n_prims * REC_C;
@@ -378,14 +596,14 @@ grad_bwd(const float* __restrict__ rec, int n_prims,
 extern "C" int rt_grad_fwd(const float* rec, int n_prims, const float* o,
                            const float* d, const float* u, float* rad, int n,
                            int n_bounce, int max_depth, int has_light,
-                           void* stream) {
+                           int has_sky, void* stream) {
   if (n_prims <= 0 || n_prims > MAX_PRIMS || n <= 0 || n_bounce <= 0 ||
       n_bounce > MAX_BOUNCE || max_depth < 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = (n + THREADS - 1) / THREADS;
   grad_fwd<<<blocks, THREADS, sizeof(float) * n_prims * REC_C,
              (cudaStream_t)stream>>>(rec, n_prims, o, d, u, rad, n, n_bounce,
-                                     max_depth, has_light);
+                                     max_depth, has_light, has_sky);
   return (int)cudaGetLastError();
 }
 
@@ -395,13 +613,14 @@ extern "C" int rt_grad_bwd(const float* rec, int n_prims, const float* o,
                            const float* d, const float* u, const float* ct,
                            float* d_o, float* d_d, float* d_rec, int n, int nb,
                            int n_bounce, int max_depth, int has_light,
-                           void* stream) {
+                           int has_sky, void* stream) {
   if (n_prims <= 0 || n_prims > MAX_PRIMS || n <= 0 || n_bounce <= 0 ||
       n_bounce > MAX_BOUNCE || max_depth < 0 ||
       nb != (n + THREADS - 1) / THREADS)
     return (int)cudaErrorInvalidValue;
-  grad_bwd<<<nb, THREADS, 2 * sizeof(float) * n_prims * REC_C,
-             (cudaStream_t)stream>>>(rec, n_prims, o, d, u, ct, d_o, d_d,
-                                     d_rec, n, n_bounce, max_depth, has_light);
+  const size_t smem = 2 * sizeof(float) * n_prims * REC_C;
+  grad_bwd<<<nb, THREADS, smem, (cudaStream_t)stream>>>(
+      rec, n_prims, o, d, u, ct, d_o, d_d, d_rec, n, n_bounce, max_depth,
+      has_light, has_sky);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
-"""Same-call A/B of the K1 kernel between this checkout and another one.
+"""Same-call A/B of the K1 kernel, or with --grad of K2 and K3, between
+this checkout and another one.
 
-    python -m raytracing_rust_tpu_torch.kernel_ab --other DIR [--out FILE]
+    python -m raytracing_rust_tpu_torch.kernel_ab --other DIR [--grad]
+        [--turns N] [--out FILE]
 
 DIR is another checkout of the repository, e.g. the parent commit unpacked
 with `git archive` into a directory `.gitignore` lists. On one CUDA card the
@@ -12,7 +14,14 @@ random_spheres 1280×720 at 100 spp and two_spheres 1280×720 at 10 spp,
 depth 50, by CUDA events over repeated launches after a warm-up. Each
 timing run is a fresh process in that checkout, so each imports its own
 package. The sums' totals show whether both checkouts compute the same
-image. Prints one JSON object, also written to FILE when given.
+image. With --grad it times K2 and K3 instead, in the same turns, on the
+default inverse render's step and on the geometry step (each 200×200,
+block 4,096 × 64 spp = 262,144 lanes, depth 6, step 0's rays and draws, a
+seeded cotangent), the mean of 20 launches per timing, the median of 5
+timings per run; K2's radiance totals show whether both checkouts trace
+the same paths. --turns N repeats the four turns N times (2N runs of each
+checkout). Prints one JSON object, also written to
+FILE when given.
 """
 
 from __future__ import annotations
@@ -60,9 +69,53 @@ print(json.dumps(out))
 """
 
 
-def _time_checkout(path: str) -> dict:
+_GRAD_TIMING = r"""
+import json, statistics, sys
+import torch
+sys.path.insert(0, ".")
+from raytracing_rust_tpu_torch import inverse_render as ir
+from raytracing_rust_tpu_torch.ops import _build, grad
+out = {"library": _build.build()[0]}
+dev = torch.device("cuda")
+kw = dict(nx=200, ny=200, spp=64, block=4096, max_depth=6)
+g = torch.Generator(device=dev)
+for names, scene, cam in (
+        (("k2_grad_fwd", "k3_grad_bwd"),
+         ir.build_scene(ir.TRUE_ALBEDO, ir.TRUE_EMIT, device=dev),
+         ir.camera(dev)),
+        (("k2b_sky_fwd", "k3b_geometric_bwd"),
+         ir.build_geo_scene(ir.TRUE_GEO_ALBEDO, ir.TRUE_GEO_EMIT,
+                            ir.TRUE_TILT_DEG, device=dev),
+         ir.geo_camera(dev))):
+    cfg = grad.fast_grad_config(scene)
+    rec = grad.fast_grad_record(scene).detach()
+    o, d, u = ir.step_inputs(cam, 0, device=dev, **kw)
+    g.manual_seed(3)
+    ct = torch.rand(o.shape[0], 3, generator=g, device=dev)
+    for name, fn in (
+            (names[0], lambda: grad.grad_fwd(rec, o, d, u, cfg, 6)),
+            (names[1], lambda: grad.grad_bwd(rec, o, d, u, ct, cfg, 6)[0])):
+        total = float(fn().sum())
+        ms = []
+        for _ in range(5):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            for _ in range(20):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b) / 20)
+        out[name] = dict(ms=ms, median_ms=statistics.median(ms), sum=total)
+print(json.dumps(out))
+"""
+GRAD_KERNELS = ("k2_grad_fwd", "k3_grad_bwd", "k2b_sky_fwd",
+                "k3b_geometric_bwd")
+
+
+def _time_checkout(path: str, grad: bool = False) -> dict:
+    code = _GRAD_TIMING if grad else f"SCENES = {SCENES!r}\n{_TIMING}"
     res = subprocess.run(
-        [sys.executable, "-c", f"SCENES = {SCENES!r}\n{_TIMING}"], cwd=path,
+        [sys.executable, "-c", code], cwd=path,
         capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"timing in {path} failed:\n{res.stderr}")
@@ -91,15 +144,33 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="raytracing_rust_tpu_torch.kernel_ab")
     ap.add_argument("--other", required=True,
                     help="another checkout of the repository")
+    ap.add_argument("--grad", action="store_true",
+                    help="time K2 and K3 instead of K1")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="repeat the (other, this, this, other) turns")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     other = os.path.abspath(args.other)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    runs = [(who, _time_checkout(path)) for who, path in
+    runs = [(who, _time_checkout(path, args.grad)) for who, path in
             (("other", other), ("this", _ROOT), ("this", _ROOT),
-             ("other", other))]
+             ("other", other)) * args.turns]
+    if args.grad:
+        kernels = {}
+        for k in GRAD_KERNELS:
+            med = {who: [r[k]["median_ms"] for w, r in runs if w == who]
+                   for who in ("other", "this")}
+            mean = {who: sum(v) / len(v) for who, v in med.items()}
+            kernels[k] = dict(median_ms=med, mean_ms=mean,
+                              this_over_other=mean["this"] / mean["other"],
+                              sums_equal=len({r[k]["sum"]
+                                              for _, r in runs}) == 1)
+        _report(dict(device=smi, order=[who for who, _ in runs],
+                     kernels=kernels,
+                     runs=[dict(who=who, **r) for who, r in runs]), args.out)
+        return 0
     sass = {who: _k1a_sass(r["library"]) for who, r in runs[:2]}
     differ = sum(a != b for a, b in zip(sass["other"], sass["this"])) + abs(
         len(sass["other"]) - len(sass["this"]))
@@ -115,13 +186,17 @@ def main(argv=None) -> int:
             sums_equal=len({r[scene]["sum"] for _, r in runs}) == 1)
             for scene, spp, _ in SCENES},
         runs=[dict(who=who, **r) for who, r in runs])
+    _report(result, args.out)
+    return 0
+
+
+def _report(result: dict, out: str | None) -> None:
     text = json.dumps(result)
     print(text)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             f.write(text + "\n")
-    return 0
 
 
 if __name__ == "__main__":

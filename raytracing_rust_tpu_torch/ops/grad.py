@@ -1,11 +1,12 @@
 """The fused differentiable tier: kernels K2 (forward) and K3 (backward).
 
 Counterpart of `raytracing_rust_tpu/ops/pallas_grad.py`, cut to the scope
-of the default inverse render: spheres and rects (rotated and translated
-instances included: the math runs on the world-space frames of
-`ops/intersect.pack_prims`), lambertian and diffuse-light materials, solid
-textures and the black background. Metal, dielectric, the 3D checker and
-the sky raise `UnsupportedScene` on every device (`check_kernel_scope`).
+of the two inverse renders (the default and `--geometry`): spheres and
+rects (rotated and translated instances included: the math runs on the
+world-space frames of `ops/intersect.pack_prims`), lambertian and
+diffuse-light materials, solid textures, the black background and the sky.
+Metal, dielectric and the 3D checker raise `UnsupportedScene` on every
+device (`check_kernel_scope`).
 
 * `fast_grad_record` flattens the scene into the f32[P, REC_C] record with
   differentiable torch ops, so gradients from d_record chain back into
@@ -61,7 +62,7 @@ MAX_PRIMS = 64    # csrc/grad.cu sizes its shared-memory record for this many
 MAX_DEPTH = 16    # csrc/grad.cu sizes K3's per-lane tape for MAX_DEPTH + 1
 
 # the families K2/K3 cover beyond lambertian + solid (the free default)
-KERNEL_FEATS = frozenset({"light"})
+KERNEL_FEATS = frozenset({"light", "sky"})
 
 # lanes per CUDA block (csrc/grad.cu THREADS): K3 writes one d_rec partial
 # per block of this many lanes
@@ -130,7 +131,7 @@ def fast_grad_config(scene: SceneTables):
 
 def check_kernel_scope(cfg) -> None:
     """Raise UnsupportedScene for a config outside K2/K3: any family but
-    the diffuse light, more than MAX_PRIMS prims."""
+    the diffuse light and the sky, more than MAX_PRIMS prims."""
     kinds, feats = cfg
     extra = set(feats) - KERNEL_FEATS
     if extra:
@@ -208,7 +209,10 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     constants; every division has a tensor divisor (torch's CUDA division
     by a Python scalar multiplies by a reciprocal). Differentiable in rec,
     o and d. counts, when given, gathers the lane bounces a path was alive
-    at ("segments"): the bounces K2 runs before a lane's loop ends."""
+    at ("segments"): the bounces K2 runs before a lane's loop ends, and of
+    those the ones that missed ("misses"), that a sphere won
+    ("sphere_hits") and that scattered ("scatters": the bounces whose draws
+    the kernels read)."""
     check_kernel_scope(cfg)
     kinds, feats = cfg
     if rec.shape[0] != len(kinds):
@@ -216,6 +220,7 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     any_s = "s" in kinds
     any_r = "r" in kinds
     has_light = "light" in feats
+    has_sky = "sky" in feats
     n_bounce = u.shape[0]
     scal = [row.unbind(0) for row in rec.unbind(0)]
     ox, oy, oz = o.unbind(1)
@@ -231,6 +236,7 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
         if counts is not None:
             counts["segments"] = (counts.get("segments", 0)
                                   + int((alive != 0.0).sum()))
+            counts.setdefault("scatters", 0)
 
         # closest hit: first strict minimum over the prims; each kind
         # updates only the attributes it can win
@@ -301,6 +307,14 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
             w_teb = torch.where(better, r[C_TEX_E + 2], w_teb)
 
         hit = (t_best < BIG).to(torch.float32)
+        if counts is not None:
+            live = alive != 0.0
+            won = t_best < BIG
+            sph = (w_sph > 0.5) if w_sph is not None else torch.full_like(
+                won, any_s)
+            for k, m in (("misses", live & ~won),
+                         ("sphere_hits", live & won & sph)):
+                counts[k] = counts.get(k, 0) + int(m.sum())
         t_safe = torch.where(t_best < BIG, t_best, 0.0)
         px = ox + t_safe * dx
         py = oy + t_safe * dy
@@ -319,14 +333,27 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
         else:
             nx, ny, nz = w_knx * w_flip, w_kny * w_flip, w_knz * w_flip
 
-        # emitted on every hit (reference src/color.rs:8-15); a miss adds
-        # nothing on the black background
+        # emitted on every hit (reference src/color.rs:8-15)
         gain = alive * hit
         if has_light:
             gl = gain * w_light_c
             rad_r = rad_r + gl * thr_r * w_ter
             rad_g = rad_g + gl * thr_g * w_teg
             rad_b = rad_b + gl * thr_b * w_teb
+
+        # a miss adds the background and dies (src/color.rs:16-22); the
+        # black background adds nothing. csrc/grad.cu takes rsqrtf, which
+        # torch.rsqrt computes on the card
+        if has_sky:
+            miss = alive * (1.0 - hit)
+            inv_len = torch.rsqrt(a_dd)
+            tt = 0.5 * (dy * inv_len + 1.0)
+            bgr = (1.0 - tt) + tt * 0.5
+            bgg = (1.0 - tt) + tt * 0.7
+            bgb = (1.0 - tt) + tt * 1.0
+            rad_r = rad_r + miss * thr_r * bgr
+            rad_g = rad_g + miss * thr_g * bgg
+            rad_b = rad_b + miss * thr_b * bgb
 
         if b == max_depth:
             # the final bounce only collects (src/color.rs:9)
@@ -348,6 +375,8 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
 
         cont = gain * ok
         keep = cont > 0.5
+        if counts is not None:
+            counts["scatters"] = counts.get("scatters", 0) + int(keep.sum())
         thr_r = torch.where(keep, thr_r * w_ter, thr_r)
         thr_g = torch.where(keep, thr_g * w_teg, thr_g)
         thr_b = torch.where(keep, thr_b * w_teb, thr_b)
@@ -368,7 +397,7 @@ def trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, max_depth):
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(True) for x in (rec, o, d)]
         rad = trace_tiles_plain(*leaves, u, cfg, max_depth)
-        if not rad.requires_grad:  # no light: the radiance is constant 0
+        if not rad.requires_grad:  # no light, no sky: the radiance is 0
             return tuple(torch.zeros_like(x) for x in leaves)
         grads = torch.autograd.grad(rad, leaves, ct, allow_unused=True)
     return tuple(torch.zeros_like(x) if g is None else g
@@ -404,50 +433,29 @@ def _lane_major(x: torch.Tensor) -> torch.Tensor:
     return x.t().contiguous()
 
 
-def grad_fwd(rec, o, d, u, cfg, max_depth: int) -> torch.Tensor:
-    """Wrapper of K2; same contract as `trace_tiles_plain` (not
-    differentiable: `trace_fast` is). On CUDA tensors it launches
-    `csrc/grad.cu` `rt_grad_fwd` on the current stream or raises; on CPU
-    tensors it runs `trace_tiles_plain`."""
+def _launch_fwd(lib, stream, rec, o, d, u, cfg, max_depth: int):
+    """K2 through `lib.rt_grad_fwd` on `stream` → rad f32[N, 3]; raises on
+    a launch error before K2_LAUNCHES moves."""
     global K2_LAUNCHES
-    check_kernel_scope(cfg)
-    _check_operands(rec, o, d, u, max_depth)
-    if rec.device.type == "cpu":
-        with torch.no_grad():
-            return trace_tiles_plain(rec, o, d, u, cfg, max_depth)
-    if rec.device.type != "cuda":
-        raise ValueError(f"no kernel for device {rec.device}")
-    from ._build import load
-    lib = load()
     n = o.shape[0]
     rec_c, o_t, d_t = rec.contiguous(), _lane_major(o), _lane_major(d)
     u_c = u.contiguous()
     rad = torch.empty((3, n), dtype=torch.float32, device=rec.device)
-    with torch.cuda.device(rec.device):
-        err = lib.rt_grad_fwd(
-            rec_c.data_ptr(), rec.shape[0], o_t.data_ptr(), d_t.data_ptr(),
-            u_c.data_ptr(), rad.data_ptr(), n, u.shape[0], max_depth,
-            int("light" in cfg[1]), torch.cuda.current_stream().cuda_stream)
-    K2_LAUNCHES += 1
+    err = lib.rt_grad_fwd(
+        rec_c.data_ptr(), rec.shape[0], o_t.data_ptr(), d_t.data_ptr(),
+        u_c.data_ptr(), rad.data_ptr(), n, u.shape[0], max_depth,
+        int("light" in cfg[1]), int("sky" in cfg[1]), stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {err}")
+    K2_LAUNCHES += 1
     return rad.t()
 
 
-def grad_bwd(rec, o, d, u, ct, cfg, max_depth: int):
-    """Wrapper of K3 → (d_rec f32[P, REC_C], d_o, d_d f32[N, 3]), the
-    vector-Jacobian product of the trace with cotangent ct f32[N, 3]. On
-    CUDA tensors it launches `rt_grad_bwd` and sums its per-block d_rec
-    partials; on CPU tensors it runs `trace_tiles_plain_vjp`."""
+def _launch_bwd(lib, stream, rec, o, d, u, ct, cfg, max_depth: int):
+    """K3 through `lib.rt_grad_bwd` on `stream` → (d_rec, d_o, d_d), the
+    per-block d_rec partials summed; raises on a launch error before
+    K3_LAUNCHES moves."""
     global K3_LAUNCHES
-    check_kernel_scope(cfg)
-    _check_operands(rec, o, d, u, max_depth, ct)
-    if rec.device.type == "cpu":
-        return trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, max_depth)
-    if rec.device.type != "cuda":
-        raise ValueError(f"no kernel for device {rec.device}")
-    from ._build import load
-    lib = load()
     n = o.shape[0]
     P = rec.shape[0]
     nb = -(-n // GRAD_THREADS)
@@ -457,17 +465,51 @@ def grad_bwd(rec, o, d, u, ct, cfg, max_depth: int):
     d_d = torch.empty_like(d_o)
     d_rec_blocks = torch.empty((nb, P, REC_C), dtype=torch.float32,
                                device=rec.device)
-    with torch.cuda.device(rec.device):
-        err = lib.rt_grad_bwd(
-            rec_c.data_ptr(), P, o_t.data_ptr(), d_t.data_ptr(),
-            u_c.data_ptr(), ct_t.data_ptr(), d_o.data_ptr(), d_d.data_ptr(),
-            d_rec_blocks.data_ptr(), n, nb, u.shape[0], max_depth,
-            int("light" in cfg[1]), torch.cuda.current_stream().cuda_stream)
-    K3_LAUNCHES += 1
+    err = lib.rt_grad_bwd(
+        rec_c.data_ptr(), P, o_t.data_ptr(), d_t.data_ptr(), u_c.data_ptr(),
+        ct_t.data_ptr(), d_o.data_ptr(), d_d.data_ptr(),
+        d_rec_blocks.data_ptr(), n, nb, u.shape[0], max_depth,
+        int("light" in cfg[1]), int("sky" in cfg[1]), stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
+    K3_LAUNCHES += 1
     # per-block partials sum outside the kernel (pallas_grad.py:597)
     return d_rec_blocks.sum(dim=0), d_o.t(), d_d.t()
+
+
+def grad_fwd(rec, o, d, u, cfg, max_depth: int) -> torch.Tensor:
+    """Wrapper of K2; same contract as `trace_tiles_plain` (not
+    differentiable: `trace_fast` is). On CUDA tensors it launches
+    `csrc/grad.cu` `rt_grad_fwd` on the current stream or raises; on CPU
+    tensors it runs `trace_tiles_plain`."""
+    check_kernel_scope(cfg)
+    _check_operands(rec, o, d, u, max_depth)
+    if rec.device.type == "cpu":
+        with torch.no_grad():
+            return trace_tiles_plain(rec, o, d, u, cfg, max_depth)
+    if rec.device.type != "cuda":
+        raise ValueError(f"no kernel for device {rec.device}")
+    from ._build import load
+    with torch.cuda.device(rec.device):
+        return _launch_fwd(load(), torch.cuda.current_stream().cuda_stream,
+                           rec, o, d, u, cfg, max_depth)
+
+
+def grad_bwd(rec, o, d, u, ct, cfg, max_depth: int):
+    """Wrapper of K3 → (d_rec f32[P, REC_C], d_o, d_d f32[N, 3]), the
+    vector-Jacobian product of the trace with cotangent ct f32[N, 3]. On
+    CUDA tensors it launches `rt_grad_bwd` and sums its per-block d_rec
+    partials; on CPU tensors it runs `trace_tiles_plain_vjp`."""
+    check_kernel_scope(cfg)
+    _check_operands(rec, o, d, u, max_depth, ct)
+    if rec.device.type == "cpu":
+        return trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, max_depth)
+    if rec.device.type != "cuda":
+        raise ValueError(f"no kernel for device {rec.device}")
+    from ._build import load
+    with torch.cuda.device(rec.device):
+        return _launch_bwd(load(), torch.cuda.current_stream().cuda_stream,
+                           rec, o, d, u, ct, cfg, max_depth)
 
 
 class TraceFast(torch.autograd.Function):

@@ -38,18 +38,28 @@ GRAD_LEAVES = ("prim_data", "mat_param", "tex_color", "xf_offset",
                "xf_sin", "xf_cos")
 
 
-def _jax_inverse_scene(albedo=ir.TRUE_ALBEDO, emit=ir.TRUE_EMIT):
+def _jax_example():
+    """examples/inverse_render.py, the JAX script."""
     os.environ["RT_IR_TPU"] = "1"  # stop the example's import-time CPU pin
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), ".."))
-    from examples.inverse_render import build_scene
-    return build_scene(albedo, emit)
+    import examples.inverse_render as ex
+    return ex
 
 
-def _sphere_scene(builder_cls):
+def _jax_inverse_scene(albedo=ir.TRUE_ALBEDO, emit=ir.TRUE_EMIT):
+    return _jax_example().build_scene(albedo, emit)
+
+
+def _jax_geo_scene(albedo=ir.TRUE_GEO_ALBEDO, emit=ir.TRUE_GEO_EMIT,
+                   tilt_deg=ir.TRUE_TILT_DEG):
+    return _jax_example().build_geo_scene(albedo, emit, tilt_deg)
+
+
+def _sphere_scene(builder_cls, background=BG_BLACK):
     """Lambertian + light with spheres (one of them a light), a flipped
-    rect and a rotated-translated cube, black background."""
-    b = builder_cls(background=BG_BLACK)
+    rect and a rotated-translated cube."""
+    b = builder_cls(background=background)
     b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.73, 0.73, 0.73)))
     b.rect("zx", -1, -1, 1, 1, 5.0,
            b.diffuse_light(b.solid(4.0, 4.0, 4.0)), flip=True)
@@ -61,10 +71,19 @@ def _sphere_scene(builder_cls):
     return b.build()
 
 
+# the scenes the fused tier is held on: the two inverse renders', and the
+# sphere scene under the black background and under the sky
+SCENES = ["inverse_render", "spheres", "geometry", "spheres_sky"]
+
+
 def _scenes(name):
     if name == "inverse_render":
         return ir.build_scene(ir.TRUE_ALBEDO), _jax_inverse_scene(ir.TRUE_ALBEDO)
-    return _sphere_scene(SceneBuilder), _sphere_scene(JSceneBuilder)
+    if name == "geometry":
+        return (ir.build_geo_scene(ir.TRUE_GEO_ALBEDO, ir.TRUE_GEO_EMIT,
+                                   ir.TRUE_TILT_DEG), _jax_geo_scene())
+    bg = BG_SKY if name == "spheres_sky" else BG_BLACK
+    return _sphere_scene(SceneBuilder, bg), _sphere_scene(JSceneBuilder, bg)
 
 
 def _probe(n, n_bounce, seed):
@@ -103,7 +122,25 @@ def _assert_scale_close(got, want, atol_scale, what):
                                err_msg=what)
 
 
-@pytest.mark.parametrize("name", ["inverse_render", "spheres"])
+def _assert_cols_close(got, want, atol_scale, what):
+    """Column by column (the last axis): |got − want| ≤ atol_scale · the
+    column's max|want|; a column that is exactly zero in want is exactly
+    zero in got. One column's scale cannot hide another's error (the ground
+    sphere's C_INVR cotangent is ~1e4 where the cube's C_KOFF is ~1e-3)."""
+    got, want = np.asarray(got), np.asarray(want)
+    g2 = got.reshape(-1, got.shape[-1])
+    w2 = want.reshape(-1, want.shape[-1])
+    for c in range(w2.shape[1]):
+        scale = np.abs(w2[:, c]).max()
+        if scale == 0:
+            assert not g2[:, c].any(), f"{what}: column {c} is not zero"
+        else:
+            np.testing.assert_allclose(g2[:, c], w2[:, c], rtol=0,
+                                       atol=atol_scale * scale,
+                                       err_msg=f"{what}: column {c}")
+
+
+@pytest.mark.parametrize("name", SCENES)
 def test_fast_grad_record_equals_jax(name):
     """Bit-equal: the same pack_prims arithmetic on the same tables."""
     port, ref = _scenes(name)
@@ -129,7 +166,7 @@ def test_inverse_render_scene_and_rows_equal_jax():
     assert ir.param_tex_rows(port) == param_tex_rows(ref)
 
 
-@pytest.fixture(scope="module", params=["inverse_render", "spheres"])
+@pytest.fixture(scope="module", params=SCENES)
 def twin_vs_jax(request):
     """1,024 lanes at depth 6: the twin's primal and vjp, and JAX's."""
     port, ref = _scenes(request.param)
@@ -143,31 +180,47 @@ def twin_vs_jax(request):
     got = tg.trace_tiles_plain(_t(rec), _t(o), _t(d), _t(u), cfg, md)
     got_g = tg.trace_tiles_plain_vjp(_t(rec), _t(o), _t(d), _t(u), _t(ct),
                                      cfg, md)
-    return got, np.asarray(want), got_g, [np.asarray(g) for g in want_g]
+    return (got, np.asarray(want), got_g, [np.asarray(g) for g in want_g],
+            "sky" in cfg[1])
 
 
 def test_twin_primal_equals_jax(twin_vs_jax):
     """Op for op in the JAX order: within 1e-6 (2 ulp at the radiance's
     scale; exp, log, sin and cos may round differently in XLA and torch)."""
-    got, want, _, _ = twin_vs_jax
+    got, want, _, _, _ = twin_vs_jax
     assert got.shape == (1024, 3) and float(got.sum()) > 0
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("i,leaf", [(0, "d_rec"), (1, "d_o"), (2, "d_d")])
 def test_twin_vjp_equals_jax_vjp(twin_vs_jax, i, leaf):
-    """Torch autograd through the twin vs jax.vjp under the same ct,
-    within 5e-4 of the gradient's scale (tests/test_pallas_grad.py). In
-    this scope only the light and albedo columns carry gradient; o, d and
-    the geometric columns get exact zeros from both."""
-    _, _, got_g, want_g = twin_vs_jax
-    _assert_scale_close(got_g[i].numpy(), want_g[i], 5e-4, leaf)
+    """Torch autograd through the twin vs jax.vjp under the same ct, each
+    d_rec column and each of d_o, d_d within 5e-4 of its own scale
+    (tests/test_pallas_grad.py's tolerance), the same columns live. Under
+    the black background only the light and albedo columns carry gradient
+    and o, d get exact zeros from both; under the sky the radiance moves
+    with every miss direction, and the geometric chain is live."""
+    _, _, got_g, want_g, sky = twin_vs_jax
+    got = got_g[i].numpy()
+    assert np.isfinite(got).all() and np.isfinite(want_g[i]).all()
     if i == 0:
-        live = np.nonzero(np.abs(want_g[0]).max(axis=0))[0].tolist()
-        assert set(live) <= {tg.C_LIGHT, tg.C_TEX_E, tg.C_TEX_E + 1,
-                             tg.C_TEX_E + 2} and tg.C_TEX_E in live
+        _assert_cols_close(got, want_g[0], 5e-4, leaf)
+        live = set(np.nonzero(np.abs(want_g[0]).max(axis=0))[0].tolist())
+        assert set(np.nonzero(np.abs(got).max(axis=0))[0].tolist()) == live
+        color = {tg.C_LIGHT, tg.C_TEX_E, tg.C_TEX_E + 1, tg.C_TEX_E + 2}
+        assert tg.C_TEX_E in live
+        if sky:
+            # the comparisons' columns carry nothing; the geometry's do
+            assert not live & {tg.C_IS_SPHERE, tg.C_AN, tg.C_BN, tg.C_AOFF,
+                               tg.C_A0, tg.C_B1}
+            assert {tg.C_KN, tg.C_KOFF, tg.C_FLIP} <= live
+        else:
+            assert live <= color
+    elif sky:
+        _assert_scale_close(got, want_g[i], 5e-4, leaf)
+        assert np.abs(got).max() > 0
     else:
-        assert not np.abs(got_g[i].numpy()).any()
+        assert not np.abs(got).any()
 
 
 def _leaves(scene: SceneTables) -> SceneTables:
@@ -242,17 +295,21 @@ def test_kernel_plumbing_matches_jax_interpret():
 
 
 def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
-    """csrc/grad.cu K3 in vectorized torch: forward replay with a tape of
-    (winner, throughput, alive) stopped one bounce after a path dies, then
-    the reverse sweep of the color chain, each bounce adding into its
-    winner's row. Returns d_rec."""
+    """csrc/grad.cu K3 in vectorized torch, lane for lane: the forward
+    replay keeps a tape of (winner, root, throughput, alive, o, d, t) per
+    bounce, stopped one bounce after a path dies; the reverse sweep carries
+    the cotangents of (o, d, throughput, alive) back through the color
+    chain, the sky and the geometric chain (scatter direction, normal × flip,
+    hit point, the winner's t), each bounce adding into its winner's row.
+    Returns (d_rec, d_o, d_d)."""
     has_light = "light" in cfg[1]
+    has_sky = "sky" in cfg[1]
     n, n_bounce = o.shape[0], u.shape[0]
     P = rec.shape[0]
+    sky = torch.tensor([0.5, 0.7, 1.0])
     # the replay: the twin's trace one bounce at a time, from its own state
     tape = []
-    ox, oy, oz = o.unbind(1)
-    dx, dy, dz = d.unbind(1)
+    o, d = o.clone(), d.clone()
     thr = torch.ones(n, 3)
     alive = torch.ones(n)
     stopped = torch.zeros(n, dtype=torch.bool)
@@ -260,14 +317,17 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
         ghost = alive == 0
         t_best = torch.full((n,), tg.BIG)
         win = torch.full((n,), -1, dtype=torch.int64)
-        a_dd = dx * dx + dy * dy + dz * dz
+        far = torch.zeros(n, dtype=torch.bool)
+        a_dd = (d * d).sum(dim=1)
         for p, kind in enumerate(cfg[0]):
-            # the kernel's hit test: reuse the twin on one prim, one bounce
-            t_p = _prim_t(rec[p], kind, ox, oy, oz, dx, dy, dz, a_dd)
+            # the kernel's hit test: the twin's arithmetic on one prim
+            t_p, far_p = _prim_t(rec[p], kind, *o.unbind(1), *d.unbind(1),
+                                 a_dd)
             better = t_p < t_best
             t_best = torch.where(better, t_p, t_best)
             win = torch.where(better, p, win)
-        tape.append((win.clone(), thr.clone(), alive.clone(), ~stopped))
+            far = torch.where(better, far_p, far)
+        tape.append((win, far, thr, alive, o, d, t_best, ~stopped))
         stopped = stopped | ghost | (b == max_depth)
         if b == max_depth:
             break
@@ -275,68 +335,161 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
         w = rec[win.clamp(min=0)]
         ok = 1.0 - w[:, tg.C_LIGHT] if has_light else torch.ones(n)
         cont = torch.where(hit, alive * ok, 0.0)
-        keep = cont > 0.5
-        t = torch.where(hit, t_best, 0.0)
-        px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
-        sph = w[:, tg.C_IS_SPHERE] > 0.5
-        fl = w[:, tg.C_FLIP]
-        nrm = [torch.where(sph, (q - w[:, tg.C_CX + a]) * w[:, tg.C_INVR],
-                           w[:, tg.C_KN + a]) * fl
-               for a, q in enumerate((px, py, pz))]
+        keep = (cont > 0.5)[:, None]
+        t = torch.where(hit, t_best, 0.0)[:, None]
+        pt = o + t * d
+        nrm = _normal(w, pt)
         cos_t = 2.0 * u[b, 0] - 1.0
         sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
         phi = rng.TWO_PI * u[b, 1]
         rr3 = torch.exp(torch.log(1.0 - u[b, 2]) * rng.ONE_THIRD)
-        nd = (nrm[0] + rr3 * sin_t * torch.cos(phi),
-              nrm[1] + rr3 * sin_t * torch.sin(phi), nrm[2] + rr3 * cos_t)
-        thr = torch.where(keep[:, None], thr * w[:, tg.C_TEX_E:tg.C_TEX_E + 3],
-                          thr)
-        ox, oy, oz = (torch.where(keep, a, c) for a, c in
-                      zip((px, py, pz), (ox, oy, oz)))
-        dx, dy, dz = (torch.where(keep, a, c) for a, c in zip(nd, (dx, dy, dz)))
+        nd = nrm + torch.stack([rr3 * sin_t * torch.cos(phi),
+                                rr3 * sin_t * torch.sin(phi), rr3 * cos_t], 1)
+        thr = torch.where(keep, thr * w[:, tg.C_TEX_E:tg.C_TEX_E + 3], thr)
+        o = torch.where(keep, pt, o)
+        d = torch.where(keep, nd, d)
         alive = cont
+
     d_rec = torch.zeros(P, tg.REC_C)
-    g_thr = torch.zeros(n, 3)
+    g_o, g_d, g_thr = torch.zeros(n, 3), torch.zeros(n, 3), torch.zeros(n, 3)
     g_alive = torch.zeros(n)
     for b in range(len(tape) - 1, -1, -1):
-        win, thr_b, alive_b, on = tape[b]
+        win, far, thr_b, alive_b, o_b, d_b, t_b, on = tape[b]
         hit = (win >= 0) & on
+        hitf = hit.float()
         w = rec[win.clamp(min=0)]
+        sph = hit & (w[:, tg.C_IS_SPHERE] > 0.5)
+        rect = hit & ~sph
         al = torch.where(hit[:, None], w[:, tg.C_TEX_E:tg.C_TEX_E + 3], 0.0)
-        wl = torch.where(hit, w[:, tg.C_LIGHT], 0.0) if has_light \
-            else torch.zeros(n)
-        gain = alive_b * hit.float()
+        wl = (torch.where(hit, w[:, tg.C_LIGHT], 0.0) if has_light
+              else torch.zeros(n))
+        gain = alive_b * hitf
+        t = torch.where(hit, t_b, 0.0)
+        pt = o_b + t[:, None] * d_b
+        # the state's cotangents before this bounce, from those after it
+        g_p = torch.zeros(n, 3)
+        g_n = torch.zeros(n, 3)
         g_al = torch.zeros(n, 3)
         g_wl = torch.zeros(n)
         g_gain = torch.zeros(n)
+        n_o = torch.zeros(n, 3)
+        n_d = torch.zeros(n, 3)
+        n_thr = torch.zeros(n, 3)
         if b < max_depth:
+            # o' = keep ? p : o;  d' = keep ? n + ball : d;
+            # thr' = keep ? thr · albedo : thr;  alive' = cont = gain · ok
             ok = 1.0 - wl
-            keep = (gain * ok) > 0.5
-            n_thr = torch.where(keep[:, None], g_thr * al, g_thr)
-            g_al = torch.where(keep[:, None], g_thr * thr_b, 0.0)
+            keep = ((gain * ok) > 0.5)[:, None]
+            g_p = torch.where(keep, g_o, 0.0)
+            g_n = torch.where(keep, g_d, 0.0)
+            n_o = torch.where(keep, 0.0, g_o)
+            n_d = torch.where(keep, 0.0, g_d)
+            n_thr = torch.where(keep, g_thr * al, g_thr)
+            g_al = torch.where(keep, g_thr * thr_b, 0.0)
             g_gain = g_alive * ok
-            g_wl = -(g_alive * gain) if has_light else g_wl
-        else:
-            n_thr = torch.zeros(n, 3)
+            g_wl = -(g_alive * gain)
         if has_light:
+            # rad += (gl · thr) · albedo, gl = gain · light
             gl = gain * wl
             a = ct * al
-            g_gl = (a * thr_b).sum(dim=1)
             n_thr = n_thr + a * gl[:, None]
             g_al = g_al + ct * (gl[:, None] * thr_b)
+            g_gl = (a * thr_b).sum(dim=1)
             g_gain = g_gain + g_gl * wl
             g_wl = g_wl + g_gl * gain
-        g_alive = torch.where(on, g_gain * hit.float(), 0.0)
+        n_alive = g_gain * hitf
+        g_a_dd = torch.zeros(n)
+        if has_sky:
+            # rad += (miss · thr) · bg, bg = (1 − tt) + tt · sky,
+            # tt = 0.5 (dy · rsqrt(a_dd) + 1), miss = alive · (1 − hit)
+            miss = torch.where(on, alive_b * (1.0 - hitf), 0.0)
+            a_dd = (d_b * d_b).sum(dim=1)
+            inv_len = torch.rsqrt(a_dd)
+            tt = 0.5 * (d_b[:, 1] * inv_len + 1.0)
+            bg = (1.0 - tt)[:, None] + tt[:, None] * sky
+            g_mt = ct * bg
+            n_thr = n_thr + g_mt * miss[:, None]
+            n_alive = n_alive + (g_mt * thr_b).sum(dim=1) * (1.0 - hitf)
+            g_tt = 0.5 * ((miss[:, None] * thr_b) * ct * (sky - 1.0)).sum(dim=1)
+            n_d[:, 1] = n_d[:, 1] + g_tt * inv_len
+            g_inv = g_tt * d_b[:, 1]
+            g_a_dd = g_a_dd + g_inv * (-0.5 * inv_len * inv_len * inv_len)
+        # n = (sphere: (p − c) · invr; rect: kn) · flip
+        c = w[:, tg.C_CX:tg.C_CX + 3]
+        kn = w[:, tg.C_KN:tg.C_KN + 3]
+        flip = w[:, tg.C_FLIP:tg.C_FLIP + 1]
+        invr = w[:, tg.C_INVR:tg.C_INVR + 1]
+        q = pt - c
+        g_m = g_n * flip
+        g_flip = (g_n * torch.where(sph[:, None], q * invr, kn)).sum(dim=1)
+        g_invr = torch.where(sph, (g_m * q).sum(dim=1), 0.0)
+        g_q = torch.where(sph[:, None], g_m * invr, 0.0)
+        g_p = g_p + g_q
+        g_c = -g_q
+        g_kn = torch.where(rect[:, None], g_m, 0.0)
+        # p = o + t · d (t = 0 on a miss)
+        n_o = n_o + g_p
+        n_d = n_d + t[:, None] * g_p
+        g_t = torch.where(hit, (g_p * d_b).sum(dim=1), 0.0)
+        # t: the winner's candidate (rect) t = (koff − o·kn) / (d·kn)
+        d_kn = (d_b * kn).sum(dim=1)
+        g_num = torch.where(rect, g_t / d_kn, 0.0)
+        g_den = torch.where(rect, -(g_num * t), 0.0)
+        g_koff = g_num
+        n_o = n_o - g_num[:, None] * kn
+        n_d = n_d + g_den[:, None] * kn
+        g_kn = g_kn - g_num[:, None] * o_b + g_den[:, None] * d_b
+        # (sphere) t = (−bq ∓ sq) · inv_a, sq = √(bq² − a_dd · cc),
+        # bq = oc·d, cc = oc·oc − r2, oc = o − c, inv_a = 1 / a_dd
+        oc = o_b - c
+        a_dd = (d_b * d_b).sum(dim=1)
+        inv_a = 1.0 / a_dd
+        bq = (oc * d_b).sum(dim=1)
+        cc = (oc * oc).sum(dim=1) - w[:, tg.C_R2]
+        sq = torch.sqrt(torch.where(sph, bq * bq - a_dd * cc, 1.0))
+        sgn = torch.where(far, 1.0, -1.0)
+        g_ts = torch.where(sph, g_t, 0.0)
+        g_inv_a = g_ts * (-bq + sgn * sq)
+        g_sq = sgn * (g_ts * inv_a)
+        g_disc = g_sq * 0.5 / sq
+        g_bq = -(g_ts * inv_a) + 2.0 * bq * g_disc
+        g_cc = -(a_dd * g_disc)
+        g_a_dd = g_a_dd + torch.where(sph, -(cc * g_disc)
+                                      - g_inv_a * inv_a * inv_a, 0.0)
+        g_oc = g_bq[:, None] * d_b + 2.0 * g_cc[:, None] * oc
+        n_d = n_d + torch.where(sph[:, None], g_bq[:, None] * oc, 0.0)
+        n_o = n_o + torch.where(sph[:, None], g_oc, 0.0)
+        g_c = g_c - torch.where(sph[:, None], g_oc, 0.0)
+        g_r2 = torch.where(sph, -g_cc, 0.0)
+        n_d = n_d + 2.0 * g_a_dd[:, None] * d_b
+
+        g_o = torch.where(on[:, None], n_o, 0.0)
+        g_d = torch.where(on[:, None], n_d, 0.0)
         g_thr = torch.where(on[:, None], n_thr, 0.0)
+        g_alive = torch.where(on, n_alive, 0.0)
         rows = win[hit]
-        d_rec[:, tg.C_LIGHT].index_add_(0, rows, g_wl[hit])
-        for c in range(3):
-            d_rec[:, tg.C_TEX_E + c].index_add_(0, rows, g_al[hit, c])
-    return d_rec
+        cols = {tg.C_LIGHT: g_wl, tg.C_FLIP: g_flip, tg.C_INVR: g_invr,
+                tg.C_R2: g_r2, tg.C_KOFF: g_koff}
+        for a in range(3):
+            cols[tg.C_TEX_E + a] = g_al[:, a]
+            cols[tg.C_CX + a] = g_c[:, a]
+            cols[tg.C_KN + a] = g_kn[:, a]
+        for col, g in cols.items():
+            d_rec[:, col].index_add_(0, rows, g[hit])
+    return d_rec, g_o, g_d
+
+
+def _normal(w, pt):
+    """The winner's normal × flip at hit points pt [N, 3] (rows w [N, 35])."""
+    sph = (w[:, tg.C_IS_SPHERE] > 0.5)[:, None]
+    q = (pt - w[:, tg.C_CX:tg.C_CX + 3]) * w[:, tg.C_INVR:tg.C_INVR + 1]
+    return (torch.where(sph, q, w[:, tg.C_KN:tg.C_KN + 3])
+            * w[:, tg.C_FLIP:tg.C_FLIP + 1])
 
 
 def _prim_t(r, kind, ox, oy, oz, dx, dy, dz, a_dd):
-    """One prim's hit distance, the twin's (and the kernel's) arithmetic."""
+    """One prim's hit distance, the twin's (and the kernel's) arithmetic,
+    and whether a sphere's far root was taken."""
     one = torch.ones(())
     if kind == "s":
         ocx, ocy, ocz = ox - r[tg.C_CX], oy - r[tg.C_CY], oz - r[tg.C_CZ]
@@ -349,7 +502,8 @@ def _prim_t(r, kind, ox, oy, oz, dx, dy, dz, a_dd):
         t_near, t_far = (-bq - sq) * inv_a, (-bq + sq) * inv_a
         near = pos & (t_near > tg.T_MIN) & (t_near < tg.BIG)
         far = pos & (t_far > tg.T_MIN) & (t_far < tg.BIG)
-        return torch.where(near, t_near, torch.where(far, t_far, tg.BIG))
+        return (torch.where(near, t_near, torch.where(far, t_far, tg.BIG)),
+                ~near & far)
     kn = r[tg.C_KN:tg.C_KN + 3]
     an, bn = r[tg.C_AN:tg.C_AN + 3], r[tg.C_BN:tg.C_BN + 3]
     o_kn = ox * kn[0] + oy * kn[1] + oz * kn[2]
@@ -362,24 +516,52 @@ def _prim_t(r, kind, ox, oy, oz, dx, dy, dz, a_dd):
           + t_r * (dx * bn[0] + dy * bn[1] + dz * bn[2]) - r[tg.C_BOFF])
     ok = ((~par) & (t_r > tg.T_MIN) & (t_r < tg.BIG) & (xx >= r[tg.C_A0])
           & (xx <= r[tg.C_A1]) & (yy >= r[tg.C_B0]) & (yy <= r[tg.C_B1]))
-    return torch.where(ok, t_r, tg.BIG)
+    return torch.where(ok, t_r, tg.BIG), torch.zeros_like(ok)
 
 
-@pytest.mark.parametrize("name", ["inverse_render", "spheres"])
+@pytest.mark.parametrize("name", SCENES)
 def test_k3_design_equals_autograd(name):
     """K3's algorithm (the tape stopped one bounce after a path dies, the
-    reverse color chain, winner-only routing), mirrored in torch, vs
-    autograd through the twin: d_rec within 1e-5 of its scale (sums in
-    another order). Pins the design before the card runs it."""
+    reverse color, sky and geometric chains, winner-only routing), mirrored
+    in torch, vs autograd through the twin: each d_rec column and each of
+    d_o, d_d within 1e-5 of its own scale (sums in another order). Pins the
+    design before the card runs it."""
     port, _ = _scenes(name)
     md = 6
     o, d, u, ct = _probe(2048, md + 1, seed=11)
     cfg = tg.fast_grad_config(port)
     rec = tg.fast_grad_record(port).detach()
     want = tg.trace_tiles_plain_vjp(rec, _t(o), _t(d), _t(u), _t(ct), cfg,
-                                    md)[0]
+                                    md)
     got = _k3_mirror(rec, _t(o), _t(d), _t(u), _t(ct), cfg, md)
-    _assert_scale_close(got.numpy(), want.numpy(), 1e-5, "d_rec")
+    _assert_cols_close(got[0].numpy(), want[0].numpy(), 1e-5, "d_rec")
+    for g, w, leaf in zip(got[1:], want[1:], ("d_o", "d_d")):
+        if "sky" in cfg[1]:
+            _assert_scale_close(g.numpy(), w.numpy(), 1e-5, leaf)
+        else:
+            assert not g.any() and not w.any()
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_plain_counts_add_up(name):
+    """The twin's path counts, which size the kernels' bounds: every lane
+    runs bounce 0 and a lane runs bounce b + 1 iff it scattered at b, so
+    segments = lanes + scatters; a miss never scatters; at depth 0 nothing
+    scatters."""
+    port, _ = _scenes(name)
+    cfg = tg.fast_grad_config(port)
+    rec = tg.fast_grad_record(port).detach()
+    n = 1024
+    o, d, u, _ = _probe(n, 7, seed=5)
+    c = {}
+    tg.trace_tiles_plain(rec, _t(o), _t(d), _t(u), cfg, 6, counts=c)
+    assert c["scatters"] > 0 and c["segments"] == n + c["scatters"]
+    assert c["misses"] <= c["segments"] - c["scatters"]
+    assert c["sphere_hits"] <= c["segments"] - c["misses"]
+    assert (c["sphere_hits"] > 0) == ("s" in cfg[0])
+    c0 = {}
+    tg.trace_tiles_plain(rec, _t(o), _t(d), _t(u[:1]), cfg, 0, counts=c0)
+    assert c0["scatters"] == 0 and c0["segments"] == n
 
 
 def test_gate_agrees_with_jax_on_presets():
@@ -396,13 +578,13 @@ def test_gate_agrees_with_jax_on_presets():
 
 
 def _outside_scope(what):
-    b = SceneBuilder(background=BG_SKY if what == "sky" else BG_BLACK)
+    b = SceneBuilder(background=BG_SKY if what.endswith("sky") else BG_BLACK)
     b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.7, 0.7, 0.7)))
     if what == "metal":
         b.sphere((0, 1, 0), 1.0, b.metal(b.solid(0.8, 0.7, 0.6), 0.2))
     elif what == "dielectric":
         b.sphere((0, 1, 0), 1.0, b.dielectric(1.5))
-    elif what == "checker":
+    elif what.startswith("checker"):
         b.sphere((0, 1, 0), 1.0, b.lambertian(b.checker(
             b.solid(0.2, 0.3, 0.1), b.solid(0.9, 0.9, 0.9))))
     return b.build()
@@ -411,7 +593,7 @@ def _outside_scope(what):
 @pytest.mark.parametrize("what,feat", [("metal", "metal"),
                                        ("dielectric", "diel"),
                                        ("checker", "checker"),
-                                       ("sky", "sky")])
+                                       ("checker_sky", "checker")])
 def test_outside_kernel_scope_raises(what, feat):
     scene = _outside_scope(what)
     assert tg.supports_fast_grad(scene, 6)  # in the JAX tier's scope
@@ -421,6 +603,35 @@ def test_outside_kernel_scope_raises(what, feat):
     with pytest.raises(UnsupportedScene, match=feat):
         tg.grad_fwd(tg.fast_grad_record(scene), _t(o), _t(d),
                     torch.rand(7, 4, 64), tg.fast_grad_config(scene), 6)
+
+
+def test_failed_launch_counts_nothing():
+    """The K2/K3 launchers raise on a launch error before K2_LAUNCHES or
+    K3_LAUNCHES moves, and count a launch that succeeded (a stub stands in
+    for the kernel library)."""
+    class Lib:
+        def __init__(self, err):
+            self.err = err
+
+        def rt_grad_fwd(self, *args):
+            return self.err
+
+        def rt_grad_bwd(self, *args):
+            return self.err
+
+    scene = ir.build_geo_scene()
+    cfg = tg.fast_grad_config(scene)
+    rec = tg.fast_grad_record(scene)
+    o, d, u, ct = (_t(x) for x in _probe(32, 7, seed=2))
+    before = (tg.K2_LAUNCHES, tg.K3_LAUNCHES)
+    with pytest.raises(RuntimeError, match="K2 launch failed: cudaError 700"):
+        tg._launch_fwd(Lib(700), 0, rec, o, d, u, cfg, 6)
+    with pytest.raises(RuntimeError, match="K3 launch failed: cudaError 700"):
+        tg._launch_bwd(Lib(700), 0, rec, o, d, u, ct, cfg, 6)
+    assert (tg.K2_LAUNCHES, tg.K3_LAUNCHES) == before
+    assert tg._launch_fwd(Lib(0), 0, rec, o, d, u, cfg, 6).shape == (32, 3)
+    assert len(tg._launch_bwd(Lib(0), 0, rec, o, d, u, ct, cfg, 6)) == 3
+    assert (tg.K2_LAUNCHES, tg.K3_LAUNCHES) == (before[0] + 1, before[1] + 1)
 
 
 def test_wrappers_reject_bad_operands():

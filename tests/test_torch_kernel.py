@@ -12,6 +12,7 @@ Run them on the card with
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -388,10 +389,10 @@ def test_kernel_wrapper_rejects_bad_operands(cuda):
                      sums, **kw)
 
 
-def _grad_spheres(device):
+def _grad_spheres(device, background=BG_BLACK):
     """Lambertian + light with a sphere light, a flipped rect and a
     rotated-translated cube: the sphere branch of K2/K3."""
-    b = SceneBuilder(background=BG_BLACK)
+    b = SceneBuilder(background=background)
     b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.73, 0.73, 0.73)))
     b.rect("zx", -1, -1, 1, 1, 5.0,
            b.diffuse_light(b.solid(4.0, 4.0, 4.0)), flip=True)
@@ -403,8 +404,15 @@ def _grad_spheres(device):
     return b.build(device)
 
 
-def _grad_operands(scene, device, n=4096, max_depth=6):
-    cam = inverse_render.camera(device)
+def _geo_scene(device, tilt=inverse_render.TRUE_TILT_DEG):
+    return inverse_render.build_geo_scene(
+        inverse_render.TRUE_GEO_ALBEDO, inverse_render.TRUE_GEO_EMIT, tilt,
+        device=device)
+
+
+def _grad_operands(scene, device, n=4096, max_depth=6,
+                   camera_of=inverse_render.camera):
+    cam = camera_of(device)
     g = torch.Generator(device=device)
     g.manual_seed(1)
     pid = torch.randint(0, 200 * 200, (n,), generator=g, device=device)
@@ -462,3 +470,119 @@ def test_fused_kernels_reject_scenes_outside_scope_on_cuda(cuda):
     d = torch.ones(64, 3, device=cuda)
     with pytest.raises(tracer.UnsupportedScene, match="metal"):
         grad.trace_fast(scene, o, d, 0, max_depth=6)
+
+
+def _assert_cols_close(got, want, atol_scale, what):
+    """Column by column: |got − want| ≤ atol_scale · the column's
+    max|want|; a column exactly zero in want is exactly zero in got."""
+    for c in range(want.shape[-1]):
+        g, w = got[..., c], want[..., c]
+        scale = float(w.abs().max())
+        if scale == 0:
+            assert not g.any(), f"{what}: column {c} is not zero"
+        else:
+            err = float((g - w).abs().max())
+            assert err <= atol_scale * scale, (what, c, err, scale)
+
+
+@pytest.mark.parametrize("make,camera_of", [
+    (_geo_scene, inverse_render.geo_camera),
+    (lambda dev: _grad_spheres(dev, BG_SKY), inverse_render.camera)])
+def test_k2_sky_bit_equal_and_k3_geometric_adjoint(cuda, make, camera_of):
+    """Under the sky: K2 equals the twin bit for bit (the twin's op order,
+    -fmad=false, rsqrtf for torch.rsqrt); K3's d_rec within 1e-4 of each
+    column's own scale of autograd through the twin (float atomics sum in
+    another order), the same columns live; d_o and d_d within 1e-4 of
+    their scale."""
+    rec, o, d, u, ct, cfg = _grad_operands(make(cuda), cuda,
+                                           camera_of=camera_of)
+    assert "sky" in cfg[1]
+    k = grad.grad_fwd(rec, o, d, u, cfg, 6)
+    dk = grad.grad_bwd(rec, o, d, u, ct, cfg, 6)
+    p = grad.trace_tiles_plain(rec, o, d, u, cfg, 6)
+    torch.cuda.synchronize()
+    assert float(p.sum()) > 0 and torch.equal(k, p)
+    dp = grad.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, 6)
+    for g in dk:
+        assert torch.isfinite(g).all()
+    _assert_cols_close(dk[0], dp[0], 1e-4, "d_rec")
+    assert float(dp[0][:, grad.C_KN:grad.C_KN + 3].abs().max()) > 0
+    for g, w in zip(dk[1:], dp[1:]):
+        scale = float(w.abs().max())
+        assert scale > 0 and float((g - w).abs().max()) <= 1e-4 * scale
+
+
+def test_k3_grazing_probe_is_finite(cuda):
+    """Rays aimed at the ground sphere's horizon (a graze of the radius-1000
+    sphere, where dt/d disc grows without bound) and at the tilted cube's
+    edges: K3's gradients and autograd's through the twin are finite, and
+    agree (d_rec per column, d_o and d_d, each 1e-4 of its scale)."""
+    scene = _geo_scene(cuda)
+    cam = inverse_render.geo_camera(cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    n = 4096
+    origin = cam.origin.expand(n, 3)
+    # the horizon from (0, 2.2, 8): sin α = √(2h/R) below the horizontal
+    dy = -math.sqrt(2 * 2.2 / 1000.0) + 2e-3 * (
+        torch.rand(n // 2, generator=g, device=cuda) - 0.5)
+    horizon = torch.stack([torch.rand(n // 2, generator=g, device=cuda) - 0.5,
+                           dy, -torch.ones(n // 2, device=cuda)], 1)
+    # the cube's edges: corners ± 0.9 in two axes, rotated by the tilt
+    a = math.radians(inverse_render.TRUE_TILT_DEG)
+    edge = (torch.randint(0, 2, (n // 2, 3), generator=g, device=cuda)
+            * 1.8 - 0.9)
+    edge[:, 0] = (torch.rand(n // 2, generator=g, device=cuda) - 0.5) * 1.8
+    edge = edge + 1e-3 * (torch.rand(n // 2, 3, generator=g, device=cuda)
+                          - 0.5)
+    y = edge[:, 1] * math.cos(a) - edge[:, 2] * math.sin(a) + 1.3
+    z = edge[:, 1] * math.sin(a) + edge[:, 2] * math.cos(a)
+    cube = torch.stack([edge[:, 0], y, z], 1) - origin[: n // 2]
+    o = origin.contiguous()
+    d = torch.cat([horizon, cube]).contiguous()
+    u = grad.fast_draws(9, n, 7, cuda)
+    ct = torch.rand(n, 3, generator=g, device=cuda)
+    rec = grad.fast_grad_record(scene).detach()
+    cfg = grad.fast_grad_config(scene)
+    dk = grad.grad_bwd(rec, o, d, u, ct, cfg, 6)
+    dp = grad.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, 6)
+    torch.cuda.synchronize()
+    for name, g_k, w in zip(("d_rec", "d_o", "d_d"), dk, dp):
+        assert torch.isfinite(g_k).all(), f"K3 {name}"
+        assert torch.isfinite(w).all(), f"autograd {name}"
+    _assert_cols_close(dk[0], dp[0], 1e-4, "d_rec")
+    for g_k, w in zip(dk[1:], dp[1:]):
+        assert float((g_k - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_trace_fast_on_cuda_reaches_the_tilt(cuda):
+    """The geometry step's candidate on the card: the gradient of a
+    weighted radiance with respect to θ, through K3, fast_grad_record and
+    the transform row's sin and cos, agrees with autograd through the twin
+    on the same card within 1e-3 of its size, as do the albedo's and the
+    emission's."""
+    scene = _geo_scene(cuda, 0.0)
+    rec, o, d, u, ct, cfg = _grad_operands(
+        scene, cuda, camera_of=inverse_render.geo_camera)
+    light_tex, cube_tex = inverse_render.geo_param_rows(scene)
+    grads = []
+    for fast in (True, False):
+        albedo = torch.tensor([0.3, 0.4, 0.5], device=cuda,
+                              requires_grad=True)
+        emit = torch.tensor(4.0, device=cuda, requires_grad=True)
+        theta = torch.tensor(0.3, device=cuda, requires_grad=True)
+        s2 = inverse_render.with_params(scene, light_tex, cube_tex, albedo,
+                                        emit, theta)
+        before = grad.K3_LAUNCHES
+        if fast:
+            rad = grad.trace_fast(s2, o, d, 0, max_depth=6, cfg=cfg, u=u)
+        else:
+            rad = grad.trace_tiles_plain(grad.fast_grad_record(s2), o, d, u,
+                                         cfg, 6)
+        (rad * ct).sum().backward()
+        assert grad.K3_LAUNCHES == before + int(fast)
+        grads.append([albedo.grad, emit.grad, theta.grad])
+    for got, want in zip(*grads):
+        assert torch.isfinite(got).all() and float(want.abs().max()) > 0
+        assert float((got - want).abs().max()) <= 1e-3 * float(
+            want.abs().max())
