@@ -59,13 +59,40 @@ Phases, one JSON line each on stdout:
  19. the render path through the command line, `render --scene
      final_scene --device cuda` (800×800, 100 spp, depth 50), with the
      launch counts and a check of the image, and a render at 128×128, 100
-     spp whose mean is held to the JAX XLA tier's.
+     spp whose mean is held to the JAX XLA tier's;
+ 20. K2 with the sky against its plain version, bit for bit, on the geometry
+     inverse render's scene (a ground sphere, a rect light, a tilted cube)
+     at its step's full width: 262,144 lanes, depth 6, step 0's rays and
+     draws;
+ 21. K3 with the geometric adjoint against autograd through the plain
+     version: each d_rec column within 1e-4 of its own scale, the same
+     columns live, d_o and d_d within 1e-4 of theirs;
+ 22. the geometry training path, `inverse_render.main(["--geometry",
+     "--device", "cuda"])` (200 steps), with K2's and K3's launch counts and
+     the recovered albedo, emission and tilt;
+ 23. times by CUDA events at that width: K2, K3, the plain forward and
+     forward + backward, one geometry step;
+ 24. K2 with metal, glass and the checker against its plain version, bit
+     for bit, on the JAX fused tier's probe scene (12 prims: a metal sphere
+     of fuzz 0.2, a glass sphere of index 1.5, a light, rects and a rotated
+     cube, under the sky) at 262,144 lanes, depth 6, rays from (0, 2, 8) as
+     tools/tpu_parity.py's fused-tier check makes them, Philox draws;
+ 25. K3 on the same against autograd, per d_rec column as in phase 21
+     (fuzz and ref_idx reach C_PARAM);
+ 26. phases 24-25 on probe_scene at the tape's full depth, 16, and on the
+     checker scene (a checker floor at y = 0.37 and an emissive checker
+     sphere: both children's rows) at depths 6 and 16;
+ 27. the path: the mean radiance's gradient through `trace_fast` into the
+     six scene leaves on both scenes at full width, depth 6, with K2's and
+     K3's launch counts, against autograd through the plain version leaf by
+     leaf (tools/tpu_parity.py's fast_grad_tier on the card);
+ 28. times by CUDA events on probe_scene at full width, depth 6: K2, K3,
+     the plain forward and the plain forward + backward.
 Every command-line phase prints its per-phase seconds, the PPM encode
 included. Then the kernel table and, as the last line, the device
-summary. Each
-row of the table carries the kernel's bound: the larger of the bytes it
-must move over the card's memory rate and the f32 operations this run's
-paths needed over the card's f32 rate (`bound`).
+summary. Each row of the table carries the kernel's bound: the larger of
+the bytes it must move over the card's memory rate and the f32 operations
+this run's paths needed over the card's f32 rate (`bound`).
 
 Any failure exits non-zero before the last line. Without CUDA, or run
 outside the repository, it exits non-zero and prints no result.
@@ -127,33 +154,61 @@ K1_OPS = dict(segment=160, sample=140, sphere=20, rect=14, frame=32,
               leaf=24, member=20, medium=70, noise=2455, image=30, box=26,
               box_leaf=24, walk=120, interior=22)
 # csrc/grad.cu, counted from its source: per alive lane bounce of K2 the
-# fixed work, each prim's test and a miss's sky. K3 replays K2's bounces
-# without the sky, then per lane bounce sweeps back the color chain (keep,
-# emission, the warp sums of the light and albedo columns); with the sky
-# also, per lane bounce, |d|² and the warp sums of the geometric columns,
-# and a miss's sky, a sphere winner's or a rect winner's geometric chain
-K2_OPS = dict(segment=60, prim=16, sky=27, adjoint=61, adjoint_sky=39,
-              adjoint_miss=52, adjoint_sphere=113, adjoint_rect=54)
+# fixed work, each prim's test and a miss's sky; a checker hit's pick (3
+# sinf); a metal's reflect with fuzz (on its scatters and absorptions);
+# a glass scatter's refract set-up and Schlick, then its refract or its
+# reflect. K3 replays K2's bounces without the sky, then per lane bounce
+# sweeps back the color chain (keep, emission, the warp sums of the light
+# and albedo columns, and of the odd albedo with a checker); with the sky
+# also, per lane bounce, |d|² and the warp sums of the geometric columns
+# (and of C_PARAM with metal or glass), and a miss's sky, a sphere winner's
+# or a rect winner's geometric chain, and a metal scatter's, a refraction's
+# or a glass reflection's adjoint
+K2_OPS = dict(segment=60, prim=16, sky=27, checker=10, metal=35, glass=49,
+              refract=16, reflect=7, adjoint=61, adjoint_odd=30,
+              adjoint_sky=39, adjoint_param=10, adjoint_miss=52,
+              adjoint_sphere=113, adjoint_rect=54, adjoint_metal=73,
+              adjoint_refract=112, adjoint_reflect=37)
 
 
 def k2_k3_bound(counts: dict, n_prims: int, n: int,
-                sky: bool) -> tuple[dict, dict]:
+                feats) -> tuple[dict, dict]:
     """(K2's, K3's) bound on the paths `trace_tiles_plain` counted: its
-    segments (lane bounces), misses, sphere hits and scatters. Operations
-    from K2_OPS; bytes: the record and each lane's o, d read once, draws
-    u words 0-2 read only on a bounce that scatters, K2's radiance written;
-    K3 reads the cotangent besides and writes d_o, d_d and d_rec once."""
-    seg, miss, sph = (counts["segments"], counts["misses"],
-                      counts["sphere_hits"])
-    replay = seg * (K2_OPS["segment"] + n_prims * K2_OPS["prim"])
-    k2 = replay + (miss * K2_OPS["sky"] if sky else 0)
+    segments (lane bounces), misses, sphere and checker hits, scatters,
+    metal scatters and absorptions, glass scatters, refractions and the
+    glass scatters that read draw word 3. Operations from K2_OPS; bytes: the
+    record and each lane's o, d read once, draw words 0-2 read on a
+    lambertian or metal scatter and a metal absorption, word 3 on a glass
+    scatter that can refract, K2's radiance written; K3 reads the cotangent
+    besides and writes d_o, d_d and d_rec once."""
+    c = {k: counts.get(k, 0) for k in (
+        "segments", "misses", "sphere_hits", "checker_hits", "scatters",
+        "metal_scatters", "metal_absorbs", "glass_scatters", "refracts",
+        "u3_reads")}
+    seg, miss, sph = c["segments"], c["misses"], c["sphere_hits"]
+    glass, refr = c["glass_scatters"], c["refracts"]
+    metal = c["metal_scatters"]
+    replay = (seg * (K2_OPS["segment"] + n_prims * K2_OPS["prim"])
+              + c["checker_hits"] * K2_OPS["checker"]
+              + (metal + c["metal_absorbs"]) * K2_OPS["metal"]
+              + glass * K2_OPS["glass"] + refr * K2_OPS["refract"]
+              + (glass - refr) * K2_OPS["reflect"])
+    k2 = replay + (miss * K2_OPS["sky"] if "sky" in feats else 0)
     k3 = replay + seg * K2_OPS["adjoint"]
-    if sky:
+    if "checker" in feats:
+        k3 += seg * K2_OPS["adjoint_odd"]
+    if "sky" in feats:
         k3 += (seg * K2_OPS["adjoint_sky"] + miss * K2_OPS["adjoint_miss"]
                + sph * K2_OPS["adjoint_sphere"]
-               + (seg - miss - sph) * K2_OPS["adjoint_rect"])
+               + (seg - miss - sph) * K2_OPS["adjoint_rect"]
+               + metal * K2_OPS["adjoint_metal"]
+               + refr * K2_OPS["adjoint_refract"]
+               + (glass - refr) * K2_OPS["adjoint_reflect"])
+        if {"metal", "diel"} & set(feats):
+            k3 += seg * K2_OPS["adjoint_param"]
     rec_bytes = 4 * n_prims * 35   # ops/grad.py REC_C f32 columns
-    read = rec_bytes + 4 * 6 * n + 4 * 3 * counts["scatters"]
+    draws = 3 * (c["scatters"] - glass + c["metal_absorbs"]) + c["u3_reads"]
+    read = rec_bytes + 4 * 6 * n + 4 * draws
     return (bound(k2, read + 4 * 3 * n),
             bound(k3, read + 4 * 3 * n + 4 * 6 * n + rec_bytes))
 
@@ -209,6 +264,47 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def hold_k3_columns(phase: str, what: str, k3, p3, sky: bool,
+                    **extra) -> float:
+    """K3's (d_rec, d_o, d_d) against autograd's through the twin: each
+    d_rec column within 1e-4 of its own scale, the same columns live, d_o
+    and d_d within 1e-4 of their scale (exact zeros without the sky), all
+    finite; emitted as one line → d_rec's max abs error."""
+    import torch
+    cols, live_k, live_p = {}, [], []
+    for col in range(k3[0].shape[1]):
+        a, b = k3[0][:, col], p3[0][:, col]
+        if a.any():
+            live_k.append(col)
+        scale = float(b.abs().max())
+        if scale > 0:
+            live_p.append(col)
+            cols[col] = dict(scale=scale,
+                             err_over_scale=float((a - b).abs().max()) / scale)
+    leaf = {}
+    for name, a, b in (("d_o", k3[1], p3[1]), ("d_d", k3[2], p3[2])):
+        scale = float(b.abs().max())
+        leaf[name] = dict(scale=scale, err_over_scale=(
+            float((a - b).abs().max()) / scale if scale else None),
+            kernel_max_abs=float(a.abs().max()))
+    err = float((k3[0] - p3[0]).abs().max())
+    finite = all(bool(torch.isfinite(x).all()) for x in (*k3, *p3))
+    emit(phase, d_rec_columns=cols, live_columns=live_k,
+         autograd_live_columns=live_p, finite=finite, d_rec_max_abs_err=err,
+         **leaf, **extra)
+    check(finite, f"{what}: a gradient is not finite")
+    check(live_k == live_p, f"{what}: live columns {live_k} vs {live_p}")
+    check(all(v["err_over_scale"] <= 1e-4 for v in cols.values()),
+          f"{what}: a d_rec column off by more than 1e-4 of its scale: {cols}")
+    if sky:
+        check(all(v["scale"] > 0 and v["err_over_scale"] <= 1e-4
+                  for v in leaf.values()), f"{what}: d_o/d_d off: {leaf}")
+    else:
+        check(all(v["scale"] == 0 and v["kernel_max_abs"] == 0
+                  for v in leaf.values()), f"{what}: d_o/d_d not zero: {leaf}")
+    return err
+
+
 def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean milliseconds of fn() on the card over `reps` calls, after one
     warm-up call unless warm is False, by CUDA events."""
@@ -222,6 +318,184 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def grad_probe_scene(dev):
+    """The JAX fused tier's probe scene: a floor, a red wall, a flipped
+    light, a metal sphere (fuzz 0.2), a glass sphere (1.5), a
+    lambertian sphere, a rotated, translated cube; 12 prims."""
+    from raytracing_rust_tpu_torch.models.scene import BG_SKY, SceneBuilder
+    b = SceneBuilder(background=BG_SKY)
+    b.rect("zx", -3, -3, 3, 3, 0.0,
+           b.lambertian(b.solid(0.73, 0.73, 0.73)))
+    b.rect("yz", 0, -3, 6, 3, -3.0,
+           b.lambertian(b.solid(0.65, 0.05, 0.05)))
+    b.rect("zx", -1, -1, 1, 1, 5.0,
+           b.diffuse_light(b.solid(4.0, 4.0, 4.0)), flip=True)
+    b.sphere((0.9, 1.0, 0.5), 0.8, b.metal(b.solid(0.8, 0.7, 0.6), 0.2))
+    b.sphere((-1.0, 0.8, 0.6), 0.7, b.dielectric(1.5))
+    b.sphere((0.0, 0.6, -1.2), 0.6,
+             b.lambertian(b.solid(0.2, 0.5, 0.8)))
+    xf = b.transform(offset=(0.4, 0.0, 0.2), rotate_axis="y",
+                     angle_deg=20.0)
+    b.cube((-2.4, 0.0, -1.4), (-1.4, 1.6, -0.4),
+           b.lambertian(b.solid(0.4, 0.6, 0.3)), xform=xf)
+    return b.build(dev)
+
+
+def grad_checker_scene(dev):
+    """A checker floor at y = 0.37, an emissive checker sphere and a
+    lambertian sphere under the sky."""
+    from raytracing_rust_tpu_torch.models.scene import BG_SKY, SceneBuilder
+    b = SceneBuilder(background=BG_SKY)
+    b.rect("zx", -4, -4, 4, 4, 0.37, b.lambertian(b.checker(
+        b.solid(0.2, 0.3, 0.1), b.solid(0.9, 0.9, 0.9))))
+    b.sphere((0.0, 1.37, 0.0), 1.0, b.diffuse_light(b.checker(
+        b.solid(3.0, 0.5, 0.5), b.solid(0.5, 3.0, 0.5))))
+    b.sphere((2.2, 1.1, 0.3), 0.8, b.lambertian(b.solid(0.3, 0.4, 0.8)))
+    return b.build(dev)
+
+
+def material_phases(dev, reset_launches, n: int = 4096 * 64):
+    """Phases 24-28: K2 and K3 on metal, glass and the checker against
+    their plain versions, the path into the scene leaves with its launch
+    counts, and the times → (per (scene, depth): record, config, draws,
+    the paths' work and the errors; the path's launches; the times and
+    bounds of K2 and K3 on probe_scene at depth 6)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from raytracing_rust_tpu_torch.models.scene import TEX_CHECKER
+    from raytracing_rust_tpu_torch.ops import grad
+
+    # -- 24-26. K2 and K3 with metal, glass and the checker vs plain at the
+    # training step's full width, rays as tools/tpu_parity.py's fused-tier
+    # check makes them, Philox draws: probe_scene (24 K2, 25 K3) and the
+    # checker scene (26), each at depth 6 and at the tape's full 16
+    r = np.random.default_rng(3)
+    d = torch.from_numpy(np.stack(
+        [r.uniform(-0.7, 0.7, n), r.uniform(-0.45, 0.25, n), -np.ones(n)],
+        -1).astype(np.float32)).to(dev)
+    o = torch.tensor([0.0, 2.0, 8.0], device=dev).expand(n, 3).contiguous()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    ct = torch.rand(n, 3, generator=g, device=dev)
+    mscenes = {"probe_scene": grad_probe_scene(dev),
+               "checker": grad_checker_scene(dev)}
+    material = {}
+    for sname, md in (("probe_scene", 6), ("probe_scene", 16),
+                      ("checker", 6), ("checker", 16)):
+        mcfg = grad.fast_grad_config(mscenes[sname])
+        mrec = grad.fast_grad_record(mscenes[sname]).detach()
+        u = grad.fast_draws(7, n, md + 1, dev)
+        k2 = grad.grad_fwd(mrec, o, d, u, mcfg, md)
+        work = {}
+        p2 = grad.trace_tiles_plain(mrec, o, d, u, mcfg, md, counts=work)
+        torch.cuda.synchronize()
+        err = float((k2 - p2).abs().max())
+        bit_equal = float((k2 == p2).all(dim=1).double().mean())
+        emit("k2b_material_vs_plain", scene=sname, feats=sorted(mcfg[1]),
+             kinds="".join(mcfg[0]), lanes=n, depth=md,
+             lanes_bit_equal=bit_equal, max_abs_err=err,
+             kernel_channel_means=k2.mean(dim=0).tolist(),
+             plain_channel_means=p2.mean(dim=0).tolist(), work=work)
+        check(bool(torch.isfinite(k2).all()) and float(p2.sum()) > 0,
+              f"K2 {sname} depth {md}: radiance not finite or zero")
+        check(bool(torch.equal(k2, p2)), f"K2 {sname} depth {md}: "
+              f"{bit_equal:.4%} of lanes bit-equal, max abs err {err}")
+        del p2
+        k3 = grad.grad_bwd(mrec, o, d, u, ct, mcfg, md)
+        p3 = grad.trace_tiles_plain_vjp(mrec, o, d, u, ct, mcfg, md)
+        torch.cuda.synchronize()
+        k3_err = hold_k3_columns(
+            "k3b_material_vs_autograd", f"K3 {sname} depth {md}", k3, p3,
+            True, scene=sname, lanes=n, depth=md,
+            d_rec_param_and_odd=k3[0][:, [grad.C_PARAM, grad.C_TEX_O,
+                                          grad.C_TEX_O + 1,
+                                          grad.C_TEX_O + 2]].tolist())
+        col = grad.C_PARAM if sname == "probe_scene" else grad.C_TEX_O
+        check(bool(k3[0][:, col].any()),
+              f"K3 {sname}: column {col} carries nothing")
+        material[sname, md] = dict(rec=mrec, cfg=mcfg, u=u, work=work,
+                                   k2_err=err, k3_err=k3_err)
+        del p3, k3
+
+    # -- 27. the path: the mean radiance's gradient through trace_fast (K2,
+    # K3) into the six scene leaves, each scene at full width, depth 6,
+    # against autograd through the plain version, leaf by leaf (the
+    # counterpart of tools/tpu_parity.py's fast_grad_tier)
+    leaves = ("prim_data", "mat_param", "tex_color", "xf_offset", "xf_sin",
+              "xf_cos")
+
+    def leaf_grads(name: str, fast: bool):
+        scene = mscenes[name]
+        sc = dataclasses.replace(scene, **{
+            k: getattr(scene, k).clone().requires_grad_(True)
+            for k in leaves})
+        mcfg, u = material[name, 6]["cfg"], material[name, 6]["u"]
+        if fast:
+            rad = grad.trace_fast(sc, o, d, 0, max_depth=6, cfg=mcfg, u=u)
+        else:
+            rad = grad.trace_tiles_plain(grad.fast_grad_record(sc), o, d, u,
+                                         mcfg, 6)
+        got = torch.autograd.grad(rad.mean(), [getattr(sc, k)
+                                               for k in leaves],
+                                  allow_unused=True)
+        return [torch.zeros_like(getattr(sc, k)) if x is None else x
+                for k, x in zip(leaves, got)]
+
+    reset_launches()
+    fast = {name: leaf_grads(name, True) for name in mscenes}
+    torch.cuda.synchronize()
+    mat_launches = {"k2b_material_fwd": grad.K2_LAUNCHES,
+                    "k3b_material_bwd": grad.K3_LAUNCHES}
+    for name, scene in mscenes.items():
+        want = leaf_grads(name, False)
+        rel = {}
+        for k, a, b in zip(leaves, fast[name], want):
+            scale = max(float(b.abs().max()), 1e-3)
+            rel[k] = dict(scale=scale, finite=bool(torch.isfinite(a).all()),
+                          err_over_scale=float((a - b).abs().max()) / scale)
+        gl = dict(zip(leaves, fast[name]))
+        mats = scene.prim_material.long()
+        child = scene.tex_child[scene.tex_type == TEX_CHECKER].flatten()
+        child = child.long()
+        emit("material_grad_path", scene=name, lanes=n, depth=6,
+             launches=mat_launches, leaves=rel,
+             mat_param=gl["mat_param"].tolist(),
+             checker_children_tex_color=gl["tex_color"][child].tolist())
+        check(all(v["finite"] and v["err_over_scale"] <= 1e-4
+                  for v in rel.values()),
+              f"{name}: a scene leaf's gradient is off: {rel}")
+        if name == "probe_scene":   # the metal's fuzz, the glass's index
+            check(bool((gl["mat_param"][mats[3:5]] != 0).all()),
+                  "probe_scene: fuzz or ref_idx got no gradient")
+        else:
+            check(bool((gl["tex_color"][child].abs().amax(dim=1) > 0).all()),
+                  "checker: a checker child's tex_color got no gradient")
+    check(all(v > 0 for v in mat_launches.values()),
+          f"a kernel of the material path never launched: {mat_launches}")
+    del fast
+
+    # -- 28. times on probe_scene at full width, depth 6
+    m = material["probe_scene", 6]
+    mrec, mcfg, u = m["rec"], m["cfg"], m["u"]
+    mk2_ms = cuda_ms(lambda: grad.grad_fwd(mrec, o, d, u, mcfg, 6), reps=20)
+    mk3_ms = cuda_ms(lambda: grad.grad_bwd(mrec, o, d, u, ct, mcfg, 6),
+                     reps=20)
+    mp2_ms = cuda_ms(lambda: grad.trace_tiles_plain(mrec, o, d, u, mcfg, 6),
+                     reps=3)
+    mp3_ms = cuda_ms(lambda: grad.trace_tiles_plain_vjp(mrec, o, d, u, ct,
+                                                        mcfg, 6), reps=3)
+    mk2_bound, mk3_bound = k2_k3_bound(m["work"], mrec.shape[0], n, mcfg[1])
+    emit("material_grad_times", scene="probe_scene", lanes=n, depth=6,
+         k2_ms=mk2_ms, k3_ms=mk3_ms, plain_fwd_ms=mp2_ms,
+         plain_fwd_bwd_ms=mp3_ms, k2_bound=mk2_bound, k3_bound=mk3_bound,
+         work=m["work"],
+         kernel_fwd_bwd_sample_paths_per_s=n / ((mk2_ms + mk3_ms) * 1e-3))
+    return material, mat_launches, dict(
+        k2=dict(ms=mk2_ms, plain_ms=mp2_ms, **mk2_bound),
+        k3=dict(ms=mk3_ms, plain_ms=mp3_ms, **mk3_bound))
 
 
 def main() -> int:
@@ -300,10 +574,11 @@ def main() -> int:
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
             flags = re.search(r"(trace_k1)I((?:Lb[01]E)+)E", m.group(1))
-            plain = re.search(r"grad_fwd|grad_bwd", m.group(1))
+            plain = re.search(r"(grad_fwd|grad_bwd)ILb([01])E", m.group(1))
             fn = (f"{flags.group(1)}<"
                   f"{','.join(re.findall('[01]', flags.group(2)))}>"
-                  if flags else plain.group(0) if plain else m.group(1))
+                  if flags else f"{plain.group(1)}<{plain.group(2)}>"
+                  if plain else m.group(1))
         elif fn and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(fn, []).append(ln.split(" : ")[-1].strip())
     emit("build", seconds=time.perf_counter() - t, nvcc=_build._nvcc(),
@@ -386,7 +661,7 @@ def main() -> int:
     k2 = grad.grad_fwd(rec, o, d, u, cfg, 6)
     c2 = {}
     p2 = grad.trace_tiles_plain(rec, o, d, u, cfg, 6, counts=c2)
-    k2_bound, k3_bound = k2_k3_bound(c2, rec.shape[0], n, "sky" in cfg[1])
+    k2_bound, k3_bound = k2_k3_bound(c2, rec.shape[0], n, cfg[1])
     torch.cuda.synchronize()
     check(bool(torch.isfinite(k2).all()), "K2 radiance is not finite")
     agree = float(torch.isclose(k2, p2, rtol=1e-4, atol=0.0)
@@ -656,8 +931,7 @@ def main() -> int:
     c2 = {}
     p2 = grad.trace_tiles_plain(grec, o, d, u, gcfg, 6, counts=c2)
     torch.cuda.synchronize()
-    gk2_bound, gk3_bound = k2_k3_bound(c2, grec.shape[0], n,
-                                       "sky" in gcfg[1])
+    gk2_bound, gk3_bound = k2_k3_bound(c2, grec.shape[0], n, gcfg[1])
     check(bool(torch.isfinite(k2).all()), "K2b radiance is not finite")
     gk2_err = float((k2 - p2).abs().max())
     bit_equal = float((k2 == p2).all(dim=1).double().mean())
@@ -676,34 +950,10 @@ def main() -> int:
     k3 = grad.grad_bwd(grec, o, d, u, ct, gcfg, 6)
     p3 = grad.trace_tiles_plain_vjp(grec, o, d, u, ct, gcfg, 6)
     torch.cuda.synchronize()
-    cols, live_k, live_p = {}, [], []
-    for col in range(grad.REC_C):
-        a, b = k3[0][:, col], p3[0][:, col]
-        if a.any():
-            live_k.append(col)
-        scale = float(b.abs().max())
-        if scale > 0:
-            live_p.append(col)
-            cols[col] = dict(scale=scale,
-                             err_over_scale=float((a - b).abs().max()) / scale)
-    leaf = {}
-    for name, a, b in (("d_o", k3[1], p3[1]), ("d_d", k3[2], p3[2])):
-        scale = float(b.abs().max())
-        leaf[name] = dict(scale=scale, err_over_scale=(
-            float((a - b).abs().max()) / scale if scale else None))
-    gk3_err = float((k3[0] - p3[0]).abs().max())
-    finite = all(bool(torch.isfinite(x).all()) for x in (*k3, *p3))
-    emit("k3b_vs_autograd", scene="geometry", lanes=n, depth=6,
-         d_rec_columns=cols, live_columns=live_k, autograd_live_columns=live_p,
-         finite=finite, d_rec_max_abs_err=gk3_err, **leaf,
-         d_rec_kn_koff=k3[0][:, [grad.C_KN, grad.C_KN + 1, grad.C_KN + 2,
-                                 grad.C_KOFF]].tolist())
-    check(finite, "K3b: a gradient is not finite")
-    check(live_k == live_p, f"K3b: live columns {live_k} vs {live_p}")
-    check(all(v["err_over_scale"] <= 1e-4 for v in cols.values()),
-          f"K3b: a d_rec column off by more than 1e-4 of its scale: {cols}")
-    check(all(v["scale"] > 0 and v["err_over_scale"] <= 1e-4
-              for v in leaf.values()), f"K3b: d_o/d_d off: {leaf}")
+    gk3_err = hold_k3_columns(
+        "k3b_vs_autograd", "K3b", k3, p3, True, scene="geometry", lanes=n,
+        depth=6, d_rec_kn_koff=k3[0][:, [grad.C_KN, grad.C_KN + 1,
+                                         grad.C_KN + 2, grad.C_KOFF]].tolist())
     del p3
 
     # -- 22. the geometry training path
@@ -759,6 +1009,10 @@ def main() -> int:
          k2_bound_ms=gk2_bound["bound_ms"], k3_bound_ms=gk3_bound["bound_ms"],
          kernel_fwd_bwd_sample_paths_per_s=n / ((gk2_ms + gk3_ms) * 1e-3),
          step_candidate_sample_paths_per_s=n / (gstep_ms * 1e-3))
+
+    # -- 24-28. metal, glass and the checker in K2 and K3
+    material, mat_launches, mtimes = material_phases(dev, reset_launches)
+    m = material["probe_scene", 6]
 
     print(json.dumps({"kernels": [{
         "name": "k1a_static_trace", "route": "cuda",
@@ -821,7 +1075,18 @@ def main() -> int:
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:567",
         "launches": geo_launches["k3b_geometric_bwd"],
         "max_abs_err": gk3_err, "ms": gk3_ms, "plain_ms": gp3_ms,
-        **gk3_bound, "library_ms": None}]}),
+        **gk3_bound, "library_ms": None}, {
+        "name": "k2b_material_fwd", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:557",
+        "launches": mat_launches["k2b_material_fwd"],
+        "max_abs_err": max(v["k2_err"] for v in material.values()),
+        **mtimes["k2"], "library_ms": None}, {
+        "name": "k3b_material_bwd", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:567",
+        "launches": mat_launches["k3b_material_bwd"],
+        "max_abs_err": m["k3_err"], **mtimes["k3"], "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

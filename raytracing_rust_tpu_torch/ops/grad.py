@@ -1,12 +1,12 @@
 """The fused differentiable tier: kernels K2 (forward) and K3 (backward).
 
-Counterpart of `raytracing_rust_tpu/ops/pallas_grad.py`, cut to the scope
-of the two inverse renders (the default and `--geometry`): spheres and
-rects (rotated and translated instances included: the math runs on the
-world-space frames of `ops/intersect.pack_prims`), lambertian and
-diffuse-light materials, solid textures, the black background and the sky.
-Metal, dielectric and the 3D checker raise `UnsupportedScene` on every
-device (`check_kernel_scope`).
+Counterpart of `raytracing_rust_tpu/ops/pallas_grad.py`, with its whole
+scope (`supports_fast_grad`): spheres and rects (rotated and translated
+instances included: the math runs on the world-space frames of
+`ops/intersect.pack_prims`), lambertian, metal, dielectric and
+diffuse-light materials, solid and 3D-checker textures (an emissive checker
+included), the black background and the sky; at most MAX_PRIMS prims and
+MAX_DEPTH bounces (`check_kernel_scope`).
 
 * `fast_grad_record` flattens the scene into the f32[P, REC_C] record with
   differentiable torch ops, so gradients from d_record chain back into
@@ -61,8 +61,9 @@ REC_C = 35
 MAX_PRIMS = 64    # csrc/grad.cu sizes its shared-memory record for this many
 MAX_DEPTH = 16    # csrc/grad.cu sizes K3's per-lane tape for MAX_DEPTH + 1
 
-# the families K2/K3 cover beyond lambertian + solid (the free default)
-KERNEL_FEATS = frozenset({"light", "sky"})
+# the families K2/K3 cover beyond lambertian + solid (the free default):
+# every family of fast_grad_config
+KERNEL_FEATS = frozenset({"light", "sky", "metal", "diel", "checker"})
 
 # lanes per CUDA block (csrc/grad.cu THREADS): K3 writes one d_rec partial
 # per block of this many lanes
@@ -77,8 +78,7 @@ K3_LAUNCHES = 0
 def supports_fast_grad(scene: SceneTables, max_depth: int,
                        rr_depth=None) -> bool:
     """The JAX package's static gate for the fused tier's feature scope
-    (pallas_grad.supports_fast_grad). The kernels of this package cover
-    less: `check_kernel_scope` says what they take."""
+    (pallas_grad.supports_fast_grad), which K2/K3 cover whole."""
     if rr_depth is not None or max_depth > MAX_DEPTH:
         return False
     if scene.has_media or scene.num_prims > MAX_PRIMS:
@@ -130,8 +130,8 @@ def fast_grad_config(scene: SceneTables):
 
 
 def check_kernel_scope(cfg) -> None:
-    """Raise UnsupportedScene for a config outside K2/K3: any family but
-    the diffuse light and the sky, more than MAX_PRIMS prims."""
+    """Raise UnsupportedScene for a config outside K2/K3: a family that
+    fast_grad_config does not name, no prim or more than MAX_PRIMS."""
     kinds, feats = cfg
     extra = set(feats) - KERNEL_FEATS
     if extra:
@@ -205,14 +205,19 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
 
     rec f32[P, REC_C]; o, d f32[N, 3]; u f32[n_bounce, 4, N]; cfg the
     (kinds, feats) of `fast_grad_config`. A torch twin of the JAX
-    `_trace_tiles` for the kernels' scope, op for op in its order, with its
-    constants; every division has a tensor divisor (torch's CUDA division
-    by a Python scalar multiplies by a reciprocal). Differentiable in rec,
-    o and d. counts, when given, gathers the lane bounces a path was alive
-    at ("segments"): the bounces K2 runs before a lane's loop ends, and of
-    those the ones that missed ("misses"), that a sphere won
-    ("sphere_hits") and that scattered ("scatters": the bounces whose draws
-    the kernels read)."""
+    `_trace_tiles`, op for op in its order, with its constants; every
+    division has a tensor divisor (torch's CUDA division by a Python scalar
+    multiplies by a reciprocal), and the integer powers of Schlick are the
+    multiplies `lax.integer_pow` makes (torch's CUDA pow calls powf).
+    Differentiable in rec, o and d. counts, when given, gathers the lane
+    bounces a path was alive at ("segments"): the bounces K2 runs before a
+    lane's loop ends, and of those the ones that missed ("misses"), that a
+    sphere won ("sphere_hits"), that a checker won ("checker_hits"), that
+    scattered ("scatters"), off a metal ("metal_scatters") or off glass
+    ("glass_scatters"), of those the ones that could refract ("u3_reads")
+    and that refracted ("refracts"), and that a metal absorbed
+    ("metal_absorbs"). K2 reads draw words 0-2 on the scatters but glass's
+    and on the absorptions, and word 3 on the u3_reads."""
     check_kernel_scope(cfg)
     kinds, feats = cfg
     if rec.shape[0] != len(kinds):
@@ -221,6 +226,9 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     any_r = "r" in kinds
     has_light = "light" in feats
     has_sky = "sky" in feats
+    has_metal = "metal" in feats
+    has_diel = "diel" in feats
+    has_checker = "checker" in feats
     n_bounce = u.shape[0]
     scal = [row.unbind(0) for row in rec.unbind(0)]
     ox, oy, oz = o.unbind(1)
@@ -230,16 +238,19 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     thr_r = thr_g = thr_b = torch.ones_like(ox)
     rad_r = rad_g = rad_b = zero
     alive = torch.ones_like(ox)
+    if counts is not None:
+        for k in ("scatters", "checker_hits", "metal_scatters",
+                  "metal_absorbs", "glass_scatters", "u3_reads", "refracts"):
+            counts.setdefault(k, 0)
 
     for b in range(n_bounce):
-        u0, u1, u2, _ = u[b].unbind(0)
+        u0, u1, u2, u3 = u[b].unbind(0)
         if counts is not None:
             counts["segments"] = (counts.get("segments", 0)
                                   + int((alive != 0.0).sum()))
-            counts.setdefault("scatters", 0)
 
         # closest hit: first strict minimum over the prims; each kind
-        # updates only the attributes it can win
+        # updates only the attributes it can win, each family only its own
         t_best = torch.full_like(ox, BIG)
         w_sph = zero if (any_s and any_r) else None
         w_cx = w_cy = w_cz = zero
@@ -247,7 +258,11 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
         w_knx = w_kny = w_knz = zero
         w_flip = torch.ones_like(ox)
         w_light_c = zero
+        w_metal = w_diel = zero
+        w_par = zero
         w_ter = w_teg = w_teb = zero
+        w_tor = w_tog = w_tob = zero
+        w_chk = zero
 
         a_dd = _dot3(dx, dy, dz, dx, dy, dz)
         inv_a = one / a_dd
@@ -302,9 +317,20 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
             w_flip = torch.where(better, r[C_FLIP], w_flip)
             if has_light:
                 w_light_c = torch.where(better, r[C_LIGHT], w_light_c)
+            if has_metal or has_diel:
+                w_par = torch.where(better, r[C_PARAM], w_par)
+            if has_metal:
+                w_metal = torch.where(better, r[C_METAL], w_metal)
+            if has_diel:
+                w_diel = torch.where(better, r[C_DIEL], w_diel)
             w_ter = torch.where(better, r[C_TEX_E], w_ter)
             w_teg = torch.where(better, r[C_TEX_E + 1], w_teg)
             w_teb = torch.where(better, r[C_TEX_E + 2], w_teb)
+            if has_checker:
+                w_tor = torch.where(better, r[C_TEX_O], w_tor)
+                w_tog = torch.where(better, r[C_TEX_O + 1], w_tog)
+                w_tob = torch.where(better, r[C_TEX_O + 2], w_tob)
+                w_chk = torch.where(better, r[C_CHK], w_chk)
 
         hit = (t_best < BIG).to(torch.float32)
         if counts is not None:
@@ -333,13 +359,29 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
         else:
             nx, ny, nz = w_knx * w_flip, w_kny * w_flip, w_knz * w_flip
 
-        # emitted on every hit (reference src/color.rs:8-15)
+        # the winner's texture: a checker picks its odd color where
+        # sin(10x)·sin(10y)·sin(10z) < 0 (reference src/texture.rs:40-47)
+        if has_checker:
+            sines = (torch.sin(10.0 * px) * torch.sin(10.0 * py)
+                     * torch.sin(10.0 * pz))
+            use_odd = (w_chk > 0.5) & (sines < 0.0)
+            if counts is not None:
+                counts["checker_hits"] += int(
+                    ((alive != 0.0) & (t_best < BIG) & (w_chk > 0.5)).sum())
+            w_alr = torch.where(use_odd, w_tor, w_ter)
+            w_alg = torch.where(use_odd, w_tog, w_teg)
+            w_alb = torch.where(use_odd, w_tob, w_teb)
+        else:
+            w_alr, w_alg, w_alb = w_ter, w_teg, w_teb
+
+        # emitted on every hit (reference src/color.rs:8-15): the light's
+        # texture value
         gain = alive * hit
         if has_light:
             gl = gain * w_light_c
-            rad_r = rad_r + gl * thr_r * w_ter
-            rad_g = rad_g + gl * thr_g * w_teg
-            rad_b = rad_b + gl * thr_b * w_teb
+            rad_r = rad_r + gl * thr_r * w_alr
+            rad_g = rad_g + gl * thr_g * w_alg
+            rad_b = rad_b + gl * thr_b * w_alb
 
         # a miss adds the background and dies (src/color.rs:16-22); the
         # black background adds nothing. csrc/grad.cu takes rsqrtf, which
@@ -360,26 +402,102 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
             alive = torch.zeros_like(ox)
             continue
 
-        # lambertian: n + a point in the unit ball (src/material.rs:49-53)
+        # a point in the unit ball
         cos_t = 2.0 * u0 - 1.0
         sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
         phi = rng.TWO_PI * u1
         rr3 = torch.exp(torch.log(1.0 - u2) * rng.ONE_THIRD)
-        ndx = nx + rr3 * sin_t * torch.cos(phi)
-        ndy = ny + rr3 * sin_t * torch.sin(phi)
-        ndz = nz + rr3 * cos_t
+        ssx = rr3 * sin_t * torch.cos(phi)
+        ssy = rr3 * sin_t * torch.sin(phi)
+        ssz = rr3 * cos_t
 
+        # lambertian: n + ball (src/material.rs:49-53)
+        ndx, ndy, ndz = nx + ssx, ny + ssy, nz + ssz
         ok = torch.ones_like(ox)
+
+        if has_metal or has_diel:
+            inv_len = torch.rsqrt(a_dd)
+            ux, uy, uz = dx * inv_len, dy * inv_len, dz * inv_len
+
+        if has_metal:
+            # metal: reflect(unit d) + fuzz · ball (src/material.rs:76-87)
+            udn = _dot3(ux, uy, uz, nx, ny, nz)
+            rfx = ux - 2.0 * udn * nx + w_par * ssx
+            rfy = uy - 2.0 * udn * ny + w_par * ssy
+            rfz = uz - 2.0 * udn * nz + w_par * ssz
+            metal_ok = (_dot3(rfx, rfy, rfz, nx, ny, nz) > 0.0).to(
+                torch.float32)
+            is_metal = w_metal > 0.5
+            ndx = torch.where(is_metal, rfx, ndx)
+            ndy = torch.where(is_metal, rfy, ndy)
+            ndz = torch.where(is_metal, rfz, ndz)
+            ok = torch.where(is_metal, metal_ok, ok)
+
+        if has_diel:
+            # dielectric (src/material.rs:105-126) under the JAX
+            # double-wheres (param-0 rows, total internal reflection)
+            is_diel = w_diel > 0.5
+            ref_idx = torch.where(is_diel, w_par, one)
+            ddn = _dot3(dx, dy, dz, nx, ny, nz)
+            d_len = torch.sqrt(a_dd)
+            exiting = ddn > 0.0
+            sgn = torch.where(exiting, -one, one)
+            onx, ony, onz = sgn * nx, sgn * ny, sgn * nz
+            ni_over_nt = torch.where(exiting, ref_idx, one / ref_idx)
+            cosine = torch.where(exiting, ref_idx * ddn / d_len,
+                                 -ddn / d_len)
+            uvdt = _dot3(ux, uy, uz, onx, ony, onz)
+            disc_r = 1.0 - ni_over_nt * ni_over_nt * (1.0 - uvdt * uvdt)
+            can_refract = disc_r > 0.0
+            sq_r = torch.sqrt(torch.where(can_refract, disc_r, one))
+            refx = ni_over_nt * (ux - onx * uvdt) - onx * sq_r
+            refy = ni_over_nt * (uy - ony * uvdt) - ony * sq_r
+            refz = ni_over_nt * (uz - onz * uvdt) - onz * sq_r
+            # Schlick; q**2 and one_mc**5 as lax.integer_pow multiplies
+            q = (1.0 - ref_idx) / (1.0 + ref_idx)
+            r0 = q * q
+            one_mc = 1.0 - cosine
+            x2 = one_mc * one_mc
+            schlick = r0 + (1.0 - r0) * (one_mc * (x2 * x2))
+            reflect_prob = torch.where(can_refract, schlick, one)
+            take_refract = can_refract & (u3 >= reflect_prob)
+            # the pure reflect of the unnormalised d
+            prx = dx - 2.0 * ddn * nx
+            pry = dy - 2.0 * ddn * ny
+            prz = dz - 2.0 * ddn * nz
+            ndx = torch.where(is_diel, torch.where(take_refract, refx, prx),
+                              ndx)
+            ndy = torch.where(is_diel, torch.where(take_refract, refy, pry),
+                              ndy)
+            ndz = torch.where(is_diel, torch.where(take_refract, refz, prz),
+                              ndz)
+
         if has_light:
             ok = ok * (1.0 - w_light_c)  # a light never scatters
+
+        if has_diel:  # glass attenuates by 1
+            atr = torch.where(is_diel, one, w_alr)
+            atg = torch.where(is_diel, one, w_alg)
+            atb = torch.where(is_diel, one, w_alb)
+        else:
+            atr, atg, atb = w_alr, w_alg, w_alb
 
         cont = gain * ok
         keep = cont > 0.5
         if counts is not None:
-            counts["scatters"] = counts.get("scatters", 0) + int(keep.sum())
-        thr_r = torch.where(keep, thr_r * w_ter, thr_r)
-        thr_g = torch.where(keep, thr_g * w_teg, thr_g)
-        thr_b = torch.where(keep, thr_b * w_teb, thr_b)
+            counts["scatters"] += int(keep.sum())
+            if has_metal:
+                counts["metal_scatters"] += int((keep & is_metal).sum())
+                counts["metal_absorbs"] += int(
+                    ((gain > 0.5) & is_metal & ~keep).sum())
+            if has_diel:
+                glass = keep & is_diel
+                counts["glass_scatters"] += int(glass.sum())
+                counts["u3_reads"] += int((glass & can_refract).sum())
+                counts["refracts"] += int((glass & take_refract).sum())
+        thr_r = torch.where(keep, thr_r * atr, thr_r)
+        thr_g = torch.where(keep, thr_g * atg, thr_g)
+        thr_b = torch.where(keep, thr_b * atb, thr_b)
         ox = torch.where(keep, px, ox)
         oy = torch.where(keep, py, oy)
         oz = torch.where(keep, pz, oz)
@@ -433,6 +551,12 @@ def _lane_major(x: torch.Tensor) -> torch.Tensor:
     return x.t().contiguous()
 
 
+def _feat_flags(cfg) -> tuple[int, ...]:
+    """The kernels' launch-uniform family flags, in their argument order."""
+    return tuple(int(k in cfg[1])
+                 for k in ("light", "sky", "metal", "diel", "checker"))
+
+
 def _launch_fwd(lib, stream, rec, o, d, u, cfg, max_depth: int):
     """K2 through `lib.rt_grad_fwd` on `stream` → rad f32[N, 3]; raises on
     a launch error before K2_LAUNCHES moves."""
@@ -444,7 +568,7 @@ def _launch_fwd(lib, stream, rec, o, d, u, cfg, max_depth: int):
     err = lib.rt_grad_fwd(
         rec_c.data_ptr(), rec.shape[0], o_t.data_ptr(), d_t.data_ptr(),
         u_c.data_ptr(), rad.data_ptr(), n, u.shape[0], max_depth,
-        int("light" in cfg[1]), int("sky" in cfg[1]), stream)
+        *_feat_flags(cfg), stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {err}")
     K2_LAUNCHES += 1
@@ -469,7 +593,7 @@ def _launch_bwd(lib, stream, rec, o, d, u, ct, cfg, max_depth: int):
         rec_c.data_ptr(), P, o_t.data_ptr(), d_t.data_ptr(), u_c.data_ptr(),
         ct_t.data_ptr(), d_o.data_ptr(), d_d.data_ptr(),
         d_rec_blocks.data_ptr(), n, nb, u.shape[0], max_depth,
-        int("light" in cfg[1]), int("sky" in cfg[1]), stream)
+        *_feat_flags(cfg), stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
     K3_LAUNCHES += 1

@@ -296,17 +296,23 @@ def test_kernel_plumbing_matches_jax_interpret():
 
 def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
     """csrc/grad.cu K3 in vectorized torch, lane for lane: the forward
-    replay keeps a tape of (winner, root, throughput, alive, o, d, t) per
-    bounce, stopped one bounce after a path dies; the reverse sweep carries
-    the cotangents of (o, d, throughput, alive) back through the color
-    chain, the sky and the geometric chain (scatter direction, normal × flip,
-    hit point, the winner's t), each bounce adding into its winner's row.
+    replay keeps a tape of (winner, root, the checker's odd pick, metal_ok,
+    the glass's refract choice, throughput, alive, o, d, t) per bounce,
+    stopped one bounce after a path dies; the reverse sweep carries the
+    cotangents of (o, d, throughput, alive) back through the color chain,
+    the sky, the materials' scatter (lambertian, metal with fuzz, glass
+    refract or reflect; comparisons carry nothing), the normal × flip, the
+    hit point and the winner's t, each bounce adding into its winner's row.
     Returns (d_rec, d_o, d_d)."""
     has_light = "light" in cfg[1]
     has_sky = "sky" in cfg[1]
+    has_metal = "metal" in cfg[1]
+    has_diel = "diel" in cfg[1]
+    has_checker = "checker" in cfg[1]
     n, n_bounce = o.shape[0], u.shape[0]
     P = rec.shape[0]
     sky = torch.tensor([0.5, 0.7, 1.0])
+    no = torch.zeros(n, dtype=torch.bool)
     # the replay: the twin's trace one bounce at a time, from its own state
     tape = []
     o, d = o.clone(), d.clone()
@@ -327,25 +333,31 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
             t_best = torch.where(better, t_p, t_best)
             win = torch.where(better, p, win)
             far = torch.where(better, far_p, far)
-        tape.append((win, far, thr, alive, o, d, t_best, ~stopped))
-        stopped = stopped | ghost | (b == max_depth)
-        if b == max_depth:
-            break
         hit = win >= 0
         w = rec[win.clamp(min=0)]
-        ok = 1.0 - w[:, tg.C_LIGHT] if has_light else torch.ones(n)
-        cont = torch.where(hit, alive * ok, 0.0)
-        keep = (cont > 0.5)[:, None]
         t = torch.where(hit, t_best, 0.0)[:, None]
         pt = o + t * d
+        odd = _use_odd(w, pt) & hit if has_checker else no
+        if b == max_depth:
+            tape.append((win, far, odd, no, no, thr, alive, o, d, t_best,
+                         ~stopped))
+            break
         nrm = _normal(w, pt)
-        cos_t = 2.0 * u[b, 0] - 1.0
-        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-        phi = rng.TWO_PI * u[b, 1]
-        rr3 = torch.exp(torch.log(1.0 - u[b, 2]) * rng.ONE_THIRD)
-        nd = nrm + torch.stack([rr3 * sin_t * torch.cos(phi),
-                                rr3 * sin_t * torch.sin(phi), rr3 * cos_t], 1)
-        thr = torch.where(keep, thr * w[:, tg.C_TEX_E:tg.C_TEX_E + 3], thr)
+        ss = _ball(u[b])
+        nd, mok, take = _scatter(w, d, nrm, ss, u[b, 3], cfg)
+        tape.append((win, far, odd, mok & hit, take & hit, thr, alive, o, d,
+                     t_best, ~stopped))
+        stopped = stopped | ghost
+        is_metal = hit & (w[:, tg.C_METAL] > 0.5) if has_metal else no
+        is_diel = hit & (w[:, tg.C_DIEL] > 0.5) if has_diel else no
+        ok = torch.where(is_metal, mok.float(), 1.0)
+        if has_light:
+            ok = ok * (1.0 - w[:, tg.C_LIGHT])
+        cont = torch.where(hit, alive * ok, 0.0)
+        keep = (cont > 0.5)[:, None]
+        al = _albedo(w, odd)
+        at = torch.where(is_diel[:, None], 1.0, al)
+        thr = torch.where(keep, thr * at, thr)
         o = torch.where(keep, pt, o)
         d = torch.where(keep, nd, d)
         alive = cont
@@ -354,40 +366,98 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
     g_o, g_d, g_thr = torch.zeros(n, 3), torch.zeros(n, 3), torch.zeros(n, 3)
     g_alive = torch.zeros(n)
     for b in range(len(tape) - 1, -1, -1):
-        win, far, thr_b, alive_b, o_b, d_b, t_b, on = tape[b]
+        win, far, odd, mok, take, thr_b, alive_b, o_b, d_b, t_b, on = tape[b]
         hit = (win >= 0) & on
         hitf = hit.float()
         w = rec[win.clamp(min=0)]
         sph = hit & (w[:, tg.C_IS_SPHERE] > 0.5)
         rect = hit & ~sph
-        al = torch.where(hit[:, None], w[:, tg.C_TEX_E:tg.C_TEX_E + 3], 0.0)
+        is_metal = hit & (w[:, tg.C_METAL] > 0.5) if has_metal else no
+        is_diel = hit & (w[:, tg.C_DIEL] > 0.5) if has_diel else no
+        al = torch.where(hit[:, None], _albedo(w, odd), 0.0)
         wl = (torch.where(hit, w[:, tg.C_LIGHT], 0.0) if has_light
               else torch.zeros(n))
         gain = alive_b * hitf
         t = torch.where(hit, t_b, 0.0)
         pt = o_b + t[:, None] * d_b
+        nrm = _normal(w, pt)
         # the state's cotangents before this bounce, from those after it
         g_p = torch.zeros(n, 3)
         g_n = torch.zeros(n, 3)
         g_al = torch.zeros(n, 3)
+        g_par = torch.zeros(n)
         g_wl = torch.zeros(n)
         g_gain = torch.zeros(n)
         n_o = torch.zeros(n, 3)
         n_d = torch.zeros(n, 3)
         n_thr = torch.zeros(n, 3)
+        a_dd = (d_b * d_b).sum(dim=1)
+        inv_len = torch.rsqrt(a_dd)
         if b < max_depth:
-            # o' = keep ? p : o;  d' = keep ? n + ball : d;
-            # thr' = keep ? thr · albedo : thr;  alive' = cont = gain · ok
-            ok = 1.0 - wl
+            # o' = keep ? p : o;  d' = keep ? scatter : d;
+            # thr' = keep ? thr · (glass ? 1 : albedo) : thr;
+            # alive' = cont = gain · ok_mat · (1 − light)
+            ok_mat = torch.where(is_metal, mok.float(), 1.0)
+            ok = ok_mat * (1.0 - wl)
             keep = ((gain * ok) > 0.5)[:, None]
+            at = torch.where(is_diel[:, None], 1.0, al)
             g_p = torch.where(keep, g_o, 0.0)
-            g_n = torch.where(keep, g_d, 0.0)
+            g_nd = torch.where(keep, g_d, 0.0)
             n_o = torch.where(keep, 0.0, g_o)
             n_d = torch.where(keep, 0.0, g_d)
-            n_thr = torch.where(keep, g_thr * al, g_thr)
-            g_al = torch.where(keep, g_thr * thr_b, 0.0)
+            n_thr = torch.where(keep, g_thr * at, g_thr)
+            g_al = torch.where(keep & ~is_diel[:, None], g_thr * thr_b, 0.0)
             g_gain = g_alive * ok
-            g_wl = -(g_alive * gain)
+            if has_light:
+                g_wl = -(g_alive * gain) * ok_mat
+            # the scatter direction: lambertian n + ball
+            lamb = (~is_metal & ~is_diel)[:, None]
+            g_n = torch.where(lamb, g_nd, 0.0)
+            g_u = torch.zeros(n, 3)
+            u_b = d_b * inv_len[:, None]
+            if has_metal:
+                # rf = u − 2(u·n)n + fuzz · ball
+                gm = torch.where(is_metal[:, None], g_nd, 0.0)
+                g_par = g_par + (gm * _ball(u[b])).sum(dim=1)
+                gdn = (gm * nrm).sum(dim=1)[:, None]
+                udn = (u_b * nrm).sum(dim=1)[:, None]
+                g_u = g_u + gm - 2.0 * gdn * nrm
+                g_n = g_n - 2.0 * (udn * gm + gdn * u_b)
+            if has_diel:
+                ddn = (d_b * nrm).sum(dim=1)[:, None]
+                # reflect of the unnormalised d: d − 2(d·n)n
+                gr = torch.where((is_diel & ~take)[:, None], g_nd, 0.0)
+                grn = (gr * nrm).sum(dim=1)[:, None]
+                n_d = n_d + gr - 2.0 * grn * nrm
+                g_n = g_n - 2.0 * (ddn * gr + grn * d_b)
+                # refract: ni (u − on·uvdt) − on · √disc, on = sgn · n,
+                # disc = 1 − ni²(1 − uvdt²), uvdt = u·on,
+                # ni = exiting ? ref_idx : 1/ref_idx
+                g = torch.where((is_diel & take)[:, None], g_nd, 0.0)
+                ref_idx = torch.where(is_diel, w[:, tg.C_PARAM], 1.0)
+                exiting = ddn[:, 0] > 0.0
+                sgn = torch.where(exiting, -1.0, 1.0)[:, None]
+                onv = sgn * nrm
+                ni = torch.where(exiting, ref_idx, 1.0 / ref_idx)[:, None]
+                uvdt = (u_b * onv).sum(dim=1)[:, None]
+                disc = 1.0 - ni * ni * (1.0 - uvdt * uvdt)
+                sq = torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
+                v = u_b - onv * uvdt
+                g_ni = (g * v).sum(dim=1)[:, None]
+                g_v = ni * g
+                g_on = -g * sq - g_v * uvdt
+                g_disc = -(g * onv).sum(dim=1)[:, None] * 0.5 / sq
+                g_ni = g_ni - g_disc * 2.0 * ni * (1.0 - uvdt * uvdt)
+                g_uvdt = (-(g_v * onv).sum(dim=1)[:, None]
+                          + g_disc * (ni * ni) * 2.0 * uvdt)
+                g_u = g_u + g_v + g_uvdt * onv
+                g_on = g_on + g_uvdt * u_b
+                g_n = g_n + sgn * g_on
+                g_par = g_par + torch.where(
+                    exiting, g_ni[:, 0], -g_ni[:, 0] / (ref_idx * ref_idx))
+            # u = d · rsqrt(d·d)
+            n_d = (n_d + inv_len[:, None] * g_u
+                   - (inv_len ** 3 * (g_u * d_b).sum(dim=1))[:, None] * d_b)
         if has_light:
             # rad += (gl · thr) · albedo, gl = gain · light
             gl = gain * wl
@@ -403,8 +473,6 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
             # rad += (miss · thr) · bg, bg = (1 − tt) + tt · sky,
             # tt = 0.5 (dy · rsqrt(a_dd) + 1), miss = alive · (1 − hit)
             miss = torch.where(on, alive_b * (1.0 - hitf), 0.0)
-            a_dd = (d_b * d_b).sum(dim=1)
-            inv_len = torch.rsqrt(a_dd)
             tt = 0.5 * (d_b[:, 1] * inv_len + 1.0)
             bg = (1.0 - tt)[:, None] + tt[:, None] * sky
             g_mt = ct * bg
@@ -442,7 +510,6 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
         # (sphere) t = (−bq ∓ sq) · inv_a, sq = √(bq² − a_dd · cc),
         # bq = oc·d, cc = oc·oc − r2, oc = o − c, inv_a = 1 / a_dd
         oc = o_b - c
-        a_dd = (d_b * d_b).sum(dim=1)
         inv_a = 1.0 / a_dd
         bq = (oc * d_b).sum(dim=1)
         cc = (oc * oc).sum(dim=1) - w[:, tg.C_R2]
@@ -469,14 +536,87 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
         g_alive = torch.where(on, n_alive, 0.0)
         rows = win[hit]
         cols = {tg.C_LIGHT: g_wl, tg.C_FLIP: g_flip, tg.C_INVR: g_invr,
-                tg.C_R2: g_r2, tg.C_KOFF: g_koff}
+                tg.C_R2: g_r2, tg.C_KOFF: g_koff, tg.C_PARAM: g_par}
         for a in range(3):
-            cols[tg.C_TEX_E + a] = g_al[:, a]
+            cols[tg.C_TEX_E + a] = torch.where(odd, 0.0, g_al[:, a])
+            cols[tg.C_TEX_O + a] = torch.where(odd, g_al[:, a], 0.0)
             cols[tg.C_CX + a] = g_c[:, a]
             cols[tg.C_KN + a] = g_kn[:, a]
         for col, g in cols.items():
             d_rec[:, col].index_add_(0, rows, g[hit])
     return d_rec, g_o, g_d
+
+
+def _use_odd(w, pt):
+    """A checker winner's odd pick at hit points pt [N, 3]: the twin's
+    sines."""
+    px, py, pz = pt.unbind(1)
+    sines = (torch.sin(10.0 * px) * torch.sin(10.0 * py)
+             * torch.sin(10.0 * pz))
+    return (w[:, tg.C_CHK] > 0.5) & (sines < 0.0)
+
+
+def _albedo(w, odd):
+    return torch.where(odd[:, None], w[:, tg.C_TEX_O:tg.C_TEX_O + 3],
+                       w[:, tg.C_TEX_E:tg.C_TEX_E + 3])
+
+
+def _ball(ub):
+    """The unit-ball point of draws ub [4, N] (words 0-2), the twin's."""
+    cos_t = 2.0 * ub[0] - 1.0
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = rng.TWO_PI * ub[1]
+    rr3 = torch.exp(torch.log(1.0 - ub[2]) * rng.ONE_THIRD)
+    return torch.stack([rr3 * sin_t * torch.cos(phi),
+                        rr3 * sin_t * torch.sin(phi), rr3 * cos_t], 1)
+
+
+def _scatter(w, d, nrm, ss, u3, cfg):
+    """The winner's scatter direction, the twin's arithmetic per component
+    → (direction [N, 3], metal_ok, take_refract)."""
+    dx, dy, dz = d.unbind(1)
+    nx, ny, nz = nrm.unbind(1)
+    sx, sy, sz = ss.unbind(1)
+    nd = [nx + sx, ny + sy, nz + sz]
+    a_dd = dx * dx + dy * dy + dz * dz
+    inv_len = torch.rsqrt(a_dd)
+    ux, uy, uz = dx * inv_len, dy * inv_len, dz * inv_len
+    par = w[:, tg.C_PARAM]
+    mok = take = torch.zeros_like(dx, dtype=torch.bool)
+    if "metal" in cfg[1]:
+        udn = ux * nx + uy * ny + uz * nz
+        rf = [ux - 2.0 * udn * nx + par * sx, uy - 2.0 * udn * ny + par * sy,
+              uz - 2.0 * udn * nz + par * sz]
+        mok = rf[0] * nx + rf[1] * ny + rf[2] * nz > 0.0
+        is_metal = w[:, tg.C_METAL] > 0.5
+        nd = [torch.where(is_metal, a, b) for a, b in zip(rf, nd)]
+    if "diel" in cfg[1]:
+        is_diel = w[:, tg.C_DIEL] > 0.5
+        one = torch.ones(())
+        ref_idx = torch.where(is_diel, par, one)
+        ddn = dx * nx + dy * ny + dz * nz
+        d_len = torch.sqrt(a_dd)
+        exiting = ddn > 0.0
+        sgn = torch.where(exiting, -one, one)
+        onx, ony, onz = sgn * nx, sgn * ny, sgn * nz
+        ni = torch.where(exiting, ref_idx, one / ref_idx)
+        cosine = torch.where(exiting, ref_idx * ddn / d_len, -ddn / d_len)
+        uvdt = ux * onx + uy * ony + uz * onz
+        disc = 1.0 - ni * ni * (1.0 - uvdt * uvdt)
+        can = disc > 0.0
+        sq = torch.sqrt(torch.where(can, disc, one))
+        ref = [ni * (ux - onx * uvdt) - onx * sq,
+               ni * (uy - ony * uvdt) - ony * sq,
+               ni * (uz - onz * uvdt) - onz * sq]
+        qq = (1.0 - ref_idx) / (1.0 + ref_idx)
+        one_mc = 1.0 - cosine
+        x2 = one_mc * one_mc
+        schlick = qq * qq + (1.0 - qq * qq) * (one_mc * (x2 * x2))
+        take = can & (u3 >= torch.where(can, schlick, one))
+        pr = [dx - 2.0 * ddn * nx, dy - 2.0 * ddn * ny, dz - 2.0 * ddn * nz]
+        nd = [torch.where(is_diel, torch.where(take, a, b), c)
+              for a, b, c in zip(ref, pr, nd)]
+    return torch.stack(nd, 1), mok, take
 
 
 def _normal(w, pt):
@@ -577,9 +717,13 @@ def test_gate_agrees_with_jax_on_presets():
     assert not tg.supports_fast_grad(ir.build_scene(), 6, rr_depth=3)
 
 
-def _outside_scope(what):
+def _material_scene(what):
+    """A floor, a light and a sphere of `what` (metal, dielectric or a
+    checker, under black or the sky)."""
     b = SceneBuilder(background=BG_SKY if what.endswith("sky") else BG_BLACK)
     b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.7, 0.7, 0.7)))
+    b.rect("zx", -1, -1, 1, 1, 3.0, b.diffuse_light(b.solid(4.0, 4.0, 4.0)),
+           flip=True)
     if what == "metal":
         b.sphere((0, 1, 0), 1.0, b.metal(b.solid(0.8, 0.7, 0.6), 0.2))
     elif what == "dielectric":
@@ -594,15 +738,63 @@ def _outside_scope(what):
                                        ("dielectric", "diel"),
                                        ("checker", "checker"),
                                        ("checker_sky", "checker")])
-def test_outside_kernel_scope_raises(what, feat):
+def test_material_scenes_now_run(what, feat):
+    """Metal, dielectric and the checker, once outside the fused kernels,
+    run: trace_fast gives finite, nonzero radiance equal to grad_fwd's on
+    the same draws, and finite gradients into the scene's tables."""
+    scene = _leaves(_material_scene(what))
+    cfg = tg.fast_grad_config(scene)
+    assert feat in cfg[1] and tg.supports_fast_grad(scene, 6)
+    o, d, _, _ = _probe(256, 7, seed=1)
+    rad = tg.trace_fast(scene, _t(o), _t(d), 0, max_depth=6)
+    assert rad.shape == (256, 3) and torch.isfinite(rad).all()
+    assert float(rad.detach().sum()) > 0
+    u = tg.fast_draws(0, 256, 7)
+    assert torch.equal(rad.detach(), tg.grad_fwd(
+        tg.fast_grad_record(scene).detach(), _t(o), _t(d), u, cfg, 6))
+    rad.sum().backward()
+    assert torch.isfinite(scene.tex_color.grad).all()
+    assert float(scene.tex_color.grad.abs().sum()) > 0
+
+
+def _outside_scope(what):
+    """Scenes the fused tier still refuses: a noise texture, a medium, a
+    moving sphere, 65 prims (one over MAX_PRIMS); and the depth."""
+    b = SceneBuilder(background=BG_SKY)
+    b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.7, 0.7, 0.7)))
+    mat = b.lambertian(b.solid(0.5, 0.5, 0.5))
+    if what == "noise":
+        b.sphere((0, 1, 0), 1.0, b.lambertian(b.noise(4.0)))
+    elif what == "medium":
+        b.medium_sphere((0, 1, 0), 1.0, 0.5, b.solid(1, 1, 1))
+    elif what == "moving":
+        b.moving_sphere((0, 1, 0), (0, 1.5, 0), 0.0, 1.0, 1.0, mat)
+    elif what == "prims65":
+        for i in range(64):
+            b.sphere((i % 8 - 3.5, 0.3, i // 8 - 3.5), 0.2, mat)
+    else:
+        b.sphere((0, 1, 0), 1.0, mat)
+    return b.build()
+
+
+@pytest.mark.parametrize("what", ["noise", "medium", "moving", "prims65",
+                                  "depth17"])
+def test_outside_kernel_scope_raises(what):
     scene = _outside_scope(what)
-    assert tg.supports_fast_grad(scene, 6)  # in the JAX tier's scope
-    o, d, _, _ = _probe(64, 7, seed=1)
-    with pytest.raises(UnsupportedScene, match=feat):
-        tg.trace_fast(scene, _t(o), _t(d), 0, max_depth=6)
-    with pytest.raises(UnsupportedScene, match=feat):
-        tg.grad_fwd(tg.fast_grad_record(scene), _t(o), _t(d),
-                    torch.rand(7, 4, 64), tg.fast_grad_config(scene), 6)
+    depth = 17 if what == "depth17" else 6
+    assert not tg.supports_fast_grad(scene, depth)
+    o, d, _, _ = _probe(64, depth + 1, seed=1)
+    with pytest.raises(UnsupportedScene, match="scope"):
+        tg.trace_fast(scene, _t(o), _t(d), 0, max_depth=depth)
+    if what == "prims65":
+        assert scene.num_prims == tg.MAX_PRIMS + 1
+        with pytest.raises(UnsupportedScene, match="65 prims"):
+            tg.grad_fwd(tg.fast_grad_record(scene), _t(o), _t(d),
+                        torch.rand(7, 4, 64), tg.fast_grad_config(scene), 6)
+    if what == "depth17":
+        with pytest.raises(UnsupportedScene, match="depth 17"):
+            tg.trace_fast(scene, _t(o), _t(d), 0, max_depth=17,
+                          cfg=tg.fast_grad_config(scene))
 
 
 def test_failed_launch_counts_nothing():

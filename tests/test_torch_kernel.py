@@ -4,7 +4,8 @@ These tests need an NVIDIA GPU with the CUDA toolkit (`nvcc`): they build
 `raytracing_rust_tpu_torch/csrc/*.cu`, launch K1 (`tracer.cu`: the K1a
 instantiation and the K1B ones with their checker, sky, metal, glass,
 moving-sphere, dynamic-table, box-table, noise, image, media and
-dense-medium walk sections) and K2/K3 (`grad.cu`), and hold them
+dense-medium walk sections) and K2/K3 (`grad.cu`: lambertian, light, sky,
+metal, glass and the checker), and hold them
 against `trace_plain`, `trace_tiles_plain` and autograd through it, run on
 the same card, the same records and the same draws. Elsewhere they skip.
 Run them on the card with
@@ -21,7 +22,7 @@ import torch
 from raytracing_rust_tpu_torch import inverse_render
 from raytracing_rust_tpu_torch.models import builders
 from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
-                                                    SceneBuilder)
+                                                    TEX_CHECKER, SceneBuilder)
 from raytracing_rust_tpu_torch.ops import camera, grad, tracer
 
 pytestmark = pytest.mark.cuda
@@ -463,13 +464,18 @@ def test_trace_fast_on_cuda_backprops_through_k3(cuda):
 
 
 def test_fused_kernels_reject_scenes_outside_scope_on_cuda(cuda):
+    """A noise texture (outside the JAX tier's scope too) raises on the card,
+    as does a depth past MAX_DEPTH: no fallback."""
     b = SceneBuilder(background=BG_BLACK)
-    b.sphere((0, 1, 0), 1.0, b.metal(b.solid(0.8, 0.7, 0.6), 0.2))
+    b.sphere((0, 1, 0), 1.0, b.lambertian(b.noise(4.0)))
     scene = b.build(cuda)
     o = torch.zeros(64, 3, device=cuda)
     d = torch.ones(64, 3, device=cuda)
-    with pytest.raises(tracer.UnsupportedScene, match="metal"):
+    with pytest.raises(tracer.UnsupportedScene, match="scope"):
         grad.trace_fast(scene, o, d, 0, max_depth=6)
+    with pytest.raises(tracer.UnsupportedScene, match="depth 17"):
+        grad.trace_fast(probe_scene().to(cuda), o, d, 0, max_depth=17,
+                        cfg=grad.fast_grad_config(probe_scene()))
 
 
 def _assert_cols_close(got, want, atol_scale, what):
@@ -586,3 +592,214 @@ def test_trace_fast_on_cuda_reaches_the_tilt(cuda):
         assert torch.isfinite(got).all() and float(want.abs().max()) > 0
         assert float((got - want).abs().max()) <= 1e-3 * float(
             want.abs().max())
+
+
+def probe_scene(builder_cls=SceneBuilder, background=BG_SKY):
+    """The JAX fused tier's probe scene (tests/test_pallas_grad.py
+    probe_scene): a floor, a red wall, a flipped light, a metal sphere
+    (fuzz 0.2), a glass sphere (1.5), a lambertian sphere and a rotated,
+    translated cube: 12 prims. builder_cls: this package's SceneBuilder or
+    the JAX one."""
+    b = builder_cls(background=background)
+    b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.73, 0.73, 0.73)))
+    b.rect("yz", 0, -3, 6, 3, -3.0, b.lambertian(b.solid(0.65, 0.05, 0.05)))
+    b.rect("zx", -1, -1, 1, 1, 5.0,
+           b.diffuse_light(b.solid(4.0, 4.0, 4.0)), flip=True)
+    b.sphere((0.9, 1.0, 0.5), 0.8, b.metal(b.solid(0.8, 0.7, 0.6), 0.2))
+    b.sphere((-1.0, 0.8, 0.6), 0.7, b.dielectric(1.5))
+    b.sphere((0.0, 0.6, -1.2), 0.6, b.lambertian(b.solid(0.2, 0.5, 0.8)))
+    xf = b.transform(offset=(0.4, 0.0, 0.2), rotate_axis="y", angle_deg=20.0)
+    b.cube((-2.4, 0.0, -1.4), (-1.4, 1.6, -0.4),
+           b.lambertian(b.solid(0.4, 0.6, 0.3)), xform=xf)
+    return b.build()
+
+
+def checker_scene(builder_cls=SceneBuilder):
+    """A checker floor at y = 0.37 (off the sin = 0 planes), an emissive
+    checker sphere and a lambertian sphere under the sky
+    (tests/test_pallas_grad.py test_checker_matches_xla_tier)."""
+    b = builder_cls(background=BG_SKY)
+    b.rect("zx", -4, -4, 4, 4, 0.37, b.lambertian(b.checker(
+        b.solid(0.2, 0.3, 0.1), b.solid(0.9, 0.9, 0.9))))
+    b.sphere((0.0, 1.37, 0.0), 1.0, b.diffuse_light(b.checker(
+        b.solid(3.0, 0.5, 0.5), b.solid(0.5, 3.0, 0.5))))
+    b.sphere((2.2, 1.1, 0.3), 0.8, b.lambertian(b.solid(0.3, 0.4, 0.8)))
+    return b.build()
+
+
+def glass_scene(builder_cls=SceneBuilder):
+    """A glass sphere (1.5) of radius 1 at the origin over a floor, under
+    the sky (tests/test_pallas_grad.py test_dielectric_interior_rays_match_
+    xla_tier)."""
+    b = builder_cls(background=BG_SKY)
+    b.rect("zx", -4, -4, 4, 4, -2.0, b.lambertian(b.solid(0.6, 0.3, 0.2)))
+    b.sphere((0.0, 0.0, 0.0), 1.0, b.dielectric(1.5))
+    return b.build()
+
+
+def _probe_rays(n, device, seed=3):
+    """Rays from (0, 2, 8) into the scene (tools/tpu_parity.py's fused-tier
+    rays), numpy-seeded."""
+    r = np.random.default_rng(seed)
+    d = np.stack([r.uniform(-0.7, 0.7, n), r.uniform(-0.45, 0.25, n),
+                  -np.ones(n)], -1).astype(np.float32)
+    o = torch.tensor([0.0, 2.0, 8.0], device=device).expand(n, 3)
+    return o.contiguous(), torch.from_numpy(d).to(device)
+
+
+def _interior_rays(n, device, seed=12):
+    """Rays starting inside the glass sphere at a spread of angles."""
+    r = np.random.default_rng(seed)
+    o = r.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    return torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
+
+
+MATERIAL_SCENES = {
+    "probe_sky": (probe_scene, _probe_rays),
+    "probe_black": (lambda: probe_scene(background=BG_BLACK), _probe_rays),
+    "checker": (checker_scene, _probe_rays),
+    "interior": (glass_scene, _interior_rays),
+}
+
+
+def _hold_k2_k3(rec, o, d, u, ct, cfg, md):
+    """K2 bit-equal to the twin; K3's d_rec within 1e-4 of each column's
+    own scale of autograd through the twin, the same columns live; d_o and
+    d_d within 1e-4 of their scale (exact zeros without the sky); all
+    finite. Returns K3's d_rec."""
+    before = (grad.K2_LAUNCHES, grad.K3_LAUNCHES)
+    k = grad.grad_fwd(rec, o, d, u, cfg, md)
+    dk = grad.grad_bwd(rec, o, d, u, ct, cfg, md)
+    p = grad.trace_tiles_plain(rec, o, d, u, cfg, md)
+    torch.cuda.synchronize()
+    assert (grad.K2_LAUNCHES, grad.K3_LAUNCHES) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert float(p.sum()) > 0 and torch.equal(k, p)
+    dp = grad.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, md)
+    for name, g_k, w in zip(("d_rec", "d_o", "d_d"), dk, dp):
+        assert torch.isfinite(g_k).all(), f"K3 {name}"
+        assert torch.isfinite(w).all(), f"autograd {name}"
+    _assert_cols_close(dk[0], dp[0], 1e-4, "d_rec")
+    live_k = dk[0].abs().amax(dim=0) > 0
+    assert torch.equal(live_k, dp[0].abs().amax(dim=0) > 0)
+    for g_k, w in zip(dk[1:], dp[1:]):
+        if "sky" in cfg[1]:
+            scale = float(w.abs().max())
+            assert scale > 0 and float((g_k - w).abs().max()) <= 1e-4 * scale
+        else:
+            assert not g_k.any() and not w.any()
+    return dk[0]
+
+
+@pytest.mark.parametrize("name,md", [
+    ("probe_sky", 6), ("probe_black", 6), ("checker", 6), ("interior", 6),
+    ("probe_sky", 16)])
+def test_k2_k3_materials_match_twin_and_autograd(cuda, name, md):
+    """Metal, glass and the checker at 4,096 lanes (probe_scene also at the
+    tape's full depth, 16): K2 bit-equal to the twin (its op order,
+    -fmad=false, Schlick's multiplies), K3 per column against autograd;
+    fuzz and ref_idx reach C_PARAM under the sky, the checker's odd rows
+    C_TEX_O."""
+    make, rays = MATERIAL_SCENES[name]
+    scene = make().to(cuda)
+    cfg = grad.fast_grad_config(scene)
+    n = 4096
+    o, d = rays(n, cuda)
+    u = grad.fast_draws(7, n, md + 1, cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    ct = torch.rand(n, 3, generator=g, device=cuda)
+    d_rec = _hold_k2_k3(grad.fast_grad_record(scene).detach(), o, d, u, ct,
+                        cfg, md)
+    if name in ("probe_sky", "interior"):
+        assert float(d_rec[:, grad.C_PARAM].abs().max()) > 0
+    if name == "checker":
+        assert float(d_rec[:, grad.C_TEX_O:grad.C_TEX_O + 3].abs().max()) > 0
+
+
+def test_trace_fast_on_cuda_reaches_fuzz_ref_idx_and_odd_rows(cuda):
+    """The fused tier's hardware check (tools/tpu_parity.py fast_grad_tier)
+    on the card: the mean radiance's gradient through trace_fast (K2, K3)
+    into the six scene leaves equals autograd through the twin, leaf by
+    leaf within 1e-4 of its scale, on probe_scene (fuzz and ref_idx in
+    mat_param) and the checker scene (both children's tex_color rows)."""
+    leaves = ("prim_data", "mat_param", "tex_color", "xf_offset", "xf_sin",
+              "xf_cos")
+    for make in (probe_scene, checker_scene):
+        scene0 = make().to(cuda)
+        cfg = grad.fast_grad_config(scene0)
+        o, d = _probe_rays(8192, cuda)
+        u = grad.fast_draws(7, 8192, 6, cuda)
+        grads = []
+        for fast in (True, False):
+            scene = dataclasses.replace(scene0, **{
+                k: getattr(scene0, k).clone().requires_grad_(True)
+                for k in leaves})
+            before = grad.K3_LAUNCHES
+            if fast:
+                rad = grad.trace_fast(scene, o, d, 0, max_depth=5, cfg=cfg,
+                                      u=u)
+            else:
+                rad = grad.trace_tiles_plain(grad.fast_grad_record(scene), o,
+                                             d, u, cfg, 5)
+            got = torch.autograd.grad(rad.mean(), [getattr(scene, k)
+                                                   for k in leaves],
+                                      allow_unused=True)
+            assert grad.K3_LAUNCHES == before + int(fast)
+            grads.append([torch.zeros_like(getattr(scene, k)) if x is None
+                          else x for k, x in zip(leaves, got)])
+        for k, got, want in zip(leaves, *grads):
+            assert torch.isfinite(got).all(), k
+            scale = max(float(want.abs().max()), 1e-3)
+            assert float((got - want).abs().max()) <= 1e-4 * scale, k
+        g = dict(zip(leaves, grads[0]))
+        mats = scene0.prim_material.long()
+        if make is probe_scene:
+            # the metal's fuzz and the glass's index
+            assert float(g["mat_param"][mats[3]].abs()) > 0
+            assert float(g["mat_param"][mats[4]].abs()) > 0
+        else:
+            child = scene0.tex_child[scene0.tex_type == TEX_CHECKER].flatten().long()
+            assert (g["tex_color"][child].abs().amax(dim=1) > 0).all()
+
+
+def test_k3_grazing_refraction_probe_is_finite(cuda):
+    """Rays aimed at the glass sphere's silhouette from outside (a graze of
+    the sphere's own root, where dt/d disc grows without bound) and, from
+    inside, at the critical angle (impact parameter 1/1.5 ± 1e-3, where
+    d √disc_r / d disc_r grows without bound on the refracted branch): K3's
+    gradients and autograd's through the twin are finite and agree (d_rec
+    per column, d_o and d_d, each 1e-4 of its scale)."""
+    scene = glass_scene().to(cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    n = 4096
+    h = n // 2
+
+    def unit(x):
+        return x / x.norm(dim=1, keepdim=True)
+
+    # outside: from (0, 0, 8) to tangent points, the line's distance to the
+    # centre 1 ± 1e-3
+    o_out = torch.tensor([0.0, 0.0, 8.0], device=cuda).expand(h, 3)
+    phi = 2 * math.pi * torch.rand(h, generator=g, device=cuda)
+    b = 1.0 + 2e-3 * (torch.rand(h, generator=g, device=cuda) - 0.5)
+    s = b / 8.0
+    d_out = torch.stack([s * torch.cos(phi), s * torch.sin(phi),
+                         -torch.sqrt(1 - s * s)], 1)
+    # inside: o = b·e ⟂ d, so the ray meets the unit sphere at sin θ = b
+    a = unit(torch.randn(h, 3, generator=g, device=cuda))
+    e = unit(torch.cross(a, torch.randn(h, 3, generator=g, device=cuda),
+                         dim=1))
+    bi = 1.0 / 1.5 + 2e-3 * (torch.rand(h, generator=g, device=cuda) - 0.5)
+    o = torch.cat([o_out, bi[:, None] * e]).contiguous()
+    d = torch.cat([d_out, a]).contiguous()
+    u = grad.fast_draws(9, n, 7, cuda)
+    ct = torch.rand(n, 3, generator=g, device=cuda)
+    cfg = grad.fast_grad_config(scene)
+    c = {}
+    grad.trace_tiles_plain(grad.fast_grad_record(scene).detach(), o, d, u,
+                           cfg, 6, counts=c)
+    assert c["refracts"] > 0 and c["u3_reads"] < c["glass_scatters"]
+    _hold_k2_k3(grad.fast_grad_record(scene).detach(), o, d, u, ct, cfg, 6)
