@@ -87,7 +87,23 @@ Phases, one JSON line each on stdout:
      K3's launch counts, against autograd through the plain version leaf by
      leaf (tools/tpu_parity.py's fast_grad_tier on the card);
  28. times by CUDA events on probe_scene at full width, depth 6: K2, K3,
-     the plain forward and the plain forward + backward.
+     the plain forward and the plain forward + backward;
+ 29. the lattice corners of K1 (textured lights, image rects, flipped
+     image prims, textured media) against their plain version on
+     `lattice_scene` (tools/tpu_parity.py's camera) at 1280×720, 2 spp,
+     depth 50, under phase 3's gates; both versions' times and the paths'
+     work (textured-light hits, rect-UV lanes, textured-medium events);
+ 30. the lattice path: `render_kernel` on `lattice_scene` at 1280×720, 100
+     spp, depth 50, with its launch counts and a check of the image, and a
+     render at 128×72, 100 spp whose mean is held to the JAX XLA tier's;
+ 31. Russian roulette (K1g) against its plain version: cornell_box
+     800×800, 4 spp, rr_depth 6 (a K1B launch), and final_scene 800×800,
+     1 spp, rr_depth 5 (the dense-medium walk off), depth 50, under phase
+     3's gates; both versions' times and the roulette draws;
+ 32. the roulette path through the command line, `render --scene
+     cornell_box_baseline --rr-depth 6 --device cuda` (800×800, 500 spp,
+     depth 50), with K1g's launch count, its mean within ±5% of phase 5's
+     reference, and its trace time beside phase 5's.
 Every command-line phase prints its per-phase seconds, the PPM encode
 included. Then the kernel table and, as the last line, the device
 summary. Each row of the table carries the kernel's bound: the larger of
@@ -137,6 +153,11 @@ NEXT_WEEK_MEANS = {"two_perlin_spheres": 0.603892982006073,
 # for the check; printed by `PYTHONPATH=. python tests/test_torch_final.py`
 FINAL_SCENE_MEAN = 0.26402905583381653
 FINAL_SCENE_CHECK = (128, 128)
+# lattice_scene through tools/tpu_parity.py's camera at 128×72, 100 spp,
+# depth 50, seed 0; printed by `PYTHONPATH=. python
+# tests/test_torch_lattice.py`
+LATTICE_MEAN = 0.06340471655130386
+LATTICE_CHECK = (128, 72, 100)
 
 # NVIDIA H100 SXM published peaks (NVIDIA's data sheet, at 700 W): HBM
 # bytes/s and f32 operations/s outside the tensor cores
@@ -149,10 +170,15 @@ F32_OPS_PER_S = 67e12
 # dynamic member, a medium, a Perlin marble (7 octaves × 8 corners), a
 # texel, a box member, a box leaf slab, a walk bounce's fixed work
 # (its scatter Philox, ball sample, new ray) and each interior row it
-# tests
+# tests; a textured light's hit (its texture test, hit point and a
+# checker's three sines; a marble or a texel counted as such), a rect's
+# image UV (two frame dot products each way, the reciprocals), a textured
+# medium's event (its fields and a checker's sines) and a roulette draw
+# (a Philox call, the clipped maximum, the reciprocal and three multiplies)
 K1_OPS = dict(segment=160, sample=140, sphere=20, rect=14, frame=32,
               leaf=24, member=20, medium=70, noise=2455, image=30, box=26,
-              box_leaf=24, walk=120, interior=22)
+              box_leaf=24, walk=120, interior=22, emis_tex=20, rect_uv=34,
+              med_tex=17, rr=112)
 # csrc/grad.cu, counted from its source: per alive lane bounce of K2 the
 # fixed work, each prim's test and a miss's sky; a checker hit's pick (3
 # sinf); a metal's reflect with fuzz (on its scatters and absorptions);
@@ -223,10 +249,11 @@ def bound(ops: float, nbytes: float) -> dict:
 
 def k1_bound(ops, counts: dict, n_pix: int, n_samples: int) -> dict:
     """K1's bound on this run's paths: trace_plain's counts of lane bounces,
-    of noise and image lanes, of the box members an exact leaf cull tests
-    and of walk bounces, the scene's structure per lane bounce (the sphere
-    leaf cull's members counted as one leaf's), the sums read and written
-    once, every record and the atlas read once."""
+    of noise and image lanes, of the box members an exact leaf cull tests,
+    of walk bounces, of textured-light hits, rect-UV lanes, textured-medium
+    events and roulette draws, the scene's structure per lane bounce (the
+    sphere leaf cull's members counted as one leaf's), the sums read and
+    written once, every record and the atlas read once."""
     rows = ops.walk[0].tolist()   # the unrolled prims a ray tests
     n_sph = int((ops.rec[rows, 0] > 0).sum()) if rows else 0   # R_IS_SPHERE
     n_rect = len(rows) - n_sph
@@ -246,7 +273,9 @@ def k1_bound(ops, counts: dict, n_pix: int, n_samples: int) -> dict:
              + counts["noise"] * K1_OPS["noise"]
              + counts["image"] * K1_OPS["image"]
              + counts["box"] * K1_OPS["box"]
-             + counts["walk"] * per_walk)
+             + counts["walk"] * per_walk
+             + sum(counts[k] * K1_OPS[k]
+                   for k in ("emis_tex", "rect_uv", "med_tex", "rr")))
     nbytes = 2 * 3 * 8 * n_pix + sum(
         t.numel() * t.element_size()
         for t in (ops.rec, ops.walk, ops.dyn, ops.leaves, ops.cam, ops.med,
@@ -499,6 +528,7 @@ def material_phases(dev, reset_launches, n: int = 4096 * 64):
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -510,6 +540,7 @@ def main() -> int:
     from raytracing_rust_tpu_torch.models.builders import PRESETS
     from raytracing_rust_tpu_torch.ops import _build, grad, tracer
     from raytracing_rust_tpu_torch.utils.image_io import read_ppm
+    from raytracing_rust_tpu_torch.utils.timers import Timers
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -519,29 +550,35 @@ def main() -> int:
         tracer.KERNEL_LAUNCHES = tracer.K1BE_LAUNCHES = 0
         tracer.K1C_LAUNCHES = tracer.K1D_LAUNCHES = 0
         tracer.K1E_BOX_LAUNCHES = tracer.K1D_WALK_LAUNCHES = 0
+        tracer.K1_LATTICE_LAUNCHES = tracer.K1G_LAUNCHES = 0
         grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
 
-    def run_cli(scene: str, *size: str):
-        """`render --scene <scene> --device cuda` at the preset's size (or
-        at `size`: the --nx/--ny arguments), with every launch count set
-        to 0 just before and read just after → (what to emit, the
+    def k1_launches():
+        return {"k1a_static_trace": tracer.KERNEL_LAUNCHES,
+                "k1be_sphere_trace": tracer.K1BE_LAUNCHES,
+                "k1c_texture_trace": tracer.K1C_LAUNCHES,
+                "k1d_media_trace": tracer.K1D_LAUNCHES,
+                "k1e_box_trace": tracer.K1E_BOX_LAUNCHES,
+                "k1d_walk_trace": tracer.K1D_WALK_LAUNCHES,
+                "k1_lattice_trace": tracer.K1_LATTICE_LAUNCHES,
+                "k1g_roulette_trace": tracer.K1G_LAUNCHES}
+
+    def run_cli(scene: str, *extra: str):
+        """`render --scene <scene> --device cuda` at the preset's size, with
+        the `extra` arguments (--nx/--ny, --rr-depth), every launch count
+        set to 0 just before and read just after → (what to emit, the
         image)."""
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, f"{scene}.ppm")
             argv = ["render", "--scene", scene, "--device", "cuda", "--out",
-                    out, "--timers", *size]
+                    out, "--timers", *extra]
             buf = io.StringIO()
             reset_launches()
             t = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(argv)
             wall = time.perf_counter() - t
-            launches = {"k1a_static_trace": tracer.KERNEL_LAUNCHES,
-                        "k1be_sphere_trace": tracer.K1BE_LAUNCHES,
-                        "k1c_texture_trace": tracer.K1C_LAUNCHES,
-                        "k1d_media_trace": tracer.K1D_LAUNCHES,
-                        "k1e_box_trace": tracer.K1E_BOX_LAUNCHES,
-                        "k1d_walk_trace": tracer.K1D_WALK_LAUNCHES}
+            launches = k1_launches()
             check(rc == 0, f"cli.main({argv}) returned {rc}")
             img = read_ppm(out)
         text = buf.getvalue()
@@ -626,6 +663,7 @@ def main() -> int:
     info, img = run_cli("cornell_box_baseline")
     lum = info["mean_luminance"]
     launches = info["launches"]
+    cornell_trace_s = info["timers"].get("trace")
     emit("main_path", **info, wall_primary_rays_per_s=nx * ny * p.spp
          / info["wall_seconds"], band=list(CORNELL_BAND))
     check(launches["k1a_static_trace"] > 0,
@@ -756,16 +794,22 @@ def main() -> int:
         return float(torch.isclose(a, b, rtol=1e-4, atol=0.0)
                      .all(dim=0).double().mean())
 
-    def hold(phase: str, scene: str) -> dict:
+    def hold(phase: str, scene: str, built=None, n_samples: int = 2,
+             rr_depth=None) -> dict:
         """The K1B kernel against trace_plain on `scene` at its preset's
-        size, 2 spp, depth 50: gates, times, the paths' work and the
-        bound, emitted as one line; returns what the table needs."""
-        p = PRESETS[scene]
-        nx, ny = p.nx, p.ny
-        srec = tracer.build_scene_record(p.build())
+        size (or on built = (scene tables, camera, nx, ny)), n_samples
+        spp, depth 50, roulette from rr_depth: gates, times, the paths'
+        work and the bound, emitted as one line; returns what the table
+        needs."""
+        if built is None:
+            p = PRESETS[scene]
+            built = (p.build(), p.camera(), p.nx, p.ny)
+        tables, camera, nx, ny = built
+        srec = tracer.build_scene_record(tables)
         ops = tracer.trace_operands(
-            srec, tracer.build_camera_record(p.camera()), dev)
-        kw = dict(nx=nx, ny=ny, seed=0, sample0=0, n_samples=2, max_depth=50)
+            srec, tracer.build_camera_record(camera), dev, rr_depth)
+        kw = dict(nx=nx, ny=ny, seed=0, sample0=0, n_samples=n_samples,
+                  max_depth=50)
 
         def sums():
             return torch.zeros((3, nx * ny), dtype=torch.float64, device=dev)
@@ -796,17 +840,17 @@ def main() -> int:
                     lambda: tracer.trace(flat, s_k.zero_(), **kw), reps=1))
             del kf
         row = dict(max_abs_err=err, ms=k_ms, plain_ms=pl_ms,
-                   **k1_bound(ops, work, nx * ny, 2))
-        emit(phase, scene=scene, shape=[ny, nx], spp=2, depth=50,
-             feats=ops.feats, unrolled=len(srec.kinds),
+                   **k1_bound(ops, work, nx * ny, n_samples))
+        emit(phase, scene=scene, shape=[ny, nx], spp=n_samples, depth=50,
+             rr_depth=rr_depth, feats=ops.feats, unrolled=len(srec.kinds),
              dynamic=int(ops.dyn.shape[0]), leaves=int(ops.leaves.shape[0]),
              media=int(ops.med.shape[0]), atlas=list(ops.atlas.shape),
              pixels_within_rel_1e4=agree,
              pixels_bit_equal=float((k == pl).all(dim=0).double().mean()),
              kernel_channel_means=km.tolist(), plain_channel_means=pm.tolist(),
              channel_mean_max_rel=mean_rel, work=work,
-             kernel_primary_rays_per_s=nx * ny * 2 / (k_ms * 1e-3), **row,
-             **extra)
+             kernel_primary_rays_per_s=nx * ny * n_samples / (k_ms * 1e-3),
+             **row, **extra)
         check(agree >= 0.99, f"{scene}: only {agree:.4%} of pixels agree")
         check(mean_rel <= 1e-4,
               f"{scene}: channel means differ by {mean_rel:.2e}")
@@ -1014,6 +1058,67 @@ def main() -> int:
     material, mat_launches, mtimes = material_phases(dev, reset_launches)
     m = material["probe_scene", 6]
 
+    # -- 29. the lattice corners vs plain on lattice_scene, 1280×720, 2 spp
+    from raytracing_rust_tpu_torch.models import builders
+    lnx, lny = 1280, 720
+    lattice = hold("k1_lattice_vs_plain", "lattice_scene", built=(
+        builders.lattice_scene(), builders.lattice_camera(lnx, lny), lnx,
+        lny))
+
+    # -- 30. the lattice path: render_kernel at 1280×720, 100 spp, and the
+    # mean at the JAX reference's size
+    def lattice_render(nx: int, ny: int, spp: int) -> tuple[dict, object]:
+        timers = Timers()
+        reset_launches()
+        t = time.perf_counter()
+        img = tracer.render_kernel(
+            builders.lattice_scene(), builders.lattice_camera(nx, ny), nx,
+            ny, spp, device="cuda", seed=0, max_depth=50, timers=timers)
+        wall = time.perf_counter() - t
+        info = dict(shape=[ny, nx], spp=spp, depth=50, wall_seconds=wall,
+                    timers=timers.summary(), launches=k1_launches(),
+                    mean_luminance=float(img.mean()))
+        check(img.shape == (ny, nx, 3) and bool(np.isfinite(img).all())
+              and bool(((img >= 0) & (img <= 1)).all()),
+              f"lattice {nx}x{ny}: image has the wrong shape or range")
+        return info, img
+    info, img = lattice_render(lnx, lny, 100)
+    lattice_launches = info["launches"]
+    emit("lattice_path", **info,
+         render_primary_rays_per_s=lnx * lny * 100 / info["timers"]["trace"])
+    check(lattice_launches["k1_lattice_trace"] > 0,
+          f"lattice: the lattice corners never launched: {lattice_launches}")
+    cnx, cny, cspp = LATTICE_CHECK
+    band = (0.95 * LATTICE_MEAN, 1.05 * LATTICE_MEAN)
+    info, img = lattice_render(cnx, cny, cspp)
+    lum = info["mean_luminance"]
+    emit("lattice_mean", **info, band=list(band))
+    check(band[0] < lum < band[1],
+          f"lattice {cnx}x{cny}: mean luminance {lum:.4f} outside {band}")
+
+    # -- 31. roulette vs plain: cornell_box 800×800×4 (rr 6), final_scene
+    # 800×800×1 (rr 5, the walk off)
+    roulette = {
+        "cornell_box": hold("k1g_vs_plain", "cornell_box", n_samples=4,
+                            rr_depth=6),
+        "final_scene": hold("k1g_vs_plain", "final_scene", n_samples=1,
+                            rr_depth=5)}
+
+    # -- 32. the roulette path through the command line
+    info, img = run_cli("cornell_box_baseline", "--rr-depth", "6")
+    rr_launches = info["launches"]
+    lum = info["mean_luminance"]
+    emit("cornell_rr_path", **info, band=list(CORNELL_BAND),
+         trace_seconds_without_roulette=cornell_trace_s)
+    check(rr_launches["k1g_roulette_trace"] > 0,
+          f"cornell_box --rr-depth 6: K1g never launched: {rr_launches}")
+    check(img.shape == (800, 800, 3)
+          and bool(((img >= 0) & (img <= 1)).all()),
+          "cornell_box --rr-depth 6: image has the wrong shape or range")
+    check(CORNELL_BAND[0] < lum < CORNELL_BAND[1],
+          f"cornell_box --rr-depth 6: mean luminance {lum:.4f} outside "
+          f"{CORNELL_BAND}")
+
     print(json.dumps({"kernels": [{
         "name": "k1a_static_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
@@ -1086,7 +1191,19 @@ def main() -> int:
         "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:567",
         "launches": mat_launches["k3b_material_bwd"],
-        "max_abs_err": m["k3_err"], **mtimes["k3"], "library_ms": None}]}),
+        "max_abs_err": m["k3_err"], **mtimes["k3"], "library_ms": None}, {
+        "name": "k1_lattice_trace", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
+        "launches": lattice_launches["k1_lattice_trace"], **lattice,
+        "library_ms": None}, {
+        "name": "k1g_roulette_trace", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
+        "launches": rr_launches["k1g_roulette_trace"],
+        **roulette["cornell_box"],
+        "max_abs_err": max(v["max_abs_err"] for v in roulette.values()),
+        "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,12 @@
 
 Counterpart of `raytracing_rust_tpu/cli.py` for what the port covers:
 `scenes` lists the presets; `render` renders one through the K1 kernel
-(`--engine kernel`, the only engine so far): every preset renders. A scene
-outside the kernel's coverage (the lattice corners: textured lights, image
-rects, rotated or flipped image spheres, textured media) exits 2 with the
-reason; there is no other engine to fall back on. `--device cuda` (the default) needs CUDA and
+(`--engine kernel`, the only engine so far), with Russian roulette from
+bounce N on under `--rr-depth N`. Every scene the JAX kernel takes renders;
+the ones it refuses too (an image on a rotated sphere, a nested checker,
+an image that is not 8-bit exact, more than 8 media, more than 96 rects
+that form no box beside more prims) exit 2 with the reason: there is no
+other engine to fall back on. `--device cuda` (the default) needs CUDA and
 raises without it; `--device cpu` runs the kernel's plain torch version.
 """
 
@@ -31,6 +33,10 @@ def main(argv=None) -> int:
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--max-depth", type=int, default=50,
                    help="bounce cap (reference src/color.rs:9)")
+    r.add_argument("--rr-depth", type=int, default=None,
+                   help="Russian roulette from this bounce on (opt-in, "
+                        "unbiased; not in the reference; turns the "
+                        "dense-medium walk off)")
     r.add_argument("--out", default=None,
                    help="output path (.ppm or .png); default "
                         "output/<scene>.ppm")
@@ -64,6 +70,10 @@ def main(argv=None) -> int:
         print(f"nx/ny/spp must be positive (got {nx}x{ny} spp={spp})",
               file=sys.stderr)
         return 2
+    if args.rr_depth is not None and args.rr_depth < 0:
+        print(f"--rr-depth must be ≥ 0 (got {args.rr_depth})",
+              file=sys.stderr)
+        return 2
     preset = type(preset)(**{**preset.__dict__, "nx": nx, "ny": ny})
 
     import torch
@@ -83,7 +93,7 @@ def main(argv=None) -> int:
     try:
         img = render_kernel(scene, cam, nx, ny, spp, device=args.device,
                             seed=args.seed, max_depth=args.max_depth,
-                            timers=timers)
+                            timers=timers, rr_depth=args.rr_depth)
     except UnsupportedScene as e:
         print(f"kernel engine: {e}", file=sys.stderr)
         return 2

@@ -1,8 +1,10 @@
 // K1: the forward path-tracing megakernel for Hopper (sm_90a): its static
 // section (K1a), its materials, checker and sky (K1b), its noise and image
 // textures (K1c), its constant-density media on the event path and the
-// dense-medium walk (K1d), and its dynamic sphere and box loops with
-// moving spheres (K1e).
+// dense-medium walk (K1d), its dynamic sphere and box loops with moving
+// spheres (K1e), the lattice corners (textured lights, the UV of image
+// rects and image media, flipped image prims, textured media) and Russian
+// roulette (K1g).
 //
 // Replaces raytracing_rust_tpu/ops/pallas_tracer.py `_make_kernel` (its
 // body `kernel`, launched by `_trace_call`): camera raygen with sub-pixel
@@ -14,26 +16,33 @@
 // afterwards (a box's face by an exact t-match, ties x → y → z); the
 // nearest medium scatter event before that hit (`media_events`: sphere or
 // slab boundary in object space, free flight −(1/ρ)·ln u), which takes the
-// hit over as an isotropic scatter with the medium's solid albedo; after a
-// scatter in a dense sealed medium, the walk (2540-2687): bounces that test
-// only the medium's interior rows and race the media up to the nearest of
-// them, with the main step's draws at the same bounce, until a segment
-// has no scatter, which the next main step then traces against the whole
-// scene with no medium event; emission; a black or sky background;
+// hit over as an isotropic scatter with the medium's solid or textured
+// albedo; after a scatter in a dense sealed medium, the walk (2540-2687):
+// bounces that test only the medium's interior rows and race the media up
+// to the nearest of them, with the main step's draws at the same bounce,
+// until a segment has no scatter, which the next main step then traces
+// against the whole scene with no medium event; emission, a textured
+// light's its texture's value (2359-2369); a black or sky background;
 // lambertian, metal, dielectric and diffuse-light scatter with solid, 3-D
-// checker, Perlin marble (`_noise3`/`_turb3`) or image albedo (sphere UV,
-// one texel read from the packed atlas); the depth cap; per-pixel sums
-// over the samples. The host side and the plain torch version of the same
-// computation are in ops/tracer.py (`trace_plain`).
+// checker, Perlin marble (`_noise3`/`_turb3`) or image albedo (one texel
+// read from the packed atlas at the sphere UV of the pre-flip normal, a
+// rect's UV in its world frame, or a medium's u = v = 0); the depth cap;
+// Russian roulette (2492-2506); per-pixel sums over the samples. The host
+// side and the plain torch version of the same computation are in
+// ops/tracer.py (`trace_plain`).
 //
 // The kernel is a template over three flags: K1B (any feature bit: sky,
 // checker, metal, dielectric, moving spheres, noise, image, media, the
-// walk), DYN (a dynamic sphere table or a box table) and LEAF_SMEM (their
-// leaf tables sit in shared memory). cornell_box runs the instantiation
-// with all of them off, which is K1a as it was. Inside the K1B
-// instantiations the ten features (the compat sphere-UV constant counted)
-// are branches on the launch's feature bits, the same for every thread;
-// inside DYN the box loop is a runtime loop, zero-trip without boxes.
+// walk, the lattice corners, roulette), DYN (a dynamic sphere table or a
+// box table) and LEAF_SMEM (their leaf tables sit in shared memory).
+// cornell_box runs the instantiation with all of them off, which is K1a as
+// it was. Inside the K1B instantiations the fifteen features (the compat
+// sphere-UV constant counted) are branches on the launch's feature bits,
+// the same for every thread; inside DYN the box loop is a runtime loop,
+// zero-trip without boxes. The TPU kernel carries a rect winner's UV and
+// flip through its closest-hit loop (its frame scalars live in SMEM); here
+// the winner's row is read after the loop, so the UV and the pre-flip
+// normal are computed there, from t and the row, with no new loop state.
 //
 // What bounds it on this card: f32 ALU issue and warp divergence, not
 // bytes. Each thread owns one pixel and carries its ray in registers
@@ -75,7 +84,8 @@
 namespace {
 
 // record columns (ops/tracer.py R_*)
-constexpr int R_C0 = 1, R_DC = 4, R_T0 = 7, R_INV_DT = 8, R_RADIUS = 9,
+constexpr int R_IS_SPHERE = 0, R_C0 = 1, R_DC = 4, R_T0 = 7, R_INV_DT = 8,
+              R_RADIUS = 9,
               R_R2 = 10, R_KN = 11, R_AN = 14, R_BN = 17, R_KOFF = 20,
               R_AOFF = 21, R_BOFF = 22, R_A0 = 23, R_A1 = 24, R_B0 = 25,
               R_B1 = 26, R_FLIP = 27, R_MAT = 28, R_PARAM = 29, R_EMIT = 30,
@@ -85,6 +95,10 @@ constexpr int R_C0 = 1, R_DC = 4, R_T0 = 7, R_INV_DT = 8, R_RADIUS = 9,
 // medium columns (ops/tracer.py M_*)
 constexpr int M_DATA = 0, M_INV_RHO = 6, M_ROT = 7, M_OFF = 16, M_ALB = 19,
               MEDREC = 32;
+// a texture's fields from a record row's R_ALB or a medium's M_ALB
+// (ops/tracer.py T_*)
+constexpr int T_ALB = 0, T_ODD = 3, T_CHK = 6, T_NOISE = 7, T_NSCALE = 8,
+              T_IMG = 9, T_IMG_BASE = 10, T_IMG_H = 11, T_IMG_W = 12;
 // camera columns (ops/tracer.py C_*)
 constexpr int C_ORIGIN = 0, C_LL = 3, C_HORIZ = 6, C_VERT = 9, C_U = 12,
               C_V = 15, C_LENS_R = 18, C_TIME0 = 19, C_DTIME = 20,
@@ -108,7 +122,9 @@ constexpr size_t SMEM_BUDGET = 48 * 1024;
 constexpr int FEAT_SKY = 1, FEAT_CHECKER = 2, FEAT_METAL = 4, FEAT_DIEL = 8,
               FEAT_MOVING = 16, FEAT_NOISE = 32, FEAT_IMAGE = 64,
               FEAT_MEDIA = 128, FEAT_COMPAT_UV = 256, FEAT_DENSE_WALK = 512,
-              FEAT_ALL = 1023;
+              FEAT_EMIS_TEX = 1024, FEAT_UV_CARRY = 2048,
+              FEAT_IMG_FLIP = 4096, FEAT_MED_TEX = 8192, FEAT_RR = 16384,
+              FEAT_ALL = 32767;
 
 constexpr float BIG = 3.0e38f;
 constexpr float T_MIN = 1e-3f;
@@ -125,7 +141,7 @@ constexpr float INV_PI = 0.3183098733425140380859375f;
 constexpr float INV_2PI = 0.15915493667125701904296875f;
 
 constexpr uint32_t STREAM_CAMERA = 0, STREAM_SCATTER = 1, STREAM_TIME = 2,
-                   STREAM_MEDIUM = 4;
+                   STREAM_MEDIUM = 4, STREAM_ROULETTE = 6;
 
 // Perlin lattice hash (ops/perlin.py HA.., HM3)
 constexpr uint32_t HA = 0x8DA6B343u, HB = 0xD8163841u, HC = 0xCB1AB31Fu,
@@ -371,8 +387,13 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          uint32_t perlin_word, const float* __restrict__ box, int n_box,
          const float* __restrict__ bleaves, int n_bleaf,
          const float* __restrict__ interior, int n_int,
-         const int* __restrict__ interior_kind, int dense) {
+         const int* __restrict__ interior_kind, int dense, int rr_depth) {
   // the scene's features; all off outside the K1B instantiations
+  const bool emis_tex = K1B && (feats & FEAT_EMIS_TEX),
+             uv_carry = K1B && (feats & FEAT_UV_CARRY),
+             img_flip = K1B && (feats & FEAT_IMG_FLIP),
+             med_tex = K1B && (feats & FEAT_MED_TEX),
+             rr = K1B && (feats & FEAT_RR);
   const bool sky = K1B && (feats & FEAT_SKY),
              checker = K1B && (feats & FEAT_CHECKER),
              metal = K1B && (feats & FEAT_METAL),
@@ -659,12 +680,11 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       }
 
       // the nearest medium scatter event on [T_MIN, closest surface]
-      // takes the hit over: isotropic, the medium's solid albedo, no
-      // emission (pallas_tracer.py:2204-2236); none on a segment the walk
-      // handed over
+      // takes the hit over: isotropic, the medium's albedo, no emission
+      // (pallas_tracer.py:2204-2266); none on a segment the walk handed
+      // over
       bool med_event = false;
       int m_ev = -1;
-      float m_alb_r = 0.0f, m_alb_g = 0.0f, m_alb_b = 0.0f;
       if (media && !skip_med) {
         const float t_med =
             media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a_dd,
@@ -673,9 +693,6 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         if (t_med < t_best) {
           med_event = true;
           t_best = t_med;
-          m_alb_r = s_med[m_ev * MEDREC + M_ALB];
-          m_alb_g = s_med[m_ev * MEDREC + M_ALB + 1];
-          m_alb_b = s_med[m_ev * MEDREC + M_ALB + 2];
         }
       }
       skip_med = false;
@@ -695,12 +712,89 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       // the winner's record row, in shared (unrolled) or device (box,
       // dynamic) memory; not read after a medium event
       const float* w = DYN && w_dyn != nullptr ? w_dyn : s_rec + win * REC;
+      // the value at the hit point p of the texture whose fields start at
+      // t (a record row's R_ALB or a medium's M_ALB: the same T_* columns):
+      // its colour; where sin(10x)·sin(10y)·sin(10z) < 0 a checker's odd
+      // colour (reference src/texture.rs:40-47); the marble (66-70); the
+      // nearest texel (86-108, clamped to the image's true size, v flipped,
+      // one read of the packed atlas) at the winner's UV: a medium's
+      // u = v = 0 (src/medium.rs:44-50), an image rect's in its world
+      // frame from t_best as the closest-hit loop computes its position
+      // (pallas_tracer.py:1719-1735), else the sphere UV (src/sphere.rs:
+      // 7-15; `_atan2`/`_asin` are the math library's here) of the normal
+      // before the flip (2312-2317)
+      auto texture = [&](const float* t, float px, float py, float pz,
+                         float& r, float& g, float& b) {
+        r = t[T_ALB];
+        g = t[T_ALB + 1];
+        b = t[T_ALB + 2];
+        if (checker && t[T_CHK] > 0.0f) {
+          const float sines =
+              sinf(10.0f * px) * sinf(10.0f * py) * sinf(10.0f * pz);
+          if (sines < 0.0f) {
+            r = t[T_ODD];
+            g = t[T_ODD + 1];
+            b = t[T_ODD + 2];
+          }
+        }
+        if (noise && t[T_NOISE] > 0.0f) {
+          // marble, 0.5·(1 + sin(scale·x + 5·turb(p)))
+          const float turb = turb3(px, py, pz, perlin_word);
+          r = g = b = 0.5f * (1.0f + sinf(t[T_NSCALE] * px + 5.0f * turb));
+        }
+        if (image && t[T_IMG] > 0.0f) {
+          float uu = 0.0f, vv = 0.0f;
+          if (!med_event && uv_carry && w[R_IS_SPHERE] == 0.0f) {
+            const float xa = (ox * w[R_AN] + oy * w[R_AN + 1] +
+                              oz * w[R_AN + 2]) +
+                             t_best * (dx * w[R_AN] + dy * w[R_AN + 1] +
+                                       dz * w[R_AN + 2]) -
+                             w[R_AOFF];
+            const float yb = (ox * w[R_BN] + oy * w[R_BN + 1] +
+                              oz * w[R_BN + 2]) +
+                             t_best * (dx * w[R_BN] + dy * w[R_BN + 1] +
+                                       dz * w[R_BN + 2]) -
+                             w[R_BOFF];
+            uu = (xa - w[R_A0]) * (1.0f / (w[R_A1] - w[R_A0]));
+            vv = (yb - w[R_B0]) * (1.0f / (w[R_B1] - w[R_B0]));
+          } else if (!med_event) {
+            float nux = nbx, nuy = nby, nuz = nbz;
+            if (img_flip) {
+              const float fl = w[R_FLIP];
+              nux = nbx * fl;
+              nuy = nby * fl;
+              nuz = nbz * fl;
+            }
+            const float phi = atan2f(nuz, nux);
+            const float theta = asinf(fminf(fmaxf(nuy, -1.0f), 1.0f));
+            uu = 1.0f - (phi + PI_F) * INV_2PI;
+            vv = (theta + (compat_uv ? TWO_OVER_PI : HALF_PI)) * INV_PI;
+          }
+          const float iw = t[T_IMG_W], ih = t[T_IMG_H];
+          const int ii = min(max((int)(uu * iw), 0), (int)iw - 1);
+          const int jj = min(max((int)((1.0f - vv) * ih), 0), (int)ih - 1);
+          const int jrow =
+              min(max((int)t[T_IMG_BASE] + jj, 0), atlas_rows - 1);
+          const int texel = __ldg(atlas + (size_t)jrow * atlas_w +
+                                  min(max(ii, 0), atlas_w - 1));
+          r = (float)((texel >> 16) & 255) / 255.0f;
+          g = (float)((texel >> 8) & 255) / 255.0f;
+          b = (float)(texel & 255) / 255.0f;
+        }
+      };
       float mat = MAT_ISOTROPIC;
       if (!med_event) {
-        // emission (reference src/color.rs:8-22)
-        rad_r += thr_r * w[R_EMIT];
-        rad_g += thr_g * w[R_EMIT + 1];
-        rad_b += thr_b * w[R_EMIT + 2];
+        // emission (reference src/color.rs:8-22): a light's colour, or a
+        // textured light's texture value (src/material.rs:133-151); solid
+        // lights keep this cheap path
+        float er = w[R_EMIT], eg = w[R_EMIT + 1], eb = w[R_EMIT + 2];
+        if (emis_tex && w[R_MAT] == MAT_DIFFUSE_LIGHT &&
+            (w[R_CHECKER] > 0.0f || w[R_NOISE] > 0.0f || w[R_IMG] > 0.0f))
+          texture(w + R_ALB, ox + t_best * dx, oy + t_best * dy,
+                  oz + t_best * dz, er, eg, eb);
+        rad_r += thr_r * er;
+        rad_g += thr_g * eg;
+        rad_b += thr_b * eb;
         mat = w[R_MAT];
       }
       // a light does not scatter; scatter only below the depth cap
@@ -708,6 +802,24 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       if (mat == MAT_DIFFUSE_LIGHT || bounce >= max_depth) break;
       const float px = ox + t_best * dx, py = oy + t_best * dy,
                   pz = oz + t_best * dz;
+      // the albedo: the winner's texture at the hit point, or at a medium
+      // event the medium's (pallas_tracer.py:2237-2266): its colour, or
+      // under med_tex its texture. K1B takes it here, before the scatter
+      // draws (taken after them, ptxas gave K1B 80 registers and final_scene
+      // ran 10% slower on an H100); K1a after the scatter, where its SASS
+      // has always taken it
+      float alb_r, alb_g, alb_b;
+      auto albedo = [&]() {
+        if (med_event && !med_tex) {
+          alb_r = s_med[m_ev * MEDREC + M_ALB];
+          alb_g = s_med[m_ev * MEDREC + M_ALB + 1];
+          alb_b = s_med[m_ev * MEDREC + M_ALB + 2];
+        } else {
+          texture(med_event ? s_med + m_ev * MEDREC + M_ALB : w + R_ALB, px,
+                  py, pz, alb_r, alb_g, alb_b);
+        }
+      };
+      if (K1B) albedo();
       // lambertian: n + a uniform point in the unit ball
       // (reference src/material.rs:49-53; ops/rng.in_unit_sphere)
       const Uniforms us =
@@ -771,50 +883,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
           ndz = dz - 2.0f * ddn * nbz;
         }
       }
-      float alb_r = m_alb_r, alb_g = m_alb_g, alb_b = m_alb_b;
-      if (!med_event) {
-        alb_r = w[R_ALB];
-        alb_g = w[R_ALB + 1];
-        alb_b = w[R_ALB + 2];
-        if (checker && w[R_CHECKER] > 0.0f) {
-          // checker sign at the hit point (reference src/texture.rs:40-47)
-          const float sines =
-              sinf(10.0f * px) * sinf(10.0f * py) * sinf(10.0f * pz);
-          if (sines < 0.0f) {
-            alb_r = w[R_ALB_ODD];
-            alb_g = w[R_ALB_ODD + 1];
-            alb_b = w[R_ALB_ODD + 2];
-          }
-        }
-        if (noise && w[R_NOISE] > 0.0f) {
-          // marble, 0.5·(1 + sin(scale·x + 5·turb(p))) (reference
-          // src/texture.rs:66-70)
-          const float turb = turb3(px, py, pz, perlin_word);
-          alb_r = alb_g = alb_b =
-              0.5f * (1.0f + sinf(w[R_NSCALE] * px + 5.0f * turb));
-        }
-        if (image && w[R_IMG] > 0.0f) {
-          // nearest texel (reference src/texture.rs:86-108) at the sphere
-          // UV of the unit normal (src/sphere.rs:7-15; `_atan2`/`_asin`
-          // are the math library's here), v flipped, clamped to the
-          // image's true size; one read of the packed atlas
-          const float phi = atan2f(nbz, nbx);
-          const float theta = asinf(fminf(fmaxf(nby, -1.0f), 1.0f));
-          const float uu = 1.0f - (phi + PI_F) * INV_2PI;
-          const float vv = (theta + (compat_uv ? TWO_OVER_PI : HALF_PI)) *
-                           INV_PI;
-          const float iw = w[R_IMG_W], ih = w[R_IMG_H];
-          const int ii = min(max((int)(uu * iw), 0), (int)iw - 1);
-          const int jj = min(max((int)((1.0f - vv) * ih), 0), (int)ih - 1);
-          const int jrow =
-              min(max((int)w[R_IMG_BASE] + jj, 0), atlas_rows - 1);
-          const int texel = __ldg(atlas + (size_t)jrow * atlas_w +
-                                  min(max(ii, 0), atlas_w - 1));
-          alb_r = (float)((texel >> 16) & 255) / 255.0f;
-          alb_g = (float)((texel >> 8) & 255) / 255.0f;
-          alb_b = (float)(texel & 255) / 255.0f;
-        }
-      }
+      if (!K1B) albedo();
       if (diel && mat == MAT_DIELECTRIC) alb_r = alb_g = alb_b = 1.0f;
       ox = px;
       oy = py;
@@ -825,6 +894,21 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       thr_r = thr_r * alb_r;
       thr_g = thr_g * alb_g;
       thr_b = thr_b * alb_b;
+      if (rr && bounce >= rr_depth) {
+        // Russian roulette (pallas_tracer.py:2492-2506; not in the
+        // reference): the path survives with q = max(thr) clipped to
+        // [0.05, 1], word 0 of (pixel, sample, bounce, ROULETTE), and a
+        // survivor's throughput is multiplied by 1/q
+        const float q =
+            fminf(fmaxf(fmaxf(thr_r, fmaxf(thr_g, thr_b)), 0.05f), 1.0f);
+        const float u_rr = philox(pix, sample, (uint32_t)bounce,
+                                  STREAM_ROULETTE, k0, k1).x;
+        if (!(u_rr < q)) break;
+        const float inv_q = 1.0f / q;
+        thr_r = thr_r * inv_q;
+        thr_g = thr_g * inv_q;
+        thr_b = thr_b * inv_q;
+      }
 
       if (dense_walk && med_event && ((dense >> m_ev) & 1) &&
           bounce + 1 < max_depth) {
@@ -926,7 +1010,7 @@ using TraceFn = void (*)(const float*, int, const int*, int, const float*,
                          int, int, uint32_t, uint32_t, int, int, int,
                          const float*, int, int, const int*, int, int,
                          uint32_t, const float*, int, const float*, int,
-                         const float*, int, const int*, int);
+                         const float*, int, const int*, int, int);
 
 // the instantiations, indexed [K1B][DYN][LEAF_SMEM]; without a dynamic
 // table there is no leaf table
@@ -945,8 +1029,10 @@ const TraceFn KERNELS[2][2][2] = {
 // boundary, bit i of dense for a medium the walk serves; atlas:
 // int32[atlas_rows, atlas_w] packed texels; perlin_word: (perlin seed ·
 // HSEED) mod 2^32; box: f32[n_box, REC]; interior: f32[n_int, REC] with
-// interior_kind int32[n_int] (ops/tracer.py INT_*). Launches on `stream`;
-// returns cudaGetLastError() after the launch.
+// interior_kind int32[n_int] (ops/tracer.py INT_*); rr_depth: the first
+// bounce of Russian roulette, ≥ 0 exactly when FEAT_RR is set (never with
+// the walk). Launches on `stream`; returns cudaGetLastError() after the
+// launch.
 extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int n_walk, const float* dyn, int n_dyn,
                            const float* leaves, int n_leaf, const float* cam,
@@ -958,7 +1044,7 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            const float* box, int n_box, const float* bleaves,
                            int n_bleaf, const float* interior, int n_int,
                            const int* interior_kind, int dense,
-                           void* stream) {
+                           int rr_depth, void* stream) {
   if (n_rec <= 0 || n_rec > MAX_PRIMS || n_walk < 0 || n_walk > n_rec ||
       n_dyn < 0 || n_leaf < 0 || feats < 0 || feats > FEAT_ALL ||
       n_med < 0 || n_med > MAX_MEDIA || ((feats & FEAT_MEDIA) != 0) !=
@@ -966,7 +1052,9 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                       (atlas_rows <= 0 || atlas_w <= 0)) ||
       n_box < 0 || n_bleaf < 0 || n_int < 0 || n_int > MAX_INTERIOR ||
       ((feats & FEAT_DENSE_WALK) && (n_int == 0 || dense == 0 ||
-                                     !(feats & FEAT_MEDIA))))
+                                     !(feats & FEAT_MEDIA))) ||
+      ((feats & FEAT_RR) != 0) != (rr_depth >= 0) ||
+      ((feats & FEAT_RR) && (feats & FEAT_DENSE_WALK)))
     return (int)cudaErrorInvalidValue;
   if (n_dyn == 0) n_leaf = 0;
   if (n_box == 0) n_bleaf = 0;
@@ -985,6 +1073,6 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       rec, n_rec, walk, n_walk, dyn, n_dyn, leaves, n_leaf, cam, feats, sums,
       nx, ny, seed_lo, seed_hi, sample0, n_samples, max_depth, med, n_med,
       med_box, atlas, atlas_rows, atlas_w, perlin_word, box, n_box, bleaves,
-      n_bleaf, interior, n_int, interior_kind, dense);
+      n_bleaf, interior, n_int, interior_kind, dense, rr_depth);
   return (int)cudaGetLastError();
 }

@@ -210,6 +210,57 @@ def final_scene(seed: int = 0, compat_dead_light: bool = False,
     return b.build(device)
 
 
+def lattice_scene(device="cpu") -> SceneTables:
+    """The feature-lattice scene, not a reference preset (the JAX package's
+    `lattice_scene`): every legal texture, material and prim combination
+    the reference allows but no reference scene uses. DiffuseLight is
+    texture-generic (reference src/material.rs:133-151), image textures go
+    on any hittable (src/texture.rs:73-108), and Isotropic medium albedo is
+    texture-generic (src/material.rs:153-173): emissive checker, noise and
+    image lights, an image on a rotated, a plain and a flipped rect and on
+    a flipped sphere, and checker, noise and image medium albedo."""
+    def texels(seed, h=8, w=16):
+        r = np.random.default_rng(seed)
+        return (np.rint(r.uniform(26, 230, (h, w, 3))).astype(np.float32)
+                / 255.0).astype(np.float32)
+
+    b = SceneBuilder(background=BG_BLACK)
+    white = b.lambertian(b.solid(0.73, 0.73, 0.73))
+    b.rect("zx", -6, -6, 6, 6, 0.0, white)                      # floor
+    # emissive checker, noise and image lights
+    b.rect("zx", -2, -2, 2, 2, 8.0,
+           b.diffuse_light(b.checker(b.solid(4, 0.5, 0.5),
+                                     b.solid(0.5, 4, 0.5))), flip=True)
+    b.sphere((-4, 1.5, 0), 0.8, b.diffuse_light(b.noise(2.0)))
+    # (the reference's ImageTexture is u8-backed: emission is capped at 1)
+    b.sphere((4, 1.5, 0), 0.8, b.diffuse_light(b.image(texels(5))))
+    # an image on rects: a rotated frame, a plain one, a flipped one
+    img = b.lambertian(b.image(texels(7)))
+    xf = b.transform(offset=(0, 1, -3), rotate_axis="y", angle_deg=30.0)
+    b.rect("xy", -1, 0, 1, 2, 0.0, img, xform=xf)
+    b.sphere((0, 1, 3), 0.9, img)
+    b.rect("xy", -1, 0, 1, 2, 4.0, img, flip=True)
+    # a flipped image sphere: its UV comes from the pre-flip normal
+    flipped = b.lambertian(b.image(texels(9)))
+    b.rect("yz", 0, -1, 2, 1, -5.0, flipped)
+    b.sphere((2, 1, -3), 0.7, flipped)
+    b._pflip[-1] = -1.0
+    # textured media: checker, noise and image (at u = v = 0) albedo
+    b.medium_sphere((0, 3, 0), 1.0, 0.4,
+                    b.checker(b.solid(1, 0, 0), b.solid(0, 0, 1)))
+    b.medium_box((-5, 0, -5), (-3, 1, -3), 0.3, b.noise(1.5))
+    b.medium_sphere((3, 3, 3), 0.8, 0.3, b.image(texels(11)))
+    return b.build(device)
+
+
+def lattice_camera(nx: int, ny: int, device="cpu"):
+    """The camera tools/tpu_parity.py renders `lattice_scene` with: from
+    (0, 4, 14) at (0, 1.5, 0), 45° vertical field, no lens blur."""
+    from ..ops.camera import make_camera
+    return make_camera((0, 4, 14), (0, 1.5, 0), (0, 1, 0), 45.0, nx / ny, 0.0,
+                       10.0, 0.0, 1.0, device=device)
+
+
 @dataclass
 class ScenePreset:
     build: object                 # (device=...) -> SceneTables

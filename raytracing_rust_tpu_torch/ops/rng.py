@@ -26,9 +26,14 @@ version (`ops/tracer.trace_plain`):
         [bounce, word, lane] of `grad.fast_draws`: word 0 cos θ, word 1 φ,
         word 2 ball radius, word 3 the dielectric's reflect-or-refract
         draw (read by no family the kernels cover yet)
-    streams 4, 5, ... (MEDIUM, at each bounce, scenes with constant-density
-        media): medium i draws its free flight −(1/ρ)·ln u from word i % 4 of
-        counter (pixel, sample, bounce, STREAM_MEDIUM + i // 4)
+    streams 4, 5 (MEDIUM, at each bounce, scenes with constant-density
+        media): medium i (i < 8, the kernel's MAX_MEDIA) draws its free
+        flight −(1/ρ)·ln u from word i % 4 of counter (pixel, sample,
+        bounce, STREAM_MEDIUM + i // 4)
+    stream 6 (ROULETTE, at each bounce from the render's rr_depth on, a
+        path that scatters): word 0 the Russian roulette's survival draw
+        (the path goes on if u < q); words 1-3 unused. No other draw reads
+        this stream, so a render without roulette is the same as before
 
 `render.camera_lane_rays` keys the camera stream by lane instead of pixel:
 counter (lane, 0, 0, 0).
@@ -54,7 +59,8 @@ STREAM_CAMERA = 0
 STREAM_SCATTER = 1
 STREAM_TIME = 2
 STREAM_GRAD = 3
-STREAM_MEDIUM = 4   # and up: one counter for every four media
+STREAM_MEDIUM = 4   # and 5: one counter for every four media
+STREAM_ROULETTE = 6
 
 PHILOX_M0 = 0xD2511F53
 PHILOX_M1 = 0xCD9E8D57

@@ -1,4 +1,5 @@
-"""The forward megakernel (K1a-K1e) and its host side.
+"""The forward megakernel (K1a-K1e, the lattice corners, K1g) and its host
+side.
 
 Counterpart of `raytracing_rust_tpu/ops/pallas_tracer.py`, cut to what the
 kernel covers: spheres (moving ones included) and rect frame groups from a
@@ -6,16 +7,18 @@ per-primitive scalar record, and, for scenes of more than UNROLL_BUDGET
 prims, a dynamic sphere table and a table of axis-aligned boxes (cubes of
 six rects merged into one row), each in cluster order behind a leaf AABB
 cull; lambertian, metal, dielectric and diffuse-light materials with solid,
-3-D checker, Perlin marble and image textures (sphere UV, nearest texel
-from a packed 8-bit atlas); constant-density media with sphere or box
-boundaries under a rotation and offset (free flight against the closest
-surface, isotropic scatter, solid albedo), with the dense-medium walk for a
-medium sealed by a coincident sphere; a black or sky background; camera
-raygen with jitter, a thin lens and a shutter time; per-pixel radiance
-sums over a runtime sample count and depth cap. That covers all eight
-presets. Anything else (the lattice corners: textured lights, image
-rects, rotated or flipped image spheres, textured media) raises
-`UnsupportedScene`.
+3-D checker, Perlin marble and image textures (nearest texel from a packed
+8-bit atlas at the sphere UV of the pre-flip normal, or at a rect's UV);
+textured lights; constant-density media with sphere or box boundaries
+under a rotation and offset (free flight against the closest surface,
+isotropic scatter, solid or textured albedo), with the dense-medium walk
+for a medium sealed by a coincident sphere; a black or sky background;
+camera raygen with jitter, a thin lens and a shutter time; optional
+Russian roulette; per-pixel radiance sums over a runtime sample count and
+depth cap. That is every scene the JAX kernel takes: what it refuses
+(image textures on rotated spheres, nested checkers, images that are not
+8-bit exact, more than MAX_MEDIA media, more than UNROLL_BUDGET rects that
+form no box) raises `UnsupportedScene` here too.
 
 * `build_scene_record` / `build_camera_record` flatten the scene tables and
   the camera into the JAX kernel's record layouts (`R_*`, `M_*`, `C_*`),
@@ -97,15 +100,21 @@ M_INV_RHO = 6     # 1 / density
 M_ROT = 7         # 7..15 world→object rotation R₋, row-major
 M_OFF = 16        # 16..18 translate offset
 M_ALB = 19        # 19..21 isotropic albedo (solid)
-M_ALB_ODD = 22    # 22..31 the JAX kernel's textured-albedo fields (checker
-M_CHK = 25        # odd colour, flags, noise scale, image base and size):
-M_NOISE = 26      # zero here, since textured media raise UnsupportedScene
+M_ALB_ODD = 22    # 22..24 a checker's odd colour (M_ALB its even one)
+M_CHK = 25        # the textured-albedo flags and fields, as R_CHECKER..
+M_NOISE = 26      # R_IMG_W of a record row
 M_NSCALE = 27
 M_IMG = 28
 M_IMG_BASE = 29
 M_IMG_H = 30
 M_IMG_W = 31
 MEDREC = 32
+# a texture's 13 fields, the same in a record row (from R_ALB_EVEN) and a
+# medium row (from M_ALB): colour (the even one of a checker), the odd
+# colour, then the checker, noise and image flags and fields
+T_ALB, T_ODD, T_CHK, T_NOISE, T_NSCALE, T_IMG, T_IMG_BASE, T_IMG_H, \
+    T_IMG_W = 0, 3, 6, 7, 8, 9, 10, 11, 12
+TEXW = 13
 # media a scene may hold; the kernel keeps their records in shared memory
 # (csrc/tracer.cu MAX_MEDIA)
 MAX_MEDIA = 8
@@ -146,7 +155,16 @@ FEAT_MEDIA = 128      # constant-density media, event path (K1d)
 FEAT_COMPAT_UV = 256  # the reference's sphere-UV constant (src/sphere.rs:13)
 FEAT_DENSE_WALK = 512  # the dense-medium walk (K1d walk); clearing it runs
                        # the same scene on the event path alone
-FEAT_ALL = 1023
+# the lattice corners (the JAX kernel's emis_tex, uv_carry, img_flip and
+# med_tex flags): textured lights, the UV of image rects and image media,
+# the pre-flip normal of flipped image prims, textured medium albedo
+FEAT_EMIS_TEX = 1024
+FEAT_UV_CARRY = 2048
+FEAT_IMG_FLIP = 4096
+FEAT_MED_TEX = 8192
+FEAT_LATTICE = FEAT_EMIS_TEX | FEAT_UV_CARRY | FEAT_IMG_FLIP | FEAT_MED_TEX
+FEAT_RR = 16384        # Russian roulette (K1g) from TraceOperands.rr_depth on
+FEAT_ALL = 32767
 K1BE_FEATS = FEAT_SKY | FEAT_CHECKER | FEAT_METAL | FEAT_DIEL | FEAT_MOVING
 
 # launches of the CUDA kernel, counted by `trace` after a launch succeeds,
@@ -154,14 +172,17 @@ K1BE_FEATS = FEAT_SKY | FEAT_CHECKER | FEAT_METAL | FEAT_DIEL | FEAT_MOVING
 # every feature off and no table (cornell_box); a launch counts as K1BE
 # when it runs sky, checker, metal, dielectric, moving spheres or the
 # dynamic sphere table, as K1E_BOX when it holds boxes, as K1C when it
-# shades noise or image textures, as K1D when it holds media, and as
-# K1D_WALK when it runs the dense-medium walk
+# shades noise or image textures, as K1D when it holds media, as K1D_WALK
+# when it runs the dense-medium walk, as K1_LATTICE when it runs any of
+# the lattice corners, and as K1G when it plays Russian roulette
 KERNEL_LAUNCHES = 0
 K1BE_LAUNCHES = 0
 K1C_LAUNCHES = 0
 K1D_LAUNCHES = 0
 K1E_BOX_LAUNCHES = 0
 K1D_WALK_LAUNCHES = 0
+K1_LATTICE_LAUNCHES = 0
+K1G_LAUNCHES = 0
 
 # lanes (pixel × sample) per chunk when the caller names no chunk: the plain
 # version holds every lane's state in memory, the kernel holds none
@@ -185,7 +206,7 @@ class SceneRecord:
     n_sclus: tuple       # (n_leaf, n_sup)
     # the JAX kernel's flags: (has_checker, has_metal, has_diel, has_noise,
     # has_image, dyn_moving, compat_uv, emis_tex, uv_carry, img_flip,
-    # med_tex); the last four are always False here (those scenes raise)
+    # med_tex)
     flags: tuple
     background: int
     med_rec: np.ndarray  # f32[M, MEDREC] media of nonzero density
@@ -203,7 +224,7 @@ class SceneRecord:
     def feats(self) -> int:
         """The kernel features (FEAT_* bits) this scene needs."""
         (has_checker, has_metal, has_diel, has_noise, has_image, dyn_moving,
-         compat_uv) = self.flags[:7]
+         compat_uv, emis_tex, uv_carry, img_flip, med_tex) = self.flags
         return ((FEAT_SKY if self.background == BG_SKY else 0)
                 | (FEAT_CHECKER if has_checker else 0)
                 | (FEAT_METAL if has_metal else 0)
@@ -214,7 +235,11 @@ class SceneRecord:
                 | (FEAT_IMAGE if has_image else 0)
                 | (FEAT_MEDIA if self.med_kinds else 0)
                 | (FEAT_COMPAT_UV if compat_uv and has_image else 0)
-                | (FEAT_DENSE_WALK if any(self.med_dense) else 0))
+                | (FEAT_DENSE_WALK if any(self.med_dense) else 0)
+                | (FEAT_EMIS_TEX if emis_tex else 0)
+                | (FEAT_UV_CARRY if uv_carry else 0)
+                | (FEAT_IMG_FLIP if img_flip else 0)
+                | (FEAT_MED_TEX if med_tex else 0))
 
 
 def _merge_boxes(rec, kinds):
@@ -349,6 +374,40 @@ def _cluster_rows(rows, lo, hi, leaf):
             len(clusters), len(supers))
 
 
+def _texture_fields(tx, what, tex_type, tex_color, tex_child, tex_scale,
+                    tex_image, image_hw, img_h) -> np.ndarray:
+    """Texture tx as the kernel reads it → f32[TEXW] (T_* columns): a
+    solid colour; a checker's even and odd colours (reference
+    src/texture.rs:27-48, solid children only); a marble's scale
+    (src/texture.rs:50-71); an image's atlas row base and true size
+    (src/texture.rs:73-108). `what` names the owner in the nested-checker
+    error."""
+    out = np.zeros(TEXW, np.float32)
+    tt = int(tex_type[tx])
+    if tt == TEX_SOLID:
+        out[T_ALB:T_ALB + 3] = tex_color[tx]
+    elif tt == TEX_CHECKER:
+        odd, even = tex_child[tx]
+        if tex_type[odd] != TEX_SOLID or tex_type[even] != TEX_SOLID:
+            raise UnsupportedScene(f"nested checker{what}")
+        out[T_ALB:T_ALB + 3] = tex_color[even]
+        out[T_ODD:T_ODD + 3] = tex_color[odd]
+        out[T_CHK] = 1.0
+    elif tt == TEX_NOISE:
+        out[T_NOISE] = 1.0
+        out[T_NSCALE] = tex_scale[tx]
+    elif tt == TEX_IMAGE:
+        img_id = int(tex_image[tx])
+        out[T_IMG] = 1.0
+        out[T_IMG_BASE] = float(img_id * img_h)
+        out[T_IMG_H] = float(image_hw[img_id, 0])
+        out[T_IMG_W] = float(image_hw[img_id, 1])
+    else:
+        raise UnsupportedScene(f"texture type {tt}{what} is not in the "
+                               "kernel")
+    return out
+
+
 def build_scene_record(scene: SceneTables) -> SceneRecord:
     """Flatten SceneTables into the kernel's records (host side).
 
@@ -363,20 +422,24 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
     boxes are each cluster-sorted with a leaf AABB table. Rect frame
     groups share the six ray·frame dot products of one plane frame.
 
-    Media of nonzero density fill the per-medium record (`M_*`, the
-    boundary in object space, 1/ρ, the world→object rotation and offset,
-    the solid albedo); image textures fill the texel atlas. A medium is
-    served by the dense-medium walk (pallas_tracer.py:889-987) when its
+    A light with a checker, noise or image texture fills the texture
+    fields as an albedo would and keeps R_EMIT zero; the kernel emits the
+    texture's value (pallas_tracer.py:650-660). Media of nonzero density
+    fill the per-medium record (`M_*`, the boundary in object space, 1/ρ,
+    the world→object rotation and offset, the solid or textured albedo);
+    image textures, the media's included, fill the texel atlas. A medium
+    is served by the dense-medium walk (pallas_tracer.py:889-987) when its
     mean free path is short (4/ρ under its extent), a coincident
-    unrotated sphere seals it, and at most MAX_INTERIOR unrolled, dynamic
-    and box rows overlap the AABB of the dense media (the interior set).
+    unrotated sphere seals it, at most MAX_INTERIOR unrolled, dynamic and
+    box rows overlap the AABB of the dense media (the interior set), and
+    no medium of the scene is textured (935-940).
 
-    Raises UnsupportedScene for what the kernel does not cover, each with
-    its own reason: isotropic surfaces, nested checkers, textured lights,
-    image textures on rects, on rotated spheres or on flipped spheres,
-    textured medium albedo, images that are not 8-bit exact, more than
-    MAX_MEDIA media, and more than UNROLL_BUDGET rects that form no box in
-    a scene of more than UNROLL_BUDGET prims.
+    Raises UnsupportedScene for what the JAX kernel does not cover either,
+    each with its own reason: isotropic surfaces, nested checkers (of a
+    surface or a medium), image textures on rotated spheres, images that
+    are not 8-bit exact, more than MAX_MEDIA media, and more than
+    UNROLL_BUDGET rects that form no box in a scene of more than
+    UNROLL_BUDGET prims.
     """
     scene = scene.to("cpu")
     P = scene.num_prims
@@ -403,6 +466,7 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
 
     rec = np.zeros((P, REC), np.float32)
     kinds = []
+    emis_tex = False   # a light with a checker, noise or image texture
     for p in range(P):
         if ptype[p] == PRIM_RECT:
             kinds.append("rect")
@@ -439,46 +503,24 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
         rec[p, R_PARAM] = mat_param[m]
         tx = mat_tex[m]
         tt = int(tex_type[tx])
-        if tt == TEX_SOLID:
-            if mt == MAT_DIFFUSE_LIGHT:
-                rec[p, R_EMIT:R_EMIT + 3] = tex_color[tx]
-            else:
-                rec[p, R_ALB_EVEN:R_ALB_EVEN + 3] = tex_color[tx]
-        elif mt == MAT_DIFFUSE_LIGHT:
-            raise UnsupportedScene("emissive textures (a textured light) are "
-                                   "not in the kernel yet")
-        elif tt == TEX_CHECKER:
-            odd, even = tex_child[tx]
-            if tex_type[odd] != TEX_SOLID or tex_type[even] != TEX_SOLID:
-                raise UnsupportedScene("nested checker")
-            rec[p, R_ALB_ODD:R_ALB_ODD + 3] = tex_color[odd]
-            rec[p, R_ALB_EVEN:R_ALB_EVEN + 3] = tex_color[even]
-            rec[p, R_CHECKER] = 1.0
-        elif tt == TEX_NOISE:
-            # marble albedo (reference src/texture.rs:66-70)
-            rec[p, R_NOISE] = 1.0
-            rec[p, R_NSCALE] = tex_scale[tx]
-        elif tt == TEX_IMAGE:
-            # nearest-texel albedo from the atlas (reference
-            # src/texture.rs:73-108), UV from the winner's world normal: an
-            # unrotated, unflipped sphere only
-            if kinds[-1] == "rect":
-                raise UnsupportedScene("image texture on a rect (selection-"
-                                       "time UV) is not in the kernel yet")
-            xf = prim_xf[p]
-            if xf_sin[xf] != 0.0 or xf_cos[xf] != 1.0:
-                raise UnsupportedScene("image texture on a rotated sphere")
-            if prim_flip[p] < 0:
-                raise UnsupportedScene("image texture on a flipped sphere "
-                                       "(pre-flip UV) is not in the kernel "
-                                       "yet")
-            img_id = int(tex_image[tx])
-            rec[p, R_IMG] = 1.0
-            rec[p, R_IMG_BASE] = float(img_id * img_h)
-            rec[p, R_IMG_H] = float(image_hw[img_id, 0])
-            rec[p, R_IMG_W] = float(image_hw[img_id, 1])
+        if tt == TEX_SOLID and mt == MAT_DIFFUSE_LIGHT:
+            # a solid light keeps the cheap path: its colour in R_EMIT
+            rec[p, R_EMIT:R_EMIT + 3] = tex_color[tx]
         else:
-            raise UnsupportedScene(f"texture type {tt} is not in the kernel")
+            if tt == TEX_IMAGE and kinds[-1] != "rect":
+                # a sphere's image UV comes from its world normal (the
+                # pre-flip one of a flipped sphere): unrotated spheres only.
+                # A rect's UV comes from its world frame, rotated or not
+                xf = prim_xf[p]
+                if xf_sin[xf] != 0.0 or xf_cos[xf] != 1.0:
+                    raise UnsupportedScene("image texture on a rotated "
+                                           "sphere")
+            # the albedo, or a textured light's emission (reference
+            # src/material.rs:133-151): the texture's fields
+            rec[p, R_ALB_EVEN:R_ALB_EVEN + TEXW] = _texture_fields(
+                tx, "", tex_type, tex_color, tex_child, tex_scale,
+                tex_image, image_hw, img_h)
+            emis_tex |= mt == MAT_DIFFUSE_LIGHT
 
     # media (reference src/medium.rs: ConstantMedium with a convex boundary,
     # possibly under Traslate∘Rotate), pallas_tracer.py:698-760
@@ -495,10 +537,6 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
     med_rec = np.zeros((len(live), MEDREC), np.float32)
     med_kinds = []
     for i, m in enumerate(live):
-        iso_tex = mat_tex[med_material[m]]
-        if tex_type[iso_tex] != TEX_SOLID:
-            raise UnsupportedScene("textured medium albedo is not in the "
-                                   "kernel yet")
         if med_type[m] == MED_SPHERE:
             med_kinds.append("msphere")
             med_rec[i, M_DATA:M_DATA + 3] = med_data[m, 0:3]
@@ -519,13 +557,21 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
         rot[b, a], rot[b, b] = -sn, cs
         med_rec[i, M_ROT:M_ROT + 9] = rot.reshape(-1)
         med_rec[i, M_OFF:M_OFF + 3] = xf_off[xf]
-        med_rec[i, M_ALB:M_ALB + 3] = tex_color[iso_tex]
+        # the isotropic albedo, solid or textured (reference
+        # src/material.rs:153-173)
+        med_rec[i, M_ALB:M_ALB + TEXW] = _texture_fields(
+            mat_tex[med_material[m]], " (medium albedo)", tex_type,
+            tex_color, tex_child, tex_scale, tex_image, image_hw, img_h)
 
-    flags = (bool(np.any(rec[:, R_CHECKER] > 0)),
+    # the scene's textures, the media's included (pallas_tracer.py:761-770)
+    med_tex = bool(np.any(med_rec[:, [M_CHK, M_NOISE, M_IMG]] > 0))
+    flags = (bool(np.any(rec[:, R_CHECKER] > 0)
+                  or np.any(med_rec[:, M_CHK] > 0)),
              bool(np.any(rec[:, R_MAT] == MAT_METAL)),
              bool(np.any(rec[:, R_MAT] == MAT_DIELECTRIC)),
-             bool(np.any(rec[:, R_NOISE] > 0)),
-             bool(np.any(rec[:, R_IMG] > 0)))
+             bool(np.any(rec[:, R_NOISE] > 0)
+                  or np.any(med_rec[:, M_NOISE] > 0)),
+             bool(np.any(rec[:, R_IMG] > 0) or np.any(med_rec[:, M_IMG] > 0)))
 
     # the texel atlas, one int32 r<<16 | g<<8 | b per texel
     # (pallas_tracer.py:772-791): images are stored as f32(u8 / 255), and
@@ -596,13 +642,23 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
         kinds = [k for i, k in enumerate(kinds) if keep[i]]
         if not kinds:   # the kernel's record needs at least one row
             rec = np.zeros((1, REC), np.float32)
+    # the lattice corners (pallas_tracer.py:875-887): a UV other than a
+    # sphere's (an image rect, always unrolled, or an image medium), an
+    # image on a flipped prim of any table
+    all_rows = np.concatenate([rec, dyn_rec, box_rec])
+    uv_carry = bool(any(k == "rect" and rec[i, R_IMG] > 0
+                        for i, k in enumerate(kinds))
+                    or np.any(med_rec[:, M_IMG] > 0))
+    img_flip = bool(np.any((all_rows[:, R_IMG] > 0)
+                           & (all_rows[:, R_FLIP] < 0)))
     flags += (bool(len(dyn_rec) and np.any(dyn_rec[:, R_INV_DT] != 0.0)),
-              bool(scene.compat_uv_bug), False, False, False, False)
+              bool(scene.compat_uv_bug), emis_tex, uv_carry, img_flip,
+              med_tex)
     med_dense, int_rec, int_kinds = _dense_media(
         med_rec, med_kinds,
         [(rec[i], k) for i, k in enumerate(kinds)]
         + [(r, "moving" if r[R_INV_DT] != 0.0 else "sphere") for r in dyn_rec]
-        + [(r, "box") for r in box_rec])
+        + [(r, "box") for r in box_rec], med_tex)
 
     groups = {}
     for i, k in enumerate(kinds):
@@ -634,7 +690,7 @@ def _row_aabb(row, kind):
     return pts.min(0) - 1e-4, pts.max(0) + 1e-4
 
 
-def _dense_media(med_rec, med_kinds, cand):
+def _dense_media(med_rec, med_kinds, cand, med_tex):
     """The dense-medium walk's host analysis (pallas_tracer.py:889-987) →
     (dense flag per medium, interior rows f32[n, REC], their kinds).
 
@@ -645,8 +701,9 @@ def _dense_media(med_rec, med_kinds, cand):
     an unsealed dense medium stays on the event path. The interior set is
     every candidate whose AABB overlaps a dense medium's world AABB (the
     rotated object-space corners); above MAX_INTERIOR rows it is dropped
-    and every medium takes the event path. (Textured media never walk,
-    935-940; they raise in `build_scene_record`.)
+    and every medium takes the event path. In a scene with a textured
+    medium (med_tex) no medium walks (935-940): the walk multiplies by a
+    solid albedo.
     """
     dense, aabbs = [], []
     for i, mk in enumerate(med_kinds):
@@ -666,7 +723,7 @@ def _dense_media(med_rec, med_kinds, cand):
                               (olo, ohi)[c_][2]]) + off
             for a in (0, 1) for b in (0, 1) for c_ in (0, 1)])
         aabbs.append((corners.min(0), corners.max(0)))
-        is_dense = bool(4.0 * med_rec[i, M_INV_RHO] < extent)
+        is_dense = bool(4.0 * med_rec[i, M_INV_RHO] < extent) and not med_tex
         sealed = False
         if is_dense and mk == "msphere" and np.allclose(rot, np.eye(3),
                                                         atol=1e-6):
@@ -746,20 +803,30 @@ class TraceOperands:
     interior: torch.Tensor  # f32[n_int ≤ MAX_INTERIOR, REC] the walk's rows
     interior_kind: torch.Tensor  # int32[n_int] INT_SPHERE / INT_RECT / INT_BOX
     dense: int            # bit i set: medium i is served by the walk
+    rr_depth: int = -1    # the first bounce of Russian roulette; -1: none
+                          # (FEAT_RR is set exactly when it is ≥ 0)
 
 
-def trace_operands(srec: SceneRecord, cam_rec: np.ndarray,
-                   device) -> TraceOperands:
+def trace_operands(srec: SceneRecord, cam_rec: np.ndarray, device,
+                   rr_depth: int | None = None) -> TraceOperands:
     """The records of `build_scene_record` and `build_camera_record` as
-    `trace` operands on `device`."""
+    `trace` operands on `device`. rr_depth: the bounce from which paths
+    play Russian roulette (pallas_tracer.py:2492-2506), or None; roulette
+    turns the dense-medium walk off (2540-2542), whose bounces would skip
+    its draws."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
     kind = {"sphere": INT_SPHERE, "moving": INT_SPHERE, "rect": INT_RECT,
             "box": INT_BOX}
+    feats = srec.feats
+    if rr_depth is not None:
+        if rr_depth < 0:
+            raise ValueError(f"rr_depth {rr_depth} is negative")
+        feats = (feats | FEAT_RR) & ~FEAT_DENSE_WALK
     return TraceOperands(
         rec=put(srec.rec), walk=put(walk_table(srec.kinds, srec.rect_groups)),
         dyn=put(srec.dyn_rec), leaves=put(srec.sclus[:srec.n_sclus[0]]),
-        cam=put(cam_rec), feats=srec.feats, med=put(srec.med_rec),
+        cam=put(cam_rec), feats=feats, med=put(srec.med_rec),
         med_box=sum(1 << i for i, k in enumerate(srec.med_kinds)
                     if k == "mbox"),
         atlas=put(srec.atlas), perlin_seed=srec.perlin_seed,
@@ -767,7 +834,8 @@ def trace_operands(srec: SceneRecord, cam_rec: np.ndarray,
         interior=put(srec.int_rec),
         interior_kind=put(np.asarray([kind[k] for k in srec.int_kinds],
                                      np.int32)),
-        dense=sum(1 << i for i, d in enumerate(srec.med_dense) if d))
+        dense=sum(1 << i for i, d in enumerate(srec.med_dense) if d),
+        rr_depth=-1 if rr_depth is None else int(rr_depth))
 
 
 def _sphere_center(r, time, moving: bool):
@@ -874,6 +942,68 @@ def texel_rgb(atlas, base, h, w, uu, vv):
     d255 = torch.tensor(255.0, device=packed.device)
     return [((packed >> sh) & 255).to(torch.float32) / d255
             for sh in (16, 8, 0)]
+
+
+def rect_uv(o, d, t, rows):
+    """The image UV of rect hits o + t·d (reference src/rect.rs:53-60, as
+    ops/intersect.py hit_attributes takes it in the world frame) of the
+    record rows `rows` (f32[n, REC]): ((xa − A0)·(1/(A1 − A0)),
+    (yb − B0)·(1/(B1 − B0))), xa = o·an + t·(d·an) − a_off and yb alike,
+    each in the closest-hit loop's op order (pallas_tracer.py:1719-1735),
+    in the row's own frame. o, d: three f32[n]; t: f32[n]."""
+    def coord(ax, off):
+        an = [rows[:, ax + a] for a in range(3)]
+        return ((o[0] * an[0] + o[1] * an[1] + o[2] * an[2])
+                + t * (d[0] * an[0] + d[1] * an[1] + d[2] * an[2])
+                - rows[:, off])
+    uu = ((coord(R_AN, R_AOFF) - rows[:, R_A0])
+          * (1.0 / (rows[:, R_A1] - rows[:, R_A0])))
+    vv = ((coord(R_BN, R_BOFF) - rows[:, R_B0])
+          * (1.0 / (rows[:, R_B1] - rows[:, R_B0])))
+    return uu, vv
+
+
+def texture_rgb(tex, p, sel, uv_of, atlas, perlin_seed, *, checker: bool,
+                noise: bool, image: bool, counts=None):
+    """The value of each lane's texture (tex f32[n, TEXW], T_* columns) at
+    the point p (three f32[n]) → [r, g, b] f32[n], in the kernel's order:
+    the colour; where a checker's sin(10x)·sin(10y)·sin(10z) < 0 its odd
+    colour (reference src/texture.rs:40-47); the marble 0.5·(1 + sin(scale·x
+    + 5·turb(p))) (66-70); the nearest texel at uv_of(lanes) → (u, v)
+    (86-108). The marble and the texel are evaluated on the lanes of sel
+    only. checker, noise, image: the scene holds such textures. counts:
+    see trace_plain."""
+    alb = [tex[:, T_ALB + c] for c in range(3)]
+    if checker:
+        sines = (rng.lanewise(torch.sin, 10.0 * p[0])
+                 * rng.lanewise(torch.sin, 10.0 * p[1])
+                 * rng.lanewise(torch.sin, 10.0 * p[2]))
+        odd = (sines < 0.0) & (tex[:, T_CHK] > 0.0)
+        alb = [torch.where(odd, tex[:, T_ODD + c], alb[c]) for c in range(3)]
+    if noise:
+        use = sel & (tex[:, T_NOISE] > 0.0)
+        idx = torch.nonzero(use).squeeze(1)
+        if counts is not None:
+            counts["noise"] += idx.numel()
+        qx, qy, qz = (p[a][idx] for a in range(3))
+        turb = perlin.turb3(qx, qy, qz, perlin_seed)
+        marble = torch.zeros_like(p[0])
+        marble[idx] = 0.5 * (1.0 + rng.lanewise(
+            torch.sin, tex[idx, T_NSCALE] * qx + 5.0 * turb))
+        alb = [torch.where(use, marble, alb[c]) for c in range(3)]
+    if image:
+        use = sel & (tex[:, T_IMG] > 0.0)
+        idx = torch.nonzero(use).squeeze(1)
+        if counts is not None:
+            counts["image"] += idx.numel()
+        ti = tex[idx]
+        rgb = texel_rgb(atlas, ti[:, T_IMG_BASE], ti[:, T_IMG_H],
+                        ti[:, T_IMG_W], *uv_of(idx))
+        for c in range(3):
+            full = torch.zeros_like(p[0])
+            full[idx] = rgb[c]
+            alb[c] = torch.where(use, full, alb[c])
+    return alb
 
 
 def _safe_inv(c):
@@ -1054,17 +1184,23 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     counts, when given, gathers the work this run's paths needed: lane
     bounces traced ("segments"), lanes shaded by noise ("noise") and by an
     image ("image"), box member tests an exact leaf cull needs ("box"),
-    and lane bounces of the dense-medium walk ("walk").
+    lane bounces of the dense-medium walk ("walk"), hits on a textured
+    light ("emis_tex"), image lanes at a rect's UV ("rect_uv"), medium
+    events of a textured medium ("med_tex") and roulette draws ("rr").
     """
     dev = sums.device
     f32 = torch.float32
     n_pix = nx * ny
-    (sky, checker, metal, diel, moving, noise, image, media,
-     compat_uv, walk) = (bool(ops.feats & b) for b in (
-         FEAT_SKY, FEAT_CHECKER, FEAT_METAL, FEAT_DIEL, FEAT_MOVING,
-         FEAT_NOISE, FEAT_IMAGE, FEAT_MEDIA, FEAT_COMPAT_UV, FEAT_DENSE_WALK))
+    (sky, checker, metal, diel, moving, noise, image, media, compat_uv, walk,
+     emis_tex, uv_carry, img_flip, med_tex, rr) = (
+        bool(ops.feats & b) for b in (
+            FEAT_SKY, FEAT_CHECKER, FEAT_METAL, FEAT_DIEL, FEAT_MOVING,
+            FEAT_NOISE, FEAT_IMAGE, FEAT_MEDIA, FEAT_COMPAT_UV,
+            FEAT_DENSE_WALK, FEAT_EMIS_TEX, FEAT_UV_CARRY, FEAT_IMG_FLIP,
+            FEAT_MED_TEX, FEAT_RR))
     if counts is not None:
-        for k in ("segments", "noise", "image", "box", "walk"):
+        for k in ("segments", "noise", "image", "box", "walk", "emis_tex",
+                  "rect_uv", "med_tex", "rr"):
             counts.setdefault(k, 0)
     # record cells as Python floats: a torch op with a Python scalar computes
     # in the tensor's f32, and every cell is an f32 value
@@ -1256,10 +1392,12 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             counts["box"] += _leaf_members(bleaf_dev, o, inv_d, t_best)
 
         # a medium event before the closest surface takes the hit over
-        # (pallas_tracer.py:2204-2236): isotropic, its own solid albedo, no
-        # emission, no surface texture; a lane the walk handed over with
+        # (pallas_tracer.py:2204-2266): isotropic, no emission, and the
+        # medium's albedo in place of the surface's texture (a solid
+        # medium's texture flags are 0); a lane the walk handed over with
         # skip set has no event on this segment
         med_ev = None
+        tex = w[:, R_ALB_EVEN:R_ALB_EVEN + TEXW]   # the texture each lane shades
         if media:
             def draw(stream):
                 return rng.draws(seed, pix[live], smp[live], bnc, stream)
@@ -1267,6 +1405,51 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
                                          inv_a, t_best, draw)
             med_ev = (t_med < t_best) & ~skip
             t_best = torch.where(med_ev, t_med, t_best)
+            tex = torch.where(med_ev[:, None],
+                              med_dev[m_win.clamp(min=0), M_ALB:M_ALB + TEXW],
+                              tex)
+            if counts is not None and med_tex:
+                counts["med_tex"] += int((med_ev & (tex[:, [
+                    T_CHK, T_NOISE, T_IMG]] > 0.0).any(dim=1)).sum())
+        surf = hit if med_ev is None else hit & ~med_ev
+        below = bnc < max_depth
+        # the texture's value (the albedo, or a textured light's emission)
+        # at the hit point: on a scatter below the depth cap, and on a light
+        # at any bounce
+        px = [o[a] + t_best * d[a] for a in range(3)]
+        shade = (hit if med_ev is None else hit | med_ev) & below
+        if emis_tex:
+            lit = surf & (w[:, R_MAT] == MAT_DIFFUSE_LIGHT)
+            shade = shade | lit
+            if counts is not None:
+                counts["emis_tex"] += int((lit & (tex[:, [
+                    T_CHK, T_NOISE, T_IMG]] > 0.0).any(dim=1)).sum())
+
+        def uv_of(idx):
+            # the image UV of the lanes idx (pallas_tracer.py:2303-2328): a
+            # sphere's from its pre-flip normal, an image rect's from its
+            # frame, a medium's u = v = 0 (reference src/medium.rs:44-50)
+            wi = w[idx]
+            n = [x[idx] for x in nrm]
+            if img_flip:
+                n = [x * wi[:, R_FLIP] for x in n]
+            uu, vv = sphere_uv(*n, compat_uv)
+            if uv_carry:
+                rect = wi[:, R_IS_SPHERE] == 0.0
+                if med_ev is not None:
+                    rect = rect & ~med_ev[idx]
+                ru, rv = rect_uv([x[idx] for x in o], [x[idx] for x in d],
+                                 t_best[idx], wi)
+                uu, vv = torch.where(rect, ru, uu), torch.where(rect, rv, vv)
+                if med_ev is not None:
+                    uu = torch.where(med_ev[idx], 0.0, uu)
+                    vv = torch.where(med_ev[idx], 0.0, vv)
+                if counts is not None:
+                    counts["rect_uv"] += int(rect.sum())
+            return uu, vv
+        alb = texture_rgb(tex, px, shade, uv_of, ops.atlas.to(dev),
+                          ops.perlin_seed, checker=checker, noise=noise,
+                          image=image, counts=counts)
 
         # emission (reference src/color.rs:8-22); a miss adds the background
         # and ends the path
@@ -1276,15 +1459,18 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             ty = 0.5 * (dy * inv_len + 1.0)
             miss = [thr[0] * (1.0 - 0.5 * ty), thr[1] * (1.0 - 0.3 * ty),
                     thr[2]]
-        surf = hit if med_ev is None else hit & ~med_ev
         for c in range(3):
             other = miss[c] if med_ev is None else torch.where(med_ev, 0.0,
                                                                 miss[c])
-            rad[c, live] += torch.where(surf, thr[c] * w[:, R_EMIT + c],
-                                        other)
+            emit = w[:, R_EMIT + c]
+            if emis_tex:
+                # a textured light emits its texture's value (reference
+                # src/material.rs:133-151): its R_EMIT is 0, and a solid
+                # light's texture is 0, so the sum is exact for both
+                emit = emit + torch.where(lit, alb[c], 0.0)
+            rad[c, live] += torch.where(surf, thr[c] * emit, other)
         # scatter while below the depth cap (src/color.rs:9); a light ends
         # the path
-        below = bnc < max_depth
         if not bool(below.any()):
             break
         mat = w[:, R_MAT]
@@ -1292,46 +1478,6 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             mat = torch.where(med_ev, float(MAT_ISOTROPIC), mat)
             hit = hit | med_ev
         cont = hit & (mat != MAT_DIFFUSE_LIGHT) & below
-        px = [o[a] + t_best * d[a] for a in range(3)]
-        alb = [w[:, R_ALB_EVEN + c] for c in range(3)]
-        if checker:
-            # checker sign at the hit point (reference src/texture.rs:40-47)
-            sines = (rng.lanewise(torch.sin, 10.0 * px[0])
-                     * rng.lanewise(torch.sin, 10.0 * px[1])
-                     * rng.lanewise(torch.sin, 10.0 * px[2]))
-            odd = (sines < 0.0) & (w[:, R_CHECKER] > 0.0)
-            alb = [torch.where(odd, w[:, R_ALB_ODD + c], alb[c])
-                   for c in range(3)]
-        if noise:
-            # marble at the hit point, 0.5·(1 + sin(scale·x + 5·turb(p)))
-            # (reference src/texture.rs:66-70), on the lanes that need it
-            sel = (w[:, R_NOISE] > 0.0) & surf & below
-            idx = torch.nonzero(sel).squeeze(1)
-            if counts is not None:
-                counts["noise"] += idx.numel()
-            qx, qy, qz = (px[a][idx] for a in range(3))
-            turb = perlin.turb3(qx, qy, qz, ops.perlin_seed)
-            marble = torch.zeros_like(dx)
-            marble[idx] = 0.5 * (1.0 + rng.lanewise(
-                torch.sin, w[idx, R_NSCALE] * qx + 5.0 * turb))
-            alb = [torch.where(sel, marble, alb[c]) for c in range(3)]
-        if image:
-            sel = (w[:, R_IMG] > 0.0) & surf & below
-            idx = torch.nonzero(sel).squeeze(1)
-            if counts is not None:
-                counts["image"] += idx.numel()
-            wi = w[idx]
-            tex = texel_rgb(ops.atlas.to(dev), wi[:, R_IMG_BASE],
-                            wi[:, R_IMG_H], wi[:, R_IMG_W],
-                            *sphere_uv(*(n[idx] for n in nrm), compat_uv))
-            for c in range(3):
-                full = torch.zeros_like(dx)
-                full[idx] = tex[c]
-                alb[c] = torch.where(sel, full, alb[c])
-        if med_ev is not None:
-            mw = med_dev[m_win.clamp(min=0)]
-            alb = [torch.where(med_ev, mw[:, M_ALB + c], alb[c])
-                   for c in range(3)]
         # lambertian: n + a uniform point in the unit ball
         # (reference src/material.rs:49-53); isotropic: the bare ball
         # sample (src/material.rs:164-168)
@@ -1380,12 +1526,31 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             nd = [torch.where(is_diel, gd[a], nd[a]) for a in range(3)]
             alb = [torch.where(is_diel, 1.0, alb[c]) for c in range(3)]
         keep = torch.nonzero(cont).squeeze(1)
+        thr = [thr[c][keep] * alb[c][keep] for c in range(3)]
+        if rr:
+            # Russian roulette from bounce rr_depth on (pallas_tracer.py:
+            # 2492-2506; not in the reference): a path survives with
+            # q = max(thr) clipped to [0.05, 1] and a survivor's throughput
+            # is multiplied by 1/q, the kernel's reciprocal
+            roll = torch.nonzero(bnc[keep] >= ops.rr_depth).squeeze(1)
+            if counts is not None:
+                counts["rr"] += roll.numel()
+            u = rng.draws(seed, pix[live[keep[roll]]], smp[live[keep[roll]]],
+                          bnc[keep[roll]], rng.STREAM_ROULETTE)[0]
+            q = torch.clamp(torch.maximum(thr[0][roll], torch.maximum(
+                thr[1][roll], thr[2][roll])), 0.05, 1.0)
+            inv_q = 1.0 / q
+            for c in range(3):
+                thr[c][roll] = thr[c][roll] * inv_q
+            surv = torch.ones(keep.numel(), dtype=torch.bool, device=dev)
+            surv[roll] = u < q
+            keep = keep[surv]
+            thr = [x[surv] for x in thr]
         if keep.numel() == 0:
             break
         live = live[keep]
         o = [px[a][keep] for a in range(3)]
         d = [nd[a][keep] for a in range(3)]
-        thr = [thr[c][keep] * alb[c][keep] for c in range(3)]
         if moving:
             time = time[keep]
         bnc = bnc[keep] + 1
@@ -1511,6 +1676,10 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
     if ops.feats & FEAT_DENSE_WALK and not (n_int and ops.dense):
         raise ValueError("FEAT_DENSE_WALK needs interior rows and a dense "
                          "medium")
+    if bool(ops.feats & FEAT_RR) != (ops.rr_depth >= 0) or (
+            ops.feats & FEAT_RR and ops.feats & FEAT_DENSE_WALK):
+        raise ValueError(f"FEAT_RR must be set exactly when rr_depth "
+                         f"({ops.rr_depth}) is ≥ 0, and never with the walk")
     if ops.atlas.dim() != 2 or ops.atlas.numel() >= 1 << 31 or (
             ops.feats & FEAT_IMAGE and ops.atlas.numel() == 0):
         raise ValueError(f"atlas must be a 2-D texel table (non-empty for "
@@ -1524,7 +1693,8 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     `_build.load`) on `stream`; raises if it fails, and only then counts
     the sections it ran."""
     global KERNEL_LAUNCHES, K1BE_LAUNCHES, K1C_LAUNCHES, K1D_LAUNCHES
-    global K1E_BOX_LAUNCHES, K1D_WALK_LAUNCHES
+    global K1E_BOX_LAUNCHES, K1D_WALK_LAUNCHES, K1_LATTICE_LAUNCHES
+    global K1G_LAUNCHES
     err = lib.rt_trace_k1(
         ops.rec.data_ptr(), ops.rec.shape[0], ops.walk.data_ptr(),
         ops.walk.shape[1], ops.dyn.data_ptr(), ops.dyn.shape[0],
@@ -1536,7 +1706,7 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         perlin.seed_word(ops.perlin_seed), ops.box.data_ptr(),
         ops.box.shape[0], ops.bleaves.data_ptr(), ops.bleaves.shape[0],
         ops.interior.data_ptr(), ops.interior.shape[0],
-        ops.interior_kind.data_ptr(), ops.dense, stream)
+        ops.interior_kind.data_ptr(), ops.dense, ops.rr_depth, stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     n_dyn, n_box = ops.dyn.shape[0], ops.box.shape[0]
@@ -1552,6 +1722,10 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         K1D_LAUNCHES += 1
     if ops.feats & FEAT_DENSE_WALK:
         K1D_WALK_LAUNCHES += 1
+    if ops.feats & FEAT_LATTICE:
+        K1_LATTICE_LAUNCHES += 1
+    if ops.feats & FEAT_RR:
+        K1G_LAUNCHES += 1
 
 
 def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
@@ -1586,7 +1760,8 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
 def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
                   *, device, seed: int = 0, max_depth: int = 50,
                   spp_chunk: int | None = None,
-                  timers: Timers | None = None) -> np.ndarray:
+                  timers: Timers | None = None,
+                  rr_depth: int | None = None) -> np.ndarray:
     """Full-image render through the K1 kernel → float32 [ny, nx, 3], row 0
     at the top, with the reference's gamma (sqrt + clamp,
     tests/test.rs:72-75).
@@ -1594,8 +1769,9 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     device: where the sums live and the trace runs. "cuda" launches the
     kernel, and raises when CUDA is absent; "cpu" runs the plain version.
     spp_chunk: samples per `trace` call (default: a lane budget). The image
-    does not depend on it. Raises UnsupportedScene for scenes outside the
-    kernel.
+    does not depend on it. rr_depth: Russian roulette from this bounce on
+    (the JAX CLI's --rr-depth; not in the reference), or None. Raises
+    UnsupportedScene for scenes outside the kernel.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -1620,7 +1796,7 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
         with timers.phase("kernel_build"):
             load()
     with timers.phase("upload"):
-        ops = trace_operands(srec, cam_np, device)
+        ops = trace_operands(srec, cam_np, device, rr_depth)
         sums = torch.zeros((3, n_pix), dtype=torch.float64, device=device)
     with timers.phase("trace"):
         for s0 in range(0, spp, spp_chunk):

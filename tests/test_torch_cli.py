@@ -76,27 +76,44 @@ def test_render_cpu_final_scene(tmp_path):
     assert 0.02 < img.mean() < 0.8
 
 
-def _textured_light_scene(device="cpu"):
+def _rotated_image_sphere_scene(device="cpu"):
     b = SceneBuilder(background=BG_BLACK)
-    b.sphere((0, 0, 0), 1.0, b.diffuse_light(
-        b.checker(b.solid(1, 1, 1), b.solid(4, 4, 4))))
+    xf = b.transform(rotate_axis="y", angle_deg=30.0)
+    b.sphere((0, 0, 0), 1.0, b.lambertian(b.image(
+        np.random.default_rng(3).integers(0, 256, (4, 6, 3), np.uint8))),
+        xform=xf)
     return b.build(device)
 
 
 def test_render_outside_the_kernel_exits_nonzero(tmp_path, capsys,
                                                  monkeypatch):
     """Every preset renders; a scene outside the kernel (here a preset
-    patched to a textured light, a lattice corner) exits 2 with the
-    reason, with no CPU or plain fallback and no image."""
+    patched to an image on a rotated sphere, which the JAX kernel refuses
+    too) exits 2 with the reason, with no CPU or plain fallback and no
+    image."""
     p = PRESETS["cornell_box"]
     monkeypatch.setitem(PRESETS, "cornell_box", dataclasses.replace(
-        p, build=_textured_light_scene))
+        p, build=_rotated_image_sphere_scene))
     rc = cli.main(["render", "--scene", "cornell_box", "--nx", "8",
                    "--ny", "8", "--spp", "1", "--device", "cpu", "--out",
                    str(tmp_path / "x.ppm")])
     assert rc == 2
-    assert "emissive textures" in capsys.readouterr().err
+    assert "rotated sphere" in capsys.readouterr().err
     assert not (tmp_path / "x.ppm").exists()
+
+
+def test_render_cpu_rr_depth(tmp_path):
+    """`render --rr-depth N` (Russian roulette) through the command line
+    (the kernel's plain version), and a negative depth exits 2."""
+    out = tmp_path / "cornell_rr.ppm"
+    rc = cli.main(["render", "--scene", "cornell_box", "--nx", "16", "--ny",
+                   "16", "--spp", "4", "--rr-depth", "3", "--device", "cpu",
+                   "--out", str(out)])
+    assert rc == 0
+    img = read_ppm(str(out))
+    assert img.shape == (16, 16, 3) and 0.0 < img.mean() < 1.0
+    assert cli.main(["render", "--scene", "cornell_box", "--rr-depth", "-1",
+                     "--device", "cpu", "--out", str(out)]) == 2
 
 
 def test_render_cuda_without_cuda_raises(tmp_path):

@@ -312,14 +312,20 @@ def test_failed_launch_counts_nothing():
     kw = dict(nx=2, ny=2, seed=0, sample0=0, n_samples=1, max_depth=1,
               stream=None)
     names = ("KERNEL_LAUNCHES", "K1BE_LAUNCHES", "K1C_LAUNCHES",
-             "K1D_LAUNCHES", "K1E_BOX_LAUNCHES", "K1D_WALK_LAUNCHES")
+             "K1D_LAUNCHES", "K1E_BOX_LAUNCHES", "K1D_WALK_LAUNCHES",
+             "K1_LATTICE_LAUNCHES", "K1G_LAUNCHES")
     before = [getattr(tracer, n) for n in names]
     with pytest.raises(RuntimeError, match="cudaError 700"):
         tracer._launch(Lib(700), ops, sums, **kw)
     assert [getattr(tracer, n) for n in names] == before
     tracer._launch(Lib(0), ops, sums, **kw)
     assert [getattr(tracer, n) - b for n, b in zip(names, before)] == [
-        0, 1, 1, 1, 1, 1]
+        0, 1, 1, 1, 1, 1, 0, 0]
+    rr = dataclasses.replace(ops, feats=(ops.feats | tracer.FEAT_RR)
+                             & ~tracer.FEAT_DENSE_WALK, rr_depth=5)
+    tracer._launch(Lib(0), rr, sums, **kw)
+    assert [getattr(tracer, n) - b for n, b in zip(names, before)] == [
+        0, 2, 2, 2, 2, 1, 0, 1]
 
 
 def test_inverse_render_seed_offsets_the_draws():

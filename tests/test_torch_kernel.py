@@ -3,8 +3,9 @@
 These tests need an NVIDIA GPU with the CUDA toolkit (`nvcc`): they build
 `raytracing_rust_tpu_torch/csrc/*.cu`, launch K1 (`tracer.cu`: the K1a
 instantiation and the K1B ones with their checker, sky, metal, glass,
-moving-sphere, dynamic-table, box-table, noise, image, media and
-dense-medium walk sections) and K2/K3 (`grad.cu`: lambertian, light, sky,
+moving-sphere, dynamic-table, box-table, noise, image, media,
+dense-medium walk, lattice-corner and roulette sections) and K2/K3
+(`grad.cu`: lambertian, light, sky,
 metal, glass and the checker), and hold them
 against `trace_plain`, `trace_tiles_plain` and autograd through it, run on
 the same card, the same records and the same draws. Elsewhere they skip.
@@ -221,19 +222,115 @@ def _sealed(nx, ny):
                                          35.0, nx / ny, 0.0, 10.0, 0.0, 1.0)
 
 
+HOLES = ("emissive_checker", "emissive_noise", "emissive_image", "image_rect",
+         "image_flipped_sphere", "medium_checker", "medium_noise",
+         "medium_image")
+
+
+def texels(seed=3, h=8, w=16):
+    """An 8-bit exact random image (tests/test_pallas_tripwire.py
+    `_texels`)."""
+    r = np.random.default_rng(seed)
+    return (np.rint(r.uniform(26, 230, (h, w, 3))).astype(np.float32)
+            / 255.0).astype(np.float32)
+
+
+def hole_scene(name, cls=SceneBuilder, light=False):
+    """A former hole of the kernel on a gray ground
+    (tests/test_pallas_tripwire.py:300-330), or the medium beside an image
+    sphere (333-349). cls: this package's SceneBuilder or the JAX one;
+    light adds a sphere light above (the tripwire scenes are black)."""
+    b = cls(background=BG_BLACK)
+    white = b.lambertian(b.solid(0.5, 0.5, 0.5))
+    b.sphere((0, -100, 0), 99.0, white)
+    if name == "emissive_checker":
+        b.rect("zx", -1, -1, 1, 1, 3.0,
+               b.diffuse_light(b.checker(b.solid(4, 4, 4),
+                                         b.solid(1, 1, 1))), flip=True)
+    elif name == "emissive_noise":
+        b.sphere((0, 2, 0), 0.5, b.diffuse_light(b.noise(3.0)))
+    elif name == "emissive_image":
+        b.sphere((0, 2, 0), 0.5, b.diffuse_light(b.image(texels())))
+    elif name == "image_rect":
+        b.rect("xy", -1, 0, 1, 2, -2.0, b.lambertian(b.image(texels())))
+    elif name == "image_flipped_sphere":
+        b.sphere((0, 1, 0), 0.8, b.lambertian(b.image(texels())))
+        b._pflip[-1] = -1.0
+    elif name == "medium_checker":
+        b.medium_sphere((0, 1, 0), 1.0, 0.5,
+                        b.checker(b.solid(1, 0, 0), b.solid(0, 1, 0)))
+    elif name == "medium_noise":
+        b.medium_box((-1, 0, -1), (1, 1, 1), 0.5, b.noise(2.0))
+    elif name == "medium_image":
+        b.medium_sphere((0, 1, 0), 1.0, 0.5, b.image(texels()))
+    elif name == "medium_beside_image_sphere":
+        b.sphere((0, 1.5, 0), 0.7, b.lambertian(b.image(texels())))
+        b.medium_sphere((0, 1, 0), 2.5, 0.3,
+                        b.checker(b.solid(1, 0, 0), b.solid(0, 1, 0)))
+    if light:
+        b.sphere((0, 6, 2), 1.5, b.diffuse_light(b.solid(5, 5, 5)))
+    return b.build()
+
+
+def _lattice(nx, ny):
+    """The feature-lattice scene through tools/tpu_parity.py's camera."""
+    return builders.lattice_scene(), builders.lattice_camera(nx, ny)
+
+
+def _hole(name):
+    """A former hole of the kernel (`hole_scene`), lit by a sphere light,
+    through a camera on the gray ground's edge."""
+    def make(nx, ny):
+        return hole_scene(name, light=True), camera.make_camera(
+            (0, 2, 6), (0, 1, 0), (0, 1, 0), 40.0, nx / ny, 0.0, 6.0, 0.0,
+            1.0)
+    make.__name__ = name
+    return make
+
+
+def image_dome(cls=SceneBuilder):
+    """A flipped image sphere of radius 8 around a sphere light, a
+    checker-light rect and a gray ball, seen from inside (DOME_VIEW): light
+    scatters off the dome, so its texels (at the pre-flip normal's UV)
+    reach the image. Its red falls with u and its green with v, over
+    random texels, so a UV off by the flip (u + ½, 1 − v) shows in each
+    image half. cls: this package's SceneBuilder or the JAX one."""
+    pix = np.random.default_rng(11).integers(0, 48, (32, 64, 3), np.uint8)
+    pix[:, :32, 0] += 200
+    pix[:16, :, 1] += 200
+    b = cls(background=BG_BLACK)
+    b.sphere((0, 0, 0), 8.0, b.lambertian(b.image(pix)))
+    b._pflip[-1] = -1.0
+    b.sphere((0, 0, 0), 1.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    b.sphere((2, 3, 1), 0.7, b.diffuse_light(b.solid(6, 6, 6)))
+    b.rect("xy", -2, -1, 0, 1, -4.0, b.diffuse_light(
+        b.checker(b.solid(3, 0.5, 0.5), b.solid(0.5, 3, 0.5))))
+    return b.build()
+
+
+DOME_VIEW = ((0, 1, 6), (0, 0, 0), (0, 1, 0), 70.0)
+
+
+def _image_dome(nx, ny):
+    return image_dome(), camera.make_camera(*DOME_VIEW, nx / ny, 0.0, 6.0,
+                                            0.0, 1.0)
+
+
 _COUNTERS = ("KERNEL_LAUNCHES", "K1BE_LAUNCHES", "K1C_LAUNCHES",
-             "K1D_LAUNCHES", "K1E_BOX_LAUNCHES", "K1D_WALK_LAUNCHES")
+             "K1D_LAUNCHES", "K1E_BOX_LAUNCHES", "K1D_WALK_LAUNCHES",
+             "K1_LATTICE_LAUNCHES", "K1G_LAUNCHES")
 
 
 def _expected_launches(ops):
     """The counts one launch adds: K1a, K1BE, K1C, K1D, K1E boxes, K1D
-    walk."""
+    walk, the lattice corners, K1g roulette."""
     f, n_dyn, n_box = ops.feats, ops.dyn.shape[0], ops.box.shape[0]
     return ((f == 0 and n_dyn == 0 and n_box == 0),
             bool(f & tracer.K1BE_FEATS or n_dyn),
             bool(f & (tracer.FEAT_NOISE | tracer.FEAT_IMAGE)),
             bool(f & tracer.FEAT_MEDIA), bool(n_box),
-            bool(f & tracer.FEAT_DENSE_WALK))
+            bool(f & tracer.FEAT_DENSE_WALK),
+            bool(f & tracer.FEAT_LATTICE), bool(f & tracer.FEAT_RR))
 
 
 def _launches():
@@ -269,6 +366,61 @@ def test_kernel_matches_plain(cuda, make):
     p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
     torch.cuda.synchronize()
     _assert_kernel_matches_plain(k, p)
+
+
+@pytest.mark.parametrize("make", [_lattice, _image_dome] + [
+    _hole(h) for h in HOLES + ("medium_beside_image_sphere",)])
+def test_kernel_lattice_matches_plain(cuda, make):
+    """The lattice corners (textured lights, image rects, flipped image
+    spheres, textured media) on the lattice scene, an image dome and each
+    former hole: the kernel against the plain version, and the lattice
+    launch count."""
+    nx, ny = 96, 64
+    ops = _operands(*make(nx, ny), cuda)
+    assert ops.feats & tracer.FEAT_LATTICE
+    kw = dict(nx=nx, ny=ny, seed=5, sample0=0, n_samples=4, max_depth=50)
+    before = _launches()
+    k = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
+                                      device=cuda), **kw)
+    assert _launches() == tuple(b + e for b, e in
+                                zip(before, _expected_launches(ops)))
+    p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(k, p)
+
+
+@pytest.mark.parametrize("make,rr_depth", [
+    (_cornell, 6), (_preset("final_scene"), 5), (_lattice, 3)])
+def test_kernel_roulette_matches_plain(cuda, make, rr_depth):
+    """Russian roulette (K1g) against the plain version, with its launch
+    count: cornell_box (a K1B launch), final_scene (the walk cleared) and
+    the lattice scene; at rr_depth == max_depth the kernel's sums equal
+    those without roulette bit for bit (cornell_box: K1B against K1a)."""
+    nx, ny = 96, 64
+    scene, cam = make(nx, ny)
+    srec = tracer.build_scene_record(scene)
+    cam = tracer.build_camera_record(cam)
+    ops = tracer.trace_operands(srec, cam, cuda, rr_depth=rr_depth)
+    assert ops.feats & tracer.FEAT_RR
+    assert not ops.feats & tracer.FEAT_DENSE_WALK
+    kw = dict(nx=nx, ny=ny, seed=7, sample0=0, n_samples=4, max_depth=50)
+    before = _launches()
+    k = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
+                                      device=cuda), **kw)
+    assert _launches() == tuple(b + e for b, e in
+                                zip(before, _expected_launches(ops)))
+    p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(k, p)
+    if make is _cornell:
+        kw["max_depth"] = 12
+        capped = tracer.trace(tracer.trace_operands(srec, cam, cuda,
+                                                    rr_depth=12),
+                              torch.zeros_like(k), **kw)
+        off = tracer.trace(tracer.trace_operands(srec, cam, cuda),
+                           torch.zeros_like(k), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(capped, off)
 
 
 def test_kernel_leaf_cull_keeps_the_winners(cuda):

@@ -149,42 +149,14 @@ def test_camera_record_equals_jax(name):
     np.testing.assert_array_equal(got, want)
 
 
-def _textured_light():
-    b = SceneBuilder(background=BG_BLACK)
-    b.sphere((0, 0, 0), 1.0, b.diffuse_light(
-        b.checker(b.solid(1, 1, 1), b.solid(4, 4, 4))))
-    return b.build()
-
-
 def _image_pixels():
     return np.random.default_rng(3).integers(0, 256, (4, 6, 3), np.uint8)
-
-
-def _image_rect():
-    b = SceneBuilder(background=BG_SKY)
-    b.rect("xy", 0, 0, 1, 1, 0.0, b.lambertian(b.image(_image_pixels())))
-    return b.build()
-
-
-def _flipped_image_sphere():
-    b = SceneBuilder(background=BG_SKY)
-    b.sphere((0, 0, 0), 1.0, b.lambertian(b.image(_image_pixels())))
-    scene = b.build()
-    scene.prim_flip[0] = -1.0   # the builder flips only rects
-    return scene
 
 
 def _rotated_image_sphere():
     b = SceneBuilder(background=BG_SKY)
     xf = b.transform(rotate_axis="y", angle_deg=30.0)
     b.sphere((0, 0, 0), 1.0, b.lambertian(b.image(_image_pixels())), xform=xf)
-    return b.build()
-
-
-def _textured_medium():
-    b = SceneBuilder(background=BG_BLACK)
-    b.sphere((0, -100, 0), 99.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
-    b.medium_box((0, 0, 0), (1, 1, 1), 0.5, b.noise(1.0))
     return b.build()
 
 
@@ -213,24 +185,17 @@ def _nine_media():
 
 
 @pytest.mark.parametrize("name,why", [
-    ("textured_light", "emissive texture"),
-    ("image_rect", "image texture on a rect"),
-    ("flipped_image_sphere", "image texture on a flipped sphere"),
     ("rotated_image_sphere", "image texture on a rotated sphere"),
-    ("textured_medium", "textured medium albedo"),
     ("inexact_image", "not 8-bit exact"),
     ("nine_media", "9 media"),
     ("many_rects", "97 rects that form no box")])
 def test_scenes_outside_k1a_raise(name, why):
-    """What the kernel still does not take raises, each with its reason:
-    the lattice corners (textured lights, image rects, flipped image
-    spheres, textured media), rotated image spheres, images that are not
-    8-bit exact, more media than the kernel holds, and more rects that
-    form no box than the unroll holds."""
-    build = {"textured_light": _textured_light, "image_rect": _image_rect,
-             "flipped_image_sphere": _flipped_image_sphere,
-             "rotated_image_sphere": _rotated_image_sphere,
-             "textured_medium": _textured_medium,
+    """What the kernel does not take, as the JAX kernel does not, raises,
+    each with its reason: rotated image spheres, images that are not 8-bit
+    exact, more media than the kernel holds, and more rects that form no
+    box than the unroll holds (the lattice corners render:
+    tests/test_torch_lattice.py)."""
+    build = {"rotated_image_sphere": _rotated_image_sphere,
              "inexact_image": _inexact_image, "nine_media": _nine_media,
              "many_rects": _many_rects}[name]
     with pytest.raises(tracer.UnsupportedScene, match=why):
@@ -476,7 +441,8 @@ def test_trace_on_cpu_runs_plain_and_launches_nothing():
         tracer.build_scene_record(tb.cornell_box()),
         tracer.build_camera_record(tb.PRESETS["cornell_box"].camera()), "cpu")
     names = ("KERNEL_LAUNCHES", "K1BE_LAUNCHES", "K1C_LAUNCHES",
-             "K1D_LAUNCHES", "K1E_BOX_LAUNCHES", "K1D_WALK_LAUNCHES")
+             "K1D_LAUNCHES", "K1E_BOX_LAUNCHES", "K1D_WALK_LAUNCHES",
+             "K1_LATTICE_LAUNCHES", "K1G_LAUNCHES")
     before = [getattr(tracer, n) for n in names]
     a = torch.zeros((3, 64), dtype=torch.float64)
     b = torch.zeros((3, 64), dtype=torch.float64)
