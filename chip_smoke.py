@@ -103,7 +103,28 @@ Phases, one JSON line each on stdout:
  32. the roulette path through the command line, `render --scene
      cornell_box_baseline --rr-depth 6 --device cuda` (800×800, 500 spp,
      depth 50), with K1g's launch count, its mean within ±5% of phase 5's
-     reference, and its trace time beside phase 5's.
+     reference, and its trace time beside phase 5's;
+ 33. K1f's stats instantiation against the production kernel (sums bit
+     for bit) and the plain version (sums under phase 3's gates; per-pixel
+     segments, sphere and box member tests and the warp steps equal):
+     cornell_box 800×800×2, random_spheres 1280×720×2 and final_scene
+     800×800×1, depth 50; the occupancy (segments over 32 × warp steps),
+     the steps per sample and the tail share (1 − occupancy);
+ 34. the balanced layout: the cost probe (timed), then the production
+     kernel on its pixel table at kpix 1 and 4 against the scanline layout,
+     bit for bit, on random_spheres 1280×720×2 and final_scene 800×800×1,
+     the plain version on the kpix-4 table under phase 3's gates; the
+     kernel's times at 10 spp in turns (scanline, kpix 1, kpix 4, kpix 4,
+     kpix 1, scanline) and the occupancy on each layout;
+ 35. the render path of both presets through the command line, `render
+     --scene random_spheres` and `render --scene final_scene` (and
+     final_scene at 128×128 for its mean), now balanced by default: the
+     `balance_probe` and `trace` phases, the K1f launch counts, the means
+     inside phases 11's and 19's bands;
+ 36. D3 through `kernel_stats --peak` (`peak_sweep`): the f32 add and FMA
+     rates beside the theoretical ones, with the SM clock; its
+     accumulators against the plain chain, bit for bit, for every k, adds
+     and FMAs.
 Every command-line phase prints its per-phase seconds, the PPM encode
 included. Then the kernel table and, as the last line, the device
 summary. Each row of the table carries the kernel's bound: the larger of
@@ -163,22 +184,6 @@ LATTICE_CHECK = (128, 72, 100)
 # bytes/s and f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# f32 and integer operations of csrc/tracer.cu per item, counted from its
-# source (an add, multiply, compare or transcendental is one): a lane
-# bounce's fixed work (scatter Philox, ball sample, emission, new ray), a
-# camera sample, a sphere test, a rect test, a rect frame, a leaf slab, a
-# dynamic member, a medium, a Perlin marble (7 octaves × 8 corners), a
-# texel, a box member, a box leaf slab, a walk bounce's fixed work
-# (its scatter Philox, ball sample, new ray) and each interior row it
-# tests; a textured light's hit (its texture test, hit point and a
-# checker's three sines; a marble or a texel counted as such), a rect's
-# image UV (two frame dot products each way, the reciprocals), a textured
-# medium's event (its fields and a checker's sines) and a roulette draw
-# (a Philox call, the clipped maximum, the reciprocal and three multiplies)
-K1_OPS = dict(segment=160, sample=140, sphere=20, rect=14, frame=32,
-              leaf=24, member=20, medium=70, noise=2455, image=30, box=26,
-              box_leaf=24, walk=120, interior=22, emis_tex=20, rect_uv=34,
-              med_tex=17, rr=112)
 # csrc/grad.cu, counted from its source: per alive lane bounce of K2 the
 # fixed work, each prim's test and a miss's sky; a checker hit's pick (3
 # sinf); a metal's reflect with fuzz (on its scatters and absorptions);
@@ -248,40 +253,11 @@ def bound(ops: float, nbytes: float) -> dict:
 
 
 def k1_bound(ops, counts: dict, n_pix: int, n_samples: int) -> dict:
-    """K1's bound on this run's paths: trace_plain's counts of lane bounces,
-    of noise and image lanes, of the box members an exact leaf cull tests,
-    of walk bounces, of textured-light hits, rect-UV lanes, textured-medium
-    events and roulette draws, the scene's structure per lane bounce (the
-    sphere leaf cull's members counted as one leaf's), the sums read and
-    written once, every record and the atlas read once."""
-    rows = ops.walk[0].tolist()   # the unrolled prims a ray tests
-    n_sph = int((ops.rec[rows, 0] > 0).sum()) if rows else 0   # R_IS_SPHERE
-    n_rect = len(rows) - n_sph
-    n_frame = len(set(ops.walk[1].tolist()) - {-1})
-    n_leaf = int(ops.leaves.shape[0])
-    per_seg = (K1_OPS["segment"] + n_sph * K1_OPS["sphere"]
-               + n_rect * K1_OPS["rect"] + n_frame * K1_OPS["frame"]
-               + n_leaf * K1_OPS["leaf"]
-               + min(int(ops.dyn.shape[0]), 16) * K1_OPS["member"]
-               + int(ops.bleaves.shape[0]) * K1_OPS["box_leaf"]
-               + int(ops.med.shape[0]) * K1_OPS["medium"])
-    per_walk = (K1_OPS["walk"] + int(ops.interior.shape[0])
-                * K1_OPS["interior"] + int(ops.med.shape[0])
-                * K1_OPS["medium"])
-    n_ops = (counts["segments"] * per_seg
-             + n_pix * n_samples * K1_OPS["sample"]
-             + counts["noise"] * K1_OPS["noise"]
-             + counts["image"] * K1_OPS["image"]
-             + counts["box"] * K1_OPS["box"]
-             + counts["walk"] * per_walk
-             + sum(counts[k] * K1_OPS[k]
-                   for k in ("emis_tex", "rect_uv", "med_tex", "rr")))
-    nbytes = 2 * 3 * 8 * n_pix + sum(
-        t.numel() * t.element_size()
-        for t in (ops.rec, ops.walk, ops.dyn, ops.leaves, ops.cam, ops.med,
-                  ops.atlas, ops.box, ops.bleaves, ops.interior,
-                  ops.interior_kind))
-    return bound(n_ops, nbytes)
+    """K1's bound on this run's paths: the operations and bytes of
+    `tracer.k1_work` (trace_plain's counts times tracer.K1_OPS, the
+    operations of csrc/tracer.cu per item, counted from its source)."""
+    from raytracing_rust_tpu_torch.ops.tracer import k1_work
+    return bound(*k1_work(ops, counts, n_pix, n_samples))
 
 
 def emit(phase: str, **kw) -> None:
@@ -538,7 +514,8 @@ def main() -> int:
     from raytracing_rust_tpu_torch import cli
     from raytracing_rust_tpu_torch import inverse_render as ir
     from raytracing_rust_tpu_torch.models.builders import PRESETS
-    from raytracing_rust_tpu_torch.ops import _build, grad, tracer
+    from raytracing_rust_tpu_torch import kernel_stats
+    from raytracing_rust_tpu_torch.ops import _build, grad, peak, tracer
     from raytracing_rust_tpu_torch.utils.image_io import read_ppm
     from raytracing_rust_tpu_torch.utils.timers import Timers
 
@@ -551,7 +528,10 @@ def main() -> int:
         tracer.K1C_LAUNCHES = tracer.K1D_LAUNCHES = 0
         tracer.K1E_BOX_LAUNCHES = tracer.K1D_WALK_LAUNCHES = 0
         tracer.K1_LATTICE_LAUNCHES = tracer.K1G_LAUNCHES = 0
+        tracer.K1F_LAUNCHES = tracer.K1F_TABLE_LAUNCHES = 0
+        tracer.K1F_STATS_LAUNCHES = 0
         grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
+        peak.D3_LAUNCHES = 0
 
     def k1_launches():
         return {"k1a_static_trace": tracer.KERNEL_LAUNCHES,
@@ -561,7 +541,9 @@ def main() -> int:
                 "k1e_box_trace": tracer.K1E_BOX_LAUNCHES,
                 "k1d_walk_trace": tracer.K1D_WALK_LAUNCHES,
                 "k1_lattice_trace": tracer.K1_LATTICE_LAUNCHES,
-                "k1g_roulette_trace": tracer.K1G_LAUNCHES}
+                "k1g_roulette_trace": tracer.K1G_LAUNCHES,
+                "k1f_stats_trace": tracer.K1F_STATS_LAUNCHES,
+                "k1f_balanced_trace": tracer.K1F_TABLE_LAUNCHES}
 
     def run_cli(scene: str, *extra: str):
         """`render --scene <scene> --device cuda` at the preset's size, with
@@ -612,10 +594,12 @@ def main() -> int:
         if m:
             flags = re.search(r"(trace_k1)I((?:Lb[01]E)+)E", m.group(1))
             plain = re.search(r"(grad_fwd|grad_bwd)ILb([01])E", m.group(1))
+            d3 = re.search(r"(fp32_peak)_kILi(\d+)ELb([01])E", m.group(1))
             fn = (f"{flags.group(1)}<"
                   f"{','.join(re.findall('[01]', flags.group(2)))}>"
                   if flags else f"{plain.group(1)}<{plain.group(2)}>"
-                  if plain else m.group(1))
+                  if plain else f"{d3.group(1)}<{d3.group(2)},{d3.group(3)}>"
+                  if d3 else m.group(1))
         elif fn and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(fn, []).append(ln.split(" : ")[-1].strip())
     emit("build", seconds=time.perf_counter() - t, nvcc=_build._nvcc(),
@@ -1119,6 +1103,198 @@ def main() -> int:
           f"cornell_box --rr-depth 6: mean luminance {lum:.4f} outside "
           f"{CORNELL_BAND}")
 
+    # -- 33. K1f's stats instantiation vs the production kernel and plain
+    def preset_ops(scene: str):
+        p = PRESETS[scene]
+        return (tracer.trace_operands(
+            tracer.build_scene_record(p.build()),
+            tracer.build_camera_record(p.camera()), dev), p.nx, p.ny)
+
+    def occupancy(stats, n_pix: int, n_samples: int, kpix: int = 1) -> dict:
+        s = kernel_stats.summarize(stats, n_pix, n_samples, kpix)
+        return {k: s[k] for k in ("occupancy", "tail_share",
+                                  "steps_per_sample", "segments_per_sample",
+                                  "sphere_tests_per_segment",
+                                  "box_tests_per_segment", "warps")}
+
+    k1f_stats = {}
+    for scene, n_samples in (("cornell_box_baseline", 2),
+                             ("random_spheres", 2), ("final_scene", 1)):
+        sops, snx, sny = preset_ops(scene)
+        n_pix = snx * sny
+        kw = dict(nx=snx, ny=sny, seed=0, sample0=0, n_samples=n_samples,
+                  max_depth=50)
+
+        def zeros():
+            return torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
+
+        prod = tracer.trace(sops, zeros(), **kw)
+        sk = tracer.new_stats(snx, sny, dev)
+        k = tracer.trace(sops, zeros(), stats=sk, **kw)
+        sp, work = tracer.new_stats(snx, sny, dev), {}
+        pl = zeros()
+        pl_ms = cuda_ms(lambda: tracer.trace_plain(
+            sops, pl, counts=work, stats=sp, **kw), reps=1, warm=False)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(k, prod)), f"{scene}: the stats "
+              "instantiation's sums differ from the production kernel's")
+        agree = within(k, pl)
+        km, pm = k.mean(dim=1), pl.mean(dim=1)
+        mean_rel = float(((km - pm).abs() / pm.abs()).max())
+        rows_equal = {name: bool(torch.equal(a, b)) for name, a, b in zip(
+            ("segments", "sphere_tests", "box_tests", "warp_steps"),
+            tracer.stats_rows(sk, n_pix), tracer.stats_rows(sp, n_pix))}
+        st_ms = cuda_ms(lambda: tracer.trace(
+            sops, zeros(), stats=tracer.new_stats(snx, sny, dev), **kw),
+            reps=3)
+        prod_ms = cuda_ms(lambda: tracer.trace(sops, zeros(), **kw), reps=3)
+        k1f_stats[scene] = dict(
+            max_abs_err=float((k - pl).abs().max()), ms=st_ms,
+            plain_ms=pl_ms, **k1_bound(sops, work, n_pix, n_samples))
+        emit("k1f_stats_vs_plain", scene=scene, shape=[sny, snx],
+             spp=n_samples, depth=50, pixels_within_rel_1e4=agree,
+             pixels_bit_equal=float((k == pl).all(dim=0).double().mean()),
+             channel_mean_max_rel=mean_rel, counters_equal=rows_equal,
+             stats_ms=st_ms, production_ms=prod_ms, work=work,
+             **occupancy(sk, n_pix, n_samples), **k1f_stats[scene])
+        check(agree >= 0.99, f"{scene}: only {agree:.4%} of pixels agree")
+        check(mean_rel <= 1e-4, f"{scene}: channel means differ by "
+              f"{mean_rel:.2e}")
+        check(all(rows_equal.values()),
+              f"{scene}: stats counters differ from plain: {rows_equal}")
+        del prod, k, pl, sk, sp
+
+    # -- 34. the balanced layout: kpix 1 and 4 against the scanline layout
+    k1f_bal = {}
+    for scene, n_samples in (("random_spheres", 2), ("final_scene", 1)):
+        sops, snx, sny = preset_ops(scene)
+        n_pix = snx * sny
+        kw = dict(nx=snx, ny=sny, seed=0, sample0=0, max_depth=50)
+
+        def zeros():
+            return torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        order = tracer.cost_permutation(sops, snx, sny, 50, dev)
+        probe_s = time.perf_counter() - t
+        tables = {kp: torch.from_numpy(tracer.balanced_pix_table(
+            order, n_pix, kp)[0]).to(dev) for kp in (1, 4)}
+        layouts = {"scanline": {}, "kpix1": dict(pix=tables[1], kpix=1),
+                   "kpix4": dict(pix=tables[4], kpix=4)}
+        outs = {name: tracer.trace(sops, zeros(), n_samples=n_samples,
+                                   **kw, **lay)
+                for name, lay in layouts.items()}
+        pl = zeros()
+        work = {}
+        pl_ms = cuda_ms(lambda: tracer.trace_plain(
+            sops, pl, n_samples=n_samples, counts=work, **layouts["kpix4"],
+            **kw), reps=1, warm=False)
+        k4_ms = cuda_ms(lambda: tracer.trace(
+            sops, zeros(), n_samples=n_samples, **layouts["kpix4"], **kw),
+            reps=3)
+        torch.cuda.synchronize()
+        same = {name: bool(torch.equal(o, outs["scanline"]))
+                for name, o in outs.items()}
+        agree = within(outs["kpix4"], pl)
+        km, pm = outs["kpix4"].mean(dim=1), pl.mean(dim=1)
+        mean_rel = float(((km - pm).abs() / pm.abs()).max())
+        # times at 10 spp in turns, and the occupancy of each layout
+        turns = []
+        for name in ("scanline", "kpix1", "kpix4", "kpix4", "kpix1",
+                     "scanline"):
+            turns.append((name, cuda_ms(lambda: tracer.trace(
+                sops, zeros(), n_samples=10, **layouts[name], **kw),
+                reps=3)))
+        occ = {}
+        for name, lay in layouts.items():
+            st = tracer.new_stats(snx, sny, dev, lay.get("pix"),
+                                  lay.get("kpix", 1))
+            tracer.trace(sops, zeros(), n_samples=2, stats=st, **lay, **kw)
+            occ[name] = occupancy(st, n_pix, 2, lay.get("kpix", 1))
+        k1f_bal[scene] = dict(max_abs_err=float((outs["kpix4"] - pl).abs()
+                                                .max()),
+                              ms=k4_ms, plain_ms=pl_ms,
+                              **k1_bound(sops, work, n_pix, n_samples))
+        emit("k1f_balanced_vs_scanline", scene=scene, shape=[sny, snx],
+             spp=n_samples, depth=50, probe_seconds=probe_s,
+             bit_equal_to_scanline=same, plain_pixels_within_rel_1e4=agree,
+             plain_channel_mean_max_rel=mean_rel,
+             ms_at_10_spp_in_turns=turns, occupancy_at_2_spp=occ, work=work,
+             **k1f_bal[scene])
+        check(all(same.values()), f"{scene}: a balanced layout's sums "
+              f"differ from the scanline layout's: {same}")
+        check(agree >= 0.99, f"{scene} (kpix 4): only {agree:.4%} of pixels "
+              "agree with plain")
+        check(mean_rel <= 1e-4, f"{scene} (kpix 4): channel means differ by "
+              f"{mean_rel:.2e}")
+        del outs, pl
+
+    # -- 35. the balanced render path through the command line
+    bal_launches = {}
+    for scene, extra, mean in (
+            ("random_spheres", (), RANDOM_SPHERES_MEAN),
+            ("final_scene", (), None),
+            ("final_scene", ("--nx", str(FINAL_SCENE_CHECK[0]), "--ny",
+                             str(FINAL_SCENE_CHECK[1])), FINAL_SCENE_MEAN)):
+        tracer._PERM_CACHE.clear()   # a cold render: the probe runs
+        info, img = run_cli(scene, *extra)
+        lum = info["mean_luminance"]
+        band = None if mean is None else (0.95 * mean, 1.05 * mean)
+        emit("k1f_balanced_path", **info, band=band,
+             balance_probe_seconds=info["timers"].get("balance_probe"),
+             trace_seconds=info["timers"].get("trace"))
+        bl = info["launches"]
+        check(bl["k1f_stats_trace"] > 0 and bl["k1f_balanced_trace"] > 0
+              and "balance_probe" in info["timers"],
+              f"{scene} {extra}: the balanced path did not run: {bl}")
+        check(bool(((img >= 0) & (img <= 1)).all()),
+              f"{scene} {extra}: image out of range")
+        if band is not None:
+            check(band[0] < lum < band[1],
+                  f"{scene} {extra}: mean luminance {lum:.4f} outside {band}")
+        for k, v in bl.items():
+            bal_launches[k] = bal_launches.get(k, 0) + v
+
+    # -- 36. D3: the f32 peak through kernel_stats --peak, and its
+    # accumulators against the plain chain
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        sweep = kernel_stats.peak_sweep()   # what --peak runs
+    d3_launches = peak.D3_LAUNCHES
+    check(d3_launches > 0, "kernel_stats --peak launched no D3 kernel")
+    d3_equal = {}
+    for kk in peak.KS:
+        for fma in (False, True):
+            got = peak.fp32_chain(kk, 64, fma, 4, 128, dev)
+            want = peak.fp32_chain_plain(kk, 64, fma, 4 * 128, dev)
+            d3_equal[f"k{kk}{'_fma' if fma else ''}"] = bool(
+                torch.equal(got, want))
+    best = sweep["add"]
+    bk, bblocks = best["k"], best["blocks"]
+    n_thr = bblocks * best["threads"]
+    d3_ms = cuda_ms(lambda: peak.fp32_chain(bk, 64, False, bblocks,
+                                            best["threads"], dev), reps=20)
+    d3_plain_ms = cuda_ms(lambda: peak.fp32_chain_plain(bk, 64, False, n_thr,
+                                                        dev), reps=3)
+    d3_got = peak.fp32_chain(bk, 64, False, bblocks, best["threads"], dev)
+    d3_err = float((d3_got - peak.fp32_chain_plain(
+        bk, 64, False, n_thr, dev)).abs().max())
+    d3_bound = bound(64 * peak.UNROLL * bk * n_thr, 4 * bk * n_thr)
+    emit("d3_fp32_peak", log=buf.getvalue().splitlines(),
+         add_ops_per_s=best["ops_per_s"], add_config=dict(
+             k=bk, blocks=bblocks, threads=best["threads"],
+             sm_mhz=best["sm_mhz"]),
+         fma_ops_per_s=sweep["fma"]["ops_per_s"],
+         fma_sm_mhz=sweep["fma"]["sm_mhz"], theoretical=sweep["theoretical"],
+         published_f32_ops_per_s=F32_OPS_PER_S, launches=d3_launches,
+         plain_bit_equal=d3_equal, compare_shape=dict(
+             k=bk, iters=64, threads=n_thr), ms=d3_ms, plain_ms=d3_plain_ms,
+         **d3_bound)
+    check(all(d3_equal.values()) and d3_err == 0.0,
+          f"D3 differs from its plain chain: {d3_equal}")
+
     print(json.dumps({"kernels": [{
         "name": "k1a_static_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
@@ -1203,7 +1379,26 @@ def main() -> int:
         "launches": rr_launches["k1g_roulette_trace"],
         **roulette["cornell_box"],
         "max_abs_err": max(v["max_abs_err"] for v in roulette.values()),
-        "library_ms": None}]}),
+        "library_ms": None}, {
+        "name": "k1f_stats_trace", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
+        "launches": bal_launches["k1f_stats_trace"],
+        **k1f_stats["random_spheres"],
+        "max_abs_err": max(v["max_abs_err"] for v in k1f_stats.values()),
+        "library_ms": None}, {
+        "name": "k1f_balanced_trace", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
+        "launches": bal_launches["k1f_balanced_trace"],
+        **k1f_bal["random_spheres"],
+        "max_abs_err": max(v["max_abs_err"] for v in k1f_bal.values()),
+        "library_ms": None}, {
+        "name": "d3_fp32_peak", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/peak.cu",
+        "replaces": "tools/kernel_stats.py:186",
+        "launches": d3_launches, "max_abs_err": d3_err, "ms": d3_ms,
+        "plain_ms": d3_plain_ms, **d3_bound, "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

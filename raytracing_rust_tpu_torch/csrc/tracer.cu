@@ -3,8 +3,9 @@
 // textures (K1c), its constant-density media on the event path and the
 // dense-medium walk (K1d), its dynamic sphere and box loops with moving
 // spheres (K1e), the lattice corners (textured lights, the UV of image
-// rects and image media, flipped image prims, textured media) and Russian
-// roulette (K1g).
+// rects and image media, flipped image prims, textured media), Russian
+// roulette (K1g), and its cost-balanced pixel table and path-length
+// counters (K1f).
 //
 // Replaces raytracing_rust_tpu/ops/pallas_tracer.py `_make_kernel` (its
 // body `kernel`, launched by `_trace_call`): camera raygen with sub-pixel
@@ -27,14 +28,20 @@
 // checker, Perlin marble (`_noise3`/`_turb3`) or image albedo (one texel
 // read from the packed atlas at the sphere UV of the pre-flip normal, a
 // rect's UV in its world frame, or a medium's u = v = 0); the depth cap;
-// Russian roulette (2492-2506); per-pixel sums over the samples. The host
+// Russian roulette (2492-2506); per-pixel sums over the samples. K1f
+// (1284-1292, 1378-1394, 1534-1600): the pixels a thread renders may come
+// from a table, kpix of them one after the other (the JAX kernel's kpix
+// banks, built on the host from a cost probe), and a stats launch counts
+// each pixel's segments and member tests and each warp's steps. The host
 // side and the plain torch version of the same computation are in
 // ops/tracer.py (`trace_plain`).
 //
-// The kernel is a template over three flags: K1B (any feature bit: sky,
+// The kernel is a template over four flags: K1B (any feature bit: sky,
 // checker, metal, dielectric, moving spheres, noise, image, media, the
-// walk, the lattice corners, roulette), DYN (a dynamic sphere table or a
-// box table) and LEAF_SMEM (their leaf tables sit in shared memory).
+// walk, the lattice corners, roulette), DYN (a dynamic sphere table, a box
+// table or a pixel table), LEAF_SMEM (the leaf tables sit in shared
+// memory) and STATS (the counters; set only with K1B and DYN, so two
+// instantiations serve every scene and the others keep their registers).
 // cornell_box runs the instantiation with all of them off, which is K1a as
 // it was. Inside the K1B instantiations the fifteen features (the compat
 // sphere-UV constant counted) are branches on the launch's feature bits,
@@ -67,13 +74,20 @@
 // on the TPU). Paths end at different bounces and cross different leaves,
 // so a warp runs until its longest path ends, and a thread on a walk runs
 // its cheap walk bounces while its warp-mates trace full ones: this first
-// version takes that cost.
+// version takes that cost, and the STATS counters measure it. Unlike the
+// TPU kernel, whose dead lanes start their pixel's next sample inside one
+// flat loop, a thread here runs a bounce loop inside a sample loop, so its
+// warp reconverges after every sample; a pixel table changes which pixels
+// share a warp, never a pixel's own samples, draws or f64 sum order, so a
+// balanced render's sums equal the scanline one's bit for bit.
 //
 // Numerics: no fast math, and compiled with -fmad=false, so every multiply
 // and add rounds on its own, as torch's elementwise ops do; each f32
 // expression is written in trace_plain's order, and the two agree path by
 // path. 1/sqrt is written as a division (rsqrtf is not correctly
-// rounded). No tensor cores are touched (TF32 would round geometry).
+// rounded). No tensor cores are touched (TF32 would round geometry). With no
+// FMA issued, the f32 ceiling is the card's add rate, about half the
+// published FMA peak (D3, csrc/peak.cu, measures it).
 //
 // Random numbers: Philox4x32-10, key = seed, counter = (pixel, sample,
 // bounce, stream); ops/rng.py documents which word feeds which draw.
@@ -114,6 +128,9 @@ constexpr int MAX_MEDIA = 8;
 constexpr int MAX_INTERIOR = 24;
 constexpr int INT_RECT = 1, INT_BOX = 2;
 constexpr int THREADS = 128;
+// a tile of the pixel table: the JAX kernel's (8, 1024) lanes (ops/tracer.py
+// TILE)
+constexpr int TILE = 8 * 1024;
 // shared memory a launch gets without opting in; the leaf table goes there
 // when it fits beside the record
 constexpr size_t SMEM_BUDGET = 48 * 1024;
@@ -373,7 +390,7 @@ __device__ __forceinline__ float media_race(
   return t_med;
 }
 
-template <bool K1B, bool DYN, bool LEAF_SMEM>
+template <bool K1B, bool DYN, bool LEAF_SMEM, bool STATS>
 __global__ void __launch_bounds__(THREADS)
 trace_k1(const float* __restrict__ rec, int n_rec,
          const int* __restrict__ walk, int n_walk,
@@ -387,7 +404,9 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          uint32_t perlin_word, const float* __restrict__ box, int n_box,
          const float* __restrict__ bleaves, int n_bleaf,
          const float* __restrict__ interior, int n_int,
-         const int* __restrict__ interior_kind, int dense, int rr_depth) {
+         const int* __restrict__ interior_kind, int dense, int rr_depth,
+         const int* __restrict__ pix_table, int kpix,
+         long long* __restrict__ stats) {
   // the scene's features; all off outside the K1B instantiations
   const bool emis_tex = K1B && (feats & FEAT_EMIS_TEX),
              uv_carry = K1B && (feats & FEAT_UV_CARRY),
@@ -440,569 +459,620 @@ trace_k1(const float* __restrict__ rec, int n_rec,
   const float* bleaf = LEAF_SMEM ? s_bleaf : bleaves;
 
   const int n_pix = nx * ny;
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= n_pix) return;
   const int* order = s_walk;
   const int* lead = s_walk + n_walk;
-  // row 0 of the image is the top scanline (reference tests/test.rs:62-64)
-  const float icol = (float)(pix % nx);
-  const float jflip = (float)(ny - 1 - pix / nx);
-  double acc_r = sums[pix], acc_g = sums[n_pix + pix],
-         acc_b = sums[2 * n_pix + pix];
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  // K1f (pallas_tracer.py:1378-1394, 1534-1560): with a pixel table (DYN
+  // instantiations only) thread j of tile g renders the pixels
+  // table[(g·kpix + b)·TILE + j], b = 0 .. kpix − 1, one after the other,
+  // each in sample order into its own sums; a slot outside [0, n_pix)
+  // renders nothing (n_pix pads the last tile)
+  const bool table = DYN && pix_table != nullptr;
+  uint32_t steps = 0;  // STATS: Σ over samples of the warp's longest path
+  for (int bank = 0; bank < (table ? kpix : 1); ++bank) {
+    const int pix =
+        table ? __ldg(pix_table + ((size_t)(tid / TILE) * kpix + bank) * TILE +
+                      tid % TILE)
+              : tid;
+    const bool in_image =
+        table ? (unsigned)pix < (unsigned)n_pix : pix < n_pix;
+    if (!STATS && !in_image) {
+      if (table) continue;
+      return;
+    }
+    // STATS: a padding thread traces nothing, but joins its warp's
+    // reductions
+    const bool valid = !STATS || in_image;
+    // row 0 of the image is the top scanline (reference tests/test.rs:62-64)
+    const float icol = (float)(pix % nx);
+    const float jflip = (float)(ny - 1 - pix / nx);
+    double acc_r = 0.0, acc_g = 0.0, acc_b = 0.0;
+    if (valid) {
+      acc_r = sums[pix];
+      acc_g = sums[n_pix + pix];
+      acc_b = sums[2 * n_pix + pix];
+    }
+    // STATS: segments traced (walk bounces too), dynamic sphere and box
+    // member tests, over the samples
+    uint32_t busy = 0, tests_s = 0, tests_b = 0;
 
-  for (int si = 0; si < n_samples; ++si) {
-    const uint32_t sample = (uint32_t)(sample0 + si);
-    // camera ray (reference src/camera.rs:53-67, jitter tests/test.rs:66-68)
-    const Uniforms uc = philox(pix, sample, 0, STREAM_CAMERA, k0, k1);
-    const float s = (icol + uc.x) / (float)nx;
-    const float t = (jflip + uc.y) / (float)ny;
-    const float lr = sqrtf(uc.z);
-    const float phi = TWO_PI * uc.w;
-    const float rdx = s_cam[C_LENS_R] * (lr * cosf(phi));
-    const float rdy = s_cam[C_LENS_R] * (lr * sinf(phi));
-    float ox = s_cam[C_ORIGIN] + (rdx * s_cam[C_U] + rdy * s_cam[C_V]);
-    float oy = s_cam[C_ORIGIN + 1] +
-               (rdx * s_cam[C_U + 1] + rdy * s_cam[C_V + 1]);
-    float oz = s_cam[C_ORIGIN + 2] +
-               (rdx * s_cam[C_U + 2] + rdy * s_cam[C_V + 2]);
-    float dx = s_cam[C_LL] + s * s_cam[C_HORIZ] + t * s_cam[C_VERT] - ox;
-    float dy = s_cam[C_LL + 1] + s * s_cam[C_HORIZ + 1] +
-               t * s_cam[C_VERT + 1] - oy;
-    float dz = s_cam[C_LL + 2] + s * s_cam[C_HORIZ + 2] +
-               t * s_cam[C_VERT + 2] - oz;
-    // shutter time (pallas_tracer.py:1583-1584)
-    float time = 0.0f;
-    if (moving)
-      time = s_cam[C_TIME0] +
-             philox(pix, sample, 0, STREAM_TIME, k0, k1).x * s_cam[C_DTIME];
+    for (int si = 0; si < n_samples; ++si) {
+      const uint32_t sample = (uint32_t)(sample0 + si);
+      uint32_t nb = 0;  // STATS: the segments of this sample
+      // camera ray (reference src/camera.rs:53-67, jitter tests/test.rs:66-68)
+      const Uniforms uc = philox(pix, sample, 0, STREAM_CAMERA, k0, k1);
+      const float s = (icol + uc.x) / (float)nx;
+      const float t = (jflip + uc.y) / (float)ny;
+      const float lr = sqrtf(uc.z);
+      const float phi = TWO_PI * uc.w;
+      const float rdx = s_cam[C_LENS_R] * (lr * cosf(phi));
+      const float rdy = s_cam[C_LENS_R] * (lr * sinf(phi));
+      float ox = s_cam[C_ORIGIN] + (rdx * s_cam[C_U] + rdy * s_cam[C_V]);
+      float oy = s_cam[C_ORIGIN + 1] +
+                 (rdx * s_cam[C_U + 1] + rdy * s_cam[C_V + 1]);
+      float oz = s_cam[C_ORIGIN + 2] +
+                 (rdx * s_cam[C_U + 2] + rdy * s_cam[C_V + 2]);
+      float dx = s_cam[C_LL] + s * s_cam[C_HORIZ] + t * s_cam[C_VERT] - ox;
+      float dy = s_cam[C_LL + 1] + s * s_cam[C_HORIZ + 1] +
+                 t * s_cam[C_VERT + 1] - oy;
+      float dz = s_cam[C_LL + 2] + s * s_cam[C_HORIZ + 2] +
+                 t * s_cam[C_VERT + 2] - oz;
+      // shutter time (pallas_tracer.py:1583-1584)
+      float time = 0.0f;
+      if (moving)
+        time = s_cam[C_TIME0] +
+               philox(pix, sample, 0, STREAM_TIME, k0, k1).x * s_cam[C_DTIME];
 
-    float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
-    float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
-    // the walk ruled out a medium event on the next segment (`skip_med`)
-    bool skip_med = false;
-    for (int bounce = 0;; ++bounce) {
-      const float a_dd = dx * dx + dy * dy + dz * dz;
-      const float inv_a = 1.0f / a_dd;
-      float t_best = BIG, nbx = 0.0f, nby = 0.0f, nbz = 0.0f;
-      int win = -1;  // the unrolled winner's record row
-      // the current rect group's ray·frame dot products
-      int frame = -1;
-      bool nonpar = false;
-      float o_kn = 0.0f, inv_kn = 0.0f, o_an = 0.0f, d_an = 0.0f,
-            o_bn = 0.0f, d_bn = 0.0f;
-      for (int k = 0; k < n_walk; ++k) {
-        const int p = order[k];
-        const float* r = s_rec + p * REC;
-        if (lead[k] < 0) {
-          // sphere (reference src/sphere.rs:37-77): near root, then far
-          float cx, cy, cz;
-          center(r, moving, time, cx, cy, cz);
-          const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-          const float bq = ocx * dx + ocy * dy + ocz * dz;
-          const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2];
-          const float disc = bq * bq - a_dd * cq;
-          if (disc > 0.0f) {
-            const float sq = sqrtf(disc);
-            const float t_near = (-bq - sq) * inv_a;
-            const float t_far = (-bq + sq) * inv_a;
-            const float t_p =
-                (t_near > T_MIN && t_near < t_best)  ? t_near
-                : (t_far > T_MIN && t_far < t_best) ? t_far
-                                                     : BIG;
-            if (t_p < t_best) {
-              const float inv_r = 1.0f / r[R_RADIUS];
-              const float flip = r[R_FLIP];
-              t_best = t_p;
-              win = p;
-              nbx = ((ocx + t_p * dx) * inv_r) * flip;
-              nby = ((ocy + t_p * dy) * inv_r) * flip;
-              nbz = ((ocz + t_p * dz) * inv_r) * flip;
-            }
-          }
-        } else {
-          // rect in its group's world frame (reference src/rect.rs:39-69;
-          // x = (o+td)·an expands to o·an + t·(d·an))
-          const float* f = s_rec + lead[k] * REC;
-          if (lead[k] != frame) {
-            frame = lead[k];
-            const float d_kn = dx * f[R_KN] + dy * f[R_KN + 1] +
-                               dz * f[R_KN + 2];
-            nonpar = d_kn != 0.0f;
-            o_kn = ox * f[R_KN] + oy * f[R_KN + 1] + oz * f[R_KN + 2];
-            inv_kn = 1.0f / (nonpar ? d_kn : 1.0f);
-            o_an = ox * f[R_AN] + oy * f[R_AN + 1] + oz * f[R_AN + 2];
-            d_an = dx * f[R_AN] + dy * f[R_AN + 1] + dz * f[R_AN + 2];
-            o_bn = ox * f[R_BN] + oy * f[R_BN + 1] + oz * f[R_BN + 2];
-            d_bn = dx * f[R_BN] + dy * f[R_BN + 1] + dz * f[R_BN + 2];
-          }
-          const float t_p = (r[R_KOFF] - o_kn) * inv_kn;
-          const float xa = o_an + t_p * d_an - r[R_AOFF];
-          const float yb = o_bn + t_p * d_bn - r[R_BOFF];
-          if (nonpar && t_p > T_MIN && t_p < t_best && xa >= r[R_A0] &&
-              xa <= r[R_A1] && yb >= r[R_B0] && yb <= r[R_B1]) {
-            const float flip = r[R_FLIP];
-            t_best = t_p;
-            win = p;
-            nbx = f[R_KN] * flip;
-            nby = f[R_KN + 1] * flip;
-            nbz = f[R_KN + 2] * flip;
-          }
+      float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
+      float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
+      // the walk ruled out a medium event on the next segment (`skip_med`)
+      bool skip_med = false;
+      for (int bounce = 0;; ++bounce) {
+        if (STATS) {
+          if (!valid) break;
+          ++nb;
         }
-      }
-
-      const float* w_dyn = nullptr;  // the box or dynamic winner's row
-      if (DYN) {
-        // the box table, then the dynamic sphere table, each in cluster
-        // order, carrying only (t, winner) (pallas_tracer.py:1906-2071;
-        // boxes first, so a box keeps a tie); a leaf whose AABB the ray
-        // does not cross before its best hit is skipped whole
-        // (`_slab`/`_clus_guard`, 1741-1776). With no leaf table the
-        // members are scanned flat.
-        float t_d = t_best;
-        const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy),
-                    inv_dz = safe_inv(dz);
-        int wb = -1;
-        const int n_bgroups = n_bleaf > 0 ? n_bleaf : 1;
-        for (int c = 0; c < n_bgroups; ++c) {
-          int start = 0, cnt = n_box;
-          if (n_bleaf > 0) {
-            const float* L = bleaf + c * CLUSW;
-            float tmn, tmx;
-            slab(L[0], L[1], L[2], L[3], L[4], L[5], ox, oy, oz, inv_dx,
-                 inv_dy, inv_dz, tmn, tmx);
-            if (!(tmx > fmaxf(tmn, T_MIN) && tmn < t_d)) continue;
-            start = (int)L[6];
-            cnt = (int)L[7];
-          }
-          for (int q = start; q < start + cnt; ++q) {
-            // merged cube (reference src/cube.rs:20-74): one slab test,
-            // the entry face when beyond T_MIN, else the exit face
-            const float* r = box + (size_t)q * REC;
-            float tmn, tmx;
-            slab(__ldg(r + R_C0), __ldg(r + R_C0 + 1), __ldg(r + R_C0 + 2),
-                 __ldg(r + R_DC), __ldg(r + R_DC + 1), __ldg(r + R_DC + 2),
-                 ox, oy, oz, inv_dx, inv_dy, inv_dz, tmn, tmx);
-            const float t_p = tmn > T_MIN ? tmn : tmx;
-            if (tmx > tmn && t_p > T_MIN && t_p < t_d) {
-              t_d = t_p;
-              wb = q;
-            }
-          }
-        }
-        const float t_box = t_d;
-        int wd = -1;
-        const int n_groups = n_leaf > 0 ? n_leaf : 1;
-        for (int c = 0; c < n_groups; ++c) {
-          int start = 0, cnt = n_dyn;
-          if (n_leaf > 0) {
-            const float* L = leaf + c * CLUSW;
-            float t0 = (L[0] - ox) * inv_dx, t1 = (L[3] - ox) * inv_dx;
-            float tmn = fminf(t0, t1), tmx = fmaxf(t0, t1);
-            t0 = (L[1] - oy) * inv_dy;
-            t1 = (L[4] - oy) * inv_dy;
-            tmn = fmaxf(tmn, fminf(t0, t1));
-            tmx = fminf(tmx, fmaxf(t0, t1));
-            t0 = (L[2] - oz) * inv_dz;
-            t1 = (L[5] - oz) * inv_dz;
-            tmn = fmaxf(tmn, fminf(t0, t1));
-            tmx = fminf(tmx, fmaxf(t0, t1));
-            if (!(tmx > fmaxf(tmn, T_MIN) && tmn < t_d)) continue;
-            start = (int)L[6];
-            cnt = (int)L[7];
-          }
-          for (int q = start; q < start + cnt; ++q) {
-            const float* r = dyn + (size_t)q * REC;
-            float cx = __ldg(r + R_C0), cy = __ldg(r + R_C0 + 1),
-                  cz = __ldg(r + R_C0 + 2);
-            if (moving) {
-              const float frac =
-                  (time - __ldg(r + R_T0)) * __ldg(r + R_INV_DT);
-              cx = cx + frac * __ldg(r + R_DC);
-              cy = cy + frac * __ldg(r + R_DC + 1);
-              cz = cz + frac * __ldg(r + R_DC + 2);
-            }
+        const float a_dd = dx * dx + dy * dy + dz * dz;
+        const float inv_a = 1.0f / a_dd;
+        float t_best = BIG, nbx = 0.0f, nby = 0.0f, nbz = 0.0f;
+        int win = -1;  // the unrolled winner's record row
+        // the current rect group's ray·frame dot products
+        int frame = -1;
+        bool nonpar = false;
+        float o_kn = 0.0f, inv_kn = 0.0f, o_an = 0.0f, d_an = 0.0f,
+              o_bn = 0.0f, d_bn = 0.0f;
+        for (int k = 0; k < n_walk; ++k) {
+          const int p = order[k];
+          const float* r = s_rec + p * REC;
+          if (lead[k] < 0) {
+            // sphere (reference src/sphere.rs:37-77): near root, then far
+            float cx, cy, cz;
+            center(r, moving, time, cx, cy, cz);
             const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
             const float bq = ocx * dx + ocy * dy + ocz * dz;
-            const float cq =
-                ocx * ocx + ocy * ocy + ocz * ocz - __ldg(r + R_R2);
+            const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2];
             const float disc = bq * bq - a_dd * cq;
             if (disc > 0.0f) {
               const float sq = sqrtf(disc);
               const float t_near = (-bq - sq) * inv_a;
               const float t_far = (-bq + sq) * inv_a;
-              const float t_sel = t_near > T_MIN ? t_near : t_far;
-              if (t_sel > T_MIN && t_sel < t_d) {
-                t_d = t_sel;
-                wd = q;
+              const float t_p =
+                  (t_near > T_MIN && t_near < t_best)  ? t_near
+                  : (t_far > T_MIN && t_far < t_best) ? t_far
+                                                       : BIG;
+              if (t_p < t_best) {
+                const float inv_r = 1.0f / r[R_RADIUS];
+                const float flip = r[R_FLIP];
+                t_best = t_p;
+                win = p;
+                nbx = ((ocx + t_p * dx) * inv_r) * flip;
+                nby = ((ocy + t_p * dy) * inv_r) * flip;
+                nbz = ((ocz + t_p * dz) * inv_r) * flip;
+              }
+            }
+          } else {
+            // rect in its group's world frame (reference src/rect.rs:39-69;
+            // x = (o+td)·an expands to o·an + t·(d·an))
+            const float* f = s_rec + lead[k] * REC;
+            if (lead[k] != frame) {
+              frame = lead[k];
+              const float d_kn = dx * f[R_KN] + dy * f[R_KN + 1] +
+                                 dz * f[R_KN + 2];
+              nonpar = d_kn != 0.0f;
+              o_kn = ox * f[R_KN] + oy * f[R_KN + 1] + oz * f[R_KN + 2];
+              inv_kn = 1.0f / (nonpar ? d_kn : 1.0f);
+              o_an = ox * f[R_AN] + oy * f[R_AN + 1] + oz * f[R_AN + 2];
+              d_an = dx * f[R_AN] + dy * f[R_AN + 1] + dz * f[R_AN + 2];
+              o_bn = ox * f[R_BN] + oy * f[R_BN + 1] + oz * f[R_BN + 2];
+              d_bn = dx * f[R_BN] + dy * f[R_BN + 1] + dz * f[R_BN + 2];
+            }
+            const float t_p = (r[R_KOFF] - o_kn) * inv_kn;
+            const float xa = o_an + t_p * d_an - r[R_AOFF];
+            const float yb = o_bn + t_p * d_bn - r[R_BOFF];
+            if (nonpar && t_p > T_MIN && t_p < t_best && xa >= r[R_A0] &&
+                xa <= r[R_A1] && yb >= r[R_B0] && yb <= r[R_B1]) {
+              const float flip = r[R_FLIP];
+              t_best = t_p;
+              win = p;
+              nbx = f[R_KN] * flip;
+              nby = f[R_KN + 1] * flip;
+              nbz = f[R_KN + 2] * flip;
+            }
+          }
+        }
+
+        const float* w_dyn = nullptr;  // the box or dynamic winner's row
+        if (DYN) {
+          // the box table, then the dynamic sphere table, each in cluster
+          // order, carrying only (t, winner) (pallas_tracer.py:1906-2071;
+          // boxes first, so a box keeps a tie); a leaf whose AABB the ray
+          // does not cross before its best hit is skipped whole
+          // (`_slab`/`_clus_guard`, 1741-1776). With no leaf table the
+          // members are scanned flat.
+          float t_d = t_best;
+          const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy),
+                      inv_dz = safe_inv(dz);
+          int wb = -1;
+          const int n_bgroups = n_bleaf > 0 ? n_bleaf : 1;
+          for (int c = 0; c < n_bgroups; ++c) {
+            int start = 0, cnt = n_box;
+            if (n_bleaf > 0) {
+              const float* L = bleaf + c * CLUSW;
+              float tmn, tmx;
+              slab(L[0], L[1], L[2], L[3], L[4], L[5], ox, oy, oz, inv_dx,
+                   inv_dy, inv_dz, tmn, tmx);
+              if (!(tmx > fmaxf(tmn, T_MIN) && tmn < t_d)) continue;
+              start = (int)L[6];
+              cnt = (int)L[7];
+            }
+            if (STATS) tests_b += (uint32_t)cnt;
+            for (int q = start; q < start + cnt; ++q) {
+              // merged cube (reference src/cube.rs:20-74): one slab test,
+              // the entry face when beyond T_MIN, else the exit face
+              const float* r = box + (size_t)q * REC;
+              float tmn, tmx;
+              slab(__ldg(r + R_C0), __ldg(r + R_C0 + 1), __ldg(r + R_C0 + 2),
+                   __ldg(r + R_DC), __ldg(r + R_DC + 1), __ldg(r + R_DC + 2),
+                   ox, oy, oz, inv_dx, inv_dy, inv_dz, tmn, tmx);
+              const float t_p = tmn > T_MIN ? tmn : tmx;
+              if (tmx > tmn && t_p > T_MIN && t_p < t_d) {
+                t_d = t_p;
+                wb = q;
               }
             }
           }
-        }
-        if (wd >= 0) {
-          // winner resolve: normal (o + t·d − c(time))·inv_r, then the flip
-          // (pallas_tracer.py:2097-2148)
-          const float* r = dyn + (size_t)wd * REC;
-          float cx, cy, cz;
-          center(r, moving, time, cx, cy, cz);
-          const float inv_r = 1.0f / r[R_RADIUS];
-          const float flip = r[R_FLIP];
-          nbx = (((ox + t_d * dx) - cx) * inv_r) * flip;
-          nby = (((oy + t_d * dy) - cy) * inv_r) * flip;
-          nbz = (((oz + t_d * dz) - cz) * inv_r) * flip;
-          t_best = t_d;
-          w_dyn = r;
-        } else if (wb >= 0) {
-          // box winner resolve: the face whose slab t on the chosen side
-          // (entry beyond T_MIN, else exit) equals t, ties x → y → z; the
-          // normal +axis like the reference's rects, then the flip
-          // (pallas_tracer.py:2110-2150)
-          const float* r = box + (size_t)wb * REC;
-          const float t0x = (r[R_C0] - ox) * inv_dx,
-                      t1x = (r[R_DC] - ox) * inv_dx;
-          const float t0y = (r[R_C0 + 1] - oy) * inv_dy,
-                      t1y = (r[R_DC + 1] - oy) * inv_dy;
-          const float t0z = (r[R_C0 + 2] - oz) * inv_dz,
-                      t1z = (r[R_DC + 2] - oz) * inv_dz;
-          const bool use_en =
-              fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                    fminf(t0z, t1z)) > T_MIN;
-          const float tx_c = use_en ? fminf(t0x, t1x) : fmaxf(t0x, t1x);
-          const float ty_c = use_en ? fminf(t0y, t1y) : fmaxf(t0y, t1y);
-          const bool is_x = t_box == tx_c;
-          const bool is_y = t_box == ty_c && t_box != tx_c;
-          const float flip = r[R_FLIP];
-          nbx = (is_x ? 1.0f : 0.0f) * flip;
-          nby = (is_y ? 1.0f : 0.0f) * flip;
-          nbz = (is_x || is_y ? 0.0f : 1.0f) * flip;
-          t_best = t_box;
-          w_dyn = r;
-        }
-      }
-
-      // the nearest medium scatter event on [T_MIN, closest surface]
-      // takes the hit over: isotropic, the medium's albedo, no emission
-      // (pallas_tracer.py:2204-2266); none on a segment the walk handed
-      // over
-      bool med_event = false;
-      int m_ev = -1;
-      if (media && !skip_med) {
-        const float t_med =
-            media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a_dd,
-                       inv_a, t_best, pix, sample, (uint32_t)bounce, k0, k1,
-                       m_ev);
-        if (t_med < t_best) {
-          med_event = true;
-          t_best = t_med;
-        }
-      }
-      skip_med = false;
-
-      if (win < 0 && !(DYN && w_dyn != nullptr) && !med_event) {
-        // a miss adds the background and ends the path (reference
-        // src/color.rs:14-22); black adds nothing
-        if (sky) {
-          const float inv_len = 1.0f / sqrtf(a_dd);
-          const float ty = 0.5f * (dy * inv_len + 1.0f);
-          rad_r += thr_r * (1.0f - 0.5f * ty);
-          rad_g += thr_g * (1.0f - 0.3f * ty);
-          rad_b += thr_b;
-        }
-        break;
-      }
-      // the winner's record row, in shared (unrolled) or device (box,
-      // dynamic) memory; not read after a medium event
-      const float* w = DYN && w_dyn != nullptr ? w_dyn : s_rec + win * REC;
-      // the value at the hit point p of the texture whose fields start at
-      // t (a record row's R_ALB or a medium's M_ALB: the same T_* columns):
-      // its colour; where sin(10x)·sin(10y)·sin(10z) < 0 a checker's odd
-      // colour (reference src/texture.rs:40-47); the marble (66-70); the
-      // nearest texel (86-108, clamped to the image's true size, v flipped,
-      // one read of the packed atlas) at the winner's UV: a medium's
-      // u = v = 0 (src/medium.rs:44-50), an image rect's in its world
-      // frame from t_best as the closest-hit loop computes its position
-      // (pallas_tracer.py:1719-1735), else the sphere UV (src/sphere.rs:
-      // 7-15; `_atan2`/`_asin` are the math library's here) of the normal
-      // before the flip (2312-2317)
-      auto texture = [&](const float* t, float px, float py, float pz,
-                         float& r, float& g, float& b) {
-        r = t[T_ALB];
-        g = t[T_ALB + 1];
-        b = t[T_ALB + 2];
-        if (checker && t[T_CHK] > 0.0f) {
-          const float sines =
-              sinf(10.0f * px) * sinf(10.0f * py) * sinf(10.0f * pz);
-          if (sines < 0.0f) {
-            r = t[T_ODD];
-            g = t[T_ODD + 1];
-            b = t[T_ODD + 2];
-          }
-        }
-        if (noise && t[T_NOISE] > 0.0f) {
-          // marble, 0.5·(1 + sin(scale·x + 5·turb(p)))
-          const float turb = turb3(px, py, pz, perlin_word);
-          r = g = b = 0.5f * (1.0f + sinf(t[T_NSCALE] * px + 5.0f * turb));
-        }
-        if (image && t[T_IMG] > 0.0f) {
-          float uu = 0.0f, vv = 0.0f;
-          if (!med_event && uv_carry && w[R_IS_SPHERE] == 0.0f) {
-            const float xa = (ox * w[R_AN] + oy * w[R_AN + 1] +
-                              oz * w[R_AN + 2]) +
-                             t_best * (dx * w[R_AN] + dy * w[R_AN + 1] +
-                                       dz * w[R_AN + 2]) -
-                             w[R_AOFF];
-            const float yb = (ox * w[R_BN] + oy * w[R_BN + 1] +
-                              oz * w[R_BN + 2]) +
-                             t_best * (dx * w[R_BN] + dy * w[R_BN + 1] +
-                                       dz * w[R_BN + 2]) -
-                             w[R_BOFF];
-            uu = (xa - w[R_A0]) * (1.0f / (w[R_A1] - w[R_A0]));
-            vv = (yb - w[R_B0]) * (1.0f / (w[R_B1] - w[R_B0]));
-          } else if (!med_event) {
-            float nux = nbx, nuy = nby, nuz = nbz;
-            if (img_flip) {
-              const float fl = w[R_FLIP];
-              nux = nbx * fl;
-              nuy = nby * fl;
-              nuz = nbz * fl;
+          const float t_box = t_d;
+          int wd = -1;
+          const int n_groups = n_leaf > 0 ? n_leaf : 1;
+          for (int c = 0; c < n_groups; ++c) {
+            int start = 0, cnt = n_dyn;
+            if (n_leaf > 0) {
+              const float* L = leaf + c * CLUSW;
+              float t0 = (L[0] - ox) * inv_dx, t1 = (L[3] - ox) * inv_dx;
+              float tmn = fminf(t0, t1), tmx = fmaxf(t0, t1);
+              t0 = (L[1] - oy) * inv_dy;
+              t1 = (L[4] - oy) * inv_dy;
+              tmn = fmaxf(tmn, fminf(t0, t1));
+              tmx = fminf(tmx, fmaxf(t0, t1));
+              t0 = (L[2] - oz) * inv_dz;
+              t1 = (L[5] - oz) * inv_dz;
+              tmn = fmaxf(tmn, fminf(t0, t1));
+              tmx = fminf(tmx, fmaxf(t0, t1));
+              if (!(tmx > fmaxf(tmn, T_MIN) && tmn < t_d)) continue;
+              start = (int)L[6];
+              cnt = (int)L[7];
             }
-            const float phi = atan2f(nuz, nux);
-            const float theta = asinf(fminf(fmaxf(nuy, -1.0f), 1.0f));
-            uu = 1.0f - (phi + PI_F) * INV_2PI;
-            vv = (theta + (compat_uv ? TWO_OVER_PI : HALF_PI)) * INV_PI;
-          }
-          const float iw = t[T_IMG_W], ih = t[T_IMG_H];
-          const int ii = min(max((int)(uu * iw), 0), (int)iw - 1);
-          const int jj = min(max((int)((1.0f - vv) * ih), 0), (int)ih - 1);
-          const int jrow =
-              min(max((int)t[T_IMG_BASE] + jj, 0), atlas_rows - 1);
-          const int texel = __ldg(atlas + (size_t)jrow * atlas_w +
-                                  min(max(ii, 0), atlas_w - 1));
-          r = (float)((texel >> 16) & 255) / 255.0f;
-          g = (float)((texel >> 8) & 255) / 255.0f;
-          b = (float)(texel & 255) / 255.0f;
-        }
-      };
-      float mat = MAT_ISOTROPIC;
-      if (!med_event) {
-        // emission (reference src/color.rs:8-22): a light's colour, or a
-        // textured light's texture value (src/material.rs:133-151); solid
-        // lights keep this cheap path
-        float er = w[R_EMIT], eg = w[R_EMIT + 1], eb = w[R_EMIT + 2];
-        if (emis_tex && w[R_MAT] == MAT_DIFFUSE_LIGHT &&
-            (w[R_CHECKER] > 0.0f || w[R_NOISE] > 0.0f || w[R_IMG] > 0.0f))
-          texture(w + R_ALB, ox + t_best * dx, oy + t_best * dy,
-                  oz + t_best * dz, er, eg, eb);
-        rad_r += thr_r * er;
-        rad_g += thr_g * eg;
-        rad_b += thr_b * eb;
-        mat = w[R_MAT];
-      }
-      // a light does not scatter; scatter only below the depth cap
-      // (src/color.rs:9)
-      if (mat == MAT_DIFFUSE_LIGHT || bounce >= max_depth) break;
-      const float px = ox + t_best * dx, py = oy + t_best * dy,
-                  pz = oz + t_best * dz;
-      // the albedo: the winner's texture at the hit point, or at a medium
-      // event the medium's (pallas_tracer.py:2237-2266): its colour, or
-      // under med_tex its texture. K1B takes it here, before the scatter
-      // draws (taken after them, ptxas gave K1B 80 registers and final_scene
-      // ran 10% slower on an H100); K1a after the scatter, where its SASS
-      // has always taken it
-      float alb_r, alb_g, alb_b;
-      auto albedo = [&]() {
-        if (med_event && !med_tex) {
-          alb_r = s_med[m_ev * MEDREC + M_ALB];
-          alb_g = s_med[m_ev * MEDREC + M_ALB + 1];
-          alb_b = s_med[m_ev * MEDREC + M_ALB + 2];
-        } else {
-          texture(med_event ? s_med + m_ev * MEDREC + M_ALB : w + R_ALB, px,
-                  py, pz, alb_r, alb_g, alb_b);
-        }
-      };
-      if (K1B) albedo();
-      // lambertian: n + a uniform point in the unit ball
-      // (reference src/material.rs:49-53; ops/rng.in_unit_sphere)
-      const Uniforms us =
-          philox(pix, sample, (uint32_t)bounce, STREAM_SCATTER, k0, k1);
-      float bx, by, bz;
-      ball(us, bx, by, bz);
-      float ndx = nbx + bx, ndy = nby + by, ndz = nbz + bz;
-      if (med_event) {
-        // isotropic: the bare ball sample (reference src/material.rs:164-168)
-        ndx = bx;
-        ndy = by;
-        ndz = bz;
-      }
-      if (metal && mat == MAT_METAL) {
-        // reflect(unit(d), n) + fuzz·ball; the path ends when that points
-        // into the surface (reference src/material.rs:76-87)
-        const float inv_len = 1.0f / sqrtf(a_dd);
-        const float udx = dx * inv_len, udy = dy * inv_len,
-                    udz = dz * inv_len;
-        const float ddn_u = udx * nbx + udy * nby + udz * nbz;
-        const float par = w[R_PARAM];
-        ndx = udx - 2.0f * ddn_u * nbx + par * bx;
-        ndy = udy - 2.0f * ddn_u * nby + par * by;
-        ndz = udz - 2.0f * ddn_u * nbz + par * bz;
-        if (!(ndx * nbx + ndy * nby + ndz * nbz > 0.0f)) break;
-      }
-      if (diel && mat == MAT_DIELECTRIC) {
-        // dielectric with Schlick's reflect-or-refract draw (scatter word
-        // 3), the reference's exit cosine ref_idx·(d·n)/|d| included
-        // (reference src/material.rs:105-126)
-        const float inv_len = 1.0f / sqrtf(a_dd);
-        const float udx = dx * inv_len, udy = dy * inv_len,
-                    udz = dz * inv_len;
-        const float par = w[R_PARAM];
-        const float ddn = dx * nbx + dy * nby + dz * nbz;
-        const float d_len = sqrtf(a_dd);
-        const bool exiting = ddn > 0.0f;
-        const float sgn = exiting ? -1.0f : 1.0f;
-        const float onx = sgn * nbx, ony = sgn * nby, onz = sgn * nbz;
-        const float eta = exiting ? par : 1.0f / par;
-        const float cosine = exiting ? par * ddn / d_len : -ddn / d_len;
-        const float dt_u = udx * onx + udy * ony + udz * onz;
-        const float disc_r = 1.0f - eta * eta * (1.0f - dt_u * dt_u);
-        bool refract = false;
-        if (disc_r > 0.0f) {
-          float r0 = (1.0f - par) / (1.0f + par);
-          r0 = r0 * r0;
-          const float one_c = 1.0f - cosine;
-          const float one_c2 = one_c * one_c;
-          const float schlick = r0 + (1.0f - r0) * one_c2 * one_c2 * one_c;
-          refract = us.w >= schlick;
-        }
-        if (refract) {
-          const float sq_r = sqrtf(disc_r);
-          ndx = eta * (udx - onx * dt_u) - onx * sq_r;
-          ndy = eta * (udy - ony * dt_u) - ony * sq_r;
-          ndz = eta * (udz - onz * dt_u) - onz * sq_r;
-        } else {
-          ndx = dx - 2.0f * ddn * nbx;
-          ndy = dy - 2.0f * ddn * nby;
-          ndz = dz - 2.0f * ddn * nbz;
-        }
-      }
-      if (!K1B) albedo();
-      if (diel && mat == MAT_DIELECTRIC) alb_r = alb_g = alb_b = 1.0f;
-      ox = px;
-      oy = py;
-      oz = pz;
-      dx = ndx;
-      dy = ndy;
-      dz = ndz;
-      thr_r = thr_r * alb_r;
-      thr_g = thr_g * alb_g;
-      thr_b = thr_b * alb_b;
-      if (rr && bounce >= rr_depth) {
-        // Russian roulette (pallas_tracer.py:2492-2506; not in the
-        // reference): the path survives with q = max(thr) clipped to
-        // [0.05, 1], word 0 of (pixel, sample, bounce, ROULETTE), and a
-        // survivor's throughput is multiplied by 1/q
-        const float q =
-            fminf(fmaxf(fmaxf(thr_r, fmaxf(thr_g, thr_b)), 0.05f), 1.0f);
-        const float u_rr = philox(pix, sample, (uint32_t)bounce,
-                                  STREAM_ROULETTE, k0, k1).x;
-        if (!(u_rr < q)) break;
-        const float inv_q = 1.0f / q;
-        thr_r = thr_r * inv_q;
-        thr_g = thr_g * inv_q;
-        thr_b = thr_b * inv_q;
-      }
-
-      if (dense_walk && med_event && ((dense >> m_ev) & 1) &&
-          bounce + 1 < max_depth) {
-        // the dense-medium walk (pallas_tracer.py:2540-2687): the next
-        // bounces test only the interior rows and race the media up to
-        // the nearest of them, with the main step's draws at the same
-        // bounce (MEDIUM for the flights, SCATTER for the direction)
-        int b = bounce + 1;
-        for (;;) {
-          const float a2 = dx * dx + dy * dy + dz * dz;
-          const float ia2 = 1.0f / a2;
-          const float iwx = safe_inv(dx), iwy = safe_inv(dy),
-                      iwz = safe_inv(dz);
-          // the nearest interior hit, each kind's t as the main step
-          // computes it for that row
-          float t_s = BIG;
-          for (int j = 0; j < n_int; ++j) {
-            const float* r = s_int + j * REC;
-            float t_p;
-            bool ok;
-            if (s_ikind[j] == INT_BOX) {
-              float tmn, tmx;
-              slab(r[R_C0], r[R_C0 + 1], r[R_C0 + 2], r[R_DC], r[R_DC + 1],
-                   r[R_DC + 2], ox, oy, oz, iwx, iwy, iwz, tmn, tmx);
-              t_p = tmn > T_MIN ? tmn : tmx;
-              ok = tmx > tmn && t_p > T_MIN;
-            } else if (s_ikind[j] == INT_RECT) {
-              const float d_kn = dx * r[R_KN] + dy * r[R_KN + 1] +
-                                 dz * r[R_KN + 2];
-              const bool np = d_kn != 0.0f;
-              const float ikn = 1.0f / (np ? d_kn : 1.0f);
-              t_p = (r[R_KOFF] -
-                     (ox * r[R_KN] + oy * r[R_KN + 1] + oz * r[R_KN + 2])) *
-                    ikn;
-              const float xa =
-                  (ox * r[R_AN] + oy * r[R_AN + 1] + oz * r[R_AN + 2]) +
-                  t_p * (dx * r[R_AN] + dy * r[R_AN + 1] + dz * r[R_AN + 2]) -
-                  r[R_AOFF];
-              const float yb =
-                  (ox * r[R_BN] + oy * r[R_BN + 1] + oz * r[R_BN + 2]) +
-                  t_p * (dx * r[R_BN] + dy * r[R_BN + 1] + dz * r[R_BN + 2]) -
-                  r[R_BOFF];
-              ok = np && t_p > T_MIN && xa >= r[R_A0] && xa <= r[R_A1] &&
-                   yb >= r[R_B0] && yb <= r[R_B1];
-            } else {
-              float cx, cy, cz;
-              center(r, moving, time, cx, cy, cz);
+            if (STATS) tests_s += (uint32_t)cnt;
+            for (int q = start; q < start + cnt; ++q) {
+              const float* r = dyn + (size_t)q * REC;
+              float cx = __ldg(r + R_C0), cy = __ldg(r + R_C0 + 1),
+                    cz = __ldg(r + R_C0 + 2);
+              if (moving) {
+                const float frac =
+                    (time - __ldg(r + R_T0)) * __ldg(r + R_INV_DT);
+                cx = cx + frac * __ldg(r + R_DC);
+                cy = cy + frac * __ldg(r + R_DC + 1);
+                cz = cz + frac * __ldg(r + R_DC + 2);
+              }
               const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
               const float bq = ocx * dx + ocy * dy + ocz * dz;
-              const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2];
-              const float disc = bq * bq - a2 * cq;
-              ok = disc > 0.0f;
-              const float sq = sqrtf(ok ? disc : 1.0f);
-              const float t_near = (-bq - sq) * ia2;
-              const float t_far = (-bq + sq) * ia2;
-              t_p = t_near > T_MIN ? t_near : t_far;
-              ok = ok && t_p > T_MIN;
+              const float cq =
+                  ocx * ocx + ocy * ocy + ocz * ocz - __ldg(r + R_R2);
+              const float disc = bq * bq - a_dd * cq;
+              if (disc > 0.0f) {
+                const float sq = sqrtf(disc);
+                const float t_near = (-bq - sq) * inv_a;
+                const float t_far = (-bq + sq) * inv_a;
+                const float t_sel = t_near > T_MIN ? t_near : t_far;
+                if (t_sel > T_MIN && t_sel < t_d) {
+                  t_d = t_sel;
+                  wd = q;
+                }
+              }
             }
-            if (ok) t_s = fminf(t_s, t_p);
           }
-          int mw;
-          const float t_m =
-              media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a2,
-                         ia2, t_s, pix, sample, (uint32_t)b, k0, k1, mw);
-          if (!(t_m < BIG)) {
-            // no scatter before the nearest interior surface: the next
-            // main step traces this segment with no medium event
-            skip_med = true;
-            break;
+          if (wd >= 0) {
+            // winner resolve: normal (o + t·d − c(time))·inv_r, then the flip
+            // (pallas_tracer.py:2097-2148)
+            const float* r = dyn + (size_t)wd * REC;
+            float cx, cy, cz;
+            center(r, moving, time, cx, cy, cz);
+            const float inv_r = 1.0f / r[R_RADIUS];
+            const float flip = r[R_FLIP];
+            nbx = (((ox + t_d * dx) - cx) * inv_r) * flip;
+            nby = (((oy + t_d * dy) - cy) * inv_r) * flip;
+            nbz = (((oz + t_d * dz) - cz) * inv_r) * flip;
+            t_best = t_d;
+            w_dyn = r;
+          } else if (wb >= 0) {
+            // box winner resolve: the face whose slab t on the chosen side
+            // (entry beyond T_MIN, else exit) equals t, ties x → y → z; the
+            // normal +axis like the reference's rects, then the flip
+            // (pallas_tracer.py:2110-2150)
+            const float* r = box + (size_t)wb * REC;
+            const float t0x = (r[R_C0] - ox) * inv_dx,
+                        t1x = (r[R_DC] - ox) * inv_dx;
+            const float t0y = (r[R_C0 + 1] - oy) * inv_dy,
+                        t1y = (r[R_DC + 1] - oy) * inv_dy;
+            const float t0z = (r[R_C0 + 2] - oz) * inv_dz,
+                        t1z = (r[R_DC + 2] - oz) * inv_dz;
+            const bool use_en =
+                fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                      fminf(t0z, t1z)) > T_MIN;
+            const float tx_c = use_en ? fminf(t0x, t1x) : fmaxf(t0x, t1x);
+            const float ty_c = use_en ? fminf(t0y, t1y) : fmaxf(t0y, t1y);
+            const bool is_x = t_box == tx_c;
+            const bool is_y = t_box == ty_c && t_box != tx_c;
+            const float flip = r[R_FLIP];
+            nbx = (is_x ? 1.0f : 0.0f) * flip;
+            nby = (is_y ? 1.0f : 0.0f) * flip;
+            nbz = (is_x || is_y ? 0.0f : 1.0f) * flip;
+            t_best = t_box;
+            w_dyn = r;
           }
-          // isotropic rescatter at the event (reference
-          // src/material.rs:164-168)
-          const Uniforms uw =
-              philox(pix, sample, (uint32_t)b, STREAM_SCATTER, k0, k1);
-          ox = ox + t_m * dx;
-          oy = oy + t_m * dy;
-          oz = oz + t_m * dz;
-          ball(uw, dx, dy, dz);
-          thr_r = thr_r * s_med[mw * MEDREC + M_ALB];
-          thr_g = thr_g * s_med[mw * MEDREC + M_ALB + 1];
-          thr_b = thr_b * s_med[mw * MEDREC + M_ALB + 2];
-          ++b;
-          if (!((dense >> mw) & 1) || b >= max_depth) break;
         }
-        bounce = b - 1;
+
+        // the nearest medium scatter event on [T_MIN, closest surface]
+        // takes the hit over: isotropic, the medium's albedo, no emission
+        // (pallas_tracer.py:2204-2266); none on a segment the walk handed
+        // over
+        bool med_event = false;
+        int m_ev = -1;
+        if (media && !skip_med) {
+          const float t_med =
+              media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a_dd,
+                         inv_a, t_best, pix, sample, (uint32_t)bounce, k0, k1,
+                         m_ev);
+          if (t_med < t_best) {
+            med_event = true;
+            t_best = t_med;
+          }
+        }
+        skip_med = false;
+
+        if (win < 0 && !(DYN && w_dyn != nullptr) && !med_event) {
+          // a miss adds the background and ends the path (reference
+          // src/color.rs:14-22); black adds nothing
+          if (sky) {
+            const float inv_len = 1.0f / sqrtf(a_dd);
+            const float ty = 0.5f * (dy * inv_len + 1.0f);
+            rad_r += thr_r * (1.0f - 0.5f * ty);
+            rad_g += thr_g * (1.0f - 0.3f * ty);
+            rad_b += thr_b;
+          }
+          break;
+        }
+        // the winner's record row, in shared (unrolled) or device (box,
+        // dynamic) memory; not read after a medium event
+        const float* w = DYN && w_dyn != nullptr ? w_dyn : s_rec + win * REC;
+        // the value at the hit point p of the texture whose fields start at
+        // t (a record row's R_ALB or a medium's M_ALB: the same T_* columns):
+        // its colour; where sin(10x)·sin(10y)·sin(10z) < 0 a checker's odd
+        // colour (reference src/texture.rs:40-47); the marble (66-70); the
+        // nearest texel (86-108, clamped to the image's true size, v flipped,
+        // one read of the packed atlas) at the winner's UV: a medium's
+        // u = v = 0 (src/medium.rs:44-50), an image rect's in its world
+        // frame from t_best as the closest-hit loop computes its position
+        // (pallas_tracer.py:1719-1735), else the sphere UV (src/sphere.rs:
+        // 7-15; `_atan2`/`_asin` are the math library's here) of the normal
+        // before the flip (2312-2317)
+        auto texture = [&](const float* t, float px, float py, float pz,
+                           float& r, float& g, float& b) {
+          r = t[T_ALB];
+          g = t[T_ALB + 1];
+          b = t[T_ALB + 2];
+          if (checker && t[T_CHK] > 0.0f) {
+            const float sines =
+                sinf(10.0f * px) * sinf(10.0f * py) * sinf(10.0f * pz);
+            if (sines < 0.0f) {
+              r = t[T_ODD];
+              g = t[T_ODD + 1];
+              b = t[T_ODD + 2];
+            }
+          }
+          if (noise && t[T_NOISE] > 0.0f) {
+            // marble, 0.5·(1 + sin(scale·x + 5·turb(p)))
+            const float turb = turb3(px, py, pz, perlin_word);
+            r = g = b = 0.5f * (1.0f + sinf(t[T_NSCALE] * px + 5.0f * turb));
+          }
+          if (image && t[T_IMG] > 0.0f) {
+            float uu = 0.0f, vv = 0.0f;
+            if (!med_event && uv_carry && w[R_IS_SPHERE] == 0.0f) {
+              const float xa = (ox * w[R_AN] + oy * w[R_AN + 1] +
+                                oz * w[R_AN + 2]) +
+                               t_best * (dx * w[R_AN] + dy * w[R_AN + 1] +
+                                         dz * w[R_AN + 2]) -
+                               w[R_AOFF];
+              const float yb = (ox * w[R_BN] + oy * w[R_BN + 1] +
+                                oz * w[R_BN + 2]) +
+                               t_best * (dx * w[R_BN] + dy * w[R_BN + 1] +
+                                         dz * w[R_BN + 2]) -
+                               w[R_BOFF];
+              uu = (xa - w[R_A0]) * (1.0f / (w[R_A1] - w[R_A0]));
+              vv = (yb - w[R_B0]) * (1.0f / (w[R_B1] - w[R_B0]));
+            } else if (!med_event) {
+              float nux = nbx, nuy = nby, nuz = nbz;
+              if (img_flip) {
+                const float fl = w[R_FLIP];
+                nux = nbx * fl;
+                nuy = nby * fl;
+                nuz = nbz * fl;
+              }
+              const float phi = atan2f(nuz, nux);
+              const float theta = asinf(fminf(fmaxf(nuy, -1.0f), 1.0f));
+              uu = 1.0f - (phi + PI_F) * INV_2PI;
+              vv = (theta + (compat_uv ? TWO_OVER_PI : HALF_PI)) * INV_PI;
+            }
+            const float iw = t[T_IMG_W], ih = t[T_IMG_H];
+            const int ii = min(max((int)(uu * iw), 0), (int)iw - 1);
+            const int jj = min(max((int)((1.0f - vv) * ih), 0), (int)ih - 1);
+            const int jrow =
+                min(max((int)t[T_IMG_BASE] + jj, 0), atlas_rows - 1);
+            const int texel = __ldg(atlas + (size_t)jrow * atlas_w +
+                                    min(max(ii, 0), atlas_w - 1));
+            r = (float)((texel >> 16) & 255) / 255.0f;
+            g = (float)((texel >> 8) & 255) / 255.0f;
+            b = (float)(texel & 255) / 255.0f;
+          }
+        };
+        float mat = MAT_ISOTROPIC;
+        if (!med_event) {
+          // emission (reference src/color.rs:8-22): a light's colour, or a
+          // textured light's texture value (src/material.rs:133-151); solid
+          // lights keep this cheap path
+          float er = w[R_EMIT], eg = w[R_EMIT + 1], eb = w[R_EMIT + 2];
+          if (emis_tex && w[R_MAT] == MAT_DIFFUSE_LIGHT &&
+              (w[R_CHECKER] > 0.0f || w[R_NOISE] > 0.0f || w[R_IMG] > 0.0f))
+            texture(w + R_ALB, ox + t_best * dx, oy + t_best * dy,
+                    oz + t_best * dz, er, eg, eb);
+          rad_r += thr_r * er;
+          rad_g += thr_g * eg;
+          rad_b += thr_b * eb;
+          mat = w[R_MAT];
+        }
+        // a light does not scatter; scatter only below the depth cap
+        // (src/color.rs:9)
+        if (mat == MAT_DIFFUSE_LIGHT || bounce >= max_depth) break;
+        const float px = ox + t_best * dx, py = oy + t_best * dy,
+                    pz = oz + t_best * dz;
+        // the albedo: the winner's texture at the hit point, or at a medium
+        // event the medium's (pallas_tracer.py:2237-2266): its colour, or
+        // under med_tex its texture. K1B takes it here, before the scatter
+        // draws (taken after them, ptxas gave K1B 80 registers and final_scene
+        // ran 10% slower on an H100); K1a after the scatter, where its SASS
+        // has always taken it
+        float alb_r, alb_g, alb_b;
+        auto albedo = [&]() {
+          if (med_event && !med_tex) {
+            alb_r = s_med[m_ev * MEDREC + M_ALB];
+            alb_g = s_med[m_ev * MEDREC + M_ALB + 1];
+            alb_b = s_med[m_ev * MEDREC + M_ALB + 2];
+          } else {
+            texture(med_event ? s_med + m_ev * MEDREC + M_ALB : w + R_ALB, px,
+                    py, pz, alb_r, alb_g, alb_b);
+          }
+        };
+        if (K1B) albedo();
+        // lambertian: n + a uniform point in the unit ball
+        // (reference src/material.rs:49-53; ops/rng.in_unit_sphere)
+        const Uniforms us =
+            philox(pix, sample, (uint32_t)bounce, STREAM_SCATTER, k0, k1);
+        float bx, by, bz;
+        ball(us, bx, by, bz);
+        float ndx = nbx + bx, ndy = nby + by, ndz = nbz + bz;
+        if (med_event) {
+          // isotropic: the bare ball sample (reference src/material.rs:164-168)
+          ndx = bx;
+          ndy = by;
+          ndz = bz;
+        }
+        if (metal && mat == MAT_METAL) {
+          // reflect(unit(d), n) + fuzz·ball; the path ends when that points
+          // into the surface (reference src/material.rs:76-87)
+          const float inv_len = 1.0f / sqrtf(a_dd);
+          const float udx = dx * inv_len, udy = dy * inv_len,
+                      udz = dz * inv_len;
+          const float ddn_u = udx * nbx + udy * nby + udz * nbz;
+          const float par = w[R_PARAM];
+          ndx = udx - 2.0f * ddn_u * nbx + par * bx;
+          ndy = udy - 2.0f * ddn_u * nby + par * by;
+          ndz = udz - 2.0f * ddn_u * nbz + par * bz;
+          if (!(ndx * nbx + ndy * nby + ndz * nbz > 0.0f)) break;
+        }
+        if (diel && mat == MAT_DIELECTRIC) {
+          // dielectric with Schlick's reflect-or-refract draw (scatter word
+          // 3), the reference's exit cosine ref_idx·(d·n)/|d| included
+          // (reference src/material.rs:105-126)
+          const float inv_len = 1.0f / sqrtf(a_dd);
+          const float udx = dx * inv_len, udy = dy * inv_len,
+                      udz = dz * inv_len;
+          const float par = w[R_PARAM];
+          const float ddn = dx * nbx + dy * nby + dz * nbz;
+          const float d_len = sqrtf(a_dd);
+          const bool exiting = ddn > 0.0f;
+          const float sgn = exiting ? -1.0f : 1.0f;
+          const float onx = sgn * nbx, ony = sgn * nby, onz = sgn * nbz;
+          const float eta = exiting ? par : 1.0f / par;
+          const float cosine = exiting ? par * ddn / d_len : -ddn / d_len;
+          const float dt_u = udx * onx + udy * ony + udz * onz;
+          const float disc_r = 1.0f - eta * eta * (1.0f - dt_u * dt_u);
+          bool refract = false;
+          if (disc_r > 0.0f) {
+            float r0 = (1.0f - par) / (1.0f + par);
+            r0 = r0 * r0;
+            const float one_c = 1.0f - cosine;
+            const float one_c2 = one_c * one_c;
+            const float schlick = r0 + (1.0f - r0) * one_c2 * one_c2 * one_c;
+            refract = us.w >= schlick;
+          }
+          if (refract) {
+            const float sq_r = sqrtf(disc_r);
+            ndx = eta * (udx - onx * dt_u) - onx * sq_r;
+            ndy = eta * (udy - ony * dt_u) - ony * sq_r;
+            ndz = eta * (udz - onz * dt_u) - onz * sq_r;
+          } else {
+            ndx = dx - 2.0f * ddn * nbx;
+            ndy = dy - 2.0f * ddn * nby;
+            ndz = dz - 2.0f * ddn * nbz;
+          }
+        }
+        if (!K1B) albedo();
+        if (diel && mat == MAT_DIELECTRIC) alb_r = alb_g = alb_b = 1.0f;
+        ox = px;
+        oy = py;
+        oz = pz;
+        dx = ndx;
+        dy = ndy;
+        dz = ndz;
+        thr_r = thr_r * alb_r;
+        thr_g = thr_g * alb_g;
+        thr_b = thr_b * alb_b;
+        if (rr && bounce >= rr_depth) {
+          // Russian roulette (pallas_tracer.py:2492-2506; not in the
+          // reference): the path survives with q = max(thr) clipped to
+          // [0.05, 1], word 0 of (pixel, sample, bounce, ROULETTE), and a
+          // survivor's throughput is multiplied by 1/q
+          const float q =
+              fminf(fmaxf(fmaxf(thr_r, fmaxf(thr_g, thr_b)), 0.05f), 1.0f);
+          const float u_rr = philox(pix, sample, (uint32_t)bounce,
+                                    STREAM_ROULETTE, k0, k1).x;
+          if (!(u_rr < q)) break;
+          const float inv_q = 1.0f / q;
+          thr_r = thr_r * inv_q;
+          thr_g = thr_g * inv_q;
+          thr_b = thr_b * inv_q;
+        }
+
+        if (dense_walk && med_event && ((dense >> m_ev) & 1) &&
+            bounce + 1 < max_depth) {
+          // the dense-medium walk (pallas_tracer.py:2540-2687): the next
+          // bounces test only the interior rows and race the media up to
+          // the nearest of them, with the main step's draws at the same
+          // bounce (MEDIUM for the flights, SCATTER for the direction)
+          int b = bounce + 1;
+          for (;;) {
+            if (STATS) ++nb;
+            const float a2 = dx * dx + dy * dy + dz * dz;
+            const float ia2 = 1.0f / a2;
+            const float iwx = safe_inv(dx), iwy = safe_inv(dy),
+                        iwz = safe_inv(dz);
+            // the nearest interior hit, each kind's t as the main step
+            // computes it for that row
+            float t_s = BIG;
+            for (int j = 0; j < n_int; ++j) {
+              const float* r = s_int + j * REC;
+              float t_p;
+              bool ok;
+              if (s_ikind[j] == INT_BOX) {
+                float tmn, tmx;
+                slab(r[R_C0], r[R_C0 + 1], r[R_C0 + 2], r[R_DC], r[R_DC + 1],
+                     r[R_DC + 2], ox, oy, oz, iwx, iwy, iwz, tmn, tmx);
+                t_p = tmn > T_MIN ? tmn : tmx;
+                ok = tmx > tmn && t_p > T_MIN;
+              } else if (s_ikind[j] == INT_RECT) {
+                const float d_kn = dx * r[R_KN] + dy * r[R_KN + 1] +
+                                   dz * r[R_KN + 2];
+                const bool np = d_kn != 0.0f;
+                const float ikn = 1.0f / (np ? d_kn : 1.0f);
+                t_p = (r[R_KOFF] -
+                       (ox * r[R_KN] + oy * r[R_KN + 1] + oz * r[R_KN + 2])) *
+                      ikn;
+                const float xa =
+                    (ox * r[R_AN] + oy * r[R_AN + 1] + oz * r[R_AN + 2]) +
+                    t_p * (dx * r[R_AN] + dy * r[R_AN + 1] + dz * r[R_AN + 2]) -
+                    r[R_AOFF];
+                const float yb =
+                    (ox * r[R_BN] + oy * r[R_BN + 1] + oz * r[R_BN + 2]) +
+                    t_p * (dx * r[R_BN] + dy * r[R_BN + 1] + dz * r[R_BN + 2]) -
+                    r[R_BOFF];
+                ok = np && t_p > T_MIN && xa >= r[R_A0] && xa <= r[R_A1] &&
+                     yb >= r[R_B0] && yb <= r[R_B1];
+              } else {
+                float cx, cy, cz;
+                center(r, moving, time, cx, cy, cz);
+                const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+                const float bq = ocx * dx + ocy * dy + ocz * dz;
+                const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2];
+                const float disc = bq * bq - a2 * cq;
+                ok = disc > 0.0f;
+                const float sq = sqrtf(ok ? disc : 1.0f);
+                const float t_near = (-bq - sq) * ia2;
+                const float t_far = (-bq + sq) * ia2;
+                t_p = t_near > T_MIN ? t_near : t_far;
+                ok = ok && t_p > T_MIN;
+              }
+              if (ok) t_s = fminf(t_s, t_p);
+            }
+            int mw;
+            const float t_m =
+                media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a2,
+                           ia2, t_s, pix, sample, (uint32_t)b, k0, k1, mw);
+            if (!(t_m < BIG)) {
+              // no scatter before the nearest interior surface: the next
+              // main step traces this segment with no medium event
+              skip_med = true;
+              break;
+            }
+            // isotropic rescatter at the event (reference
+            // src/material.rs:164-168)
+            const Uniforms uw =
+                philox(pix, sample, (uint32_t)b, STREAM_SCATTER, k0, k1);
+            ox = ox + t_m * dx;
+            oy = oy + t_m * dy;
+            oz = oz + t_m * dz;
+            ball(uw, dx, dy, dz);
+            thr_r = thr_r * s_med[mw * MEDREC + M_ALB];
+            thr_g = thr_g * s_med[mw * MEDREC + M_ALB + 1];
+            thr_b = thr_b * s_med[mw * MEDREC + M_ALB + 2];
+            ++b;
+            if (!((dense >> mw) & 1) || b >= max_depth) break;
+          }
+          bounce = b - 1;
+        }
+      }
+      acc_r += (double)rad_r;
+      acc_g += (double)rad_g;
+      acc_b += (double)rad_b;
+      if (STATS) {
+        // the warp has reconverged: it ran this sample until its longest
+        // path ended
+        busy += nb;
+        steps += __reduce_max_sync(0xffffffffu, nb);
       }
     }
-    acc_r += (double)rad_r;
-    acc_g += (double)rad_g;
-    acc_b += (double)rad_b;
+    if (valid) {
+      sums[pix] = acc_r;
+      sums[n_pix + pix] = acc_g;
+      sums[2 * n_pix + pix] = acc_b;
+      if (STATS) {
+        stats[pix] += busy;
+        stats[n_pix + pix] += tests_s;
+        stats[2 * n_pix + pix] += tests_b;
+      }
+    }
   }
-  sums[pix] = acc_r;
-  sums[n_pix + pix] = acc_g;
-  sums[2 * n_pix + pix] = acc_b;
+  if (STATS && (threadIdx.x & 31) == 0)
+    stats[3 * (size_t)n_pix + tid / 32] += steps;
 }
 
 using TraceFn = void (*)(const float*, int, const int*, int, const float*,
@@ -1010,15 +1080,24 @@ using TraceFn = void (*)(const float*, int, const int*, int, const float*,
                          int, int, uint32_t, uint32_t, int, int, int,
                          const float*, int, int, const int*, int, int,
                          uint32_t, const float*, int, const float*, int,
-                         const float*, int, const int*, int, int);
+                         const float*, int, const int*, int, int, const int*,
+                         int, long long*);
 
 // the instantiations, indexed [K1B][DYN][LEAF_SMEM]; without a dynamic
 // table there is no leaf table
 const TraceFn KERNELS[2][2][2] = {
-    {{trace_k1<false, false, false>, trace_k1<false, false, false>},
-     {trace_k1<false, true, false>, trace_k1<false, true, true>}},
-    {{trace_k1<true, false, false>, trace_k1<true, false, false>},
-     {trace_k1<true, true, false>, trace_k1<true, true, true>}}};
+    {{trace_k1<false, false, false, false>,
+      trace_k1<false, false, false, false>},
+     {trace_k1<false, true, false, false>,
+      trace_k1<false, true, true, false>}},
+    {{trace_k1<true, false, false, false>,
+      trace_k1<true, false, false, false>},
+     {trace_k1<true, true, false, false>, trace_k1<true, true, true, false>}}};
+// K1f's counters ride in two instantiations of their own, K1B and DYN with
+// every section a runtime branch, so they serve every scene and leave the
+// production kernels' registers as they were; indexed [LEAF_SMEM]
+const TraceFn STATS_KERNELS[2] = {trace_k1<true, true, false, true>,
+                                  trace_k1<true, true, true, true>};
 
 }  // namespace
 
@@ -1031,8 +1110,15 @@ const TraceFn KERNELS[2][2][2] = {
 // HSEED) mod 2^32; box: f32[n_box, REC]; interior: f32[n_int, REC] with
 // interior_kind int32[n_int] (ops/tracer.py INT_*); rr_depth: the first
 // bounce of Russian roulette, ≥ 0 exactly when FEAT_RR is set (never with
-// the walk). Launches on `stream`; returns cudaGetLastError() after the
-// launch.
+// the walk). pix_table: null, and thread i renders pixel i; or int32[n_table]
+// (n_table a multiple of kpix·TILE), and thread j of tile g renders the
+// pixels pix_table[(g·kpix + b)·TILE + j], b < kpix, a slot outside
+// [0, nx·ny) none (K1f); a pixel named twice races with itself. stats: null, or int64[3·nx·ny + threads / 32] to which the
+// launch adds per pixel its segments, its dynamic sphere member tests and
+// its box member tests (three rows), then per warp Σ over samples of its
+// longest sample's segments; threads = n_table / kpix with a table, else
+// nx·ny rounded up to THREADS. Launches on `stream`; returns
+// cudaGetLastError() after the launch.
 extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int n_walk, const float* dyn, int n_dyn,
                            const float* leaves, int n_leaf, const float* cam,
@@ -1044,7 +1130,8 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            const float* box, int n_box, const float* bleaves,
                            int n_bleaf, const float* interior, int n_int,
                            const int* interior_kind, int dense,
-                           int rr_depth, void* stream) {
+                           int rr_depth, const int* pix_table, int n_table,
+                           int kpix, long long* stats, void* stream) {
   if (n_rec <= 0 || n_rec > MAX_PRIMS || n_walk < 0 || n_walk > n_rec ||
       n_dyn < 0 || n_leaf < 0 || feats < 0 || feats > FEAT_ALL ||
       n_med < 0 || n_med > MAX_MEDIA || ((feats & FEAT_MEDIA) != 0) !=
@@ -1054,7 +1141,9 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       ((feats & FEAT_DENSE_WALK) && (n_int == 0 || dense == 0 ||
                                      !(feats & FEAT_MEDIA))) ||
       ((feats & FEAT_RR) != 0) != (rr_depth >= 0) ||
-      ((feats & FEAT_RR) && (feats & FEAT_DENSE_WALK)))
+      ((feats & FEAT_RR) && (feats & FEAT_DENSE_WALK)) || kpix < 1 ||
+      (pix_table == nullptr ? kpix != 1
+                            : n_table <= 0 || n_table % (kpix * TILE) != 0))
     return (int)cudaErrorInvalidValue;
   if (n_dyn == 0) n_leaf = 0;
   if (n_box == 0) n_bleaf = 0;
@@ -1067,12 +1156,20 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                          base + leaf_bytes <= SMEM_BUDGET;
   const size_t smem = base + (leaf_smem ? leaf_bytes : 0);
   const int n_pix = nx * ny;
-  const int blocks = (n_pix + THREADS - 1) / THREADS;
-  KERNELS[feats != 0][n_dyn > 0 || n_box > 0][leaf_smem]<<<
-      blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  const int blocks = pix_table != nullptr ? n_table / kpix / THREADS
+                                          : (n_pix + THREADS - 1) / THREADS;
+  // a table runs in a DYN instantiation (zero-trip table loops without
+  // tables), the counters in their own
+  const TraceFn kernel =
+      stats != nullptr
+          ? STATS_KERNELS[leaf_smem]
+          : KERNELS[feats != 0][n_dyn > 0 || n_box > 0 || pix_table != nullptr]
+                   [leaf_smem];
+  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       rec, n_rec, walk, n_walk, dyn, n_dyn, leaves, n_leaf, cam, feats, sums,
       nx, ny, seed_lo, seed_hi, sample0, n_samples, max_depth, med, n_med,
       med_box, atlas, atlas_rows, atlas_w, perlin_word, box, n_box, bleaves,
-      n_bleaf, interior, n_int, interior_kind, dense, rr_depth);
+      n_bleaf, interior, n_int, interior_kind, dense, rr_depth, pix_table,
+      kpix, stats);
   return (int)cudaGetLastError();
 }

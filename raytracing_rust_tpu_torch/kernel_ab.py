@@ -7,12 +7,12 @@ this checkout and another one.
 DIR is another checkout of the repository, e.g. the parent commit unpacked
 with `git archive` into a directory `.gitignore` lists. On one CUDA card the
 script builds both checkouts' kernels, compares the SASS of the K1a
-instantiation (`trace_k1<false, false, false>`, cornell_box's kernel) line
-by line without addresses, and times the kernel in each checkout in turns
-(other, this, this, other) on cornell_box_baseline 800×800 at 100 spp,
-random_spheres 1280×720 at 100 spp, two_spheres 1280×720 at 10 spp and
-final_scene 800×800 at 10 spp, depth 50, by CUDA events over repeated
-launches after a warm-up. Each
+instantiation (`trace_k1<false, false, false, false>`, cornell_box's
+kernel) line by line without addresses, and times the kernel in each
+checkout in turns (other, this, this, other) on cornell_box_baseline
+800×800 at 100 spp, random_spheres 1280×720 at 100 spp, two_spheres
+1280×720 at 10 spp and final_scene 800×800 at 10 spp, depth 50, by CUDA
+events over repeated launches after a warm-up. Each
 timing run is a fresh process in that checkout, so each imports its own
 package. The sums' totals show whether both checkouts compute the same
 image. With --grad it times K2 and K3 instead, in the same turns, on the

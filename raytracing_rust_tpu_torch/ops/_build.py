@@ -83,11 +83,14 @@ def load() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.rt_trace_k1.argtypes = [p, i, p, i, p, i, p, i, p, i, p, i, i, u, u,
                                 i, i, i, p, i, i, p, i, i, u, p, i, p, i, p,
-                                i, p, i, i, p]
+                                i, p, i, i, p, i, i, p, p]
     lib.rt_trace_k1.restype = i
     lib.rt_grad_fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.rt_grad_fwd.restype = i
     lib.rt_grad_bwd.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                 i, i, i, p]
     lib.rt_grad_bwd.restype = i
+    f = ctypes.c_float
+    lib.rt_fp32_peak.argtypes = [p, i, i, i, f, f, i, i, p]
+    lib.rt_fp32_peak.restype = i
     return lib

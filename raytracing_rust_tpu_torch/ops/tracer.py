@@ -1,5 +1,4 @@
-"""The forward megakernel (K1a-K1e, the lattice corners, K1g) and its host
-side.
+"""The forward megakernel (K1a-K1g, the lattice corners) and its host side.
 
 Counterpart of `raytracing_rust_tpu/ops/pallas_tracer.py`, cut to what the
 kernel covers: spheres (moving ones included) and rect frame groups from a
@@ -30,7 +29,11 @@ form no box) raises `UnsupportedScene` here too.
   (`csrc/tracer.cu`): on CUDA tensors it launches the kernel, on CPU
   tensors it runs `trace_plain`, the same computation in plain torch.
 * `render_kernel` is the counterpart of `render_pallas`: sample chunks
-  through `trace`, f64 sums on the device, the reference's gamma.
+  through `trace`, f64 sums on the device, the reference's gamma; for a
+  scene with a dynamic sphere or box table at spp ≥ 8, first the cost
+  probe (`cost_permutation`, K1f's stats launch) and the balanced pixel
+  table (`balanced_pix_table`) the kernel then renders from, as JAX's
+  default render does.
 
 Random numbers are Philox4x32-10 keyed by the seed and addressed by
 (pixel, sample, bounce, stream); `ops/rng.py` documents the slots.
@@ -38,6 +41,7 @@ Random numbers are Philox4x32-10 keyed by the seed and addressed by
 
 from __future__ import annotations
 
+import hashlib
 import math
 from dataclasses import dataclass
 
@@ -142,6 +146,24 @@ MAX_INTERIOR = 24
 # interior row kinds (TraceOperands.interior_kind)
 INT_SPHERE, INT_RECT, INT_BOX = 0, 1, 2
 
+# K1f's balanced layout (pallas_tracer.py SUB, LANES, TILE, and the JAX
+# defaults of RT_KPIX, RT_PROBE_SPP, RT_SMOOTH, RT_BUCKETS; the port reads
+# no environment variable for them): a tile of SUB × LANES threads, KPIX
+# pixels a thread, a probe of PROBE_SPP samples at seed PROBE_SEED, a box
+# filter of SMOOTH × SMOOTH pixels over its cost image and BUCKETS rank
+# buckets
+SUB = 8
+LANES = 1024
+TILE = SUB * LANES
+KPIX = 4
+PROBE_SPP = 4
+PROBE_SEED = 0x5BD1
+SMOOTH = 9
+BUCKETS = 32
+# threads in a block of the kernel (csrc/tracer.cu THREADS) and in a warp
+THREADS = 128
+WARP = 32
+
 # static kernel features: csrc/tracer.cu runs its K1B instantiations when
 # any is set, and branches on each inside them
 FEAT_SKY = 1
@@ -174,7 +196,10 @@ K1BE_FEATS = FEAT_SKY | FEAT_CHECKER | FEAT_METAL | FEAT_DIEL | FEAT_MOVING
 # dynamic sphere table, as K1E_BOX when it holds boxes, as K1C when it
 # shades noise or image textures, as K1D when it holds media, as K1D_WALK
 # when it runs the dense-medium walk, as K1_LATTICE when it runs any of
-# the lattice corners, and as K1G when it plays Russian roulette
+# the lattice corners, and as K1G when it plays Russian roulette; K1F counts
+# a launch that renders from a pixel table or fills the stats counters, and
+# of those K1F_TABLE the table launches and K1F_STATS the stats launches (a
+# stats launch runs its own instantiation, so it never counts as K1a)
 KERNEL_LAUNCHES = 0
 K1BE_LAUNCHES = 0
 K1C_LAUNCHES = 0
@@ -183,6 +208,26 @@ K1E_BOX_LAUNCHES = 0
 K1D_WALK_LAUNCHES = 0
 K1_LATTICE_LAUNCHES = 0
 K1G_LAUNCHES = 0
+K1F_LAUNCHES = 0
+K1F_TABLE_LAUNCHES = 0
+K1F_STATS_LAUNCHES = 0
+
+# f32 and integer operations of csrc/tracer.cu per item, counted from its
+# source (an add, multiply, compare or transcendental is one): a lane
+# bounce's fixed work (scatter Philox, ball sample, emission, new ray), a
+# camera sample, a sphere test, a rect test, a rect frame, a leaf slab, a
+# dynamic member, a medium, a Perlin marble (7 octaves × 8 corners), a
+# texel, a box member, a box leaf slab, a walk bounce's fixed work
+# (its scatter Philox, ball sample, new ray) and each interior row it
+# tests; a textured light's hit (its texture test, hit point and a
+# checker's three sines; a marble or a texel counted as such), a rect's
+# image UV (two frame dot products each way, the reciprocals), a textured
+# medium's event (its fields and a checker's sines) and a roulette draw
+# (a Philox call, the clipped maximum, the reciprocal and three multiplies)
+K1_OPS = dict(segment=160, sample=140, sphere=20, rect=14, frame=32,
+              leaf=24, member=20, medium=70, noise=2455, image=30, box=26,
+              box_leaf=24, walk=120, interior=22, emis_tex=20, rect_uv=34,
+              med_tex=17, rr=112)
 
 # lanes (pixel × sample) per chunk when the caller names no chunk: the plain
 # version holds every lane's state in memory, the kernel holds none
@@ -1074,7 +1119,7 @@ def _crossed(leaves, o, inv_d, t_d):
     return (tmx > torch.clamp(tmn, min=T_MIN)) & (tmn < t_d[:, None])
 
 
-def _closest_rows(hit_fn, table, leaves, o, inv_d, t_d):
+def _closest_rows(hit_fn, table, leaves, o, inv_d, t_d, tests=None):
     """The first strict minimum of a table's hits below t_d → (t, winner
     row or -1), as the kernel's culled scan in table order finds it.
 
@@ -1086,12 +1131,17 @@ def _closest_rows(hit_fn, table, leaves, o, inv_d, t_d):
     changes the work, not the winner. Within a block the first minimum
     wins (torch.min returns its first index), across blocks a strict <,
     so the winner is the one a sequential scan in table order keeps.
+
+    tests (int64 per lane), when given, gathers the member tests the
+    kernel's own cull runs: the blocks are then single leaves, each tested
+    on the lanes that cross it before their best hit so far, as the kernel
+    tests them in order.
     """
     t_d = t_d.clone()
     win = torch.full(t_d.shape, -1, dtype=torch.int64, device=t_d.device)
     step = _block(t_d.numel(), t_d.device)
     if leaves.shape[0]:
-        cross = _crossed(leaves, o, inv_d, t_d)
+        cross = None if tests is not None else _crossed(leaves, o, inv_d, t_d)
         bounds = leaves[:, 6:8].to(torch.int64).tolist()
     else:
         cross = torch.ones((t_d.numel(), 1), dtype=torch.bool,
@@ -1100,11 +1150,17 @@ def _closest_rows(hit_fn, table, leaves, o, inv_d, t_d):
     c0 = 0
     while c0 < len(bounds):
         c1 = c0 + 1   # whole leaves, up to `step` rows
-        while (c1 < len(bounds)
+        while (tests is None and c1 < len(bounds)
                and bounds[c1][0] + bounds[c1][1] - bounds[c0][0] <= step):
             c1 += 1
         r0, r1 = bounds[c0][0], bounds[c1 - 1][0] + bounds[c1 - 1][1]
-        lanes = torch.nonzero(cross[:, c0:c1].any(dim=1)).squeeze(1)
+        if tests is None:
+            lanes = torch.nonzero(cross[:, c0:c1].any(dim=1)).squeeze(1)
+        else:
+            lanes = torch.nonzero(
+                _crossed(leaves[c0:c1], o, inv_d, t_d)[:, 0]
+                if leaves.shape[0] else cross[:, 0]).squeeze(1)
+            tests[lanes] += r1 - r0
         for q0 in range(r0, r1 if lanes.numel() else r0, step):
             t_p, ok = hit_fn(table[q0:min(q0 + step, r1)], lanes)
             mn, idx = torch.where(ok, t_p, BIG).min(dim=1)
@@ -1164,7 +1220,9 @@ def _interior_t(rows, kinds, o, d, a_dd, inv_a, time, moving):
 
 def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
                 seed: int, sample0: int, n_samples: int, max_depth: int,
-                counts: dict | None = None) -> torch.Tensor:
+                counts: dict | None = None, pix: torch.Tensor | None = None,
+                kpix: int = 1,
+                stats: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's computation in plain torch, on any device.
 
     Adds, for every pixel, the radiance of samples sample0 ..
@@ -1187,6 +1245,17 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     lane bounces of the dense-medium walk ("walk"), hits on a textured
     light ("emis_tex"), image lanes at a rect's UV ("rect_uv"), medium
     events of a textured medium ("med_tex") and roulette draws ("rr").
+
+    pix, kpix: K1f's pixel table (see `trace`); the pixels it names are
+    rendered, in its order, each into its own sums, so the sums equal the
+    scanline layout's bit for bit. stats, when given (`new_stats`), gathers
+    what the kernel's stats launch counts, added to it: per pixel its
+    segments, lane bounces of the walk included (so the row sums to
+    counts' "segments" + "walk"), and the dynamic sphere and box member
+    tests of the kernel's cull, leaf by leaf against the ray's best hit so
+    far (counts' "box" counts an exact cull's, against the final hit); per
+    warp of the launch's thread mapping, Σ over its threads' banks and
+    samples of the largest segment count among its 32 threads.
     """
     dev = sums.device
     f32 = torch.float32
@@ -1210,10 +1279,22 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     interior = ops.interior.cpu().tolist() if walk else []
     int_kind = ops.interior_kind.cpu().tolist() if walk else []
 
-    pix = torch.arange(n_pix, dtype=torch.int64, device=dev).repeat(n_samples)
+    if pix is None:
+        pixels = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    else:
+        pixels = pix.to(dev, torch.int64)
+        pixels = pixels[(pixels >= 0) & (pixels < n_pix)]
+    n_sel = pixels.numel()
+    pix_table = pix
+    pix = pixels.repeat(n_samples)
     smp = torch.arange(sample0, sample0 + n_samples, dtype=torch.int64,
-                       device=dev).repeat_interleave(n_pix)
+                       device=dev).repeat_interleave(n_sel)
     lanes = pix.numel()
+    # STATS: each lane's segments and member tests
+    if stats is not None:
+        nb_lane, ts_lane, tb_lane = (
+            torch.zeros(lanes, dtype=torch.int64, device=dev)
+            for _ in range(3))
 
     # -- camera rays (reference src/camera.rs:53-67, jitter tests/test.rs:66-68)
     u0, u1, u2, u3 = rng.draws(seed, pix, smp, 0, rng.STREAM_CAMERA)
@@ -1262,6 +1343,8 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         n_live = dx.numel()
         if counts is not None:
             counts["segments"] += n_live
+        if stats is not None:
+            nb_lane[live] += 1
         a_dd = dx * dx + dy * dy + dz * dz
         inv_a = 1.0 / a_dd
         t_best = torch.full_like(dx, BIG)
@@ -1326,12 +1409,15 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             # the box table, then (below) the dynamic sphere table, each
             # carrying only (t, winner) (pallas_tracer.py:1906-1942, boxes
             # first, so the first strict minimum keeps a box on a tie)
+            tests = None if stats is None else torch.zeros_like(bnc)
             t_b, wb = _closest_rows(
                 lambda rows, ln: _box_t(
                     [rows[None, :, R_C0 + a] for a in range(3)],
                     [rows[None, :, R_DC + a] for a in range(3)],
                     [x[ln, None] for x in o], [x[ln, None] for x in inv_d]),
-                box_dev, bleaf_dev, o, inv_d, t_best)
+                box_dev, bleaf_dev, o, inv_d, t_best, tests)
+            if stats is not None:
+                tb_lane[live] += tests
             # winner resolve: the face whose slab t on the chosen side
             # (entry beyond T_MIN, else exit) equals t, ties x → y → z,
             # normal +axis like the reference's rects, then the flip
@@ -1371,8 +1457,11 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
                                  [x[ln, None] for x in o],
                                  [x[ln, None] for x in d], a_dd[ln, None],
                                  inv_a[ln, None])
+            tests = None if stats is None else torch.zeros_like(bnc)
             t_d, wd = _closest_rows(sphere_rows, dyn_dev, leaf_dev, o, inv_d,
-                                    t_best)
+                                    t_best, tests)
+            if stats is not None:
+                ts_lane[live] += tests
             # winner resolve: normal (o + t·d − c(time))·inv_r, then the flip
             # (pallas_tracer.py:2097-2148)
             dwin = wd >= 0
@@ -1559,21 +1648,62 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             # a lane that just scattered in a dense medium, below the cap,
             # walks (pallas_tracer.py:2540-2562)
             dense_ev = med_ev & dense_of[m_win.clamp(min=0)]
+            wnb = None if stats is None else torch.zeros_like(bnc)
             _walk(ops.med_box, dense_of, med_table, med_dev, interior,
                   int_kind, o, d, thr, bnc, skip, time, moving,
                   torch.nonzero(dense_ev[keep] & (bnc < max_depth)).squeeze(1),
                   lambda idx, b, stream: rng.draws(seed, pix[live[idx]],
                                                    smp[live[idx]], b, stream),
-                  max_depth, counts)
+                  max_depth, counts, wnb)
+            if stats is not None:
+                nb_lane[live] += wnb
 
-    per_sample = rad.view(3, n_samples, n_pix)
+    per_sample = rad.view(3, n_samples, n_sel)
     for i in range(n_samples):
-        sums += per_sample[:, i].double()
+        if pix_table is None:
+            sums += per_sample[:, i].double()
+        else:
+            sums[:, pixels] += per_sample[:, i].double()
+    if stats is not None:
+        _add_stats(stats, n_pix, pixels, pix_table, kpix,
+                   nb_lane.view(n_samples, n_sel),
+                   ts_lane.view(n_samples, n_sel),
+                   tb_lane.view(n_samples, n_sel))
     return sums
 
 
+def _add_stats(stats, n_pix, pixels, pix_table, kpix, nb, ts, tb):
+    """Adds the per-(sample, pixel) segments nb and member tests ts, tb
+    ([n_samples, n_sel], pixels in `pixels` order) to a stats buffer: the
+    per-pixel rows, and each warp's steps under the kernel's thread
+    mapping (a thread per pixel, or thread j of tile g on slots
+    (g·kpix + b)·TILE + j of the table)."""
+    busy, sph, box, steps = stats_rows(stats, n_pix)
+    busy.index_add_(0, pixels, nb.sum(dim=0))
+    sph.index_add_(0, pixels, ts.sum(dim=0))
+    box.index_add_(0, pixels, tb.sum(dim=0))
+    n_samples = nb.shape[0]
+    threads = steps.numel() * WARP
+    if pix_table is None:
+        slot = torch.zeros((n_samples, 1, threads), dtype=torch.int64,
+                           device=nb.device)
+        slot[:, 0, :pixels.numel()] = nb
+    else:
+        flat = torch.zeros((n_samples, pix_table.numel()), dtype=torch.int64,
+                           device=nb.device)
+        slots = pix_table.to(nb.device)
+        flat[:, torch.nonzero((slots >= 0) & (slots < n_pix))
+             .squeeze(1)] = nb
+        grid = pix_table.numel() // (kpix * TILE)
+        slot = flat.view(n_samples, grid, kpix, TILE).transpose(1, 2) \
+            .reshape(n_samples, kpix, threads)
+    steps += slot.view(n_samples, -1, threads // WARP, WARP).amax(dim=-1) \
+        .sum(dim=(0, 1))
+
+
 def _walk(med_box, dense_of, med_table, med_dev, interior, int_kind, o, d,
-          thr, bnc, skip, time, moving, idx, draws, max_depth, counts):
+          thr, bnc, skip, time, moving, idx, draws, max_depth, counts,
+          steps=None):
     """The dense-medium walk (pallas_tracer.py:2543-2687) of the lanes idx,
     updating o, d, thr (lists of per-lane tensors), bnc and skip in place.
 
@@ -1585,11 +1715,14 @@ def _walk(med_box, dense_of, med_table, med_dev, interior, int_kind, o, d,
     albedo and counts a bounce; the lane walks on while the event's
     medium is dense and it is below the cap. No scatter ends the walk with
     skip set: the next main step traces the same segment against the whole
-    scene and takes no medium event on it.
+    scene and takes no medium event on it. steps (int64 per lane), when
+    given, counts each lane's walk bounces.
     """
     while idx.numel():
         if counts is not None:
             counts["walk"] += idx.numel()
+        if steps is not None:
+            steps[idx] += 1
         wo = [x[idx] for x in o]
         wd = [x[idx] for x in d]
         wb = bnc[idx]
@@ -1688,13 +1821,14 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
 
 def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             seed: int, sample0: int, n_samples: int, max_depth: int,
-            stream) -> None:
+            stream, pix: torch.Tensor | None = None, kpix: int = 1,
+            stats: torch.Tensor | None = None) -> None:
     """One launch of the K1 kernel through `lib` (the library of
     `_build.load`) on `stream`; raises if it fails, and only then counts
     the sections it ran."""
     global KERNEL_LAUNCHES, K1BE_LAUNCHES, K1C_LAUNCHES, K1D_LAUNCHES
     global K1E_BOX_LAUNCHES, K1D_WALK_LAUNCHES, K1_LATTICE_LAUNCHES
-    global K1G_LAUNCHES
+    global K1G_LAUNCHES, K1F_LAUNCHES, K1F_TABLE_LAUNCHES, K1F_STATS_LAUNCHES
     err = lib.rt_trace_k1(
         ops.rec.data_ptr(), ops.rec.shape[0], ops.walk.data_ptr(),
         ops.walk.shape[1], ops.dyn.data_ptr(), ops.dyn.shape[0],
@@ -1706,12 +1840,22 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         perlin.seed_word(ops.perlin_seed), ops.box.data_ptr(),
         ops.box.shape[0], ops.bleaves.data_ptr(), ops.bleaves.shape[0],
         ops.interior.data_ptr(), ops.interior.shape[0],
-        ops.interior_kind.data_ptr(), ops.dense, ops.rr_depth, stream)
+        ops.interior_kind.data_ptr(), ops.dense, ops.rr_depth,
+        None if pix is None else pix.data_ptr(),
+        0 if pix is None else pix.numel(), kpix,
+        None if stats is None else stats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     n_dyn, n_box = ops.dyn.shape[0], ops.box.shape[0]
-    if ops.feats == 0 and n_dyn == 0 and n_box == 0:
+    k1f = pix is not None or stats is not None
+    if ops.feats == 0 and n_dyn == 0 and n_box == 0 and not k1f:
         KERNEL_LAUNCHES += 1
+    if k1f:
+        K1F_LAUNCHES += 1
+    if pix is not None:
+        K1F_TABLE_LAUNCHES += 1
+    if stats is not None:
+        K1F_STATS_LAUNCHES += 1
     if ops.feats & K1BE_FEATS or n_dyn:
         K1BE_LAUNCHES += 1
     if n_box:
@@ -1728,16 +1872,41 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         K1G_LAUNCHES += 1
 
 
+def _check_k1f(sums, nx, ny, pix, kpix, stats):
+    """The pixel table and the stats buffer as the kernel takes them."""
+    if pix is None:
+        if kpix != 1:
+            raise ValueError(f"kpix {kpix} without a pixel table")
+    else:
+        if pix.device != sums.device or pix.dtype != torch.int32 \
+                or pix.dim() != 1 or not pix.is_contiguous():
+            raise ValueError("pix must be a contiguous int32 vector on the "
+                             "sums' device")
+        if kpix < 1 or pix.numel() == 0 or pix.numel() % (kpix * TILE):
+            raise ValueError(f"pix must hold whole tiles of kpix·TILE = "
+                             f"{kpix}·{TILE} slots, got {pix.numel()}")
+    if stats is not None:
+        want = stats_size(nx * ny, pix, kpix)
+        if stats.device != sums.device or stats.dtype != torch.int64 \
+                or tuple(stats.shape) != (want,) \
+                or not stats.is_contiguous():
+            raise ValueError(f"stats must be a contiguous int64[{want}] on "
+                             f"the sums' device")
+
+
 def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
-          seed: int, sample0: int, n_samples: int,
-          max_depth: int) -> torch.Tensor:
+          seed: int, sample0: int, n_samples: int, max_depth: int,
+          pix: torch.Tensor | None = None, kpix: int = 1,
+          stats: torch.Tensor | None = None) -> torch.Tensor:
     """Wrapper of the K1 kernel; same contract as `trace_plain`.
 
     On CUDA tensors it launches `csrc/tracer.cu` on the current stream
     (building it at first use) or raises; on CPU tensors it runs
-    `trace_plain`.
+    `trace_plain`. pix (a table of `balanced_pix_table`, int32, flat)
+    names each pixel once; a slot outside [0, nx·ny) pads.
     """
     _check_operands(ops, sums, nx, ny)
+    _check_k1f(sums, nx, ny, pix, kpix, stats)
     if not (0 <= seed < 1 << 64 and 0 <= sample0
             and sample0 + n_samples < 1 << 31 and 0 < nx * ny < 1 << 31
             and n_samples >= 0 and max_depth >= 0):
@@ -1745,7 +1914,8 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     if sums.device.type == "cpu":
         return trace_plain(ops, sums, nx=nx, ny=ny, seed=seed,
                            sample0=sample0, n_samples=n_samples,
-                           max_depth=max_depth)
+                           max_depth=max_depth, pix=pix, kpix=kpix,
+                           stats=stats)
     if sums.device.type != "cuda":
         raise ValueError(f"no kernel for device {sums.device}")
     from ._build import load
@@ -1753,15 +1923,185 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     with torch.cuda.device(sums.device):
         _launch(lib, ops, sums, nx=nx, ny=ny, seed=seed, sample0=sample0,
                 n_samples=n_samples, max_depth=max_depth,
-                stream=torch.cuda.current_stream().cuda_stream)
+                stream=torch.cuda.current_stream().cuda_stream, pix=pix,
+                kpix=kpix, stats=stats)
     return sums
+
+
+def k1_work(ops: TraceOperands, counts: dict, n_pix: int,
+            n_samples: int) -> tuple[int, int]:
+    """(operations, bytes) of K1 on a run's paths: `trace_plain`'s counts
+    of lane bounces, of noise and image lanes, of the box members an exact
+    leaf cull tests, of walk bounces, of textured-light hits, rect-UV
+    lanes, textured-medium events and roulette draws, times K1_OPS, with
+    the scene's structure per lane bounce (the sphere leaf cull's members
+    counted as one leaf's); the sums read and written once, every record
+    and the atlas read once."""
+    rows = ops.walk[0].tolist()   # the unrolled prims a ray tests
+    n_sph = int((ops.rec[rows, R_IS_SPHERE] > 0).sum()) if rows else 0
+    n_rect = len(rows) - n_sph
+    n_frame = len(set(ops.walk[1].tolist()) - {-1})
+    n_leaf = int(ops.leaves.shape[0])
+    per_seg = (K1_OPS["segment"] + n_sph * K1_OPS["sphere"]
+               + n_rect * K1_OPS["rect"] + n_frame * K1_OPS["frame"]
+               + n_leaf * K1_OPS["leaf"]
+               + min(int(ops.dyn.shape[0]), SPH_LEAF) * K1_OPS["member"]
+               + int(ops.bleaves.shape[0]) * K1_OPS["box_leaf"]
+               + int(ops.med.shape[0]) * K1_OPS["medium"])
+    per_walk = (K1_OPS["walk"] + int(ops.interior.shape[0])
+                * K1_OPS["interior"] + int(ops.med.shape[0])
+                * K1_OPS["medium"])
+    n_ops = (counts["segments"] * per_seg
+             + n_pix * n_samples * K1_OPS["sample"]
+             + counts["noise"] * K1_OPS["noise"]
+             + counts["image"] * K1_OPS["image"]
+             + counts["box"] * K1_OPS["box"]
+             + counts["walk"] * per_walk
+             + sum(counts[k] * K1_OPS[k]
+                   for k in ("emis_tex", "rect_uv", "med_tex", "rr")))
+    n_bytes = 2 * 3 * 8 * n_pix + sum(
+        t.numel() * t.element_size()
+        for t in (ops.rec, ops.walk, ops.dyn, ops.leaves, ops.cam, ops.med,
+                  ops.atlas, ops.box, ops.bleaves, ops.interior,
+                  ops.interior_kind))
+    return n_ops, n_bytes
+
+
+# -- K1f: the cost probe and the balanced pixel table
+# (pallas_tracer.py:2817-2972)
+
+def pick_block(nx: int, ny: int) -> tuple[int, int]:
+    """2D pixel-block tile shape (BX, BY = TILE // BX) minimizing the padded
+    lane count for an nx×ny image (pallas_tracer.py `pick_block`). The
+    port's kernel keeps its scanline layout without a table; the block
+    serves only as the cost order's tie-break."""
+    bx = min((32, 64, 128, 256), key=lambda w: (
+        -(-nx // w) * w * (-(-ny // (TILE // w)) * (TILE // w))))
+    return bx, TILE // bx
+
+
+def balanced_pix_table(order: np.ndarray, n_pix: int, kpix: int):
+    """Snake-striped kpix-bank pixel table from a cost permutation →
+    (perm, grid, pix_table[grid·kpix·SUB, LANES]), pallas_tracer.py
+    `balanced_pix_table`: tile g's bank b is the next TILE pixels of the
+    order, odd banks reversed so that a thread's kpix pixels sum to about
+    the tile's mean cost; index n_pix pads. Thread j of tile g renders
+    pix_table.reshape(-1)[(g·kpix + b)·TILE + j], b < kpix."""
+    grid = -(-n_pix // (TILE * kpix))
+    ids = np.full(grid * kpix * TILE, n_pix, np.int32)
+    ids[:n_pix] = order
+    ids = ids.reshape(grid, kpix, TILE)
+    ids[:, 1::2] = ids[:, 1::2, ::-1].copy()
+    return ids.reshape(-1), grid, ids.reshape(grid * kpix * SUB, LANES)
+
+
+def cost_order(cost: np.ndarray, nx: int, ny: int,
+               block: tuple[int, int]) -> np.ndarray:
+    """The pixel order of cost-balanced tiles from a per-pixel cost image
+    (busy segments, [ny, nx], row 0 on top) → int32[nx·ny]: the part of
+    pallas_tracer.py `_cost_permutation` after its probe (2934-2972), in
+    its f32 cost and f64 integral image. A SMOOTH × SMOOTH box filter
+    (edges padded) lends each pixel its neighbours' samples, since a
+    few-spp estimate of a heavy-tailed path length is mostly noise; then
+    equal-population rank buckets, ties broken by 2-D block, then by
+    index."""
+    bxw, byh = block
+    gx = -(-nx // bxw)
+    cost = np.asarray(cost, np.float32).reshape(ny, nx)
+    n_pix = nx * ny
+    k = SMOOTH | 1
+    pad = np.pad(cost, k // 2, mode="edge")
+    ii = np.zeros((pad.shape[0] + 1, pad.shape[1] + 1), np.float64)
+    ii[1:, 1:] = pad.cumsum(0).cumsum(1)
+    cost = (ii[k:, k:] - ii[:-k, k:] - ii[k:, :-k]
+            + ii[:-k, :-k]).reshape(-1)
+    yy, xx = np.divmod(np.arange(n_pix), nx)
+    rank = np.empty(n_pix, np.int64)
+    rank[np.argsort(cost, kind="stable")] = np.arange(n_pix)
+    bucket = rank * BUCKETS // n_pix
+    blk = (yy // byh) * gx + (xx // bxw)
+    return np.lexsort((np.arange(n_pix), blk, bucket)).astype(np.int32)
+
+
+def stats_size(n_pix: int, pix: torch.Tensor | None = None,
+               kpix: int = 1) -> int:
+    """Length of a stats buffer (`trace`'s stats): three rows of n_pix (each
+    pixel's segments, dynamic sphere member tests and box member tests),
+    then one entry per warp of the launch (its steps: Σ over samples of
+    its longest sample's segments). A launch without a table runs n_pix
+    threads rounded up to THREADS; with one, a thread per slot of a bank."""
+    threads = (pix.numel() // kpix if pix is not None
+               else -(-n_pix // THREADS) * THREADS)
+    return 3 * n_pix + threads // WARP
+
+
+def new_stats(nx: int, ny: int, device, pix: torch.Tensor | None = None,
+              kpix: int = 1) -> torch.Tensor:
+    """A zeroed stats buffer for `trace` (see `stats_size`)."""
+    return torch.zeros(stats_size(nx * ny, pix, kpix), dtype=torch.int64,
+                       device=device)
+
+
+def stats_rows(stats: torch.Tensor, n_pix: int):
+    """(busy, sphere member tests, box member tests, warp steps): views of a
+    stats buffer."""
+    return (stats[:n_pix], stats[n_pix:2 * n_pix],
+            stats[2 * n_pix:3 * n_pix], stats[3 * n_pix:])
+
+
+def cost_permutation(ops: TraceOperands, nx: int, ny: int, max_depth: int,
+                     device) -> np.ndarray:
+    """The pixel order of cost-balanced tiles (pallas_tracer.py
+    `_cost_permutation`): a stats launch of PROBE_SPP samples at the fixed
+    seed PROBE_SEED on the scanline layout, its per-pixel segments as the
+    cost image, then `cost_order`. The probe's seed is fixed because its
+    order is cached across renders: the first caller's seed must not steer
+    every later render's layout."""
+    n_pix = nx * ny
+    stats = new_stats(nx, ny, device)
+    trace(ops, torch.zeros((3, n_pix), dtype=torch.float64, device=device),
+          nx=nx, ny=ny, seed=PROBE_SEED, sample0=0, n_samples=PROBE_SPP,
+          max_depth=max_depth, stats=stats)
+    busy = stats_rows(stats, n_pix)[0].cpu().numpy()
+    return cost_order(busy.reshape(ny, nx), nx, ny, pick_block(nx, ny))
+
+
+# balanced pixel tables on their device, by `_perm_cache_key`; the oldest
+# entry goes beyond _PERM_CACHE_SIZE
+_PERM_CACHE: dict = {}
+_PERM_CACHE_SIZE = 16
+
+
+def _record_digest(srec: SceneRecord) -> bytes:
+    """A digest of everything in a scene record."""
+    h = hashlib.sha256()
+    for name in SceneRecord.__dataclass_fields__:
+        v = getattr(srec, name)
+        if isinstance(v, np.ndarray):
+            h.update(f"{name}{v.dtype}{v.shape}".encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        else:
+            h.update(f"{name}={v!r};".encode())
+    return h.digest()
+
+
+def _perm_cache_key(cam_np, srec: SceneRecord, nx, ny, max_depth, rr_depth,
+                    device, kpix):
+    """The key of a balanced pixel table (pallas_tracer.py
+    `_perm_cache_key`): the camera record's bytes, a digest of the scene
+    record (the port rebuilds its record on every call, so an id() key
+    would never hit), the size, depth cap, roulette depth, kpix and the
+    device the table lives on."""
+    return (bytes(np.asarray(cam_np).tobytes()), _record_digest(srec), nx,
+            ny, max_depth, rr_depth, kpix, str(torch.device(device)))
 
 
 def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
                   *, device, seed: int = 0, max_depth: int = 50,
                   spp_chunk: int | None = None,
                   timers: Timers | None = None,
-                  rr_depth: int | None = None) -> np.ndarray:
+                  rr_depth: int | None = None,
+                  balance: bool | None = None) -> np.ndarray:
     """Full-image render through the K1 kernel → float32 [ny, nx, 3], row 0
     at the top, with the reference's gamma (sqrt + clamp,
     tests/test.rs:72-75).
@@ -1770,7 +2110,12 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     kernel, and raises when CUDA is absent; "cpu" runs the plain version.
     spp_chunk: samples per `trace` call (default: a lane budget). The image
     does not depend on it. rr_depth: Russian roulette from this bounce on
-    (the JAX CLI's --rr-depth; not in the reference), or None. Raises
+    (the JAX CLI's --rr-depth; not in the reference), or None. balance:
+    render from a cost-balanced pixel table (`render_pallas(balance=)`);
+    None turns it on for a scene with a dynamic sphere or box table at
+    spp ≥ 8, as JAX does (pallas_tracer.py:3061-3063). Its probe runs once
+    per scene, camera, size and depth (a value-keyed cache), timed as the
+    phase `balance_probe`; the image does not depend on it. Raises
     UnsupportedScene for scenes outside the kernel.
     """
     device = torch.device(device)
@@ -1798,10 +2143,31 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     with timers.phase("upload"):
         ops = trace_operands(srec, cam_np, device, rr_depth)
         sums = torch.zeros((3, n_pix), dtype=torch.float64, device=device)
+    if balance is None:
+        balance = (srec.dyn_rec.shape[0] > 0 or srec.box_rec.shape[0] > 0) \
+            and spp >= 8
+    pix, kpix = None, 1
+    if balance:
+        # each thread renders kpix pixels snake-striped across its tile's
+        # cost ranks; capped so padding never exceeds one tile's worth of
+        # slots (pallas_tracer.py:3071)
+        kpix = max(1, min(KPIX, n_pix // TILE))
+        key = _perm_cache_key(cam_np, srec, nx, ny, max_depth, rr_depth,
+                              sums.device, kpix)
+        pix = _PERM_CACHE.get(key)
+        if pix is None:
+            with timers.phase("balance_probe"):
+                order = cost_permutation(ops, nx, ny, max_depth, device)
+                pix = torch.from_numpy(
+                    balanced_pix_table(order, n_pix, kpix)[0]).to(device)
+            while len(_PERM_CACHE) >= _PERM_CACHE_SIZE:
+                _PERM_CACHE.pop(next(iter(_PERM_CACHE)))
+            _PERM_CACHE[key] = pix
     with timers.phase("trace"):
         for s0 in range(0, spp, spp_chunk):
             trace(ops, sums, nx=nx, ny=ny, seed=seed, sample0=s0,
-                  n_samples=min(spp_chunk, spp - s0), max_depth=max_depth)
+                  n_samples=min(spp_chunk, spp - s0), max_depth=max_depth,
+                  pix=pix, kpix=kpix)
     with timers.phase("finalize"):
         img = finalize_image(sums.T.cpu().numpy(), spp, nx, ny)
     return img

@@ -4,11 +4,12 @@ These tests need an NVIDIA GPU with the CUDA toolkit (`nvcc`): they build
 `raytracing_rust_tpu_torch/csrc/*.cu`, launch K1 (`tracer.cu`: the K1a
 instantiation and the K1B ones with their checker, sky, metal, glass,
 moving-sphere, dynamic-table, box-table, noise, image, media,
-dense-medium walk, lattice-corner and roulette sections) and K2/K3
-(`grad.cu`: lambertian, light, sky,
-metal, glass and the checker), and hold them
-against `trace_plain`, `trace_tiles_plain` and autograd through it, run on
-the same card, the same records and the same draws. Elsewhere they skip.
+dense-medium walk, lattice-corner and roulette sections, and K1f: the
+stats instantiation and a balanced pixel table), K2/K3 (`grad.cu`:
+lambertian, light, sky, metal, glass and the checker) and D3 (`peak.cu`),
+and hold them against `trace_plain`, `trace_tiles_plain` and autograd
+through it, and `fp32_chain_plain`, run on the same card, the same records
+and the same draws. Elsewhere they skip.
 Run them on the card with
 `python -m pytest tests/test_torch_kernel.py -q -m cuda`.
 """
@@ -24,7 +25,7 @@ from raytracing_rust_tpu_torch import inverse_render
 from raytracing_rust_tpu_torch.models import builders
 from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
                                                     TEX_CHECKER, SceneBuilder)
-from raytracing_rust_tpu_torch.ops import camera, grad, tracer
+from raytracing_rust_tpu_torch.ops import camera, grad, peak, tracer
 
 pytestmark = pytest.mark.cuda
 
@@ -540,6 +541,84 @@ def test_kernel_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(TypeError):
         tracer.trace(dataclasses.replace(final, bleaves=final.bleaves.int()),
                      sums, **kw)
+
+
+@pytest.mark.parametrize("make", [_cornell, _random_spheres,
+                                  _preset("final_scene"), _sealed])
+def test_kernel_stats_instantiation(cuda, make):
+    """K1f's stats launch: its sums equal the production kernel's bit for
+    bit, and its per-pixel segments, member tests and warp steps the plain
+    version's; one K1F launch each."""
+    nx, ny = 96, 64
+    ops = _operands(*make(nx, ny), cuda)
+    kw = dict(nx=nx, ny=ny, seed=3, sample0=0, n_samples=4, max_depth=50)
+
+    def sums():
+        return torch.zeros((3, nx * ny), dtype=torch.float64, device=cuda)
+
+    prod = tracer.trace(ops, sums(), **kw)
+    before = (tracer.K1F_LAUNCHES, tracer.K1F_STATS_LAUNCHES)
+    sk, sp = (tracer.new_stats(nx, ny, cuda) for _ in range(2))
+    k = tracer.trace(ops, sums(), stats=sk, **kw)
+    assert (tracer.K1F_LAUNCHES, tracer.K1F_STATS_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    p = tracer.trace_plain(ops, sums(), stats=sp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k, prod)
+    _assert_kernel_matches_plain(k, p)
+    for name, a, b in zip(("segments", "sphere tests", "box tests",
+                           "warp steps"), tracer.stats_rows(sk, nx * ny),
+                          tracer.stats_rows(sp, nx * ny)):
+        assert torch.equal(a, b), (name, int(a.sum()), int(b.sum()))
+    busy, _, _, steps = tracer.stats_rows(sk, nx * ny)
+    assert int(busy.sum()) <= tracer.WARP * int(steps.sum())
+
+
+@pytest.mark.parametrize("make", [_random_spheres, _preset("final_scene")])
+def test_kernel_balanced_equals_unbalanced(cuda, make):
+    """The production kernel on a pixel table (kpix 1 and 4, from the cost
+    probe and from a seeded order) gives the scanline sums bit for bit;
+    with stats, the plain version's counters on the same table."""
+    nx, ny = 96, 64
+    n_pix = nx * ny
+    ops = _operands(*make(nx, ny), cuda)
+    kw = dict(nx=nx, ny=ny, seed=8, sample0=0, n_samples=4, max_depth=50)
+
+    def sums():
+        return torch.zeros((3, n_pix), dtype=torch.float64, device=cuda)
+
+    ref = tracer.trace(ops, sums(), **kw)
+    probe = tracer.cost_permutation(ops, nx, ny, 50, cuda)
+    seeded = np.random.default_rng(4).permutation(n_pix).astype(np.int32)
+    for order in (probe, seeded):
+        for kpix in (1, 4):
+            pix = torch.from_numpy(tracer.balanced_pix_table(
+                order, n_pix, kpix)[0]).to(cuda)
+            before = tracer.K1F_TABLE_LAUNCHES
+            got = tracer.trace(ops, sums(), pix=pix, kpix=kpix, **kw)
+            assert tracer.K1F_TABLE_LAUNCHES == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), kpix
+    sk, sp = (tracer.new_stats(nx, ny, cuda, pix, 4) for _ in range(2))
+    k = tracer.trace(ops, sums(), pix=pix, kpix=4, stats=sk, **kw)
+    tracer.trace_plain(ops, sums(), pix=pix, kpix=4, stats=sp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k, ref) and torch.equal(sk, sp)
+
+
+def test_d3_matches_plain(cuda):
+    """D3's accumulators equal its plain chain bit for bit, every k, adds and
+    FMAs, and the launch count moves once a launch."""
+    for k in peak.KS:
+        for fma in (False, True):
+            before = peak.D3_LAUNCHES
+            got = peak.fp32_chain(k, 64, fma, 4, 128, cuda)
+            assert peak.D3_LAUNCHES == before + 1
+            want = peak.fp32_chain_plain(k, 64, fma, 4 * 128, cuda)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (k, fma)
+    with pytest.raises(ValueError):
+        peak.fp32_chain(3, 64, False, 4, 128, cuda)
 
 
 def _grad_spheres(device, background=BG_BLACK):
