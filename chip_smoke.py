@@ -124,7 +124,27 @@ Phases, one JSON line each on stdout:
  36. D3 through `kernel_stats --peak` (`peak_sweep`): the f32 add and FMA
      rates beside the theoretical ones, with the SM clock; its
      accumulators against the plain chain, bit for bit, for every k, adds
-     and FMAs.
+     and FMAs;
+ 37. D1, the winner-row read (csrc/microbench.cu), through `python -m
+     raytracing_rust_tpu_torch.microbench` (its `main`: the µs per call at
+     8,192 threads, the TPU tile's lanes), then at each variant's own full
+     wave (SMs × the blocks of it an SM holds, by the runtime's occupancy
+     query): its f32 accumulator and checksum against the plain version,
+     bit for bit, both variants (read-only cache, shared memory) and both
+     band counts at 8,192 threads, k = 2 and 22, and at the full wave,
+     k = 2; the plain version's time per call; the bound: the bytes a call
+     delivers over the SM load path's rate (the table stays on chip);
+ 38. D2, the member tests and the warp votes: the sphere, box, `any` and
+     `or_tree` kinds from the same run and at each kind's full wave (ns
+     per call), both outputs against the plain version, bit for bit, at
+     8,192 threads, k = 64 and 1064, and at the full wave, k = 64; the
+     plain version's time per call;
+ 39. K1f's DDA row: the stats launch with it on final_scene 800×800×1,
+     depth 50 (phase 33's size), its sums bit-equal to the production
+     kernel's, its five counters equal to the plain version's, its other
+     four equal to phase 33's launch without it, the per-ray skip share (1
+     − crossings / box tests); then `kernel_stats final_scene` (its main
+     path, 400×400×32), which must print the share.
 Every command-line phase prints its per-phase seconds, the PPM encode
 included. Then the kernel table and, as the last line, the device
 summary. Each row of the table carries the kernel's bound: the larger of
@@ -244,10 +264,12 @@ def k2_k3_bound(counts: dict, n_prims: int, n: int,
             bound(k3, read + 4 * 3 * n + 4 * 6 * n + rec_bytes))
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of bytes over its
-    memory rate and operations over its f32 rate."""
-    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+def bound(ops: float, nbytes: float,
+          bytes_per_s: float = HBM_BYTES_PER_S) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    rate of the memory they come from (device memory unless given) and
+    operations over its f32 rate."""
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / bytes_per_s
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -514,8 +536,9 @@ def main() -> int:
     from raytracing_rust_tpu_torch import cli
     from raytracing_rust_tpu_torch import inverse_render as ir
     from raytracing_rust_tpu_torch.models.builders import PRESETS
-    from raytracing_rust_tpu_torch import kernel_stats
+    from raytracing_rust_tpu_torch import kernel_stats, microbench
     from raytracing_rust_tpu_torch.ops import _build, grad, peak, tracer
+    from raytracing_rust_tpu_torch.ops import microbench as mb
     from raytracing_rust_tpu_torch.utils.image_io import read_ppm
     from raytracing_rust_tpu_torch.utils.timers import Timers
 
@@ -529,9 +552,10 @@ def main() -> int:
         tracer.K1E_BOX_LAUNCHES = tracer.K1D_WALK_LAUNCHES = 0
         tracer.K1_LATTICE_LAUNCHES = tracer.K1G_LAUNCHES = 0
         tracer.K1F_LAUNCHES = tracer.K1F_TABLE_LAUNCHES = 0
-        tracer.K1F_STATS_LAUNCHES = 0
+        tracer.K1F_STATS_LAUNCHES = tracer.K1F_DDA_LAUNCHES = 0
         grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
         peak.D3_LAUNCHES = 0
+        mb.D1_LAUNCHES = mb.D2_LAUNCHES = 0
 
     def k1_launches():
         return {"k1a_static_trace": tracer.KERNEL_LAUNCHES,
@@ -543,7 +567,8 @@ def main() -> int:
                 "k1_lattice_trace": tracer.K1_LATTICE_LAUNCHES,
                 "k1g_roulette_trace": tracer.K1G_LAUNCHES,
                 "k1f_stats_trace": tracer.K1F_STATS_LAUNCHES,
-                "k1f_balanced_trace": tracer.K1F_TABLE_LAUNCHES}
+                "k1f_balanced_trace": tracer.K1F_TABLE_LAUNCHES,
+                "k1f_dda_stats": tracer.K1F_DDA_LAUNCHES}
 
     def run_cli(scene: str, *extra: str):
         """`render --scene <scene> --device cuda` at the preset's size, with
@@ -595,11 +620,15 @@ def main() -> int:
             flags = re.search(r"(trace_k1)I((?:Lb[01]E)+)E", m.group(1))
             plain = re.search(r"(grad_fwd|grad_bwd)ILb([01])E", m.group(1))
             d3 = re.search(r"(fp32_peak)_kILi(\d+)ELb([01])E", m.group(1))
+            d1 = re.search(r"(attr_read_k)ILb([01])ELi(\d+)E", m.group(1))
+            d2 = re.search(r"(member_k)ILi(\d)E", m.group(1))
             fn = (f"{flags.group(1)}<"
                   f"{','.join(re.findall('[01]', flags.group(2)))}>"
                   if flags else f"{plain.group(1)}<{plain.group(2)}>"
                   if plain else f"{d3.group(1)}<{d3.group(2)},{d3.group(3)}>"
-                  if d3 else m.group(1))
+                  if d3 else f"{d1.group(1)}<{d1.group(2)},{d1.group(3)}>"
+                  if d1 else f"{d2.group(1)}<{d2.group(2)}>"
+                  if d2 else m.group(1))
         elif fn and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(fn, []).append(ln.split(" : ")[-1].strip())
     emit("build", seconds=time.perf_counter() - t, nvcc=_build._nvcc(),
@@ -1151,6 +1180,8 @@ def main() -> int:
         k1f_stats[scene] = dict(
             max_abs_err=float((k - pl).abs().max()), ms=st_ms,
             plain_ms=pl_ms, **k1_bound(sops, work, n_pix, n_samples))
+        if scene == "final_scene":
+            final33 = dict(prod=prod, stats=sk)   # held by phase 39
         emit("k1f_stats_vs_plain", scene=scene, shape=[sny, snx],
              spp=n_samples, depth=50, pixels_within_rel_1e4=agree,
              pixels_bit_equal=float((k == pl).all(dim=0).double().mean()),
@@ -1295,6 +1326,165 @@ def main() -> int:
     check(all(d3_equal.values()) and d3_err == 0.0,
           f"D3 differs from its plain chain: {d3_equal}")
 
+    # -- 37-38. D1 and D2 through `microbench` (8,192 threads, the TPU
+    # tile's lanes), then at each kernel's full wave
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = microbench.main([])
+    d1_launches, d2_launches = mb.D1_LAUNCHES, mb.D2_LAUNCHES
+    log = buf.getvalue()
+    check(rc == 0, f"microbench.main returned {rc}")
+    check(d1_launches > 0 and d2_launches > 0,
+          f"microbench launched D1 {d1_launches}, D2 {d2_launches} times")
+    tile_us = {f"{m.group(1)}_{v}": float(m.group(i)) for m in re.finditer(
+        r"attr_read\[(\d) bands\] global\s+([0-9.e+-]+) µs/call\s+shared"
+        r"\s+([0-9.e+-]+) µs/call", log) for v, i in (("global", 2),
+                                                     ("shared", 3))}
+    tile_ns = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^(sphere|box|any|or_tree)\s+([0-9.e+-]+) ns/call", log, re.M)}
+    check(len(tile_us) == 4 and len(tile_ns) == 4,
+          f"microbench printed {tile_us}, {tile_ns}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        wave_rates = microbench.run_card(None)   # each kernel's full wave
+
+    def d1_case(n, n_bands, shared, kk):
+        """D1 against attr_read_plain at n threads → (bit-equal, max abs
+        error of the accumulator)."""
+        table, col = mb.attr_table(n_bands).to(dev), mb.attr_cols(n).to(dev)
+        got = mb.attr_read(table, col, kk, shared=shared)
+        want = mb.attr_read_plain(table, col, kk)
+        return (bool(torch.equal(got[0], want[0])
+                     and torch.equal(got[1], want[1])),
+                float((got[0] - want[0]).abs().max()))
+
+    def d2_case(n, kind, kk):
+        """D2 against member_plain at n threads → (bit-equal, max abs
+        error of t_b + wi)."""
+        rec, xm = mb.member_rec().to(dev), mb.member_x(n).to(dev)
+        got, want = mb.member(rec, xm, kk, kind), mb.member_plain(rec, xm,
+                                                                  kk, kind)
+        return (bool(torch.equal(got[0], want[0])
+                     and torch.equal(got[1], want[1])),
+                float((got[0] - want[0]).abs().max()))
+
+    col = mb.attr_cols().to(dev)
+    d1_equal, d1_plain_s, d1_err = {}, {}, 0.0
+    for n_bands in mb.BANDS:
+        table = mb.attr_table(n_bands).to(dev)
+        t = []
+        for kk in mb.D1_K:
+            t.append(cuda_ms(lambda: mb.attr_read_plain(table, col, kk), 1,
+                             warm=False))
+            for shared in (False, True):
+                d1_equal[f"{n_bands}_{'shared' if shared else 'global'}"
+                         f"_k{kk}"], err = d1_case(mb.TILE, n_bands, shared,
+                                                   kk)
+                d1_err = max(d1_err, err)
+        d1_plain_s[n_bands] = (t[1] - t[0]) * 1e-3 / (mb.D1_K[1]
+                                                      - mb.D1_K[0])
+        for shared in (False, True):   # each variant's own full wave
+            key = f"{n_bands}_{'shared' if shared else 'global'}"
+            d1_equal[f"{key}_k{mb.D1_K[0]}_full_wave"], err = d1_case(
+                wave_rates["d1_threads"][key], n_bands, shared, mb.D1_K[0])
+            d1_err = max(d1_err, err)
+    # D1's floor: the bytes one call delivers (each warp's distinct rows,
+    # 4 bands) over the SM load path's rate, SMs × 128 B × the max SM
+    # clock: the table stays on chip, so the HBM rate is no floor
+    th = kernel_stats.theoretical_fp32()
+    load_rate = (th["sms"] * mb.SM_LOAD_BYTES_PER_CLK * th["max_sm_mhz"]
+                 * 1e6)
+    d1_bytes = mb.attr_bytes(col, mb.BANDS[0])
+    d1_bound = bound(0, d1_bytes, load_rate)
+    emit("d1_winner_row_read", log=log.splitlines(), threads=mb.TILE,
+         us_per_call=tile_us, full_wave_threads=wave_rates["d1_threads"],
+         full_wave_us_per_call=wave_rates["d1_us"],
+         plain_us_per_call={str(b): v * 1e6 for b, v in d1_plain_s.items()},
+         bit_equal=d1_equal, launches=d1_launches, bytes_per_call=d1_bytes,
+         sm_load_bytes_per_s=load_rate, **d1_bound)
+    check(all(d1_equal.values()), f"D1 differs from its plain version: "
+          f"{d1_equal}")
+
+    rec, xm = mb.member_rec().to(dev), mb.member_x().to(dev)
+    d2_equal, d2_plain_s, d2_err = {}, {}, 0.0
+    for kind in mb.KINDS:
+        t = []
+        for kk in mb.D2_K:
+            d2_equal[f"{kind}_k{kk}"], err = d2_case(mb.TILE, kind, kk)
+            d2_err = max(d2_err, err)
+            t.append(cuda_ms(lambda: mb.member_plain(rec, xm, kk, kind), 1,
+                             warm=False))
+        d2_plain_s[kind] = (t[1] - t[0]) * 1e-3 / (mb.D2_K[1] - mb.D2_K[0])
+        d2_equal[f"{kind}_k{mb.D2_K[0]}_full_wave"], err = d2_case(
+            wave_rates["d2_threads"][kind], kind, mb.D2_K[0])
+        d2_err = max(d2_err, err)
+    d2_ops = {kind: mb.D2_OPS[kind] * mb.TILE for kind in mb.KINDS}
+    d2_bound = bound(sum(d2_ops.values()), 0)
+    d2_add_rate_ms = sum(d2_ops.values()) / best["ops_per_s"] * 1e3
+    emit("d2_member_vote", threads=mb.TILE, ns_per_call=tile_ns,
+         full_wave_threads=wave_rates["d2_threads"],
+         full_wave_ns_per_call=wave_rates["d2_ns"],
+         plain_ns_per_call={k: v * 1e9 for k, v in d2_plain_s.items()},
+         bit_equal=d2_equal, launches=d2_launches, ops_per_call=d2_ops,
+         bound_at_d3_add_rate_ms=d2_add_rate_ms, **d2_bound)
+    check(all(d2_equal.values()), f"D2 differs from its plain version: "
+          f"{d2_equal}")
+
+    # -- 39. K1f's DDA row vs the production kernel, plain and phase 33
+    sops, snx, sny = preset_ops("final_scene")
+    n_pix = snx * sny
+    kw = dict(nx=snx, ny=sny, seed=0, sample0=0, n_samples=1, max_depth=50)
+
+    def zeros():
+        return torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
+
+    sk = tracer.new_stats(snx, sny, dev, dda=True)
+    k = tracer.trace(sops, zeros(), stats=sk, dda=True, **kw)
+    sp, work, pl = tracer.new_stats(snx, sny, dev, dda=True), {}, zeros()
+    dda_plain_ms = cuda_ms(lambda: tracer.trace_plain(
+        sops, pl, counts=work, stats=sp, dda=True, **kw), reps=1, warm=False)
+    dda_ms = cuda_ms(lambda: tracer.trace(
+        sops, zeros(), stats=tracer.new_stats(snx, sny, dev, dda=True),
+        dda=True, **kw), reps=3)
+    torch.cuda.synchronize()
+    rows_plain = {name: bool(torch.equal(a, b)) for name, a, b in zip(
+        ("segments", "sphere_tests", "box_tests", "warp_steps", "dda"),
+        (*tracer.stats_rows(sk, n_pix, dda=True), tracer.dda_row(sk, n_pix)),
+        (*tracer.stats_rows(sp, n_pix, dda=True), tracer.dda_row(sp, n_pix)))}
+    rows_33 = {name: bool(torch.equal(a, b)) for name, a, b in zip(
+        ("segments", "sphere_tests", "box_tests", "warp_steps"),
+        tracer.stats_rows(sk, n_pix, dda=True),
+        tracer.stats_rows(final33["stats"], n_pix))}
+    same_sums = bool(torch.equal(k, final33["prod"]))
+    dda_sum = kernel_stats.summarize(sk, n_pix, 1, dda=True)
+    k1f_dda = dict(max_abs_err=float((k - pl).abs().max()), ms=dda_ms,
+                   plain_ms=dda_plain_ms, **k1_bound(sops, work, n_pix, 1))
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = kernel_stats.main(["final_scene"])
+    dda_launches = tracer.K1F_DDA_LAUNCHES
+    stats_log = buf.getvalue()
+    emit("k1f_dda_row", scene="final_scene", shape=[sny, snx], spp=1,
+         depth=50, sums_equal_production=same_sums,
+         counters_equal_plain=rows_plain, rows_equal_phase33=rows_33,
+         box_tests=dda_sum["box_tests"], crossings=dda_sum["dda_crossings"],
+         box_tests_per_segment=dda_sum["box_tests_per_segment"],
+         dda_cross_per_segment=dda_sum["dda_cross_per_segment"],
+         dda_skip_share=dda_sum["dda_skip_share"], work=work,
+         kernel_stats_log=stats_log.splitlines(), launches=dda_launches,
+         **k1f_dda)
+    del final33, k, pl, sk, sp
+    check(same_sums, "the DDA stats launch's sums differ from the "
+          "production kernel's")
+    check(all(rows_plain.values()), f"DDA stats counters differ from plain: "
+          f"{rows_plain}")
+    check(all(rows_33.values()), f"the DDA launch's counters differ from "
+          f"phase 33's: {rows_33}")
+    check(rc == 0 and dda_launches > 0
+          and "a per-ray gate could skip" in stats_log,
+          f"kernel_stats final_scene: rc {rc}, {dda_launches} DDA launches")
+
     print(json.dumps({"kernels": [{
         "name": "k1a_static_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
@@ -1398,7 +1588,30 @@ def main() -> int:
         "source": "raytracing_rust_tpu_torch/csrc/peak.cu",
         "replaces": "tools/kernel_stats.py:186",
         "launches": d3_launches, "max_abs_err": d3_err, "ms": d3_ms,
-        "plain_ms": d3_plain_ms, **d3_bound, "library_ms": None}]}),
+        "plain_ms": d3_plain_ms, **d3_bound, "library_ms": None}, {
+        # one call (k iteration) of the 4-band read-only-cache read at
+        # 8,192 threads; its bound counts the words the call delivers over
+        # the SM load path's rate (the table stays on chip). No single
+        # PyTorch call computes a k-iteration loop of either microbench
+        # kernel, so their library_ms is null
+        "name": "d1_winner_row_read", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/microbench.cu",
+        "replaces": "tools/microbench.py:70",
+        "launches": d1_launches, "max_abs_err": d1_err,
+        "ms": tile_us["4_global"] * 1e-3, "plain_ms": d1_plain_s[4] * 1e3,
+        **d1_bound, "library_ms": None}, {
+        # one call of each of the four kinds at 8,192 threads, summed
+        "name": "d2_member_vote", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/microbench.cu",
+        "replaces": "tools/microbench.py:162",
+        "launches": d2_launches, "max_abs_err": d2_err,
+        "ms": sum(tile_ns.values()) * 1e-6,
+        "plain_ms": sum(d2_plain_s.values()) * 1e3, **d2_bound,
+        "bound_at_d3_add_rate_ms": d2_add_rate_ms, "library_ms": None}, {
+        "name": "k1f_dda_stats", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
+        "launches": dda_launches, **k1f_dda, "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,12 @@
 // (1284-1292, 1378-1394, 1534-1600): the pixels a thread renders may come
 // from a table, kpix of them one after the other (the JAX kernel's kpix
 // banks, built on the host from a cost probe), and a stats launch counts
-// each pixel's segments and member tests and each warp's steps. The host
+// each pixel's segments and member tests and each warp's steps, and when
+// asked (`dda=True`, 1278-1294) the box member tests whose AABB the ray
+// crosses: per thread, since a thread walks its own members, where the
+// TPU kernel asks whether any lane of its tile crosses (no warp vote here:
+// which threads meet at a member of a divergent loop is the scheduler's
+// choice, so no plain version could reproduce such a count). The host
 // side and the plain torch version of the same computation are in
 // ops/tracer.py (`trace_plain`).
 //
@@ -406,7 +411,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          const float* __restrict__ interior, int n_int,
          const int* __restrict__ interior_kind, int dense, int rr_depth,
          const int* __restrict__ pix_table, int kpix,
-         long long* __restrict__ stats) {
+         long long* __restrict__ stats, long long* __restrict__ dda) {
   // the scene's features; all off outside the K1B instantiations
   const bool emis_tex = K1B && (feats & FEAT_EMIS_TEX),
              uv_carry = K1B && (feats & FEAT_UV_CARRY),
@@ -493,8 +498,9 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       acc_b = sums[2 * n_pix + pix];
     }
     // STATS: segments traced (walk bounces too), dynamic sphere and box
-    // member tests, over the samples
-    uint32_t busy = 0, tests_s = 0, tests_b = 0;
+    // member tests, and with the DDA row the box member tests whose AABB
+    // the ray crosses, over the samples
+    uint32_t busy = 0, tests_s = 0, tests_b = 0, cross_b = 0;
 
     for (int si = 0; si < n_samples; ++si) {
       const uint32_t sample = (uint32_t)(sample0 + si);
@@ -635,6 +641,12 @@ trace_k1(const float* __restrict__ rec, int n_rec,
                    __ldg(r + R_DC), __ldg(r + R_DC + 1), __ldg(r + R_DC + 2),
                    ox, oy, oz, inv_dx, inv_dy, inv_dz, tmn, tmx);
               const float t_p = tmn > T_MIN ? tmn : tmx;
+              // STATS, the DDA row (pallas_tracer.py:1927-1938): the ray
+              // crosses the member's AABB inside its window, before its
+              // best hit so far: the visit set of a per-ray grid DDA
+              if (STATS && dda != nullptr && tmx > fmaxf(tmn, T_MIN) &&
+                  tmn < t_d)
+                ++cross_b;
               if (tmx > tmn && t_p > T_MIN && t_p < t_d) {
                 t_d = t_p;
                 wb = q;
@@ -1068,6 +1080,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         stats[pix] += busy;
         stats[n_pix + pix] += tests_s;
         stats[2 * n_pix + pix] += tests_b;
+        if (dda != nullptr) dda[pix] += cross_b;
       }
     }
   }
@@ -1081,7 +1094,7 @@ using TraceFn = void (*)(const float*, int, const int*, int, const float*,
                          const float*, int, int, const int*, int, int,
                          uint32_t, const float*, int, const float*, int,
                          const float*, int, const int*, int, int, const int*,
-                         int, long long*);
+                         int, long long*, long long*);
 
 // the instantiations, indexed [K1B][DYN][LEAF_SMEM]; without a dynamic
 // table there is no leaf table
@@ -1117,8 +1130,10 @@ const TraceFn STATS_KERNELS[2] = {trace_k1<true, true, false, true>,
 // launch adds per pixel its segments, its dynamic sphere member tests and
 // its box member tests (three rows), then per warp Σ over samples of its
 // longest sample's segments; threads = n_table / kpix with a table, else
-// nx·ny rounded up to THREADS. Launches on `stream`; returns
-// cudaGetLastError() after the launch.
+// nx·ny rounded up to THREADS. dda (with stats only): the buffer holds
+// nx·ny more entries, to which the launch adds per pixel its box member
+// tests whose AABB the ray crosses before its best hit so far. Launches on
+// `stream`; returns cudaGetLastError() after the launch.
 extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int n_walk, const float* dyn, int n_dyn,
                            const float* leaves, int n_leaf, const float* cam,
@@ -1131,7 +1146,8 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int n_bleaf, const float* interior, int n_int,
                            const int* interior_kind, int dense,
                            int rr_depth, const int* pix_table, int n_table,
-                           int kpix, long long* stats, void* stream) {
+                           int kpix, long long* stats, int dda,
+                           void* stream) {
   if (n_rec <= 0 || n_rec > MAX_PRIMS || n_walk < 0 || n_walk > n_rec ||
       n_dyn < 0 || n_leaf < 0 || feats < 0 || feats > FEAT_ALL ||
       n_med < 0 || n_med > MAX_MEDIA || ((feats & FEAT_MEDIA) != 0) !=
@@ -1143,7 +1159,8 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       ((feats & FEAT_RR) != 0) != (rr_depth >= 0) ||
       ((feats & FEAT_RR) && (feats & FEAT_DENSE_WALK)) || kpix < 1 ||
       (pix_table == nullptr ? kpix != 1
-                            : n_table <= 0 || n_table % (kpix * TILE) != 0))
+                            : n_table <= 0 || n_table % (kpix * TILE) != 0) ||
+      (dda && stats == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n_dyn == 0) n_leaf = 0;
   if (n_box == 0) n_bleaf = 0;
@@ -1170,6 +1187,8 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       nx, ny, seed_lo, seed_hi, sample0, n_samples, max_depth, med, n_med,
       med_box, atlas, atlas_rows, atlas_w, perlin_word, box, n_box, bleaves,
       n_bleaf, interior, n_int, interior_kind, dense, rr_depth, pix_table,
-      kpix, stats);
+      kpix, stats,
+      dda ? stats + 3 * (size_t)n_pix + (size_t)blocks * THREADS / 32
+          : nullptr);
   return (int)cudaGetLastError();
 }

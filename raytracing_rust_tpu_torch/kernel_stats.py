@@ -11,9 +11,14 @@ warp runs each sample until its longest path ends, so a warp's steps are Σ
 over samples of its longest sample's segments), the occupancy (segments
 over 32 × warp steps: the share of a warp's thread-steps that trace; the
 rest is the tail), the segments per sample, and the dynamic sphere and box
-member tests per segment. --balance renders from the cost-balanced pixel
-table, as the default render of such a scene does. --device cpu runs the
-kernel's plain version, which fills the same counters (small sizes only).
+member tests per segment. On a scene with boxes the launch also fills K1f's
+DDA row (tools/kernel_stats.py's dda probe): of the box member tests the
+leaf cull lets through, those whose AABB the ray crosses inside its live
+window, the visit set of a per-ray grid DDA; it prints their rate per
+segment and the share of box tests such a gate could skip. --balance
+renders from the cost-balanced pixel table, as the default render of such
+a scene does. --device cpu runs the kernel's plain version, which fills the
+same counters (small sizes only).
 
 --mfu (`mfu`) times a clean render on the card and divides the operations
 its paths needed (the plain version's counts at a few samples, scaled, times
@@ -65,12 +70,15 @@ def _operands(name, nx, ny, max_depth, balance, device):
 
 
 def summarize(stats: torch.Tensor, n_pix: int, spp: int,
-              kpix: int = 1) -> dict:
+              kpix: int = 1, dda: bool = False) -> dict:
     """The counters of a stats buffer → steps per sample (the mean over
     warps that hold a pixel), segments per sample, occupancy, tail share,
-    member tests per segment, and the totals."""
+    member tests per segment, and the totals; with dda (a buffer with the
+    DDA row) the box tests whose AABB the ray crosses, per segment, and the
+    share of box tests a per-ray gate could skip (1 − crossings / box
+    tests)."""
     busy, sph, box, steps = (x.double() for x in
-                             tracer.stats_rows(stats, n_pix))
+                             tracer.stats_rows(stats, n_pix, dda))
     held = steps[steps > 0]
     seg, warp_steps = float(busy.sum()), float(steps.sum())
     occ = seg / (tracer.WARP * warp_steps) if warp_steps else 0.0
@@ -82,29 +90,41 @@ def summarize(stats: torch.Tensor, n_pix: int, spp: int,
                 occupancy=occ, tail_share=1.0 - occ,
                 sphere_tests=int(sph.sum()), box_tests=int(box.sum()),
                 sphere_tests_per_segment=float(sph.sum()) / max(seg, 1.0),
-                box_tests_per_segment=float(box.sum()) / max(seg, 1.0))
+                box_tests_per_segment=float(box.sum()) / max(seg, 1.0),
+                **(_dda(stats, n_pix, float(box.sum()), seg) if dda else {}))
+
+
+def _dda(stats: torch.Tensor, n_pix: int, box_tests: float,
+         seg: float) -> dict:
+    cross = float(tracer.dda_row(stats, n_pix).double().sum())
+    return dict(dda_crossings=int(cross),
+                dda_cross_per_segment=cross / max(seg, 1.0),
+                dda_skip_share=1.0 - cross / box_tests if box_tests else 0.0)
 
 
 def run(name: str, nx: int = 400, ny: int = 400, spp: int = 32,
         max_depth: int = 50, balance: bool = False, device="cuda") -> dict:
-    """One stats launch per sample chunk of the preset `name` (its camera at
-    nx×ny), on the cost-balanced table under balance; prints and returns
-    `summarize`'s figures with the scene's sizes."""
+    """One stats launch of the preset `name` (its camera at nx×ny), on the
+    cost-balanced table under balance, with the DDA row when the scene has
+    boxes; prints and returns `summarize`'s figures with the scene's
+    sizes."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested, but "
                            "torch.cuda.is_available() is false")
     n_pix = nx * ny
     ops, pix, kpix = _operands(name, nx, ny, max_depth, balance, device)
-    stats = tracer.new_stats(nx, ny, device, pix, kpix)
+    dda = ops.box.shape[0] > 0
+    stats = tracer.new_stats(nx, ny, device, pix, kpix, dda)
     tracer.trace(ops, torch.zeros((3, n_pix), dtype=torch.float64,
                                   device=device),
                  nx=nx, ny=ny, seed=7, sample0=0, n_samples=spp,
-                 max_depth=max_depth, pix=pix, kpix=kpix, stats=stats)
+                 max_depth=max_depth, pix=pix, kpix=kpix, stats=stats,
+                 dda=dda)
     out = dict(name=name, nx=nx, ny=ny, spp=spp, max_depth=max_depth,
                balance=bool(balance), kpix=kpix, device=str(device),
                n_dyn=int(ops.dyn.shape[0]), n_box=int(ops.box.shape[0]),
-               **summarize(stats, n_pix, spp, kpix))
+               **summarize(stats, n_pix, spp, kpix, dda))
     print(f"{name}{' [balanced, kpix=%d]' % kpix if balance else ''}: "
           f"{nx}x{ny} spp={spp} depth={max_depth} on {device}; "
           f"n_dyn={out['n_dyn']} n_box={out['n_box']}")
@@ -119,6 +139,9 @@ def run(name: str, nx: int = 400, ny: int = 400, spp: int = 32,
     if out["n_box"]:
         print(f"  box member tests/segment "
               f"{out['box_tests_per_segment']:.1f} of {out['n_box']}")
+        print(f"  box tests whose AABB the ray crosses: "
+              f"{out['dda_cross_per_segment']:.2f}/segment → a per-ray gate "
+              f"could skip {100 * out['dda_skip_share']:.1f}%")
     return out
 
 

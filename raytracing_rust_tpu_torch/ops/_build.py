@@ -83,7 +83,7 @@ def load() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.rt_trace_k1.argtypes = [p, i, p, i, p, i, p, i, p, i, p, i, i, u, u,
                                 i, i, i, p, i, i, p, i, i, u, p, i, p, i, p,
-                                i, p, i, i, p, i, i, p, p]
+                                i, p, i, i, p, i, i, p, i, p]
     lib.rt_trace_k1.restype = i
     lib.rt_grad_fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.rt_grad_fwd.restype = i
@@ -93,4 +93,10 @@ def load() -> ctypes.CDLL:
     f = ctypes.c_float
     lib.rt_fp32_peak.argtypes = [p, i, i, i, f, f, i, i, p]
     lib.rt_fp32_peak.restype = i
+    lib.rt_attr_read.argtypes = [p, i, i, p, i, i, i, p, p, p]
+    lib.rt_attr_read.restype = i
+    lib.rt_member.argtypes = [p, p, i, i, i, p, p, p]
+    lib.rt_member.restype = i
+    lib.rt_mb_blocks_per_sm.argtypes = [i, i, i, p]
+    lib.rt_mb_blocks_per_sm.restype = i
     return lib

@@ -198,8 +198,9 @@ K1BE_FEATS = FEAT_SKY | FEAT_CHECKER | FEAT_METAL | FEAT_DIEL | FEAT_MOVING
 # when it runs the dense-medium walk, as K1_LATTICE when it runs any of
 # the lattice corners, and as K1G when it plays Russian roulette; K1F counts
 # a launch that renders from a pixel table or fills the stats counters, and
-# of those K1F_TABLE the table launches and K1F_STATS the stats launches (a
-# stats launch runs its own instantiation, so it never counts as K1a)
+# of those K1F_TABLE the table launches, K1F_STATS the stats launches (a
+# stats launch runs its own instantiation, so it never counts as K1a) and
+# K1F_DDA the stats launches that fill the DDA row
 KERNEL_LAUNCHES = 0
 K1BE_LAUNCHES = 0
 K1C_LAUNCHES = 0
@@ -211,6 +212,7 @@ K1G_LAUNCHES = 0
 K1F_LAUNCHES = 0
 K1F_TABLE_LAUNCHES = 0
 K1F_STATS_LAUNCHES = 0
+K1F_DDA_LAUNCHES = 0
 
 # f32 and integer operations of csrc/tracer.cu per item, counted from its
 # source (an add, multiply, compare or transcendental is one): a lane
@@ -1076,13 +1078,15 @@ def _slab(lo, hi, o, inv_d):
     return tmn, tmx
 
 
-def _box_t(lo, hi, o, inv_d):
+def _box_t(lo, hi, o, inv_d, slab=False):
     """A box's hit t (reference src/cube.rs through the slab test): the
     entry face when it lies beyond T_MIN, else the exit face
-    (pallas_tracer.py `box_thin`, 1914-1923) → (t, ok)."""
+    (pallas_tracer.py `box_thin`, 1914-1923) → (t, ok), and with slab the
+    slab's (entry, exit) t besides."""
     tmn, tmx = _slab(lo, hi, o, inv_d)
     t_p = torch.where(tmn > T_MIN, tmn, tmx)
-    return t_p, (tmx > tmn) & (t_p > T_MIN)
+    ok = (tmx > tmn) & (t_p > T_MIN)
+    return (t_p, ok, (tmn, tmx)) if slab else (t_p, ok)
 
 
 def _sphere_t(c, r2, o, d, a_dd, inv_a):
@@ -1119,7 +1123,8 @@ def _crossed(leaves, o, inv_d, t_d):
     return (tmx > torch.clamp(tmn, min=T_MIN)) & (tmn < t_d[:, None])
 
 
-def _closest_rows(hit_fn, table, leaves, o, inv_d, t_d, tests=None):
+def _closest_rows(hit_fn, table, leaves, o, inv_d, t_d, tests=None,
+                  crossings=None):
     """The first strict minimum of a table's hits below t_d → (t, winner
     row or -1), as the kernel's culled scan in table order finds it.
 
@@ -1135,7 +1140,10 @@ def _closest_rows(hit_fn, table, leaves, o, inv_d, t_d, tests=None):
     tests (int64 per lane), when given, gathers the member tests the
     kernel's own cull runs: the blocks are then single leaves, each tested
     on the lanes that cross it before their best hit so far, as the kernel
-    tests them in order.
+    tests them in order. crossings (int64 per lane; with tests, and hit_fn
+    then gives each row's slab (entry, exit) t third) gathers those of the
+    tests whose slab the ray crosses inside (T_MIN, best hit before the
+    test): the kernel's DDA row, against the running best in table order.
     """
     t_d = t_d.clone()
     win = torch.full(t_d.shape, -1, dtype=torch.int64, device=t_d.device)
@@ -1162,9 +1170,18 @@ def _closest_rows(hit_fn, table, leaves, o, inv_d, t_d, tests=None):
                 if leaves.shape[0] else cross[:, 0]).squeeze(1)
             tests[lanes] += r1 - r0
         for q0 in range(r0, r1 if lanes.numel() else r0, step):
-            t_p, ok = hit_fn(table[q0:min(q0 + step, r1)], lanes)
-            mn, idx = torch.where(ok, t_p, BIG).min(dim=1)
+            res = hit_fn(table[q0:min(q0 + step, r1)], lanes)
+            vals = torch.where(res[1], res[0], BIG)
+            mn, idx = vals.min(dim=1)
             cur = t_d[lanes]
+            if crossings is not None:
+                # the best hit before each row: the minimum of the start's
+                # and the earlier rows' (a strict < update keeps the min)
+                tmn, tmx = res[2]
+                before = torch.cat([cur[:, None], vals[:, :-1]],
+                                   dim=1).cummin(dim=1).values
+                crossings[lanes] += ((tmx > torch.clamp(tmn, min=T_MIN))
+                                     & (tmn < before)).sum(dim=1)
             better = mn < cur
             t_d[lanes] = torch.where(better, mn, cur)
             win[lanes] = torch.where(better, q0 + idx, win[lanes])
@@ -1221,8 +1238,8 @@ def _interior_t(rows, kinds, o, d, a_dd, inv_a, time, moving):
 def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
                 seed: int, sample0: int, n_samples: int, max_depth: int,
                 counts: dict | None = None, pix: torch.Tensor | None = None,
-                kpix: int = 1,
-                stats: torch.Tensor | None = None) -> torch.Tensor:
+                kpix: int = 1, stats: torch.Tensor | None = None,
+                dda: bool = False) -> torch.Tensor:
     """The kernel's computation in plain torch, on any device.
 
     Adds, for every pixel, the radiance of samples sample0 ..
@@ -1255,7 +1272,10 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     tests of the kernel's cull, leaf by leaf against the ray's best hit so
     far (counts' "box" counts an exact cull's, against the final hit); per
     warp of the launch's thread mapping, Σ over its threads' banks and
-    samples of the largest segment count among its 32 threads.
+    samples of the largest segment count among its 32 threads; with dda
+    (a buffer of `new_stats(..., dda=True)`), per pixel the box member
+    tests whose slab the ray crosses inside (T_MIN, its best hit before the
+    test), the kernel's DDA row (`dda_row`).
     """
     dev = sums.device
     f32 = torch.float32
@@ -1290,11 +1310,11 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     smp = torch.arange(sample0, sample0 + n_samples, dtype=torch.int64,
                        device=dev).repeat_interleave(n_sel)
     lanes = pix.numel()
-    # STATS: each lane's segments and member tests
+    # STATS: each lane's segments, member tests and DDA crossings
     if stats is not None:
-        nb_lane, ts_lane, tb_lane = (
+        nb_lane, ts_lane, tb_lane, cb_lane = (
             torch.zeros(lanes, dtype=torch.int64, device=dev)
-            for _ in range(3))
+            for _ in range(4))
 
     # -- camera rays (reference src/camera.rs:53-67, jitter tests/test.rs:66-68)
     u0, u1, u2, u3 = rng.draws(seed, pix, smp, 0, rng.STREAM_CAMERA)
@@ -1410,14 +1430,18 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             # carrying only (t, winner) (pallas_tracer.py:1906-1942, boxes
             # first, so the first strict minimum keeps a box on a tie)
             tests = None if stats is None else torch.zeros_like(bnc)
+            cross = torch.zeros_like(bnc) if dda else None
             t_b, wb = _closest_rows(
                 lambda rows, ln: _box_t(
                     [rows[None, :, R_C0 + a] for a in range(3)],
                     [rows[None, :, R_DC + a] for a in range(3)],
-                    [x[ln, None] for x in o], [x[ln, None] for x in inv_d]),
-                box_dev, bleaf_dev, o, inv_d, t_best, tests)
+                    [x[ln, None] for x in o], [x[ln, None] for x in inv_d],
+                    slab=dda),
+                box_dev, bleaf_dev, o, inv_d, t_best, tests, cross)
             if stats is not None:
                 tb_lane[live] += tests
+            if dda:
+                cb_lane[live] += cross
             # winner resolve: the face whose slab t on the chosen side
             # (entry beyond T_MIN, else exit) equals t, ties x → y → z,
             # normal +axis like the reference's rects, then the flip
@@ -1668,17 +1692,21 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         _add_stats(stats, n_pix, pixels, pix_table, kpix,
                    nb_lane.view(n_samples, n_sel),
                    ts_lane.view(n_samples, n_sel),
-                   tb_lane.view(n_samples, n_sel))
+                   tb_lane.view(n_samples, n_sel),
+                   cb_lane.view(n_samples, n_sel) if dda else None)
     return sums
 
 
-def _add_stats(stats, n_pix, pixels, pix_table, kpix, nb, ts, tb):
+def _add_stats(stats, n_pix, pixels, pix_table, kpix, nb, ts, tb, cb=None):
     """Adds the per-(sample, pixel) segments nb and member tests ts, tb
     ([n_samples, n_sel], pixels in `pixels` order) to a stats buffer: the
     per-pixel rows, and each warp's steps under the kernel's thread
     mapping (a thread per pixel, or thread j of tile g on slots
-    (g·kpix + b)·TILE + j of the table)."""
-    busy, sph, box, steps = stats_rows(stats, n_pix)
+    (g·kpix + b)·TILE + j of the table); and the DDA crossings cb, when
+    given, to the DDA row."""
+    busy, sph, box, steps = stats_rows(stats, n_pix, dda=cb is not None)
+    if cb is not None:
+        dda_row(stats, n_pix).index_add_(0, pixels, cb.sum(dim=0))
     busy.index_add_(0, pixels, nb.sum(dim=0))
     sph.index_add_(0, pixels, ts.sum(dim=0))
     box.index_add_(0, pixels, tb.sum(dim=0))
@@ -1822,13 +1850,14 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
 def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             seed: int, sample0: int, n_samples: int, max_depth: int,
             stream, pix: torch.Tensor | None = None, kpix: int = 1,
-            stats: torch.Tensor | None = None) -> None:
+            stats: torch.Tensor | None = None, dda: bool = False) -> None:
     """One launch of the K1 kernel through `lib` (the library of
     `_build.load`) on `stream`; raises if it fails, and only then counts
     the sections it ran."""
     global KERNEL_LAUNCHES, K1BE_LAUNCHES, K1C_LAUNCHES, K1D_LAUNCHES
     global K1E_BOX_LAUNCHES, K1D_WALK_LAUNCHES, K1_LATTICE_LAUNCHES
     global K1G_LAUNCHES, K1F_LAUNCHES, K1F_TABLE_LAUNCHES, K1F_STATS_LAUNCHES
+    global K1F_DDA_LAUNCHES
     err = lib.rt_trace_k1(
         ops.rec.data_ptr(), ops.rec.shape[0], ops.walk.data_ptr(),
         ops.walk.shape[1], ops.dyn.data_ptr(), ops.dyn.shape[0],
@@ -1843,7 +1872,7 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         ops.interior_kind.data_ptr(), ops.dense, ops.rr_depth,
         None if pix is None else pix.data_ptr(),
         0 if pix is None else pix.numel(), kpix,
-        None if stats is None else stats.data_ptr(), stream)
+        None if stats is None else stats.data_ptr(), int(dda), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     n_dyn, n_box = ops.dyn.shape[0], ops.box.shape[0]
@@ -1856,6 +1885,8 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         K1F_TABLE_LAUNCHES += 1
     if stats is not None:
         K1F_STATS_LAUNCHES += 1
+    if dda:
+        K1F_DDA_LAUNCHES += 1
     if ops.feats & K1BE_FEATS or n_dyn:
         K1BE_LAUNCHES += 1
     if n_box:
@@ -1872,8 +1903,10 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         K1G_LAUNCHES += 1
 
 
-def _check_k1f(sums, nx, ny, pix, kpix, stats):
+def _check_k1f(sums, nx, ny, pix, kpix, stats, dda=False):
     """The pixel table and the stats buffer as the kernel takes them."""
+    if dda and stats is None:
+        raise ValueError("the DDA row rides in a stats buffer")
     if pix is None:
         if kpix != 1:
             raise ValueError(f"kpix {kpix} without a pixel table")
@@ -1886,7 +1919,7 @@ def _check_k1f(sums, nx, ny, pix, kpix, stats):
             raise ValueError(f"pix must hold whole tiles of kpix·TILE = "
                              f"{kpix}·{TILE} slots, got {pix.numel()}")
     if stats is not None:
-        want = stats_size(nx * ny, pix, kpix)
+        want = stats_size(nx * ny, pix, kpix, dda)
         if stats.device != sums.device or stats.dtype != torch.int64 \
                 or tuple(stats.shape) != (want,) \
                 or not stats.is_contiguous():
@@ -1897,7 +1930,8 @@ def _check_k1f(sums, nx, ny, pix, kpix, stats):
 def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
           seed: int, sample0: int, n_samples: int, max_depth: int,
           pix: torch.Tensor | None = None, kpix: int = 1,
-          stats: torch.Tensor | None = None) -> torch.Tensor:
+          stats: torch.Tensor | None = None,
+          dda: bool = False) -> torch.Tensor:
     """Wrapper of the K1 kernel; same contract as `trace_plain`.
 
     On CUDA tensors it launches `csrc/tracer.cu` on the current stream
@@ -1906,7 +1940,7 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     names each pixel once; a slot outside [0, nx·ny) pads.
     """
     _check_operands(ops, sums, nx, ny)
-    _check_k1f(sums, nx, ny, pix, kpix, stats)
+    _check_k1f(sums, nx, ny, pix, kpix, stats, dda)
     if not (0 <= seed < 1 << 64 and 0 <= sample0
             and sample0 + n_samples < 1 << 31 and 0 < nx * ny < 1 << 31
             and n_samples >= 0 and max_depth >= 0):
@@ -1915,7 +1949,7 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         return trace_plain(ops, sums, nx=nx, ny=ny, seed=seed,
                            sample0=sample0, n_samples=n_samples,
                            max_depth=max_depth, pix=pix, kpix=kpix,
-                           stats=stats)
+                           stats=stats, dda=dda)
     if sums.device.type != "cuda":
         raise ValueError(f"no kernel for device {sums.device}")
     from ._build import load
@@ -1924,7 +1958,7 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         _launch(lib, ops, sums, nx=nx, ny=ny, seed=seed, sample0=sample0,
                 n_samples=n_samples, max_depth=max_depth,
                 stream=torch.cuda.current_stream().cuda_stream, pix=pix,
-                kpix=kpix, stats=stats)
+                kpix=kpix, stats=stats, dda=dda)
     return sums
 
 
@@ -2024,29 +2058,38 @@ def cost_order(cost: np.ndarray, nx: int, ny: int,
 
 
 def stats_size(n_pix: int, pix: torch.Tensor | None = None,
-               kpix: int = 1) -> int:
+               kpix: int = 1, dda: bool = False) -> int:
     """Length of a stats buffer (`trace`'s stats): three rows of n_pix (each
     pixel's segments, dynamic sphere member tests and box member tests),
     then one entry per warp of the launch (its steps: Σ over samples of
-    its longest sample's segments). A launch without a table runs n_pix
-    threads rounded up to THREADS; with one, a thread per slot of a bank."""
+    its longest sample's segments), then with dda a row of n_pix (each
+    pixel's box member tests whose slab the ray crosses). A launch without
+    a table runs n_pix threads rounded up to THREADS; with one, a thread
+    per slot of a bank."""
     threads = (pix.numel() // kpix if pix is not None
                else -(-n_pix // THREADS) * THREADS)
-    return 3 * n_pix + threads // WARP
+    return 3 * n_pix + threads // WARP + (n_pix if dda else 0)
 
 
 def new_stats(nx: int, ny: int, device, pix: torch.Tensor | None = None,
-              kpix: int = 1) -> torch.Tensor:
+              kpix: int = 1, dda: bool = False) -> torch.Tensor:
     """A zeroed stats buffer for `trace` (see `stats_size`)."""
-    return torch.zeros(stats_size(nx * ny, pix, kpix), dtype=torch.int64,
-                       device=device)
+    return torch.zeros(stats_size(nx * ny, pix, kpix, dda),
+                       dtype=torch.int64, device=device)
 
 
-def stats_rows(stats: torch.Tensor, n_pix: int):
+def stats_rows(stats: torch.Tensor, n_pix: int, dda: bool = False):
     """(busy, sphere member tests, box member tests, warp steps): views of a
-    stats buffer."""
+    stats buffer (with dda, one that holds the DDA row)."""
     return (stats[:n_pix], stats[n_pix:2 * n_pix],
-            stats[2 * n_pix:3 * n_pix], stats[3 * n_pix:])
+            stats[2 * n_pix:3 * n_pix],
+            stats[3 * n_pix:stats.numel() - (n_pix if dda else 0)])
+
+
+def dda_row(stats: torch.Tensor, n_pix: int) -> torch.Tensor:
+    """The DDA row of a stats buffer of `new_stats(..., dda=True)`: per
+    pixel its box member tests whose slab the ray crosses."""
+    return stats[stats.numel() - n_pix:]
 
 
 def cost_permutation(ops: TraceOperands, nx: int, ny: int, max_depth: int,

@@ -5,11 +5,12 @@ These tests need an NVIDIA GPU with the CUDA toolkit (`nvcc`): they build
 instantiation and the K1B ones with their checker, sky, metal, glass,
 moving-sphere, dynamic-table, box-table, noise, image, media,
 dense-medium walk, lattice-corner and roulette sections, and K1f: the
-stats instantiation and a balanced pixel table), K2/K3 (`grad.cu`:
-lambertian, light, sky, metal, glass and the checker) and D3 (`peak.cu`),
-and hold them against `trace_plain`, `trace_tiles_plain` and autograd
-through it, and `fp32_chain_plain`, run on the same card, the same records
-and the same draws. Elsewhere they skip.
+stats instantiation with and without its DDA row, and a balanced pixel
+table), K2/K3 (`grad.cu`: lambertian, light, sky, metal, glass and the
+checker), D3 (`peak.cu`) and D1/D2 (`microbench.cu`), and hold them against
+`trace_plain`, `trace_tiles_plain` and autograd through it,
+`fp32_chain_plain`, `attr_read_plain` and `member_plain`, run on the same
+card, the same records and the same draws. Elsewhere they skip.
 Run them on the card with
 `python -m pytest tests/test_torch_kernel.py -q -m cuda`.
 """
@@ -25,7 +26,8 @@ from raytracing_rust_tpu_torch import inverse_render
 from raytracing_rust_tpu_torch.models import builders
 from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
                                                     TEX_CHECKER, SceneBuilder)
-from raytracing_rust_tpu_torch.ops import camera, grad, peak, tracer
+from raytracing_rust_tpu_torch.ops import (camera, grad, microbench, peak,
+                                           tracer)
 
 pytestmark = pytest.mark.cuda
 
@@ -619,6 +621,113 @@ def test_d3_matches_plain(cuda):
             assert torch.equal(got, want), (k, fma)
     with pytest.raises(ValueError):
         peak.fp32_chain(3, 64, False, 4, 128, cuda)
+
+
+@pytest.mark.parametrize("make", [_preset("final_scene"), _cubes])
+def test_kernel_dda_row_matches_plain(cuda, make):
+    """K1f's DDA row: the stats launch with it gives the production kernel's
+    sums bit for bit, its five counters equal the plain version's, and its
+    other four equal a stats launch without it; one K1F_DDA launch."""
+    nx, ny = 96, 64
+    n_pix = nx * ny
+    ops = _operands(*make(nx, ny), cuda)
+    kw = dict(nx=nx, ny=ny, seed=5, sample0=0, n_samples=4, max_depth=50)
+
+    def sums():
+        return torch.zeros((3, n_pix), dtype=torch.float64, device=cuda)
+
+    prod = tracer.trace(ops, sums(), **kw)
+    before = tracer.K1F_DDA_LAUNCHES
+    sk, sp = (tracer.new_stats(nx, ny, cuda, dda=True) for _ in range(2))
+    k = tracer.trace(ops, sums(), stats=sk, dda=True, **kw)
+    assert tracer.K1F_DDA_LAUNCHES == before + 1
+    tracer.trace_plain(ops, sums(), stats=sp, dda=True, **kw)
+    s0 = tracer.new_stats(nx, ny, cuda)
+    tracer.trace(ops, sums(), stats=s0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k, prod)
+    assert torch.equal(sk, sp), (int(tracer.dda_row(sk, n_pix).sum()),
+                                 int(tracer.dda_row(sp, n_pix).sum()))
+    for a, b in zip(tracer.stats_rows(s0, n_pix),
+                    tracer.stats_rows(sk, n_pix, dda=True)):
+        assert torch.equal(a, b)
+    row = tracer.dda_row(sk, n_pix)
+    assert 0 < int(row.sum()) < int(tracer.stats_rows(sk, n_pix, True)[2]
+                                    .sum())
+
+
+@pytest.mark.parametrize("threads", [8192, 1000])
+def test_d1_matches_plain(cuda, threads):
+    """D1's accumulator and checksum equal the plain version's bit for bit,
+    both variants and band counts, k = 2 and 22, a full and a ragged last
+    block; one D1 launch each."""
+    col = microbench.attr_cols(threads).to(cuda)
+    for n_bands in microbench.BANDS:
+        table = microbench.attr_table(n_bands).to(cuda)
+        for k in microbench.D1_K:
+            want = microbench.attr_read_plain(table, col, k)
+            for shared in (False, True):
+                before = microbench.D1_LAUNCHES
+                got = microbench.attr_read(table, col, k, shared=shared)
+                assert microbench.D1_LAUNCHES == before + 1
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]), (n_bands, k, shared)
+                assert torch.equal(got[1], want[1]), (n_bands, k, shared)
+            assert (want[0] > 0).all()
+
+
+@pytest.mark.parametrize("threads", [8192, 96])
+def test_d2_matches_plain(cuda, threads):
+    """D2's outputs and vote folds equal the plain version's bit for bit, the
+    four kinds, k = 64 and 70, on the tool's lanes and on signed ones; one
+    D2 launch each."""
+    rec = microbench.member_rec().to(cuda)
+    signed = torch.from_numpy(np.random.default_rng(5).integers(
+        -3000, 1000, threads, dtype=np.int32))
+    for x in (microbench.member_x(threads), signed):
+        x = x.to(cuda)
+        for kind in microbench.KINDS:
+            for k in (64, 70):
+                before = microbench.D2_LAUNCHES
+                got = microbench.member(rec, x, k, kind)
+                assert microbench.D2_LAUNCHES == before + 1
+                want = microbench.member_plain(rec, x, k, kind)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]), (kind, k)
+                assert torch.equal(got[1], want[1]), (kind, k)
+    with pytest.raises(ValueError):
+        microbench.member(rec, x[:40], 4, "any")
+
+
+def test_d1_d2_full_wave_match_plain(cuda):
+    """At each kernel's own full wave (SMs × the blocks of it an SM holds),
+    D1 and D2 equal their plain versions bit for bit; the wave is whole
+    blocks on every SM, one block of D1 staged at 4 bands (180,224 B)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = {}
+    for n_bands in microbench.BANDS:
+        table = microbench.attr_table(n_bands).to(cuda)
+        for shared in (False, True):
+            n = waves[(n_bands, shared)] = microbench.full_wave(
+                "attr_read", n_bands, shared)
+            assert n > 0 and n % (sms * 256) == 0
+            col = microbench.attr_cols(n).to(cuda)
+            got = microbench.attr_read(table, col, 2, shared=shared)
+            want = microbench.attr_read_plain(table, col, 2)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), (n_bands, shared)
+            assert torch.equal(got[1], want[1]), (n_bands, shared)
+    assert waves[(4, True)] == sms * 256
+    rec = microbench.member_rec().to(cuda)
+    for kind in microbench.KINDS:
+        n = microbench.full_wave(kind)
+        assert n > 0 and n % (sms * 256) == 0
+        x = microbench.member_x(n).to(cuda)
+        got = microbench.member(rec, x, 64, kind)
+        want = microbench.member_plain(rec, x, 64, kind)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), kind
+        assert torch.equal(got[1], want[1]), kind
 
 
 def _grad_spheres(device, background=BG_BLACK):
