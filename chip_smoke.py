@@ -9,7 +9,9 @@ Run from the repository root with no arguments:
 
 Phases, one JSON line each on stdout:
   1. the card (nvidia-smi name and power limit, torch's device name);
-  2. build the CUDA kernels from csrc/ with nvcc (timed);
+  2. build the CUDA kernels from csrc/ with nvcc (timed), with ptxas's
+     registers and spills per instantiation and the blocks of each K1
+     instantiation an SM holds (the runtime's occupancy query);
   3. the K1a kernel against its plain torch version, on the card, on the
      same records and draws: cornell_box 800×800, 4 spp, depth 50;
   4. sample chunks of 2 and 4 give bit-identical kernel sums;
@@ -108,14 +110,16 @@ Phases, one JSON line each on stdout:
      for bit) and the plain version (sums under phase 3's gates; per-pixel
      segments, sphere and box member tests and the warp steps equal):
      cornell_box 800×800×2, random_spheres 1280×720×2 and final_scene
-     800×800×1, depth 50; the occupancy (segments over 32 × warp steps),
+     800×800×1, depth 50; the occupancy (segments over 32 × warp steps, a
+     warp's steps being the largest segment total among its threads),
      the steps per sample and the tail share (1 − occupancy);
  34. the balanced layout: the cost probe (timed), then the production
      kernel on its pixel table at kpix 1 and 4 against the scanline layout,
      bit for bit, on random_spheres 1280×720×2 and final_scene 800×800×1,
      the plain version on the kpix-4 table under phase 3's gates; the
-     kernel's times at 10 spp in turns (scanline, kpix 1, kpix 4, kpix 4,
-     kpix 1, scanline) and the occupancy on each layout;
+     kernel's times in turns (scanline, kpix 1, kpix 4, kpix 4, kpix 1,
+     scanline) at the samples of the command line's largest table launch
+     of the preset, and the occupancy on each layout there;
  35. the render path of both presets through the command line, `render
      --scene random_spheres` and `render --scene final_scene` (and
      final_scene at 128×128 for its mean), now balanced by default: the
@@ -144,12 +148,28 @@ Phases, one JSON line each on stdout:
      kernel's, its five counters equal to the plain version's, its other
      four equal to phase 33's launch without it, the per-ray skip share (1
      − crossings / box tests); then `kernel_stats final_scene` (its main
-     path, 400×400×32), which must print the share.
+     path, 400×400×32), which must print the share;
+ 40. K1 at the main path's own launches: every K1 launch of the command
+     line runs of phases 5, 11-17, 19, 32 and 35, of phase 30's
+     1280×720 render and of phase 39's kernel_stats was recorded with its
+     operands and arguments (`recording`: the cost probe, each chunk of
+     `render_kernel`'s lane budget, each pixel table); each is made again
+     (`replay`): timed, counted by a stats launch of the same arguments
+     (occupancy, tail share), its sums held bit for bit to the same
+     samples launched in chunks of the size its scene's comparison phase
+     holds to trace_plain, and bounded; cornell_box_baseline's first
+     launch (800×800, 104 samples) is also held bit for bit to
+     trace_plain.
 Every command-line phase prints its per-phase seconds, the PPM encode
 included. Then the kernel table and, as the last line, the device
 summary. Each row of the table carries the kernel's bound: the larger of
 the bytes it must move over the card's memory rate and the f32 operations
-this run's paths needed over the card's f32 rate (`bound`).
+this run's paths needed over the card's f32 rate (`bound`). A K1 row's
+launches are those its main path counted, and its ms and bound_ms are
+their means per launch from phase 40 (`at_main_path`), with the totals
+and shapes under "main_path"; the comparison's time and bound stand
+under "comparison", and plain_ms is the plain version's time there, at
+plain_spp samples.
 
 Any failure exits non-zero before the last line. Without CUDA, or run
 outside the repository, it exits non-zero and prints no result.
@@ -280,6 +300,104 @@ def k1_bound(ops, counts: dict, n_pix: int, n_samples: int) -> dict:
     operations of csrc/tracer.cu per item, counted from its source)."""
     from raytracing_rust_tpu_torch.ops.tracer import k1_work
     return bound(*k1_work(ops, counts, n_pix, n_samples))
+
+
+@contextlib.contextmanager
+def recording(log: list, counters):
+    """Every K1 launch made through `tracer.trace` inside the block, appended
+    to `log` as a dict: its operands (`ops`), its keyword arguments (`kw`,
+    the stats buffer left out), whether it carried a stats buffer
+    (`stats`), and the launch counters it moved (`counted`: the keys of
+    `counters()` that grew across the call). The launch is the wrapper's
+    own; only its arguments are kept."""
+    from raytracing_rust_tpu_torch.ops import tracer
+    real = tracer.trace
+
+    def logged(ops, sums, **kw):
+        before = counters()
+        out = real(ops, sums, **kw)
+        after = counters()
+        log.append(dict(ops=ops, stats=kw.get("stats") is not None,
+                        kw={k: v for k, v in kw.items() if k != "stats"},
+                        counted=[k for k in after if after[k] > before[k]]))
+        return out
+    tracer.trace = logged
+    try:
+        yield log
+    finally:
+        tracer.trace = real
+
+
+def replay(launch: dict, held: dict):
+    """One K1 launch of `recording`, made again on the same operands and
+    arguments → (its figures, its sums). Its ms: CUDA events, two launches
+    after a warm-up, on fresh sums (and, for a stats launch, a fresh stats
+    buffer). Its counters: the stats launch it is, or a stats launch of the
+    same arguments. Its sums held bit for bit to the same samples launched
+    in chunks of held["spp"] (the samples its scene's comparison holds to
+    trace_plain; the production instantiation). Its bound: held["work"]
+    (trace_plain's counts on that comparison) scaled by this launch's
+    segments over the comparison's, on this launch's pixels and samples."""
+    import torch
+    from raytracing_rust_tpu_torch import kernel_stats
+    from raytracing_rust_tpu_torch.ops import tracer
+    ops, kw = launch["ops"], launch["kw"]
+    nx, ny, n, s0 = kw["nx"], kw["ny"], kw["n_samples"], kw["sample0"]
+    n_pix, dev = nx * ny, ops.rec.device
+    pix, kpix, dda = kw.get("pix"), kw.get("kpix", 1), kw.get("dda", False)
+
+    def zeros():
+        return torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
+
+    whole, st = zeros(), tracer.new_stats(nx, ny, dev, pix, kpix, dda=dda)
+    if launch["stats"]:
+        ms = cuda_ms(lambda: tracer.trace(ops, whole.zero_(),
+                                          stats=st.zero_(), **kw), reps=2)
+    else:
+        ms = cuda_ms(lambda: tracer.trace(ops, whole.zero_(), **kw), reps=2)
+        tracer.trace(ops, zeros(), stats=st, **kw)
+    parts, step = zeros(), held["spp"]
+    prod = {k: v for k, v in kw.items() if k != "dda"}
+    for s in range(s0, s0 + n, step):
+        tracer.trace(ops, parts, **{**prod, "sample0": s,
+                                    "n_samples": min(step, s0 + n - s)})
+    occ = kernel_stats.summarize(st, n_pix, n, kpix, dda)
+    work = held["work"]
+    scale = occ["segments"] / (work["segments"] + work["walk"])
+    return dict(
+        shape=[ny, nx, n], sample0=s0, kpix=kpix, table=pix is not None,
+        stats=launch["stats"], dda=dda, counted=launch["counted"], ms=ms,
+        **k1_bound(ops, {k: v * scale for k, v in work.items()}, n_pix, n),
+        segments=occ["segments"], warp_steps=occ["warp_steps"],
+        occupancy=occ["occupancy"], tail_share=occ["tail_share"],
+        chunk_spp=step, equals_chunks=bool(torch.equal(whole, parts))), whole
+
+
+def at_main_path(row: dict, replayed: list, counter: str,
+                 launches: int) -> dict:
+    """A K1 row of the kernel table: `row`, the comparison against
+    trace_plain (its spp, max_abs_err, ms, plain_ms and bound), restated at
+    the main path's launches that moved `counter` (`replay`'s figures): ms
+    and bound_ms per launch, their mean; the totals, the launch shapes and
+    the occupancy (segments over 32 × warp steps, summed) under
+    "main_path"; the comparison's ms and bound under "comparison", and
+    plain_ms at plain_spp, the comparison's samples."""
+    mine = [r for r in replayed if counter in r["counted"]]
+    check(len(mine) == launches, f"{counter}: {launches} launches counted, "
+          f"{len(mine)} recorded")
+    ms, b = sum(r["ms"] for r in mine), sum(r["bound_ms"] for r in mine)
+    steps = sum(r["warp_steps"] for r in mine)
+    return dict(
+        max_abs_err=row["max_abs_err"], ms=ms / len(mine),
+        bound_ms=b / len(mine),
+        bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+        plain_ms=row["plain_ms"], plain_spp=row["spp"],
+        main_path=dict(
+            launches=len(mine), ms=ms, bound_ms=b,
+            shapes=[[*r["shape"], r["kpix"], r["stats"]] for r in mine],
+            occupancy=sum(r["segments"] for r in mine) / (32 * steps)),
+        comparison=dict(spp=row["spp"], ms=row["ms"],
+                        bound_ms=row["bound_ms"], bound_by=row["bound_by"]))
 
 
 def emit(phase: str, **kw) -> None:
@@ -570,11 +688,22 @@ def main() -> int:
                 "k1f_balanced_trace": tracer.K1F_TABLE_LAUNCHES,
                 "k1f_dda_stats": tracer.K1F_DDA_LAUNCHES}
 
-    def run_cli(scene: str, *extra: str):
+    # the main path's K1 launches by run (`recording`), each run with the
+    # key of `held` (its scene's comparison against trace_plain: the work
+    # the paths needed and the samples held) that phase 40 replays it with
+    main_runs, held = {}, {}
+
+    def record(label: str, key: str):
+        main_runs[label] = dict(held=key, launches=[])
+        return recording(main_runs[label]["launches"], k1_launches)
+
+    def run_cli(scene: str, *extra: str, label: str | None = None,
+                key: str | None = None):
         """`render --scene <scene> --device cuda` at the preset's size, with
         the `extra` arguments (--nx/--ny, --rr-depth), every launch count
         set to 0 just before and read just after → (what to emit, the
-        image)."""
+        image). With a label, its K1 launches are recorded under it for
+        phase 40, with held[key] (key: the scene unless given)."""
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, f"{scene}.ppm")
             argv = ["render", "--scene", scene, "--device", "cuda", "--out",
@@ -582,7 +711,9 @@ def main() -> int:
             buf = io.StringIO()
             reset_launches()
             t = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), (
+                    record(label, key or scene) if label
+                    else contextlib.nullcontext()):
                 rc = cli.main(argv)
             wall = time.perf_counter() - t
             launches = k1_launches()
@@ -632,7 +763,8 @@ def main() -> int:
         elif fn and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(fn, []).append(ln.split(" : ")[-1].strip())
     emit("build", seconds=time.perf_counter() - t, nvcc=_build._nvcc(),
-         library=os.path.relpath(lib_path), ptxas=ptxas)
+         library=os.path.relpath(lib_path), ptxas=ptxas,
+         k1_blocks_per_sm=tracer.k1_blocks_per_sm())
 
     # -- 3. kernel vs plain, cornell_box 800×800, 4 spp, depth 50
     p = PRESETS["cornell_box_baseline"]
@@ -673,7 +805,7 @@ def main() -> int:
     check(same, "spp_chunk 2 and 4 give different kernel sums")
 
     # -- 5. the main path, through the command line
-    info, img = run_cli("cornell_box_baseline")
+    info, img = run_cli("cornell_box_baseline", label="cornell_box_baseline")
     lum = info["mean_luminance"]
     launches = info["launches"]
     cornell_trace_s = info["timers"].get("trace")
@@ -696,6 +828,10 @@ def main() -> int:
     tracer.trace_plain(ops, s8.zero_(), sample0=0, n_samples=8, counts=c8,
                        **kw)
     k1a_bound = k1_bound(ops, c8, nx * ny, 8)
+    k1a = dict(spp=8, max_abs_err=max_abs_err, ms=k_ms_k1a, plain_ms=p_ms,
+               **k1a_bound)
+    # the main path's launches are held to 4-sample chunks, phase 3's
+    held["cornell_box_baseline"] = dict(work=c8, spp=4)
     rays = nx * ny * 8
     emit("kernel_vs_plain_time", shape=[ny, nx], spp=8, depth=50,
          kernel_ms=k_ms_k1a, plain_ms=p_ms, work=c8, **k1a_bound,
@@ -808,12 +944,13 @@ def main() -> int:
                      .all(dim=0).double().mean())
 
     def hold(phase: str, scene: str, built=None, n_samples: int = 2,
-             rr_depth=None) -> dict:
+             rr_depth=None, key: str | None = None) -> dict:
         """The K1B kernel against trace_plain on `scene` at its preset's
         size (or on built = (scene tables, camera, nx, ny)), n_samples
         spp, depth 50, roulette from rr_depth: gates, times, the paths'
         work and the bound, emitted as one line; returns what the table
-        needs."""
+        needs. The work and the samples held go to held[key] (the scene
+        unless given)."""
         if built is None:
             p = PRESETS[scene]
             built = (p.build(), p.camera(), p.nx, p.ny)
@@ -852,9 +989,10 @@ def main() -> int:
                 kernel_without_cull_ms=cuda_ms(
                     lambda: tracer.trace(flat, s_k.zero_(), **kw), reps=1))
             del kf
-        row = dict(max_abs_err=err, ms=k_ms, plain_ms=pl_ms,
+        row = dict(spp=n_samples, max_abs_err=err, ms=k_ms, plain_ms=pl_ms,
                    **k1_bound(ops, work, nx * ny, n_samples))
-        emit(phase, scene=scene, shape=[ny, nx], spp=n_samples, depth=50,
+        held[key or scene] = dict(work=work, spp=n_samples)
+        emit(phase, scene=scene, shape=[ny, nx], depth=50,
              rr_depth=rr_depth, feats=ops.feats, unrolled=len(srec.kinds),
              dynamic=int(ops.dyn.shape[0]), leaves=int(ops.leaves.shape[0]),
              media=int(ops.med.shape[0]), atlas=list(ops.atlas.shape),
@@ -877,7 +1015,7 @@ def main() -> int:
     def cli_path(scene: str, mean: float, section: str) -> dict:
         p = PRESETS[scene]
         band = (0.95 * mean, 1.05 * mean)
-        info, img = run_cli(scene)
+        info, img = run_cli(scene, label=scene)
         lum = info["mean_luminance"]
         emit(f"{scene}_path", **info, spp=p.spp, wall_primary_rays_per_s=(
             p.nx * p.ny * p.spp / info["wall_seconds"]), band=list(band))
@@ -927,12 +1065,14 @@ def main() -> int:
         mean_rel = float(((km - pm).abs() / pm.abs()).max())
         s_k = sums()
         k_ms = cuda_ms(lambda: tracer.trace(o, s_k.zero_(), **kw), reps=3)
-        final[name] = dict(max_abs_err=float((k - pl).abs().max()),
+        final[name] = dict(spp=1, max_abs_err=float((k - pl).abs().max()),
                            ms=k_ms, plain_ms=pl_ms,
                            **k1_bound(o, work, nx * ny, 1))
+        if name == "walk":   # the command line's path
+            held["final_scene"] = dict(work=work, spp=1)
         final_k[name] = k
         emit("k1e_k1d_walk_vs_plain", scene="final_scene", path=name,
-             shape=[ny, nx], spp=1, depth=50, feats=o.feats,
+             shape=[ny, nx], depth=50, feats=o.feats,
              unrolled=int(o.walk.shape[1]), dynamic=int(o.dyn.shape[0]),
              leaves=int(o.leaves.shape[0]), boxes=int(o.box.shape[0]),
              box_leaves=int(o.bleaves.shape[0]),
@@ -956,7 +1096,7 @@ def main() -> int:
 
     # -- 19. the render path of final_scene through the command line, and
     # its mean at the JAX reference's size and spp
-    info, img = run_cli("final_scene")
+    info, img = run_cli("final_scene", label="final_scene")
     emit("final_scene_path", **info, spp=p.spp, wall_primary_rays_per_s=(
         nx * ny * p.spp / info["wall_seconds"]))
     final_launches = info["launches"]
@@ -1080,13 +1220,17 @@ def main() -> int:
 
     # -- 30. the lattice path: render_kernel at 1280×720, 100 spp, and the
     # mean at the JAX reference's size
-    def lattice_render(nx: int, ny: int, spp: int) -> tuple[dict, object]:
+    def lattice_render(nx: int, ny: int, spp: int,
+                       label: str | None = None) -> tuple[dict, object]:
         timers = Timers()
         reset_launches()
         t = time.perf_counter()
-        img = tracer.render_kernel(
-            builders.lattice_scene(), builders.lattice_camera(nx, ny), nx,
-            ny, spp, device="cuda", seed=0, max_depth=50, timers=timers)
+        with (record(label, "lattice_scene") if label
+              else contextlib.nullcontext()):
+            img = tracer.render_kernel(
+                builders.lattice_scene(), builders.lattice_camera(nx, ny),
+                nx, ny, spp, device="cuda", seed=0, max_depth=50,
+                timers=timers)
         wall = time.perf_counter() - t
         info = dict(shape=[ny, nx], spp=spp, depth=50, wall_seconds=wall,
                     timers=timers.summary(), launches=k1_launches(),
@@ -1095,7 +1239,7 @@ def main() -> int:
               and bool(((img >= 0) & (img <= 1)).all()),
               f"lattice {nx}x{ny}: image has the wrong shape or range")
         return info, img
-    info, img = lattice_render(lnx, lny, 100)
+    info, img = lattice_render(lnx, lny, 100, label="lattice_scene")
     lattice_launches = info["launches"]
     emit("lattice_path", **info,
          render_primary_rays_per_s=lnx * lny * 100 / info["timers"]["trace"])
@@ -1113,12 +1257,14 @@ def main() -> int:
     # 800×800×1 (rr 5, the walk off)
     roulette = {
         "cornell_box": hold("k1g_vs_plain", "cornell_box", n_samples=4,
-                            rr_depth=6),
+                            rr_depth=6, key="cornell_box --rr-depth 6"),
         "final_scene": hold("k1g_vs_plain", "final_scene", n_samples=1,
-                            rr_depth=5)}
+                            rr_depth=5, key="final_scene --rr-depth 5")}
 
     # -- 32. the roulette path through the command line
-    info, img = run_cli("cornell_box_baseline", "--rr-depth", "6")
+    info, img = run_cli("cornell_box_baseline", "--rr-depth", "6",
+                        label="cornell_box_baseline --rr-depth 6",
+                        key="cornell_box --rr-depth 6")
     rr_launches = info["launches"]
     lum = info["mean_luminance"]
     emit("cornell_rr_path", **info, band=list(CORNELL_BAND),
@@ -1178,12 +1324,13 @@ def main() -> int:
             reps=3)
         prod_ms = cuda_ms(lambda: tracer.trace(sops, zeros(), **kw), reps=3)
         k1f_stats[scene] = dict(
-            max_abs_err=float((k - pl).abs().max()), ms=st_ms,
-            plain_ms=pl_ms, **k1_bound(sops, work, n_pix, n_samples))
+            spp=n_samples, max_abs_err=float((k - pl).abs().max()),
+            ms=st_ms, plain_ms=pl_ms,
+            **k1_bound(sops, work, n_pix, n_samples))
         if scene == "final_scene":
             final33 = dict(prod=prod, stats=sk)   # held by phase 39
         emit("k1f_stats_vs_plain", scene=scene, shape=[sny, snx],
-             spp=n_samples, depth=50, pixels_within_rel_1e4=agree,
+             depth=50, pixels_within_rel_1e4=agree,
              pixels_bit_equal=float((k == pl).all(dim=0).double().mean()),
              channel_mean_max_rel=mean_rel, counters_equal=rows_equal,
              stats_ms=st_ms, production_ms=prod_ms, work=work,
@@ -1230,29 +1377,35 @@ def main() -> int:
         agree = within(outs["kpix4"], pl)
         km, pm = outs["kpix4"].mean(dim=1), pl.mean(dim=1)
         mean_rel = float(((km - pm).abs() / pm.abs()).max())
-        # times at 10 spp in turns, and the occupancy of each layout
+        # times in turns at the samples of the command line's largest
+        # table launch of this preset (phases 11 and 19 recorded it), and
+        # the occupancy of each layout there
+        n_main = max(ln["kw"]["n_samples"]
+                     for ln in main_runs[scene]["launches"]
+                     if ln["kw"].get("pix") is not None)
         turns = []
         for name in ("scanline", "kpix1", "kpix4", "kpix4", "kpix1",
                      "scanline"):
             turns.append((name, cuda_ms(lambda: tracer.trace(
-                sops, zeros(), n_samples=10, **layouts[name], **kw),
-                reps=3)))
+                sops, zeros(), n_samples=n_main, **layouts[name], **kw),
+                reps=2)))
         occ = {}
         for name, lay in layouts.items():
             st = tracer.new_stats(snx, sny, dev, lay.get("pix"),
                                   lay.get("kpix", 1))
-            tracer.trace(sops, zeros(), n_samples=2, stats=st, **lay, **kw)
-            occ[name] = occupancy(st, n_pix, 2, lay.get("kpix", 1))
-        k1f_bal[scene] = dict(max_abs_err=float((outs["kpix4"] - pl).abs()
-                                                .max()),
-                              ms=k4_ms, plain_ms=pl_ms,
-                              **k1_bound(sops, work, n_pix, n_samples))
+            tracer.trace(sops, zeros(), n_samples=n_main, stats=st, **lay,
+                         **kw)
+            occ[name] = occupancy(st, n_pix, n_main, lay.get("kpix", 1))
+        k1f_bal[scene] = dict(
+            spp=n_samples, max_abs_err=float((outs["kpix4"] - pl).abs().max()),
+            ms=k4_ms, plain_ms=pl_ms,
+            **k1_bound(sops, work, n_pix, n_samples))
         emit("k1f_balanced_vs_scanline", scene=scene, shape=[sny, snx],
-             spp=n_samples, depth=50, probe_seconds=probe_s,
+             depth=50, probe_seconds=probe_s,
              bit_equal_to_scanline=same, plain_pixels_within_rel_1e4=agree,
              plain_channel_mean_max_rel=mean_rel,
-             ms_at_10_spp_in_turns=turns, occupancy_at_2_spp=occ, work=work,
-             **k1f_bal[scene])
+             ms_in_turns=turns, turns_spp=n_main, occupancy_in_turns=occ,
+             work=work, **k1f_bal[scene])
         check(all(same.values()), f"{scene}: a balanced layout's sums "
               f"differ from the scanline layout's: {same}")
         check(agree >= 0.99, f"{scene} (kpix 4): only {agree:.4%} of pixels "
@@ -1262,14 +1415,15 @@ def main() -> int:
         del outs, pl
 
     # -- 35. the balanced render path through the command line
-    bal_launches = {}
+    bal_launches, bal_labels = {}, []
     for scene, extra, mean in (
             ("random_spheres", (), RANDOM_SPHERES_MEAN),
             ("final_scene", (), None),
             ("final_scene", ("--nx", str(FINAL_SCENE_CHECK[0]), "--ny",
                              str(FINAL_SCENE_CHECK[1])), FINAL_SCENE_MEAN)):
         tracer._PERM_CACHE.clear()   # a cold render: the probe runs
-        info, img = run_cli(scene, *extra)
+        bal_labels.append(" ".join(("balanced", scene, *extra)))
+        info, img = run_cli(scene, *extra, label=bal_labels[-1])
         lum = info["mean_luminance"]
         band = None if mean is None else (0.95 * mean, 1.05 * mean)
         emit("k1f_balanced_path", **info, band=band,
@@ -1457,15 +1611,17 @@ def main() -> int:
         tracer.stats_rows(final33["stats"], n_pix))}
     same_sums = bool(torch.equal(k, final33["prod"]))
     dda_sum = kernel_stats.summarize(sk, n_pix, 1, dda=True)
-    k1f_dda = dict(max_abs_err=float((k - pl).abs().max()), ms=dda_ms,
-                   plain_ms=dda_plain_ms, **k1_bound(sops, work, n_pix, 1))
+    k1f_dda = dict(spp=1, max_abs_err=float((k - pl).abs().max()),
+                   ms=dda_ms, plain_ms=dda_plain_ms,
+                   **k1_bound(sops, work, n_pix, 1))
     buf = io.StringIO()
     reset_launches()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), record("kernel_stats final_scene",
+                                                 "final_scene"):
         rc = kernel_stats.main(["final_scene"])
     dda_launches = tracer.K1F_DDA_LAUNCHES
     stats_log = buf.getvalue()
-    emit("k1f_dda_row", scene="final_scene", shape=[sny, snx], spp=1,
+    emit("k1f_dda_row", scene="final_scene", shape=[sny, snx],
          depth=50, sums_equal_production=same_sums,
          counters_equal_plain=rows_plain, rows_equal_phase33=rows_33,
          box_tests=dda_sum["box_tests"], crossings=dda_sum["dda_crossings"],
@@ -1485,44 +1641,91 @@ def main() -> int:
           and "a per-ray gate could skip" in stats_log,
           f"kernel_stats final_scene: rc {rc}, {dda_launches} DDA launches")
 
+    # -- 40. K1 at the main path's own launches: every launch that phases
+    # 5, 11-17, 19, 30, 32, 35 and 39 recorded, made again on its operands
+    # and arguments (`replay`); cornell_box_baseline's first launch also
+    # held to trace_plain itself, in 8-sample calls
+    replayed = {}
+    for label, run in main_runs.items():
+        rows = []
+        for i, launch in enumerate(run["launches"]):
+            r, whole = replay(launch, held[run["held"]])
+            if label == "cornell_box_baseline" and i == 0:
+                kw = launch["kw"]
+                s0, n = kw["sample0"], kw["n_samples"]
+                pl = torch.zeros_like(whole)
+                for s in range(s0, s0 + n, 8):
+                    tracer.trace_plain(launch["ops"], pl, **{
+                        **kw, "sample0": s, "n_samples": min(8, s0 + n - s)})
+                r["plain_max_abs_err"] = float((whole - pl).abs().max())
+                r["equals_plain"] = bool(torch.equal(whole, pl))
+                del pl
+            rows.append(r)
+            del whole
+        replayed[label] = rows
+        steps = sum(r["warp_steps"] for r in rows)
+        occ = sum(r["segments"] for r in rows) / (32 * steps)
+        emit("k1_main_path_launches", run=label, launches=rows,
+             ms=sum(r["ms"] for r in rows),
+             bound_ms=sum(r["bound_ms"] for r in rows), occupancy=occ,
+             tail_share=1.0 - occ)
+        check(all(r["equals_chunks"] for r in rows), f"{label}: a launch's "
+              "sums differ from the same samples launched in chunks")
+        check(all(r.get("equals_plain", True) for r in rows),
+              f"{label}: the launch's sums differ from trace_plain's")
+    k1a["max_abs_err"] = max(
+        k1a["max_abs_err"],
+        replayed["cornell_box_baseline"][0]["plain_max_abs_err"])
+
+    def main_row(row: dict, labels, counter: str, n: int) -> dict:
+        return at_main_path(row, [r for lab in labels
+                                  for r in replayed[lab]], counter, n)
+    sphere_n = sum(v["k1be_sphere_trace"] for v in sphere_launches.values())
+    texture_n = sum(next_launches[sc]["k1c_texture_trace"] for sc in textured)
+
     print(json.dumps({"kernels": [{
         "name": "k1a_static_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
         "launches": launches["k1a_static_trace"],
-        "max_abs_err": max_abs_err, "ms": k_ms_k1a, "plain_ms": p_ms,
-        **k1a_bound, "library_ms": None}, {
+        **main_row(k1a, ["cornell_box_baseline"], "k1a_static_trace",
+                   launches["k1a_static_trace"]), "library_ms": None}, {
         "name": "k1be_sphere_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
-        "launches": sum(v["k1be_sphere_trace"]
-                        for v in sphere_launches.values()),
-        **k1be["random_spheres"],
+        "launches": sphere_n,
+        **main_row(k1be["random_spheres"], sphere_launches,
+                   "k1be_sphere_trace", sphere_n),
         "max_abs_err": max(v["max_abs_err"] for v in k1be.values()),
         "library_ms": None}, {
         "name": "k1c_texture_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
-        "launches": sum(next_launches[sc]["k1c_texture_trace"]
-                        for sc in textured),
-        **k1cd["simple_light"],
+        "launches": texture_n,
+        **main_row(k1cd["simple_light"], textured, "k1c_texture_trace",
+                   texture_n),
         "max_abs_err": max(k1cd[sc]["max_abs_err"] for sc in textured),
         "library_ms": None}, {
         "name": "k1d_media_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
         "launches": next_launches["cornell_smoke"]["k1d_media_trace"],
-        **k1cd["cornell_smoke"], "library_ms": None}, {
+        **main_row(k1cd["cornell_smoke"], ["cornell_smoke"],
+                   "k1d_media_trace",
+                   next_launches["cornell_smoke"]["k1d_media_trace"]),
+        "library_ms": None}, {
         "name": "k1e_box_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
-        "launches": final_launches["k1e_box_trace"], **final["event"],
-        "library_ms": None}, {
+        "launches": final_launches["k1e_box_trace"],
+        **main_row(final["event"], ["final_scene"], "k1e_box_trace",
+                   final_launches["k1e_box_trace"]), "library_ms": None}, {
         "name": "k1d_walk_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
-        "launches": final_launches["k1d_walk_trace"], **final["walk"],
-        "library_ms": None}, {
+        "launches": final_launches["k1d_walk_trace"],
+        **main_row(final["walk"], ["final_scene"], "k1d_walk_trace",
+                   final_launches["k1d_walk_trace"]), "library_ms": None}, {
         "name": "k2_grad_fwd", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:557",
@@ -1561,27 +1764,33 @@ def main() -> int:
         "name": "k1_lattice_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
-        "launches": lattice_launches["k1_lattice_trace"], **lattice,
+        "launches": lattice_launches["k1_lattice_trace"],
+        **main_row(lattice, ["lattice_scene"], "k1_lattice_trace",
+                   lattice_launches["k1_lattice_trace"]),
         "library_ms": None}, {
         "name": "k1g_roulette_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
         "launches": rr_launches["k1g_roulette_trace"],
-        **roulette["cornell_box"],
+        **main_row(roulette["cornell_box"],
+                   ["cornell_box_baseline --rr-depth 6"], "k1g_roulette_trace",
+                   rr_launches["k1g_roulette_trace"]),
         "max_abs_err": max(v["max_abs_err"] for v in roulette.values()),
         "library_ms": None}, {
         "name": "k1f_stats_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
         "launches": bal_launches["k1f_stats_trace"],
-        **k1f_stats["random_spheres"],
+        **main_row(k1f_stats["random_spheres"], bal_labels, "k1f_stats_trace",
+                   bal_launches["k1f_stats_trace"]),
         "max_abs_err": max(v["max_abs_err"] for v in k1f_stats.values()),
         "library_ms": None}, {
         "name": "k1f_balanced_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
         "launches": bal_launches["k1f_balanced_trace"],
-        **k1f_bal["random_spheres"],
+        **main_row(k1f_bal["random_spheres"], bal_labels,
+                   "k1f_balanced_trace", bal_launches["k1f_balanced_trace"]),
         "max_abs_err": max(v["max_abs_err"] for v in k1f_bal.values()),
         "library_ms": None}, {
         "name": "d3_fp32_peak", "route": "cuda",
@@ -1611,7 +1820,9 @@ def main() -> int:
         "name": "k1f_dda_stats", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",
-        "launches": dda_launches, **k1f_dda, "library_ms": None}]}),
+        "launches": dda_launches,
+        **main_row(k1f_dda, ["kernel_stats final_scene"], "k1f_dda_stats",
+                   dda_launches), "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

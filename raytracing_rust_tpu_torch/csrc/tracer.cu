@@ -32,7 +32,9 @@
 // (1284-1292, 1378-1394, 1534-1600): the pixels a thread renders may come
 // from a table, kpix of them one after the other (the JAX kernel's kpix
 // banks, built on the host from a cost probe), and a stats launch counts
-// each pixel's segments and member tests and each warp's steps, and when
+// each pixel's segments and member tests and each warp's steps (the
+// largest segment total among its threads: JAX's per-lane `s_steps`,
+// 1547-1550, taken over a warp), and when
 // asked (`dda=True`, 1278-1294) the box member tests whose AABB the ray
 // crosses: per thread, since a thread walks its own members, where the
 // TPU kernel asks whether any lane of its tile crosses (no warp vote here:
@@ -57,34 +59,45 @@
 // normal are computed there, from t and the row, with no new loop state.
 //
 // What bounds it on this card: f32 ALU issue and warp divergence, not
-// bytes. Each thread owns one pixel and carries its ray in registers
-// through every sample and bounce. The unrolled record (P ≤ 96 rows × 46
-// f32, 17.7 KB), its walk order, the camera record and, when they fit,
-// the leaf AABBs sit in shared memory, where the lanes of a warp mostly
-// read the same cell (a broadcast); so do the media records (≤ MAX_MEDIA
-// rows of 32 f32) and the walk's interior rows (≤ MAX_INTERIOR rows). The
-// dynamic sphere and box tables stay in device memory, read through the
-// read-only cache, so their size is not capped by shared memory (the TPU
-// kernel's ~2k-prim SMEM cap does not carry over); leaf tables too big for
-// shared memory are read the same way, and so is the texel atlas, one
-// 4-byte load per textured hit (the TPU kernel's 8 MB VMEM cap and its
-// 8×128 gather construction do not carry over); the box winner's
-// attributes are read from its row, not through the TPU kernel's
-// transposed attribute gather. The 7-octave turbulence is ~2k f32 and SFU
-// operations per noise hit, so noise scenes are bound by issue even more
-// than the others. The leaf cull is a per-thread slab test against the
-// thread's own best hit; the TPU kernel's lane-coherent supercluster level
-// and its OR-tree have no counterpart here yet (a warp vote is later
-// work), nor has its strip pass over a regular box grid (measured a wash
-// on the TPU). Paths end at different bounces and cross different leaves,
-// so a warp runs until its longest path ends, and a thread on a walk runs
-// its cheap walk bounces while its warp-mates trace full ones: this first
-// version takes that cost, and the STATS counters measure it. Unlike the
-// TPU kernel, whose dead lanes start their pixel's next sample inside one
-// flat loop, a thread here runs a bounce loop inside a sample loop, so its
-// warp reconverges after every sample; a pixel table changes which pixels
-// share a warp, never a pixel's own samples, draws or f64 sum order, so a
-// balanced render's sums equal the scanline one's bit for bit.
+// bytes. Each thread owns an ordered list of (pixel, sample) pairs and
+// carries its ray in registers; one flat loop, one path segment an
+// iteration, walks the list (the JAX kernel's persistent wavefront: a
+// dead lane banks its radiance and starts its next pair's camera ray). So
+// a warp does not wait at each sample for that sample's longest path: it
+// runs until its busiest thread's list is done, the largest of 32 segment
+// totals rather than the sum over samples of 32 per-sample maxima, and
+// pays for it with the raygen branch, which some thread of the warp takes
+// in most iterations. The unrolled record (P ≤
+// 96 rows × 46 f32, 17.7 KB), its walk order, the camera record and, when
+// they fit, the leaf AABBs sit in shared memory, where the lanes of a warp
+// mostly read the same cell (a broadcast); so do the media records (≤
+// MAX_MEDIA rows of 32 f32) and the walk's interior rows (≤ MAX_INTERIOR
+// rows). They are staged once per block, ≤ 48 KB by plain loads before
+// the loop: against a block's millions of segments TMA or cp.async would
+// buy nothing measurable. The dynamic sphere and box tables stay in
+// device memory, read through the read-only cache, so their size is not
+// capped by shared memory (the TPU kernel's ~2k-prim SMEM cap does not
+// carry over); leaf tables too big for shared memory are read the same
+// way, and so is the texel atlas, one 4-byte load per textured hit (the
+// TPU kernel's 8 MB VMEM cap and its 8×128 gather construction do not
+// carry over); the box winner's attributes are read from its row, not
+// through the TPU kernel's transposed attribute gather. The 7-octave
+// turbulence is ~2k f32 and SFU operations per noise hit, so noise scenes
+// are bound by the instruction rate even more than the others. The leaf
+// cull is a per-thread slab test against the thread's own best hit; the TPU
+// kernel's lane-coherent supercluster level and its OR-tree have no
+// counterpart here yet (a warp vote is later work), nor has its strip
+// pass over a regular box grid (measured a wash on the TPU). Inside an
+// iteration the threads of a warp still diverge: they cross different
+// leaves, and a thread on a dense-medium walk runs its walk bounces (a
+// nested loop inside its segment) while its warp-mates trace one full
+// segment each; the STATS counters measure what is left of the tail. The
+// flat loop changes when a path runs, never its draws or its pixel's f64
+// sum order, and a pixel table changes which pixels share a warp, never
+// those either, so the sums equal trace_plain's order bit for bit across
+// chunkings and layouts. No pixel queue (an atomic counter over pixels)
+// feeds the loop: the counters would then depend on the scheduler, which
+// no plain version could reproduce.
 //
 // Numerics: no fast math, and compiled with -fmad=false, so every multiply
 // and add rounds on its own, as torch's elementwise ops do; each f32
@@ -473,71 +486,95 @@ trace_k1(const float* __restrict__ rec, int n_rec,
   // each in sample order into its own sums; a slot outside [0, n_pix)
   // renders nothing (n_pix pads the last tile)
   const bool table = DYN && pix_table != nullptr;
-  uint32_t steps = 0;  // STATS: Σ over samples of the warp's longest path
-  for (int bank = 0; bank < (table ? kpix : 1); ++bank) {
-    const int pix =
-        table ? __ldg(pix_table + ((size_t)(tid / TILE) * kpix + bank) * TILE +
-                      tid % TILE)
-              : tid;
-    const bool in_image =
-        table ? (unsigned)pix < (unsigned)n_pix : pix < n_pix;
-    if (!STATS && !in_image) {
-      if (table) continue;
-      return;
-    }
-    // STATS: a padding thread traces nothing, but joins its warp's
-    // reductions
-    const bool valid = !STATS || in_image;
-    // row 0 of the image is the top scanline (reference tests/test.rs:62-64)
-    const float icol = (float)(pix % nx);
-    const float jflip = (float)(ny - 1 - pix / nx);
-    double acc_r = 0.0, acc_g = 0.0, acc_b = 0.0;
-    if (valid) {
-      acc_r = sums[pix];
-      acc_g = sums[n_pix + pix];
-      acc_b = sums[2 * n_pix + pix];
-    }
-    // STATS: segments traced (walk bounces too), dynamic sphere and box
-    // member tests, and with the DDA row the box member tests whose AABB
-    // the ray crosses, over the samples
-    uint32_t busy = 0, tests_s = 0, tests_b = 0, cross_b = 0;
-
-    for (int si = 0; si < n_samples; ++si) {
-      const uint32_t sample = (uint32_t)(sample0 + si);
-      uint32_t nb = 0;  // STATS: the segments of this sample
-      // camera ray (reference src/camera.rs:53-67, jitter tests/test.rs:66-68)
-      const Uniforms uc = philox(pix, sample, 0, STREAM_CAMERA, k0, k1);
-      const float s = (icol + uc.x) / (float)nx;
-      const float t = (jflip + uc.y) / (float)ny;
-      const float lr = sqrtf(uc.z);
-      const float phi = TWO_PI * uc.w;
-      const float rdx = s_cam[C_LENS_R] * (lr * cosf(phi));
-      const float rdy = s_cam[C_LENS_R] * (lr * sinf(phi));
-      float ox = s_cam[C_ORIGIN] + (rdx * s_cam[C_U] + rdy * s_cam[C_V]);
-      float oy = s_cam[C_ORIGIN + 1] +
-                 (rdx * s_cam[C_U + 1] + rdy * s_cam[C_V + 1]);
-      float oz = s_cam[C_ORIGIN + 2] +
-                 (rdx * s_cam[C_U + 2] + rdy * s_cam[C_V + 2]);
-      float dx = s_cam[C_LL] + s * s_cam[C_HORIZ] + t * s_cam[C_VERT] - ox;
-      float dy = s_cam[C_LL + 1] + s * s_cam[C_HORIZ + 1] +
-                 t * s_cam[C_VERT + 1] - oy;
-      float dz = s_cam[C_LL + 2] + s * s_cam[C_HORIZ + 2] +
-                 t * s_cam[C_VERT + 2] - oz;
-      // shutter time (pallas_tracer.py:1583-1584)
-      float time = 0.0f;
-      if (moving)
-        time = s_cam[C_TIME0] +
-               philox(pix, sample, 0, STREAM_TIME, k0, k1).x * s_cam[C_DTIME];
-
-      float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
-      float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
-      // the walk ruled out a medium event on the next segment (`skip_med`)
-      bool skip_med = false;
-      for (int bounce = 0;; ++bounce) {
-        if (STATS) {
-          if (!valid) break;
-          ++nb;
+  const int n_banks = table ? kpix : 1;
+  // A thread's work is an ordered list of (pixel, sample) pairs: its bank
+  // 0 pixel with samples sample0 .. sample0 + n_samples − 1, then bank 1's
+  // pixel and all its samples, and so on. One flat loop walks the list,
+  // one path segment an iteration (the JAX kernel's persistent wavefront,
+  // pallas_tracer.py:1527-1592, 2516-2538). (bank, si) is the current
+  // pair; si == n_samples: the pixel is done, or none is open yet.
+  int bank = -1, pix = 0, si = n_samples;
+  double acc_r = 0.0, acc_g = 0.0, acc_b = 0.0;
+  // STATS: the current pixel's segments traced (walk bounces too), dynamic
+  // sphere and box member tests, and with the DDA row its box member
+  // tests whose AABB the ray crosses; the thread's segments over the
+  // launch (`total`)
+  uint32_t busy = 0, tests_s = 0, tests_b = 0, cross_b = 0, total = 0;
+  // the live path: its ray, shutter time, throughput, radiance and bounce,
+  // and whether the walk ruled out a medium event on its next segment
+  // (`skip_med`)
+  bool live = false, skip_med = false;
+  int bounce = 0;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float time = 0.0f;
+  float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
+  float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
+  for (;;) {
+    if (!live) {
+      // the next pair: the pixel's next sample, else the next bank's pixel
+      // inside the image, whose sums are read first
+      while (si >= n_samples && bank < n_banks - 1) {
+        ++bank;
+        pix = table ? __ldg(pix_table +
+                            ((size_t)(tid / TILE) * kpix + bank) * TILE +
+                            tid % TILE)
+                    : tid;
+        if ((unsigned)pix < (unsigned)n_pix) {
+          acc_r = sums[pix];
+          acc_g = sums[n_pix + pix];
+          acc_b = sums[2 * n_pix + pix];
+          busy = tests_s = tests_b = cross_b = 0;
+          si = 0;
         }
+      }
+      if (si < n_samples) {
+        // camera ray (reference src/camera.rs:53-67, jitter tests/test.rs:
+        // 66-68); row 0 of the image is the top scanline (62-64)
+        const uint32_t sample = (uint32_t)(sample0 + si);
+        const float icol = (float)(pix % nx);
+        const float jflip = (float)(ny - 1 - pix / nx);
+        const Uniforms uc = philox(pix, sample, 0, STREAM_CAMERA, k0, k1);
+        const float s = (icol + uc.x) / (float)nx;
+        const float t = (jflip + uc.y) / (float)ny;
+        const float lr = sqrtf(uc.z);
+        const float phi = TWO_PI * uc.w;
+        const float rdx = s_cam[C_LENS_R] * (lr * cosf(phi));
+        const float rdy = s_cam[C_LENS_R] * (lr * sinf(phi));
+        ox = s_cam[C_ORIGIN] + (rdx * s_cam[C_U] + rdy * s_cam[C_V]);
+        oy = s_cam[C_ORIGIN + 1] +
+             (rdx * s_cam[C_U + 1] + rdy * s_cam[C_V + 1]);
+        oz = s_cam[C_ORIGIN + 2] +
+             (rdx * s_cam[C_U + 2] + rdy * s_cam[C_V + 2]);
+        dx = s_cam[C_LL] + s * s_cam[C_HORIZ] + t * s_cam[C_VERT] - ox;
+        dy = s_cam[C_LL + 1] + s * s_cam[C_HORIZ + 1] + t * s_cam[C_VERT + 1] -
+             oy;
+        dz = s_cam[C_LL + 2] + s * s_cam[C_HORIZ + 2] + t * s_cam[C_VERT + 2] -
+             oz;
+        // shutter time (pallas_tracer.py:1583-1584)
+        time = 0.0f;
+        if (moving)
+          time = s_cam[C_TIME0] +
+                 philox(pix, sample, 0, STREAM_TIME, k0, k1).x * s_cam[C_DTIME];
+        thr_r = thr_g = thr_b = 1.0f;
+        rad_r = rad_g = rad_b = 0.0f;
+        bounce = 0;
+        skip_med = false;
+        live = true;
+      }
+    }
+    // The warp leaves the loop together, once none of its threads has a
+    // path left: a thread whose list is done stays, idle, so no thread
+    // leaves from inside a divergent branch and the segment below runs
+    // with the warp reconverged every iteration (a divergent exit would
+    // let the threads that took the raygen branch and those that did not
+    // trace their segments apart)
+    if (!__any_sync(0xffffffffu, live)) break;
+    if (live) {
+      const uint32_t sample = (uint32_t)(sample0 + si);
+      // one segment of the path at `bounce`; a break ends the path
+      live = false;
+      do {
+        if (STATS) ++busy;
         const float a_dd = dx * dx + dy * dy + dz * dz;
         const float inv_a = 1.0f / a_dd;
         float t_best = BIG, nbx = 0.0f, nby = 0.0f, nbz = 0.0f;
@@ -704,8 +741,8 @@ trace_k1(const float* __restrict__ rec, int n_rec,
             }
           }
           if (wd >= 0) {
-            // winner resolve: normal (o + t·d − c(time))·inv_r, then the flip
-            // (pallas_tracer.py:2097-2148)
+            // winner resolve: normal (o + t·d − c(time))·inv_r, then the
+            // flip (pallas_tracer.py:2097-2148)
             const float* r = dyn + (size_t)wd * REC;
             float cx, cy, cz;
             center(r, moving, time, cx, cy, cz);
@@ -983,7 +1020,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
           // bounce (MEDIUM for the flights, SCATTER for the direction)
           int b = bounce + 1;
           for (;;) {
-            if (STATS) ++nb;
+            if (STATS) ++busy;
             const float a2 = dx * dx + dy * dy + dz * dz;
             const float ia2 = 1.0f / a2;
             const float iwx = safe_inv(dx), iwy = safe_inv(dy),
@@ -1061,31 +1098,37 @@ trace_k1(const float* __restrict__ rec, int n_rec,
           }
           bounce = b - 1;
         }
-      }
-      acc_r += (double)rad_r;
-      acc_g += (double)rad_g;
-      acc_b += (double)rad_b;
-      if (STATS) {
-        // the warp has reconverged: it ran this sample until its longest
-        // path ended
-        busy += nb;
-        steps += __reduce_max_sync(0xffffffffu, nb);
-      }
-    }
-    if (valid) {
-      sums[pix] = acc_r;
-      sums[n_pix + pix] = acc_g;
-      sums[2 * n_pix + pix] = acc_b;
-      if (STATS) {
-        stats[pix] += busy;
-        stats[n_pix + pix] += tests_s;
-        stats[2 * n_pix + pix] += tests_b;
-        if (dda != nullptr) dda[pix] += cross_b;
+        ++bounce;
+        live = true;
+      } while (false);
+      if (!live) {
+        // the path ended: its radiance joins the pixel's sums in sample
+        // order; after the pixel's last sample they are written
+        acc_r += (double)rad_r;
+        acc_g += (double)rad_g;
+        acc_b += (double)rad_b;
+        if (++si == n_samples) {
+          sums[pix] = acc_r;
+          sums[n_pix + pix] = acc_g;
+          sums[2 * n_pix + pix] = acc_b;
+          if (STATS) {
+            stats[pix] += busy;
+            stats[n_pix + pix] += tests_s;
+            stats[2 * n_pix + pix] += tests_b;
+            if (dda != nullptr) dda[pix] += cross_b;
+            total += busy;
+          }
+        }
       }
     }
   }
-  if (STATS && (threadIdx.x & 31) == 0)
-    stats[3 * (size_t)n_pix + tid / 32] += steps;
+  // STATS: a warp ran until its busiest thread's list was done, so its
+  // steps are the largest segment total among its 32 threads; a padding
+  // thread joins with 0
+  if (STATS) {
+    const uint32_t steps = __reduce_max_sync(0xffffffffu, total);
+    if ((threadIdx.x & 31) == 0) stats[3 * (size_t)n_pix + tid / 32] += steps;
+  }
 }
 
 using TraceFn = void (*)(const float*, int, const int*, int, const float*,
@@ -1126,14 +1169,15 @@ const TraceFn STATS_KERNELS[2] = {trace_k1<true, true, false, true>,
 // the walk). pix_table: null, and thread i renders pixel i; or int32[n_table]
 // (n_table a multiple of kpix·TILE), and thread j of tile g renders the
 // pixels pix_table[(g·kpix + b)·TILE + j], b < kpix, a slot outside
-// [0, nx·ny) none (K1f); a pixel named twice races with itself. stats: null, or int64[3·nx·ny + threads / 32] to which the
-// launch adds per pixel its segments, its dynamic sphere member tests and
-// its box member tests (three rows), then per warp Σ over samples of its
-// longest sample's segments; threads = n_table / kpix with a table, else
-// nx·ny rounded up to THREADS. dda (with stats only): the buffer holds
-// nx·ny more entries, to which the launch adds per pixel its box member
-// tests whose AABB the ray crosses before its best hit so far. Launches on
-// `stream`; returns cudaGetLastError() after the launch.
+// [0, nx·ny) none (K1f); a pixel named twice races with itself. stats:
+// null, or int64[3·nx·ny + threads / 32] to which the launch adds per
+// pixel its segments, its dynamic sphere member tests and its box member
+// tests (three rows), then per warp the largest of its threads' segment
+// totals over their banks and samples; threads = n_table / kpix with a
+// table, else nx·ny rounded up to THREADS. dda (with stats only): the
+// buffer holds nx·ny more entries, to which the launch adds per pixel its
+// box member tests whose AABB the ray crosses before its best hit so far.
+// Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int n_walk, const float* dyn, int n_dyn,
                            const float* leaves, int n_leaf, const float* cam,
@@ -1191,4 +1235,18 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       dda ? stats + 3 * (size_t)n_pix + (size_t)blocks * THREADS / 32
           : nullptr);
   return (int)cudaGetLastError();
+}
+
+// The blocks of THREADS threads of one instantiation that an SM holds
+// without dynamic shared memory (the records take a few KB of the SM's
+// 228 KB, so registers decide), by the runtime's occupancy query, into
+// *blocks: the production kernel [k1b][dyn][leaf_smem], or with stats the
+// counters' [leaf_smem] (k1b and dyn set). Returns the cudaError.
+extern "C" int rt_trace_k1_blocks_per_sm(int k1b, int dyn, int leaf_smem,
+                                         int stats, int* blocks) {
+  if (stats && !(k1b && dyn)) return (int)cudaErrorInvalidValue;
+  const TraceFn fn = stats ? STATS_KERNELS[leaf_smem != 0]
+                           : KERNELS[k1b != 0][dyn != 0][leaf_smem != 0];
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                            THREADS, 0);
 }

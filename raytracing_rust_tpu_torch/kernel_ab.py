@@ -11,8 +11,12 @@ instantiation (`trace_k1<false, false, false, false>`, cornell_box's
 kernel) line by line without addresses, and times the kernel in each
 checkout in turns (other, this, this, other) on cornell_box_baseline
 800×800 at 100 spp, random_spheres 1280×720 at 100 spp, two_spheres
-1280×720 at 10 spp and final_scene 800×800 at 10 spp, depth 50, by CUDA
-events over repeated launches after a warm-up. Each
+1280×720 at 10 spp and final_scene 800×800 at 10 spp, then at the
+comparison shapes of chip_smoke.py (cornell_box_baseline and
+random_spheres at 2 spp, final_scene at 1) and as the cost probe of a
+balanced render (`cost_permutation`'s stats launch: PROBE_SPP samples at
+PROBE_SEED on the scanline layout) on random_spheres and final_scene,
+depth 50, by CUDA events over repeated launches after a warm-up. Each
 timing run is a fresh process in that checkout, so each imports its own
 package. The sums' totals show whether both checkouts compute the same
 image. With --grad it times K2 and K3 instead, in the same turns, on the
@@ -36,9 +40,16 @@ import sys
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# (preset, samples per launch, launches timed)
-SCENES = (("cornell_box_baseline", 100, 5), ("random_spheres", 100, 5),
-          ("two_spheres", 10, 10), ("final_scene", 10, 5))
+# (label, preset, samples per launch, launches timed, as the cost probe)
+SCENES = (("cornell_box_baseline", "cornell_box_baseline", 100, 5, False),
+          ("random_spheres", "random_spheres", 100, 5, False),
+          ("two_spheres", "two_spheres", 10, 10, False),
+          ("final_scene", "final_scene", 10, 5, False),
+          ("cornell_box_baseline@2", "cornell_box_baseline", 2, 20, False),
+          ("random_spheres@2", "random_spheres", 2, 20, False),
+          ("final_scene@1", "final_scene", 1, 20, False),
+          ("random_spheres probe", "random_spheres", 4, 20, True),
+          ("final_scene probe", "final_scene", 4, 10, True))
 
 _TIMING = r"""
 import json, statistics, sys
@@ -48,23 +59,30 @@ from raytracing_rust_tpu_torch.models.builders import PRESETS
 from raytracing_rust_tpu_torch.ops import _build, tracer
 out = {"library": _build.build()[0]}
 dev = torch.device("cuda")
-for scene, spp, reps in SCENES:
+for label, scene, spp, reps, probe in SCENES:
     p = PRESETS[scene]
     ops = tracer.trace_operands(tracer.build_scene_record(p.build()),
                                 tracer.build_camera_record(p.camera()), dev)
     sums = torch.zeros((3, p.nx * p.ny), dtype=torch.float64, device=dev)
     kw = dict(nx=p.nx, ny=p.ny, seed=0, sample0=0, n_samples=spp,
               max_depth=50)
+    stats = None
+    if probe:
+        stats = tracer.new_stats(p.nx, p.ny, dev)
+        kw.update(seed=tracer.PROBE_SEED, stats=stats)
     tracer.trace(ops, sums, **kw)
     ms = []
     for _ in range(reps):
+        if probe:
+            stats.zero_()
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         tracer.trace(ops, sums.zero_(), **kw)
         b.record()
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(b))
-    out[scene] = dict(spp=spp, ms=ms, median_ms=statistics.median(ms),
+    out[label] = dict(spp=spp, probe=probe, ms=ms,
+                      median_ms=statistics.median(ms),
                       sum=float(sums.sum()))
 print(json.dumps(out))
 """
@@ -180,12 +198,12 @@ def main(argv=None) -> int:
         k1a_sass=dict(instructions_other=len(sass["other"]),
                       instructions_this=len(sass["this"]),
                       differing=differ),
-        scenes={scene: dict(
-            spp=spp,
-            median_ms={who: [r[scene]["median_ms"] for w, r in runs
+        scenes={label: dict(
+            spp=spp, probe=probe,
+            median_ms={who: [r[label]["median_ms"] for w, r in runs
                              if w == who] for who in ("other", "this")},
-            sums_equal=len({r[scene]["sum"] for _, r in runs}) == 1)
-            for scene, spp, _ in SCENES},
+            sums_equal=len({r[label]["sum"] for _, r in runs}) == 1)
+            for label, _, spp, _, probe in SCENES},
         runs=[dict(who=who, **r) for who, r in runs])
     _report(result, args.out)
     return 0

@@ -7,11 +7,12 @@
 The counterpart of tools/kernel_stats.py. With scene names (default
 final_scene and random_spheres) it renders each preset once with K1f's
 stats launch (`run`) and prints, from its counters: steps per sample (a
-warp runs each sample until its longest path ends, so a warp's steps are Σ
-over samples of its longest sample's segments), the occupancy (segments
-over 32 × warp steps: the share of a warp's thread-steps that trace; the
-rest is the tail), the segments per sample, and the dynamic sphere and box
-member tests per segment. On a scene with boxes the launch also fills K1f's
+warp's threads each walk their own list of pixels and samples, one segment
+an iteration, so a warp runs until its busiest thread is done: its steps
+are the largest segment total among its 32 threads, over their banks and
+samples), the occupancy (segments over 32 × warp steps: the share of a
+warp's thread-steps that trace; the rest is the tail), the segments per
+sample, and the dynamic sphere and box member tests per segment. On a scene with boxes the launch also fills K1f's
 DDA row (tools/kernel_stats.py's dda probe): of the box member tests the
 leaf cull lets through, those whose AABB the ray crosses inside its live
 window, the visit set of a per-ray grid DDA; it prints their rate per
@@ -71,8 +72,9 @@ def _operands(name, nx, ny, max_depth, balance, device):
 
 def summarize(stats: torch.Tensor, n_pix: int, spp: int,
               kpix: int = 1, dda: bool = False) -> dict:
-    """The counters of a stats buffer → steps per sample (the mean over
-    warps that hold a pixel), segments per sample, occupancy, tail share,
+    """The counters of a stats buffer → steps per sample (a warp's steps
+    over spp · kpix, the mean over warps that hold a pixel), segments per
+    sample, occupancy, tail share,
     member tests per segment, and the totals; with dda (a buffer with the
     DDA row) the box tests whose AABB the ray crosses, per segment, and the
     share of box tests a per-ray gate could skip (1 − crossings / box

@@ -85,6 +85,8 @@ def load() -> ctypes.CDLL:
                                 i, i, i, p, i, i, p, i, i, u, p, i, p, i, p,
                                 i, p, i, i, p, i, i, p, i, p]
     lib.rt_trace_k1.restype = i
+    lib.rt_trace_k1_blocks_per_sm.argtypes = [i, i, i, i, p]
+    lib.rt_trace_k1_blocks_per_sm.restype = i
     lib.rt_grad_fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.rt_grad_fwd.restype = i
     lib.rt_grad_bwd.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i,

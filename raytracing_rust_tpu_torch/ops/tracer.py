@@ -41,6 +41,7 @@ Random numbers are Philox4x32-10 keyed by the seed and addressed by
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import math
 from dataclasses import dataclass
@@ -1271,8 +1272,9 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     counts' "segments" + "walk"), and the dynamic sphere and box member
     tests of the kernel's cull, leaf by leaf against the ray's best hit so
     far (counts' "box" counts an exact cull's, against the final hit); per
-    warp of the launch's thread mapping, Σ over its threads' banks and
-    samples of the largest segment count among its 32 threads; with dda
+    warp of the launch's thread mapping, the largest among its 32 threads
+    of a thread's segments summed over its banks and samples (the kernel's
+    flat loop runs a warp until its busiest thread is done); with dda
     (a buffer of `new_stats(..., dda=True)`), per pixel the box member
     tests whose slab the ray crosses inside (T_MIN, its best hit before the
     test), the kernel's DDA row (`dda_row`).
@@ -1702,31 +1704,29 @@ def _add_stats(stats, n_pix, pixels, pix_table, kpix, nb, ts, tb, cb=None):
     ([n_samples, n_sel], pixels in `pixels` order) to a stats buffer: the
     per-pixel rows, and each warp's steps under the kernel's thread
     mapping (a thread per pixel, or thread j of tile g on slots
-    (g·kpix + b)·TILE + j of the table); and the DDA crossings cb, when
-    given, to the DDA row."""
+    (g·kpix + b)·TILE + j of the table): per thread the Σ over its banks
+    and samples of the segments, then the largest of a warp's 32; and the
+    DDA crossings cb, when given, to the DDA row."""
     busy, sph, box, steps = stats_rows(stats, n_pix, dda=cb is not None)
     if cb is not None:
         dda_row(stats, n_pix).index_add_(0, pixels, cb.sum(dim=0))
-    busy.index_add_(0, pixels, nb.sum(dim=0))
+    per_pix = nb.sum(dim=0)
+    busy.index_add_(0, pixels, per_pix)
     sph.index_add_(0, pixels, ts.sum(dim=0))
     box.index_add_(0, pixels, tb.sum(dim=0))
-    n_samples = nb.shape[0]
     threads = steps.numel() * WARP
     if pix_table is None:
-        slot = torch.zeros((n_samples, 1, threads), dtype=torch.int64,
-                           device=nb.device)
-        slot[:, 0, :pixels.numel()] = nb
+        slot = torch.zeros(threads, dtype=torch.int64, device=nb.device)
+        slot[:pixels.numel()] = per_pix
     else:
-        flat = torch.zeros((n_samples, pix_table.numel()), dtype=torch.int64,
+        flat = torch.zeros(pix_table.numel(), dtype=torch.int64,
                            device=nb.device)
         slots = pix_table.to(nb.device)
-        flat[:, torch.nonzero((slots >= 0) & (slots < n_pix))
-             .squeeze(1)] = nb
+        flat[torch.nonzero((slots >= 0) & (slots < n_pix))
+             .squeeze(1)] = per_pix
         grid = pix_table.numel() // (kpix * TILE)
-        slot = flat.view(n_samples, grid, kpix, TILE).transpose(1, 2) \
-            .reshape(n_samples, kpix, threads)
-    steps += slot.view(n_samples, -1, threads // WARP, WARP).amax(dim=-1) \
-        .sum(dim=(0, 1))
+        slot = flat.view(grid, kpix, TILE).sum(dim=1).reshape(threads)
+    steps += slot.view(-1, WARP).amax(dim=-1)
 
 
 def _walk(med_box, dense_of, med_table, med_dev, interior, int_kind, o, d,
@@ -1962,6 +1962,32 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     return sums
 
 
+# the eight instantiations of csrc/tracer.cu by their template flags (K1B,
+# DYN, LEAF_SMEM, STATS), as ptxas names them
+K1_INSTANTIATIONS = ((0, 0, 0, 0), (0, 1, 0, 0), (0, 1, 1, 0), (1, 0, 0, 0),
+                     (1, 1, 0, 0), (1, 1, 1, 0), (1, 1, 0, 1), (1, 1, 1, 1))
+
+
+def k1_blocks_per_sm() -> dict:
+    """Blocks of THREADS threads that an SM of card 0 holds, per
+    instantiation ("trace_k1<K1B,DYN,LEAF_SMEM,STATS>"), without dynamic
+    shared memory, by the runtime's occupancy query; raises without
+    CUDA."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the occupancy query needs a CUDA card: "
+                           "torch.cuda.is_available() is false")
+    from ._build import load
+    lib, out = load(), {}
+    for flags in K1_INSTANTIATIONS:
+        blocks = ctypes.c_int(0)
+        err = lib.rt_trace_k1_blocks_per_sm(*flags, ctypes.addressof(blocks))
+        if err != 0:
+            raise RuntimeError(f"occupancy of trace_k1{flags}: cudaError "
+                               f"{err}")
+        out[f"trace_k1<{','.join(map(str, flags))}>"] = blocks.value
+    return out
+
+
 def k1_work(ops: TraceOperands, counts: dict, n_pix: int,
             n_samples: int) -> tuple[int, int]:
     """(operations, bytes) of K1 on a run's paths: `trace_plain`'s counts
@@ -2061,8 +2087,8 @@ def stats_size(n_pix: int, pix: torch.Tensor | None = None,
                kpix: int = 1, dda: bool = False) -> int:
     """Length of a stats buffer (`trace`'s stats): three rows of n_pix (each
     pixel's segments, dynamic sphere member tests and box member tests),
-    then one entry per warp of the launch (its steps: Σ over samples of
-    its longest sample's segments), then with dda a row of n_pix (each
+    then one entry per warp of the launch (its steps: the largest segment
+    total among its threads, over their banks and samples), then with dda a row of n_pix (each
     pixel's box member tests whose slab the ray crosses). A launch without
     a table runs n_pix threads rounded up to THREADS; with one, a thread
     per slot of a bank."""

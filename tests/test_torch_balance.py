@@ -141,10 +141,10 @@ def test_balanced_plain_is_bit_equal_and_counts(name, spp):
 
 
 def test_warp_steps_follow_the_thread_mapping():
-    """At one sample a warp's steps are the largest segment count among its
-    threads: thread i holds pixel i on the scanline layout, and slot
-    (g·kpix + b)·TILE + j of the table, bank after bank, on a balanced
-    one."""
+    """At one sample a warp's steps are the largest segment total among its
+    threads: thread i holds pixel i on the scanline layout, and slots
+    (g·kpix + b)·TILE + j of the table, its banks' segments summed, on a
+    balanced one."""
     nx, ny, kpix = 48, 32, 2
     ops = _ops("random_spheres", nx, ny)
     kw = dict(nx=nx, ny=ny, seed=5, sample0=0, n_samples=1, max_depth=50)
@@ -159,8 +159,62 @@ def test_warp_steps_follow_the_thread_mapping():
     assert s1.numel() - 3 * nx * ny == tracer.TILE // tracer.WARP
     slot = torch.cat([busy, torch.zeros(1, dtype=torch.int64)])[
         pix.long().clamp(max=nx * ny)].view(kpix, tracer.TILE)
-    want = slot.view(kpix, -1, tracer.WARP).amax(2).sum(0)
+    want = slot.sum(0).view(-1, tracer.WARP).amax(1)
     assert torch.equal(tracer.stats_rows(s1, nx * ny)[3], want)
+
+
+def _thread_totals(per_sample, n_pix, pix=None, kpix=1):
+    """Each thread's segments summed over its banks and samples, from the
+    per-(sample, pixel) segment counts, under the kernel's thread mapping:
+    thread i on pixel i, or thread j of tile g on slots (g·kpix + b)·TILE
+    + j; shape [n_samples, threads] per sample, summed by the caller."""
+    n_samples = per_sample.shape[0]
+    if pix is None:
+        threads = -(-n_pix // tracer.THREADS) * tracer.THREADS
+        out = torch.zeros((n_samples, threads), dtype=torch.int64)
+        out[:, :n_pix] = per_sample
+        return out
+    ext = torch.cat([per_sample, torch.zeros((n_samples, 1),
+                                             dtype=torch.int64)], dim=1)
+    idx = pix.long().clone()
+    idx[(idx < 0) | (idx >= n_pix)] = n_pix
+    grid = pix.numel() // (kpix * tracer.TILE)
+    return ext[:, idx].view(n_samples, grid, kpix, tracer.TILE).sum(2) \
+        .reshape(n_samples, -1)
+
+
+@pytest.mark.parametrize("kpix", [None, 4])
+def test_warp_steps_sum_banks_and_samples(kpix):
+    """At 3 samples a warp's steps are the largest among its threads of a
+    thread's segments summed over its banks and samples (the kernel's flat
+    loop), recounted here from each sample's own per-pixel segments: on the
+    scanline layout and on a kpix-4 table. That is at most the per-sample
+    reconvergence's Σ over samples of the warp's largest, and below it
+    somewhere."""
+    nx, ny, n_samples = 64, 36, 3
+    n_pix = nx * ny
+    ops = _ops("final_scene", nx, ny)
+    pix = None if kpix is None else _table(n_pix, kpix, seed=6)
+    kp = 1 if kpix is None else kpix
+    kw = dict(nx=nx, ny=ny, seed=4, max_depth=50, pix=pix, kpix=kp)
+    st = tracer.new_stats(nx, ny, "cpu", pix, kp)
+    tracer.trace_plain(ops, _sums(nx, ny), sample0=0, n_samples=n_samples,
+                       stats=st, **kw)
+    per = []
+    for s in range(n_samples):
+        one = tracer.new_stats(nx, ny, "cpu", pix, kp)
+        tracer.trace_plain(ops, _sums(nx, ny), sample0=s, n_samples=1,
+                           stats=one, **kw)
+        per.append(tracer.stats_rows(one, n_pix)[0].clone())
+    per = torch.stack(per)
+    busy, _, _, steps = tracer.stats_rows(st, n_pix)
+    assert torch.equal(busy, per.sum(0))
+    totals = _thread_totals(per, n_pix, pix, kp)
+    want = totals.sum(0).view(-1, tracer.WARP).amax(1)
+    assert torch.equal(steps, want)
+    per_sample_max = totals.view(n_samples, -1, tracer.WARP).amax(2).sum(0)
+    assert bool((steps <= per_sample_max).all())
+    assert int(steps.sum()) < int(per_sample_max.sum())
 
 
 def test_slots_outside_the_image_pad():
@@ -316,7 +370,10 @@ def test_kernel_stats_runs_on_the_plain_version(capsys):
 
 def test_stats_add_up_across_chunks():
     """Counters add up across launches as the sums do: two chunks of one
-    sample give the buffer of one launch of two, the warp steps too."""
+    sample give the per-pixel rows of one launch of two. A launch adds its
+    own warp steps (a warp's largest thread total in that launch), so the
+    chunked buffer holds the Σ over launches of each warp's largest, the
+    whole launch the largest of its threads' Σ."""
     nx, ny = 32, 16
     ops = _ops("final_scene", nx, ny)
     kw = dict(nx=nx, ny=ny, seed=1, max_depth=20)
@@ -324,7 +381,16 @@ def test_stats_add_up_across_chunks():
     a = tracer.trace_plain(ops, _sums(nx, ny), sample0=0, n_samples=2,
                            stats=whole, **kw)
     parts, b = tracer.new_stats(nx, ny, "cpu"), _sums(nx, ny)
+    per = []
     for s0 in (0, 1):
-        tracer.trace_plain(ops, b, sample0=s0, n_samples=1, stats=parts,
-                           **kw)
-    assert torch.equal(a, b) and torch.equal(whole, parts)
+        one = tracer.new_stats(nx, ny, "cpu")
+        tracer.trace_plain(ops, b, sample0=s0, n_samples=1, stats=one, **kw)
+        parts += one
+        per.append(tracer.stats_rows(one, nx * ny)[0])
+    assert torch.equal(a, b)
+    rw, rp = (tracer.stats_rows(x, nx * ny) for x in (whole, parts))
+    for x, y in zip(rw[:3], rp[:3]):
+        assert torch.equal(x, y)
+    per = torch.stack(per).view(2, -1, tracer.WARP)
+    assert torch.equal(rw[3], per.sum(0).amax(1))
+    assert torch.equal(rp[3], per.amax(2).sum(0))

@@ -140,18 +140,30 @@ def test_dda_leaves_the_other_counters_and_sums(final_run):
 
 
 def test_dda_row_adds_up_across_chunks():
-    """Two chunks of one sample give the buffer of one launch of two, the
-    DDA row too."""
+    """Two chunks of one sample give the per-pixel rows of one launch of
+    two, the DDA row too (each launch adds its own warp steps, a warp's
+    largest thread total in that launch: tests/test_torch_balance.py)."""
     ops = _ops("final_scene")
     whole = tracer.new_stats(NX, NY, "cpu", dda=True)
     a = tracer.trace_plain(ops, _sums(), sample0=0, n_samples=2, stats=whole,
                            dda=True, **KW)
     parts, b = tracer.new_stats(NX, NY, "cpu", dda=True), _sums()
+    n_pix, busy = NX * NY, []
     for s0 in (0, 1):
-        tracer.trace_plain(ops, b, sample0=s0, n_samples=1, stats=parts,
+        one = tracer.new_stats(NX, NY, "cpu", dda=True)
+        tracer.trace_plain(ops, b, sample0=s0, n_samples=1, stats=one,
                            dda=True, **KW)
-    assert torch.equal(a, b) and torch.equal(whole, parts)
-    assert tracer.dda_row(whole, NX * NY).sum() > 0
+        parts += one
+        busy.append(tracer.stats_rows(one, n_pix, dda=True)[0])
+    assert torch.equal(a, b)
+    rw, rp = (tracer.stats_rows(x, n_pix, dda=True) for x in (whole, parts))
+    for x, y in zip((*rw[:3], tracer.dda_row(whole, n_pix)),
+                    (*rp[:3], tracer.dda_row(parts, n_pix))):
+        assert torch.equal(x, y)
+    busy = torch.stack(busy).view(2, -1, tracer.WARP)
+    assert torch.equal(rw[3], busy.sum(0).amax(1))
+    assert torch.equal(rp[3], busy.amax(2).sum(0))
+    assert tracer.dda_row(whole, n_pix).sum() > 0
 
 
 def test_cost_probe_never_asks_for_the_row(monkeypatch):

@@ -12,7 +12,7 @@ checker), D3 (`peak.cu`) and D1/D2 (`microbench.cu`), and hold them against
 `fp32_chain_plain`, `attr_read_plain` and `member_plain`, run on the same
 card, the same records and the same draws. Elsewhere they skip.
 Run them on the card with
-`python -m pytest tests/test_torch_kernel.py -q -m cuda`.
+`python -m pytest tests/test_torch_kernel.py -q --noconftest -m cuda`.
 """
 
 import dataclasses
@@ -606,6 +606,46 @@ def test_kernel_balanced_equals_unbalanced(cuda, make):
     tracer.trace_plain(ops, sums(), pix=pix, kpix=4, stats=sp, **kw)
     torch.cuda.synchronize()
     assert torch.equal(k, ref) and torch.equal(sk, sp)
+
+
+@pytest.mark.parametrize("layout", ["scanline", "kpix4"])
+@pytest.mark.parametrize("n_samples", [2, 4])
+@pytest.mark.parametrize("make", [_random_spheres, _preset("final_scene")])
+def test_kernel_flat_loop_counters_and_sums(cuda, make, n_samples, layout):
+    """K1's flat loop: the stats launch's four rows equal the plain
+    version's, a warp's steps being the largest among its threads of a
+    thread's segments over its banks and samples, on the scanline layout
+    and on a kpix-4 table, at 2 and 4 spp; the production sums equal the
+    stats launch's, the scanline layout's and the plain version's bit for
+    bit."""
+    nx, ny = 96, 64
+    n_pix = nx * ny
+    ops = _operands(*make(nx, ny), cuda)
+    pix, kpix = None, 1
+    if layout == "kpix4":
+        order = np.random.default_rng(9).permutation(n_pix).astype(np.int32)
+        pix = torch.from_numpy(tracer.balanced_pix_table(
+            order, n_pix, 4)[0]).to(cuda)
+        kpix = 4
+    kw = dict(nx=nx, ny=ny, seed=11, sample0=0, n_samples=n_samples,
+              max_depth=50)
+
+    def sums():
+        return torch.zeros((3, n_pix), dtype=torch.float64, device=cuda)
+
+    scan = tracer.trace(ops, sums(), **kw)
+    prod = tracer.trace(ops, sums(), pix=pix, kpix=kpix, **kw)
+    sk, sp = (tracer.new_stats(nx, ny, cuda, pix, kpix) for _ in range(2))
+    k = tracer.trace(ops, sums(), pix=pix, kpix=kpix, stats=sk, **kw)
+    p = tracer.trace_plain(ops, sums(), pix=pix, kpix=kpix, stats=sp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k, prod) and torch.equal(prod, scan)
+    assert torch.equal(prod, p), float((prod == p).all(dim=0).double()
+                                       .mean())
+    for name, a, b in zip(("segments", "sphere tests", "box tests",
+                           "warp steps"), tracer.stats_rows(sk, n_pix),
+                          tracer.stats_rows(sp, n_pix)):
+        assert torch.equal(a, b), (name, int(a.sum()), int(b.sum()))
 
 
 def test_d3_matches_plain(cuda):
