@@ -34,9 +34,11 @@ Phases, one JSON line each on stdout:
      version, on each sphere preset the command line renders below, at
      the preset's size, 2 spp, depth 50, under the same gates as phase 3:
      random_spheres 1280×720 (checker, sky, metal, glass, 397 dynamic
-     spheres of which 311 move; with the leaf cull on and off) and
+     spheres of which 311 move, in 32 leaves under 4 super rows) and
      two_spheres 1280×720 (sky and checker, no dynamic table); both
-     versions' times;
+     versions' times; on random_spheres the two-level cull's sums held bit
+     for bit to the one-level cull's (super rows emptied) and to no
+     cull's (leaves emptied), with each one's time;
  11. the render path through the command line, `render --scene
      random_spheres --device cuda` (1280×720, 100 spp, depth 50), with its
      launch count and a check of the image;
@@ -57,7 +59,9 @@ Phases, one JSON line each on stdout:
      final_scene at its preset's size, 800×800, 1 spp, depth 50, under
      phase 3's gates, with the walk on and with it off (the event path
      alone); both kernel times, the plain version's, the paths' work, and
-     whether the two kernel runs give the same sums;
+     whether the two kernel runs give the same sums; on each, the
+     two-level cull held bit for bit to the one-level cull and to no cull,
+     with their times;
  19. the render path through the command line, `render --scene
      final_scene --device cuda` (800×800, 100 spp, depth 50), with the
      launch counts and a check of the image, and a render at 128×128, 100
@@ -167,7 +171,9 @@ the bytes it must move over the card's memory rate and the f32 operations
 this run's paths needed over the card's f32 rate (`bound`). A K1 row's
 launches are those its main path counted, and its ms and bound_ms are
 their means per launch from phase 40 (`at_main_path`), with the totals
-and shapes under "main_path"; the comparison's time and bound stand
+and shapes under "main_path"; a K1 row also carries bound_ms_one_level,
+its bound with the cull counted as a slab test of every leaf a segment
+(the one-level cull's work; `k1_bound`); the comparison's time and bound stand
 under "comparison", and plain_ms is the plain version's time there, at
 plain_spp samples.
 
@@ -297,9 +303,15 @@ def bound(ops: float, nbytes: float,
 def k1_bound(ops, counts: dict, n_pix: int, n_samples: int) -> dict:
     """K1's bound on this run's paths: the operations and bytes of
     `tracer.k1_work` (trace_plain's counts times tracer.K1_OPS, the
-    operations of csrc/tracer.cu per item, counted from its source)."""
+    operations of csrc/tracer.cu per item, counted from its source), the
+    cull's slab tests those of an exact two-level cull; beside it, as
+    bound_ms_one_level, the same with a slab test of every leaf a segment
+    (the one-level cull's work, the yardstick of the rows before it)."""
     from raytracing_rust_tpu_torch.ops.tracer import k1_work
-    return bound(*k1_work(ops, counts, n_pix, n_samples))
+    return dict(**bound(*k1_work(ops, counts, n_pix, n_samples)),
+                bound_ms_one_level=bound(*k1_work(
+                    ops, counts, n_pix, n_samples,
+                    one_level=True))["bound_ms"])
 
 
 @contextlib.contextmanager
@@ -386,18 +398,21 @@ def at_main_path(row: dict, replayed: list, counter: str,
     check(len(mine) == launches, f"{counter}: {launches} launches counted, "
           f"{len(mine)} recorded")
     ms, b = sum(r["ms"] for r in mine), sum(r["bound_ms"] for r in mine)
+    b1 = sum(r["bound_ms_one_level"] for r in mine)
     steps = sum(r["warp_steps"] for r in mine)
     return dict(
         max_abs_err=row["max_abs_err"], ms=ms / len(mine),
         bound_ms=b / len(mine),
         bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+        bound_ms_one_level=b1 / len(mine),
         plain_ms=row["plain_ms"], plain_spp=row["spp"],
         main_path=dict(
-            launches=len(mine), ms=ms, bound_ms=b,
+            launches=len(mine), ms=ms, bound_ms=b, bound_ms_one_level=b1,
             shapes=[[*r["shape"], r["kpix"], r["stats"]] for r in mine],
             occupancy=sum(r["segments"] for r in mine) / (32 * steps)),
         comparison=dict(spp=row["spp"], ms=row["ms"],
-                        bound_ms=row["bound_ms"], bound_by=row["bound_by"]))
+                        bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                        bound_ms_one_level=row["bound_ms_one_level"]))
 
 
 def emit(phase: str, **kw) -> None:
@@ -943,6 +958,27 @@ def main() -> int:
         return float(torch.isclose(a, b, rtol=1e-4, atol=0.0)
                      .all(dim=0).double().mean())
 
+    def hold_culls(scene: str, ops, k, pl, kw) -> dict:
+        """The two-level cull's sums k against the one-level cull (the
+        super rows emptied) and no cull (the leaves emptied), bit for bit;
+        each one's time."""
+        out = {}
+        for name, o in (
+                ("one_level", dataclasses.replace(
+                    ops, sups=ops.sups[:0], bsups=ops.bsups[:0])),
+                ("without_cull", dataclasses.replace(
+                    ops, leaves=ops.leaves[:0], bleaves=ops.bleaves[:0]))):
+            ko = tracer.trace(o, torch.zeros_like(k), **kw)
+            s_o = torch.zeros_like(k)
+            out[f"pixels_within_rel_1e4_{name}"] = within(ko, pl)
+            out[f"equal_{name}"] = bool(torch.equal(k, ko))
+            out[f"kernel_{name}_ms"] = cuda_ms(
+                lambda: tracer.trace(o, s_o.zero_(), **kw), reps=1)
+            del ko
+            check(out[f"equal_{name}"], f"{scene}: the two-level cull's sums "
+                  f"differ from the {name.replace('_', ' ')} kernel's")
+        return out
+
     def hold(phase: str, scene: str, built=None, n_samples: int = 2,
              rr_depth=None, key: str | None = None) -> dict:
         """The K1B kernel against trace_plain on `scene` at its preset's
@@ -980,21 +1016,14 @@ def main() -> int:
         k_ms = cuda_ms(lambda: tracer.trace(ops, s_k.zero_(), **kw), reps=3)
         extra = {}
         if ops.leaves.shape[0]:
-            flat = dataclasses.replace(ops, leaves=ops.leaves[:0])
-            kf = tracer.trace(flat, sums(), **kw)
-            extra = dict(
-                pixels_within_rel_1e4_without_cull=within(kf, pl),
-                pixels_equal_with_and_without_cull=float(
-                    (k == kf).all(dim=0).double().mean()),
-                kernel_without_cull_ms=cuda_ms(
-                    lambda: tracer.trace(flat, s_k.zero_(), **kw), reps=1))
-            del kf
+            extra = hold_culls(scene, ops, k, pl, kw)
         row = dict(spp=n_samples, max_abs_err=err, ms=k_ms, plain_ms=pl_ms,
                    **k1_bound(ops, work, nx * ny, n_samples))
         held[key or scene] = dict(work=work, spp=n_samples)
         emit(phase, scene=scene, shape=[ny, nx], depth=50,
              rr_depth=rr_depth, feats=ops.feats, unrolled=len(srec.kinds),
              dynamic=int(ops.dyn.shape[0]), leaves=int(ops.leaves.shape[0]),
+             sups=int(ops.sups.shape[0]),
              media=int(ops.med.shape[0]), atlas=list(ops.atlas.shape),
              pixels_within_rel_1e4=agree,
              pixels_bit_equal=float((k == pl).all(dim=0).double().mean()),
@@ -1068,6 +1097,7 @@ def main() -> int:
         final[name] = dict(spp=1, max_abs_err=float((k - pl).abs().max()),
                            ms=k_ms, plain_ms=pl_ms,
                            **k1_bound(o, work, nx * ny, 1))
+        culls = hold_culls(f"final_scene ({name})", o, k, pl, kw)
         if name == "walk":   # the command line's path
             held["final_scene"] = dict(work=work, spp=1)
         final_k[name] = k
@@ -1081,7 +1111,8 @@ def main() -> int:
              pixels_bit_equal=float((k == pl).all(dim=0).double().mean()),
              kernel_channel_means=km.tolist(),
              plain_channel_means=pm.tolist(), channel_mean_max_rel=mean_rel,
-             work=work, **final[name])
+             work=work, sups=int(o.sups.shape[0]),
+             box_sups=int(o.bsups.shape[0]), **final[name], **culls)
         check(agree >= 0.99, f"final_scene ({name}): only {agree:.4%} of "
               "pixels agree")
         check(mean_rel <= 1e-4, f"final_scene ({name}): channel means "

@@ -12,9 +12,10 @@
 // jitter, a thin lens and a shutter time; closest hit over the unrolled
 // spheres and rect plane-frame groups, then over the box table (`box_thin`:
 // one slab test per merged cube, entry face beyond T_MIN else exit face)
-// and the dynamic sphere table, each in cluster order behind a per-leaf
-// AABB cull, carrying only (t, winner) and resolving the winner's normal
-// afterwards (a box's face by an exact t-match, ties x → y → z); the
+// and the dynamic sphere table, each in cluster order behind its
+// two-level AABB cull (root, super rows, leaves), carrying only (t,
+// winner) and resolving the winner's normal afterwards (a box's face by
+// an exact t-match, ties x → y → z); the
 // nearest medium scatter event before that hit (`media_events`: sphere or
 // slab boundary in object space, free flight −(1/ρ)·ln u), which takes the
 // hit over as an isotropic scatter with the medium's solid or textured
@@ -58,46 +59,48 @@
 // the winner's row is read after the loop, so the UV and the pre-flip
 // normal are computed there, from t and the row, with no new loop state.
 //
-// What bounds it on this card: f32 ALU issue and warp divergence, not
-// bytes. Each thread owns an ordered list of (pixel, sample) pairs and
-// carries its ray in registers; one flat loop, one path segment an
-// iteration, walks the list (the JAX kernel's persistent wavefront: a
-// dead lane banks its radiance and starts its next pair's camera ray). So
-// a warp does not wait at each sample for that sample's longest path: it
-// runs until its busiest thread's list is done, the largest of 32 segment
-// totals rather than the sum over samples of 32 per-sample maxima, and
-// pays for it with the raygen branch, which some thread of the warp takes
-// in most iterations. The unrolled record (P ≤
-// 96 rows × 46 f32, 17.7 KB), its walk order, the camera record and, when
-// they fit, the leaf AABBs sit in shared memory, where the lanes of a warp
-// mostly read the same cell (a broadcast); so do the media records (≤
-// MAX_MEDIA rows of 32 f32) and the walk's interior rows (≤ MAX_INTERIOR
-// rows). They are staged once per block, ≤ 48 KB by plain loads before
-// the loop: against a block's millions of segments TMA or cp.async would
-// buy nothing measurable. The dynamic sphere and box tables stay in
-// device memory, read through the read-only cache, so their size is not
-// capped by shared memory (the TPU kernel's ~2k-prim SMEM cap does not
-// carry over); leaf tables too big for shared memory are read the same
-// way, and so is the texel atlas, one 4-byte load per textured hit (the
-// TPU kernel's 8 MB VMEM cap and its 8×128 gather construction do not
+// What bounds it on this card: f32 ALU issue and warp divergence, not bytes.
+// Each thread owns an ordered list of (pixel, sample) pairs and carries its
+// ray in registers; one flat loop, one path segment an iteration, walks the
+// list (the JAX kernel's persistent wavefront: a dead lane banks its
+// radiance and starts its next pair's camera ray). So a warp does not wait
+// at each sample for that sample's longest path: it runs until its busiest
+// thread's list is done, the largest of 32 segment totals rather than the
+// sum over samples of 32 per-sample maxima, and pays for it with the raygen
+// branch, which some thread of the warp takes in most iterations. The
+// unrolled record (P ≤ 96 rows × 46 f32, 17.7 KB), its walk order, the
+// camera record and, when they fit, the leaf and super AABBs sit in shared
+// memory, where the lanes of a warp mostly read the same cell (a broadcast);
+// so do the media records (≤ MAX_MEDIA rows of 32 f32) and the walk's
+// interior rows (≤ MAX_INTERIOR rows). They are staged once per block, ≤ 48
+// KB by plain loads before the loop: against a block's millions of segments
+// TMA or cp.async would buy nothing measurable. The dynamic sphere and box
+// tables stay in device memory, read through the read-only cache, so their
+// size is not capped by shared memory (the TPU kernel's ~2k-prim SMEM cap
+// does not carry over); cluster tables too big for shared memory are read
+// the same way, and so is the texel atlas, one 4-byte load per textured hit
+// (the TPU kernel's 8 MB VMEM cap and its 8×128 gather construction do not
 // carry over); the box winner's attributes are read from its row, not
 // through the TPU kernel's transposed attribute gather. The 7-octave
 // turbulence is ~2k f32 and SFU operations per noise hit, so noise scenes
-// are bound by the instruction rate even more than the others. The leaf
-// cull is a per-thread slab test against the thread's own best hit; the TPU
-// kernel's lane-coherent supercluster level and its OR-tree have no
-// counterpart here yet (a warp vote is later work), nor has its strip
-// pass over a regular box grid (measured a wash on the TPU). Inside an
-// iteration the threads of a warp still diverge: they cross different
-// leaves, and a thread on a dense-medium walk runs its walk bounces (a
-// nested loop inside its segment) while its warp-mates trace one full
-// segment each; the STATS counters measure what is left of the tail. The
-// flat loop changes when a path runs, never its draws or its pixel's f64
-// sum order, and a pixel table changes which pixels share a warp, never
-// those either, so the sums equal trace_plain's order bit for bit across
-// chunkings and layouts. No pixel queue (an atomic counter over pixels)
-// feeds the loop: the counters would then depend on the scheduler, which
-// no plain version could reproduce.
+// are bound by the instruction rate even more than the others. The cull is
+// the TPU kernel's two levels (`cull_table`): a root AABB per table, then
+// super rows of SUP_FANOUT leaves, then the leaves, each a per-thread slab
+// test against the thread's own best hit, so a segment tests the leaves of
+// the supers its ray crosses rather than every leaf. A warp runs a guarded
+// branch while any of its threads takes it, so the TPU kernel's OR-tree over
+// its lanes has no counterpart here (a warp vote in place of the per-thread
+// root and super guards measured the same), nor has its strip pass over a
+// regular box grid (measured a wash on the TPU). Inside an iteration the
+// threads of a warp still diverge: they cross different leaves, and a thread
+// on a dense-medium walk runs its walk bounces (a nested loop inside its
+// segment) while its warp-mates trace one full segment each; the STATS
+// counters measure what is left of the tail. The flat loop changes when a
+// path runs, never its draws or its pixel's f64 sum order, and a pixel table
+// changes which pixels share a warp, never those either, so the sums equal
+// trace_plain's order bit for bit across chunkings and layouts. No pixel
+// queue (an atomic counter over pixels) feeds the loop: the counters would
+// then depend on the scheduler, which no plain version could reproduce.
 //
 // Numerics: no fast math, and compiled with -fmad=false, so every multiply
 // and add rounds on its own, as torch's elementwise ops do; each f32
@@ -314,6 +317,57 @@ __device__ __forceinline__ void slab(float lx, float ly, float lz, float hx,
   tmx = fminf(tmx, fmaxf(t0, t1));
 }
 
+// Whether the ray crosses the AABB of a cluster-table row (lo3, hi3)
+// inside its window, before its best hit so far (`_clus_guard`,
+// 1756-1776): slab entry before t_d, exit beyond both the entry and T_MIN.
+__device__ __forceinline__ bool crosses(const float* B, float ox, float oy,
+                                        float oz, float inv_dx, float inv_dy,
+                                        float inv_dz, float t_d) {
+  float tmn, tmx;
+  slab(B[0], B[1], B[2], B[3], B[4], B[5], ox, oy, oz, inv_dx, inv_dy,
+       inv_dz, tmn, tmx);
+  return tmx > fmaxf(tmn, T_MIN) && tmn < t_d;
+}
+
+// One dynamic table's two-level cull (pallas_tracer.py:1799-1817,
+// 1855-1898): the root AABB (the union of the super rows, or of the
+// leaves without supers) guards the whole table, each super row
+// (lo3, hi3, first leaf, leaf count) its leaves, each leaf (lo3, hi3,
+// first member, member count) its members, which `members(start, count)`
+// tests, lowering t_d. Supers go in ascending order and so do a super's
+// leaves, which tile [0, n_leaf): a super's AABB is the f32 min/max of its
+// leaves', and f32 rounding is monotone, so its slab interval holds each
+// of its leaves' on the same ray, and t_d only falls; a leaf the
+// one-level cull would test is therefore tested here too, in the same
+// order at the same t_d, and the winners, the ties and the counters are
+// the one-level cull's. Without leaves the members are scanned flat.
+template <typename Members>
+__device__ __forceinline__ void cull_table(
+    const float* root, const float* sup, int n_sup, const float* leaf,
+    int n_leaf, int n_mem, float ox, float oy, float oz, float inv_dx,
+    float inv_dy, float inv_dz, const float& t_d, Members members) {
+  if (n_leaf == 0) {
+    members(0, n_mem);
+    return;
+  }
+  if (!crosses(root, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_d)) return;
+  const int n_top = n_sup > 0 ? n_sup : 1;
+  for (int s = 0; s < n_top; ++s) {
+    int c0 = 0, c1 = n_leaf;
+    if (n_sup > 0) {
+      const float* S = sup + s * CLUSW;
+      if (!crosses(S, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_d)) continue;
+      c0 = (int)S[6];
+      c1 = c0 + (int)S[7];
+    }
+    for (int c = c0; c < c1; ++c) {
+      const float* L = leaf + c * CLUSW;
+      if (!crosses(L, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_d)) continue;
+      members((int)L[6], (int)L[7]);
+    }
+  }
+}
+
 // A uniform point in the unit ball from a scatter draw (ops/rng.py
 // in_unit_sphere): cos θ = 2u₀ − 1, φ = 2πu₁, radius cbrt(1 − u₂).
 __device__ __forceinline__ void ball(const Uniforms& us, float& bx,
@@ -424,7 +478,9 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          const float* __restrict__ interior, int n_int,
          const int* __restrict__ interior_kind, int dense, int rr_depth,
          const int* __restrict__ pix_table, int kpix,
-         long long* __restrict__ stats, long long* __restrict__ dda) {
+         long long* __restrict__ stats, long long* __restrict__ dda,
+         const float* __restrict__ sups, int n_sup,
+         const float* __restrict__ bsups, int n_bsup) {
   // the scene's features; all off outside the K1B instantiations
   const bool emis_tex = K1B && (feats & FEAT_EMIS_TEX),
              uv_carry = K1B && (feats & FEAT_UV_CARRY),
@@ -441,15 +497,19 @@ trace_k1(const float* __restrict__ rec, int n_rec,
              media = K1B && (feats & FEAT_MEDIA),
              compat_uv = K1B && (feats & FEAT_COMPAT_UV),
              dense_walk = K1B && (feats & FEAT_DENSE_WALK);
-  // dynamic shared memory, sized by the launch: record, camera, sphere and
-  // box leaves (LEAF_SMEM), media and interior rows (K1B), walk order,
-  // interior kinds (K1B)
+  // dynamic shared memory, sized by the launch: record, camera, the box
+  // and sphere tables' root AABBs (DYN), sphere leaves and supers and box
+  // leaves and supers (LEAF_SMEM), media and interior rows (K1B), walk
+  // order, interior kinds (K1B)
   extern __shared__ float smem[];
   float* s_rec = smem;
   float* s_cam = s_rec + n_rec * REC;
-  float* s_leaf = s_cam + CAMREC;
-  float* s_bleaf = s_leaf + (LEAF_SMEM ? n_leaf * CLUSW : 0);
-  float* s_med = s_bleaf + (LEAF_SMEM ? n_bleaf * CLUSW : 0);
+  float* s_root = s_cam + CAMREC;
+  float* s_leaf = s_root + (DYN ? 12 : 0);
+  float* s_sup = s_leaf + (LEAF_SMEM ? n_leaf * CLUSW : 0);
+  float* s_bleaf = s_sup + (LEAF_SMEM ? n_sup * CLUSW : 0);
+  float* s_bsup = s_bleaf + (LEAF_SMEM ? n_bleaf * CLUSW : 0);
+  float* s_med = s_bsup + (LEAF_SMEM ? n_bsup * CLUSW : 0);
   float* s_int = s_med + (K1B ? n_med * MEDREC : 0);
   int* s_walk = (int*)(s_int + (K1B ? n_int * REC : 0));
   int* s_ikind = s_walk + 2 * n_walk;
@@ -461,8 +521,46 @@ trace_k1(const float* __restrict__ rec, int n_rec,
   if (LEAF_SMEM) {
     for (int i = threadIdx.x; i < n_leaf * CLUSW; i += blockDim.x)
       s_leaf[i] = leaves[i];
+    for (int i = threadIdx.x; i < n_sup * CLUSW; i += blockDim.x)
+      s_sup[i] = sups[i];
     for (int i = threadIdx.x; i < n_bleaf * CLUSW; i += blockDim.x)
       s_bleaf[i] = bleaves[i];
+    for (int i = threadIdx.x; i < n_bsup * CLUSW; i += blockDim.x)
+      s_bsup[i] = bsups[i];
+  }
+  if (DYN && threadIdx.x < 32) {
+    // each table's root AABB, folded by warp 0 from its super rows (its
+    // leaves without supers): the box table's at s_root[0..5], the
+    // sphere table's at s_root[6..11] (pallas_tracer.py:1804-1811)
+    const int lane = threadIdx.x;
+#pragma unroll 1
+    for (int t = 0; t < 2; ++t) {
+      const float* rows = t == 0 ? (n_bsup > 0 ? bsups : bleaves)
+                                 : (n_sup > 0 ? sups : leaves);
+      const int n = t == 0 ? (n_bsup > 0 ? n_bsup : n_bleaf)
+                           : (n_sup > 0 ? n_sup : n_leaf);
+      float b[6] = {BIG, BIG, BIG, -BIG, -BIG, -BIG};
+      for (int i = lane; i < n; i += 32) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          b[a] = fminf(b[a], rows[i * CLUSW + a]);
+          b[3 + a] = fmaxf(b[3 + a], rows[i * CLUSW + 3 + a]);
+        }
+      }
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          b[a] = fminf(b[a], __shfl_xor_sync(0xffffffffu, b[a], m));
+          b[3 + a] =
+              fmaxf(b[3 + a], __shfl_xor_sync(0xffffffffu, b[3 + a], m));
+        }
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int a = 0; a < 6; ++a) s_root[6 * t + a] = b[a];
+      }
+    }
   }
   if (K1B) {
     for (int i = threadIdx.x; i < n_med * MEDREC; i += blockDim.x)
@@ -474,7 +572,9 @@ trace_k1(const float* __restrict__ rec, int n_rec,
   }
   __syncthreads();
   const float* leaf = LEAF_SMEM ? s_leaf : leaves;
+  const float* sup = LEAF_SMEM ? s_sup : sups;
   const float* bleaf = LEAF_SMEM ? s_bleaf : bleaves;
+  const float* bsup = LEAF_SMEM ? s_bsup : bsups;
 
   const int n_pix = nx * ny;
   const int* order = s_walk;
@@ -647,27 +747,15 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         const float* w_dyn = nullptr;  // the box or dynamic winner's row
         if (DYN) {
           // the box table, then the dynamic sphere table, each in cluster
-          // order, carrying only (t, winner) (pallas_tracer.py:1906-2071;
-          // boxes first, so a box keeps a tie); a leaf whose AABB the ray
-          // does not cross before its best hit is skipped whole
-          // (`_slab`/`_clus_guard`, 1741-1776). With no leaf table the
-          // members are scanned flat.
+          // order behind its two-level cull (`cull_table`), carrying only
+          // (t, winner) (pallas_tracer.py:1906-2071; boxes first, so a box
+          // keeps a tie)
           float t_d = t_best;
           const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy),
                       inv_dz = safe_inv(dz);
           int wb = -1;
-          const int n_bgroups = n_bleaf > 0 ? n_bleaf : 1;
-          for (int c = 0; c < n_bgroups; ++c) {
-            int start = 0, cnt = n_box;
-            if (n_bleaf > 0) {
-              const float* L = bleaf + c * CLUSW;
-              float tmn, tmx;
-              slab(L[0], L[1], L[2], L[3], L[4], L[5], ox, oy, oz, inv_dx,
-                   inv_dy, inv_dz, tmn, tmx);
-              if (!(tmx > fmaxf(tmn, T_MIN) && tmn < t_d)) continue;
-              start = (int)L[6];
-              cnt = (int)L[7];
-            }
+          cull_table(s_root, bsup, n_bsup, bleaf, n_bleaf, n_box, ox, oy, oz,
+                     inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
             if (STATS) tests_b += (uint32_t)cnt;
             for (int q = start; q < start + cnt; ++q) {
               // merged cube (reference src/cube.rs:20-74): one slab test,
@@ -689,28 +777,11 @@ trace_k1(const float* __restrict__ rec, int n_rec,
                 wb = q;
               }
             }
-          }
+          });
           const float t_box = t_d;
           int wd = -1;
-          const int n_groups = n_leaf > 0 ? n_leaf : 1;
-          for (int c = 0; c < n_groups; ++c) {
-            int start = 0, cnt = n_dyn;
-            if (n_leaf > 0) {
-              const float* L = leaf + c * CLUSW;
-              float t0 = (L[0] - ox) * inv_dx, t1 = (L[3] - ox) * inv_dx;
-              float tmn = fminf(t0, t1), tmx = fmaxf(t0, t1);
-              t0 = (L[1] - oy) * inv_dy;
-              t1 = (L[4] - oy) * inv_dy;
-              tmn = fmaxf(tmn, fminf(t0, t1));
-              tmx = fminf(tmx, fmaxf(t0, t1));
-              t0 = (L[2] - oz) * inv_dz;
-              t1 = (L[5] - oz) * inv_dz;
-              tmn = fmaxf(tmn, fminf(t0, t1));
-              tmx = fminf(tmx, fmaxf(t0, t1));
-              if (!(tmx > fmaxf(tmn, T_MIN) && tmn < t_d)) continue;
-              start = (int)L[6];
-              cnt = (int)L[7];
-            }
+          cull_table(s_root + 6, sup, n_sup, leaf, n_leaf, n_dyn, ox, oy, oz,
+                     inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
             if (STATS) tests_s += (uint32_t)cnt;
             for (int q = start; q < start + cnt; ++q) {
               const float* r = dyn + (size_t)q * REC;
@@ -739,7 +810,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
                 }
               }
             }
-          }
+          });
           if (wd >= 0) {
             // winner resolve: normal (o + t·d − c(time))·inv_r, then the
             // flip (pallas_tracer.py:2097-2148)
@@ -1137,7 +1208,8 @@ using TraceFn = void (*)(const float*, int, const int*, int, const float*,
                          const float*, int, int, const int*, int, int,
                          uint32_t, const float*, int, const float*, int,
                          const float*, int, const int*, int, int, const int*,
-                         int, long long*, long long*);
+                         int, long long*, long long*, const float*, int,
+                         const float*, int);
 
 // the instantiations, indexed [K1B][DYN][LEAF_SMEM]; without a dynamic
 // table there is no leaf table
@@ -1160,7 +1232,11 @@ const TraceFn STATS_KERNELS[2] = {trace_k1<true, true, false, true>,
 // Adds the radiance of samples [sample0, sample0 + n_samples) of every
 // pixel to sums (f64[3, nx·ny]). feats: ops/tracer.py FEAT_* bits.
 // n_leaf = 0 scans the dynamic sphere table without the cull, n_bleaf = 0
-// the box table. med: f32[n_med, MEDREC], bit i of med_box set for a box
+// the box table; sups (f32[n_sup, CLUSW]) and bsups (n_bsup) are the
+// tables' super rows, whose leaf ranges tile [0, n_leaf) and [0, n_bleaf)
+// in ascending order (ops/tracer.py checks it); n_sup = 0 culls the
+// sphere leaves behind the root alone, and so does n_bsup = 0 the box
+// leaves. med: f32[n_med, MEDREC], bit i of med_box set for a box
 // boundary, bit i of dense for a medium the walk serves; atlas:
 // int32[atlas_rows, atlas_w] packed texels; perlin_word: (perlin seed ·
 // HSEED) mod 2^32; box: f32[n_box, REC]; interior: f32[n_int, REC] with
@@ -1180,14 +1256,16 @@ const TraceFn STATS_KERNELS[2] = {trace_k1<true, true, false, true>,
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int n_walk, const float* dyn, int n_dyn,
-                           const float* leaves, int n_leaf, const float* cam,
+                           const float* leaves, int n_leaf, const float* sups,
+                           int n_sup, const float* cam,
                            int feats, double* sums, int nx, int ny,
                            uint32_t seed_lo, uint32_t seed_hi, int sample0,
                            int n_samples, int max_depth, const float* med,
                            int n_med, int med_box, const int* atlas,
                            int atlas_rows, int atlas_w, uint32_t perlin_word,
                            const float* box, int n_box, const float* bleaves,
-                           int n_bleaf, const float* interior, int n_int,
+                           int n_bleaf, const float* bsups, int n_bsup,
+                           const float* interior, int n_int,
                            const int* interior_kind, int dense,
                            int rr_depth, const int* pix_table, int n_table,
                            int kpix, long long* stats, int dda,
@@ -1204,28 +1282,31 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       ((feats & FEAT_RR) && (feats & FEAT_DENSE_WALK)) || kpix < 1 ||
       (pix_table == nullptr ? kpix != 1
                             : n_table <= 0 || n_table % (kpix * TILE) != 0) ||
-      (dda && stats == nullptr))
+      (dda && stats == nullptr) || n_sup < 0 || n_bsup < 0)
     return (int)cudaErrorInvalidValue;
   if (n_dyn == 0) n_leaf = 0;
   if (n_box == 0) n_bleaf = 0;
+  if (n_leaf == 0) n_sup = 0;
+  if (n_bleaf == 0) n_bsup = 0;
+  // a table runs in a DYN instantiation (zero-trip table loops without
+  // tables), the counters in their own
+  const bool dyn_inst = stats != nullptr || n_dyn > 0 || n_box > 0 ||
+                        pix_table != nullptr;
   const size_t base =
-      sizeof(float) * (n_rec * REC + CAMREC + n_med * MEDREC + n_int * REC) +
+      sizeof(float) * (n_rec * REC + CAMREC + (dyn_inst ? 12 : 0) +
+                       n_med * MEDREC + n_int * REC) +
       sizeof(int) * (2 * n_walk + n_int);
-  const size_t leaf_bytes = sizeof(float) * (size_t)(n_leaf + n_bleaf) *
-                            CLUSW;
+  const size_t leaf_bytes =
+      sizeof(float) * (size_t)(n_leaf + n_sup + n_bleaf + n_bsup) * CLUSW;
   const bool leaf_smem = n_leaf + n_bleaf > 0 &&
                          base + leaf_bytes <= SMEM_BUDGET;
   const size_t smem = base + (leaf_smem ? leaf_bytes : 0);
   const int n_pix = nx * ny;
   const int blocks = pix_table != nullptr ? n_table / kpix / THREADS
                                           : (n_pix + THREADS - 1) / THREADS;
-  // a table runs in a DYN instantiation (zero-trip table loops without
-  // tables), the counters in their own
-  const TraceFn kernel =
-      stats != nullptr
-          ? STATS_KERNELS[leaf_smem]
-          : KERNELS[feats != 0][n_dyn > 0 || n_box > 0 || pix_table != nullptr]
-                   [leaf_smem];
+  const TraceFn kernel = stats != nullptr
+                             ? STATS_KERNELS[leaf_smem]
+                             : KERNELS[feats != 0][dyn_inst][leaf_smem];
   kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       rec, n_rec, walk, n_walk, dyn, n_dyn, leaves, n_leaf, cam, feats, sums,
       nx, ny, seed_lo, seed_hi, sample0, n_samples, max_depth, med, n_med,
@@ -1233,7 +1314,8 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       n_bleaf, interior, n_int, interior_kind, dense, rr_depth, pix_table,
       kpix, stats,
       dda ? stats + 3 * (size_t)n_pix + (size_t)blocks * THREADS / 32
-          : nullptr);
+          : nullptr,
+      sups, n_sup, bsups, n_bsup);
   return (int)cudaGetLastError();
 }
 

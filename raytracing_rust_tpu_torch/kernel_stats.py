@@ -63,7 +63,7 @@ def _operands(name, nx, ny, max_depth, balance, device):
     pix, kpix = None, 1
     if balance:
         n_pix = nx * ny
-        kpix = max(1, min(tracer.KPIX, n_pix // tracer.TILE))
+        kpix = tracer.launch_plan(n_pix, 1, device)[0]
         order = tracer.cost_permutation(ops, nx, ny, max_depth, device)
         pix = torch.from_numpy(tracer.balanced_pix_table(
             order, n_pix, kpix)[0]).to(device)

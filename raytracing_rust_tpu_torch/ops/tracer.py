@@ -840,6 +840,8 @@ class TraceOperands:
     walk: torch.Tensor    # int32[2, K] walk_table over rec, K ≤ P
     dyn: torch.Tensor     # f32[n_dyn, REC] dynamic spheres in cluster order
     leaves: torch.Tensor  # f32[n_leaf, CLUSW] their leaves; none: no cull
+    sups: torch.Tensor    # f32[n_sup, CLUSW] the leaves' super rows (lo3,
+                          # hi3, first leaf, leaf count); none: one level
     cam: torch.Tensor     # f32[CAMREC]
     feats: int            # FEAT_* bits
     med: torch.Tensor     # f32[M, MEDREC] media, M ≤ MAX_MEDIA
@@ -848,11 +850,31 @@ class TraceOperands:
     perlin_seed: int
     box: torch.Tensor     # f32[n_box, REC] boxes in cluster order
     bleaves: torch.Tensor  # f32[n_bleaf, CLUSW] their leaves; none: no cull
+    bsups: torch.Tensor   # f32[n_bsup, CLUSW] the box leaves' super rows
     interior: torch.Tensor  # f32[n_int ≤ MAX_INTERIOR, REC] the walk's rows
     interior_kind: torch.Tensor  # int32[n_int] INT_SPHERE / INT_RECT / INT_BOX
     dense: int            # bit i set: medium i is served by the walk
     rr_depth: int = -1    # the first bounce of Russian roulette; -1: none
                           # (FEAT_RR is set exactly when it is ≥ 0)
+
+    def __post_init__(self):
+        # the kernel visits a super's leaves as one ascending range, so the
+        # ranges must tile [0, n_leaf) once, in order (unread without
+        # leaves). The check reads the rows on the host, so it runs once,
+        # when the operands are made, not at every launch; rows of a dtype,
+        # width or device `trace` refuses are left to its checks.
+        for name, sups, leaves in (("sups", self.sups, self.leaves),
+                                   ("bsups", self.bsups, self.bleaves)):
+            if not (sups.dim() == 2 and sups.shape[0] and leaves.shape[0]
+                    and sups.shape[1] == CLUSW
+                    and sups.device.type in ("cpu", "cuda")):
+                continue
+            first, cnt = sups[:, 6:8].double().cpu().unbind(1)
+            if not (torch.equal(first, torch.cumsum(cnt, 0) - cnt)
+                    and bool((cnt >= 1).all() & (cnt == cnt.floor()).all())
+                    and cnt.sum() == leaves.shape[0]):
+                raise ValueError(f"{name}' leaf ranges do not tile [0, "
+                                 f"{leaves.shape[0]}) in ascending order")
 
 
 def trace_operands(srec: SceneRecord, cam_rec: np.ndarray, device,
@@ -871,14 +893,17 @@ def trace_operands(srec: SceneRecord, cam_rec: np.ndarray, device,
         if rr_depth < 0:
             raise ValueError(f"rr_depth {rr_depth} is negative")
         feats = (feats | FEAT_RR) & ~FEAT_DENSE_WALK
+    (n_leaf, n_sup), (n_bleaf, n_bsup) = srec.n_sclus, srec.n_bclus
     return TraceOperands(
         rec=put(srec.rec), walk=put(walk_table(srec.kinds, srec.rect_groups)),
-        dyn=put(srec.dyn_rec), leaves=put(srec.sclus[:srec.n_sclus[0]]),
+        dyn=put(srec.dyn_rec), leaves=put(srec.sclus[:n_leaf]),
+        sups=put(srec.sclus[n_leaf:n_leaf + n_sup]),
         cam=put(cam_rec), feats=feats, med=put(srec.med_rec),
         med_box=sum(1 << i for i, k in enumerate(srec.med_kinds)
                     if k == "mbox"),
         atlas=put(srec.atlas), perlin_seed=srec.perlin_seed,
-        box=put(srec.box_rec), bleaves=put(srec.bclus[:srec.n_bclus[0]]),
+        box=put(srec.box_rec), bleaves=put(srec.bclus[:n_bleaf]),
+        bsups=put(srec.bclus[n_bleaf:n_bleaf + n_bsup]),
         interior=put(srec.int_rec),
         interior_kind=put(np.asarray([kind[k] for k in srec.int_kinds],
                                      np.int32)),
@@ -1200,6 +1225,25 @@ def _leaf_members(leaves, o, inv_d, t_final):
                 * leaves[None, :, 7]).sum())
 
 
+def _cull_tests(leaves, sups, o, inv_d, t_final):
+    """Slab tests of the kernel's two-level cull (`cull_table`) that an
+    exact cull needs against the closest hit, summed over the lanes: a
+    root test a lane, then on the lanes that cross the root every super
+    (every leaf, without supers) and the leaves of the supers they cross
+    (the kernel, against a running best hit, tests at least these)."""
+    if leaves.shape[0] == 0:
+        return 0
+    root = torch.cat([leaves[:, :3].amin(0), leaves[:, 3:6].amax(0),
+                      leaves.new_zeros(2)])[None]
+    inside = _crossed(root, o, inv_d, t_final)[:, 0]
+    n_in = int(inside.sum())
+    if sups.shape[0] == 0:
+        return t_final.numel() + n_in * leaves.shape[0]
+    held = _crossed(sups, o, inv_d, t_final) & inside[:, None]
+    return (t_final.numel() + n_in * sups.shape[0]
+            + int((held * sups[None, :, 7]).sum()))
+
+
 def _interior_t(rows, kinds, o, d, a_dd, inv_a, time, moving):
     """The nearest hit t over the dense-medium walk's interior rows (t
     only, BIG where none; pallas_tracer.py:2571-2641). Each kind's t is the
@@ -1260,6 +1304,8 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     counts, when given, gathers the work this run's paths needed: lane
     bounces traced ("segments"), lanes shaded by noise ("noise") and by an
     image ("image"), box member tests an exact leaf cull needs ("box"),
+    slab tests of the two-level cull of the sphere and of the box table
+    that an exact cull needs ("cull", "box_cull": `_cull_tests`),
     lane bounces of the dense-medium walk ("walk"), hits on a textured
     light ("emis_tex"), image lanes at a rect's UV ("rect_uv"), medium
     events of a textured medium ("med_tex") and roulette draws ("rr").
@@ -1290,8 +1336,8 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             FEAT_DENSE_WALK, FEAT_EMIS_TEX, FEAT_UV_CARRY, FEAT_IMG_FLIP,
             FEAT_MED_TEX, FEAT_RR))
     if counts is not None:
-        for k in ("segments", "noise", "image", "box", "walk", "emis_tex",
-                  "rect_uv", "med_tex", "rr"):
+        for k in ("segments", "noise", "image", "box", "cull", "box_cull",
+                  "walk", "emis_tex", "rect_uv", "med_tex", "rr"):
             counts.setdefault(k, 0)
     # record cells as Python floats: a torch op with a Python scalar computes
     # in the tensor's f32, and every cell is an f32 value
@@ -1505,6 +1551,11 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             hit = hit | dwin
         if counts is not None and box_dev.shape[0]:
             counts["box"] += _leaf_members(bleaf_dev, o, inv_d, t_best)
+            counts["box_cull"] += _cull_tests(bleaf_dev, ops.bsups.to(dev),
+                                              o, inv_d, t_best)
+        if counts is not None and dyn_dev.shape[0]:
+            counts["cull"] += _cull_tests(leaf_dev, ops.sups.to(dev), o,
+                                          inv_d, t_best)
 
         # a medium event before the closest surface takes the hit over
         # (pallas_tracer.py:2204-2266): isotropic, no emission, and the
@@ -1782,11 +1833,13 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
                            ("walk", ops.walk, torch.int32),
                            ("dyn", ops.dyn, torch.float32),
                            ("leaves", ops.leaves, torch.float32),
+                           ("sups", ops.sups, torch.float32),
                            ("cam", ops.cam, torch.float32),
                            ("med", ops.med, torch.float32),
                            ("atlas", ops.atlas, torch.int32),
                            ("box", ops.box, torch.float32),
                            ("bleaves", ops.bleaves, torch.float32),
+                           ("bsups", ops.bsups, torch.float32),
                            ("interior", ops.interior, torch.float32),
                            ("interior_kind", ops.interior_kind, torch.int32),
                            ("sums", sums, torch.float64)):
@@ -1807,10 +1860,18 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
                          f"{tuple(ops.walk.shape)}")
     for name, x, width in (("dyn", ops.dyn, REC), ("box", ops.box, REC),
                            ("leaves", ops.leaves, CLUSW),
-                           ("bleaves", ops.bleaves, CLUSW)):
+                           ("sups", ops.sups, CLUSW),
+                           ("bleaves", ops.bleaves, CLUSW),
+                           ("bsups", ops.bsups, CLUSW)):
         if x.dim() != 2 or x.shape[1] != width:
             raise ValueError(f"{name} must be [n, {width}], got "
                              f"{tuple(x.shape)}")
+    for name, sups, leaves in (("sups", ops.sups, ops.leaves),
+                               ("bsups", ops.bsups, ops.bleaves)):
+        # their leaf ranges were checked when the operands were made
+        if leaves.shape[0] and sups.shape[0] > leaves.shape[0]:
+            raise ValueError(f"{name}: {sups.shape[0]} super rows over "
+                             f"{leaves.shape[0]} leaves")
     if tuple(ops.cam.shape) != (CAMREC,):
         raise ValueError(f"cam must be [{CAMREC}], got {tuple(ops.cam.shape)}")
     if tuple(sums.shape) != (3, nx * ny):
@@ -1861,13 +1922,15 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     err = lib.rt_trace_k1(
         ops.rec.data_ptr(), ops.rec.shape[0], ops.walk.data_ptr(),
         ops.walk.shape[1], ops.dyn.data_ptr(), ops.dyn.shape[0],
-        ops.leaves.data_ptr(), ops.leaves.shape[0], ops.cam.data_ptr(),
+        ops.leaves.data_ptr(), ops.leaves.shape[0], ops.sups.data_ptr(),
+        ops.sups.shape[0], ops.cam.data_ptr(),
         ops.feats, sums.data_ptr(), nx, ny, seed & 0xFFFFFFFF, seed >> 32,
         sample0, n_samples, max_depth, ops.med.data_ptr(),
         ops.med.shape[0], ops.med_box, ops.atlas.data_ptr(),
         ops.atlas.shape[0], ops.atlas.shape[1],
         perlin.seed_word(ops.perlin_seed), ops.box.data_ptr(),
         ops.box.shape[0], ops.bleaves.data_ptr(), ops.bleaves.shape[0],
+        ops.bsups.data_ptr(), ops.bsups.shape[0],
         ops.interior.data_ptr(), ops.interior.shape[0],
         ops.interior_kind.data_ptr(), ops.dense, ops.rr_depth,
         None if pix is None else pix.data_ptr(),
@@ -1989,14 +2052,16 @@ def k1_blocks_per_sm() -> dict:
 
 
 def k1_work(ops: TraceOperands, counts: dict, n_pix: int,
-            n_samples: int) -> tuple[int, int]:
+            n_samples: int, one_level: bool = False) -> tuple[int, int]:
     """(operations, bytes) of K1 on a run's paths: `trace_plain`'s counts
     of lane bounces, of noise and image lanes, of the box members an exact
-    leaf cull tests, of walk bounces, of textured-light hits, rect-UV
-    lanes, textured-medium events and roulette draws, times K1_OPS, with
-    the scene's structure per lane bounce (the sphere leaf cull's members
-    counted as one leaf's); the sums read and written once, every record
-    and the atlas read once."""
+    leaf cull tests, of the slab tests an exact two-level cull makes, of
+    walk bounces, of textured-light hits, rect-UV lanes, textured-medium
+    events and roulette draws, times K1_OPS, with the scene's structure
+    per lane bounce (the sphere leaf cull's members counted as one leaf's);
+    the sums read and written once, every record and the atlas read once.
+    one_level: count the cull as a slab test of every leaf a lane bounce,
+    the one-level cull's work, in place of the two-level cull's."""
     rows = ops.walk[0].tolist()   # the unrolled prims a ray tests
     n_sph = int((ops.rec[rows, R_IS_SPHERE] > 0).sum()) if rows else 0
     n_rect = len(rows) - n_sph
@@ -2004,10 +2069,11 @@ def k1_work(ops: TraceOperands, counts: dict, n_pix: int,
     n_leaf = int(ops.leaves.shape[0])
     per_seg = (K1_OPS["segment"] + n_sph * K1_OPS["sphere"]
                + n_rect * K1_OPS["rect"] + n_frame * K1_OPS["frame"]
-               + n_leaf * K1_OPS["leaf"]
                + min(int(ops.dyn.shape[0]), SPH_LEAF) * K1_OPS["member"]
-               + int(ops.bleaves.shape[0]) * K1_OPS["box_leaf"]
                + int(ops.med.shape[0]) * K1_OPS["medium"])
+    if one_level:
+        per_seg += (n_leaf * K1_OPS["leaf"]
+                    + int(ops.bleaves.shape[0]) * K1_OPS["box_leaf"])
     per_walk = (K1_OPS["walk"] + int(ops.interior.shape[0])
                 * K1_OPS["interior"] + int(ops.med.shape[0])
                 * K1_OPS["medium"])
@@ -2016,14 +2082,16 @@ def k1_work(ops: TraceOperands, counts: dict, n_pix: int,
              + counts["noise"] * K1_OPS["noise"]
              + counts["image"] * K1_OPS["image"]
              + counts["box"] * K1_OPS["box"]
+             + (0 if one_level else counts["cull"] * K1_OPS["leaf"]
+                + counts["box_cull"] * K1_OPS["box_leaf"])
              + counts["walk"] * per_walk
              + sum(counts[k] * K1_OPS[k]
                    for k in ("emis_tex", "rect_uv", "med_tex", "rr")))
     n_bytes = 2 * 3 * 8 * n_pix + sum(
         t.numel() * t.element_size()
-        for t in (ops.rec, ops.walk, ops.dyn, ops.leaves, ops.cam, ops.med,
-                  ops.atlas, ops.box, ops.bleaves, ops.interior,
-                  ops.interior_kind))
+        for t in (ops.rec, ops.walk, ops.dyn, ops.leaves, ops.sups, ops.cam,
+                  ops.med, ops.atlas, ops.box, ops.bleaves, ops.bsups,
+                  ops.interior, ops.interior_kind))
     return n_ops, n_bytes
 
 
@@ -2165,6 +2233,22 @@ def _perm_cache_key(cam_np, srec: SceneRecord, nx, ny, max_depth, rr_depth,
             ny, max_depth, rr_depth, kpix, str(torch.device(device)))
 
 
+def launch_plan(n_pix: int, spp: int, device,
+                spp_chunk: int | None = None):
+    """How `render_kernel` splits a render into `trace` calls → (kpix of a
+    balanced pixel table: each thread renders kpix pixels, capped so that
+    padding never exceeds one tile's worth of slots, pallas_tracer.py:3071;
+    [(sample0, n_samples)] of the calls: spp_chunk samples each, by default
+    as many as the device's lane budget holds)."""
+    if spp_chunk is None:
+        budget = (_KERNEL_CHUNK_LANES if torch.device(device).type == "cuda"
+                  else _PLAIN_CHUNK_LANES)
+        spp_chunk = max(1, min(spp, budget // n_pix))
+    return (max(1, min(KPIX, n_pix // TILE)),
+            [(s0, min(spp_chunk, spp - s0))
+             for s0 in range(0, spp, spp_chunk)])
+
+
 def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
                   *, device, seed: int = 0, max_depth: int = 50,
                   spp_chunk: int | None = None,
@@ -2197,10 +2281,7 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     if timers is None:
         timers = Timers()
     n_pix = nx * ny
-    if spp_chunk is None:
-        budget = (_KERNEL_CHUNK_LANES if device.type == "cuda"
-                  else _PLAIN_CHUNK_LANES)
-        spp_chunk = max(1, min(spp, budget // n_pix))
+    table_kpix, chunks = launch_plan(n_pix, spp, device, spp_chunk)
 
     with timers.phase("record_build"):
         srec = build_scene_record(scene)
@@ -2218,9 +2299,8 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     pix, kpix = None, 1
     if balance:
         # each thread renders kpix pixels snake-striped across its tile's
-        # cost ranks; capped so padding never exceeds one tile's worth of
-        # slots (pallas_tracer.py:3071)
-        kpix = max(1, min(KPIX, n_pix // TILE))
+        # cost ranks
+        kpix = table_kpix
         key = _perm_cache_key(cam_np, srec, nx, ny, max_depth, rr_depth,
                               sums.device, kpix)
         pix = _PERM_CACHE.get(key)
@@ -2233,10 +2313,9 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
                 _PERM_CACHE.pop(next(iter(_PERM_CACHE)))
             _PERM_CACHE[key] = pix
     with timers.phase("trace"):
-        for s0 in range(0, spp, spp_chunk):
+        for s0, n in chunks:
             trace(ops, sums, nx=nx, ny=ny, seed=seed, sample0=s0,
-                  n_samples=min(spp_chunk, spp - s0), max_depth=max_depth,
-                  pix=pix, kpix=kpix)
+                  n_samples=n, max_depth=max_depth, pix=pix, kpix=kpix)
     with timers.phase("finalize"):
         img = finalize_image(sums.T.cpu().numpy(), spp, nx, ny)
     return img

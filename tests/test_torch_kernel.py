@@ -3,14 +3,15 @@
 These tests need an NVIDIA GPU with the CUDA toolkit (`nvcc`): they build
 `raytracing_rust_tpu_torch/csrc/*.cu`, launch K1 (`tracer.cu`: the K1a
 instantiation and the K1B ones with their checker, sky, metal, glass,
-moving-sphere, dynamic-table, box-table, noise, image, media,
-dense-medium walk, lattice-corner and roulette sections, and K1f: the
-stats instantiation with and without its DDA row, and a balanced pixel
-table), K2/K3 (`grad.cu`: lambertian, light, sky, metal, glass and the
-checker), D3 (`peak.cu`) and D1/D2 (`microbench.cu`), and hold them against
-`trace_plain`, `trace_tiles_plain` and autograd through it,
-`fp32_chain_plain`, `attr_read_plain` and `member_plain`, run on the same
-card, the same records and the same draws. Elsewhere they skip.
+moving-sphere, dynamic-table, box-table, noise, image, media, dense-medium
+walk, lattice-corner and roulette sections, its two-level cull against the
+one-level cull and no cull, and K1f: the stats instantiation with and
+without its DDA row, and a balanced pixel table), K2/K3 (`grad.cu`:
+lambertian, light, sky, metal, glass and the checker), D3 (`peak.cu`) and
+D1/D2 (`microbench.cu`), and hold them against `trace_plain`,
+`trace_tiles_plain` and autograd through it, `fp32_chain_plain`,
+`attr_read_plain` and `member_plain`, run on the same card, the same
+records and the same draws. Elsewhere they skip.
 Run them on the card with
 `python -m pytest tests/test_torch_kernel.py -q --noconftest -m cuda`.
 """
@@ -443,6 +444,47 @@ def test_kernel_leaf_cull_keeps_the_winners(cuda):
     _assert_kernel_matches_plain(culled, flat)
 
 
+@pytest.mark.parametrize("make,nx,ny,spp", [
+    (_preset("final_scene"), 800, 800, 1), (_random_spheres, 1280, 720, 2),
+    (_small_spheres(20000), 96, 64, 2)],
+    ids=["final_scene", "random_spheres", "small_spheres_20000"])
+def test_kernel_two_level_cull_is_bit_exact(cuda, make, nx, ny, spp):
+    """K1's two-level cull (root, super rows, leaves), its one-level cull
+    (the super rows emptied: root and leaves) and no cull (the leaves
+    emptied: every member scanned) give the same sums bit for bit: a
+    super holds its leaves, so the leaves that survive are tested in the
+    same order at the same best hit. The stats launch of the two-level
+    cull counts the plain version's segments, sphere and box member tests,
+    warp steps and DDA row. final_scene runs with the walk on; the 20,000
+    spheres' 2,048 leaves and 256 supers sit in device memory."""
+    ops = _operands(*make(nx, ny), cuda)
+    assert ops.sups.shape[0] and ops.sups.shape[0] < ops.leaves.shape[0]
+    kw = dict(nx=nx, ny=ny, seed=5, sample0=0, n_samples=spp, max_depth=50)
+
+    def sums():
+        return torch.zeros((3, nx * ny), dtype=torch.float64, device=cuda)
+
+    two = tracer.trace(ops, sums(), **kw)
+    one = tracer.trace(dataclasses.replace(
+        ops, sups=ops.sups[:0], bsups=ops.bsups[:0]), sums(), **kw)
+    flat = tracer.trace(dataclasses.replace(
+        ops, leaves=ops.leaves[:0], bleaves=ops.bleaves[:0]), sums(), **kw)
+    sk, sp = (tracer.new_stats(nx, ny, cuda, dda=True) for _ in range(2))
+    k = tracer.trace(ops, sums(), stats=sk, dda=True, **kw)
+    tracer.trace_plain(ops, sums(), stats=sp, dda=True, **kw)
+    torch.cuda.synchronize()
+    assert float(two.sum()) > 0
+    assert torch.equal(two, one) and torch.equal(two, flat)
+    assert torch.equal(k, two)
+    assert torch.equal(sk, sp), [
+        (name, int(a.sum()), int(b.sum())) for name, a, b in zip(
+            ("segments", "sphere tests", "box tests", "warp steps", "dda"),
+            (*tracer.stats_rows(sk, nx * ny, dda=True),
+             tracer.dda_row(sk, nx * ny)),
+            (*tracer.stats_rows(sp, nx * ny, dda=True),
+             tracer.dda_row(sp, nx * ny)))]
+
+
 @pytest.mark.parametrize("make", [_cornell, _moving_checker,
                                   _preset("cornell_smoke"), _every_feature,
                                   _preset("final_scene")])
@@ -543,6 +585,32 @@ def test_kernel_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(TypeError):
         tracer.trace(dataclasses.replace(final, bleaves=final.bleaves.int()),
                      sums, **kw)
+
+
+def test_kernel_wrapper_rejects_bad_super_rows(cuda):
+    """Super rows of the wrong dtype, width or device, or whose leaf ranges
+    run past the leaves, overlap or come out of order, never reach the
+    kernel."""
+    final = _operands(*_preset("final_scene")(8, 8), cuda)
+    sums = torch.zeros((3, 64), dtype=torch.float64, device=cuda)
+    kw = dict(nx=8, ny=8, seed=0, sample0=0, n_samples=1, max_depth=1)
+    with pytest.raises(TypeError):
+        tracer.trace(dataclasses.replace(final, sups=final.sups.half()),
+                     sums, **kw)
+    with pytest.raises(ValueError):
+        tracer.trace(dataclasses.replace(
+            final, sups=final.sups[:, :7].contiguous()), sums, **kw)
+    with pytest.raises(ValueError):
+        tracer.trace(dataclasses.replace(final, bsups=final.bsups.cpu()),
+                     sums, **kw)
+    past, overlap, swapped = (final.sups.clone() for _ in range(3))
+    past[-1, 7] += 1.0
+    overlap[2, 6] -= 1.0
+    swapped[[0, 1]] = swapped[[1, 0]]
+    for bad in (past, overlap, swapped):
+        with pytest.raises(ValueError):
+            tracer.trace(dataclasses.replace(final, sups=bad), sums, **kw)
+            torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("make", [_cornell, _random_spheres,
