@@ -32,7 +32,8 @@ Phases, one JSON line each on stdout:
      plain forward + backward, one training step; sample-paths/s;
  10. the K1b/K1e instantiations of csrc/tracer.cu against their plain
      version, on each sphere preset the command line renders below, at
-     the preset's size, 2 spp, depth 50, under the same gates as phase 3:
+     the preset's size, 2 spp, depth 50, under the same gates as phase 3
+     and bit for bit (max_abs_err 0):
      random_spheres 1280×720 (checker, sky, metal, glass, 397 dynamic
      spheres of which 311 move, in 32 leaves under 4 super rows) and
      two_spheres 1280×720 (sky and checker, no dynamic table); both
@@ -46,7 +47,8 @@ Phases, one JSON line each on stdout:
      10 spp, depth 50);
  13. the K1c and K1d sections of the K1B instantiations against their
      plain version, on each Next Week preset the command line renders
-     below, at the preset's size, 2 spp, depth 50, under phase 3's gates:
+     below, at the preset's size, 2 spp, depth 50, under phase 3's gates
+     and bit for bit:
      two_perlin_spheres and simple_light 1280×720 (Perlin marble),
      earth 1280×720 (sphere UV and the 512×1024 texel atlas) and
      cornell_smoke 800×800 (two rotated constant-density boxes); both
@@ -57,9 +59,10 @@ Phases, one JSON line each on stdout:
      the launch counts and a check of the image;
  18. the K1e box and K1d walk sections against their plain version on
      final_scene at its preset's size, 800×800, 1 spp, depth 50, under
-     phase 3's gates, with the walk on and with it off (the event path
+     phase 3's gates and bit for bit, with the walk on (each walk bounce
+     an iteration of the flat loop) and with it off (the event path
      alone); both kernel times, the plain version's, the paths' work, and
-     whether the two kernel runs give the same sums; on each, the
+     the two kernel runs' sums held to each other bit for bit; on each, the
      two-level cull held bit for bit to the one-level cull and to no cull,
      with their times;
  19. the render path through the command line, `render --scene
@@ -97,30 +100,33 @@ Phases, one JSON line each on stdout:
  29. the lattice corners of K1 (textured lights, image rects, flipped
      image prims, textured media) against their plain version on
      `lattice_scene` (tools/tpu_parity.py's camera) at 1280×720, 2 spp,
-     depth 50, under phase 3's gates; both versions' times and the paths'
-     work (textured-light hits, rect-UV lanes, textured-medium events);
+     depth 50, under phase 3's gates and bit for bit; both versions'
+     times and the paths' work (textured-light hits, rect-UV lanes,
+     textured-medium events);
  30. the lattice path: `render_kernel` on `lattice_scene` at 1280×720, 100
      spp, depth 50, with its launch counts and a check of the image, and a
      render at 128×72, 100 spp whose mean is held to the JAX XLA tier's;
  31. Russian roulette (K1g) against its plain version: cornell_box
      800×800, 4 spp, rr_depth 6 (a K1B launch), and final_scene 800×800,
      1 spp, rr_depth 5 (the dense-medium walk off), depth 50, under phase
-     3's gates; both versions' times and the roulette draws;
+     3's gates and bit for bit; both versions' times and the roulette
+     draws;
  32. the roulette path through the command line, `render --scene
      cornell_box_baseline --rr-depth 6 --device cuda` (800×800, 500 spp,
      depth 50), with K1g's launch count, its mean within ±5% of phase 5's
      reference, and its trace time beside phase 5's;
  33. K1f's stats instantiation against the production kernel (sums bit
-     for bit) and the plain version (sums under phase 3's gates; per-pixel
+     for bit) and the plain version (sums bit for bit; per-pixel
      segments, sphere and box member tests and the warp steps equal):
      cornell_box 800×800×2, random_spheres 1280×720×2 and final_scene
      800×800×1, depth 50; the occupancy (segments over 32 × warp steps, a
-     warp's steps being the largest segment total among its threads),
+     warp's steps being the largest segment total among its threads, walk
+     bounces included: its iterations of the flat loop),
      the steps per sample and the tail share (1 − occupancy);
  34. the balanced layout: the cost probe (timed), then the production
      kernel on its pixel table at kpix 1 and 4 against the scanline layout,
      bit for bit, on random_spheres 1280×720×2 and final_scene 800×800×1,
-     the plain version on the kpix-4 table under phase 3's gates; the
+     the plain version on the kpix-4 table bit for bit; the
      kernel's times in turns (scanline, kpix 1, kpix 4, kpix 4, kpix 1,
      scanline) at the samples of the command line's largest table launch
      of the preset, and the occupancy on each layout there;
@@ -1034,6 +1040,7 @@ def main() -> int:
         check(agree >= 0.99, f"{scene}: only {agree:.4%} of pixels agree")
         check(mean_rel <= 1e-4,
               f"{scene}: channel means differ by {mean_rel:.2e}")
+        check(err == 0.0, f"{scene}: K1 differs from plain by {err:.3e}")
         return row
 
     k1be = {scene: hold("k1be_vs_plain", scene)
@@ -1117,12 +1124,27 @@ def main() -> int:
               "pixels agree")
         check(mean_rel <= 1e-4, f"final_scene ({name}): channel means "
               f"differ by {mean_rel:.2e}")
+        check(final[name]["max_abs_err"] == 0.0, f"final_scene ({name}): K1 "
+              f"differs from plain by {final[name]['max_abs_err']:.3e}")
     same = bool(torch.equal(final_k["walk"], final_k["event"]))
     emit("k1d_walk_vs_event", scene="final_scene", spp=1,
          walk_equals_event=same,
          pixels_equal=float((final_k["walk"] == final_k["event"])
                             .all(dim=0).double().mean()),
          walk_ms=final["walk"]["ms"], event_ms=final["event"]["ms"])
+    check(same, "final_scene: the walk's sums differ from the event path's")
+    # the walk against the event path on samples 1-3, a launch a sample: a
+    # finding, not a gate (a ray that scatters just past the sealing sphere
+    # walks on with no surface cap: tests/test_torch_warp_schedule.py)
+    differ = []
+    for s in range(1, 4):
+        on, off = (tracer.trace(o, sums(), **dict(kw, sample0=s)) for o in (
+            fops, dataclasses.replace(
+                fops, feats=fops.feats & ~tracer.FEAT_DENSE_WALK)))
+        differ += [[s, i] for i in torch.nonzero(
+            (on != off).any(dim=0)).squeeze(1).tolist()]
+    emit("k1d_walk_vs_event_samples", scene="final_scene", samples=4,
+         seed=0, pixel_samples_differ=len(differ), first=differ[:8])
     del final_k
 
     # -- 19. the render path of final_scene through the command line, and
@@ -1371,6 +1393,9 @@ def main() -> int:
               f"{mean_rel:.2e}")
         check(all(rows_equal.values()),
               f"{scene}: stats counters differ from plain: {rows_equal}")
+        check(k1f_stats[scene]["max_abs_err"] == 0.0, f"{scene}: the stats "
+              f"launch differs from plain by "
+              f"{k1f_stats[scene]['max_abs_err']:.3e}")
         del prod, k, pl, sk, sp
 
     # -- 34. the balanced layout: kpix 1 and 4 against the scanline layout
@@ -1443,6 +1468,8 @@ def main() -> int:
               "agree with plain")
         check(mean_rel <= 1e-4, f"{scene} (kpix 4): channel means differ by "
               f"{mean_rel:.2e}")
+        check(k1f_bal[scene]["max_abs_err"] == 0.0, f"{scene} (kpix 4): "
+              f"differs from plain by {k1f_bal[scene]['max_abs_err']:.3e}")
         del outs, pl
 
     # -- 35. the balanced render path through the command line

@@ -22,11 +22,13 @@
 // albedo; after a scatter in a dense sealed medium, the walk (2540-2687):
 // bounces that test only the medium's interior rows and race the media up
 // to the nearest of them, with the main step's draws at the same bounce,
-// until a segment has no scatter, which the next main step then traces
-// against the whole scene with no medium event; emission, a textured
+// each an iteration of the flat loop of its own, until a segment has no
+// scatter, which the next iteration then traces against the whole scene
+// with no medium event; emission, a textured
 // light's its texture's value (2359-2369); a black or sky background;
 // lambertian, metal, dielectric and diffuse-light scatter with solid, 3-D
-// checker, Perlin marble (`_noise3`/`_turb3`) or image albedo (one texel
+// checker, Perlin marble (`_noise3`/`_turb3`, its 56 corner terms spread
+// over the whole warp: `warp_turb`) or image albedo (one texel
 // read from the packed atlas at the sphere UV of the pre-flip normal, a
 // rect's UV in its world frame, or a medium's u = v = 0); the depth cap;
 // Russian roulette (2492-2506); per-pixel sums over the samples. K1f
@@ -82,8 +84,12 @@
 // (the TPU kernel's 8 MB VMEM cap and its 8×128 gather construction do not
 // carry over); the box winner's attributes are read from its row, not
 // through the TPU kernel's transposed attribute gather. The 7-octave
-// turbulence is ~2k f32 and SFU operations per noise hit, so noise scenes
-// are bound by the instruction rate even more than the others. The cull is
+// turbulence is ~2k f32 and SFU operations per noise hit: a warp that
+// evaluated it thread by thread paid all 56 corner terms whenever one of
+// its threads hit a marble, so the warp evaluates it together, at a point
+// where it has reconverged, each requesting thread's terms on a block of
+// lanes (`warp_turb`: 2 rounds for one thread, 56 for more than 16);
+// every thread helps, walking, idle and finished ones too. The cull is
 // the TPU kernel's two levels (`cull_table`): a root AABB per table, then
 // super rows of SUP_FANOUT leaves, then the leaves, each a per-thread slab
 // test against the thread's own best hit, so a segment tests the leaves of
@@ -91,12 +97,18 @@
 // branch while any of its threads takes it, so the TPU kernel's OR-tree over
 // its lanes has no counterpart here (a warp vote in place of the per-thread
 // root and super guards measured the same), nor has its strip pass over a
-// regular box grid (measured a wash on the TPU). Inside an iteration the
-// threads of a warp still diverge: they cross different leaves, and a thread
-// on a dense-medium walk runs its walk bounces (a nested loop inside its
-// segment) while its warp-mates trace one full segment each; the STATS
-// counters measure what is left of the tail. The flat loop changes when a
-// path runs, never its draws or its pixel's f64 sum order, and a pixel table
+// regular box grid (measured a wash on the TPU). A walk bounce is an
+// iteration of its own, so a thread on a dense-medium walk no longer holds
+// its warp-mates through a nested loop of bounces: it runs the segment's
+// code with the medium's interior rows in place of the scene's closest
+// hit, so in one iteration its medium race and isotropic scatter are its
+// warp-mates' instructions, a warp whose threads all walk pays for the
+// interior rows alone, and a warp's steps (the largest segment total
+// among its threads, walk bounces counted) are its iterations. Inside an
+// iteration the threads of a warp still diverge (they cross different
+// leaves, or some walk while others trace); the STATS counters measure
+// what is left of the tail. The flat loop changes when a path runs, never
+// its draws or its pixel's f64 sum order, and a pixel table
 // changes which pixels share a warp, never those either, so the sums equal
 // trace_plain's order bit for bit across chunkings and layouts. No pixel
 // queue (an atomic counter over pixels) feeds the loop: the counters would
@@ -164,6 +176,16 @@ constexpr int FEAT_SKY = 1, FEAT_CHECKER = 2, FEAT_METAL = 4, FEAT_DIEL = 8,
               FEAT_IMG_FLIP = 4096, FEAT_MED_TEX = 8192, FEAT_RR = 16384,
               FEAT_ALL = 32767;
 
+// K1_SOLID_MARBLE: a timing build that `kernel_ab --shares` alone compiles
+// (the production build never defines it): the marble skips its turbulence
+// and shades with its record's solid-colour fields (zero), so the paths
+// and their draws stay the same and only the noise's time goes
+#ifdef K1_SOLID_MARBLE
+constexpr bool SOLID_MARBLE = true;
+#else
+constexpr bool SOLID_MARBLE = false;
+#endif
+
 constexpr float BIG = 3.0e38f;
 constexpr float T_MIN = 1e-3f;
 constexpr float MAT_METAL = 1.0f, MAT_DIELECTRIC = 2.0f,
@@ -229,66 +251,154 @@ __device__ __forceinline__ void center(const float* r, bool moving,
   }
 }
 
-// Hash-gradient Perlin noise at p (pallas_tracer.py `_noise3`, ops/perlin.py
-// `noise3`, reference src/perlin.rs:58-97): the eight lattice corners'
-// unit gradients from a murmur-style hash of (i & 255, j & 255, k & 255)
-// and the seed word, Hermite-weighted dot products summed corner by corner.
-__device__ __forceinline__ float noise3(float px, float py, float pz,
-                                        uint32_t seed_word) {
+// Hash-gradient Perlin noise (pallas_tracer.py `_noise3`, ops/perlin.py
+// `noise3` and `corner_term`, reference src/perlin.rs:58-97) at a point p,
+// corner by corner. `Cell` is p's lattice cell: the signed floor, the
+// offset in it and its Hermite-smoothed weights (src/perlin.rs:39-41).
+struct Cell {
+  float ux, uy, uz, sx, sy, sz;
+  int ix, iy, iz;
+};
+
+__device__ __forceinline__ Cell cell(float px, float py, float pz) {
   const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
-  const float ux = px - fx, uy = py - fy, uz = pz - fz;
-  const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
-  // Hermite smoothing (reference src/perlin.rs:39-41)
-  const float sx = ux * ux * (3.0f - 2.0f * ux);
-  const float sy = uy * uy * (3.0f - 2.0f * uy);
-  const float sz = uz * uz * (3.0f - 2.0f * uz);
-  float accum = 0.0f;
+  Cell c;
+  c.ux = px - fx;
+  c.uy = py - fy;
+  c.uz = pz - fz;
+  c.ix = (int)fx;
+  c.iy = (int)fy;
+  c.iz = (int)fz;
+  c.sx = c.ux * c.ux * (3.0f - 2.0f * c.ux);
+  c.sy = c.uy * c.uy * (3.0f - 2.0f * c.uy);
+  c.sz = c.uz * c.uz * (3.0f - 2.0f * c.uz);
+  return c;
+}
+
+// The term of corner = 4·di + 2·dj + dk: the corner's unit gradient from a
+// murmur-style hash of ((i + di) & 255, (j + dj) & 255, (k + dk) & 255) and
+// the seed word, its dot product with the offset from the corner, times
+// the trilinear weight; noise3's loop body, operation for operation (its
+// cosine and sine from one range reduction, sincosf: bit-equal to cosf and
+// sinf on every angle a hash word gives).
+__device__ __forceinline__ float corner_term(const Cell& c, int corner,
+                                             uint32_t seed_word) {
+  const int di = corner >> 2, dj = (corner >> 1) & 1, dk = corner & 1;
+  const float wu = di ? c.sx : 1.0f - c.sx;
+  const float wv = dj ? c.sy : 1.0f - c.sy;
+  const float ww = dk ? c.sz : 1.0f - c.sz;
+  uint32_t h = ((uint32_t)((c.ix + di) & 255) * HA) ^
+               ((uint32_t)((c.iy + dj) & 255) * HB) ^
+               ((uint32_t)((c.iz + dk) & 255) * HC) ^ seed_word;
+  h = h ^ (h >> 13);
+  h = h * HM1;
+  h = h ^ (h >> 16);
+  uint32_t g = (h ^ HM2) * HM3;
+  g = g ^ (g >> 16);
+  const float u1 = (float)(h >> 8) * U24;
+  const float u2 = (float)(g >> 8) * U24;
+  const float gz = 2.0f * u1 - 1.0f;
+  const float gs = sqrtf(fmaxf(1.0f - gz * gz, 0.0f));
+  float sin_phi, cos_phi;
+  sincosf(TWO_PI * u2, &sin_phi, &cos_phi);
+  const float gx = gs * cos_phi, gy = gs * sin_phi;
+  const float dot = gx * (c.ux - (float)di) + gy * (c.uy - (float)dj) +
+                    gz * (c.uz - (float)dk);
+  return wu * wv * ww * dot;
+}
+
+// The marble's turbulence |Σ_o 0.5^o noise(2^o p)| over 7 octaves
+// (`_turb3`, ops/perlin.py `turb3`, reference src/perlin.rs:99-109) at the
+// point (px, py, pz) of each thread that sets `need`, evaluated by the
+// whole warp together: every thread of the warp calls it, where the warp
+// has reconverged, and a thread without `need` (idle, walking, finished,
+// or shading something else) computes terms for the others and gets 0.
+// A thread alone takes 56 corner terms (7 octaves × 8 corners), and a
+// warp paid all 56 whenever any of its threads hit a marble. Here each of
+// the k requesting threads owns a block of m lanes, m the largest power of
+// two with k·m ≤ 32, whose lanes take its terms m at a time in (octave,
+// corner) order: 56 / m rounds (4 for m = 16, 2 for m = 32), which is
+// ⌈56k / 32⌉ when k is a power of two and under twice that otherwise: 2
+// rounds for one thread, 56 for 17 or more. The lanes that hold one
+// octave's corners in a round (m of them, at most 8) hand them to the
+// first, which adds them in corner order onto the octave's sum from 0
+// (noise3's); the block's first lane adds each finished octave's sum,
+// times 0.5^o, in octave order from 0 (turb3's). A term's point is p·2^o,
+// exact as turb3's repeated doubling is, so the result is turb3's bit for
+// bit. A block of one lane (k > 16) shuffles nothing but its owner's
+// point and its result.
+__device__ float warp_turb(bool need, float px, float py, float pz,
+                           uint32_t seed_word) {
+  const uint32_t req = __ballot_sync(0xffffffffu, need);
+  if (req == 0u) return 0.0f;
+  const int lane = threadIdx.x & 31;
+  const int k = __popc(req);
+  const int m = 32 >> (32 - __clz(k - 1));  // lanes per owner
+  const int j = lane & (m - 1);             // this lane's place in its block
+  const int block = lane & ~(m - 1);
+  // the owner of this lane's block (blocks past the last owner's take the
+  // last owner's terms, which nobody adds): its lane, req's (rank+1)-th
+  // set bit, is the largest position with at most rank set bits below it
+  const int rank = min(lane / m, k - 1);
+  int src = 0;
 #pragma unroll
-  for (int di = 0; di < 2; ++di) {
-    const float wu = di ? sx : 1.0f - sx;
+  for (int step = 16; step > 0; step >>= 1)
+    if (__popc(req & ((1u << (src + step)) - 1u)) <= rank) src += step;
+  const float qx = __shfl_sync(0xffffffffu, px, src),
+              qy = __shfl_sync(0xffffffffu, py, src),
+              qz = __shfl_sync(0xffffffffu, pz, src);
+  float acc = 0.0f;
+  if (m <= 8) {
+    // a block takes an octave in 8 / m rounds, corner c0 + j in round c0 / m
+#pragma unroll 1
+    for (int o = 0; o < 7; ++o) {
+      const float scale = (float)(1 << o);
+      const Cell c = cell(qx * scale, qy * scale, qz * scale);
+      float octave_sum = 0.0f;
+      if (m == 1) {
 #pragma unroll
-    for (int dj = 0; dj < 2; ++dj) {
-      const float wv = dj ? sy : 1.0f - sy;
+        for (int corner = 0; corner < 8; ++corner)
+          octave_sum = octave_sum + corner_term(c, corner, seed_word);
+      } else {
+#pragma unroll 1
+        for (int c0 = 0; c0 < 8; c0 += m) {
+          const float term = corner_term(c, c0 + j, seed_word);
 #pragma unroll
-      for (int dk = 0; dk < 2; ++dk) {
-        const float ww = dk ? sz : 1.0f - sz;
-        uint32_t h = ((uint32_t)((ix + di) & 255) * HA) ^
-                     ((uint32_t)((iy + dj) & 255) * HB) ^
-                     ((uint32_t)((iz + dk) & 255) * HC) ^ seed_word;
-        h = h ^ (h >> 13);
-        h = h * HM1;
-        h = h ^ (h >> 16);
-        uint32_t g = (h ^ HM2) * HM3;
-        g = g ^ (g >> 16);
-        const float u1 = (float)(h >> 8) * U24;
-        const float u2 = (float)(g >> 8) * U24;
-        const float gz = 2.0f * u1 - 1.0f;
-        const float gs = sqrtf(fmaxf(1.0f - gz * gz, 0.0f));
-        const float phi = TWO_PI * u2;
-        const float gx = gs * cosf(phi), gy = gs * sinf(phi);
-        const float dot = gx * (ux - (float)di) + gy * (uy - (float)dj) +
-                          gz * (uz - (float)dk);
-        accum = accum + wu * wv * ww * dot;
+          for (int i = 0; i < 8; ++i)
+            if (i < m)
+              octave_sum =
+                  octave_sum + __shfl_sync(0xffffffffu, term, block + i);
+        }
+      }
+      acc = acc + __int_as_float((127 - o) << 23) * octave_sum;
+    }
+  } else {
+    // a block of 16 or 32 lanes takes 2 or 4 octaves a round, a corner a
+    // lane; t ≥ 56, in the last round, is a spare term nobody adds
+#pragma unroll 1
+    for (int r = 0; r < 56 / m + 1; ++r) {
+      const int t = r * m + j;
+      const float scale = (float)(1 << min(t >> 3, 6));
+      const float term = corner_term(cell(qx * scale, qy * scale, qz * scale),
+                                     t & 7, seed_word);
+      float octave_sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        octave_sum =
+            octave_sum + __shfl_sync(0xffffffffu, term, (lane & ~7) + i);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (8 * i < m) {
+          const float v = __shfl_sync(0xffffffffu, octave_sum, block + 8 * i);
+          const int o = (r * m + 8 * i) >> 3;
+          if (o < 7) acc = acc + __int_as_float((127 - o) << 23) * v;
+        }
       }
     }
   }
-  return accum;
-}
-
-// |Σ 0.5^k noise(2^k p)| over 7 octaves (`_turb3`, reference
-// src/perlin.rs:99-109)
-__device__ __forceinline__ float turb3(float px, float py, float pz,
-                                       uint32_t seed_word) {
-  float accum = 0.0f, weight = 1.0f;
-#pragma unroll 1
-  for (int k = 0; k < 7; ++k) {
-    accum = accum + weight * noise3(px, py, pz, seed_word);
-    weight *= 0.5f;
-    px = px * 2.0f;
-    py = py * 2.0f;
-    pz = pz * 2.0f;
-  }
-  return fabsf(accum);
+  const float turb = fabsf(__shfl_sync(
+      0xffffffffu, acc, min(__popc(req & ((1u << lane) - 1u)), k - 1) * m));
+  return need ? turb : 0.0f;
 }
 
 // Reciprocal direction for slab tests: an exact-zero component gets a
@@ -492,31 +602,39 @@ trace_k1(const float* __restrict__ rec, int n_rec,
              metal = K1B && (feats & FEAT_METAL),
              diel = K1B && (feats & FEAT_DIEL),
              moving = K1B && (feats & FEAT_MOVING),
-             noise = K1B && (feats & FEAT_NOISE),
+             noise = K1B && !SOLID_MARBLE && (feats & FEAT_NOISE),
              image = K1B && (feats & FEAT_IMAGE),
              media = K1B && (feats & FEAT_MEDIA),
              compat_uv = K1B && (feats & FEAT_COMPAT_UV),
              dense_walk = K1B && (feats & FEAT_DENSE_WALK);
-  // dynamic shared memory, sized by the launch: record, camera, the box
-  // and sphere tables' root AABBs (DYN), sphere leaves and supers and box
-  // leaves and supers (LEAF_SMEM), media and interior rows (K1B), walk
-  // order, interior kinds (K1B)
+  // dynamic shared memory, sized by the launch: record, the walk's
+  // interior rows (K1B: rows n_rec.. of the record), camera, the box and
+  // sphere tables' root AABBs (DYN), sphere leaves and supers and box
+  // leaves and supers (LEAF_SMEM), media (K1B), the row list (order, then
+  // lead: the unrolled rows' walk order, then with K1B the interior
+  // spheres and rects), the interior rows' kinds (K1B)
   extern __shared__ float smem[];
   float* s_rec = smem;
-  float* s_cam = s_rec + n_rec * REC;
+  float* s_int = s_rec + n_rec * REC;
+  float* s_cam = s_int + (K1B ? n_int * REC : 0);
   float* s_root = s_cam + CAMREC;
   float* s_leaf = s_root + (DYN ? 12 : 0);
   float* s_sup = s_leaf + (LEAF_SMEM ? n_leaf * CLUSW : 0);
   float* s_bleaf = s_sup + (LEAF_SMEM ? n_sup * CLUSW : 0);
   float* s_bsup = s_bleaf + (LEAF_SMEM ? n_bleaf * CLUSW : 0);
   float* s_med = s_bsup + (LEAF_SMEM ? n_bsup * CLUSW : 0);
-  float* s_int = s_med + (K1B ? n_med * MEDREC : 0);
-  int* s_walk = (int*)(s_int + (K1B ? n_int * REC : 0));
-  int* s_ikind = s_walk + 2 * n_walk;
+  int* s_walk = (int*)(s_med + (K1B ? n_med * MEDREC : 0));
+  // the interior spheres and rects join the row list; the boxes stay
+  // apart (a walk bounce tests them after the list)
+  int n_int_sr = 0;
+  if (K1B)
+    for (int i = 0; i < n_int; ++i) n_int_sr += interior_kind[i] != INT_BOX;
+  const int n_list = n_walk + (K1B ? n_int_sr : 0);
+  int* s_ikind = s_walk + 2 * n_list;
   for (int i = threadIdx.x; i < n_rec * REC; i += blockDim.x)
     s_rec[i] = rec[i];
   for (int i = threadIdx.x; i < 2 * n_walk; i += blockDim.x)
-    s_walk[i] = walk[i];
+    s_walk[i + (K1B && i >= n_walk ? n_int_sr : 0)] = walk[i];
   for (int i = threadIdx.x; i < CAMREC; i += blockDim.x) s_cam[i] = cam[i];
   if (LEAF_SMEM) {
     for (int i = threadIdx.x; i < n_leaf * CLUSW; i += blockDim.x)
@@ -569,6 +687,16 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       s_int[i] = interior[i];
     for (int i = threadIdx.x; i < n_int; i += blockDim.x)
       s_ikind[i] = interior_kind[i];
+    // the list entries n_walk.. : interior row i (record row n_rec + i) in
+    // order, lead -1 for a sphere, its own row (its frame) for a rect
+    if (threadIdx.x == 0) {
+      for (int i = 0, e = n_walk; i < n_int; ++i) {
+        if (interior_kind[i] == INT_BOX) continue;
+        s_walk[e] = n_rec + i;
+        s_walk[n_list + e] = interior_kind[i] == INT_RECT ? n_rec + i : -1;
+        ++e;
+      }
+    }
   }
   __syncthreads();
   const float* leaf = LEAF_SMEM ? s_leaf : leaves;
@@ -578,7 +706,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
 
   const int n_pix = nx * ny;
   const int* order = s_walk;
-  const int* lead = s_walk + n_walk;
+  const int* lead = s_walk + n_list;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   // K1f (pallas_tracer.py:1378-1394, 1534-1560): with a pixel table (DYN
   // instantiations only) thread j of tile g renders the pixels
@@ -604,6 +732,8 @@ trace_k1(const float* __restrict__ rec, int n_rec,
   // and whether the walk ruled out a medium event on its next segment
   // (`skip_med`)
   bool live = false, skip_med = false;
+  // K1B: the path is on a dense-medium walk, its next bounce at `bounce`
+  bool walking = false;
   int bounce = 0;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
   float time = 0.0f;
@@ -669,207 +799,272 @@ trace_k1(const float* __restrict__ rec, int n_rec,
     // let the threads that took the raygen branch and those that did not
     // trace their segments apart)
     if (!__any_sync(0xffffffffu, live)) break;
+    // A live thread's iteration: one segment of its path at `bounce`, in
+    // two parts: its closest hit and nearest medium event (part A), then,
+    // once the warp has evaluated the marble's turbulence for the threads
+    // that shade with it, its shading and scatter (part B). While the
+    // thread walks, the segment is a walk bounce: part A tests the dense
+    // medium's interior rows in place of the scene, and part B is the
+    // medium event's isotropic scatter, the code every medium event runs.
+    bool seg = live;
+    float a_dd = 0.0f, inv_a = 0.0f;
+    float t_best = BIG, nbx = 0.0f, nby = 0.0f, nbz = 0.0f;
+    int win = -1;                  // the unrolled winner's record row
+    const float* w_dyn = nullptr;  // the box or dynamic winner's row
+    bool med_event = false;
+    int m_ev = -1;
     if (live) {
       const uint32_t sample = (uint32_t)(sample0 + si);
-      // one segment of the path at `bounce`; a break ends the path
-      live = false;
-      do {
-        if (STATS) ++busy;
-        const float a_dd = dx * dx + dy * dy + dz * dz;
-        const float inv_a = 1.0f / a_dd;
-        float t_best = BIG, nbx = 0.0f, nby = 0.0f, nbz = 0.0f;
-        int win = -1;  // the unrolled winner's record row
-        // the current rect group's ray·frame dot products
-        int frame = -1;
-        bool nonpar = false;
-        float o_kn = 0.0f, inv_kn = 0.0f, o_an = 0.0f, d_an = 0.0f,
-              o_bn = 0.0f, d_bn = 0.0f;
-        for (int k = 0; k < n_walk; ++k) {
-          const int p = order[k];
-          const float* r = s_rec + p * REC;
-          if (lead[k] < 0) {
-            // sphere (reference src/sphere.rs:37-77): near root, then far
-            float cx, cy, cz;
-            center(r, moving, time, cx, cy, cz);
+      if (STATS) ++busy;
+      a_dd = dx * dx + dy * dy + dz * dz;
+      inv_a = 1.0f / a_dd;
+      // a walk bounce (pallas_tracer.py:2540-2687) takes the medium's
+      // interior rows in place of the scene: its spheres and rects in the
+      // row loop (list entries n_walk..), then its boxes, each kind's t as
+      // the main step computes it, so the least is the walk's nearest
+      // interior hit; it skips the tables. Its media race below has the
+      // main step's draws at this bounce (MEDIUM for the flights, SCATTER
+      // for the direction)
+      const bool walk_bounce = dense_walk && walking;
+      // the current rect group's ray·frame dot products
+      int frame = -1;
+      bool nonpar = false;
+      float o_kn = 0.0f, inv_kn = 0.0f, o_an = 0.0f, d_an = 0.0f,
+            o_bn = 0.0f, d_bn = 0.0f;
+      for (int k = walk_bounce ? n_walk : 0;
+           k < (walk_bounce ? n_list : n_walk); ++k) {
+        const int p = order[k];
+        const float* r = s_rec + p * REC;
+        if (lead[k] < 0) {
+          // sphere (reference src/sphere.rs:37-77): near root, then far
+          float cx, cy, cz;
+          center(r, moving, time, cx, cy, cz);
+          const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+          const float bq = ocx * dx + ocy * dy + ocz * dz;
+          const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2];
+          const float disc = bq * bq - a_dd * cq;
+          if (disc > 0.0f) {
+            const float sq = sqrtf(disc);
+            const float t_near = (-bq - sq) * inv_a;
+            const float t_far = (-bq + sq) * inv_a;
+            const float t_p =
+                (t_near > T_MIN && t_near < t_best)  ? t_near
+                : (t_far > T_MIN && t_far < t_best) ? t_far
+                                                     : BIG;
+            if (t_p < t_best) {
+              const float inv_r = 1.0f / r[R_RADIUS];
+              const float flip = r[R_FLIP];
+              t_best = t_p;
+              win = p;
+              nbx = ((ocx + t_p * dx) * inv_r) * flip;
+              nby = ((ocy + t_p * dy) * inv_r) * flip;
+              nbz = ((ocz + t_p * dz) * inv_r) * flip;
+            }
+          }
+        } else {
+          // rect in its group's world frame (reference src/rect.rs:39-69;
+          // x = (o+td)·an expands to o·an + t·(d·an))
+          const float* f = s_rec + lead[k] * REC;
+          if (lead[k] != frame) {
+            frame = lead[k];
+            const float d_kn = dx * f[R_KN] + dy * f[R_KN + 1] +
+                               dz * f[R_KN + 2];
+            nonpar = d_kn != 0.0f;
+            o_kn = ox * f[R_KN] + oy * f[R_KN + 1] + oz * f[R_KN + 2];
+            inv_kn = 1.0f / (nonpar ? d_kn : 1.0f);
+            o_an = ox * f[R_AN] + oy * f[R_AN + 1] + oz * f[R_AN + 2];
+            d_an = dx * f[R_AN] + dy * f[R_AN + 1] + dz * f[R_AN + 2];
+            o_bn = ox * f[R_BN] + oy * f[R_BN + 1] + oz * f[R_BN + 2];
+            d_bn = dx * f[R_BN] + dy * f[R_BN + 1] + dz * f[R_BN + 2];
+          }
+          const float t_p = (r[R_KOFF] - o_kn) * inv_kn;
+          const float xa = o_an + t_p * d_an - r[R_AOFF];
+          const float yb = o_bn + t_p * d_bn - r[R_BOFF];
+          if (nonpar && t_p > T_MIN && t_p < t_best && xa >= r[R_A0] &&
+              xa <= r[R_A1] && yb >= r[R_B0] && yb <= r[R_B1]) {
+            const float flip = r[R_FLIP];
+            t_best = t_p;
+            win = p;
+            nbx = f[R_KN] * flip;
+            nby = f[R_KN + 1] * flip;
+            nbz = f[R_KN + 2] * flip;
+          }
+        }
+      }
+
+      if (walk_bounce) {
+        // the interior boxes: the entry face beyond T_MIN, else the exit
+        const float iwx = safe_inv(dx), iwy = safe_inv(dy),
+                    iwz = safe_inv(dz);
+        for (int j = 0; j < n_int; ++j) {
+          if (s_ikind[j] != INT_BOX) continue;
+          const float* r = s_int + j * REC;
+          float tmn, tmx;
+          slab(r[R_C0], r[R_C0 + 1], r[R_C0 + 2], r[R_DC], r[R_DC + 1],
+               r[R_DC + 2], ox, oy, oz, iwx, iwy, iwz, tmn, tmx);
+          const float t_p = tmn > T_MIN ? tmn : tmx;
+          if (tmx > tmn && t_p > T_MIN && t_p < t_best) t_best = t_p;
+        }
+      } else if (DYN) {
+        // the box table, then the dynamic sphere table, each in cluster
+        // order behind its two-level cull (`cull_table`), carrying only
+        // (t, winner) (pallas_tracer.py:1906-2071; boxes first, so a box
+        // keeps a tie)
+        float t_d = t_best;
+        const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy),
+                    inv_dz = safe_inv(dz);
+        int wb = -1;
+        cull_table(s_root, bsup, n_bsup, bleaf, n_bleaf, n_box, ox, oy, oz,
+                   inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
+          if (STATS) tests_b += (uint32_t)cnt;
+          for (int q = start; q < start + cnt; ++q) {
+            // merged cube (reference src/cube.rs:20-74): one slab test,
+            // the entry face when beyond T_MIN, else the exit face
+            const float* r = box + (size_t)q * REC;
+            float tmn, tmx;
+            slab(__ldg(r + R_C0), __ldg(r + R_C0 + 1), __ldg(r + R_C0 + 2),
+                 __ldg(r + R_DC), __ldg(r + R_DC + 1), __ldg(r + R_DC + 2),
+                 ox, oy, oz, inv_dx, inv_dy, inv_dz, tmn, tmx);
+            const float t_p = tmn > T_MIN ? tmn : tmx;
+            // STATS, the DDA row (pallas_tracer.py:1927-1938): the ray
+            // crosses the member's AABB inside its window, before its
+            // best hit so far: the visit set of a per-ray grid DDA
+            if (STATS && dda != nullptr && tmx > fmaxf(tmn, T_MIN) &&
+                tmn < t_d)
+              ++cross_b;
+            if (tmx > tmn && t_p > T_MIN && t_p < t_d) {
+              t_d = t_p;
+              wb = q;
+            }
+          }
+        });
+        const float t_box = t_d;
+        int wd = -1;
+        cull_table(s_root + 6, sup, n_sup, leaf, n_leaf, n_dyn, ox, oy, oz,
+                   inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
+          if (STATS) tests_s += (uint32_t)cnt;
+          for (int q = start; q < start + cnt; ++q) {
+            const float* r = dyn + (size_t)q * REC;
+            float cx = __ldg(r + R_C0), cy = __ldg(r + R_C0 + 1),
+                  cz = __ldg(r + R_C0 + 2);
+            if (moving) {
+              const float frac =
+                  (time - __ldg(r + R_T0)) * __ldg(r + R_INV_DT);
+              cx = cx + frac * __ldg(r + R_DC);
+              cy = cy + frac * __ldg(r + R_DC + 1);
+              cz = cz + frac * __ldg(r + R_DC + 2);
+            }
             const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
             const float bq = ocx * dx + ocy * dy + ocz * dz;
-            const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2];
+            const float cq =
+                ocx * ocx + ocy * ocy + ocz * ocz - __ldg(r + R_R2);
             const float disc = bq * bq - a_dd * cq;
             if (disc > 0.0f) {
               const float sq = sqrtf(disc);
               const float t_near = (-bq - sq) * inv_a;
               const float t_far = (-bq + sq) * inv_a;
-              const float t_p =
-                  (t_near > T_MIN && t_near < t_best)  ? t_near
-                  : (t_far > T_MIN && t_far < t_best) ? t_far
-                                                       : BIG;
-              if (t_p < t_best) {
-                const float inv_r = 1.0f / r[R_RADIUS];
-                const float flip = r[R_FLIP];
-                t_best = t_p;
-                win = p;
-                nbx = ((ocx + t_p * dx) * inv_r) * flip;
-                nby = ((ocy + t_p * dy) * inv_r) * flip;
-                nbz = ((ocz + t_p * dz) * inv_r) * flip;
+              const float t_sel = t_near > T_MIN ? t_near : t_far;
+              if (t_sel > T_MIN && t_sel < t_d) {
+                t_d = t_sel;
+                wd = q;
               }
-            }
-          } else {
-            // rect in its group's world frame (reference src/rect.rs:39-69;
-            // x = (o+td)·an expands to o·an + t·(d·an))
-            const float* f = s_rec + lead[k] * REC;
-            if (lead[k] != frame) {
-              frame = lead[k];
-              const float d_kn = dx * f[R_KN] + dy * f[R_KN + 1] +
-                                 dz * f[R_KN + 2];
-              nonpar = d_kn != 0.0f;
-              o_kn = ox * f[R_KN] + oy * f[R_KN + 1] + oz * f[R_KN + 2];
-              inv_kn = 1.0f / (nonpar ? d_kn : 1.0f);
-              o_an = ox * f[R_AN] + oy * f[R_AN + 1] + oz * f[R_AN + 2];
-              d_an = dx * f[R_AN] + dy * f[R_AN + 1] + dz * f[R_AN + 2];
-              o_bn = ox * f[R_BN] + oy * f[R_BN + 1] + oz * f[R_BN + 2];
-              d_bn = dx * f[R_BN] + dy * f[R_BN + 1] + dz * f[R_BN + 2];
-            }
-            const float t_p = (r[R_KOFF] - o_kn) * inv_kn;
-            const float xa = o_an + t_p * d_an - r[R_AOFF];
-            const float yb = o_bn + t_p * d_bn - r[R_BOFF];
-            if (nonpar && t_p > T_MIN && t_p < t_best && xa >= r[R_A0] &&
-                xa <= r[R_A1] && yb >= r[R_B0] && yb <= r[R_B1]) {
-              const float flip = r[R_FLIP];
-              t_best = t_p;
-              win = p;
-              nbx = f[R_KN] * flip;
-              nby = f[R_KN + 1] * flip;
-              nbz = f[R_KN + 2] * flip;
             }
           }
+        });
+        if (wd >= 0) {
+          // winner resolve: normal (o + t·d − c(time))·inv_r, then the
+          // flip (pallas_tracer.py:2097-2148)
+          const float* r = dyn + (size_t)wd * REC;
+          float cx, cy, cz;
+          center(r, moving, time, cx, cy, cz);
+          const float inv_r = 1.0f / r[R_RADIUS];
+          const float flip = r[R_FLIP];
+          nbx = (((ox + t_d * dx) - cx) * inv_r) * flip;
+          nby = (((oy + t_d * dy) - cy) * inv_r) * flip;
+          nbz = (((oz + t_d * dz) - cz) * inv_r) * flip;
+          t_best = t_d;
+          w_dyn = r;
+        } else if (wb >= 0) {
+          // box winner resolve: the face whose slab t on the chosen side
+          // (entry beyond T_MIN, else exit) equals t, ties x → y → z; the
+          // normal +axis like the reference's rects, then the flip
+          // (pallas_tracer.py:2110-2150)
+          const float* r = box + (size_t)wb * REC;
+          const float t0x = (r[R_C0] - ox) * inv_dx,
+                      t1x = (r[R_DC] - ox) * inv_dx;
+          const float t0y = (r[R_C0 + 1] - oy) * inv_dy,
+                      t1y = (r[R_DC + 1] - oy) * inv_dy;
+          const float t0z = (r[R_C0 + 2] - oz) * inv_dz,
+                      t1z = (r[R_DC + 2] - oz) * inv_dz;
+          const bool use_en =
+              fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                    fminf(t0z, t1z)) > T_MIN;
+          const float tx_c = use_en ? fminf(t0x, t1x) : fmaxf(t0x, t1x);
+          const float ty_c = use_en ? fminf(t0y, t1y) : fmaxf(t0y, t1y);
+          const bool is_x = t_box == tx_c;
+          const bool is_y = t_box == ty_c && t_box != tx_c;
+          const float flip = r[R_FLIP];
+          nbx = (is_x ? 1.0f : 0.0f) * flip;
+          nby = (is_y ? 1.0f : 0.0f) * flip;
+          nbz = (is_x || is_y ? 0.0f : 1.0f) * flip;
+          t_best = t_box;
+          w_dyn = r;
         }
+      }
 
-        const float* w_dyn = nullptr;  // the box or dynamic winner's row
-        if (DYN) {
-          // the box table, then the dynamic sphere table, each in cluster
-          // order behind its two-level cull (`cull_table`), carrying only
-          // (t, winner) (pallas_tracer.py:1906-2071; boxes first, so a box
-          // keeps a tie)
-          float t_d = t_best;
-          const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy),
-                      inv_dz = safe_inv(dz);
-          int wb = -1;
-          cull_table(s_root, bsup, n_bsup, bleaf, n_bleaf, n_box, ox, oy, oz,
-                     inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
-            if (STATS) tests_b += (uint32_t)cnt;
-            for (int q = start; q < start + cnt; ++q) {
-              // merged cube (reference src/cube.rs:20-74): one slab test,
-              // the entry face when beyond T_MIN, else the exit face
-              const float* r = box + (size_t)q * REC;
-              float tmn, tmx;
-              slab(__ldg(r + R_C0), __ldg(r + R_C0 + 1), __ldg(r + R_C0 + 2),
-                   __ldg(r + R_DC), __ldg(r + R_DC + 1), __ldg(r + R_DC + 2),
-                   ox, oy, oz, inv_dx, inv_dy, inv_dz, tmn, tmx);
-              const float t_p = tmn > T_MIN ? tmn : tmx;
-              // STATS, the DDA row (pallas_tracer.py:1927-1938): the ray
-              // crosses the member's AABB inside its window, before its
-              // best hit so far: the visit set of a per-ray grid DDA
-              if (STATS && dda != nullptr && tmx > fmaxf(tmn, T_MIN) &&
-                  tmn < t_d)
-                ++cross_b;
-              if (tmx > tmn && t_p > T_MIN && t_p < t_d) {
-                t_d = t_p;
-                wb = q;
-              }
-            }
-          });
-          const float t_box = t_d;
-          int wd = -1;
-          cull_table(s_root + 6, sup, n_sup, leaf, n_leaf, n_dyn, ox, oy, oz,
-                     inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
-            if (STATS) tests_s += (uint32_t)cnt;
-            for (int q = start; q < start + cnt; ++q) {
-              const float* r = dyn + (size_t)q * REC;
-              float cx = __ldg(r + R_C0), cy = __ldg(r + R_C0 + 1),
-                    cz = __ldg(r + R_C0 + 2);
-              if (moving) {
-                const float frac =
-                    (time - __ldg(r + R_T0)) * __ldg(r + R_INV_DT);
-                cx = cx + frac * __ldg(r + R_DC);
-                cy = cy + frac * __ldg(r + R_DC + 1);
-                cz = cz + frac * __ldg(r + R_DC + 2);
-              }
-              const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-              const float bq = ocx * dx + ocy * dy + ocz * dz;
-              const float cq =
-                  ocx * ocx + ocy * ocy + ocz * ocz - __ldg(r + R_R2);
-              const float disc = bq * bq - a_dd * cq;
-              if (disc > 0.0f) {
-                const float sq = sqrtf(disc);
-                const float t_near = (-bq - sq) * inv_a;
-                const float t_far = (-bq + sq) * inv_a;
-                const float t_sel = t_near > T_MIN ? t_near : t_far;
-                if (t_sel > T_MIN && t_sel < t_d) {
-                  t_d = t_sel;
-                  wd = q;
-                }
-              }
-            }
-          });
-          if (wd >= 0) {
-            // winner resolve: normal (o + t·d − c(time))·inv_r, then the
-            // flip (pallas_tracer.py:2097-2148)
-            const float* r = dyn + (size_t)wd * REC;
-            float cx, cy, cz;
-            center(r, moving, time, cx, cy, cz);
-            const float inv_r = 1.0f / r[R_RADIUS];
-            const float flip = r[R_FLIP];
-            nbx = (((ox + t_d * dx) - cx) * inv_r) * flip;
-            nby = (((oy + t_d * dy) - cy) * inv_r) * flip;
-            nbz = (((oz + t_d * dz) - cz) * inv_r) * flip;
-            t_best = t_d;
-            w_dyn = r;
-          } else if (wb >= 0) {
-            // box winner resolve: the face whose slab t on the chosen side
-            // (entry beyond T_MIN, else exit) equals t, ties x → y → z; the
-            // normal +axis like the reference's rects, then the flip
-            // (pallas_tracer.py:2110-2150)
-            const float* r = box + (size_t)wb * REC;
-            const float t0x = (r[R_C0] - ox) * inv_dx,
-                        t1x = (r[R_DC] - ox) * inv_dx;
-            const float t0y = (r[R_C0 + 1] - oy) * inv_dy,
-                        t1y = (r[R_DC + 1] - oy) * inv_dy;
-            const float t0z = (r[R_C0 + 2] - oz) * inv_dz,
-                        t1z = (r[R_DC + 2] - oz) * inv_dz;
-            const bool use_en =
-                fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                      fminf(t0z, t1z)) > T_MIN;
-            const float tx_c = use_en ? fminf(t0x, t1x) : fmaxf(t0x, t1x);
-            const float ty_c = use_en ? fminf(t0y, t1y) : fmaxf(t0y, t1y);
-            const bool is_x = t_box == tx_c;
-            const bool is_y = t_box == ty_c && t_box != tx_c;
-            const float flip = r[R_FLIP];
-            nbx = (is_x ? 1.0f : 0.0f) * flip;
-            nby = (is_y ? 1.0f : 0.0f) * flip;
-            nbz = (is_x || is_y ? 0.0f : 1.0f) * flip;
-            t_best = t_box;
-            w_dyn = r;
-          }
+      // the nearest medium scatter event on [T_MIN, closest surface]
+      // takes the hit over: isotropic, the medium's albedo, no emission
+      // (pallas_tracer.py:2204-2266); none on a segment the walk handed
+      // over. A walk bounce takes any event (its cap is the nearest
+      // interior row); with none the walk ends, and the next iteration
+      // traces the same segment against the whole scene with no medium
+      // event
+      if (media && !skip_med) {
+        const float t_med =
+            media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a_dd,
+                       inv_a, t_best, pix, sample, (uint32_t)bounce, k0, k1,
+                       m_ev);
+        if (walk_bounce ? t_med < BIG : t_med < t_best) {
+          med_event = true;
+          t_best = t_med;
         }
-
-        // the nearest medium scatter event on [T_MIN, closest surface]
-        // takes the hit over: isotropic, the medium's albedo, no emission
-        // (pallas_tracer.py:2204-2266); none on a segment the walk handed
-        // over
-        bool med_event = false;
-        int m_ev = -1;
-        if (media && !skip_med) {
-          const float t_med =
-              media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a_dd,
-                         inv_a, t_best, pix, sample, (uint32_t)bounce, k0, k1,
-                         m_ev);
-          if (t_med < t_best) {
-            med_event = true;
-            t_best = t_med;
-          }
+      }
+      skip_med = false;
+      if (walk_bounce && !med_event) {
+        skip_med = true;
+        walking = false;
+        seg = false;
+      }
+    }
+    // K1c: the marble's turbulence, for the threads whose segment shades
+    // with it (a marble albedo below the cap, a marble light, a marble
+    // medium's event under med_tex: at most one a segment), at the point
+    // part B shades, by the whole warp (`warp_turb`)
+    float turb = 0.0f;
+    if (noise) {
+      bool need = false;
+      float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+      if (seg && (win >= 0 || (DYN && w_dyn != nullptr) || med_event)) {
+        qx = ox + t_best * dx;
+        qy = oy + t_best * dy;
+        qz = oz + t_best * dz;
+        if (med_event) {
+          need = med_tex && s_med[m_ev * MEDREC + M_ALB + T_NOISE] > 0.0f &&
+                 bounce < max_depth;
+        } else {
+          const float* w = DYN && w_dyn != nullptr ? w_dyn : s_rec + win * REC;
+          need = w[R_ALB + T_NOISE] > 0.0f &&
+                 (w[R_MAT] == MAT_DIFFUSE_LIGHT ? emis_tex
+                                                : bounce < max_depth);
         }
-        skip_med = false;
-
+      }
+      turb = warp_turb(need, qx, qy, qz, perlin_word);
+    }
+    if (seg) {
+      const uint32_t sample = (uint32_t)(sample0 + si);
+      // part B; a break ends the path
+      live = false;
+      do {
         if (win < 0 && !(DYN && w_dyn != nullptr) && !med_event) {
           // a miss adds the background and ends the path (reference
           // src/color.rs:14-22); black adds nothing
@@ -912,7 +1107,6 @@ trace_k1(const float* __restrict__ rec, int n_rec,
           }
           if (noise && t[T_NOISE] > 0.0f) {
             // marble, 0.5·(1 + sin(scale·x + 5·turb(p)))
-            const float turb = turb3(px, py, pz, perlin_word);
             r = g = b = 0.5f * (1.0f + sinf(t[T_NSCALE] * px + 5.0f * turb));
           }
           if (image && t[T_IMG] > 0.0f) {
@@ -1083,92 +1277,10 @@ trace_k1(const float* __restrict__ rec, int n_rec,
           thr_b = thr_b * inv_q;
         }
 
-        if (dense_walk && med_event && ((dense >> m_ev) & 1) &&
-            bounce + 1 < max_depth) {
-          // the dense-medium walk (pallas_tracer.py:2540-2687): the next
-          // bounces test only the interior rows and race the media up to
-          // the nearest of them, with the main step's draws at the same
-          // bounce (MEDIUM for the flights, SCATTER for the direction)
-          int b = bounce + 1;
-          for (;;) {
-            if (STATS) ++busy;
-            const float a2 = dx * dx + dy * dy + dz * dz;
-            const float ia2 = 1.0f / a2;
-            const float iwx = safe_inv(dx), iwy = safe_inv(dy),
-                        iwz = safe_inv(dz);
-            // the nearest interior hit, each kind's t as the main step
-            // computes it for that row
-            float t_s = BIG;
-            for (int j = 0; j < n_int; ++j) {
-              const float* r = s_int + j * REC;
-              float t_p;
-              bool ok;
-              if (s_ikind[j] == INT_BOX) {
-                float tmn, tmx;
-                slab(r[R_C0], r[R_C0 + 1], r[R_C0 + 2], r[R_DC], r[R_DC + 1],
-                     r[R_DC + 2], ox, oy, oz, iwx, iwy, iwz, tmn, tmx);
-                t_p = tmn > T_MIN ? tmn : tmx;
-                ok = tmx > tmn && t_p > T_MIN;
-              } else if (s_ikind[j] == INT_RECT) {
-                const float d_kn = dx * r[R_KN] + dy * r[R_KN + 1] +
-                                   dz * r[R_KN + 2];
-                const bool np = d_kn != 0.0f;
-                const float ikn = 1.0f / (np ? d_kn : 1.0f);
-                t_p = (r[R_KOFF] -
-                       (ox * r[R_KN] + oy * r[R_KN + 1] + oz * r[R_KN + 2])) *
-                      ikn;
-                const float xa =
-                    (ox * r[R_AN] + oy * r[R_AN + 1] + oz * r[R_AN + 2]) +
-                    t_p * (dx * r[R_AN] + dy * r[R_AN + 1] + dz * r[R_AN + 2]) -
-                    r[R_AOFF];
-                const float yb =
-                    (ox * r[R_BN] + oy * r[R_BN + 1] + oz * r[R_BN + 2]) +
-                    t_p * (dx * r[R_BN] + dy * r[R_BN + 1] + dz * r[R_BN + 2]) -
-                    r[R_BOFF];
-                ok = np && t_p > T_MIN && xa >= r[R_A0] && xa <= r[R_A1] &&
-                     yb >= r[R_B0] && yb <= r[R_B1];
-              } else {
-                float cx, cy, cz;
-                center(r, moving, time, cx, cy, cz);
-                const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-                const float bq = ocx * dx + ocy * dy + ocz * dz;
-                const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r[R_R2];
-                const float disc = bq * bq - a2 * cq;
-                ok = disc > 0.0f;
-                const float sq = sqrtf(ok ? disc : 1.0f);
-                const float t_near = (-bq - sq) * ia2;
-                const float t_far = (-bq + sq) * ia2;
-                t_p = t_near > T_MIN ? t_near : t_far;
-                ok = ok && t_p > T_MIN;
-              }
-              if (ok) t_s = fminf(t_s, t_p);
-            }
-            int mw;
-            const float t_m =
-                media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a2,
-                           ia2, t_s, pix, sample, (uint32_t)b, k0, k1, mw);
-            if (!(t_m < BIG)) {
-              // no scatter before the nearest interior surface: the next
-              // main step traces this segment with no medium event
-              skip_med = true;
-              break;
-            }
-            // isotropic rescatter at the event (reference
-            // src/material.rs:164-168)
-            const Uniforms uw =
-                philox(pix, sample, (uint32_t)b, STREAM_SCATTER, k0, k1);
-            ox = ox + t_m * dx;
-            oy = oy + t_m * dy;
-            oz = oz + t_m * dz;
-            ball(uw, dx, dy, dz);
-            thr_r = thr_r * s_med[mw * MEDREC + M_ALB];
-            thr_g = thr_g * s_med[mw * MEDREC + M_ALB + 1];
-            thr_b = thr_b * s_med[mw * MEDREC + M_ALB + 2];
-            ++b;
-            if (!((dense >> mw) & 1) || b >= max_depth) break;
-          }
-          bounce = b - 1;
-        }
+        // a scatter in a dense sealed medium, below the cap, starts the
+        // walk or goes on with it: the next iteration is a walk bounce
+        walking = dense_walk && med_event && ((dense >> m_ev) & 1) &&
+                  bounce + 1 < max_depth;
         ++bounce;
         live = true;
       } while (false);
@@ -1193,9 +1305,10 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       }
     }
   }
-  // STATS: a warp ran until its busiest thread's list was done, so its
-  // steps are the largest segment total among its 32 threads; a padding
-  // thread joins with 0
+  // STATS: a thread is live in every iteration until its list is done,
+  // and each of those iterations is a segment or a walk bounce, so the
+  // warp's iterations are the largest segment total among its 32 threads
+  // (walk bounces counted), its steps; a padding thread joins with 0
   if (STATS) {
     const uint32_t steps = __reduce_max_sync(0xffffffffu, total);
     if ((threadIdx.x & 31) == 0) stats[3 * (size_t)n_pix + tid / 32] += steps;
@@ -1295,7 +1408,7 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
   const size_t base =
       sizeof(float) * (n_rec * REC + CAMREC + (dyn_inst ? 12 : 0) +
                        n_med * MEDREC + n_int * REC) +
-      sizeof(int) * (2 * n_walk + n_int);
+      sizeof(int) * (2 * n_walk + 3 * n_int);
   const size_t leaf_bytes =
       sizeof(float) * (size_t)(n_leaf + n_sup + n_bleaf + n_bsup) * CLUSW;
   const bool leaf_smem = n_leaf + n_bleaf > 0 &&

@@ -1,5 +1,5 @@
 """Same-call A/B of the K1 kernel, or with --grad of K2 and K3, between
-this checkout and another one.
+this checkout and another one; the time shares of two K1 sections.
 
     python -m raytracing_rust_tpu_torch.kernel_ab --other DIR [--grad]
         [--turns N] [--out FILE]
@@ -9,19 +9,24 @@ with `git archive` into a directory `.gitignore` lists. On one CUDA card the
 script builds both checkouts' kernels, compares the SASS of the K1a
 instantiation (`trace_k1<false, false, false, false>`, cornell_box's
 kernel) line by line without addresses, and times the kernel in each
-checkout in turns (other, this, this, other) on cornell_box_baseline
-800×800 at 100 spp, random_spheres 1280×720 at 100 spp, two_spheres
-1280×720 at 10 spp and final_scene 800×800 at 10 spp, then at the
-comparison shapes of chip_smoke.py (cornell_box_baseline and
+checkout in turns (other, this, this, other) on the shapes of `SCENES`:
+cornell_box_baseline 800×800 at 100 spp (also with roulette from bounce
+6, K1g), random_spheres 1280×720 at 100 spp, two_spheres and
+two_perlin_spheres 1280×720 at 10 spp, earth 1280×720 at 10 spp,
+cornell_smoke 800×800 at 100 spp, final_scene 800×800 at 10 spp, then at
+the comparison shapes of chip_smoke.py (cornell_box_baseline and
 random_spheres at 2 spp, final_scene at 1), as the cost probe of a
 balanced render (`cost_permutation`'s stats launch: PROBE_SPP samples at
-PROBE_SEED on the scanline layout) on random_spheres and final_scene, and
-as the command line's own table launches of those two presets (100 spp on
+PROBE_SEED on the scanline layout) on random_spheres and final_scene, as
+the command line's own table launches of those two presets (100 spp on
 the kpix-4 pixel table of the probe's order, in the chunks of
 `render_kernel`'s lane budget: 72 + 28 samples at 1280×720, one launch of
-100 at 800×800; a timing is the sum of the chunks), depth 50, by CUDA
-events over repeated launches after a warm-up. Each
-timing run is a fresh process in that checkout, so each imports its own
+100 at 800×800; a timing is the sum of the chunks), every final_scene
+shape also with the dense-medium walk off (the event path: the same
+operands with FEAT_DENSE_WALK cleared), and as the command line's own
+scanline launches of simple_light and of `lattice_scene` through
+`lattice_camera` (1280×720, 72 + 28 samples), depth 50, by CUDA events
+over repeated launches after a warm-up. Each timing run is a fresh process in that checkout, so each imports its own
 package. The sums' totals show whether both checkouts compute the same
 image. With --grad it times K2 and K3 instead, in the same turns, on the
 default inverse render's step and on the geometry step (each 200×200,
@@ -44,6 +49,23 @@ spheres (`crowd`: n = 1,000 to 20,000, 64 to 2,048 leaves) at 1280×720 ×
 4 spp on the scanline layout, depth 50, a timing one launch (its chunks
 summed) by CUDA events after a warm-up; the sums show whether both forms
 compute the same image.
+
+    python -m raytracing_rust_tpu_torch.kernel_ab --shares [--turns N]
+        [--out FILE]
+
+measures in this checkout what two sections of K1 cost, on the shapes of
+`SHARE_SHAPES` (final_scene's kpix-4 table launch of 100 spp, its
+scanline launches of 10 and 1 spp and its 4-spp cost probe, simple_light
+72 + 28 and two_perlin_spheres 10 spp at 1280×720, as above): the
+dense-medium walk, as final_scene's time with the walk against the event
+path (the same operands with FEAT_DENSE_WALK cleared; `walk_equals_event`
+says whether the two totals agree); the Perlin marble's turbulence, as each shape's time in the production
+build against a second build of the kernels under K1_SOLID_MARBLE, a
+define that only this mode passes to nvcc, in which the marble shades
+with its solid-colour fields (the paths and their draws stay the same).
+The two builds run in fresh processes in turns (production, solid,
+solid, production); a section's share is 1 − (time without it) / (time
+with it), from the medians.
 """
 
 from __future__ import annotations
@@ -57,20 +79,42 @@ import sys
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# (label, preset, samples, timings, layout): "scanline", "probe" (the cost
-# probe's stats launch) or "table" (the command line's balanced launches)
+# (label, preset, samples, timings, layout, variant): layout "scanline",
+# "probe" (the cost probe's stats launch), "table" (the command line's
+# balanced launches) or "cli" (the command line's scanline launches, in
+# the chunks of the lane budget); variant None, "event" (the walk's bit
+# cleared) or "rr6" (roulette from bounce 6); "lattice" is lattice_scene
+# through lattice_camera at 1280×720
 SCENES = (
-    ("cornell_box_baseline", "cornell_box_baseline", 100, 5, "scanline"),
-    ("random_spheres", "random_spheres", 100, 5, "scanline"),
-    ("two_spheres", "two_spheres", 10, 10, "scanline"),
-    ("final_scene", "final_scene", 10, 5, "scanline"),
-    ("cornell_box_baseline@2", "cornell_box_baseline", 2, 20, "scanline"),
-    ("random_spheres@2", "random_spheres", 2, 20, "scanline"),
-    ("final_scene@1", "final_scene", 1, 20, "scanline"),
-    ("random_spheres probe", "random_spheres", 4, 20, "probe"),
-    ("final_scene probe", "final_scene", 4, 10, "probe"),
-    ("random_spheres table", "random_spheres", 100, 3, "table"),
-    ("final_scene table", "final_scene", 100, 3, "table"))
+    ("cornell_box_baseline", "cornell_box_baseline", 100, 5, "scanline",
+     None),
+    ("cornell_box_baseline rr6", "cornell_box_baseline", 100, 5, "cli",
+     "rr6"),
+    ("random_spheres", "random_spheres", 100, 5, "scanline", None),
+    ("two_spheres", "two_spheres", 10, 10, "scanline", None),
+    ("two_perlin_spheres", "two_perlin_spheres", 10, 10, "scanline", None),
+    ("simple_light", "simple_light", 100, 5, "cli", None),
+    ("earth", "earth", 10, 10, "scanline", None),
+    ("cornell_smoke", "cornell_smoke", 100, 5, "scanline", None),
+    ("lattice", "lattice", 100, 3, "cli", None),
+    ("final_scene", "final_scene", 10, 5, "scanline", None),
+    ("final_scene event", "final_scene", 10, 5, "scanline", "event"),
+    ("cornell_box_baseline@2", "cornell_box_baseline", 2, 20, "scanline",
+     None),
+    ("random_spheres@2", "random_spheres", 2, 20, "scanline", None),
+    ("final_scene@1", "final_scene", 1, 20, "scanline", None),
+    ("final_scene@1 event", "final_scene", 1, 20, "scanline", "event"),
+    ("random_spheres probe", "random_spheres", 4, 20, "probe", None),
+    ("final_scene probe", "final_scene", 4, 10, "probe", None),
+    ("final_scene probe event", "final_scene", 4, 10, "probe", "event"),
+    ("random_spheres table", "random_spheres", 100, 3, "table", None),
+    ("final_scene table", "final_scene", 100, 3, "table", None),
+    ("final_scene table event", "final_scene", 100, 3, "table", "event"))
+
+# the --shares shapes: final_scene's, each with the walk and without it,
+# simple_light's and two_perlin_spheres'
+SHARE_SHAPES = tuple(s for s in SCENES if s[1] in (
+    "final_scene", "simple_light", "two_perlin_spheres"))
 
 # (label, preset or crowd size, samples, layout) of the --cull timings
 CULL_SHAPES = (("random_spheres table", "random_spheres", 100, "table"),
@@ -161,28 +205,41 @@ def _time_cull(turns: int) -> dict:
 
 
 _TIMING = r"""
-import json, statistics, sys
+import dataclasses, json, statistics, sys
 import torch
 sys.path.insert(0, ".")
-from raytracing_rust_tpu_torch.models.builders import PRESETS
+from raytracing_rust_tpu_torch.models.builders import (PRESETS,
+                                                        lattice_camera,
+                                                        lattice_scene)
 from raytracing_rust_tpu_torch.ops import _build, tracer
+_build.NVCC_FLAGS = _build.NVCC_FLAGS + DEFINES
 out = {"library": _build.build()[0]}
 dev = torch.device("cuda")
-for label, scene, spp, reps, layout in SCENES:
-    p = PRESETS[scene]
-    n_pix = p.nx * p.ny
-    ops = tracer.trace_operands(tracer.build_scene_record(p.build()),
-                                tracer.build_camera_record(p.camera()), dev)
+for label, scene, spp, reps, layout, variant in SCENES:
+    if scene == "lattice":
+        nx, ny, built, cam = 1280, 720, lattice_scene(), lattice_camera(
+            1280, 720)
+    else:
+        p = PRESETS[scene]
+        nx, ny, built, cam = p.nx, p.ny, p.build(), p.camera()
+    n_pix = nx * ny
+    ops = tracer.trace_operands(tracer.build_scene_record(built),
+                                tracer.build_camera_record(cam), dev,
+                                6 if variant == "rr6" else None)
+    if variant == "event":
+        ops = dataclasses.replace(
+            ops, feats=ops.feats & ~tracer.FEAT_DENSE_WALK)
     sums = torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
-    kw = dict(nx=p.nx, ny=p.ny, seed=0, max_depth=50)
+    kw = dict(nx=nx, ny=ny, seed=0, max_depth=50)
     stats = None
     chunks = [(0, spp)]
     if layout == "probe":
-        stats = tracer.new_stats(p.nx, p.ny, dev)
+        stats = tracer.new_stats(nx, ny, dev)
         kw.update(seed=tracer.PROBE_SEED, stats=stats)
-    elif layout == "table":
+    elif layout in ("table", "cli"):
         kpix, chunks = tracer.launch_plan(n_pix, spp, dev)
-        order = tracer.cost_permutation(ops, p.nx, p.ny, 50, dev)
+    if layout == "table":
+        order = tracer.cost_permutation(ops, nx, ny, 50, dev)
         kw.update(pix=torch.from_numpy(tracer.balanced_pix_table(
             order, n_pix, kpix)[0]).to(dev), kpix=kpix)
 
@@ -201,8 +258,8 @@ for label, scene, spp, reps, layout in SCENES:
         b.record()
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(b))
-    out[label] = dict(spp=spp, layout=layout, chunks=chunks, ms=ms,
-                      median_ms=statistics.median(ms),
+    out[label] = dict(spp=spp, layout=layout, variant=variant,
+                      chunks=chunks, ms=ms, median_ms=statistics.median(ms),
                       sum=float(sums.sum()))
 print(json.dumps(out))
 """
@@ -251,14 +308,48 @@ GRAD_KERNELS = ("k2_grad_fwd", "k3_grad_bwd", "k2b_sky_fwd",
                 "k3b_geometric_bwd")
 
 
-def _time_checkout(path: str, grad: bool = False) -> dict:
-    code = _GRAD_TIMING if grad else f"SCENES = {SCENES!r}\n{_TIMING}"
+def _time_checkout(path: str, grad: bool = False, scenes=SCENES,
+                   defines: tuple = ()) -> dict:
+    """One timing run in a fresh process in the checkout at path: K1 on
+    `scenes` (built with the nvcc `defines`), or with grad K2 and K3."""
+    code = (_GRAD_TIMING if grad else
+            f"SCENES = {scenes!r}\nDEFINES = {defines!r}\n{_TIMING}")
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=path,
         capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"timing in {path} failed:\n{res.stderr}")
     return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _time_shares(turns: int) -> dict:
+    """The --shares timings (see the module's docstring)."""
+    import statistics
+    builds = {"production": (), "solid": ("-DK1_SOLID_MARBLE",)}
+    runs = [(b, _time_checkout(_ROOT, scenes=SHARE_SHAPES,
+                               defines=builds[b]))
+            for b in ("production", "solid", "solid", "production") * turns]
+    med = {b: {label: statistics.median(r[label]["median_ms"]
+                                        for w, r in runs if w == b)
+               for label, *_ in SHARE_SHAPES} for b in builds}
+    shapes = {}
+    for label, scene, spp, _, layout, variant in SHARE_SHAPES:
+        row = dict(spp=spp, layout=layout, variant=variant,
+                   median_ms={b: [r[label]["median_ms"] for w, r in runs
+                                  if w == b] for b in builds},
+                   noise_share=1.0 - med["solid"][label]
+                   / med["production"][label],
+                   sums_equal={b: len({r[label]["sum"] for w, r in runs
+                                       if w == b}) == 1 for b in builds})
+        if variant is None and f"{label} event" in med["production"]:
+            ev = f"{label} event"
+            row.update(walk_share={b: 1.0 - med[b][ev] / med[b][label]
+                                   for b in builds},
+                       walk_equals_event=all(
+                           r[label]["sum"] == r[ev]["sum"] for _, r in runs))
+        shapes[label] = row
+    return dict(order=[b for b, _ in runs], shapes=shapes,
+                runs=[dict(build=b, **r) for b, r in runs])
 
 
 def _k1a_sass(library: str) -> list[str]:
@@ -287,18 +378,25 @@ def main(argv=None) -> int:
                     "super rows instead")
     ap.add_argument("--grad", action="store_true",
                     help="time K2 and K3 instead of K1")
+    ap.add_argument("--shares", action="store_true",
+                    help="measure the walk's and the marble's time shares "
+                    "in this checkout instead")
     ap.add_argument("--turns", type=int, default=1,
                     help="repeat the (other, this, this, other) turns")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
-    if (args.other is None) != args.cull:
-        ap.error("give either --other DIR or --cull")
+    if (args.other is not None) + args.cull + args.shares != 1:
+        ap.error("give one of --other DIR, --cull or --shares")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     if args.cull:
         _report(dict(device=smi, turns=args.turns,
                      shapes=_time_cull(args.turns)), args.out)
+        return 0
+    if args.shares:
+        _report(dict(device=smi, turns=args.turns,
+                     **_time_shares(args.turns)), args.out)
         return 0
     other = os.path.abspath(args.other)
     runs = [(who, _time_checkout(path, args.grad)) for who, path in
@@ -331,7 +429,7 @@ def main(argv=None) -> int:
             median_ms={who: [r[label]["median_ms"] for w, r in runs
                              if w == who] for who in ("other", "this")},
             sums_equal=len({r[label]["sum"] for _, r in runs}) == 1)
-            for label, _, spp, _, layout in SCENES},
+            for label, _, spp, _, layout, _ in SCENES},
         runs=[dict(who=who, **r) for who, r in runs])
     _report(result, args.out)
     return 0

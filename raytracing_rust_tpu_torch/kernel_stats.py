@@ -8,9 +8,10 @@ The counterpart of tools/kernel_stats.py. With scene names (default
 final_scene and random_spheres) it renders each preset once with K1f's
 stats launch (`run`) and prints, from its counters: steps per sample (a
 warp's threads each walk their own list of pixels and samples, one segment
-an iteration, so a warp runs until its busiest thread is done: its steps
-are the largest segment total among its 32 threads, over their banks and
-samples), the occupancy (segments over 32 × warp steps: the share of a
+or walk bounce an iteration, so a warp runs until its busiest thread is
+done: its steps, its iterations, are the largest segment total among its 32
+threads, over their banks and samples, walk bounces counted), the
+occupancy (segments over 32 × warp steps: the share of a
 warp's thread-steps that trace; the rest is the tail), the segments per
 sample, and the dynamic sphere and box member tests per segment. On a scene with boxes the launch also fills K1f's
 DDA row (tools/kernel_stats.py's dda probe): of the box member tests the

@@ -3,8 +3,9 @@
 Counterpart of `raytracing_rust_tpu/ops/perlin.py` (`_gradient`, `noise`,
 `turb`) and of the TPU kernel's `_noise3` / `_turb3`
 (`ops/pallas_tracer.py:1043-1087`), whose component-plane form
-`noise3` / `turb3` follow op for op; `csrc/tracer.cu` (`noise3`, `turb3`)
-computes the same expressions in the same order.
+`noise3` / `turb3` follow op for op; `csrc/tracer.cu` (`cell`,
+`corner_term`, `warp_turb`) computes the same expressions in the same
+order, its corner terms spread over a warp.
 
 The reference's permutation tables come from an unseeded thread RNG
 (src/perlin.rs:5,13), so there is no fixed field to match. The JAX package
@@ -73,29 +74,43 @@ def gradient(ci, cj, ck, seed: int):
             cz)
 
 
+def cell(px, py, pz):
+    """The lattice cell of the points (px, py, pz) (f32 tensors of one
+    shape) → (u, i, s): the offsets in the cell, its signed-floor corner
+    (int64) and the Hermite-smoothed weights (reference
+    src/perlin.rs:39-41), three tensors each."""
+    fx, fy, fz = torch.floor(px), torch.floor(py), torch.floor(pz)
+    ux, uy, uz = px - fx, py - fy, pz - fz
+    i = tuple(f.to(torch.int64) for f in (fx, fy, fz))
+    s = tuple(u * u * (3.0 - 2.0 * u) for u in (ux, uy, uz))
+    return (ux, uy, uz), i, s
+
+
+def corner_term(c, corner: int, seed: int = 0):
+    """The term of `cell` c's corner = 4·di + 2·dj + dk in `noise3`:
+    wu·wv·ww times the dot product of the corner's gradient with the
+    offset from the corner. csrc/tracer.cu's `corner_term`, the unit that
+    its `warp_turb` hands out over a warp."""
+    (ux, uy, uz), (ix, iy, iz), (sx, sy, sz) = c
+    di, dj, dk = corner >> 2, (corner >> 1) & 1, corner & 1
+    wu = sx if di else 1.0 - sx
+    wv = sy if dj else 1.0 - sy
+    ww = sz if dk else 1.0 - sz
+    gx, gy, gz = gradient((ix + di) & 255, (iy + dj) & 255, (iz + dk) & 255,
+                          seed)
+    dot = (gx * (ux - float(di)) + gy * (uy - float(dj))
+           + gz * (uz - float(dk)))
+    return wu * wv * ww * dot
+
+
 def noise3(px, py, pz, seed: int = 0):
     """Gradient noise at the points (px, py, pz) (f32 tensors of one shape;
     reference src/perlin.rs:58-97): Hermite-smoothed trilinear blend of the
     eight corners' gradient dot products, summed corner by corner."""
-    fx, fy, fz = torch.floor(px), torch.floor(py), torch.floor(pz)
-    ux, uy, uz = px - fx, py - fy, pz - fz
-    ix, iy, iz = (f.to(torch.int64) for f in (fx, fy, fz))
-    # Hermite smoothing (reference src/perlin.rs:39-41)
-    sx = ux * ux * (3.0 - 2.0 * ux)
-    sy = uy * uy * (3.0 - 2.0 * uy)
-    sz = uz * uz * (3.0 - 2.0 * uz)
+    c = cell(px, py, pz)
     accum = torch.zeros_like(px)
-    for di in (0, 1):
-        wu = sx if di else 1.0 - sx
-        for dj in (0, 1):
-            wv = sy if dj else 1.0 - sy
-            for dk in (0, 1):
-                ww = sz if dk else 1.0 - sz
-                gx, gy, gz = gradient((ix + di) & 255, (iy + dj) & 255,
-                                      (iz + dk) & 255, seed)
-                dot = (gx * (ux - float(di)) + gy * (uy - float(dj))
-                       + gz * (uz - float(dk)))
-                accum = accum + wu * wv * ww * dot
+    for corner in range(8):
+        accum = accum + corner_term(c, corner, seed)
     return accum
 
 

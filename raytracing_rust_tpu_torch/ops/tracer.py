@@ -1319,8 +1319,10 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     tests of the kernel's cull, leaf by leaf against the ray's best hit so
     far (counts' "box" counts an exact cull's, against the final hit); per
     warp of the launch's thread mapping, the largest among its 32 threads
-    of a thread's segments summed over its banks and samples (the kernel's
-    flat loop runs a warp until its busiest thread is done); with dda
+    of a thread's segments summed over its banks and samples, walk bounces
+    included (the kernel's flat loop runs a warp until its busiest thread
+    is done, a segment or a walk bounce an iteration: its iterations);
+    with dda
     (a buffer of `new_stats(..., dda=True)`), per pixel the box member
     tests whose slab the ray crosses inside (T_MIN, its best hit before the
     test), the kernel's DDA row (`dda_row`).
