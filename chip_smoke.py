@@ -123,13 +123,17 @@ Phases, one JSON line each on stdout:
      warp's steps being the largest segment total among its threads, walk
      bounces included: its iterations of the flat loop),
      the steps per sample and the tail share (1 − occupancy);
- 34. the balanced layout: the cost probe (timed), then the production
-     kernel on its pixel table at kpix 1 and 4 against the scanline layout,
-     bit for bit, on random_spheres 1280×720×2 and final_scene 800×800×1,
-     the plain version on the kpix-4 table bit for bit; the
-     kernel's times in turns (scanline, kpix 1, kpix 4, kpix 4, kpix 1,
-     scanline) at the samples of the command line's largest table launch
-     of the preset, and the occupancy on each layout there;
+ 34. the balanced layouts: JAX's cost order and the card's table
+     (`render_table`: one pixel a thread, a block on a 16×8 tile, the
+     tiles heaviest first), each timed from its probe, then the production
+     kernel on JAX's table at kpix 1 and 4 and on the card's table
+     against the scanline layout, bit for bit, on random_spheres
+     1280×720×2 and final_scene 800×800×1, the plain version on the
+     card's table bit for bit; the kernel's times in turns (scanline,
+     kpix 1, kpix 4, the card's, the card's, kpix 4, kpix 1, scanline) at
+     the samples of the command line's largest table launch of the
+     preset, and the occupancy on each layout there, with its blocks and
+     waves (blocks over the blocks an SM holds times the SMs);
  35. the render path of both presets through the command line, `render
      --scene random_spheres` and `render --scene final_scene` (and
      final_scene at 128×128 for its mean), now balanced by default: the
@@ -1398,8 +1402,14 @@ def main() -> int:
               f"{k1f_stats[scene]['max_abs_err']:.3e}")
         del prod, k, pl, sk, sp
 
-    # -- 34. the balanced layout: kpix 1 and 4 against the scanline layout
+    # -- 34. the balanced layouts against the scanline layout: JAX's table
+    # at kpix 1 and 4, and the card's (`render_table`, the main path's)
     k1f_bal = {}
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = tracer.k1_blocks_per_sm()
+    # both presets run a K1B+DYN instantiation, with or without the leaves
+    # in shared memory (the same registers)
+    per_sm = min(per_sm["trace_k1<1,1,0,0>"], per_sm["trace_k1<1,1,1,0>"])
     for scene, n_samples in (("random_spheres", 2), ("final_scene", 1)):
         sops, snx, sny = preset_ops(scene)
         n_pix = snx * sny
@@ -1411,27 +1421,35 @@ def main() -> int:
         torch.cuda.synchronize()
         t = time.perf_counter()
         order = tracer.cost_permutation(sops, snx, sny, 50, dev)
+        jax_probe_s = time.perf_counter() - t
+        t = time.perf_counter()
+        tiles = tracer.render_table(sops, snx, sny, 50, dev)
+        torch.cuda.synchronize()
         probe_s = time.perf_counter() - t
         tables = {kp: torch.from_numpy(tracer.balanced_pix_table(
             order, n_pix, kp)[0]).to(dev) for kp in (1, 4)}
         layouts = {"scanline": {}, "kpix1": dict(pix=tables[1], kpix=1),
-                   "kpix4": dict(pix=tables[4], kpix=4)}
+                   "kpix4": dict(pix=tables[4], kpix=4),
+                   "tiles": dict(pix=tiles, kpix=1)}
+        blocks = {name: (lay["pix"].numel() // lay["kpix"]
+                         if lay else n_pix + tracer.THREADS - 1)
+                  // tracer.THREADS for name, lay in layouts.items()}
         outs = {name: tracer.trace(sops, zeros(), n_samples=n_samples,
                                    **kw, **lay)
                 for name, lay in layouts.items()}
         pl = zeros()
         work = {}
         pl_ms = cuda_ms(lambda: tracer.trace_plain(
-            sops, pl, n_samples=n_samples, counts=work, **layouts["kpix4"],
+            sops, pl, n_samples=n_samples, counts=work, **layouts["tiles"],
             **kw), reps=1, warm=False)
-        k4_ms = cuda_ms(lambda: tracer.trace(
-            sops, zeros(), n_samples=n_samples, **layouts["kpix4"], **kw),
+        tiles_ms = cuda_ms(lambda: tracer.trace(
+            sops, zeros(), n_samples=n_samples, **layouts["tiles"], **kw),
             reps=3)
         torch.cuda.synchronize()
         same = {name: bool(torch.equal(o, outs["scanline"]))
                 for name, o in outs.items()}
-        agree = within(outs["kpix4"], pl)
-        km, pm = outs["kpix4"].mean(dim=1), pl.mean(dim=1)
+        agree = within(outs["tiles"], pl)
+        km, pm = outs["tiles"].mean(dim=1), pl.mean(dim=1)
         mean_rel = float(((km - pm).abs() / pm.abs()).max())
         # times in turns at the samples of the command line's largest
         # table launch of this preset (phases 11 and 19 recorded it), and
@@ -1440,8 +1458,8 @@ def main() -> int:
                      for ln in main_runs[scene]["launches"]
                      if ln["kw"].get("pix") is not None)
         turns = []
-        for name in ("scanline", "kpix1", "kpix4", "kpix4", "kpix1",
-                     "scanline"):
+        for name in ("scanline", "kpix1", "kpix4", "tiles", "tiles",
+                     "kpix4", "kpix1", "scanline"):
             turns.append((name, cuda_ms(lambda: tracer.trace(
                 sops, zeros(), n_samples=n_main, **layouts[name], **kw),
                 reps=2)))
@@ -1453,22 +1471,27 @@ def main() -> int:
                          **kw)
             occ[name] = occupancy(st, n_pix, n_main, lay.get("kpix", 1))
         k1f_bal[scene] = dict(
-            spp=n_samples, max_abs_err=float((outs["kpix4"] - pl).abs().max()),
-            ms=k4_ms, plain_ms=pl_ms,
+            spp=n_samples, max_abs_err=float((outs["tiles"] - pl).abs().max()),
+            ms=tiles_ms, plain_ms=pl_ms,
             **k1_bound(sops, work, n_pix, n_samples))
         emit("k1f_balanced_vs_scanline", scene=scene, shape=[sny, snx],
-             depth=50, probe_seconds=probe_s,
+             depth=50, probe_seconds=probe_s, jax_probe_seconds=jax_probe_s,
              bit_equal_to_scanline=same, plain_pixels_within_rel_1e4=agree,
              plain_channel_mean_max_rel=mean_rel,
              ms_in_turns=turns, turns_spp=n_main, occupancy_in_turns=occ,
+             blocks=blocks, blocks_per_sm=per_sm, sms=sm_count,
+             waves={name: b / (per_sm * sm_count)
+                    for name, b in blocks.items()},
              work=work, **k1f_bal[scene])
         check(all(same.values()), f"{scene}: a balanced layout's sums "
               f"differ from the scanline layout's: {same}")
-        check(agree >= 0.99, f"{scene} (kpix 4): only {agree:.4%} of pixels "
+        check(tiles.device.type == "cuda",
+              f"{scene}: the render's table is not on the card")
+        check(agree >= 0.99, f"{scene} (tiles): only {agree:.4%} of pixels "
               "agree with plain")
-        check(mean_rel <= 1e-4, f"{scene} (kpix 4): channel means differ by "
+        check(mean_rel <= 1e-4, f"{scene} (tiles): channel means differ by "
               f"{mean_rel:.2e}")
-        check(k1f_bal[scene]["max_abs_err"] == 0.0, f"{scene} (kpix 4): "
+        check(k1f_bal[scene]["max_abs_err"] == 0.0, f"{scene} (tiles): "
               f"differs from plain by {k1f_bal[scene]['max_abs_err']:.3e}")
         del outs, pl
 

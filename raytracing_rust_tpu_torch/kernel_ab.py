@@ -16,10 +16,11 @@ two_perlin_spheres 1280×720 at 10 spp, earth 1280×720 at 10 spp,
 cornell_smoke 800×800 at 100 spp, final_scene 800×800 at 10 spp, then at
 the comparison shapes of chip_smoke.py (cornell_box_baseline and
 random_spheres at 2 spp, final_scene at 1), as the cost probe of a
-balanced render (`cost_permutation`'s stats launch: PROBE_SPP samples at
+balanced render (`cost_probe`'s stats launch: PROBE_SPP samples at
 PROBE_SEED on the scanline layout) on random_spheres and final_scene, as
 the command line's own table launches of those two presets (100 spp on
-the kpix-4 pixel table of the probe's order, in the chunks of
+the checkout's own render table, `render_table`, or in a checkout from
+before it JAX's kpix-4 table of the probe's order, in the chunks of
 `render_kernel`'s lane budget: 72 + 28 samples at 1280×720, one launch of
 100 at 800×800; a timing is the sum of the chunks), every final_scene
 shape also with the dense-medium walk off (the event path: the same
@@ -54,7 +55,7 @@ compute the same image.
         [--out FILE]
 
 measures in this checkout what two sections of K1 cost, on the shapes of
-`SHARE_SHAPES` (final_scene's kpix-4 table launch of 100 spp, its
+`SHARE_SHAPES` (final_scene's table launch of 100 spp, its
 scanline launches of 10 and 1 spp and its 4-spp cost probe, simple_light
 72 + 28 and two_perlin_spheres 10 spp at 1280×720, as above): the
 dense-medium walk, as final_scene's time with the walk against the event
@@ -172,10 +173,8 @@ def _time_cull(turns: int) -> dict:
         kw = dict(nx=nx, ny=ny, seed=0, max_depth=50)
         chunks = [(0, spp)]
         if layout == "table":
-            kpix, chunks = tracer.launch_plan(n_pix, spp, dev)
-            order = tracer.cost_permutation(two, nx, ny, 50, dev)
-            kw.update(pix=torch.from_numpy(tracer.balanced_pix_table(
-                order, n_pix, kpix)[0]).to(dev), kpix=kpix)
+            chunks = tracer.launch_plan(n_pix, spp, dev)[1]
+            kw.update(pix=tracer.render_table(two, nx, ny, 50, dev))
         sums = {f: torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
                 for f in ("two", "one")}
 
@@ -238,7 +237,10 @@ for label, scene, spp, reps, layout, variant in SCENES:
         kw.update(seed=tracer.PROBE_SEED, stats=stats)
     elif layout in ("table", "cli"):
         kpix, chunks = tracer.launch_plan(n_pix, spp, dev)
-    if layout == "table":
+    if layout == "table" and hasattr(tracer, "render_table"):
+        kw.update(pix=tracer.render_table(ops, nx, ny, 50, dev))
+    elif layout == "table":
+        # a checkout whose render launches JAX's table
         order = tracer.cost_permutation(ops, nx, ny, 50, dev)
         kw.update(pix=torch.from_numpy(tracer.balanced_pix_table(
             order, n_pix, kpix)[0]).to(dev), kpix=kpix)

@@ -55,20 +55,15 @@ def _mhz(query: str) -> float:
 
 
 def _operands(name, nx, ny, max_depth, balance, device):
-    """The preset's operands on device, and its pixel table and kpix when
-    balance (the render's own probe and table)."""
+    """The preset's operands on device, and its pixel table (kpix 1) when
+    balance (the render's own probe and table), else None."""
     preset = PRESETS[name]
     ops = tracer.trace_operands(
         tracer.build_scene_record(preset.build()),
         tracer.build_camera_record(preset.camera()), device)
-    pix, kpix = None, 1
-    if balance:
-        n_pix = nx * ny
-        kpix = tracer.launch_plan(n_pix, 1, device)[0]
-        order = tracer.cost_permutation(ops, nx, ny, max_depth, device)
-        pix = torch.from_numpy(tracer.balanced_pix_table(
-            order, n_pix, kpix)[0]).to(device)
-    return ops, pix, kpix
+    pix = (tracer.render_table(ops, nx, ny, max_depth, device) if balance
+           else None)
+    return ops, pix
 
 
 def summarize(stats: torch.Tensor, n_pix: int, spp: int,
@@ -116,19 +111,18 @@ def run(name: str, nx: int = 400, ny: int = 400, spp: int = 32,
         raise RuntimeError("device cuda requested, but "
                            "torch.cuda.is_available() is false")
     n_pix = nx * ny
-    ops, pix, kpix = _operands(name, nx, ny, max_depth, balance, device)
+    ops, pix = _operands(name, nx, ny, max_depth, balance, device)
     dda = ops.box.shape[0] > 0
-    stats = tracer.new_stats(nx, ny, device, pix, kpix, dda)
+    stats = tracer.new_stats(nx, ny, device, pix, dda=dda)
     tracer.trace(ops, torch.zeros((3, n_pix), dtype=torch.float64,
                                   device=device),
                  nx=nx, ny=ny, seed=7, sample0=0, n_samples=spp,
-                 max_depth=max_depth, pix=pix, kpix=kpix, stats=stats,
-                 dda=dda)
+                 max_depth=max_depth, pix=pix, stats=stats, dda=dda)
     out = dict(name=name, nx=nx, ny=ny, spp=spp, max_depth=max_depth,
-               balance=bool(balance), kpix=kpix, device=str(device),
+               balance=bool(balance), device=str(device),
                n_dyn=int(ops.dyn.shape[0]), n_box=int(ops.box.shape[0]),
-               **summarize(stats, n_pix, spp, kpix, dda))
-    print(f"{name}{' [balanced, kpix=%d]' % kpix if balance else ''}: "
+               **summarize(stats, n_pix, spp, dda=dda))
+    print(f"{name}{' [balanced]' if balance else ''}: "
           f"{nx}x{ny} spp={spp} depth={max_depth} on {device}; "
           f"n_dyn={out['n_dyn']} n_box={out['n_box']}")
     print(f"  steps/sample {out['steps_per_sample']:.2f} over "
@@ -205,7 +199,7 @@ def mfu(name: str, nx: int = 800, ny: int = 800, spp: int = 32,
         balance = name in ("final_scene", "random_spheres")
     stats = run(name, nx=nx, ny=ny, spp=spp, max_depth=max_depth,
                 balance=balance, device=dev)
-    ops, pix, kpix = _operands(name, nx, ny, max_depth, balance, dev)
+    ops, pix = _operands(name, nx, ny, max_depth, balance, dev)
     n_pix = nx * ny
     sums = torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
     kw = dict(nx=nx, ny=ny, seed=7, sample0=0, max_depth=max_depth)
@@ -217,8 +211,7 @@ def mfu(name: str, nx: int = 800, ny: int = 800, spp: int = 32,
     for _ in range(3):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
-        tracer.trace(ops, sums.zero_(), n_samples=spp, pix=pix, kpix=kpix,
-                     **kw)
+        tracer.trace(ops, sums.zero_(), n_samples=spp, pix=pix, **kw)
         b.record()
         torch.cuda.synchronize()
         best = min(best, a.elapsed_time(b) * 1e-3)

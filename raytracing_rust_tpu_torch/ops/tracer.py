@@ -31,9 +31,12 @@ form no box) raises `UnsupportedScene` here too.
 * `render_kernel` is the counterpart of `render_pallas`: sample chunks
   through `trace`, f64 sums on the device, the reference's gamma; for a
   scene with a dynamic sphere or box table at spp ≥ 8, first the cost
-  probe (`cost_permutation`, K1f's stats launch) and the balanced pixel
-  table (`balanced_pix_table`) the kernel then renders from, as JAX's
-  default render does.
+  probe (`cost_probe`, K1f's stats launch) and the balanced pixel table
+  the kernel then renders from, as JAX's default render does, laid out
+  for the card (`render_table`: one pixel a thread, a block on a compact
+  tile, the tiles heaviest first, the order computed on the device). JAX's
+  own table (`cost_permutation`, `balanced_pix_table`) is kept as the
+  yardstick.
 
 Random numbers are Philox4x32-10 keyed by the seed and addressed by
 (pixel, sample, bounce, stream); `ops/rng.py` documents the slots.
@@ -164,6 +167,10 @@ BUCKETS = 32
 # threads in a block of the kernel (csrc/tracer.cu THREADS) and in a warp
 THREADS = 128
 WARP = 32
+# the card's balanced table (`block_tile_table`): a block renders one tile
+# of BLOCK_W × BLOCK_H pixels, one a thread, row by row, so that each warp
+# renders a 16 × 2 strip of it
+BLOCK_W, BLOCK_H = 16, 8
 
 # static kernel features: csrc/tracer.cu runs its K1B instantiations when
 # any is set, and branches on each inside them
@@ -2001,8 +2008,9 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
 
     On CUDA tensors it launches `csrc/tracer.cu` on the current stream
     (building it at first use) or raises; on CPU tensors it runs
-    `trace_plain`. pix (a table of `balanced_pix_table`, int32, flat)
-    names each pixel once; a slot outside [0, nx·ny) pads.
+    `trace_plain`. pix (a table of `render_table` or
+    `balanced_pix_table`, int32, flat) names each pixel once; a slot
+    outside [0, nx·ny) pads.
     """
     _check_operands(ops, sums, nx, ny)
     _check_k1f(sums, nx, ny, pix, kpix, stats, dda)
@@ -2104,7 +2112,7 @@ def pick_block(nx: int, ny: int) -> tuple[int, int]:
     """2D pixel-block tile shape (BX, BY = TILE // BX) minimizing the padded
     lane count for an nx×ny image (pallas_tracer.py `pick_block`). The
     port's kernel keeps its scanline layout without a table; the block
-    serves only as the cost order's tie-break."""
+    serves only as `cost_order`'s tie-break."""
     bx = min((32, 64, 128, 256), key=lambda w: (
         -(-nx // w) * w * (-(-ny // (TILE // w)) * (TILE // w))))
     return bx, TILE // bx
@@ -2196,13 +2204,64 @@ def cost_permutation(ops: TraceOperands, nx: int, ny: int, max_depth: int,
     cost image, then `cost_order`. The probe's seed is fixed because its
     order is cached across renders: the first caller's seed must not steer
     every later render's layout."""
+    busy = cost_probe(ops, nx, ny, max_depth, device).cpu().numpy()
+    return cost_order(busy.reshape(ny, nx), nx, ny, pick_block(nx, ny))
+
+
+def cost_probe(ops: TraceOperands, nx: int, ny: int, max_depth: int,
+               device) -> torch.Tensor:
+    """The cost probe of a balanced render: a stats launch of PROBE_SPP
+    samples at PROBE_SEED on the scanline layout → its per-pixel segments
+    (int64[nx·ny], row 0 on top, on device)."""
     n_pix = nx * ny
     stats = new_stats(nx, ny, device)
     trace(ops, torch.zeros((3, n_pix), dtype=torch.float64, device=device),
           nx=nx, ny=ny, seed=PROBE_SEED, sample0=0, n_samples=PROBE_SPP,
           max_depth=max_depth, stats=stats)
-    busy = stats_rows(stats, n_pix)[0].cpu().numpy()
-    return cost_order(busy.reshape(ny, nx), nx, ny, pick_block(nx, ny))
+    return stats_rows(stats, n_pix)[0]
+
+
+def _tile_grid(x: torch.Tensor, nx: int, ny: int, fill) -> torch.Tensor:
+    """A per-pixel row x (nx·ny values, row 0 on top) on the grid of whole
+    tiles of BLOCK_W × BLOCK_H pixels, `fill` where a tile runs past the
+    image → [tile rows, BLOCK_H, tile columns, BLOCK_W], on x's device."""
+    gx, gy = -(-nx // BLOCK_W), -(-ny // BLOCK_H)
+    grid = x.new_full((gy * BLOCK_H, gx * BLOCK_W), fill)
+    grid[:ny, :nx] = x.view(ny, nx)
+    return grid.view(gy, BLOCK_H, gx, BLOCK_W)
+
+
+def block_tile_table(busy: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
+    """The card's balanced pixel table, kpix 1, from a cost probe's
+    per-pixel segments (`cost_probe`) → int32[a whole number of TILEs] on
+    busy's device, computed there. A tile's cost is the Σ of its pixels'
+    segments; block b renders the tile of rank b in descending cost, ties
+    in tile order (a stable sort; tiles in raster order), thread t on the
+    tile's column t % BLOCK_W and row t // BLOCK_W, so a warp holds two
+    rows. The block scheduler dispatches blocks in about index order, so
+    the longest start first and the last wave holds the cheapest. nx·ny
+    pads the clipped tiles and the table's end. Few distinct torch ops,
+    since each costs a process tens of ms at its first use on a card."""
+    n_pix = nx * ny
+    cost = _tile_grid(busy, nx, ny, 0).sum(dim=(1, 3)).view(-1)
+    rank = torch.sort(cost, descending=True, stable=True).indices
+    pix = torch.arange(n_pix, dtype=torch.int32, device=busy.device)
+    slots = _tile_grid(pix, nx, ny, n_pix).permute(0, 2, 1, 3) \
+        .reshape(-1, THREADS)
+    table = torch.full((-(-slots.numel() // TILE) * TILE,), n_pix,
+                       dtype=torch.int32, device=busy.device)
+    table[:slots.numel()] = slots.index_select(0, rank).view(-1)
+    return table
+
+
+def render_table(ops: TraceOperands, nx: int, ny: int, max_depth: int,
+                 device) -> torch.Tensor:
+    """The pixel table, kpix 1, that `render_kernel` renders a balanced
+    image from: `block_tile_table` of the cost probe, on device; nothing
+    goes to the host. JAX's table (`cost_permutation`,
+    `balanced_pix_table`) stays the yardstick it is compared with."""
+    return block_tile_table(cost_probe(ops, nx, ny, max_depth, device),
+                            nx, ny)
 
 
 # balanced pixel tables on their device, by `_perm_cache_key`; the oldest
@@ -2225,21 +2284,23 @@ def _record_digest(srec: SceneRecord) -> bytes:
 
 
 def _perm_cache_key(cam_np, srec: SceneRecord, nx, ny, max_depth, rr_depth,
-                    device, kpix):
+                    device):
     """The key of a balanced pixel table (pallas_tracer.py
-    `_perm_cache_key`): the camera record's bytes, a digest of the scene
-    record (the port rebuilds its record on every call, so an id() key
-    would never hit), the size, depth cap, roulette depth, kpix and the
-    device the table lives on."""
+    `_perm_cache_key`, whose kpix the card's table fixes at 1): the camera
+    record's bytes, a digest of the scene record (the port rebuilds its
+    record on every call, so an id() key would never hit), the size, depth
+    cap, roulette depth and the device the table lives on."""
     return (bytes(np.asarray(cam_np).tobytes()), _record_digest(srec), nx,
-            ny, max_depth, rr_depth, kpix, str(torch.device(device)))
+            ny, max_depth, rr_depth, str(torch.device(device)))
 
 
 def launch_plan(n_pix: int, spp: int, device,
                 spp_chunk: int | None = None):
-    """How `render_kernel` splits a render into `trace` calls → (kpix of a
-    balanced pixel table: each thread renders kpix pixels, capped so that
-    padding never exceeds one tile's worth of slots, pallas_tracer.py:3071;
+    """How `render_kernel` splits a render into `trace` calls → (kpix of
+    JAX's balanced pixel table, `balanced_pix_table`: each thread renders
+    kpix pixels, capped so that padding never exceeds one tile's worth of
+    slots, pallas_tracer.py:3071; the render's own table, `render_table`,
+    has kpix 1, so only the comparisons with JAX's table read it;
     [(sample0, n_samples)] of the calls: spp_chunk samples each, by default
     as many as the device's lane budget holds)."""
     if spp_chunk is None:
@@ -2266,11 +2327,13 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     spp_chunk: samples per `trace` call (default: a lane budget). The image
     does not depend on it. rr_depth: Russian roulette from this bounce on
     (the JAX CLI's --rr-depth; not in the reference), or None. balance:
-    render from a cost-balanced pixel table (`render_pallas(balance=)`);
-    None turns it on for a scene with a dynamic sphere or box table at
-    spp ≥ 8, as JAX does (pallas_tracer.py:3061-3063). Its probe runs once
-    per scene, camera, size and depth (a value-keyed cache), timed as the
-    phase `balance_probe`; the image does not depend on it. Raises
+    render from a cost-balanced pixel table (`render_pallas(balance=)`;
+    the card's layout, `render_table`: one pixel a thread, a block on one
+    compact tile, the tiles dealt heaviest first); None turns it on for a
+    scene with a dynamic sphere or box table at spp ≥ 8, as JAX does
+    (pallas_tracer.py:3061-3063). Its probe runs once per scene, camera,
+    size and depth (a value-keyed cache), timed as the phase
+    `balance_probe`; the image does not depend on it. Raises
     UnsupportedScene for scenes outside the kernel.
     """
     device = torch.device(device)
@@ -2283,7 +2346,7 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     if timers is None:
         timers = Timers()
     n_pix = nx * ny
-    table_kpix, chunks = launch_plan(n_pix, spp, device, spp_chunk)
+    chunks = launch_plan(n_pix, spp, device, spp_chunk)[1]
 
     with timers.phase("record_build"):
         srec = build_scene_record(scene)
@@ -2298,26 +2361,21 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     if balance is None:
         balance = (srec.dyn_rec.shape[0] > 0 or srec.box_rec.shape[0] > 0) \
             and spp >= 8
-    pix, kpix = None, 1
+    pix = None
     if balance:
-        # each thread renders kpix pixels snake-striped across its tile's
-        # cost ranks
-        kpix = table_kpix
         key = _perm_cache_key(cam_np, srec, nx, ny, max_depth, rr_depth,
-                              sums.device, kpix)
+                              sums.device)
         pix = _PERM_CACHE.get(key)
         if pix is None:
             with timers.phase("balance_probe"):
-                order = cost_permutation(ops, nx, ny, max_depth, device)
-                pix = torch.from_numpy(
-                    balanced_pix_table(order, n_pix, kpix)[0]).to(device)
+                pix = render_table(ops, nx, ny, max_depth, device)
             while len(_PERM_CACHE) >= _PERM_CACHE_SIZE:
                 _PERM_CACHE.pop(next(iter(_PERM_CACHE)))
             _PERM_CACHE[key] = pix
     with timers.phase("trace"):
         for s0, n in chunks:
             trace(ops, sums, nx=nx, ny=ny, seed=seed, sample0=s0,
-                  n_samples=n, max_depth=max_depth, pix=pix, kpix=kpix)
+                  n_samples=n, max_depth=max_depth, pix=pix)
     with timers.phase("finalize"):
         img = finalize_image(sums.T.cpu().numpy(), spp, nx, ny)
     return img

@@ -257,6 +257,8 @@ def test_render_kernel_balance_rule_and_image():
         probed[balance] = "balance_probe" in timers.summary()
     assert probed == {None: True, True: False, False: False}
     assert len(tracer._PERM_CACHE) == 1
+    pix = next(iter(tracer._PERM_CACHE.values()))
+    assert pix.dtype == torch.int32 and pix.numel() % tracer.TILE == 0
     assert imgs[None].tobytes() == imgs[True].tobytes() \
         == imgs[False].tobytes()
     for name, spp in (("random_spheres", 4), ("cornell_box", 8)):

@@ -6,9 +6,9 @@ instantiation and the K1B ones with their checker, sky, metal, glass,
 moving-sphere, dynamic-table, box-table, noise, image, media, dense-medium
 walk, lattice-corner and roulette sections, its two-level cull against the
 one-level cull and no cull, and K1f: the stats instantiation with and
-without its DDA row, and a balanced pixel table), K2/K3 (`grad.cu`:
-lambertian, light, sky, metal, glass and the checker), D3 (`peak.cu`) and
-D1/D2 (`microbench.cu`), and hold them against `trace_plain`,
+without its DDA row, JAX's balanced pixel table and the render's own),
+K2/K3 (`grad.cu`: lambertian, light, sky, metal, glass and the checker),
+D3 (`peak.cu`) and D1/D2 (`microbench.cu`), and hold them against `trace_plain`,
 `trace_tiles_plain` and autograd through it, `fp32_chain_plain`,
 `attr_read_plain` and `member_plain`, run on the same card, the same
 records and the same draws. Elsewhere they skip.
@@ -714,6 +714,49 @@ def test_kernel_flat_loop_counters_and_sums(cuda, make, n_samples, layout):
                            "warp steps"), tracer.stats_rows(sk, n_pix),
                           tracer.stats_rows(sp, n_pix)):
         assert torch.equal(a, b), (name, int(a.sum()), int(b.sum()))
+
+
+@pytest.mark.parametrize("name,n_samples", [("final_scene", 1),
+                                              ("random_spheres", 2)])
+def test_kernel_render_table_is_bit_exact(cuda, name, n_samples):
+    """The production kernel on the render's own table (`render_table`: one
+    pixel a thread, a block on a 16×8 tile, the tiles heaviest first, made
+    on the card, equal to the same order sorted on the CPU) at the
+    preset's full size gives the scanline sums and the plain version's
+    bit for bit; its stats launch gives the plain version's four rows on
+    the same table and the scanline launch's three per-pixel rows."""
+    p = builders.PRESETS[name]
+    nx, ny = p.nx, p.ny
+    n_pix = nx * ny
+    ops = _operands(p.build(), p.camera(), cuda)
+    pix = tracer.render_table(ops, nx, ny, 50, cuda)
+    assert pix.device == ops.rec.device
+    # the order sorted on the card is the plain version's on the CPU
+    busy = tracer.cost_probe(ops, nx, ny, 50, cuda).cpu()
+    assert torch.equal(pix.cpu(), tracer.block_tile_table(busy, nx, ny))
+    kw = dict(nx=nx, ny=ny, seed=0, sample0=0, n_samples=n_samples,
+              max_depth=50)
+
+    def sums():
+        return torch.zeros((3, n_pix), dtype=torch.float64, device=cuda)
+
+    ss = tracer.new_stats(nx, ny, cuda)
+    scan = tracer.trace(ops, sums(), stats=ss, **kw)
+    got = tracer.trace(ops, sums(), pix=pix, **kw)
+    sk, sp = (tracer.new_stats(nx, ny, cuda, pix) for _ in range(2))
+    k = tracer.trace(ops, sums(), pix=pix, stats=sk, **kw)
+    pl = tracer.trace_plain(ops, sums(), pix=pix, stats=sp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scan) and torch.equal(k, got)
+    assert torch.equal(got, pl), float((got == pl).all(dim=0).double()
+                                       .mean())
+    for what, a, b in zip(("segments", "sphere tests", "box tests",
+                           "warp steps"), tracer.stats_rows(sk, n_pix),
+                          tracer.stats_rows(sp, n_pix)):
+        assert torch.equal(a, b), (what, int(a.sum()), int(b.sum()))
+    for a, b in zip(tracer.stats_rows(sk, n_pix)[:3],
+                    tracer.stats_rows(ss, n_pix)[:3]):
+        assert torch.equal(a, b)
 
 
 def test_d3_matches_plain(cuda):
