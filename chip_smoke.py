@@ -22,14 +22,19 @@ Phases, one JSON line each on stdout:
   6. K2 (csrc/grad.cu) against its plain version `trace_tiles_plain` at
      the training step's full width: the inverse-render scene, 4,096
      pixels × 64 spp = 262,144 lanes, depth 6, the step's own rays and
-     draws;
-  7. K3 against torch autograd through the plain version, same inputs and
-     a seeded cotangent;
+     draws; its winner tape bit-equal to the plain tape;
+  7. K3 on that tape against torch autograd through the plain version,
+     same inputs and a seeded cotangent; d_rec, d_o and d_d identical in
+     two launches;
   8. the training path, `inverse_render.main(["--device", "cuda",
      "--steps", "40"])` (200×200, block 4,096, 64 spp, depth 6), with K2's
      and K3's launch counts and the recovered albedo and emission;
-  9. times by CUDA events at that width: K2, K3, the plain forward, the
-     plain forward + backward, one training step; sample-paths/s;
+  9. times by CUDA events at that width: K2 (without and with its tape)
+     and K3 through the wrappers and as bare launches on preallocated
+     outputs, each kernel's registers, stack frame, blocks an SM and waves,
+     the device ops of each wrapper call (torch.profiler: the kernel
+     alone), the plain forward, the plain forward + backward, one training
+     step; sample-paths/s;
  10. the K1b/K1e instantiations of csrc/tracer.cu against their plain
      version, on each sphere preset the command line renders below, at
      the preset's size, 2 spp, depth 50, under the same gates as phase 3
@@ -72,22 +77,24 @@ Phases, one JSON line each on stdout:
  20. K2 with the sky against its plain version, bit for bit, on the geometry
      inverse render's scene (a ground sphere, a rect light, a tilted cube)
      at its step's full width: 262,144 lanes, depth 6, step 0's rays and
-     draws;
+     draws; its tape bit-equal to the plain tape;
  21. K3 with the geometric adjoint against autograd through the plain
      version: each d_rec column within 1e-4 of its own scale, the same
-     columns live, d_o and d_d within 1e-4 of theirs;
+     columns live, d_o and d_d within 1e-4 of theirs; identical in two
+     launches;
  22. the geometry training path, `inverse_render.main(["--geometry",
      "--device", "cuda"])` (200 steps), with K2's and K3's launch counts and
      the recovered albedo, emission and tilt;
- 23. times by CUDA events at that width: K2, K3, the plain forward and
-     forward + backward, one geometry step;
+ 23. phase 9's times and kernel facts at that width, and one geometry
+     step;
  24. K2 with metal, glass and the checker against its plain version, bit
      for bit, on the JAX fused tier's probe scene (12 prims: a metal sphere
      of fuzz 0.2, a glass sphere of index 1.5, a light, rects and a rotated
      cube, under the sky) at 262,144 lanes, depth 6, rays from (0, 2, 8) as
-     tools/tpu_parity.py's fused-tier check makes them, Philox draws;
+     tools/tpu_parity.py's fused-tier check makes them, Philox draws; its
+     tape bit-equal to the plain tape;
  25. K3 on the same against autograd, per d_rec column as in phase 21
-     (fuzz and ref_idx reach C_PARAM);
+     (fuzz and ref_idx reach C_PARAM), identical in two launches;
  26. phases 24-25 on probe_scene at the tape's full depth, 16, and on the
      checker scene (a checker floor at y = 0.37 and an emissive checker
      sphere: both children's rows) at depths 6 and 16;
@@ -95,8 +102,8 @@ Phases, one JSON line each on stdout:
      six scene leaves on both scenes at full width, depth 6, with K2's and
      K3's launch counts, against autograd through the plain version leaf by
      leaf (tools/tpu_parity.py's fast_grad_tier on the card);
- 28. times by CUDA events on probe_scene at full width, depth 6: K2, K3,
-     the plain forward and the plain forward + backward;
+ 28. phase 9's times and kernel facts on probe_scene at full width, depth
+     6;
  29. the lattice corners of K1 (textured lights, image rects, flipped
      image prims, textured media) against their plain version on
      `lattice_scene` (tools/tpu_parity.py's camera) at 1280×720, 2 spp,
@@ -244,13 +251,14 @@ F32_OPS_PER_S = 67e12
 # fixed work, each prim's test and a miss's sky; a checker hit's pick (3
 # sinf); a metal's reflect with fuzz (on its scatters and absorptions);
 # a glass scatter's refract set-up and Schlick, then its refract or its
-# reflect. K3 replays K2's bounces without the sky, then per lane bounce
-# sweeps back the color chain (keep, emission, the warp sums of the light
-# and albedo columns, and of the odd albedo with a checker); with the sky
-# also, per lane bounce, |d|² and the warp sums of the geometric columns
-# (and of C_PARAM with metal or glass), and a miss's sky, a sphere winner's
-# or a rect winner's geometric chain, and a metal scatter's, a refraction's
-# or a glass reflection's adjoint
+# reflect. K3 rebuilds K2's bounces from the winner tape (K2's work without
+# the prim tests and the sky), then per lane bounce sweeps back the color
+# chain (keep, emission, the warp sums of the light and albedo columns, and
+# of the odd albedo with a checker); with the sky also, per lane bounce,
+# |d|² and the warp sums of the geometric columns (and of C_PARAM with
+# metal or glass), and a miss's sky, a sphere winner's or a rect winner's
+# geometric chain, and a metal scatter's, a refraction's or a glass
+# reflection's adjoint
 K2_OPS = dict(segment=60, prim=16, sky=27, checker=10, metal=35, glass=49,
               refract=16, reflect=7, adjoint=61, adjoint_odd=30,
               adjoint_sky=39, adjoint_param=10, adjoint_miss=52,
@@ -258,46 +266,57 @@ K2_OPS = dict(segment=60, prim=16, sky=27, checker=10, metal=35, glass=49,
               adjoint_refract=112, adjoint_reflect=37)
 
 
-def k2_k3_bound(counts: dict, n_prims: int, n: int,
-                feats) -> tuple[dict, dict]:
-    """(K2's, K3's) bound on the paths `trace_tiles_plain` counted: its
-    segments (lane bounces), misses, sphere and checker hits, scatters,
-    metal scatters and absorptions, glass scatters, refractions and the
-    glass scatters that read draw word 3. Operations from K2_OPS; bytes: the
-    record and each lane's o, d read once, draw words 0-2 read on a
-    lambertian or metal scatter and a metal absorption, word 3 on a glass
-    scatter that can refract, K2's radiance written; K3 reads the cotangent
-    besides and writes d_o, d_d and d_rec once."""
+def k2_k3_bound(counts: dict, n_prims: int, n: int, feats,
+                tape: bool = True) -> tuple[dict, dict, dict]:
+    """(K2's, K3's, the pair's) bound on the paths `trace_tiles_plain`
+    counted: its segments (lane bounces), ghost entries, misses, sphere and
+    checker hits, scatters, metal scatters and absorptions, glass scatters,
+    refractions and the glass scatters that read draw word 3. Operations
+    from K2_OPS. Bytes: the record and each lane's o, d read once, draw
+    words 0-2 read on a lambertian or metal scatter and a metal absorption,
+    word 3 on a glass scatter that can refract, K2's radiance written, and
+    with `tape` its winner tape (8 bytes an entry: the segments and the
+    ghosts); K3 reads the tape and the cotangent besides and writes d_o,
+    d_d and d_rec once. K3's operations are the rebuild (K2's without the
+    prim tests and the sky) and the adjoint; the pair (a training step's
+    forward and adjoint: K2's work with the tape, the adjoint's alone,
+    and both kernels' bytes) counts the forward once and the adjoint
+    once."""
     c = {k: counts.get(k, 0) for k in (
-        "segments", "misses", "sphere_hits", "checker_hits", "scatters",
-        "metal_scatters", "metal_absorbs", "glass_scatters", "refracts",
-        "u3_reads")}
+        "segments", "ghosts", "misses", "sphere_hits", "checker_hits",
+        "scatters", "metal_scatters", "metal_absorbs", "glass_scatters",
+        "refracts", "u3_reads")}
     seg, miss, sph = c["segments"], c["misses"], c["sphere_hits"]
     glass, refr = c["glass_scatters"], c["refracts"]
     metal = c["metal_scatters"]
-    replay = (seg * (K2_OPS["segment"] + n_prims * K2_OPS["prim"])
-              + c["checker_hits"] * K2_OPS["checker"]
-              + (metal + c["metal_absorbs"]) * K2_OPS["metal"]
-              + glass * K2_OPS["glass"] + refr * K2_OPS["refract"]
-              + (glass - refr) * K2_OPS["reflect"])
-    k2 = replay + (miss * K2_OPS["sky"] if "sky" in feats else 0)
-    k3 = replay + seg * K2_OPS["adjoint"]
+    rebuild = (seg * K2_OPS["segment"]
+               + c["checker_hits"] * K2_OPS["checker"]
+               + (metal + c["metal_absorbs"]) * K2_OPS["metal"]
+               + glass * K2_OPS["glass"] + refr * K2_OPS["refract"]
+               + (glass - refr) * K2_OPS["reflect"])
+    k2 = (rebuild + seg * n_prims * K2_OPS["prim"]
+          + (miss * K2_OPS["sky"] if "sky" in feats else 0))
+    adjoint = seg * K2_OPS["adjoint"]
     if "checker" in feats:
-        k3 += seg * K2_OPS["adjoint_odd"]
+        adjoint += seg * K2_OPS["adjoint_odd"]
     if "sky" in feats:
-        k3 += (seg * K2_OPS["adjoint_sky"] + miss * K2_OPS["adjoint_miss"]
-               + sph * K2_OPS["adjoint_sphere"]
-               + (seg - miss - sph) * K2_OPS["adjoint_rect"]
-               + metal * K2_OPS["adjoint_metal"]
-               + refr * K2_OPS["adjoint_refract"]
-               + (glass - refr) * K2_OPS["adjoint_reflect"])
+        adjoint += (seg * K2_OPS["adjoint_sky"]
+                    + miss * K2_OPS["adjoint_miss"]
+                    + sph * K2_OPS["adjoint_sphere"]
+                    + (seg - miss - sph) * K2_OPS["adjoint_rect"]
+                    + metal * K2_OPS["adjoint_metal"]
+                    + refr * K2_OPS["adjoint_refract"]
+                    + (glass - refr) * K2_OPS["adjoint_reflect"])
         if {"metal", "diel"} & set(feats):
-            k3 += seg * K2_OPS["adjoint_param"]
+            adjoint += seg * K2_OPS["adjoint_param"]
     rec_bytes = 4 * n_prims * 35   # ops/grad.py REC_C f32 columns
     draws = 3 * (c["scatters"] - glass + c["metal_absorbs"]) + c["u3_reads"]
     read = rec_bytes + 4 * 6 * n + 4 * draws
-    return (bound(k2, read + 4 * 3 * n),
-            bound(k3, read + 4 * 3 * n + 4 * 6 * n + rec_bytes))
+    tape_bytes = 8 * (seg + c["ghosts"])
+    k2_bytes = read + 4 * 3 * n + (tape_bytes if tape else 0)
+    k3_bytes = read + tape_bytes + 4 * 3 * n + 4 * 6 * n + rec_bytes
+    return (bound(k2, k2_bytes), bound(rebuild + adjoint, k3_bytes),
+            bound(k2 + adjoint, k2_bytes + k3_bytes))
 
 
 def bound(ops: float, nbytes: float,
@@ -490,6 +509,99 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def tape_matches(tape, want) -> bool:
+    """K2's winner tape equals the plain tape on every entry the plain tape
+    defines (the rest are TAPE_NONE there and unwritten by K2)."""
+    import torch
+    from raytracing_rust_tpu_torch.ops import grad
+    defined = want[:, 0] != grad.TAPE_NONE
+    return all(bool(torch.equal(tape[:, r][defined], want[:, r][defined]))
+               for r in (0, 1))
+
+
+def device_ops(fn, calls: int = 3) -> dict | None:
+    """The device ops (kernels, copies, memsets) that `calls` calls of fn
+    run, by name → count, from torch.profiler after a warm-up call; None
+    where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if t > 0 and e.key != "Activity Buffer Request":
+            ops[e.key] = e.count
+    return ops or None
+
+
+def grad_kernel_times(phase: str, rec, o, d, u, ct, cfg, md: int,
+                      **extra) -> dict:
+    """Phases 9, 23, 28: K2 without and with its tape and K3 on that tape,
+    by CUDA events over 20 calls through the wrappers and as bare launches
+    on preallocated outputs (`grad.bare_launches`); each kernel's
+    registers, stack frame, blocks an SM, the grid and its waves; the
+    device ops of one wrapper call (the kernel alone: checked); the pair
+    of a training step (two K2, one with the tape, and one K3). Emitted
+    as one line → the dict."""
+    from raytracing_rust_tpu_torch.ops import grad
+    _, tape = grad.grad_fwd(rec, o, d, u, cfg, md, tape=True)
+    wrap = {"k2": lambda: grad.grad_fwd(rec, o, d, u, cfg, md),
+            "k2_tape": lambda: grad.grad_fwd(rec, o, d, u, cfg, md,
+                                             tape=True),
+            "k3": lambda: grad.grad_bwd(rec, o, d, u, ct, cfg, md,
+                                        tape=tape)}
+    bare = dict(zip(wrap, grad.bare_launches(rec, o, d, u, ct, cfg, md)))
+    out = {f"{k}_ms": cuda_ms(f, reps=20) for k, f in wrap.items()}
+    out.update({f"{k}_bare_ms": cuda_ms(f, reps=20) for k, f in bare.items()})
+    out["pair_ms"] = out["k2_ms"] + out["k2_tape_ms"] + out["k3_ms"]
+    out["pair_bare_ms"] = (out["k2_bare_ms"] + out["k2_tape_bare_ms"]
+                           + out["k3_bare_ms"])
+    occ = grad.kernel_occupancy(rec.shape[0])
+    mat = int(bool({"metal", "diel", "checker"} & set(cfg[1])))
+    tiles = -(-o.shape[0] // grad.GRAD_THREADS)
+    for k, inst in (("k2", f"grad_fwd<{mat}>"), ("k3", f"grad_bwd<{mat}>")):
+        q = occ[inst]
+        resident = q["blocks_per_sm"] * q["sms"]
+        grid = min(tiles, resident)
+        out[f"{k}_kernel"] = dict(
+            instantiation=inst, **q, resident_blocks=resident,
+            tiles_of_128_lanes=tiles, grid=grid, waves=grid / resident,
+            tiles_per_block=tiles / grid)
+    ops = {k: device_ops(f) for k, f in wrap.items()}
+    out["device_ops_per_3_calls"] = ops
+    emit(phase, lanes=o.shape[0], depth=md, **out, **extra)
+    for k, v in ops.items():
+        name = "grad_fwd" if k.startswith("k2") else "grad_bwd"
+        check(v is None or (len(v) == 1 and name in next(iter(v))
+                            and next(iter(v.values())) == 3),
+              f"{phase}: a {k} call runs other device ops: {v}")
+    return out
+
+
+def grad_row_facts(gt: dict, k: str) -> dict:
+    """The kernels line's extra keys of a K2 or K3 row from
+    `grad_kernel_times`: the bare launch's ms (K2's with its tape), K2's
+    ms without the tape, the registers, stack frame, blocks an SM and waves,
+    and on K3's row the pair of a training step."""
+    q = gt[f"{k}_kernel"]
+    out = dict(bare_ms=gt["k2_tape_bare_ms" if k == "k2" else "k3_bare_ms"],
+               registers=q["registers"], stack_bytes=q["stack_bytes"],
+               blocks_per_sm=q["blocks_per_sm"], waves=q["waves"],
+               tiles_per_block=q["tiles_per_block"])
+    if k == "k2":
+        out.update(no_tape_ms=gt["k2_ms"], no_tape_bare_ms=gt["k2_bare_ms"])
+    else:
+        out.update(pair_ms=gt["pair_ms"], pair_bare_ms=gt["pair_bare_ms"])
+    return out
+
+
 def grad_probe_scene(dev):
     """The JAX fused tier's probe scene: a floor, a red wall, a flipped
     light, a metal sphere (fuzz 0.2), a glass sphere (1.5), a
@@ -558,37 +670,45 @@ def material_phases(dev, reset_launches, n: int = 4096 * 64):
         mcfg = grad.fast_grad_config(mscenes[sname])
         mrec = grad.fast_grad_record(mscenes[sname]).detach()
         u = grad.fast_draws(7, n, md + 1, dev)
-        k2 = grad.grad_fwd(mrec, o, d, u, mcfg, md)
+        k2, k2_tape = grad.grad_fwd(mrec, o, d, u, mcfg, md, tape=True)
         work = {}
-        p2 = grad.trace_tiles_plain(mrec, o, d, u, mcfg, md, counts=work)
+        p2, p2_tape = grad.trace_tiles_plain(mrec, o, d, u, mcfg, md,
+                                             counts=work, tape=True)
         torch.cuda.synchronize()
+        tape_ok = tape_matches(k2_tape, p2_tape)
         err = float((k2 - p2).abs().max())
         bit_equal = float((k2 == p2).all(dim=1).double().mean())
         emit("k2b_material_vs_plain", scene=sname, feats=sorted(mcfg[1]),
              kinds="".join(mcfg[0]), lanes=n, depth=md,
              lanes_bit_equal=bit_equal, max_abs_err=err,
              kernel_channel_means=k2.mean(dim=0).tolist(),
-             plain_channel_means=p2.mean(dim=0).tolist(), work=work)
+             plain_channel_means=p2.mean(dim=0).tolist(), work=work,
+             tape_bit_equal=tape_ok)
         check(bool(torch.isfinite(k2).all()) and float(p2.sum()) > 0,
               f"K2 {sname} depth {md}: radiance not finite or zero")
+        check(tape_ok, f"K2 {sname} depth {md}: the tape differs from plain")
         check(bool(torch.equal(k2, p2)), f"K2 {sname} depth {md}: "
               f"{bit_equal:.4%} of lanes bit-equal, max abs err {err}")
-        del p2
-        k3 = grad.grad_bwd(mrec, o, d, u, ct, mcfg, md)
+        del p2, p2_tape
+        k3 = grad.grad_bwd(mrec, o, d, u, ct, mcfg, md, tape=k2_tape)
+        again = grad.grad_bwd(mrec, o, d, u, ct, mcfg, md, tape=k2_tape)
         p3 = grad.trace_tiles_plain_vjp(mrec, o, d, u, ct, mcfg, md)
         torch.cuda.synchronize()
+        repeat_ok = all(bool(torch.equal(a, b)) for a, b in zip(k3, again))
         k3_err = hold_k3_columns(
             "k3b_material_vs_autograd", f"K3 {sname} depth {md}", k3, p3,
             True, scene=sname, lanes=n, depth=md,
             d_rec_param_and_odd=k3[0][:, [grad.C_PARAM, grad.C_TEX_O,
                                           grad.C_TEX_O + 1,
-                                          grad.C_TEX_O + 2]].tolist())
+                                          grad.C_TEX_O + 2]].tolist(),
+            identical_in_two_launches=repeat_ok)
+        check(repeat_ok, f"K3 {sname} depth {md}: two launches differ")
         col = grad.C_PARAM if sname == "probe_scene" else grad.C_TEX_O
         check(bool(k3[0][:, col].any()),
               f"K3 {sname}: column {col} carries nothing")
         material[sname, md] = dict(rec=mrec, cfg=mcfg, u=u, work=work,
                                    k2_err=err, k3_err=k3_err)
-        del p3, k3
+        del p3, k3, again, k2_tape
 
     # -- 27. the path: the mean radiance's gradient through trace_fast (K2,
     # K3) into the six scene leaves, each scene at full width, depth 6,
@@ -650,22 +770,29 @@ def material_phases(dev, reset_launches, n: int = 4096 * 64):
     # -- 28. times on probe_scene at full width, depth 6
     m = material["probe_scene", 6]
     mrec, mcfg, u = m["rec"], m["cfg"], m["u"]
-    mk2_ms = cuda_ms(lambda: grad.grad_fwd(mrec, o, d, u, mcfg, 6), reps=20)
-    mk3_ms = cuda_ms(lambda: grad.grad_bwd(mrec, o, d, u, ct, mcfg, 6),
-                     reps=20)
+    mk2_bound, mk3_bound, mpair_bound = k2_k3_bound(m["work"], mrec.shape[0],
+                                                    n, mcfg[1])
+    mgt = grad_kernel_times(
+        "material_grad_kernel_times", mrec, o, d, u, ct, mcfg, 6,
+        scene="probe_scene", k2_bound=mk2_bound, k3_bound=mk3_bound,
+        k2_no_tape_bound=k2_k3_bound(m["work"], mrec.shape[0], n, mcfg[1],
+                                     tape=False)[0])
+    mk2_ms, mk3_ms = mgt["k2_tape_ms"], mgt["k3_ms"]
     mp2_ms = cuda_ms(lambda: grad.trace_tiles_plain(mrec, o, d, u, mcfg, 6),
                      reps=3)
     mp3_ms = cuda_ms(lambda: grad.trace_tiles_plain_vjp(mrec, o, d, u, ct,
                                                         mcfg, 6), reps=3)
-    mk2_bound, mk3_bound = k2_k3_bound(m["work"], mrec.shape[0], n, mcfg[1])
     emit("material_grad_times", scene="probe_scene", lanes=n, depth=6,
          k2_ms=mk2_ms, k3_ms=mk3_ms, plain_fwd_ms=mp2_ms,
          plain_fwd_bwd_ms=mp3_ms, k2_bound=mk2_bound, k3_bound=mk3_bound,
-         work=m["work"],
+         pair_ms=mgt["pair_ms"], pair_bound=mpair_bound, work=m["work"],
          kernel_fwd_bwd_sample_paths_per_s=n / ((mk2_ms + mk3_ms) * 1e-3))
     return material, mat_launches, dict(
-        k2=dict(ms=mk2_ms, plain_ms=mp2_ms, **mk2_bound),
-        k3=dict(ms=mk3_ms, plain_ms=mp3_ms, **mk3_bound))
+        k2=dict(ms=mk2_ms, plain_ms=mp2_ms, **mk2_bound,
+                **grad_row_facts(mgt, "k2")),
+        k3=dict(ms=mk3_ms, plain_ms=mp3_ms, **mk3_bound,
+                **grad_row_facts(mgt, "k3"),
+                pair_bound_ms=mpair_bound["bound_ms"]))
 
 
 def main() -> int:
@@ -870,11 +997,16 @@ def main() -> int:
     rec = grad.fast_grad_record(target).detach()
     o, d, u = ir.step_inputs(ir.camera(dev), 0, device=dev, **kw)
     n = o.shape[0]
-    k2 = grad.grad_fwd(rec, o, d, u, cfg, 6)
+    k2, k2_tape = grad.grad_fwd(rec, o, d, u, cfg, 6, tape=True)
     c2 = {}
-    p2 = grad.trace_tiles_plain(rec, o, d, u, cfg, 6, counts=c2)
-    k2_bound, k3_bound = k2_k3_bound(c2, rec.shape[0], n, cfg[1])
+    p2, p2_tape = grad.trace_tiles_plain(rec, o, d, u, cfg, 6, counts=c2,
+                                         tape=True)
+    k2_bound, k3_bound, pair_bound = k2_k3_bound(c2, rec.shape[0], n,
+                                                 cfg[1])
+    k2_notape_bound = k2_k3_bound(c2, rec.shape[0], n, cfg[1],
+                                  tape=False)[0]
     torch.cuda.synchronize()
+    tape_ok = tape_matches(k2_tape, p2_tape)
     check(bool(torch.isfinite(k2).all()), "K2 radiance is not finite")
     agree = float(torch.isclose(k2, p2, rtol=1e-4, atol=0.0)
                   .all(dim=1).double().mean())
@@ -883,17 +1015,21 @@ def main() -> int:
     k2_err = float((k2 - p2).abs().max())
     emit("k2_vs_plain", lanes=n, depth=6, lanes_within_rel_1e4=agree,
          kernel_channel_means=km.tolist(), plain_channel_means=pm.tolist(),
-         channel_mean_max_rel=mean_rel, max_abs_err=k2_err, work=c2)
+         channel_mean_max_rel=mean_rel, max_abs_err=k2_err, work=c2,
+         bit_equal=bool(torch.equal(k2, p2)), tape_bit_equal=tape_ok)
     check(agree >= 0.99, f"K2: only {agree:.4%} of lanes agree within 1e-4")
+    check(tape_ok, "K2's winner tape differs from the plain tape")
     check(mean_rel <= 1e-4, f"K2: channel means differ by {mean_rel:.2e}")
 
     # -- 7. K3 vs autograd of the plain version, same inputs
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     ct = torch.rand(n, 3, generator=g, device=dev)
-    k3 = grad.grad_bwd(rec, o, d, u, ct, cfg, 6)
+    k3 = grad.grad_bwd(rec, o, d, u, ct, cfg, 6, tape=k2_tape)
+    again = grad.grad_bwd(rec, o, d, u, ct, cfg, 6, tape=k2_tape)
     p3 = grad.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, 6)
     torch.cuda.synchronize()
+    repeat_ok = all(bool(torch.equal(a, b)) for a, b in zip(k3, again))
     scale = float(p3[0].abs().max())
     k3_err = float((k3[0] - p3[0]).abs().max())
     lanes_ok = [float(torch.isclose(a, b, rtol=1e-4, atol=0.0)
@@ -905,11 +1041,13 @@ def main() -> int:
          d_d_lanes_within_rel_1e4=lanes_ok[1],
          d_rec_light_and_albedo=k3[0][:, [grad.C_LIGHT, grad.C_TEX_E,
                                           grad.C_TEX_E + 1,
-                                          grad.C_TEX_E + 2]].tolist())
+                                          grad.C_TEX_E + 2]].tolist(),
+         identical_in_two_launches=repeat_ok)
+    check(repeat_ok, "K3: two launches on the same operands differ")
     check(scale > 0 and k3_err <= 1e-4 * scale,
           f"K3: d_rec off by {k3_err:.3e} at scale {scale:.3e}")
     check(min(lanes_ok) >= 0.99, f"K3: d_o/d_d lanes within 1e-4: {lanes_ok}")
-    del p3
+    del p3, again
 
     # -- 8. the training path
     buf = io.StringIO()
@@ -937,8 +1075,11 @@ def main() -> int:
           f"inverse_render.main returned {rc}")
 
     # -- 9. times at the training step's full width
-    k2_ms = cuda_ms(lambda: grad.grad_fwd(rec, o, d, u, cfg, 6), reps=20)
-    k3_ms = cuda_ms(lambda: grad.grad_bwd(rec, o, d, u, ct, cfg, 6), reps=20)
+    gt = grad_kernel_times("grad_kernel_times", rec, o, d, u, ct, cfg, 6,
+                           scene="inverse_render", k2_bound=k2_bound,
+                           k2_no_tape_bound=k2_notape_bound,
+                           k3_bound=k3_bound)
+    k2_ms, k3_ms = gt["k2_tape_ms"], gt["k3_ms"]
     p2_ms = cuda_ms(lambda: grad.trace_tiles_plain(rec, o, d, u, cfg, 6),
                     reps=3)
     p3_ms = cuda_ms(lambda: grad.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg,
@@ -958,6 +1099,7 @@ def main() -> int:
     step_ms = cuda_ms(step, reps=10)
     emit("grad_times", lanes=n, depth=6, k2_ms=k2_ms, k3_ms=k3_ms,
          plain_fwd_ms=p2_ms, plain_fwd_bwd_ms=p3_ms, step_ms=step_ms,
+         pair_ms=gt["pair_ms"], pair_bound=pair_bound,
          kernel_fwd_bwd_sample_paths_per_s=n / ((k2_ms + k3_ms) * 1e-3),
          plain_fwd_bwd_sample_paths_per_s=n / (p3_ms * 1e-3),
          step_candidate_sample_paths_per_s=n / (step_ms * 1e-3))
@@ -1181,11 +1323,16 @@ def main() -> int:
     gcam = ir.geo_camera(dev)
     o, d, u = ir.step_inputs(gcam, 0, device=dev, **kw)
     n = o.shape[0]
-    k2 = grad.grad_fwd(grec, o, d, u, gcfg, 6)
+    k2, k2_tape = grad.grad_fwd(grec, o, d, u, gcfg, 6, tape=True)
     c2 = {}
-    p2 = grad.trace_tiles_plain(grec, o, d, u, gcfg, 6, counts=c2)
+    p2, p2_tape = grad.trace_tiles_plain(grec, o, d, u, gcfg, 6, counts=c2,
+                                         tape=True)
     torch.cuda.synchronize()
-    gk2_bound, gk3_bound = k2_k3_bound(c2, grec.shape[0], n, gcfg[1])
+    tape_ok = tape_matches(k2_tape, p2_tape)
+    gk2_bound, gk3_bound, gpair_bound = k2_k3_bound(c2, grec.shape[0], n,
+                                                    gcfg[1])
+    gk2_notape_bound = k2_k3_bound(c2, grec.shape[0], n, gcfg[1],
+                                   tape=False)[0]
     check(bool(torch.isfinite(k2).all()), "K2b radiance is not finite")
     gk2_err = float((k2 - p2).abs().max())
     bit_equal = float((k2 == p2).all(dim=1).double().mean())
@@ -1193,22 +1340,28 @@ def main() -> int:
          kinds="".join(gcfg[0]), lanes=n, depth=6,
          lanes_bit_equal=bit_equal, max_abs_err=gk2_err,
          kernel_channel_means=k2.mean(dim=0).tolist(),
-         plain_channel_means=p2.mean(dim=0).tolist(), work=c2)
+         plain_channel_means=p2.mean(dim=0).tolist(), work=c2,
+         tape_bit_equal=tape_ok)
     check(bool(torch.equal(k2, p2)),
           f"K2b: {bit_equal:.4%} of lanes bit-equal, max abs err {gk2_err}")
+    check(tape_ok, "K2b's winner tape differs from the plain tape")
 
     # -- 21. K3 with the geometric adjoint vs autograd, column by column
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     ct = torch.rand(n, 3, generator=g, device=dev)
-    k3 = grad.grad_bwd(grec, o, d, u, ct, gcfg, 6)
+    k3 = grad.grad_bwd(grec, o, d, u, ct, gcfg, 6, tape=k2_tape)
+    again = grad.grad_bwd(grec, o, d, u, ct, gcfg, 6, tape=k2_tape)
     p3 = grad.trace_tiles_plain_vjp(grec, o, d, u, ct, gcfg, 6)
     torch.cuda.synchronize()
+    repeat_ok = all(bool(torch.equal(a, b)) for a, b in zip(k3, again))
     gk3_err = hold_k3_columns(
         "k3b_vs_autograd", "K3b", k3, p3, True, scene="geometry", lanes=n,
         depth=6, d_rec_kn_koff=k3[0][:, [grad.C_KN, grad.C_KN + 1,
-                                         grad.C_KN + 2, grad.C_KOFF]].tolist())
-    del p3
+                                         grad.C_KN + 2, grad.C_KOFF]].tolist(),
+        identical_in_two_launches=repeat_ok)
+    check(repeat_ok, "K3b: two launches on the same operands differ")
+    del p3, again
 
     # -- 22. the geometry training path
     argv = ["--geometry", "--device", "cuda"]
@@ -1239,9 +1392,11 @@ def main() -> int:
           f"inverse_render.main({argv}) returned {rc}")
 
     # -- 23. times at the geometry step's full width
-    gk2_ms = cuda_ms(lambda: grad.grad_fwd(grec, o, d, u, gcfg, 6), reps=20)
-    gk3_ms = cuda_ms(lambda: grad.grad_bwd(grec, o, d, u, ct, gcfg, 6),
-                     reps=20)
+    ggt = grad_kernel_times("geometry_grad_kernel_times", grec, o, d, u, ct,
+                            gcfg, 6, scene="geometry", k2_bound=gk2_bound,
+                            k2_no_tape_bound=gk2_notape_bound,
+                            k3_bound=gk3_bound)
+    gk2_ms, gk3_ms = ggt["k2_tape_ms"], ggt["k3_ms"]
     gp2_ms = cuda_ms(lambda: grad.trace_tiles_plain(grec, o, d, u, gcfg, 6),
                      reps=3)
     gp3_ms = cuda_ms(lambda: grad.trace_tiles_plain_vjp(grec, o, d, u, ct,
@@ -1261,6 +1416,7 @@ def main() -> int:
     emit("geometry_grad_times", lanes=n, depth=6, k2_ms=gk2_ms, k3_ms=gk3_ms,
          plain_fwd_ms=gp2_ms, plain_fwd_bwd_ms=gp3_ms, step_ms=gstep_ms,
          k2_bound_ms=gk2_bound["bound_ms"], k3_bound_ms=gk3_bound["bound_ms"],
+         pair_ms=ggt["pair_ms"], pair_bound=gpair_bound,
          kernel_fwd_bwd_sample_paths_per_s=n / ((gk2_ms + gk3_ms) * 1e-3),
          step_candidate_sample_paths_per_s=n / (gstep_ms * 1e-3))
 
@@ -1812,25 +1968,27 @@ def main() -> int:
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:557",
         "launches": train_launches["k2_grad_fwd"],
         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": p2_ms, **k2_bound,
-        "library_ms": None}, {
+        **grad_row_facts(gt, "k2"), "library_ms": None}, {
         "name": "k3_grad_bwd", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:567",
         "launches": train_launches["k3_grad_bwd"],
         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": p3_ms, **k3_bound,
+        **grad_row_facts(gt, "k3"), "pair_bound_ms": pair_bound["bound_ms"],
         "library_ms": None}, {
         "name": "k2b_sky_fwd", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:557",
         "launches": geo_launches["k2b_sky_fwd"],
         "max_abs_err": gk2_err, "ms": gk2_ms, "plain_ms": gp2_ms,
-        **gk2_bound, "library_ms": None}, {
+        **gk2_bound, **grad_row_facts(ggt, "k2"), "library_ms": None}, {
         "name": "k3b_geometric_bwd", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:567",
         "launches": geo_launches["k3b_geometric_bwd"],
         "max_abs_err": gk3_err, "ms": gk3_ms, "plain_ms": gp3_ms,
-        **gk3_bound, "library_ms": None}, {
+        **gk3_bound, **grad_row_facts(ggt, "k3"),
+        "pair_bound_ms": gpair_bound["bound_ms"], "library_ms": None}, {
         "name": "k2b_material_fwd", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/grad.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_grad.py:557",

@@ -32,9 +32,13 @@ package. The sums' totals show whether both checkouts compute the same
 image. With --grad it times K2 and K3 instead, in the same turns, on the
 default inverse render's step and on the geometry step (each 200×200,
 block 4,096 × 64 spp = 262,144 lanes, depth 6, step 0's rays and draws, a
-seeded cotangent), the mean of 20 launches per timing, the median of 5
-timings per run; K2's radiance totals show whether both checkouts trace
-the same paths. --turns N repeats the four turns N times (2N runs of each
+seeded cotangent), through the wrappers and as bare launches on
+preallocated outputs (`grad.bare_launches`; in a checkout from before the
+winner tape, its lane-major launches), K2 without and with its tape, the
+mean of 20 launches per timing, the median of 5 timings per run; K2's
+radiance totals and K3's d_d totals show whether both checkouts trace the
+same paths (K3's d_rec is summed in another order since the tape).
+--turns N repeats the four turns N times (2N runs of each
 checkout). Prints one JSON object, also written to
 FILE when given.
 
@@ -277,6 +281,50 @@ out = {"library": _build.build()[0]}
 dev = torch.device("cuda")
 kw = dict(nx=200, ny=200, spp=64, block=4096, max_depth=6)
 g = torch.Generator(device=dev)
+# a checkout with K2's winner tape (and K3 reading it) has bare_launches
+TAPE = hasattr(grad, "bare_launches")
+
+
+def bare_before_tape(rec, o, d, u, ct, cfg):
+    # the launches of a checkout from before the tape: lane-major operands
+    # and per-block d_rec partials, as its wrappers passed them
+    lib = _build.load()
+    st = torch.cuda.current_stream().cuda_stream
+    n, P, nb = o.shape[0], rec.shape[0], u.shape[0]
+    blocks = -(-n // 128)
+    o_t, d_t, ct_t = (x.t().contiguous() for x in (o, d, ct))
+    rad, d_o, d_d = (torch.empty(3, n, device=dev) for _ in range(3))
+    part = torch.empty(blocks, P, 35, device=dev)
+    fl = grad._feat_flags(cfg)
+
+    def fwd():
+        assert lib.rt_grad_fwd(rec.data_ptr(), P, o_t.data_ptr(),
+                               d_t.data_ptr(), u.data_ptr(), rad.data_ptr(),
+                               n, nb, 6, *fl, st) == 0
+
+    def bwd():
+        assert lib.rt_grad_bwd(rec.data_ptr(), P, o_t.data_ptr(),
+                               d_t.data_ptr(), u.data_ptr(), ct_t.data_ptr(),
+                               d_o.data_ptr(), d_d.data_ptr(),
+                               part.data_ptr(), n, blocks, nb, 6, *fl,
+                               st) == 0
+    return fwd, None, bwd
+
+
+def timed(fn):
+    fn()
+    ms = []
+    for _ in range(5):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(20):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b) / 20)
+    return dict(ms=ms, median_ms=statistics.median(ms))
+
+
 for names, scene, cam in (
         (("k2_grad_fwd", "k3_grad_bwd"),
          ir.build_scene(ir.TRUE_ALBEDO, ir.TRUE_EMIT, device=dev),
@@ -290,24 +338,35 @@ for names, scene, cam in (
     o, d, u = ir.step_inputs(cam, 0, device=dev, **kw)
     g.manual_seed(3)
     ct = torch.rand(o.shape[0], 3, generator=g, device=dev)
-    for name, fn in (
-            (names[0], lambda: grad.grad_fwd(rec, o, d, u, cfg, 6)),
-            (names[1], lambda: grad.grad_bwd(rec, o, d, u, ct, cfg, 6)[0])):
-        total = float(fn().sum())
-        ms = []
-        for _ in range(5):
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            for _ in range(20):
-                fn()
-            b.record()
-            torch.cuda.synchronize()
-            ms.append(a.elapsed_time(b) / 20)
-        out[name] = dict(ms=ms, median_ms=statistics.median(ms), sum=total)
+    if TAPE:
+        _, tape = grad.grad_fwd(rec, o, d, u, cfg, 6, tape=True)
+        fwd = lambda: grad.grad_fwd(rec, o, d, u, cfg, 6)
+        fwd_tape = lambda: grad.grad_fwd(rec, o, d, u, cfg, 6, tape=True)[0]
+        bwd = lambda: grad.grad_bwd(rec, o, d, u, ct, cfg, 6, tape=tape)
+        bare = grad.bare_launches(rec, o, d, u, ct, cfg, 6)
+    else:
+        fwd = fwd_tape = lambda: grad.grad_fwd(rec, o, d, u, cfg, 6)
+        bwd = lambda: grad.grad_bwd(rec, o, d, u, ct, cfg, 6)
+        bare = bare_before_tape(rec, o, d, u, ct, cfg)
+    # the sums of a contiguous [N, 3] copy, so both layouts sum alike
+    out[names[0]] = dict(**timed(fwd), bare=timed(bare[0]),
+                         sum=float(fwd().contiguous().sum()))
+    if TAPE:
+        out[names[0] + "_tape"] = dict(
+            **timed(fwd_tape), bare=timed(bare[1]),
+            sum=float(fwd_tape().contiguous().sum()))
+    k3 = bwd()
+    out[names[1]] = dict(**timed(bwd), bare=timed(bare[2]),
+                         sum=float(k3[2].contiguous().sum()),
+                         d_o_sum=float(k3[1].contiguous().sum()),
+                         d_rec_sum=float(k3[0].sum()))
 print(json.dumps(out))
 """
-GRAD_KERNELS = ("k2_grad_fwd", "k3_grad_bwd", "k2b_sky_fwd",
-                "k3b_geometric_bwd")
+# K2 without and with its tape (a checkout from before the tape times its K2
+# under both names), K3
+GRAD_KERNELS = ("k2_grad_fwd", "k2_grad_fwd_tape", "k3_grad_bwd",
+                "k2b_sky_fwd", "k2b_sky_fwd_tape", "k3b_geometric_bwd")
+
 
 
 def _time_checkout(path: str, grad: bool = False, scenes=SCENES,
@@ -407,13 +466,20 @@ def main(argv=None) -> int:
     if args.grad:
         kernels = {}
         for k in GRAD_KERNELS:
-            med = {who: [r[k]["median_ms"] for w, r in runs if w == who]
-                   for who in ("other", "this")}
-            mean = {who: sum(v) / len(v) for who, v in med.items()}
-            kernels[k] = dict(median_ms=med, mean_ms=mean,
-                              this_over_other=mean["this"] / mean["other"],
-                              sums_equal=len({r[k]["sum"]
-                                              for _, r in runs}) == 1)
+            # a checkout from before the tape has one K2: it stands for both
+            rows = [(w, r.get(k) or r[k.removesuffix("_tape")])
+                    for w, r in runs]
+            row = {}
+            for form, get in (("wrapper", lambda x: x["median_ms"]),
+                              ("bare", lambda x: x["bare"]["median_ms"])):
+                med = {who: [get(x) for w, x in rows if w == who]
+                       for who in ("other", "this")}
+                mean = {who: sum(v) / len(v) for who, v in med.items()}
+                row[form] = dict(median_ms=med, mean_ms=mean,
+                                 this_over_other=mean["this"]
+                                 / mean["other"])
+            kernels[k] = dict(**row, sums_equal=len({x["sum"]
+                                                     for _, x in rows}) == 1)
         _report(dict(device=smi, order=[who for who, _ in runs],
                      kernels=kernels,
                      runs=[dict(who=who, **r) for who, r in runs]), args.out)

@@ -87,11 +87,14 @@ def load() -> ctypes.CDLL:
     lib.rt_trace_k1.restype = i
     lib.rt_trace_k1_blocks_per_sm.argtypes = [i, i, i, i, p]
     lib.rt_trace_k1_blocks_per_sm.restype = i
-    lib.rt_grad_fwd.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.rt_grad_fwd.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i,
+                                i, p, p]
     lib.rt_grad_fwd.restype = i
-    lib.rt_grad_bwd.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                i, i, i, p]
+    lib.rt_grad_bwd.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                i, i, i, i, p, i, p]
     lib.rt_grad_bwd.restype = i
+    lib.rt_grad_occupancy.argtypes = [i, p]
+    lib.rt_grad_occupancy.restype = i
     f = ctypes.c_float
     lib.rt_fp32_peak.argtypes = [p, i, i, i, f, f, i, i, p]
     lib.rt_fp32_peak.restype = i

@@ -28,6 +28,8 @@ into them.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -59,15 +61,20 @@ C_CHK = 34    # 1.0 ⇒ 3D-checker texture
 REC_C = 35
 
 MAX_PRIMS = 64    # csrc/grad.cu sizes its shared-memory record for this many
-MAX_DEPTH = 16    # csrc/grad.cu sizes K3's per-lane tape for MAX_DEPTH + 1
+MAX_DEPTH = 16    # csrc/grad.cu sizes K3's per-lane state for MAX_DEPTH + 1
 
 # the families K2/K3 cover beyond lambertian + solid (the free default):
 # every family of fast_grad_config
 KERNEL_FEATS = frozenset({"light", "sky", "metal", "diel", "checker"})
 
-# lanes per CUDA block (csrc/grad.cu THREADS): K3 writes one d_rec partial
-# per block of this many lanes
+# lanes per CUDA block (csrc/grad.cu THREADS)
 GRAD_THREADS = 128
+
+# the winner tape's code (csrc/grad.cu TAPE_*): winner << TAPE_SHIFT | the
+# bits, -1 on a miss; TAPE_NONE on an entry no bounce wrote
+TAPE_FAR, TAPE_ODD, TAPE_METAL_OK, TAPE_REFRACT = 1, 2, 4, 8
+TAPE_SHIFT = 4
+TAPE_NONE = -2
 
 # launches of the CUDA kernels, counted by grad_fwd / grad_bwd where they
 # launch
@@ -200,8 +207,9 @@ def _dot3(ax, ay, az, bx, by, bz):
 
 def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                       u: torch.Tensor, cfg, max_depth: int,
-                      counts: dict | None = None) -> torch.Tensor:
-    """The whole multi-bounce trace in plain torch → radiance f32[N, 3].
+                      counts: dict | None = None, tape: bool = False):
+    """The whole multi-bounce trace in plain torch → radiance f32[N, 3],
+    or with tape (rad, the winner tape i32[n_bounce, 2, N]: `TAPE_*`).
 
     rec f32[P, REC_C]; o, d f32[N, 3]; u f32[n_bounce, 4, N]; cfg the
     (kinds, feats) of `fast_grad_config`. A torch twin of the JAX
@@ -211,13 +219,21 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     multiplies `lax.integer_pow` makes (torch's CUDA pow calls powf).
     Differentiable in rec, o and d. counts, when given, gathers the lane
     bounces a path was alive at ("segments"): the bounces K2 runs before a
-    lane's loop ends, and of those the ones that missed ("misses"), that a
+    lane's loop ends, the tape's ghost entries after them ("ghosts"), and
+    of those bounces the ones that missed ("misses"), that a
     sphere won ("sphere_hits"), that a checker won ("checker_hits"), that
     scattered ("scatters"), off a metal ("metal_scatters") or off glass
     ("glass_scatters"), of those the ones that could refract ("u3_reads")
     and that refracted ("refracts"), and that a metal absorbed
     ("metal_absorbs"). K2 reads draw words 0-2 on the scatters but glass's
-    and on the absorptions, and word 3 on the u3_reads."""
+    and on the absorptions, and word 3 on the u3_reads.
+
+    The tape holds, for each bounce K2 runs and for the ghost bounce after
+    a path dies (the dying ray traced once more: the same winner and t,
+    with no scatter bits), the winner code in row 0 (winner << TAPE_SHIFT
+    | the TAPE_* bits K2's bounce set, -1 on a miss) and t_best's bits in
+    row 1; the other entries are TAPE_NONE and 0, and K2 leaves them
+    unwritten."""
     check_kernel_scope(cfg)
     kinds, feats = cfg
     if rec.shape[0] != len(kinds):
@@ -240,11 +256,27 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     alive = torch.ones_like(ox)
     if counts is not None:
         for k in ("scatters", "checker_hits", "metal_scatters",
-                  "metal_absorbs", "glass_scatters", "u3_reads", "refracts"):
+                  "metal_absorbs", "glass_scatters", "u3_reads", "refracts",
+                  "ghosts"):
             counts.setdefault(k, 0)
+    rows = []          # the tape's [2, N] rows, one a bounce
+    was_alive = None   # alive at the previous bounce's start
+
+    def record(won, w_idx, w_far, odd, bits, t_best, alive0, b):
+        valid = torch.full_like(won, b <= max_depth)
+        if was_alive is not None:
+            valid &= (alive0 != 0.0) | (was_alive != 0.0)
+        code = (w_idx << TAPE_SHIFT) | w_far.long() * TAPE_FAR | bits
+        if odd is not None:
+            code |= odd.long() * TAPE_ODD
+        code = torch.where(valid, torch.where(won, code, -1), TAPE_NONE)
+        t = torch.where(valid, t_best, 0.0).detach().contiguous()
+        rows.append(torch.stack([code.to(torch.int32),
+                                 t.view(torch.int32)]))
 
     for b in range(n_bounce):
         u0, u1, u2, u3 = u[b].unbind(0)
+        alive0 = alive
         if counts is not None:
             counts["segments"] = (counts.get("segments", 0)
                                   + int((alive != 0.0).sum()))
@@ -266,6 +298,10 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
 
         a_dd = _dot3(dx, dy, dz, dx, dy, dz)
         inv_a = one / a_dd
+        if tape:
+            w_idx = torch.full(ox.shape, -1, dtype=torch.int64,
+                               device=ox.device)
+            w_far = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
 
         for p, kind in enumerate(kinds):
             r = scal[p]
@@ -284,6 +320,7 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                 far_ok = pos & (t_far > T_MIN) & (t_far < BIG)
                 t_p = torch.where(near_ok, t_near,
                                   torch.where(far_ok, t_far, BIG))
+                far_p = far_ok & ~near_ok
             else:
                 kx, ky, kz = r[C_KN], r[C_KN + 1], r[C_KN + 2]
                 o_kn = _dot3(ox, oy, oz, kx, ky, kz)
@@ -300,9 +337,13 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                            & (xx >= r[C_A0]) & (xx <= r[C_A1])
                            & (yy >= r[C_B0]) & (yy <= r[C_B1]))
                 t_p = torch.where(rect_ok, t_r, BIG)
+                far_p = False
 
             better = t_p < t_best
             t_best = torch.where(better, t_p, t_best)
+            if tape:
+                w_idx = torch.where(better, p, w_idx)
+                w_far = torch.where(better, far_p, w_far)
             if w_sph is not None:
                 w_sph = torch.where(better, r[C_IS_SPHERE], w_sph)
             if kind == "s":
@@ -372,7 +413,9 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
             w_alg = torch.where(use_odd, w_tog, w_teg)
             w_alb = torch.where(use_odd, w_tob, w_teb)
         else:
+            use_odd = None
             w_alr, w_alg, w_alb = w_ter, w_teg, w_teb
+        won = t_best < BIG
 
         # emitted on every hit (reference src/color.rs:8-15): the light's
         # texture value
@@ -399,6 +442,9 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
 
         if b == max_depth:
             # the final bounce only collects (src/color.rs:9)
+            if tape:
+                record(won, w_idx, w_far, use_odd, 0, t_best, alive0, b)
+                was_alive = alive0
             alive = torch.zeros_like(ox)
             continue
 
@@ -484,6 +530,18 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
 
         cont = gain * ok
         keep = cont > 0.5
+        if tape:
+            # the bits K2's scatter sets: on a bounce that tried to scatter
+            # (alive, a hit, not a light)
+            tried = gain * ((1.0 - w_light_c) if has_light else 1.0) > 0.5
+            bits = torch.zeros_like(w_idx)
+            if has_metal:
+                bits |= (tried & is_metal & (metal_ok > 0.5)).long() \
+                    * TAPE_METAL_OK
+            if has_diel:
+                bits |= (tried & is_diel & take_refract).long() * TAPE_REFRACT
+            record(won, w_idx, w_far, use_odd, bits, t_best, alive0, b)
+            was_alive = alive0
         if counts is not None:
             counts["scatters"] += int(keep.sum())
             if has_metal:
@@ -504,9 +562,12 @@ def trace_tiles_plain(rec: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
         dx = torch.where(keep, ndx, dx)
         dy = torch.where(keep, ndy, dy)
         dz = torch.where(keep, ndz, dz)
+        if counts is not None and b + 1 < n_bounce:
+            counts["ghosts"] += int(((alive0 != 0.0) & (cont == 0.0)).sum())
         alive = cont
 
-    return torch.stack([rad_r, rad_g, rad_b], dim=1)
+    rad = torch.stack([rad_r, rad_g, rad_b], dim=1)
+    return (rad, torch.stack(rows)) if tape else rad
 
 
 def trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, max_depth):
@@ -522,22 +583,26 @@ def trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, max_depth):
                  for x, g in zip(leaves, grads))
 
 
-def _check_operands(rec, o, d, u, max_depth, ct=None):
+def _check_operands(rec, o, d, u, max_depth, ct=None, tape=None):
     dev = rec.device
     n = o.shape[0]
-    for name, x, shape in (("rec", rec, (rec.shape[0], REC_C)),
-                           ("o", o, (n, 3)), ("d", d, (n, 3)),
-                           ("u", u, (u.shape[0], 4, n)),
-                           ("ct", ct, (n, 3))):
+    for name, x, shape, dtype in (
+            ("rec", rec, (rec.shape[0], REC_C), torch.float32),
+            ("o", o, (n, 3), torch.float32), ("d", d, (n, 3), torch.float32),
+            ("u", u, (u.shape[0], 4, n), torch.float32),
+            ("ct", ct, (n, 3), torch.float32),
+            ("tape", tape, (u.shape[0], 2, n), torch.int32)):
         if x is None:
             continue
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, rec on {dev}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
         if x.dim() != len(shape) or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {list(shape)}, got "
                              f"{list(x.shape)}")
+        if dev.type == "cuda" and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the kernels")
     if not 0 < rec.shape[0] <= MAX_PRIMS:
         raise ValueError(f"rec must have 1..{MAX_PRIMS} rows")
     if not 0 <= max_depth <= MAX_DEPTH or not 0 < u.shape[0] <= MAX_DEPTH + 1:
@@ -547,111 +612,211 @@ def _check_operands(rec, o, d, u, max_depth, ct=None):
         raise ValueError(f"{n} lanes")
 
 
-def _lane_major(x: torch.Tensor) -> torch.Tensor:
-    return x.t().contiguous()
-
-
 def _feat_flags(cfg) -> tuple[int, ...]:
     """The kernels' launch-uniform family flags, in their argument order."""
     return tuple(int(k in cfg[1])
                  for k in ("light", "sky", "metal", "diel", "checker"))
 
 
-def _launch_fwd(lib, stream, rec, o, d, u, cfg, max_depth: int):
-    """K2 through `lib.rt_grad_fwd` on `stream` → rad f32[N, 3]; raises on
-    a launch error before K2_LAUNCHES moves."""
-    global K2_LAUNCHES
-    n = o.shape[0]
-    rec_c, o_t, d_t = rec.contiguous(), _lane_major(o), _lane_major(d)
-    u_c = u.contiguous()
-    rad = torch.empty((3, n), dtype=torch.float32, device=rec.device)
+# csrc/grad.cu: the reduction slots of a d_rec row (SLOTS) and the
+# workspace's counters (WS_*): K2's two, K3's three, then one a set
+SLOTS = 14
+WS_K3_SET0 = 5
+_WORKSPACES: dict = {}
+
+
+def _workspace(device: torch.device, stream: int, n_ints: int):
+    """The kernels' counters on `device` for launches on `stream`: zeroed
+    once (grown when a launch needs more) and left at zero by every
+    launch, so a call launches nothing but its kernel."""
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < n_ints:
+        ws = torch.zeros(max(n_ints, 64), dtype=torch.int32, device=device)
+        _WORKSPACES[key] = ws
+    return ws
+
+
+def k3_sets(n: int) -> tuple[int, int]:
+    """(set_size, sets) of K3's d_rec reduction over ceil(n / 128) tiles:
+    ceil(√tiles) tiles a set."""
+    tiles = -(-n // GRAD_THREADS)
+    size = math.isqrt(tiles - 1) + 1
+    return size, -(-tiles // size)
+
+
+def _k2(lib, stream, rec, o, d, u, cfg, max_depth: int, rad, tape):
+    """K2 through `lib.rt_grad_fwd` on `stream` into rad and, unless None,
+    tape; raises on a launch error."""
+    ws = _workspace(rec.device, stream, WS_K3_SET0)
     err = lib.rt_grad_fwd(
-        rec_c.data_ptr(), rec.shape[0], o_t.data_ptr(), d_t.data_ptr(),
-        u_c.data_ptr(), rad.data_ptr(), n, u.shape[0], max_depth,
-        *_feat_flags(cfg), stream)
+        rec.data_ptr(), rec.shape[0], o.data_ptr(), d.data_ptr(),
+        u.data_ptr(), rad.data_ptr(), None if tape is None else tape.data_ptr(),
+        o.shape[0], u.shape[0], max_depth, *_feat_flags(cfg), ws.data_ptr(),
+        stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {err}")
-    K2_LAUNCHES += 1
-    return rad.t()
 
 
-def _launch_bwd(lib, stream, rec, o, d, u, ct, cfg, max_depth: int):
-    """K3 through `lib.rt_grad_bwd` on `stream` → (d_rec, d_o, d_d), the
-    per-block d_rec partials summed; raises on a launch error before
-    K3_LAUNCHES moves."""
-    global K3_LAUNCHES
+def _k3_part(rec, n: int) -> torch.Tensor:
+    """K3's scratch: a d_rec row of P · SLOTS floats a tile, then a set."""
+    return torch.empty((-(-n // GRAD_THREADS) + k3_sets(n)[1])
+                       * rec.shape[0] * SLOTS, dtype=torch.float32,
+                       device=rec.device)
+
+
+def _k3(lib, stream, rec, o, d, u, ct, tape, cfg, max_depth: int, d_rec,
+        d_o, d_d, part):
+    """K3 through `lib.rt_grad_bwd` on `stream` into d_rec, d_o and d_d
+    (part: `_k3_part`); raises on a launch error."""
     n = o.shape[0]
-    P = rec.shape[0]
-    nb = -(-n // GRAD_THREADS)
-    rec_c, o_t, d_t = rec.contiguous(), _lane_major(o), _lane_major(d)
-    u_c, ct_t = u.contiguous(), _lane_major(ct)
-    d_o = torch.empty((3, n), dtype=torch.float32, device=rec.device)
-    d_d = torch.empty_like(d_o)
-    d_rec_blocks = torch.empty((nb, P, REC_C), dtype=torch.float32,
-                               device=rec.device)
+    set_size, sets = k3_sets(n)
+    ws = _workspace(rec.device, stream, WS_K3_SET0 + sets)
     err = lib.rt_grad_bwd(
-        rec_c.data_ptr(), P, o_t.data_ptr(), d_t.data_ptr(), u_c.data_ptr(),
-        ct_t.data_ptr(), d_o.data_ptr(), d_d.data_ptr(),
-        d_rec_blocks.data_ptr(), n, nb, u.shape[0], max_depth,
-        *_feat_flags(cfg), stream)
+        rec.data_ptr(), rec.shape[0], o.data_ptr(), d.data_ptr(),
+        u.data_ptr(), tape.data_ptr(), ct.data_ptr(), d_o.data_ptr(),
+        d_d.data_ptr(), d_rec.data_ptr(), part.data_ptr(), n, u.shape[0],
+        max_depth, *_feat_flags(cfg), ws.data_ptr(), set_size, stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
+
+
+def _launch_fwd(lib, stream, rec, o, d, u, cfg, max_depth: int,
+                tape: bool):
+    """K2 on `stream` → rad f32[N, 3], and with tape the winner tape
+    i32[n_bounce, 2, N]; raises on a launch error before K2_LAUNCHES
+    moves."""
+    global K2_LAUNCHES
+    n = o.shape[0]
+    rad = torch.empty((n, 3), dtype=torch.float32, device=rec.device)
+    tp = (torch.empty((u.shape[0], 2, n), dtype=torch.int32,
+                      device=rec.device) if tape else None)
+    _k2(lib, stream, rec, o, d, u, cfg, max_depth, rad, tp)
+    K2_LAUNCHES += 1
+    return (rad, tp) if tape else rad
+
+
+def _launch_bwd(lib, stream, rec, o, d, u, ct, tape, cfg, max_depth: int):
+    """K3 on `stream` → (d_rec, d_o, d_d), d_rec reduced inside the
+    launch; raises on a launch error before K3_LAUNCHES moves."""
+    global K3_LAUNCHES
+    d_o = torch.empty((o.shape[0], 3), dtype=torch.float32, device=rec.device)
+    d_d = torch.empty_like(d_o)
+    d_rec = torch.empty((rec.shape[0], REC_C), dtype=torch.float32,
+                        device=rec.device)
+    _k3(lib, stream, rec, o, d, u, ct, tape, cfg, max_depth, d_rec, d_o, d_d,
+        _k3_part(rec, o.shape[0]))
     K3_LAUNCHES += 1
-    # per-block partials sum outside the kernel (pallas_grad.py:597)
-    return d_rec_blocks.sum(dim=0), d_o.t(), d_d.t()
+    return d_rec, d_o, d_d
 
 
-def grad_fwd(rec, o, d, u, cfg, max_depth: int) -> torch.Tensor:
+def grad_fwd(rec, o, d, u, cfg, max_depth: int, tape: bool = False):
     """Wrapper of K2; same contract as `trace_tiles_plain` (not
-    differentiable: `trace_fast` is). On CUDA tensors it launches
-    `csrc/grad.cu` `rt_grad_fwd` on the current stream or raises; on CPU
-    tensors it runs `trace_tiles_plain`."""
+    differentiable: `trace_fast` is): rad f32[N, 3], or with tape (rad,
+    the winner tape that `grad_bwd` reads). On CUDA tensors (contiguous,
+    as given) it launches `csrc/grad.cu` `rt_grad_fwd` on the current
+    stream or raises; on CPU tensors it runs `trace_tiles_plain`."""
     check_kernel_scope(cfg)
     _check_operands(rec, o, d, u, max_depth)
     if rec.device.type == "cpu":
         with torch.no_grad():
-            return trace_tiles_plain(rec, o, d, u, cfg, max_depth)
+            return trace_tiles_plain(rec, o, d, u, cfg, max_depth, tape=tape)
     if rec.device.type != "cuda":
         raise ValueError(f"no kernel for device {rec.device}")
     from ._build import load
     with torch.cuda.device(rec.device):
         return _launch_fwd(load(), torch.cuda.current_stream().cuda_stream,
-                           rec, o, d, u, cfg, max_depth)
+                           rec, o, d, u, cfg, max_depth, tape)
 
 
-def grad_bwd(rec, o, d, u, ct, cfg, max_depth: int):
+def grad_bwd(rec, o, d, u, ct, cfg, max_depth: int, tape=None):
     """Wrapper of K3 → (d_rec f32[P, REC_C], d_o, d_d f32[N, 3]), the
     vector-Jacobian product of the trace with cotangent ct f32[N, 3]. On
-    CUDA tensors it launches `rt_grad_bwd` and sums its per-block d_rec
-    partials; on CPU tensors it runs `trace_tiles_plain_vjp`."""
+    CUDA tensors it launches `rt_grad_bwd` on K2's winner tape of the same
+    operands (`grad_fwd(..., tape=True)`), which it requires, and raises
+    otherwise; on CPU tensors it runs `trace_tiles_plain_vjp` (the tape,
+    if given, is checked and not needed)."""
     check_kernel_scope(cfg)
-    _check_operands(rec, o, d, u, max_depth, ct)
+    _check_operands(rec, o, d, u, max_depth, ct, tape)
     if rec.device.type == "cpu":
         return trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, max_depth)
     if rec.device.type != "cuda":
         raise ValueError(f"no kernel for device {rec.device}")
+    if tape is None:
+        raise ValueError("K3 reads K2's winner tape: pass grad_fwd(..., "
+                         "tape=True)'s")
     from ._build import load
     with torch.cuda.device(rec.device):
         return _launch_bwd(load(), torch.cuda.current_stream().cuda_stream,
-                           rec, o, d, u, ct, cfg, max_depth)
+                           rec, o, d, u, ct, tape, cfg, max_depth)
+
+
+def bare_launches(rec, o, d, u, ct, cfg, max_depth: int):
+    """(K2, K2 with its tape, K3): closures that launch the kernels on this
+    call's outputs, allocated once here, with no check, no allocation and
+    no launch count: what chip_smoke.py and kernel_ab time beside the
+    wrappers. CUDA tensors as the wrappers take them; K2 with its tape runs
+    once here, so K3 reads the tape of these operands."""
+    from ._build import load
+    lib = load()
+    stream = torch.cuda.current_stream(rec.device).cuda_stream
+    n = o.shape[0]
+    rad = torch.empty((n, 3), dtype=torch.float32, device=rec.device)
+    tape = torch.empty((u.shape[0], 2, n), dtype=torch.int32,
+                       device=rec.device)
+    out = (torch.empty((rec.shape[0], REC_C), dtype=torch.float32,
+                       device=rec.device), torch.empty_like(rad),
+           torch.empty_like(rad), _k3_part(rec, n))
+
+    def fwd(tp=None):
+        _k2(lib, stream, rec, o, d, u, cfg, max_depth, rad, tp)
+
+    fwd(tape)
+    return (fwd, lambda: fwd(tape),
+            lambda: _k3(lib, stream, rec, o, d, u, ct, tape, cfg, max_depth,
+                        *out))
+
+
+def kernel_occupancy(n_prims: int) -> dict:
+    """Per instantiation of K2 and K3 on the current card (`grad_fwd<0>`
+    ... `grad_bwd<1>`): registers, local bytes a thread (the stack frame),
+    blocks resident an SM at a record of n_prims rows and the SMs, by
+    `rt_grad_occupancy`."""
+    import ctypes
+
+    from ._build import load
+    out = (ctypes.c_int * 16)()
+    err = load().rt_grad_occupancy(n_prims, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    names = ("grad_fwd<0>", "grad_fwd<1>", "grad_bwd<0>", "grad_bwd<1>")
+    return {name: dict(registers=out[4 * k], stack_bytes=out[4 * k + 1],
+                       blocks_per_sm=out[4 * k + 2], sms=out[4 * k + 3])
+            for k, name in enumerate(names)}
 
 
 class TraceFast(torch.autograd.Function):
     """(rec, o, d, u) → radiance f32[N, 3]: K2 forward, K3 backward (the
-    plain versions on the CPU). No gradient flows into u."""
+    plain versions on the CPU). No gradient flows into u. `tape`: the
+    forward keeps K2's winner tape for the backward; `trace_fast` asks for
+    it where grad mode is on and rec, o or d requires grad."""
 
     @staticmethod
-    def forward(ctx, rec, o, d, u, cfg, max_depth):
-        ctx.save_for_backward(rec, o, d, u)
+    def forward(ctx, rec, o, d, u, cfg, max_depth, tape):
         ctx.cfg, ctx.max_depth = cfg, max_depth
-        return grad_fwd(rec, o, d, u, cfg, max_depth)
+        if not tape:
+            ctx.save_for_backward(rec, o, d, u)
+            return grad_fwd(rec, o, d, u, cfg, max_depth)
+        rad, tp = grad_fwd(rec, o, d, u, cfg, max_depth, tape=True)
+        ctx.save_for_backward(rec, o, d, u, tp)
+        return rad
 
     @staticmethod
     def backward(ctx, ct):
-        rec, o, d, u = ctx.saved_tensors
+        rec, o, d, u, *tp = ctx.saved_tensors
         d_rec, d_o, d_d = grad_bwd(rec, o, d, u, ct.contiguous(), ctx.cfg,
-                                   ctx.max_depth)
-        return d_rec, d_o, d_d, None, None, None
+                                   ctx.max_depth, tape=tp[0] if tp else None)
+        return d_rec, d_o, d_d, None, None, None, None
 
 
 def trace_fast(scene: SceneTables, o: torch.Tensor, d: torch.Tensor,
@@ -677,4 +842,6 @@ def trace_fast(scene: SceneTables, o: torch.Tensor, d: torch.Tensor,
     if u is None:
         u = fast_draws(seed, o.shape[0], n_bounce, o.device)
     rec = fast_grad_record(scene)
-    return TraceFast.apply(rec, o, d, u.detach(), cfg, max_depth)
+    tape = torch.is_grad_enabled() and (rec.requires_grad or o.requires_grad
+                                        or d.requires_grad)
+    return TraceFast.apply(rec, o, d, u.detach(), cfg, max_depth, tape)

@@ -7,7 +7,9 @@ plain twin and torch autograd on the CPU), the cube's tilt through
 `xf_sin` and `xf_cos` among them, equal `jax.grad` through the JAX
 `fast_grad_record` and `_trace_tiles`; one geometry step on injected
 identical rays and draws equals `jax.value_and_grad` of the JAX geometry
-loss; a tiny CPU run moves every group. The twin's primal and vjp on this
+loss; twenty steps of the trainer follow the JAX `main_geometry` step and
+its optimizer step by step on the same inputs; a tiny CPU run moves every
+group. The twin's primal and vjp on this
 scene, and K3's design, are held in tests/test_torch_grad.py (`SCENES`).
 Tolerances are stated per test.
 """
@@ -18,6 +20,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -157,6 +160,111 @@ def test_geometry_step_matches_jax():
     for k, g in (("albedo", albedo), ("emit", emit), ("theta", theta)):
         assert float(g.grad.abs().max()) > 0, k
         _assert_scale_close(g.grad.numpy(), jg[k], 5e-4, k)
+
+
+def _jax_geo_trainer(inputs, *, block, spp, max_depth):
+    """The JAX `main_geometry` step (examples/inverse_render.py:513-547:
+    the path-matched loss, value_and_grad, optax Adam per group under the
+    cosine decay over ceil(steps/10)·10 steps, the clamps) over the given
+    (o, d, u) of each step → the parameters before each step and after the
+    last, and the losses."""
+    total = -(-len(inputs) // 10) * 10
+    jt = _jax_geo_scene(ir.TRUE_GEO_ALBEDO, ir.TRUE_GEO_EMIT,
+                        ir.TRUE_TILT_DEG)
+    js = _jax_geo_scene(ir.START_GEO_ALBEDO, ir.TRUE_GEO_EMIT, 0.0)
+    light_tex, cube_tex = ir.geo_param_rows(ir.build_geo_scene())
+    cfg = pg.fast_grad_config(js)
+
+    def img(s, o, d, u):
+        rad = _jax_trace(pg.fast_grad_record(s), o, d, u, cfg, max_depth)
+        return rad.reshape(block, spp, 3).sum(axis=1) / spp
+
+    @jax.jit
+    def value_and_grad(p, o, d, u):
+        target = jax.lax.stop_gradient(img(jt, o, d, u))
+
+        def loss_fn(p):
+            s2 = dataclasses.replace(
+                js, tex_color=js.tex_color.at[cube_tex].set(p["albedo"])
+                .at[light_tex].set(jnp.broadcast_to(p["emit"], (3,))),
+                xf_sin=js.xf_sin.at[ir.GEO_XF].set(jnp.sin(p["theta"])),
+                xf_cos=js.xf_cos.at[ir.GEO_XF].set(jnp.cos(p["theta"])))
+            return jnp.mean((img(s2, o, d, u) - target) ** 2)
+        return jax.value_and_grad(loss_fn)(p)
+
+    sched = lambda lr: optax.cosine_decay_schedule(lr, total, alpha=0.1)
+    opt = optax.multi_transform(
+        {"albedo": optax.adam(sched(0.05)), "emit": optax.adam(sched(0.2)),
+         "theta": optax.adam(sched(0.06))},
+        {"albedo": "albedo", "emit": "emit", "theta": "theta"})
+    p = {"albedo": jnp.asarray(ir.START_GEO_ALBEDO, jnp.float32),
+         "emit": jnp.asarray(ir.START_GEO_EMIT, jnp.float32),
+         "theta": jnp.asarray(ir.START_THETA, jnp.float32)}
+    state = opt.init(p)
+    params, losses = [], []
+    for o, d, u in inputs:
+        params.append((np.asarray(p["albedo"]), float(p["emit"]),
+                       float(p["theta"])))
+        loss, g = value_and_grad(p, o.numpy(), d.numpy(), u.numpy())
+        updates, state = opt.update(g, state)
+        p = optax.apply_updates(p, updates)
+        p = {"albedo": jnp.clip(p["albedo"], 0.0, 1.0),
+             "emit": jnp.clip(p["emit"], 0.0, 20.0),
+             "theta": jnp.clip(p["theta"], -1.2, 1.2)}
+        losses.append(float(loss))
+    params.append((np.asarray(p["albedo"]), float(p["emit"]),
+                   float(p["theta"])))
+    return params, losses
+
+
+def test_geometry_trainers_agree_step_by_step(monkeypatch):
+    """10 steps (one chunk) of `train_geometry` on 32 pixels × 4 spp,
+    depth 1 (a camera ray's hit, its scatter and the bounce that collects:
+    the cube's normal and t reach the sky's radiance, so the tilt's whole
+    geometric chain runs; each bounce more doubles the JAX gradient's
+    compile time), numpy-seeded pixels and draws shared with the JAX
+    `main_geometry` step: the parameters each step starts from (albedo,
+    emission, θ) agree within 2e-5, the losses within 1e-4 relative or
+    1e-7, the end point within 2e-5 (the default trainer's tolerances,
+    tests/test_torch_inverse.py). A failure names the first step where
+    they part."""
+    steps, block, spp, md = 10, 32, 4, 1
+    r = np.random.default_rng(21)
+    cam = ir.geo_camera()
+    inputs = []
+    for i in range(steps):
+        pid = torch.from_numpy(r.integers(0, 200 * 200, block)).long()
+        o, d, _ = camera_lane_rays(cam, pid.repeat_interleave(spp), 2000 + i,
+                                   200, 200)
+        u = r.random((md + 1, 4, block * spp), dtype=np.float32)
+        inputs.append((o, d, torch.from_numpy(u)))
+
+    ours = []
+    loss_fn = ir.path_matched_loss
+
+    def recording_loss(*args, theta=None, **kw):
+        ours.append((args[4].detach().numpy().copy(), args[5].item(),
+                     theta.item()))
+        return loss_fn(*args, theta=theta, **kw)
+    monkeypatch.setattr(ir, "step_inputs", lambda cam, i, **kw: inputs[i])
+    monkeypatch.setattr(ir, "path_matched_loss", recording_loss)
+    res = ir.train_geometry(steps=steps, nx=200, ny=200, spp=spp,
+                            block=block, max_depth=md, device="cpu",
+                            log=lambda *a: None)
+    ours.append((res["albedo"], res["emit"], math.radians(res["tilt_deg"])))
+
+    want, want_losses = _jax_geo_trainer(inputs, block=block, spp=spp,
+                                         max_depth=md)
+    assert len(ours) == len(want) == steps + 1
+    for i, ((a, e, th), (wa, we, wth)) in enumerate(zip(ours, want)):
+        assert (np.abs(a - wa).max() <= 2e-5 and abs(e - we) <= 2e-5
+                and abs(th - wth) <= 2e-5), (
+            f"the trainers part before step {i}: albedo {a} vs {wa}, "
+            f"emission {e} vs {we}, θ {th} vs {wth}")
+    np.testing.assert_allclose(res["losses"], want_losses, rtol=1e-4,
+                               atol=1e-7)
+    # the run moved every group
+    assert abs(res["tilt_deg"]) > 0.1 and res["emit"] != ir.START_GEO_EMIT
 
 
 def test_geometry_tiny_cpu_run_moves_all_groups():

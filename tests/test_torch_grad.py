@@ -284,7 +284,8 @@ def test_kernel_plumbing_matches_jax_interpret():
     rec_t = _t(rec).requires_grad_(True)
     o_t, d_t = _t(o).requires_grad_(True), _t(d).requires_grad_(True)
     before = (tg.K2_LAUNCHES, tg.K3_LAUNCHES)
-    got = tg.TraceFast.apply(rec_t, o_t, d_t, _t(u), (kinds, feats), md)
+    got = tg.TraceFast.apply(rec_t, o_t, d_t, _t(u), (kinds, feats), md,
+                             True)
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6,
                                atol=1e-6)
     got.backward(_t(ct))
@@ -294,31 +295,25 @@ def test_kernel_plumbing_matches_jax_interpret():
     _assert_scale_close(d_t.grad.numpy(), want_do[3:].T, 5e-4, "d_d")
 
 
-def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
-    """csrc/grad.cu K3 in vectorized torch, lane for lane: the forward
-    replay keeps a tape of (winner, root, the checker's odd pick, metal_ok,
-    the glass's refract choice, throughput, alive, o, d, t) per bounce,
-    stopped one bounce after a path dies; the reverse sweep carries the
-    cotangents of (o, d, throughput, alive) back through the color chain,
-    the sky, the materials' scatter (lambertian, metal with fuzz, glass
-    refract or reflect; comparisons carry nothing), the normal × flip, the
-    hit point and the winner's t, each bounce adding into its winner's row.
-    Returns (d_rec, d_o, d_d)."""
+def _replay_tape(rec, o, d, u, cfg, max_depth):
+    """The winner tape as the replaying K3 of csrc/grad.cu before the tape
+    recomputed it: the twin's trace one bounce at a time from its own
+    state, each prim's hit test (`_prim_t`) for the winner, its root and t,
+    the bits a bounce's scatter sets (a metal's metal_ok, a glass's
+    refract, on a bounce that tried to scatter: alive, a hit, not a light,
+    not the last), the checker's odd pick, stopped one bounce after a path
+    dies (the ghost entry, which tries no scatter) → i32[n_bounce, 2, N],
+    TAPE_NONE and 0 past each lane's last entry."""
     has_light = "light" in cfg[1]
-    has_sky = "sky" in cfg[1]
     has_metal = "metal" in cfg[1]
     has_diel = "diel" in cfg[1]
     has_checker = "checker" in cfg[1]
     n, n_bounce = o.shape[0], u.shape[0]
-    P = rec.shape[0]
-    sky = torch.tensor([0.5, 0.7, 1.0])
     no = torch.zeros(n, dtype=torch.bool)
-    # the replay: the twin's trace one bounce at a time, from its own state
-    tape = []
     o, d = o.clone(), d.clone()
-    thr = torch.ones(n, 3)
     alive = torch.ones(n)
     stopped = torch.zeros(n, dtype=torch.bool)
+    rows = []
     for b in range(n_bounce):
         ghost = alive == 0
         t_best = torch.full((n,), tg.BIG)
@@ -326,7 +321,6 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
         far = torch.zeros(n, dtype=torch.bool)
         a_dd = (d * d).sum(dim=1)
         for p, kind in enumerate(cfg[0]):
-            # the kernel's hit test: the twin's arithmetic on one prim
             t_p, far_p = _prim_t(rec[p], kind, *o.unbind(1), *d.unbind(1),
                                  a_dd)
             better = t_p < t_best
@@ -338,16 +332,76 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
         t = torch.where(hit, t_best, 0.0)[:, None]
         pt = o + t * d
         odd = _use_odd(w, pt) & hit if has_checker else no
-        if b == max_depth:
-            tape.append((win, far, odd, no, no, thr, alive, o, d, t_best,
-                         ~stopped))
-            break
         nrm = _normal(w, pt)
-        ss = _ball(u[b])
-        nd, mok, take = _scatter(w, d, nrm, ss, u[b, 3], cfg)
-        tape.append((win, far, odd, mok & hit, take & hit, thr, alive, o, d,
-                     t_best, ~stopped))
-        stopped = stopped | ghost
+        nd, mok, take = _scatter(w, d, nrm, _ball(u[b]), u[b, 3], cfg)
+        is_metal = hit & (w[:, tg.C_METAL] > 0.5) if has_metal else no
+        is_diel = hit & (w[:, tg.C_DIEL] > 0.5) if has_diel else no
+        light = (w[:, tg.C_LIGHT] > 0.5) & hit if has_light else no
+        tried = hit & ~ghost & ~light & (b != max_depth)
+        code = ((win << tg.TAPE_SHIFT) | far.long() * tg.TAPE_FAR
+                | odd.long() * tg.TAPE_ODD
+                | (tried & is_metal & mok).long() * tg.TAPE_METAL_OK
+                | (tried & is_diel & take).long() * tg.TAPE_REFRACT)
+        on = ~stopped & (b <= max_depth)
+        code = torch.where(on, torch.where(hit, code, -1), tg.TAPE_NONE)
+        tt = torch.where(on, t_best, 0.0).contiguous()
+        rows.append(torch.stack([code.to(torch.int32),
+                                 tt.view(torch.int32)]))
+        stopped = stopped | ghost | (b == max_depth)
+        ok = torch.where(is_metal, mok.float(), 1.0)
+        if has_light:
+            ok = ok * (1.0 - w[:, tg.C_LIGHT])
+        keep = (torch.where(hit, alive * ok, 0.0) > 0.5)[:, None]
+        o = torch.where(keep, pt, o)
+        d = torch.where(keep, nd, d)
+        alive = torch.where(hit, alive * ok, 0.0)
+    return torch.stack(rows)
+
+
+def _k3_mirror(rec, o, d, u, tape, ct, cfg, max_depth):
+    """csrc/grad.cu K3 in vectorized torch, lane for lane: the forward
+    rebuilt from K2's winner tape (`trace_tiles_plain(..., tape=True)`: per
+    bounce the winner, its root, t, the checker's odd pick, metal_ok and
+    the glass's refract choice; no hit test), keeping the state before each
+    bounce (throughput, alive, o, d) up to the ghost entry one bounce after
+    a path dies; the reverse sweep carries the cotangents of (o, d,
+    throughput, alive) back through the color chain, the sky, the
+    materials' scatter (lambertian, metal with fuzz, glass refract or
+    reflect; comparisons carry nothing), the normal × flip, the hit point
+    and the winner's t, each bounce adding into its winner's row.
+    Returns (d_rec, d_o, d_d)."""
+    has_light = "light" in cfg[1]
+    has_sky = "sky" in cfg[1]
+    has_metal = "metal" in cfg[1]
+    has_diel = "diel" in cfg[1]
+    n, n_bounce = o.shape[0], u.shape[0]
+    P = rec.shape[0]
+    sky = torch.tensor([0.5, 0.7, 1.0])
+    no = torch.zeros(n, dtype=torch.bool)
+    codes = tape[:, 0].long()
+    t_all = tape[:, 1].contiguous().view(torch.float32)
+    # the rebuild: the state before each bounce, from the tape's winners
+    steps = []
+    o, d = o.clone(), d.clone()
+    thr = torch.ones(n, 3)
+    alive = torch.ones(n)
+    for b in range(n_bounce):
+        code, t_best = codes[b], t_all[b]
+        on = code != tg.TAPE_NONE
+        hit = code >= 0
+        win = torch.where(hit, code >> tg.TAPE_SHIFT, -1)
+        far = hit & ((code & tg.TAPE_FAR) != 0)
+        odd = hit & ((code & tg.TAPE_ODD) != 0)
+        mok = hit & ((code & tg.TAPE_METAL_OK) != 0)
+        take = hit & ((code & tg.TAPE_REFRACT) != 0)
+        steps.append((win, far, odd, mok, take, thr, alive, o, d, t_best,
+                      on))
+        if b == max_depth:
+            break
+        w = rec[win.clamp(min=0)]
+        t = torch.where(hit, t_best, 0.0)[:, None]
+        pt = o + t * d
+        nd, _, _ = _scatter(w, d, _normal(w, pt), _ball(u[b]), u[b, 3], cfg)
         is_metal = hit & (w[:, tg.C_METAL] > 0.5) if has_metal else no
         is_diel = hit & (w[:, tg.C_DIEL] > 0.5) if has_diel else no
         ok = torch.where(is_metal, mok.float(), 1.0)
@@ -355,8 +409,7 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
             ok = ok * (1.0 - w[:, tg.C_LIGHT])
         cont = torch.where(hit, alive * ok, 0.0)
         keep = (cont > 0.5)[:, None]
-        al = _albedo(w, odd)
-        at = torch.where(is_diel[:, None], 1.0, al)
+        at = torch.where(is_diel[:, None], 1.0, _albedo(w, odd))
         thr = torch.where(keep, thr * at, thr)
         o = torch.where(keep, pt, o)
         d = torch.where(keep, nd, d)
@@ -365,8 +418,8 @@ def _k3_mirror(rec, o, d, u, ct, cfg, max_depth):
     d_rec = torch.zeros(P, tg.REC_C)
     g_o, g_d, g_thr = torch.zeros(n, 3), torch.zeros(n, 3), torch.zeros(n, 3)
     g_alive = torch.zeros(n)
-    for b in range(len(tape) - 1, -1, -1):
-        win, far, odd, mok, take, thr_b, alive_b, o_b, d_b, t_b, on = tape[b]
+    for b in range(len(steps) - 1, -1, -1):
+        win, far, odd, mok, take, thr_b, alive_b, o_b, d_b, t_b, on = steps[b]
         hit = (win >= 0) & on
         hitf = hit.float()
         w = rec[win.clamp(min=0)]
@@ -661,25 +714,129 @@ def _prim_t(r, kind, ox, oy, oz, dx, dy, dz, a_dd):
 
 @pytest.mark.parametrize("name", SCENES)
 def test_k3_design_equals_autograd(name):
-    """K3's algorithm (the tape stopped one bounce after a path dies, the
-    reverse color, sky and geometric chains, winner-only routing), mirrored
-    in torch, vs autograd through the twin: each d_rec column and each of
-    d_o, d_d within 1e-5 of its own scale (sums in another order). Pins the
+    """K3's algorithm (the state rebuilt from the plain winner tape up to
+    the ghost entry one bounce after a path dies, no hit test; the reverse
+    color, sky and geometric chains, winner-only routing), mirrored in
+    torch, vs autograd through the twin: each d_rec column and each of d_o,
+    d_d within 1e-5 of its own scale (sums in another order). Pins the
     design before the card runs it."""
     port, _ = _scenes(name)
     md = 6
-    o, d, u, ct = _probe(2048, md + 1, seed=11)
+    o, d, u, ct = (_t(x) for x in _probe(2048, md + 1, seed=11))
     cfg = tg.fast_grad_config(port)
     rec = tg.fast_grad_record(port).detach()
-    want = tg.trace_tiles_plain_vjp(rec, _t(o), _t(d), _t(u), _t(ct), cfg,
-                                    md)
-    got = _k3_mirror(rec, _t(o), _t(d), _t(u), _t(ct), cfg, md)
+    want = tg.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, md)
+    _, tape = tg.trace_tiles_plain(rec, o, d, u, cfg, md, tape=True)
+    got = _k3_mirror(rec, o, d, u, tape, ct, cfg, md)
     _assert_cols_close(got[0].numpy(), want[0].numpy(), 1e-5, "d_rec")
     for g, w, leaf in zip(got[1:], want[1:], ("d_o", "d_d")):
         if "sky" in cfg[1]:
             _assert_scale_close(g.numpy(), w.numpy(), 1e-5, leaf)
         else:
             assert not g.any() and not w.any()
+
+
+@pytest.mark.parametrize("name,md,n_bounce", [
+    *((name, 6, 7) for name in SCENES), ("spheres_sky", 16, 17),
+    ("inverse_render", 2, 3), ("geometry", 6, 4)])
+def test_plain_tape_equals_replay(name, md, n_bounce):
+    """The plain winner tape, bit for bit, against the winners, roots, t
+    and bits that the replaying K3 recomputed (`_replay_tape`: each prim's
+    hit test on the twin's state), ghost entries included, TAPE_NONE past
+    each lane's last entry; with fewer bounces than depth + 1 the tape ends
+    with the draws. The tape leaves the radiance bit for bit as it was."""
+    port, _ = _scenes(name)
+    o, d, u, _ = (_t(x) for x in _probe(2048, n_bounce, seed=4))
+    cfg = tg.fast_grad_config(port)
+    rec = tg.fast_grad_record(port).detach()
+    rad, tape = tg.trace_tiles_plain(rec, o, d, u, cfg, md, tape=True)
+    assert tape.dtype == torch.int32 and tape.shape == (n_bounce, 2, 2048)
+    assert torch.equal(rad, tg.trace_tiles_plain(rec, o, d, u, cfg, md))
+    want = _replay_tape(rec, o, d, u, cfg, md)
+    assert torch.equal(tape[:, 0], want[:, 0]), (
+        f"codes differ at {int((tape[:, 0] != want[:, 0]).sum())} entries")
+    assert torch.equal(tape[:, 1], want[:, 1])
+    codes = tape[:, 0]
+    # every lane has bounce 0; the counts size the tape's bytes in K2's and
+    # K3's bounds: an entry a segment and a ghost
+    assert bool((codes[0] != tg.TAPE_NONE).all())
+    c = {}
+    tg.trace_tiles_plain(rec, o, d, u, cfg, md, counts=c)
+    assert int((codes != tg.TAPE_NONE).sum()) == c["segments"] + c["ghosts"]
+    assert (c["ghosts"] > 0) == (n_bounce > 1)
+
+
+def test_k3_source_runs_no_hit_test():
+    """csrc/grad.cu: K3 (`grad_bwd` and what it calls) reads the winner
+    tape and never calls `closest_hit`; K2 does."""
+    import re
+    src = open(os.path.join(os.path.dirname(tg.__file__), "..", "csrc",
+                            "grad.cu")).read()
+    bodies = {}
+    for m in re.finditer(r"\n(?:template <bool MAT>\n)?__global__ void "
+                         r"__launch_bounds__\(THREADS\)\n(\w+)\(", src):
+        end = src.find("\n}\n", m.end())
+        bodies[m.group(1)] = src[m.end():end]
+    assert set(bodies) == {"grad_fwd", "grad_bwd"}
+    assert "closest_hit" not in bodies["grad_bwd"]
+    assert "tape[" in bodies["grad_bwd"]
+    assert "trace_lane<MAT>" in bodies["grad_fwd"]
+    lane = src[src.find("trace_lane("):src.find("\n}\n",
+                                                 src.find("trace_lane("))]
+    assert "closest_hit(" in lane
+
+
+def test_only_a_gradient_trace_asks_for_the_tape(monkeypatch):
+    """path_matched_loss traces the target under torch.no_grad (no tape)
+    and the candidate with the parameters' gradient (the tape, which the
+    backward reads); a trace of tensors that need no gradient asks for
+    none either."""
+    asked = []
+    fwd = tg.grad_fwd
+
+    def spy(*args, tape=False, **kw):
+        asked.append(tape)
+        return fwd(*args, tape=tape, **kw)
+    monkeypatch.setattr(tg, "grad_fwd", spy)
+    scene = ir.build_scene(ir.START_ALBEDO, ir.START_EMIT)
+    target = ir.build_scene(ir.TRUE_ALBEDO, ir.TRUE_EMIT)
+    light_tex, box_tex = ir.param_tex_rows(scene)
+    cfg = tg.fast_grad_config(scene)
+    o, d, u = ir.step_inputs(ir.camera(), 0, nx=16, ny=16, spp=2, block=8,
+                             max_depth=3, device="cpu")
+    albedo = torch.tensor(ir.START_ALBEDO, requires_grad=True)
+    emit = torch.tensor(ir.START_EMIT, requires_grad=True)
+    loss = ir.path_matched_loss(target, scene, light_tex, box_tex, albedo,
+                                emit, o, d, u, block=8, spp=2, max_depth=3,
+                                cfg=cfg)
+    assert asked == [False, True]
+    loss.backward()
+    assert albedo.grad is not None and float(albedo.grad.abs().sum()) > 0
+    asked.clear()
+    tg.trace_fast(target, o, d, 0, max_depth=3, cfg=cfg, u=u)
+    assert asked == [False]
+
+
+@pytest.mark.parametrize("name", ["inverse_render", "spheres_sky"])
+def test_wrappers_take_rows_and_the_tape(name):
+    """grad_fwd and grad_bwd take o, d, ct f32[N, 3] as the caller holds
+    them and give rad, d_o, d_d f32[N, 3] (contiguous) and d_rec f32[P,
+    35]; grad_fwd(tape=True) gives the same rad and the tape that grad_bwd
+    takes; on the CPU grad_bwd is autograd's with or without it."""
+    port, _ = _scenes(name)
+    o, d, u, ct = (_t(x) for x in _probe(256, 7, seed=9))
+    cfg = tg.fast_grad_config(port)
+    rec = tg.fast_grad_record(port).detach()
+    rad = tg.grad_fwd(rec, o, d, u, cfg, 6)
+    rad_t, tape = tg.grad_fwd(rec, o, d, u, cfg, 6, tape=True)
+    assert rad.shape == (256, 3) and rad.is_contiguous()
+    assert torch.equal(rad, rad_t) and tape.shape == (7, 2, 256)
+    got = tg.grad_bwd(rec, o, d, u, ct, cfg, 6, tape=tape)
+    want = tg.grad_bwd(rec, o, d, u, ct, cfg, 6)
+    assert got[0].shape == (rec.shape[0], tg.REC_C)
+    for a, b in zip(got, want):
+        assert a.is_contiguous() and torch.equal(a, b)
+    assert got[1].shape == got[2].shape == (256, 3)
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -815,14 +972,16 @@ def test_failed_launch_counts_nothing():
     cfg = tg.fast_grad_config(scene)
     rec = tg.fast_grad_record(scene)
     o, d, u, ct = (_t(x) for x in _probe(32, 7, seed=2))
+    tape = torch.zeros(7, 2, 32, dtype=torch.int32)
     before = (tg.K2_LAUNCHES, tg.K3_LAUNCHES)
     with pytest.raises(RuntimeError, match="K2 launch failed: cudaError 700"):
-        tg._launch_fwd(Lib(700), 0, rec, o, d, u, cfg, 6)
+        tg._launch_fwd(Lib(700), 0, rec, o, d, u, cfg, 6, True)
     with pytest.raises(RuntimeError, match="K3 launch failed: cudaError 700"):
-        tg._launch_bwd(Lib(700), 0, rec, o, d, u, ct, cfg, 6)
+        tg._launch_bwd(Lib(700), 0, rec, o, d, u, ct, tape, cfg, 6)
     assert (tg.K2_LAUNCHES, tg.K3_LAUNCHES) == before
-    assert tg._launch_fwd(Lib(0), 0, rec, o, d, u, cfg, 6).shape == (32, 3)
-    assert len(tg._launch_bwd(Lib(0), 0, rec, o, d, u, ct, cfg, 6)) == 3
+    assert tg._launch_fwd(Lib(0), 0, rec, o, d, u, cfg, 6,
+                          False).shape == (32, 3)
+    assert len(tg._launch_bwd(Lib(0), 0, rec, o, d, u, ct, tape, cfg, 6)) == 3
     assert (tg.K2_LAUNCHES, tg.K3_LAUNCHES) == (before[0] + 1, before[1] + 1)
 
 
@@ -841,6 +1000,12 @@ def test_wrappers_reject_bad_operands():
         tg.grad_fwd(rec, o, d, torch.rand(18, 4, 32), cfg, 17)
     with pytest.raises(UnsupportedScene):
         tg.trace_fast(scene, o, d, 0, max_depth=17, cfg=cfg)
+    # the winner tape: i32[n_bounce, 2, N]
+    with pytest.raises(ValueError):
+        tg.grad_bwd(rec, o, d, u, ct, cfg, 6,
+                    tape=torch.zeros(7, 2, 16, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        tg.grad_bwd(rec, o, d, u, ct, cfg, 6, tape=torch.zeros(7, 2, 32))
 
 
 def test_fast_draws_are_the_grad_stream():

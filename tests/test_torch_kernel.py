@@ -7,7 +7,8 @@ moving-sphere, dynamic-table, box-table, noise, image, media, dense-medium
 walk, lattice-corner and roulette sections, its two-level cull against the
 one-level cull and no cull, and K1f: the stats instantiation with and
 without its DDA row, JAX's balanced pixel table and the render's own),
-K2/K3 (`grad.cu`: lambertian, light, sky, metal, glass and the checker),
+K2/K3 (`grad.cu`: lambertian, light, sky, metal, glass and the checker;
+K2's winner tape against the plain tape, K3 on it, run twice),
 D3 (`peak.cu`) and D1/D2 (`microbench.cu`), and hold them against `trace_plain`,
 `trace_tiles_plain` and autograd through it, `fp32_chain_plain`,
 `attr_read_plain` and `member_plain`, run on the same card, the same
@@ -915,19 +916,38 @@ def _grad_operands(scene, device, n=4096, max_depth=6,
             grad.fast_grad_config(scene))
 
 
+def _k2_k3(rec, o, d, u, ct, cfg, md):
+    """K2 with its winner tape, then K3 on that tape twice → (rad, K3's
+    (d_rec, d_o, d_d)); the tape equals the plain tape bit for bit on every
+    entry the plain tape defines (TAPE_NONE marks the rest, which K2 does
+    not write), and the two K3 launches are bit-identical (d_rec is reduced
+    in a fixed order)."""
+    k, tape = grad.grad_fwd(rec, o, d, u, cfg, md, tape=True)
+    dk = grad.grad_bwd(rec, o, d, u, ct, cfg, md, tape=tape)
+    again = grad.grad_bwd(rec, o, d, u, ct, cfg, md, tape=tape)
+    _, want = grad.trace_tiles_plain(rec, o, d, u, cfg, md, tape=True)
+    torch.cuda.synchronize()
+    defined = want[:, 0] != grad.TAPE_NONE
+    for row in (0, 1):
+        assert torch.equal(tape[:, row][defined], want[:, row][defined])
+    for a, b in zip(dk, again):
+        assert torch.equal(a, b)
+    return k, dk
+
+
 @pytest.mark.parametrize("make", [
     lambda dev: inverse_render.build_scene(device=dev), _grad_spheres])
 def test_k2_matches_twin_and_k3_matches_autograd(cuda, make):
     """K2 vs trace_tiles_plain: ≥ 99% of lanes within 1e-4 relative, channel
-    means within 1e-4. K3 vs autograd of the twin: d_rec within 1e-4 of its
-    scale (float atomics sum in another order), d_o and d_d exact zeros."""
+    means within 1e-4; its winner tape the plain tape's (`_k2_k3`). K3 on
+    that tape vs autograd of the twin: d_rec within 1e-4 of its scale (sums
+    in another order), d_o and d_d exact zeros; d_rec the same in two
+    launches. One launch a call."""
     rec, o, d, u, ct, cfg = _grad_operands(make(cuda), cuda)
     before = (grad.K2_LAUNCHES, grad.K3_LAUNCHES)
-    k = grad.grad_fwd(rec, o, d, u, cfg, 6)
-    dk = grad.grad_bwd(rec, o, d, u, ct, cfg, 6)
-    torch.cuda.synchronize()
+    k, dk = _k2_k3(rec, o, d, u, ct, cfg, 6)
     assert (grad.K2_LAUNCHES, grad.K3_LAUNCHES) == (before[0] + 1,
-                                                    before[1] + 1)
+                                                    before[1] + 2)
     p = grad.trace_tiles_plain(rec, o, d, u, cfg, 6)
     assert torch.isfinite(k).all() and float(k.sum()) > 0
     close = torch.isclose(k, p, rtol=1e-4, atol=1e-6).all(dim=1)
@@ -987,15 +1007,14 @@ def _assert_cols_close(got, want, atol_scale, what):
     (lambda dev: _grad_spheres(dev, BG_SKY), inverse_render.camera)])
 def test_k2_sky_bit_equal_and_k3_geometric_adjoint(cuda, make, camera_of):
     """Under the sky: K2 equals the twin bit for bit (the twin's op order,
-    -fmad=false, rsqrtf for torch.rsqrt); K3's d_rec within 1e-4 of each
-    column's own scale of autograd through the twin (float atomics sum in
-    another order), the same columns live; d_o and d_d within 1e-4 of
-    their scale."""
+    -fmad=false, rsqrtf for torch.rsqrt), and so does its tape (`_k2_k3`);
+    K3's d_rec within 1e-4 of each column's own scale of autograd through
+    the twin (sums in another order), the same columns live; d_o and d_d
+    within 1e-4 of their scale."""
     rec, o, d, u, ct, cfg = _grad_operands(make(cuda), cuda,
                                            camera_of=camera_of)
     assert "sky" in cfg[1]
-    k = grad.grad_fwd(rec, o, d, u, cfg, 6)
-    dk = grad.grad_bwd(rec, o, d, u, ct, cfg, 6)
+    k, dk = _k2_k3(rec, o, d, u, ct, cfg, 6)
     p = grad.trace_tiles_plain(rec, o, d, u, cfg, 6)
     torch.cuda.synchronize()
     assert float(p.sum()) > 0 and torch.equal(k, p)
@@ -1041,7 +1060,7 @@ def test_k3_grazing_probe_is_finite(cuda):
     ct = torch.rand(n, 3, generator=g, device=cuda)
     rec = grad.fast_grad_record(scene).detach()
     cfg = grad.fast_grad_config(scene)
-    dk = grad.grad_bwd(rec, o, d, u, ct, cfg, 6)
+    _, dk = _k2_k3(rec, o, d, u, ct, cfg, 6)
     dp = grad.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, 6)
     torch.cuda.synchronize()
     for name, g_k, w in zip(("d_rec", "d_o", "d_d"), dk, dp):
@@ -1158,14 +1177,14 @@ def _hold_k2_k3(rec, o, d, u, ct, cfg, md):
     """K2 bit-equal to the twin; K3's d_rec within 1e-4 of each column's
     own scale of autograd through the twin, the same columns live; d_o and
     d_d within 1e-4 of their scale (exact zeros without the sky); all
-    finite. Returns K3's d_rec."""
+    finite; the tape and the repeat as `_k2_k3` holds them. Returns K3's
+    d_rec."""
     before = (grad.K2_LAUNCHES, grad.K3_LAUNCHES)
-    k = grad.grad_fwd(rec, o, d, u, cfg, md)
-    dk = grad.grad_bwd(rec, o, d, u, ct, cfg, md)
+    k, dk = _k2_k3(rec, o, d, u, ct, cfg, md)
     p = grad.trace_tiles_plain(rec, o, d, u, cfg, md)
     torch.cuda.synchronize()
     assert (grad.K2_LAUNCHES, grad.K3_LAUNCHES) == (before[0] + 1,
-                                                    before[1] + 1)
+                                                    before[1] + 2)
     assert float(p.sum()) > 0 and torch.equal(k, p)
     dp = grad.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, md)
     for name, g_k, w in zip(("d_rec", "d_o", "d_d"), dk, dp):

@@ -30,7 +30,7 @@ from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
 from raytracing_rust_tpu_torch.ops import grad as tg
 from test_torch_grad import (GRAD_LEAVES, _assert_cols_close,
                              _assert_scale_close, _jax_trace, _k3_mirror,
-                             _leaves, _probe, _t)
+                             _leaves, _probe, _replay_tape, _t)
 from test_torch_kernel import checker_scene, glass_scene, probe_scene
 
 
@@ -187,7 +187,10 @@ def test_k3_design_equals_autograd(name, md):
     cfg = tg.fast_grad_config(port)
     rec = tg.fast_grad_record(port).detach()
     want = tg.trace_tiles_plain_vjp(rec, o, d, u, ct, cfg, md)
-    got = _k3_mirror(rec, o, d, u, ct, cfg, md)
+    _, tape = tg.trace_tiles_plain(rec, o, d, u, cfg, md, tape=True)
+    # the plain tape is the replaying K3's, bit for bit
+    assert torch.equal(tape, _replay_tape(rec, o, d, u, cfg, md))
+    got = _k3_mirror(rec, o, d, u, tape, ct, cfg, md)
     _assert_cols_close(got[0].numpy(), want[0].numpy(), 1e-5, "d_rec")
     for g, w, leaf in zip(got[1:], want[1:], ("d_o", "d_d")):
         if "sky" in cfg[1]:
@@ -245,7 +248,8 @@ def test_kernel_plumbing_matches_jax_interpret():
     rec_t = _t(rec).requires_grad_(True)
     o_t, d_t = _t(o).requires_grad_(True), _t(d).requires_grad_(True)
     before = (tg.K2_LAUNCHES, tg.K3_LAUNCHES)
-    got = tg.TraceFast.apply(rec_t, o_t, d_t, _t(u), (kinds, feats), md)
+    got = tg.TraceFast.apply(rec_t, o_t, d_t, _t(u), (kinds, feats), md,
+                             True)
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6,
                                atol=1e-6)
     got.backward(_t(ct))
