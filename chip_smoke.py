@@ -141,6 +141,16 @@ Phases, one JSON line each on stdout:
      the samples of the command line's largest table launch of the
      preset, and the occupancy on each layout there, with its blocks and
      waves (blocks over the blocks an SM holds times the SMs);
+     Then the render's cost probe (`trace_probe`: compact 16×8 tiles, the
+     segments alone, each pixel's samples split over blocks where the
+     image would fill under two waves) at the command line's three
+     probes (random_spheres, final_scene and final_scene at 128×128, 4
+     spp): its row bit-equal to the scanline stats launch's row 0, at
+     every split, and (where the plain version is quick: random_spheres
+     and 128×128) to the plain version's with its warp steps; the
+     render's table equal to the one made from that row; the probe and
+     the scanline stats launch timed in turns, each split in turns, the
+     probe's blocks, waves and occupancy (its own steps row);
  35. the render path of both presets through the command line, `render
      --scene random_spheres` and `render --scene final_scene` (and
      final_scene at 128×128 for its mean), now balanced by default: the
@@ -178,7 +188,9 @@ Phases, one JSON line each on stdout:
      (`replay`): timed, counted by a stats launch of the same arguments
      (occupancy, tail share), its sums held bit for bit to the same
      samples launched in chunks of the size its scene's comparison phase
-     holds to trace_plain, and bounded; cornell_box_baseline's first
+     holds to trace_plain, and bounded; a cost probe (`replay_probe`)
+     counted by its own steps row and its row held bit for bit to the
+     scanline stats launch's; cornell_box_baseline's first
      launch (800×800, 104 samples) is also held bit for bit to
      trace_plain.
 Every command-line phase prints its per-phase seconds, the PPM encode
@@ -345,43 +357,55 @@ def k1_bound(ops, counts: dict, n_pix: int, n_samples: int) -> dict:
 
 @contextlib.contextmanager
 def recording(log: list, counters):
-    """Every K1 launch made through `tracer.trace` inside the block, appended
-    to `log` as a dict: its operands (`ops`), its keyword arguments (`kw`,
-    the stats buffer left out), whether it carried a stats buffer
-    (`stats`), and the launch counters it moved (`counted`: the keys of
-    `counters()` that grew across the call). The launch is the wrapper's
-    own; only its arguments are kept."""
+    """Every K1 launch made through `tracer.trace` or `tracer.trace_probe`
+    inside the block, appended to `log` as a dict: its operands (`ops`),
+    its keyword arguments (`kw`, the stats buffer and the probe's steps row
+    left out), whether it carried a stats buffer (`stats`; the probe always
+    does), whether it is the cost probe's launch (`probe`), and the launch
+    counters it moved (`counted`: the keys of `counters()` that grew across
+    the call). The launch is the wrapper's own; only its arguments are
+    kept."""
     from raytracing_rust_tpu_torch.ops import tracer
-    real = tracer.trace
+    real = {name: getattr(tracer, name) for name in ("trace", "trace_probe")}
 
-    def logged(ops, sums, **kw):
-        before = counters()
-        out = real(ops, sums, **kw)
-        after = counters()
-        log.append(dict(ops=ops, stats=kw.get("stats") is not None,
-                        kw={k: v for k, v in kw.items() if k != "stats"},
-                        counted=[k for k in after if after[k] > before[k]]))
-        return out
-    tracer.trace = logged
+    def logger(name):
+        def logged(ops, out, **kw):
+            before = counters()
+            res = real[name](ops, out, **kw)
+            after = counters()
+            probe = name == "trace_probe"
+            log.append(dict(
+                ops=ops, probe=probe,
+                stats=probe or kw.get("stats") is not None,
+                kw={k: v for k, v in kw.items() if k not in ("stats", "steps")},
+                counted=[k for k in after if after[k] > before[k]]))
+            return res
+        return logged
+    for name in real:
+        setattr(tracer, name, logger(name))
     try:
         yield log
     finally:
-        tracer.trace = real
+        for name, fn in real.items():
+            setattr(tracer, name, fn)
 
 
 def replay(launch: dict, held: dict):
     """One K1 launch of `recording`, made again on the same operands and
-    arguments → (its figures, its sums). Its ms: CUDA events, two launches
-    after a warm-up, on fresh sums (and, for a stats launch, a fresh stats
-    buffer). Its counters: the stats launch it is, or a stats launch of the
-    same arguments. Its sums held bit for bit to the same samples launched
-    in chunks of held["spp"] (the samples its scene's comparison holds to
-    trace_plain; the production instantiation). Its bound: held["work"]
-    (trace_plain's counts on that comparison) scaled by this launch's
-    segments over the comparison's, on this launch's pixels and samples."""
+    arguments → (its figures, its sums; None for the probe). Its ms: CUDA
+    events, two launches after a warm-up, on fresh sums (and, for a stats
+    launch, a fresh stats buffer). Its counters: the stats launch it is, or
+    a stats launch of the same arguments. Its sums held bit for bit to the
+    same samples launched in chunks of held["spp"] (the samples its scene's
+    comparison holds to trace_plain; the production instantiation). Its
+    bound: held["work"] (trace_plain's counts on that comparison) scaled by
+    this launch's segments over the comparison's, on this launch's pixels
+    and samples. The cost probe (`replay_probe`) instead."""
     import torch
     from raytracing_rust_tpu_torch import kernel_stats
     from raytracing_rust_tpu_torch.ops import tracer
+    if launch["probe"]:
+        return replay_probe(launch, held), None
     ops, kw = launch["ops"], launch["kw"]
     nx, ny, n, s0 = kw["nx"], kw["ny"], kw["n_samples"], kw["sample0"]
     n_pix, dev = nx * ny, ops.rec.device
@@ -412,6 +436,44 @@ def replay(launch: dict, held: dict):
         segments=occ["segments"], warp_steps=occ["warp_steps"],
         occupancy=occ["occupancy"], tail_share=occ["tail_share"],
         chunk_spp=step, equals_chunks=bool(torch.equal(whole, parts))), whole
+
+
+def replay_probe(launch: dict, held: dict) -> dict:
+    """A cost probe launch of `recording` (`tracer.trace_probe`), made
+    again on the same operands and arguments → its figures: ms (CUDA
+    events, two launches after a warm-up, on a fresh row), its segments,
+    and its warp steps from its own steps row (occupancy, tail share); its
+    row held bit for bit to row 0 of the stats launch of the same samples
+    on the scanline layout (`equals_scanline`: what the render's table is
+    made from before this probe), and its bound as `replay`'s."""
+    import torch
+    from raytracing_rust_tpu_torch.ops import tracer
+    ops, kw = launch["ops"], launch["kw"]
+    nx, ny, n, split = kw["nx"], kw["ny"], kw["n_samples"], kw["split"]
+    n_pix, dev = nx * ny, ops.rec.device
+    busy = torch.zeros(n_pix, dtype=torch.int64, device=dev)
+    ms = cuda_ms(lambda: tracer.trace_probe(ops, busy.zero_(), **kw), reps=2)
+    steps = torch.zeros(tracer.probe_warps(nx, ny, split), dtype=torch.int64,
+                        device=dev)
+    tracer.trace_probe(ops, busy.zero_(), steps=steps, **kw)
+    st = tracer.new_stats(nx, ny, dev)
+    tracer.trace(ops, torch.zeros((3, n_pix), dtype=torch.float64,
+                                  device=dev), stats=st,
+                 **{k: v for k, v in kw.items() if k != "split"})
+    seg, warp_steps = int(busy.sum()), int(steps.sum())
+    occ = seg / (32 * warp_steps)
+    work = held["work"]
+    scale = seg / (work["segments"] + work["walk"])
+    return dict(
+        shape=[ny, nx, n], sample0=kw["sample0"], kpix=1, table=False,
+        stats=True, probe=True, split=split,
+        blocks=split * tracer.probe_tiles(nx, ny), dda=False,
+        counted=launch["counted"], ms=ms,
+        **k1_bound(ops, {k: v * scale for k, v in work.items()}, n_pix, n),
+        segments=seg, warp_steps=warp_steps, occupancy=occ,
+        tail_share=1.0 - occ,
+        equals_scanline=bool(torch.equal(busy,
+                                         tracer.stats_rows(st, n_pix)[0])))
 
 
 def at_main_path(row: dict, replayed: list, counter: str,
@@ -823,6 +885,7 @@ def main() -> int:
         tracer.K1_LATTICE_LAUNCHES = tracer.K1G_LAUNCHES = 0
         tracer.K1F_LAUNCHES = tracer.K1F_TABLE_LAUNCHES = 0
         tracer.K1F_STATS_LAUNCHES = tracer.K1F_DDA_LAUNCHES = 0
+        tracer.K1F_PROBE_LAUNCHES = 0
         grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
         peak.D3_LAUNCHES = 0
         mb.D1_LAUNCHES = mb.D2_LAUNCHES = 0
@@ -837,6 +900,7 @@ def main() -> int:
                 "k1_lattice_trace": tracer.K1_LATTICE_LAUNCHES,
                 "k1g_roulette_trace": tracer.K1G_LAUNCHES,
                 "k1f_stats_trace": tracer.K1F_STATS_LAUNCHES,
+                "k1f_probe_trace": tracer.K1F_PROBE_LAUNCHES,
                 "k1f_balanced_trace": tracer.K1F_TABLE_LAUNCHES,
                 "k1f_dda_stats": tracer.K1F_DDA_LAUNCHES}
 
@@ -900,13 +964,13 @@ def main() -> int:
     for ln in log.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
-            flags = re.search(r"(trace_k1)I((?:Lb[01]E)+)E", m.group(1))
+            flags = re.search(r"(trace_k1)I((?:L[bi]\d+E)+)E", m.group(1))
             plain = re.search(r"(grad_fwd|grad_bwd)ILb([01])E", m.group(1))
             d3 = re.search(r"(fp32_peak)_kILi(\d+)ELb([01])E", m.group(1))
             d1 = re.search(r"(attr_read_k)ILb([01])ELi(\d+)E", m.group(1))
             d2 = re.search(r"(member_k)ILi(\d)E", m.group(1))
             fn = (f"{flags.group(1)}<"
-                  f"{','.join(re.findall('[01]', flags.group(2)))}>"
+                  f"{','.join(re.findall(r'L[bi](\d+)E', flags.group(2)))}>"
                   if flags else f"{plain.group(1)}<{plain.group(2)}>"
                   if plain else f"{d3.group(1)}<{d3.group(2)},{d3.group(3)}>"
                   if d3 else f"{d1.group(1)}<{d1.group(2)},{d1.group(3)}>"
@@ -1651,6 +1715,87 @@ def main() -> int:
               f"differs from plain by {k1f_bal[scene]['max_abs_err']:.3e}")
         del outs, pl
 
+    # -- 34, the probe: the render's cost probe (`trace_probe`) against
+    # the stats launch on the scanline layout (the probe before it), at the
+    # command line's three probes: its row bit-equal to that launch's row
+    # 0 and to the plain version's (on the card, where that is quick), the
+    # render's table equal to the one made from that row, each split held
+    # to the others; times in turns (scanline, probe, probe, scanline),
+    # each split's time, and the probe's blocks, waves and occupancy (its
+    # own steps row); each split in turns (1, 2, 4, 4, 2, 1)
+    probe_resident = tracer.probe_resident(dev)
+    k1f_probe = {}
+    for label, scene, size in (("random_spheres", "random_spheres", None),
+                               ("final_scene", "final_scene", None),
+                               ("final_scene 128", "final_scene",
+                                FINAL_SCENE_CHECK)):
+        sops, snx, sny = preset_ops(scene)
+        if size is not None:
+            snx, sny = size
+        n_pix = snx * sny
+        kw = dict(nx=snx, ny=sny, seed=tracer.PROBE_SEED, sample0=0,
+                  n_samples=tracer.PROBE_SPP, max_depth=50)
+        tiles_n = tracer.probe_tiles(snx, sny)
+        split = tracer.probe_split(tiles_n, probe_resident)
+        st = tracer.new_stats(snx, sny, dev)
+        scan_sums = torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
+        tracer.trace(sops, scan_sums, stats=st, **kw)
+        row0 = tracer.stats_rows(st, n_pix)[0].clone()
+
+        def probe(sp, steps=None):
+            return tracer.trace_probe(
+                sops, torch.zeros(n_pix, dtype=torch.int64, device=dev),
+                split=sp, steps=steps, **kw)
+        rows = {sp: probe(sp) for sp in (1, 2, 4)}
+        steps = torch.zeros(tracer.probe_warps(snx, sny, split),
+                            dtype=torch.int64, device=dev)
+        busy = probe(split, steps)
+        table = tracer.render_table(sops, snx, sny, 50, dev)
+        torch.cuda.synchronize()
+        eq = dict(row_equals_scanline=bool(torch.equal(busy, row0)),
+                  splits_equal=all(bool(torch.equal(r, busy))
+                                   for r in rows.values()),
+                  table_equals_scanline_table=bool(torch.equal(
+                      table, tracer.block_tile_table(row0, snx, sny))))
+        if scene == "random_spheres" or size is not None:
+            pb = torch.zeros(n_pix, dtype=torch.int64, device=dev)
+            psteps = torch.zeros_like(steps)
+            pl_ms = cuda_ms(lambda: tracer.probe_plain(
+                sops, pb.zero_(), split=split, steps=psteps.zero_(), **kw),
+                reps=1, warm=False)
+            eq.update(row_equals_plain=bool(torch.equal(busy, pb)),
+                      steps_equal_plain=bool(torch.equal(steps, psteps)))
+        else:
+            pl_ms = None
+        turns = []
+        for name in ("scanline", "probe", "probe", "scanline"):
+            if name == "probe":
+                turns.append((name, cuda_ms(lambda: probe(split), reps=3)))
+            else:
+                turns.append((name, cuda_ms(lambda: tracer.trace(
+                    sops, scan_sums.zero_(),
+                    stats=tracer.new_stats(snx, sny, dev), **kw), reps=3)))
+        split_ms = {sp: [] for sp in (1, 2, 4)}
+        for sp in (1, 2, 4, 4, 2, 1):
+            split_ms[sp].append(cuda_ms(lambda: probe(sp), reps=3))
+        seg = int(busy.sum())
+        occ_probe = seg / (32 * int(steps.sum()))
+        scan_occ = occupancy(st, n_pix, tracer.PROBE_SPP)["occupancy"]
+        probe_ms = sum(t for n_, t in turns if n_ == "probe") / 2
+        k1f_probe[label] = dict(split=split, ms=probe_ms, plain_ms=pl_ms)
+        emit("k1f_probe_vs_scanline", run=label, shape=[sny, snx],
+             spp=tracer.PROBE_SPP, depth=50, **eq, split=split,
+             blocks=split * tiles_n, resident_blocks=probe_resident,
+             waves=split * tiles_n / probe_resident,
+             scanline_blocks=-(-n_pix // tracer.THREADS),
+             ms_in_turns=turns, ms_by_split=split_ms, probe_ms=probe_ms,
+             scanline_ms=sum(t for n_, t in turns if n_ == "scanline") / 2,
+             plain_ms=pl_ms, segments=seg, occupancy=occ_probe,
+             scanline_occupancy=scan_occ)
+        check(all(eq.values()), f"{label}: the cost probe does not hold: "
+              f"{eq}")
+        del rows, busy, row0, st, scan_sums
+
     # -- 35. the balanced render path through the command line
     bal_launches, bal_labels = {}, []
     for scene, extra, mean in (
@@ -1668,6 +1813,7 @@ def main() -> int:
              trace_seconds=info["timers"].get("trace"))
         bl = info["launches"]
         check(bl["k1f_stats_trace"] > 0 and bl["k1f_balanced_trace"] > 0
+              and bl["k1f_probe_trace"] == bl["k1f_stats_trace"]
               and "balance_probe" in info["timers"],
               f"{scene} {extra}: the balanced path did not run: {bl}")
         check(bool(((img >= 0) & (img <= 1)).all()),
@@ -1906,8 +2052,12 @@ def main() -> int:
              ms=sum(r["ms"] for r in rows),
              bound_ms=sum(r["bound_ms"] for r in rows), occupancy=occ,
              tail_share=1.0 - occ)
-        check(all(r["equals_chunks"] for r in rows), f"{label}: a launch's "
-              "sums differ from the same samples launched in chunks")
+        check(all(r.get("equals_chunks", True) for r in rows),
+              f"{label}: a launch's sums differ from the same samples "
+              "launched in chunks")
+        check(all(r.get("equals_scanline", True) for r in rows),
+              f"{label}: the cost probe's row differs from the scanline "
+              "stats launch's")
         check(all(r.get("equals_plain", True) for r in rows),
               f"{label}: the launch's sums differ from trace_plain's")
     k1a["max_abs_err"] = max(

@@ -42,16 +42,27 @@
 // crosses: per thread, since a thread walks its own members, where the
 // TPU kernel asks whether any lane of its tile crosses (no warp vote here:
 // which threads meet at a member of a divergent loop is the scheduler's
-// choice, so no plain version could reproduce such a count). The host
-// side and the plain torch version of the same computation are in
-// ops/tracer.py (`trace_plain`).
+// choice, so no plain version could reproduce such a count). The render's
+// cost probe has a launch of its own (`probe_split` > 0, the STATS == 2
+// instantiations): it counts each pixel's segments alone, the one row the
+// render's table reads, and writes no sums. Its blocks take the compact
+// TILE_W × TILE_H tiles in raster order, a pixel a thread, so a warp traces
+// 16 × 2 neighbouring pixels where a scanline warp traced a 32 × 1 strip;
+// where one pixel a thread would leave the card under two waves (a small
+// image), the host splits each pixel's samples over probe_split blocks,
+// which add their counts with integer atomics: a pixel's segments are keyed
+// by (pixel, sample, bounce), so the row is the same in any layout, on any
+// number of threads and in any order. The host side and the plain torch
+// version of the same computation are in ops/tracer.py (`trace_plain`,
+// `trace_probe`, `probe_plain`).
 //
 // The kernel is a template over four flags: K1B (any feature bit: sky,
 // checker, metal, dielectric, moving spheres, noise, image, media, the
 // walk, the lattice corners, roulette), DYN (a dynamic sphere table, a box
 // table or a pixel table), LEAF_SMEM (the leaf tables sit in shared
-// memory) and STATS (the counters; set only with K1B and DYN, so two
-// instantiations serve every scene and the others keep their registers).
+// memory) and STATS (0: none; 1: the counters of a stats launch; 2: the cost
+// probe's; set only with K1B and DYN, so two instantiations of each serve
+// every scene and the others keep their registers).
 // cornell_box runs the instantiation with all of them off, which is K1a as
 // it was. Inside the K1B instantiations the fifteen features (the compat
 // sphere-UV constant counted) are branches on the launch's feature bits,
@@ -164,6 +175,9 @@ constexpr int THREADS = 128;
 // a tile of the pixel table: the JAX kernel's (8, 1024) lanes (ops/tracer.py
 // TILE)
 constexpr int TILE = 8 * 1024;
+// the probe's block: a tile of TILE_W × TILE_H pixels, row by row
+// (ops/tracer.py BLOCK_W, BLOCK_H)
+constexpr int TILE_W = 16, TILE_H = THREADS / TILE_W;
 // shared memory a launch gets without opting in; the leaf table goes there
 // when it fits beside the record
 constexpr size_t SMEM_BUDGET = 48 * 1024;
@@ -184,6 +198,30 @@ constexpr int FEAT_SKY = 1, FEAT_CHECKER = 2, FEAT_METAL = 4, FEAT_DIEL = 8,
 constexpr bool SOLID_MARBLE = true;
 #else
 constexpr bool SOLID_MARBLE = false;
+#endif
+// K1_MEDIA_TWICE: a timing build of `kernel_ab --shares` alone: every
+// segment runs its media race a second time, into a sink the compiler must
+// keep, so the time it adds is the race's. K1_PROBE_ALL_COUNTERS: another:
+// the probe also counts the member tests, as the general stats launch does,
+// into a sink, so the time it adds is what counting only the segments saves
+#ifdef K1_MEDIA_TWICE
+constexpr bool MEDIA_TWICE = true;
+#else
+constexpr bool MEDIA_TWICE = false;
+#endif
+#ifdef K1_PROBE_ALL_COUNTERS
+constexpr bool PROBE_ALL_COUNTERS = true;
+#else
+constexpr bool PROBE_ALL_COUNTERS = false;
+#endif
+// K1_MEDIA_GATE: a third: a thread skips a medium whose padded world AABB
+// its segment cannot reach (`media_race`), so the time it saves is what a
+// per-thread gate could save; its pad is not proven, so its sums may
+// differ from the production build's
+#ifdef K1_MEDIA_GATE
+constexpr bool MEDIA_GATE = true;
+#else
+constexpr bool MEDIA_GATE = false;
 #endif
 
 constexpr float BIG = 3.0e38f;
@@ -497,20 +535,55 @@ __device__ __forceinline__ void ball(const Uniforms& us, float& bx,
 // Each medium's boundary is entered and left on the ray's line (sphere
 // roots, or slabs after the world→object rotation and offset); the free
 // flight −(1/ρ)·ln u takes word i % 4 of counter (pixel, sample, bounce,
-// MEDIUM + i / 4), drawn only for a medium whose interval is non-empty.
+// MEDIUM + i / 4). The race is a third of cornell_smoke's launch
+// (`kernel_ab --shares`): a few dozen multiplies and six IEEE divides a
+// medium, and for an open interval a Philox chain of ten dependent rounds
+// and a log. Drawn inside the branch of an open interval, the chain was
+// issued once for the threads whose first open medium is i and again for
+// those whose first is j (a branch that some thread of a warp takes is a
+// branch the warp issues), each time after that medium's interval. So
+// each group's draw is issued once, at the top, and each medium's log and
+// flight follow its interval without a branch, so that the chain's
+// integer work can overlap the intervals' float work. A thread whose
+// intervals are empty takes the draw and ignores it: the draws are
+// counter-keyed, so the values, and the first strict minimum, are the
+// ones a draw per open interval gave. On an H100 that costs a scene whose
+// media a segment seldom reaches (lattice_scene's three: 1.033× on its
+// launches, PERF.md §6) and pays where one is always reached
+// (final_scene's mist: 0.949-0.964×); a draw decided for the warp after
+// the intervals (`__any_sync`) ran cornell_smoke faster still but
+// final_scene 5-8% slower. A per-thread gate that skipped the media whose
+// padded world AABB a segment cannot reach saves a warp nothing unless
+// all its threads skip, and every thread pays the test: the K1_MEDIA_GATE
+// timing build measures it (s_gate: each medium's AABB).
 __device__ __forceinline__ float media_race(
     const float* s_med, int n_med, int med_box, float ox, float oy,
     float oz, float dx, float dy, float dz, float a_dd, float inv_a,
     float t_cap, uint32_t pix, uint32_t sample, uint32_t bounce,
-    uint32_t k0, uint32_t k1, int& m_win) {
+    uint32_t k0, uint32_t k1, int& m_win, const float* s_gate = nullptr) {
   const float d_len = sqrtf(a_dd);
   const float inv_dlen = 1.0f / d_len;
+  float inv_x = 0.0f, inv_y = 0.0f, inv_z = 0.0f;
+  if (MEDIA_GATE) {
+    inv_x = safe_inv(dx);
+    inv_y = safe_inv(dy);
+    inv_z = safe_inv(dz);
+  }
   float t_med = BIG;
-  int group = -1;
   m_win = -1;
   Uniforms um = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int i = 0; i < n_med; ++i) {
+    if ((i & 3) == 0)
+      um = philox(pix, sample, bounce, STREAM_MEDIUM + (uint32_t)(i >> 2), k0,
+                  k1);
     const float* m = s_med + i * MEDREC;
+    if (MEDIA_GATE) {
+      float gmn, gmx;
+      slab(s_gate[6 * i], s_gate[6 * i + 1], s_gate[6 * i + 2],
+           s_gate[6 * i + 3], s_gate[6 * i + 4], s_gate[6 * i + 5], ox, oy,
+           oz, inv_x, inv_y, inv_z, gmn, gmx);
+      if (gmn > gmx || gmx < T_MIN || gmn > t_cap) continue;
+    }
     // world → object: R₋ (o − offset), R₋ d
     const float wx = ox - m[M_OFF], wy = oy - m[M_OFF + 1],
                 wz = oz - m[M_OFF + 2];
@@ -553,18 +626,12 @@ __device__ __forceinline__ float media_race(
     }
     enter = fmaxf(enter, T_MIN);
     exit_ = fminf(exit_, t_cap);
-    if (!(ok && enter < exit_)) continue;
-    if (i >> 2 != group) {
-      group = i >> 2;
-      um = philox(pix, sample, bounce, STREAM_MEDIUM + (uint32_t)group, k0,
-                  k1);
-    }
     const int wi = i & 3;
     const float u = wi == 0 ? um.x : wi == 1 ? um.y : wi == 2 ? um.z : um.w;
     const float flight = -m[M_INV_RHO] * logf(fmaxf(u, 1e-37f));
-    if (!(flight < (exit_ - enter) * d_len)) continue;
     const float t_i = enter + flight * inv_dlen;
-    if (t_i < t_med) {
+    if (ok && enter < exit_ && flight < (exit_ - enter) * d_len &&
+        t_i < t_med) {
       t_med = t_i;
       m_win = i;
     }
@@ -572,7 +639,7 @@ __device__ __forceinline__ float media_race(
   return t_med;
 }
 
-template <bool K1B, bool DYN, bool LEAF_SMEM, bool STATS>
+template <bool K1B, bool DYN, bool LEAF_SMEM, int STATS>
 __global__ void __launch_bounds__(THREADS)
 trace_k1(const float* __restrict__ rec, int n_rec,
          const int* __restrict__ walk, int n_walk,
@@ -590,7 +657,11 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          const int* __restrict__ pix_table, int kpix,
          long long* __restrict__ stats, long long* __restrict__ dda,
          const float* __restrict__ sups, int n_sup,
-         const float* __restrict__ bsups, int n_bsup) {
+         const float* __restrict__ bsups, int n_bsup, int probe_split,
+         long long* __restrict__ probe_steps) {
+  // the member tests and the DDA crossings are counted by a stats launch
+  // (and by the probe only in the timing build that measures their cost)
+  constexpr bool COUNT_ALL = STATS == 1 || (STATS == 2 && PROBE_ALL_COUNTERS);
   // the scene's features; all off outside the K1B instantiations
   const bool emis_tex = K1B && (feats & FEAT_EMIS_TEX),
              uv_carry = K1B && (feats & FEAT_UV_CARRY),
@@ -631,6 +702,8 @@ trace_k1(const float* __restrict__ rec, int n_rec,
     for (int i = 0; i < n_int; ++i) n_int_sr += interior_kind[i] != INT_BOX;
   const int n_list = n_walk + (K1B ? n_int_sr : 0);
   int* s_ikind = s_walk + 2 * n_list;
+  // K1_MEDIA_GATE's timing build: each medium's padded world AABB
+  float* s_gate = (float*)(s_ikind + n_int);
   for (int i = threadIdx.x; i < n_rec * REC; i += blockDim.x)
     s_rec[i] = rec[i];
   for (int i = threadIdx.x; i < 2 * n_walk; i += blockDim.x)
@@ -697,6 +770,31 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         ++e;
       }
     }
+    if (MEDIA_GATE && threadIdx.x < n_med) {
+      // a box's eight corners or a sphere's bounds, object → world by the
+      // transpose of R₋ and the offset, padded by 1e-3 of their scale
+      const float* m = med + threadIdx.x * MEDREC;
+      const bool is_box = (med_box >> threadIdx.x) & 1;
+      const float r = is_box ? 0.0f : sqrtf(m[M_DATA + 3]);
+      float b[6] = {BIG, BIG, BIG, -BIG, -BIG, -BIG};
+      for (int c = 0; c < (is_box ? 8 : 1); ++c) {
+        const float p[3] = {m[M_DATA + ((c >> 2) & 1) * 3],
+                            m[M_DATA + 1 + ((c >> 1) & 1) * 3],
+                            m[M_DATA + 2 + (c & 1) * 3]};
+        for (int a = 0; a < 3; ++a) {
+          const float w = m[M_ROT + a] * (is_box ? p[0] : m[M_DATA]) +
+                          m[M_ROT + 3 + a] * (is_box ? p[1] : m[M_DATA + 1]) +
+                          m[M_ROT + 6 + a] * (is_box ? p[2] : m[M_DATA + 2]) +
+                          m[M_OFF + a];
+          b[a] = fminf(b[a], w - r);
+          b[3 + a] = fmaxf(b[3 + a], w + r);
+        }
+      }
+      float scale = 1.0f;
+      for (int a = 0; a < 6; ++a) scale = fmaxf(scale, fabsf(b[a]));
+      for (int a = 0; a < 6; ++a)
+        s_gate[6 * threadIdx.x + a] = b[a] + (a < 3 ? -1e-3f : 1e-3f) * scale;
+    }
   }
   __syncthreads();
   const float* leaf = LEAF_SMEM ? s_leaf : leaves;
@@ -715,6 +813,21 @@ trace_k1(const float* __restrict__ rec, int n_rec,
   // renders nothing (n_pix pads the last tile)
   const bool table = DYN && pix_table != nullptr;
   const int n_banks = table ? kpix : 1;
+  // the probe: block b takes tile b % n_tiles of TILE_W × TILE_H pixels
+  // (tiles in raster order, a thread on the tile's column t % TILE_W and row
+  // t / TILE_W; n_pix past the image's edge) with part b / n_tiles of the
+  // samples, n_samples / probe_split of them
+  int probe_pix = n_pix;
+  if (STATS == 2) {
+    const int gx = (nx + TILE_W - 1) / TILE_W;
+    const int n_tiles = gx * ((ny + TILE_H - 1) / TILE_H);
+    const int tile = blockIdx.x % n_tiles;
+    const int x = (tile % gx) * TILE_W + (int)threadIdx.x % TILE_W;
+    const int y = (tile / gx) * TILE_H + (int)threadIdx.x / TILE_W;
+    if (x < nx && y < ny) probe_pix = y * nx + x;
+    n_samples /= probe_split;
+    sample0 += (int)(blockIdx.x / n_tiles) * n_samples;
+  }
   // A thread's work is an ordered list of (pixel, sample) pairs: its bank
   // 0 pixel with samples sample0 .. sample0 + n_samples − 1, then bank 1's
   // pixel and all its samples, and so on. One flat loop walks the list,
@@ -748,11 +861,14 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         pix = table ? __ldg(pix_table +
                             ((size_t)(tid / TILE) * kpix + bank) * TILE +
                             tid % TILE)
-                    : tid;
+              : STATS == 2 ? probe_pix
+                           : tid;
         if ((unsigned)pix < (unsigned)n_pix) {
-          acc_r = sums[pix];
-          acc_g = sums[n_pix + pix];
-          acc_b = sums[2 * n_pix + pix];
+          if (STATS != 2) {   // the probe's radiance is not kept
+            acc_r = sums[pix];
+            acc_g = sums[n_pix + pix];
+            acc_b = sums[2 * n_pix + pix];
+          }
           busy = tests_s = tests_b = cross_b = 0;
           si = 0;
         }
@@ -916,7 +1032,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         int wb = -1;
         cull_table(s_root, bsup, n_bsup, bleaf, n_bleaf, n_box, ox, oy, oz,
                    inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
-          if (STATS) tests_b += (uint32_t)cnt;
+          if (COUNT_ALL) tests_b += (uint32_t)cnt;
           for (int q = start; q < start + cnt; ++q) {
             // merged cube (reference src/cube.rs:20-74): one slab test,
             // the entry face when beyond T_MIN, else the exit face
@@ -929,7 +1045,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
             // STATS, the DDA row (pallas_tracer.py:1927-1938): the ray
             // crosses the member's AABB inside its window, before its
             // best hit so far: the visit set of a per-ray grid DDA
-            if (STATS && dda != nullptr && tmx > fmaxf(tmn, T_MIN) &&
+            if (COUNT_ALL && dda != nullptr && tmx > fmaxf(tmn, T_MIN) &&
                 tmn < t_d)
               ++cross_b;
             if (tmx > tmn && t_p > T_MIN && t_p < t_d) {
@@ -942,7 +1058,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         int wd = -1;
         cull_table(s_root + 6, sup, n_sup, leaf, n_leaf, n_dyn, ox, oy, oz,
                    inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
-          if (STATS) tests_s += (uint32_t)cnt;
+          if (COUNT_ALL) tests_s += (uint32_t)cnt;
           for (int q = start; q < start + cnt; ++q) {
             const float* r = dyn + (size_t)q * REC;
             float cx = __ldg(r + R_C0), cy = __ldg(r + R_C0 + 1),
@@ -1023,7 +1139,19 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         const float t_med =
             media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a_dd,
                        inv_a, t_best, pix, sample, (uint32_t)bounce, k0, k1,
-                       m_ev);
+                       m_ev, s_gate);
+        if (MEDIA_TWICE) {
+          // the timing build's second race: its cap passes through an asm
+          // the compiler cannot see through, so the race is not merged with
+          // the first, and its result into an asm it must keep
+          float cap = t_best;
+          asm volatile("" : "+f"(cap));
+          int m2;
+          const float t2 = media_race(s_med, n_med, med_box, ox, oy, oz, dx,
+                                      dy, dz, a_dd, inv_a, cap, pix, sample,
+                                      (uint32_t)bounce, k0, k1, m2, s_gate);
+          asm volatile("" ::"f"(t2), "r"(m2));
+        }
         if (walk_bounce ? t_med < BIG : t_med < t_best) {
           med_event = true;
           t_best = t_med;
@@ -1291,16 +1419,25 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         acc_g += (double)rad_g;
         acc_b += (double)rad_b;
         if (++si == n_samples) {
-          sums[pix] = acc_r;
-          sums[n_pix + pix] = acc_g;
-          sums[2 * n_pix + pix] = acc_b;
-          if (STATS) {
+          if (STATS != 2) {
+            sums[pix] = acc_r;
+            sums[n_pix + pix] = acc_g;
+            sums[2 * n_pix + pix] = acc_b;
+          }
+          if (STATS == 1) {
             stats[pix] += busy;
             stats[n_pix + pix] += tests_s;
             stats[2 * n_pix + pix] += tests_b;
             if (dda != nullptr) dda[pix] += cross_b;
-            total += busy;
           }
+          if (STATS == 2) {
+            // the probe: the pixel's segments, from each of its parts
+            atomicAdd((unsigned long long*)(stats + pix),
+                      (unsigned long long)busy);
+            if (PROBE_ALL_COUNTERS)
+              asm volatile("" ::"r"(tests_s), "r"(tests_b), "r"(cross_b));
+          }
+          if (STATS) total += busy;
         }
       }
     }
@@ -1308,10 +1445,15 @@ trace_k1(const float* __restrict__ rec, int n_rec,
   // STATS: a thread is live in every iteration until its list is done,
   // and each of those iterations is a segment or a walk bounce, so the
   // warp's iterations are the largest segment total among its 32 threads
-  // (walk bounces counted), its steps; a padding thread joins with 0
+  // (walk bounces counted), its steps; a padding thread joins with 0. The
+  // probe writes them only when asked (its one pixel a thread: total is
+  // that pixel's part of the segments)
   if (STATS) {
     const uint32_t steps = __reduce_max_sync(0xffffffffu, total);
-    if ((threadIdx.x & 31) == 0) stats[3 * (size_t)n_pix + tid / 32] += steps;
+    if ((threadIdx.x & 31) == 0) {
+      if (STATS == 1) stats[3 * (size_t)n_pix + tid / 32] += steps;
+      if (STATS == 2 && probe_steps != nullptr) probe_steps[tid / 32] += steps;
+    }
   }
 }
 
@@ -1322,23 +1464,22 @@ using TraceFn = void (*)(const float*, int, const int*, int, const float*,
                          uint32_t, const float*, int, const float*, int,
                          const float*, int, const int*, int, int, const int*,
                          int, long long*, long long*, const float*, int,
-                         const float*, int);
+                         const float*, int, int, long long*);
 
 // the instantiations, indexed [K1B][DYN][LEAF_SMEM]; without a dynamic
 // table there is no leaf table
 const TraceFn KERNELS[2][2][2] = {
-    {{trace_k1<false, false, false, false>,
-      trace_k1<false, false, false, false>},
-     {trace_k1<false, true, false, false>,
-      trace_k1<false, true, true, false>}},
-    {{trace_k1<true, false, false, false>,
-      trace_k1<true, false, false, false>},
-     {trace_k1<true, true, false, false>, trace_k1<true, true, true, false>}}};
-// K1f's counters ride in two instantiations of their own, K1B and DYN with
+    {{trace_k1<false, false, false, 0>, trace_k1<false, false, false, 0>},
+     {trace_k1<false, true, false, 0>, trace_k1<false, true, true, 0>}},
+    {{trace_k1<true, false, false, 0>, trace_k1<true, false, false, 0>},
+     {trace_k1<true, true, false, 0>, trace_k1<true, true, true, 0>}}};
+// K1f's counters ride in instantiations of their own, K1B and DYN with
 // every section a runtime branch, so they serve every scene and leave the
-// production kernels' registers as they were; indexed [LEAF_SMEM]
-const TraceFn STATS_KERNELS[2] = {trace_k1<true, true, false, true>,
-                                  trace_k1<true, true, true, true>};
+// production kernels' registers as they were: the stats launch's and the
+// cost probe's, indexed [STATS − 1][LEAF_SMEM]
+const TraceFn STATS_KERNELS[2][2] = {
+    {trace_k1<true, true, false, 1>, trace_k1<true, true, true, 1>},
+    {trace_k1<true, true, false, 2>, trace_k1<true, true, true, 2>}};
 
 }  // namespace
 
@@ -1366,7 +1507,13 @@ const TraceFn STATS_KERNELS[2] = {trace_k1<true, true, false, true>,
 // table, else nx·ny rounded up to THREADS. dda (with stats only): the
 // buffer holds nx·ny more entries, to which the launch adds per pixel its
 // box member tests whose AABB the ray crosses before its best hit so far.
-// Launches on `stream`; returns cudaGetLastError() after the launch.
+// probe_split ≥ 1: the cost probe's launch instead (no pix_table, no dda;
+// n_samples a multiple of probe_split; sums unread and unwritten, may be
+// null): stats is int64[nx·ny], to which it adds each pixel's segments, on
+// probe_split × (tiles of TILE_W × TILE_H) blocks; probe_steps, when not
+// null, int64[those blocks × THREADS / 32], to which it adds per warp the
+// largest of its threads' segments. Launches on `stream`; returns
+// cudaGetLastError() after the launch.
 extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int n_walk, const float* dyn, int n_dyn,
                            const float* leaves, int n_leaf, const float* sups,
@@ -1381,8 +1528,9 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            const float* interior, int n_int,
                            const int* interior_kind, int dense,
                            int rr_depth, const int* pix_table, int n_table,
-                           int kpix, long long* stats, int dda,
-                           void* stream) {
+                           int kpix, int probe_split, long long* probe_steps,
+                           long long* stats, int dda, void* stream) {
+  const bool probe = probe_split > 0;
   if (n_rec <= 0 || n_rec > MAX_PRIMS || n_walk < 0 || n_walk > n_rec ||
       n_dyn < 0 || n_leaf < 0 || feats < 0 || feats > FEAT_ALL ||
       n_med < 0 || n_med > MAX_MEDIA || ((feats & FEAT_MEDIA) != 0) !=
@@ -1395,7 +1543,11 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       ((feats & FEAT_RR) && (feats & FEAT_DENSE_WALK)) || kpix < 1 ||
       (pix_table == nullptr ? kpix != 1
                             : n_table <= 0 || n_table % (kpix * TILE) != 0) ||
-      (dda && stats == nullptr) || n_sup < 0 || n_bsup < 0)
+      (dda && stats == nullptr) || n_sup < 0 || n_bsup < 0 ||
+      probe_split < 0 ||
+      (probe ? pix_table != nullptr || dda || stats == nullptr ||
+                   n_samples % probe_split != 0
+             : probe_steps != nullptr))
     return (int)cudaErrorInvalidValue;
   if (n_dyn == 0) n_leaf = 0;
   if (n_box == 0) n_bleaf = 0;
@@ -1407,7 +1559,8 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                         pix_table != nullptr;
   const size_t base =
       sizeof(float) * (n_rec * REC + CAMREC + (dyn_inst ? 12 : 0) +
-                       n_med * MEDREC + n_int * REC) +
+                       n_med * (MEDREC + (MEDIA_GATE ? 6 : 0)) +
+                       n_int * REC) +
       sizeof(int) * (2 * n_walk + 3 * n_int);
   const size_t leaf_bytes =
       sizeof(float) * (size_t)(n_leaf + n_sup + n_bleaf + n_bsup) * CLUSW;
@@ -1415,10 +1568,13 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                          base + leaf_bytes <= SMEM_BUDGET;
   const size_t smem = base + (leaf_smem ? leaf_bytes : 0);
   const int n_pix = nx * ny;
-  const int blocks = pix_table != nullptr ? n_table / kpix / THREADS
-                                          : (n_pix + THREADS - 1) / THREADS;
+  const int n_tiles =
+      ((nx + TILE_W - 1) / TILE_W) * ((ny + TILE_H - 1) / TILE_H);
+  const int blocks = probe ? probe_split * n_tiles
+                     : pix_table != nullptr ? n_table / kpix / THREADS
+                                            : (n_pix + THREADS - 1) / THREADS;
   const TraceFn kernel = stats != nullptr
-                             ? STATS_KERNELS[leaf_smem]
+                             ? STATS_KERNELS[probe][leaf_smem]
                              : KERNELS[feats != 0][dyn_inst][leaf_smem];
   kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       rec, n_rec, walk, n_walk, dyn, n_dyn, leaves, n_leaf, cam, feats, sums,
@@ -1428,19 +1584,21 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       kpix, stats,
       dda ? stats + 3 * (size_t)n_pix + (size_t)blocks * THREADS / 32
           : nullptr,
-      sups, n_sup, bsups, n_bsup);
+      sups, n_sup, bsups, n_bsup, probe ? probe_split : 1, probe_steps);
   return (int)cudaGetLastError();
 }
 
 // The blocks of THREADS threads of one instantiation that an SM holds
 // without dynamic shared memory (the records take a few KB of the SM's
 // 228 KB, so registers decide), by the runtime's occupancy query, into
-// *blocks: the production kernel [k1b][dyn][leaf_smem], or with stats the
-// counters' [leaf_smem] (k1b and dyn set). Returns the cudaError.
+// *blocks: the production kernel [k1b][dyn][leaf_smem], or with stats 1
+// the stats launch's [leaf_smem] and with stats 2 the cost probe's (k1b and
+// dyn set). Returns the cudaError.
 extern "C" int rt_trace_k1_blocks_per_sm(int k1b, int dyn, int leaf_smem,
                                          int stats, int* blocks) {
-  if (stats && !(k1b && dyn)) return (int)cudaErrorInvalidValue;
-  const TraceFn fn = stats ? STATS_KERNELS[leaf_smem != 0]
+  if (stats < 0 || stats > 2 || (stats && !(k1b && dyn)))
+    return (int)cudaErrorInvalidValue;
+  const TraceFn fn = stats ? STATS_KERNELS[stats - 1][leaf_smem != 0]
                            : KERNELS[k1b != 0][dyn != 0][leaf_smem != 0];
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
                                                             THREADS, 0);

@@ -16,8 +16,13 @@ two_perlin_spheres 1280×720 at 10 spp, earth 1280×720 at 10 spp,
 cornell_smoke 800×800 at 100 spp, final_scene 800×800 at 10 spp, then at
 the comparison shapes of chip_smoke.py (cornell_box_baseline and
 random_spheres at 2 spp, final_scene at 1), as the cost probe of a
-balanced render (`cost_probe`'s stats launch: PROBE_SPP samples at
-PROBE_SEED on the scanline layout) on random_spheres and final_scene, as
+balanced render (`cost_probe`: PROBE_SPP samples at PROBE_SEED through
+`trace_probe`, split as `cost_probe` splits it, or in a checkout from
+before it the stats launch on the scanline layout; the timing's sum is the
+probe's segments) on random_spheres, final_scene and final_scene at
+128×128 (the command line's three probes), cornell_smoke 800×800 at 100
+spp on the card's table of a zero cost (compact 16×8 tiles in raster
+order, a DYN launch), as
 the command line's own table launches of those two presets (100 spp on
 the checkout's own render table, `render_table`, or in a checkout from
 before it JAX's kpix-4 table of the probe's order, in the chunks of
@@ -58,19 +63,31 @@ compute the same image.
     python -m raytracing_rust_tpu_torch.kernel_ab --shares [--turns N]
         [--out FILE]
 
-measures in this checkout what two sections of K1 cost, on the shapes of
+measures in this checkout what five parts of K1 cost, on the shapes of
 `SHARE_SHAPES` (final_scene's table launch of 100 spp, its
 scanline launches of 10 and 1 spp and its 4-spp cost probe, simple_light
-72 + 28 and two_perlin_spheres 10 spp at 1280×720, as above): the
-dense-medium walk, as final_scene's time with the walk against the event
-path (the same operands with FEAT_DENSE_WALK cleared; `walk_equals_event`
-says whether the two totals agree); the Perlin marble's turbulence, as each shape's time in the production
-build against a second build of the kernels under K1_SOLID_MARBLE, a
-define that only this mode passes to nvcc, in which the marble shades
-with its solid-colour fields (the paths and their draws stay the same).
-The two builds run in fresh processes in turns (production, solid,
-solid, production); a section's share is 1 − (time without it) / (time
-with it), from the medians.
+72 + 28 and two_perlin_spheres 10 spp at 1280×720, cornell_smoke 100 spp
+on the scanline layout and on compact tiles, the three probes, as above):
+the dense-medium walk, as final_scene's time with the walk against the
+event path (the same operands with FEAT_DENSE_WALK cleared;
+`walk_equals_event` says whether the two totals agree); and, against the
+production build, four timing builds of the kernels under a define that
+only this mode passes to nvcc (`SHARE_BUILDS`): K1_SOLID_MARBLE, in which
+the marble shades with its solid-colour fields (the paths and their draws
+stay the same), so the noise's share is 1 − solid / production;
+K1_MEDIA_TWICE, in which each segment runs its media race twice (the
+second into a sink), so the race's share is twice / production − 1; and
+K1_PROBE_ALL_COUNTERS, in which the probe also counts the member tests,
+as the stats launch does, so what counting the segments alone saves is
+1 − production / counters; and K1_MEDIA_GATE, in which a thread skips a
+medium whose padded world AABB its segment cannot reach, so what such a
+per-thread gate saves is 1 − gate / production (its pad is not proven:
+its sums may differ). The builds run in fresh processes in turns
+(production, solid, media, counters, gate, gate, counters, media, solid,
+production), the medians of each build compared, with each fresh build's
+K1 registers and spills (`ptxas`); the production runs also
+count each shape's segments, warp steps and occupancy by a stats launch of
+the same layout (the probes: their split and blocks).
 """
 
 from __future__ import annotations
@@ -85,11 +102,15 @@ import sys
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (label, preset, samples, timings, layout, variant): layout "scanline",
-# "probe" (the cost probe's stats launch), "table" (the command line's
-# balanced launches) or "cli" (the command line's scanline launches, in
-# the chunks of the lane budget); variant None, "event" (the walk's bit
-# cleared) or "rr6" (roulette from bounce 6); "lattice" is lattice_scene
-# through lattice_camera at 1280×720
+# "probe" (the cost probe of a balanced render: `trace_probe` as
+# `cost_probe` splits it, or in a checkout from before it the stats launch
+# on the scanline layout), "table" (the command line's balanced launches),
+# "cli" (the command line's scanline launches, in the chunks of the lane
+# budget) or "tiles" (one launch on the card's table of a zero cost:
+# compact 16×8 tiles in raster order); variant None, "event" (the walk's
+# bit cleared) or "rr6" (roulette from bounce 6); "lattice" is
+# lattice_scene through lattice_camera at 1280×720; a label in SIZES runs
+# at that size instead of the preset's
 SCENES = (
     ("cornell_box_baseline", "cornell_box_baseline", 100, 5, "scanline",
      None),
@@ -112,14 +133,27 @@ SCENES = (
     ("random_spheres probe", "random_spheres", 4, 20, "probe", None),
     ("final_scene probe", "final_scene", 4, 10, "probe", None),
     ("final_scene probe event", "final_scene", 4, 10, "probe", "event"),
+    ("final_scene probe 128", "final_scene", 4, 20, "probe", None),
+    ("cornell_smoke tiles", "cornell_smoke", 100, 5, "tiles", None),
     ("random_spheres table", "random_spheres", 100, 3, "table", None),
     ("final_scene table", "final_scene", 100, 3, "table", None),
     ("final_scene table event", "final_scene", 100, 3, "table", "event"))
 
+# (nx, ny) of the shapes that do not run at their preset's size: the third
+# probe of the command line's main path (final_scene at 128×128)
+SIZES = {"final_scene probe 128": (128, 128)}
+
 # the --shares shapes: final_scene's, each with the walk and without it,
-# simple_light's and two_perlin_spheres'
+# simple_light's, two_perlin_spheres', cornell_smoke's and the probes
 SHARE_SHAPES = tuple(s for s in SCENES if s[1] in (
-    "final_scene", "simple_light", "two_perlin_spheres"))
+    "final_scene", "simple_light", "two_perlin_spheres", "cornell_smoke")
+    or s[4] == "probe")
+
+# the --shares builds: the nvcc defines of each (csrc/tracer.cu)
+SHARE_BUILDS = {"production": (), "solid": ("-DK1_SOLID_MARBLE",),
+                "media": ("-DK1_MEDIA_TWICE",),
+                "counters": ("-DK1_PROBE_ALL_COUNTERS",),
+                "gate": ("-DK1_MEDIA_GATE",)}
 
 # (label, preset or crowd size, samples, layout) of the --cull timings
 CULL_SHAPES = (("random_spheres table", "random_spheres", 100, "table"),
@@ -216,7 +250,14 @@ from raytracing_rust_tpu_torch.models.builders import (PRESETS,
                                                         lattice_scene)
 from raytracing_rust_tpu_torch.ops import _build, tracer
 _build.NVCC_FLAGS = _build.NVCC_FLAGS + DEFINES
-out = {"library": _build.build()[0]}
+lib_path, log = _build.build()
+out = {"library": lib_path, "ptxas": {}}
+fn = None
+for ln in log.splitlines():   # registers and spills of a fresh build's K1
+    if "entry function" in ln:
+        fn = ln.split("'")[1] if "trace_k1" in ln else None
+    elif fn and ("registers" in ln or "spill" in ln):
+        out["ptxas"].setdefault(fn, []).append(ln.split(" : ")[-1].strip())
 dev = torch.device("cuda")
 for label, scene, spp, reps, layout, variant in SCENES:
     if scene == "lattice":
@@ -225,6 +266,12 @@ for label, scene, spp, reps, layout, variant in SCENES:
     else:
         p = PRESETS[scene]
         nx, ny, built, cam = p.nx, p.ny, p.build(), p.camera()
+    if label in SIZES:
+        from raytracing_rust_tpu_torch.ops import camera
+        nx, ny = SIZES[label]
+        cam = camera.make_camera(p.look_from, p.look_at, p.view_up, p.vfov,
+                                 nx / ny, p.aperture, p.focus_dist, p.time0,
+                                 p.time1)
     n_pix = nx * ny
     ops = tracer.trace_operands(tracer.build_scene_record(built),
                                 tracer.build_camera_record(cam), dev,
@@ -236,12 +283,23 @@ for label, scene, spp, reps, layout, variant in SCENES:
     kw = dict(nx=nx, ny=ny, seed=0, max_depth=50)
     stats = None
     chunks = [(0, spp)]
-    if layout == "probe":
+    row = None   # the probe's per-pixel segments
+    extra = {}
+    if layout == "probe" and hasattr(tracer, "trace_probe"):
+        split = tracer.probe_split(tracer.probe_tiles(nx, ny),
+                                   tracer.probe_resident(dev), spp)
+        row = torch.zeros(n_pix, dtype=torch.int64, device=dev)
+        extra.update(split=split, blocks=split * tracer.probe_tiles(nx, ny))
+    elif layout == "probe":
         stats = tracer.new_stats(nx, ny, dev)
+        row = stats[:n_pix]
         kw.update(seed=tracer.PROBE_SEED, stats=stats)
     elif layout in ("table", "cli"):
         kpix, chunks = tracer.launch_plan(n_pix, spp, dev)
-    if layout == "table" and hasattr(tracer, "render_table"):
+    if layout == "tiles":
+        kw.update(pix=tracer.block_tile_table(
+            torch.zeros(n_pix, dtype=torch.int64, device=dev), nx, ny))
+    elif layout == "table" and hasattr(tracer, "render_table"):
         kw.update(pix=tracer.render_table(ops, nx, ny, 50, dev))
     elif layout == "table":
         # a checkout whose render launches JAX's table
@@ -250,11 +308,19 @@ for label, scene, spp, reps, layout, variant in SCENES:
             order, n_pix, kpix)[0]).to(dev), kpix=kpix)
 
     def launch():
+        if row is not None and stats is None:
+            tracer.trace_probe(ops, row, nx=nx, ny=ny,
+                               seed=tracer.PROBE_SEED, sample0=0,
+                               n_samples=spp, max_depth=50,
+                               split=extra["split"])
+            return
         for s0, n in chunks:
             tracer.trace(ops, sums, sample0=s0, n_samples=n, **kw)
     launch()
     ms = []
     for _ in range(reps):
+        if row is not None:
+            row.zero_()
         if stats is not None:
             stats.zero_()
         sums.zero_()
@@ -264,9 +330,20 @@ for label, scene, spp, reps, layout, variant in SCENES:
         b.record()
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(b))
-    out[label] = dict(spp=spp, layout=layout, variant=variant,
+    if COUNT and row is None:
+        # the counters of one stats launch of the same samples and layout
+        # (the last chunk's size: the command line's launches)
+        st = tracer.new_stats(nx, ny, dev, kw.get("pix"), kw.get("kpix", 1))
+        tracer.trace(ops, torch.zeros_like(sums), sample0=0,
+                     n_samples=chunks[-1][1], stats=st, **kw)
+        busy, _, _, steps = tracer.stats_rows(st, n_pix)
+        extra.update(counted_spp=chunks[-1][1], segments=int(busy.sum()),
+                     warp_steps=int(steps.sum()),
+                     occupancy=float(busy.sum()) / (32 * float(steps.sum())))
+    out[label] = dict(spp=spp, layout=layout, variant=variant, size=[nx, ny],
                       chunks=chunks, ms=ms, median_ms=statistics.median(ms),
-                      sum=float(sums.sum()))
+                      sum=float(sums.sum() if row is None else row.sum()),
+                      **extra)
 print(json.dumps(out))
 """
 
@@ -370,11 +447,13 @@ GRAD_KERNELS = ("k2_grad_fwd", "k2_grad_fwd_tape", "k3_grad_bwd",
 
 
 def _time_checkout(path: str, grad: bool = False, scenes=SCENES,
-                   defines: tuple = ()) -> dict:
+                   defines: tuple = (), count: bool = False) -> dict:
     """One timing run in a fresh process in the checkout at path: K1 on
-    `scenes` (built with the nvcc `defines`), or with grad K2 and K3."""
+    `scenes` (built with the nvcc `defines`; with count also each shape's
+    counters from a stats launch), or with grad K2 and K3."""
     code = (_GRAD_TIMING if grad else
-            f"SCENES = {scenes!r}\nDEFINES = {defines!r}\n{_TIMING}")
+            f"SCENES = {scenes!r}\nDEFINES = {defines!r}\n"
+            f"SIZES = {SIZES!r}\nCOUNT = {bool(count)!r}\n{_TIMING}")
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=path,
         capture_output=True, text=True, timeout=900)
@@ -386,26 +465,34 @@ def _time_checkout(path: str, grad: bool = False, scenes=SCENES,
 def _time_shares(turns: int) -> dict:
     """The --shares timings (see the module's docstring)."""
     import statistics
-    builds = {"production": (), "solid": ("-DK1_SOLID_MARBLE",)}
+    order = tuple(SHARE_BUILDS)
     runs = [(b, _time_checkout(_ROOT, scenes=SHARE_SHAPES,
-                               defines=builds[b]))
-            for b in ("production", "solid", "solid", "production") * turns]
+                               defines=SHARE_BUILDS[b],
+                               count=b == "production"))
+            for b in (*order, *order[::-1]) * turns]
     med = {b: {label: statistics.median(r[label]["median_ms"]
                                         for w, r in runs if w == b)
-               for label, *_ in SHARE_SHAPES} for b in builds}
+               for label, *_ in SHARE_SHAPES} for b in order}
     shapes = {}
     for label, scene, spp, _, layout, variant in SHARE_SHAPES:
+        prod = med["production"][label]
         row = dict(spp=spp, layout=layout, variant=variant,
                    median_ms={b: [r[label]["median_ms"] for w, r in runs
-                                  if w == b] for b in builds},
-                   noise_share=1.0 - med["solid"][label]
-                   / med["production"][label],
+                                  if w == b] for b in order},
+                   noise_share=1.0 - med["solid"][label] / prod,
+                   media_share=med["media"][label] / prod - 1.0,
+                   counters_share=1.0 - prod / med["counters"][label],
+                   gate_saves=1.0 - med["gate"][label] / prod,
                    sums_equal={b: len({r[label]["sum"] for w, r in runs
-                                       if w == b}) == 1 for b in builds})
+                                       if w == b}) == 1 for b in order},
+                   counters={k: v for k, v in next(
+                       r for w, r in runs if w == "production")[label].items()
+                       if k in ("counted_spp", "segments", "warp_steps",
+                                "occupancy", "split", "blocks", "size")})
         if variant is None and f"{label} event" in med["production"]:
             ev = f"{label} event"
             row.update(walk_share={b: 1.0 - med[b][ev] / med[b][label]
-                                   for b in builds},
+                                   for b in order},
                        walk_equals_event=all(
                            r[label]["sum"] == r[ev]["sum"] for _, r in runs))
         shapes[label] = row

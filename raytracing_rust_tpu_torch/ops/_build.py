@@ -83,7 +83,8 @@ def load() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.rt_trace_k1.argtypes = [p, i, p, i, p, i, p, i, p, i, p, i, p, i, i,
                                 u, u, i, i, i, p, i, i, p, i, i, u, p, i, p,
-                                i, p, i, p, i, p, i, i, p, i, i, p, i, p]
+                                i, p, i, p, i, p, i, i, p, i, i, i, p, p, i,
+                                p]
     lib.rt_trace_k1.restype = i
     lib.rt_trace_k1_blocks_per_sm.argtypes = [i, i, i, i, p]
     lib.rt_trace_k1_blocks_per_sm.restype = i

@@ -31,8 +31,10 @@ form no box) raises `UnsupportedScene` here too.
 * `render_kernel` is the counterpart of `render_pallas`: sample chunks
   through `trace`, f64 sums on the device, the reference's gamma; for a
   scene with a dynamic sphere or box table at spp ≥ 8, first the cost
-  probe (`cost_probe`, K1f's stats launch) and the balanced pixel table
-  the kernel then renders from, as JAX's default render does, laid out
+  probe (`cost_probe`, K1f's probe launch `trace_probe`: compact tiles,
+  the samples split over blocks, the segments alone) and the balanced
+  pixel table the kernel then renders from, as JAX's default render does,
+  laid out
   for the card (`render_table`: one pixel a thread, a block on a compact
   tile, the tiles heaviest first, the order computed on the device). JAX's
   own table (`cost_permutation`, `balanced_pix_table`) is kept as the
@@ -162,6 +164,9 @@ TILE = SUB * LANES
 KPIX = 4
 PROBE_SPP = 4
 PROBE_SEED = 0x5BD1
+# the waves of resident blocks the card's probe launch is split to fill
+# (`probe_split`; chip_smoke.py phase 34 times each split)
+PROBE_WAVES = 12
 SMOOTH = 9
 BUCKETS = 32
 # threads in a block of the kernel (csrc/tracer.cu THREADS) and in a warp
@@ -207,8 +212,9 @@ K1BE_FEATS = FEAT_SKY | FEAT_CHECKER | FEAT_METAL | FEAT_DIEL | FEAT_MOVING
 # the lattice corners, and as K1G when it plays Russian roulette; K1F counts
 # a launch that renders from a pixel table or fills the stats counters, and
 # of those K1F_TABLE the table launches, K1F_STATS the stats launches (a
-# stats launch runs its own instantiation, so it never counts as K1a) and
-# K1F_DDA the stats launches that fill the DDA row
+# stats launch runs its own instantiation, so it never counts as K1a), of
+# those K1F_PROBE the cost probe's (`trace_probe`) and K1F_DDA the stats
+# launches that fill the DDA row
 KERNEL_LAUNCHES = 0
 K1BE_LAUNCHES = 0
 K1C_LAUNCHES = 0
@@ -220,6 +226,7 @@ K1G_LAUNCHES = 0
 K1F_LAUNCHES = 0
 K1F_TABLE_LAUNCHES = 0
 K1F_STATS_LAUNCHES = 0
+K1F_PROBE_LAUNCHES = 0
 K1F_DDA_LAUNCHES = 0
 
 # f32 and integer operations of csrc/tracer.cu per item, counted from its
@@ -929,11 +936,12 @@ def _sphere_center(r, time, moving: bool):
 
 
 def _media_events(med_box: int, med_table, o, d, a_dd, inv_a, t_cap,
-                  draw):
+                  draw, counts: dict | None = None):
     """Nearest constant-density medium scatter event on [T_MIN, t_cap]
     (pallas_tracer.py `media_events`, 1431-1525; reference
     src/medium.rs:28-56) → (t (BIG where none), winning medium, -1 where
-    none).
+    none). counts, when given, gathers under "med_open" the (lane, medium)
+    pairs whose clamped interval is open.
 
     Each medium's boundary is entered and left on the ray's infinite line
     (sphere roots, or slabs in object space after the world→object
@@ -984,6 +992,8 @@ def _media_events(med_box: int, med_table, o, d, a_dd, inv_a, t_cap,
         enter = torch.clamp(enter, min=T_MIN)
         exit_ = torch.minimum(exit_, t_cap)
         ok = ok & (enter < exit_)
+        if counts is not None:
+            counts["med_open"] += int(ok.sum())
         flight = -m[M_INV_RHO] * rng.lanewise(
             torch.log, torch.clamp(words[i % 4], min=1e-37))
         scat = ok & (flight < (exit_ - enter) * d_len)
@@ -1315,7 +1325,9 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     that an exact cull needs ("cull", "box_cull": `_cull_tests`),
     lane bounces of the dense-medium walk ("walk"), hits on a textured
     light ("emis_tex"), image lanes at a rect's UV ("rect_uv"), medium
-    events of a textured medium ("med_tex") and roulette draws ("rr").
+    events of a textured medium ("med_tex"), roulette draws ("rr") and the
+    (segment, medium) pairs of the main step whose interval is open
+    ("med_open": the media a per-segment gate could not skip).
 
     pix, kpix: K1f's pixel table (see `trace`); the pixels it names are
     rendered, in its order, each into its own sums, so the sums equal the
@@ -1346,7 +1358,7 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             FEAT_MED_TEX, FEAT_RR))
     if counts is not None:
         for k in ("segments", "noise", "image", "box", "cull", "box_cull",
-                  "walk", "emis_tex", "rect_uv", "med_tex", "rr"):
+                  "walk", "emis_tex", "rect_uv", "med_tex", "rr", "med_open"):
             counts.setdefault(k, 0)
     # record cells as Python floats: a torch op with a Python scalar computes
     # in the tensor's f32, and every cell is an f32 value
@@ -1577,7 +1589,7 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             def draw(stream):
                 return rng.draws(seed, pix[live], smp[live], bnc, stream)
             t_med, m_win = _media_events(ops.med_box, med_table, o, d, a_dd,
-                                         inv_a, t_best, draw)
+                                         inv_a, t_best, draw, counts)
             med_ev = (t_med < t_best) & ~skip
             t_best = torch.where(med_ev, t_med, t_best)
             tex = torch.where(med_ev[:, None],
@@ -1836,8 +1848,10 @@ def _walk(med_box, dense_of, med_table, med_dev, interior, int_kind, o, d,
         idx = ai[go]
 
 
-def _check_operands(ops: TraceOperands, sums, nx, ny):
-    dev = sums.device
+def _check_operands(ops: TraceOperands, sums, nx, ny, dev=None):
+    """The operands as the kernel takes them, on the sums' device (on dev
+    where a launch has no sums, sums None)."""
+    dev = sums.device if sums is not None else dev
     for name, x, dtype in (("rec", ops.rec, torch.float32),
                            ("walk", ops.walk, torch.int32),
                            ("dyn", ops.dyn, torch.float32),
@@ -1852,6 +1866,8 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
                            ("interior", ops.interior, torch.float32),
                            ("interior_kind", ops.interior_kind, torch.int32),
                            ("sums", sums, torch.float64)):
+        if x is None:
+            continue
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, sums on {dev}")
         if x.dtype != dtype:
@@ -1883,7 +1899,7 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
                              f"{leaves.shape[0]} leaves")
     if tuple(ops.cam.shape) != (CAMREC,):
         raise ValueError(f"cam must be [{CAMREC}], got {tuple(ops.cam.shape)}")
-    if tuple(sums.shape) != (3, nx * ny):
+    if sums is not None and tuple(sums.shape) != (3, nx * ny):
         raise ValueError(f"sums must be [3, {nx * ny}], got {tuple(sums.shape)}")
     if not 0 <= ops.feats <= FEAT_ALL:
         raise ValueError(f"feats {ops.feats} has unknown bits")
@@ -1917,23 +1933,27 @@ def _check_operands(ops: TraceOperands, sums, nx, ny):
                          f"image textures), got {tuple(ops.atlas.shape)}")
 
 
-def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
-            seed: int, sample0: int, n_samples: int, max_depth: int,
+def _launch(lib, ops: TraceOperands, sums: torch.Tensor | None, *, nx: int,
+            ny: int, seed: int, sample0: int, n_samples: int, max_depth: int,
             stream, pix: torch.Tensor | None = None, kpix: int = 1,
-            stats: torch.Tensor | None = None, dda: bool = False) -> None:
+            stats: torch.Tensor | None = None, dda: bool = False,
+            probe_split: int = 0,
+            probe_steps: torch.Tensor | None = None) -> None:
     """One launch of the K1 kernel through `lib` (the library of
-    `_build.load`) on `stream`; raises if it fails, and only then counts
-    the sections it ran."""
+    `_build.load`) on `stream`, or with probe_split ≥ 1 the cost probe's
+    launch (`trace_probe`: stats is its busy row, sums None); raises if it
+    fails, and only then counts the sections it ran."""
     global KERNEL_LAUNCHES, K1BE_LAUNCHES, K1C_LAUNCHES, K1D_LAUNCHES
     global K1E_BOX_LAUNCHES, K1D_WALK_LAUNCHES, K1_LATTICE_LAUNCHES
     global K1G_LAUNCHES, K1F_LAUNCHES, K1F_TABLE_LAUNCHES, K1F_STATS_LAUNCHES
-    global K1F_DDA_LAUNCHES
+    global K1F_PROBE_LAUNCHES, K1F_DDA_LAUNCHES
     err = lib.rt_trace_k1(
         ops.rec.data_ptr(), ops.rec.shape[0], ops.walk.data_ptr(),
         ops.walk.shape[1], ops.dyn.data_ptr(), ops.dyn.shape[0],
         ops.leaves.data_ptr(), ops.leaves.shape[0], ops.sups.data_ptr(),
         ops.sups.shape[0], ops.cam.data_ptr(),
-        ops.feats, sums.data_ptr(), nx, ny, seed & 0xFFFFFFFF, seed >> 32,
+        ops.feats, None if sums is None else sums.data_ptr(), nx, ny,
+        seed & 0xFFFFFFFF, seed >> 32,
         sample0, n_samples, max_depth, ops.med.data_ptr(),
         ops.med.shape[0], ops.med_box, ops.atlas.data_ptr(),
         ops.atlas.shape[0], ops.atlas.shape[1],
@@ -1943,7 +1963,8 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         ops.interior.data_ptr(), ops.interior.shape[0],
         ops.interior_kind.data_ptr(), ops.dense, ops.rr_depth,
         None if pix is None else pix.data_ptr(),
-        0 if pix is None else pix.numel(), kpix,
+        0 if pix is None else pix.numel(), kpix, probe_split,
+        None if probe_steps is None else probe_steps.data_ptr(),
         None if stats is None else stats.data_ptr(), int(dda), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
@@ -1957,6 +1978,8 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
         K1F_TABLE_LAUNCHES += 1
     if stats is not None:
         K1F_STATS_LAUNCHES += 1
+    if probe_split:
+        K1F_PROBE_LAUNCHES += 1
     if dda:
         K1F_DDA_LAUNCHES += 1
     if ops.feats & K1BE_FEATS or n_dyn:
@@ -1999,6 +2022,13 @@ def _check_k1f(sums, nx, ny, pix, kpix, stats, dda=False):
                              f"the sums' device")
 
 
+def _check_range(seed, sample0, n_samples, nx, ny, max_depth):
+    if not (0 <= seed < 1 << 64 and 0 <= sample0
+            and sample0 + n_samples < 1 << 31 and 0 < nx * ny < 1 << 31
+            and n_samples >= 0 and max_depth >= 0):
+        raise ValueError("seed, sample range, image size or depth out of range")
+
+
 def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
           seed: int, sample0: int, n_samples: int, max_depth: int,
           pix: torch.Tensor | None = None, kpix: int = 1,
@@ -2014,10 +2044,7 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     """
     _check_operands(ops, sums, nx, ny)
     _check_k1f(sums, nx, ny, pix, kpix, stats, dda)
-    if not (0 <= seed < 1 << 64 and 0 <= sample0
-            and sample0 + n_samples < 1 << 31 and 0 < nx * ny < 1 << 31
-            and n_samples >= 0 and max_depth >= 0):
-        raise ValueError("seed, sample range, image size or depth out of range")
+    _check_range(seed, sample0, n_samples, nx, ny, max_depth)
     if sums.device.type == "cpu":
         return trace_plain(ops, sums, nx=nx, ny=ny, seed=seed,
                            sample0=sample0, n_samples=n_samples,
@@ -2035,14 +2062,16 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     return sums
 
 
-# the eight instantiations of csrc/tracer.cu by their template flags (K1B,
-# DYN, LEAF_SMEM, STATS), as ptxas names them
+# the ten instantiations of csrc/tracer.cu by their template arguments (K1B,
+# DYN, LEAF_SMEM, STATS: 0 none, 1 the stats launch's counters, 2 the cost
+# probe's), as ptxas names them
 K1_INSTANTIATIONS = ((0, 0, 0, 0), (0, 1, 0, 0), (0, 1, 1, 0), (1, 0, 0, 0),
-                     (1, 1, 0, 0), (1, 1, 1, 0), (1, 1, 0, 1), (1, 1, 1, 1))
+                     (1, 1, 0, 0), (1, 1, 1, 0), (1, 1, 0, 1), (1, 1, 1, 1),
+                     (1, 1, 0, 2), (1, 1, 1, 2))
 
 
 def k1_blocks_per_sm() -> dict:
-    """Blocks of THREADS threads that an SM of card 0 holds, per
+    """Blocks of THREADS threads that an SM of the current card holds, per
     instantiation ("trace_k1<K1B,DYN,LEAF_SMEM,STATS>"), without dynamic
     shared memory, by the runtime's occupancy query; raises without
     CUDA."""
@@ -2199,9 +2228,9 @@ def dda_row(stats: torch.Tensor, n_pix: int) -> torch.Tensor:
 def cost_permutation(ops: TraceOperands, nx: int, ny: int, max_depth: int,
                      device) -> np.ndarray:
     """The pixel order of cost-balanced tiles (pallas_tracer.py
-    `_cost_permutation`): a stats launch of PROBE_SPP samples at the fixed
-    seed PROBE_SEED on the scanline layout, its per-pixel segments as the
-    cost image, then `cost_order`. The probe's seed is fixed because its
+    `_cost_permutation`): the cost probe (`cost_probe`: PROBE_SPP samples
+    at the fixed seed PROBE_SEED), its per-pixel segments as the cost
+    image, then `cost_order`. The probe's seed is fixed because its
     order is cached across renders: the first caller's seed must not steer
     every later render's layout."""
     busy = cost_probe(ops, nx, ny, max_depth, device).cpu().numpy()
@@ -2210,15 +2239,160 @@ def cost_permutation(ops: TraceOperands, nx: int, ny: int, max_depth: int,
 
 def cost_probe(ops: TraceOperands, nx: int, ny: int, max_depth: int,
                device) -> torch.Tensor:
-    """The cost probe of a balanced render: a stats launch of PROBE_SPP
-    samples at PROBE_SEED on the scanline layout → its per-pixel segments
-    (int64[nx·ny], row 0 on top, on device)."""
+    """The cost probe of a balanced render: `trace_probe` of PROBE_SPP
+    samples at PROBE_SEED → its per-pixel segments (int64[nx·ny], row 0 on
+    top, on device), the row 0 that a stats launch of the same samples
+    counts in any layout. On a card the samples are split as `probe_split`
+    says, so that a small image fills the card too; the row does not depend
+    on it."""
+    device = torch.device(device)
+    busy = torch.zeros(nx * ny, dtype=torch.int64, device=device)
+    split = 1
+    if device.type == "cuda":
+        split = probe_split(probe_tiles(nx, ny), probe_resident(device))
+    return trace_probe(ops, busy, nx=nx, ny=ny, seed=PROBE_SEED, sample0=0,
+                       n_samples=PROBE_SPP, max_depth=max_depth,
+                       split=split)
+
+
+def probe_tiles(nx: int, ny: int) -> int:
+    """The BLOCK_W × BLOCK_H tiles of an nx×ny image: a probe's blocks for
+    each part of its samples, a table's blocks at kpix 1."""
+    return -(-nx // BLOCK_W) * -(-ny // BLOCK_H)
+
+
+def probe_warps(nx: int, ny: int, split: int = 1) -> int:
+    """The warps of a `trace_probe` launch: split × tiles blocks of THREADS
+    threads; the length of its steps row."""
+    return split * probe_tiles(nx, ny) * (THREADS // WARP)
+
+
+def probe_split(n_tiles: int, resident: int,
+                n_samples: int = PROBE_SPP) -> int:
+    """Into how many parts `cost_probe` splits each pixel's n_samples
+    samples: the least power of two that divides them and gives the launch
+    PROBE_WAVES waves of `resident` blocks (the SMs × the blocks of the
+    probe's instantiation an SM holds), n_tiles blocks a part; at most a
+    sample a thread. A launch ends with its last blocks, so shorter blocks
+    fill the card at a small image and shorten the last wave at a large
+    one; each split also adds warp steps (a warp waits for the longest of
+    fewer samples at a time), so it stops at PROBE_WAVES."""
+    split = 1
+    while (split < n_samples and n_samples % (2 * split) == 0
+           and n_tiles * split < PROBE_WAVES * resident):
+        split *= 2
+    return split
+
+
+# resident blocks of the probe's instantiation on each card, by index
+_RESIDENT: dict = {}
+
+
+def probe_resident(device) -> int:
+    """The probe's blocks that the card of `device` holds at once: its SMs
+    × the blocks of the probe's instantiations an SM holds (the fewer of
+    the two, with and without the leaves in shared memory; the occupancy
+    query, once per card)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _RESIDENT:
+        with torch.cuda.device(idx):
+            per_sm = k1_blocks_per_sm()
+        _RESIDENT[idx] = (
+            torch.cuda.get_device_properties(idx).multi_processor_count
+            * min(per_sm["trace_k1<1,1,0,2>"], per_sm["trace_k1<1,1,1,2>"]))
+    return _RESIDENT[idx]
+
+
+def _check_probe(busy, nx, ny, n_samples, split, steps):
+    """The busy and steps rows and the split as the probe's launch takes
+    them."""
+    if busy.dtype != torch.int64 or tuple(busy.shape) != (nx * ny,) \
+            or not busy.is_contiguous():
+        raise ValueError(f"busy must be a contiguous int64[{nx * ny}]")
+    if split < 1 or n_samples % split:
+        raise ValueError(f"split {split} must be ≥ 1 and divide the "
+                         f"{n_samples} samples")
+    if steps is not None and (
+            steps.device != busy.device or steps.dtype != torch.int64
+            or tuple(steps.shape) != (probe_warps(nx, ny, split),)
+            or not steps.is_contiguous()):
+        raise ValueError(f"steps must be a contiguous int64"
+                         f"[{probe_warps(nx, ny, split)}] on busy's device")
+
+
+def trace_probe(ops: TraceOperands, busy: torch.Tensor, *, nx: int, ny: int,
+                seed: int, sample0: int, n_samples: int, max_depth: int,
+                split: int = 1,
+                steps: torch.Tensor | None = None) -> torch.Tensor:
+    """Wrapper of K1f's cost probe launch (csrc/tracer.cu, the STATS == 2
+    instantiations): adds to busy (int64[nx·ny], updated in place and
+    returned) each pixel's segments over samples sample0 ..
+    sample0+n_samples−1, walk bounces included: the stats launch's row 0 of
+    the same samples, bit for bit. It keeps no radiance and counts nothing
+    else. Its blocks take the tiles of `tile_slots`, a pixel a thread; with
+    split > 1 (a divisor of n_samples) each tile's pixels run in split
+    blocks, n_samples / split samples each, whose counts add up. steps
+    (int64[probe_warps(nx, ny, split)]), when given, gets per warp of the
+    launch the largest of its threads' segments (a warp's iterations).
+
+    On CUDA tensors it launches the kernel (building it at first use) or
+    raises; on CPU tensors it runs `probe_plain`.
+    """
+    _check_operands(ops, None, nx, ny, dev=busy.device)
+    _check_probe(busy, nx, ny, n_samples, split, steps)
+    _check_range(seed, sample0, n_samples, nx, ny, max_depth)
+    kw = dict(nx=nx, ny=ny, seed=seed, sample0=sample0, n_samples=n_samples,
+              max_depth=max_depth)
+    if busy.device.type == "cpu":
+        return probe_plain(ops, busy, split=split, steps=steps, **kw)
+    if busy.device.type != "cuda":
+        raise ValueError(f"no kernel for device {busy.device}")
+    from ._build import load
+    lib = load()
+    with torch.cuda.device(busy.device):
+        _launch(lib, ops, None, **kw,
+                stream=torch.cuda.current_stream().cuda_stream, stats=busy,
+                probe_split=split, probe_steps=steps)
+    return busy
+
+
+def probe_plain(ops: TraceOperands, busy: torch.Tensor, *, nx: int, ny: int,
+                seed: int, sample0: int, n_samples: int, max_depth: int,
+                split: int = 1,
+                steps: torch.Tensor | None = None) -> torch.Tensor:
+    """`trace_probe` in plain torch, on any device: for each of the split
+    parts of the samples, the row 0 of a stats launch of them
+    (`trace_plain`) added to busy; with steps, that row laid out as the
+    part's threads (`tile_slots`; part j's blocks follow part j − 1's) and
+    the largest of each warp's 32 added to its warp's entry."""
+    n_pix, per = nx * ny, n_samples // split
+    dev = busy.device
+    slots = tile_slots(nx, ny, dev).view(-1).long()
+    for j in range(split):
+        st = new_stats(nx, ny, dev)
+        trace_plain(ops, torch.zeros((3, n_pix), dtype=torch.float64,
+                                     device=dev),
+                    nx=nx, ny=ny, seed=seed, sample0=sample0 + j * per,
+                    n_samples=per, max_depth=max_depth, stats=st)
+        row = stats_rows(st, n_pix)[0]
+        busy += row
+        if steps is not None:
+            per_thread = torch.cat([row, row.new_zeros(1)])[slots]
+            w = per_thread.numel() // WARP
+            steps[j * w:(j + 1) * w] += per_thread.view(-1, WARP).amax(1)
+    return busy
+
+
+def tile_slots(nx: int, ny: int, device) -> torch.Tensor:
+    """The pixels of the image's BLOCK_W × BLOCK_H tiles, the tiles in
+    raster order, each row by row, nx·ny past the image's edge →
+    int32[tiles, THREADS] on device: a block's pixels, thread by thread, in
+    the probe and (its rows dealt by cost) in `block_tile_table`."""
     n_pix = nx * ny
-    stats = new_stats(nx, ny, device)
-    trace(ops, torch.zeros((3, n_pix), dtype=torch.float64, device=device),
-          nx=nx, ny=ny, seed=PROBE_SEED, sample0=0, n_samples=PROBE_SPP,
-          max_depth=max_depth, stats=stats)
-    return stats_rows(stats, n_pix)[0]
+    pix = torch.arange(n_pix, dtype=torch.int32, device=device)
+    return _tile_grid(pix, nx, ny, n_pix).permute(0, 2, 1, 3) \
+        .reshape(-1, THREADS)
 
 
 def _tile_grid(x: torch.Tensor, nx: int, ny: int, fill) -> torch.Tensor:
@@ -2245,9 +2419,7 @@ def block_tile_table(busy: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
     n_pix = nx * ny
     cost = _tile_grid(busy, nx, ny, 0).sum(dim=(1, 3)).view(-1)
     rank = torch.sort(cost, descending=True, stable=True).indices
-    pix = torch.arange(n_pix, dtype=torch.int32, device=busy.device)
-    slots = _tile_grid(pix, nx, ny, n_pix).permute(0, 2, 1, 3) \
-        .reshape(-1, THREADS)
+    slots = tile_slots(nx, ny, busy.device)
     table = torch.full((-(-slots.numel() // TILE) * TILE,), n_pix,
                        dtype=torch.int32, device=busy.device)
     table[:slots.numel()] = slots.index_select(0, rank).view(-1)

@@ -167,19 +167,30 @@ def test_dda_row_adds_up_across_chunks():
 
 
 def test_cost_probe_never_asks_for_the_row(monkeypatch):
-    """`cost_permutation`'s stats launch is the one without the row, as in
-    JAX (pallas_tracer.py:1289-1293)."""
-    calls = []
-    trace = tracer.trace
-
-    def spy(*args, **kw):
-        calls.append(kw)
-        return trace(*args, **kw)
-
-    monkeypatch.setattr(tracer, "trace", spy)
-    tracer.cost_permutation(_ops("final_scene", 16, 8), 16, 8, 6, "cpu")
-    assert len(calls) == 1 and not calls[0].get("dda", False)
-    assert calls[0]["stats"].numel() == tracer.stats_size(16 * 8)
+    """`cost_permutation`'s probe is a launch without the DDA row, as in JAX
+    (pallas_tracer.py:1289-1293): one `trace_probe` call (a launch that
+    counts the segments alone) and no `trace` call with the row; its
+    segments are the row 0 of a stats launch without the row, and the
+    order is `cost_order` of that row."""
+    calls = {"trace": [], "trace_probe": []}
+    for name in calls:
+        def spy(*args, _real=getattr(tracer, name), _name=name, **kw):
+            calls[_name].append(kw)
+            return _real(*args, **kw)
+        monkeypatch.setattr(tracer, name, spy)
+    ops = _ops("final_scene", 16, 8)
+    order = tracer.cost_permutation(ops, 16, 8, 6, "cpu")
+    monkeypatch.undo()
+    assert len(calls["trace_probe"]) == 1
+    assert not any(kw.get("dda", False) for kw in calls["trace"])
+    stats = tracer.new_stats(16, 8, "cpu")
+    tracer.trace(ops, torch.zeros((3, 16 * 8), dtype=torch.float64), nx=16,
+                 ny=8, seed=tracer.PROBE_SEED, sample0=0,
+                 n_samples=tracer.PROBE_SPP, max_depth=6, stats=stats)
+    row = tracer.stats_rows(stats, 16 * 8)[0]
+    assert torch.equal(tracer.cost_probe(ops, 16, 8, 6, "cpu"), row)
+    assert np.array_equal(order, tracer.cost_order(
+        row.numpy().reshape(8, 16), 16, 8, tracer.pick_block(16, 8)))
 
 
 def test_kernel_stats_reports_the_skip_share(capsys):

@@ -227,6 +227,28 @@ def _sealed(nx, ny):
                                          35.0, nx / ny, 0.0, 10.0, 0.0, 1.0)
 
 
+def _media_mix(nx, ny):
+    """Five media in two groups of four draws: a sphere around the whole
+    scene, a rotated box, a rotated sphere, an axis-aligned box and a small
+    dense sphere, over a gray ground under a sphere light."""
+    b = SceneBuilder(background=BG_BLACK)
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    b.sphere((0, 6, 1), 1.5, b.diffuse_light(b.solid(7, 7, 7)))
+    b.medium_sphere((0, 1, 0), 9.0, 0.01, b.solid(0.9, 0.9, 0.9))
+    b.medium_box((-0.5, 0, -0.5), (0.5, 1.5, 0.5), 0.5,
+                 b.solid(0.3, 0.5, 0.7),
+                 xform=b.transform(offset=(-1.5, 0, 0), rotate_axis="y",
+                                   angle_deg=30.0))
+    b.medium_sphere((0, 0.8, 0), 0.8, 0.3, b.solid(0.8, 0.3, 0.2),
+                    xform=b.transform(offset=(1.5, 0, 0.5), rotate_axis="x",
+                                      angle_deg=-20.0))
+    b.medium_box((-0.4, 0, 1.2), (0.4, 0.6, 2.0), 1.0,
+                 b.solid(0.2, 0.8, 0.3))
+    b.medium_sphere((0.3, 2.2, -1.0), 0.3, 2.0, b.solid(0.9, 0.9, 0.2))
+    return b.build(), camera.make_camera((0, 2, 7), (0, 1, 0), (0, 1, 0),
+                                         40.0, nx / ny, 0.0, 7.0, 0.0, 1.0)
+
+
 HOLES = ("emissive_checker", "emissive_noise", "emissive_image", "image_rect",
          "image_flipped_sphere", "medium_checker", "medium_noise",
          "medium_image")
@@ -758,6 +780,65 @@ def test_kernel_render_table_is_bit_exact(cuda, name, n_samples):
     for a, b in zip(tracer.stats_rows(sk, n_pix)[:3],
                     tracer.stats_rows(ss, n_pix)[:3]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,nx,ny", [("random_spheres", 96, 64),
+                                         ("final_scene", 128, 128)])
+def test_kernel_probe_matches_plain(cuda, name, nx, ny):
+    """K1f's cost probe launch (`trace_probe`: compact tiles, the samples
+    split over blocks, the segments alone) at every split gives the plain
+    version's row and warp steps and the scanline stats launch's row 0 bit
+    for bit; the render's table is the one made from that row; a call
+    counts one K1F_PROBE and K1F_STATS launch and no K1a."""
+    ops = _operands(*_preset(name)(nx, ny), cuda)
+    n_pix = nx * ny
+    kw = dict(nx=nx, ny=ny, seed=tracer.PROBE_SEED, sample0=0,
+              n_samples=tracer.PROBE_SPP, max_depth=50)
+    st = tracer.new_stats(nx, ny, cuda)
+    tracer.trace(ops, torch.zeros((3, n_pix), dtype=torch.float64,
+                                  device=cuda), stats=st, **kw)
+    row0 = tracer.stats_rows(st, n_pix)[0]
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.int64, device=cuda)
+    for split in (1, 2, 4):
+        names = ("K1F_PROBE_LAUNCHES", "K1F_STATS_LAUNCHES",
+                 "KERNEL_LAUNCHES")
+        before = [getattr(tracer, n) for n in names]
+        busy, steps = zeros(n_pix), zeros(tracer.probe_warps(nx, ny, split))
+        tracer.trace_probe(ops, busy, split=split, steps=steps, **kw)
+        assert [getattr(tracer, n) - b for n, b in zip(names, before)] == [
+            1, 1, 0]
+        pb, ps = zeros(n_pix), zeros(steps.numel())
+        tracer.probe_plain(ops, pb, split=split, steps=ps, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(busy, row0), (split, int(busy.sum()),
+                                         int(row0.sum()))
+        assert torch.equal(busy, pb) and torch.equal(steps, ps), split
+    pix = tracer.render_table(ops, nx, ny, 50, cuda)
+    assert torch.equal(pix, tracer.block_tile_table(row0, nx, ny))
+
+
+@pytest.mark.parametrize("make", [_preset("cornell_smoke"), _media_mix])
+def test_kernel_media_race_is_bit_exact(cuda, make):
+    """K1d's media race (each group's draw issued once, at the top, every
+    medium's flight without a branch) gives the plain version's sums bit
+    for bit on cornell_smoke's two rotated boxes and on five box and
+    sphere media, rotated and not, whose draws come from two groups; one
+    K1D launch."""
+    nx, ny = 96, 64
+    ops = _operands(*make(nx, ny), cuda)
+    assert ops.feats & tracer.FEAT_MEDIA
+    assert not ops.feats & tracer.FEAT_DENSE_WALK
+    kw = dict(nx=nx, ny=ny, seed=11, sample0=0, n_samples=4, max_depth=50)
+    before = tracer.K1D_LAUNCHES
+    k = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
+                                      device=cuda), **kw)
+    assert tracer.K1D_LAUNCHES == before + 1
+    p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
+    torch.cuda.synchronize()
+    assert float(k.sum()) > 0
+    assert torch.equal(k, p), float((k == p).all(dim=0).double().mean())
 
 
 def test_d3_matches_plain(cuda):
