@@ -142,10 +142,10 @@ Phases, one JSON line each on stdout:
      preset, and the occupancy on each layout there, with its blocks and
      waves (blocks over the blocks an SM holds times the SMs);
      Then the render's cost probe (`trace_probe`: compact 16×8 tiles, the
-     segments alone, each pixel's samples split over blocks where the
-     image would fill under two waves) at the command line's three
-     probes (random_spheres, final_scene and final_scene at 128×128, 4
-     spp): its row bit-equal to the scanline stats launch's row 0, at
+     segments alone, each pixel's samples split over blocks until the
+     launch holds tracer.PROBE_WAVES = 12 waves of resident blocks) at
+     the command line's three probes (random_spheres, final_scene and
+     final_scene at 128×128, 4 spp): its row bit-equal to the scanline stats launch's row 0, at
      every split, and (where the plain version is quick: random_spheres
      and 128×128) to the plain version's with its warp steps; the
      render's table equal to the one made from that row; the probe and
@@ -341,18 +341,21 @@ def bound(ops: float, nbytes: float,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_bound(ops, counts: dict, n_pix: int, n_samples: int) -> dict:
+def k1_bound(ops, counts: dict, n_pix: int, n_samples: int,
+             probe: bool = False) -> dict:
     """K1's bound on this run's paths: the operations and bytes of
     `tracer.k1_work` (trace_plain's counts times tracer.K1_OPS, the
     operations of csrc/tracer.cu per item, counted from its source), the
     cull's slab tests those of an exact two-level cull; beside it, as
     bound_ms_one_level, the same with a slab test of every leaf a segment
-    (the one-level cull's work, the yardstick of the rows before it)."""
+    (the one-level cull's work, the yardstick of the rows before it). probe:
+    the cost probe's work, the paths without their colours or sums."""
     from raytracing_rust_tpu_torch.ops.tracer import k1_work
-    return dict(**bound(*k1_work(ops, counts, n_pix, n_samples)),
+    return dict(**bound(*k1_work(ops, counts, n_pix, n_samples,
+                                 probe=probe)),
                 bound_ms_one_level=bound(*k1_work(
-                    ops, counts, n_pix, n_samples,
-                    one_level=True))["bound_ms"])
+                    ops, counts, n_pix, n_samples, one_level=True,
+                    probe=probe))["bound_ms"])
 
 
 @contextlib.contextmanager
@@ -445,7 +448,9 @@ def replay_probe(launch: dict, held: dict) -> dict:
     and its warp steps from its own steps row (occupancy, tail share); its
     row held bit for bit to row 0 of the stats launch of the same samples
     on the scanline layout (`equals_scanline`: what the render's table is
-    made from before this probe), and its bound as `replay`'s."""
+    made from before this probe), and its bound as `replay`'s on the
+    probe's own work (`k1_work`'s probe: the paths, without what only
+    colours them and without the sums)."""
     import torch
     from raytracing_rust_tpu_torch.ops import tracer
     ops, kw = launch["ops"], launch["kw"]
@@ -469,7 +474,8 @@ def replay_probe(launch: dict, held: dict) -> dict:
         stats=True, probe=True, split=split,
         blocks=split * tracer.probe_tiles(nx, ny), dda=False,
         counted=launch["counted"], ms=ms,
-        **k1_bound(ops, {k: v * scale for k, v in work.items()}, n_pix, n),
+        **k1_bound(ops, {k: v * scale for k, v in work.items()}, n_pix, n,
+                   probe=True),
         segments=seg, warp_steps=warp_steps, occupancy=occ,
         tail_share=1.0 - occ,
         equals_scanline=bool(torch.equal(busy,

@@ -45,14 +45,17 @@
 // choice, so no plain version could reproduce such a count). The render's
 // cost probe has a launch of its own (`probe_split` > 0, the STATS == 2
 // instantiations): it counts each pixel's segments alone, the one row the
-// render's table reads, and writes no sums. Its blocks take the compact
+// render's table reads, and reads and writes no sums, so what only colours
+// a path (the marble's noise, the texels) is dead code there; as a mode of
+// the STATS == 1 instantiations it ran 1.1-1.2× slower on random_spheres
+// and final_scene (PERF.md §6, PR 17). Its blocks take the compact
 // TILE_W × TILE_H tiles in raster order, a pixel a thread, so a warp traces
 // 16 × 2 neighbouring pixels where a scanline warp traced a 32 × 1 strip;
-// where one pixel a thread would leave the card under two waves (a small
-// image), the host splits each pixel's samples over probe_split blocks,
-// which add their counts with integer atomics: a pixel's segments are keyed
-// by (pixel, sample, bounce), so the row is the same in any layout, on any
-// number of threads and in any order. The host side and the plain torch
+// the host splits each pixel's samples over probe_split blocks so that the
+// launch fills the card, and the parts add their counts with integer
+// atomics: a pixel's segments are keyed by (pixel, sample, bounce), so the
+// row is the same in any layout, on any number of threads and in any
+// order. The host side and the plain torch
 // version of the same computation are in ops/tracer.py (`trace_plain`,
 // `trace_probe`, `probe_plain`).
 //
@@ -201,27 +204,11 @@ constexpr bool SOLID_MARBLE = false;
 #endif
 // K1_MEDIA_TWICE: a timing build of `kernel_ab --shares` alone: every
 // segment runs its media race a second time, into a sink the compiler must
-// keep, so the time it adds is the race's. K1_PROBE_ALL_COUNTERS: another:
-// the probe also counts the member tests, as the general stats launch does,
-// into a sink, so the time it adds is what counting only the segments saves
+// keep, so the time it adds is the race's
 #ifdef K1_MEDIA_TWICE
 constexpr bool MEDIA_TWICE = true;
 #else
 constexpr bool MEDIA_TWICE = false;
-#endif
-#ifdef K1_PROBE_ALL_COUNTERS
-constexpr bool PROBE_ALL_COUNTERS = true;
-#else
-constexpr bool PROBE_ALL_COUNTERS = false;
-#endif
-// K1_MEDIA_GATE: a third: a thread skips a medium whose padded world AABB
-// its segment cannot reach (`media_race`), so the time it saves is what a
-// per-thread gate could save; its pad is not proven, so its sums may
-// differ from the production build's
-#ifdef K1_MEDIA_GATE
-constexpr bool MEDIA_GATE = true;
-#else
-constexpr bool MEDIA_GATE = false;
 #endif
 
 constexpr float BIG = 3.0e38f;
@@ -535,55 +522,20 @@ __device__ __forceinline__ void ball(const Uniforms& us, float& bx,
 // Each medium's boundary is entered and left on the ray's line (sphere
 // roots, or slabs after the world→object rotation and offset); the free
 // flight −(1/ρ)·ln u takes word i % 4 of counter (pixel, sample, bounce,
-// MEDIUM + i / 4). The race is a third of cornell_smoke's launch
-// (`kernel_ab --shares`): a few dozen multiplies and six IEEE divides a
-// medium, and for an open interval a Philox chain of ten dependent rounds
-// and a log. Drawn inside the branch of an open interval, the chain was
-// issued once for the threads whose first open medium is i and again for
-// those whose first is j (a branch that some thread of a warp takes is a
-// branch the warp issues), each time after that medium's interval. So
-// each group's draw is issued once, at the top, and each medium's log and
-// flight follow its interval without a branch, so that the chain's
-// integer work can overlap the intervals' float work. A thread whose
-// intervals are empty takes the draw and ignores it: the draws are
-// counter-keyed, so the values, and the first strict minimum, are the
-// ones a draw per open interval gave. On an H100 that costs a scene whose
-// media a segment seldom reaches (lattice_scene's three: 1.033× on its
-// launches, PERF.md §6) and pays where one is always reached
-// (final_scene's mist: 0.949-0.964×); a draw decided for the warp after
-// the intervals (`__any_sync`) ran cornell_smoke faster still but
-// final_scene 5-8% slower. A per-thread gate that skipped the media whose
-// padded world AABB a segment cannot reach saves a warp nothing unless
-// all its threads skip, and every thread pays the test: the K1_MEDIA_GATE
-// timing build measures it (s_gate: each medium's AABB).
+// MEDIUM + i / 4), drawn only for a medium whose interval is non-empty.
 __device__ __forceinline__ float media_race(
     const float* s_med, int n_med, int med_box, float ox, float oy,
     float oz, float dx, float dy, float dz, float a_dd, float inv_a,
     float t_cap, uint32_t pix, uint32_t sample, uint32_t bounce,
-    uint32_t k0, uint32_t k1, int& m_win, const float* s_gate = nullptr) {
+    uint32_t k0, uint32_t k1, int& m_win) {
   const float d_len = sqrtf(a_dd);
   const float inv_dlen = 1.0f / d_len;
-  float inv_x = 0.0f, inv_y = 0.0f, inv_z = 0.0f;
-  if (MEDIA_GATE) {
-    inv_x = safe_inv(dx);
-    inv_y = safe_inv(dy);
-    inv_z = safe_inv(dz);
-  }
   float t_med = BIG;
+  int group = -1;
   m_win = -1;
   Uniforms um = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int i = 0; i < n_med; ++i) {
-    if ((i & 3) == 0)
-      um = philox(pix, sample, bounce, STREAM_MEDIUM + (uint32_t)(i >> 2), k0,
-                  k1);
     const float* m = s_med + i * MEDREC;
-    if (MEDIA_GATE) {
-      float gmn, gmx;
-      slab(s_gate[6 * i], s_gate[6 * i + 1], s_gate[6 * i + 2],
-           s_gate[6 * i + 3], s_gate[6 * i + 4], s_gate[6 * i + 5], ox, oy,
-           oz, inv_x, inv_y, inv_z, gmn, gmx);
-      if (gmn > gmx || gmx < T_MIN || gmn > t_cap) continue;
-    }
     // world → object: R₋ (o − offset), R₋ d
     const float wx = ox - m[M_OFF], wy = oy - m[M_OFF + 1],
                 wz = oz - m[M_OFF + 2];
@@ -626,12 +578,18 @@ __device__ __forceinline__ float media_race(
     }
     enter = fmaxf(enter, T_MIN);
     exit_ = fminf(exit_, t_cap);
+    if (!(ok && enter < exit_)) continue;
+    if (i >> 2 != group) {
+      group = i >> 2;
+      um = philox(pix, sample, bounce, STREAM_MEDIUM + (uint32_t)group, k0,
+                  k1);
+    }
     const int wi = i & 3;
     const float u = wi == 0 ? um.x : wi == 1 ? um.y : wi == 2 ? um.z : um.w;
     const float flight = -m[M_INV_RHO] * logf(fmaxf(u, 1e-37f));
+    if (!(flight < (exit_ - enter) * d_len)) continue;
     const float t_i = enter + flight * inv_dlen;
-    if (ok && enter < exit_ && flight < (exit_ - enter) * d_len &&
-        t_i < t_med) {
+    if (t_i < t_med) {
       t_med = t_i;
       m_win = i;
     }
@@ -659,9 +617,6 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          const float* __restrict__ sups, int n_sup,
          const float* __restrict__ bsups, int n_bsup, int probe_split,
          long long* __restrict__ probe_steps) {
-  // the member tests and the DDA crossings are counted by a stats launch
-  // (and by the probe only in the timing build that measures their cost)
-  constexpr bool COUNT_ALL = STATS == 1 || (STATS == 2 && PROBE_ALL_COUNTERS);
   // the scene's features; all off outside the K1B instantiations
   const bool emis_tex = K1B && (feats & FEAT_EMIS_TEX),
              uv_carry = K1B && (feats & FEAT_UV_CARRY),
@@ -702,8 +657,6 @@ trace_k1(const float* __restrict__ rec, int n_rec,
     for (int i = 0; i < n_int; ++i) n_int_sr += interior_kind[i] != INT_BOX;
   const int n_list = n_walk + (K1B ? n_int_sr : 0);
   int* s_ikind = s_walk + 2 * n_list;
-  // K1_MEDIA_GATE's timing build: each medium's padded world AABB
-  float* s_gate = (float*)(s_ikind + n_int);
   for (int i = threadIdx.x; i < n_rec * REC; i += blockDim.x)
     s_rec[i] = rec[i];
   for (int i = threadIdx.x; i < 2 * n_walk; i += blockDim.x)
@@ -769,31 +722,6 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         s_walk[n_list + e] = interior_kind[i] == INT_RECT ? n_rec + i : -1;
         ++e;
       }
-    }
-    if (MEDIA_GATE && threadIdx.x < n_med) {
-      // a box's eight corners or a sphere's bounds, object → world by the
-      // transpose of R₋ and the offset, padded by 1e-3 of their scale
-      const float* m = med + threadIdx.x * MEDREC;
-      const bool is_box = (med_box >> threadIdx.x) & 1;
-      const float r = is_box ? 0.0f : sqrtf(m[M_DATA + 3]);
-      float b[6] = {BIG, BIG, BIG, -BIG, -BIG, -BIG};
-      for (int c = 0; c < (is_box ? 8 : 1); ++c) {
-        const float p[3] = {m[M_DATA + ((c >> 2) & 1) * 3],
-                            m[M_DATA + 1 + ((c >> 1) & 1) * 3],
-                            m[M_DATA + 2 + (c & 1) * 3]};
-        for (int a = 0; a < 3; ++a) {
-          const float w = m[M_ROT + a] * (is_box ? p[0] : m[M_DATA]) +
-                          m[M_ROT + 3 + a] * (is_box ? p[1] : m[M_DATA + 1]) +
-                          m[M_ROT + 6 + a] * (is_box ? p[2] : m[M_DATA + 2]) +
-                          m[M_OFF + a];
-          b[a] = fminf(b[a], w - r);
-          b[3 + a] = fmaxf(b[3 + a], w + r);
-        }
-      }
-      float scale = 1.0f;
-      for (int a = 0; a < 6; ++a) scale = fmaxf(scale, fabsf(b[a]));
-      for (int a = 0; a < 6; ++a)
-        s_gate[6 * threadIdx.x + a] = b[a] + (a < 3 ? -1e-3f : 1e-3f) * scale;
     }
   }
   __syncthreads();
@@ -1032,7 +960,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         int wb = -1;
         cull_table(s_root, bsup, n_bsup, bleaf, n_bleaf, n_box, ox, oy, oz,
                    inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
-          if (COUNT_ALL) tests_b += (uint32_t)cnt;
+          if (STATS == 1) tests_b += (uint32_t)cnt;
           for (int q = start; q < start + cnt; ++q) {
             // merged cube (reference src/cube.rs:20-74): one slab test,
             // the entry face when beyond T_MIN, else the exit face
@@ -1045,7 +973,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
             // STATS, the DDA row (pallas_tracer.py:1927-1938): the ray
             // crosses the member's AABB inside its window, before its
             // best hit so far: the visit set of a per-ray grid DDA
-            if (COUNT_ALL && dda != nullptr && tmx > fmaxf(tmn, T_MIN) &&
+            if (STATS == 1 && dda != nullptr && tmx > fmaxf(tmn, T_MIN) &&
                 tmn < t_d)
               ++cross_b;
             if (tmx > tmn && t_p > T_MIN && t_p < t_d) {
@@ -1058,7 +986,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         int wd = -1;
         cull_table(s_root + 6, sup, n_sup, leaf, n_leaf, n_dyn, ox, oy, oz,
                    inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
-          if (COUNT_ALL) tests_s += (uint32_t)cnt;
+          if (STATS == 1) tests_s += (uint32_t)cnt;
           for (int q = start; q < start + cnt; ++q) {
             const float* r = dyn + (size_t)q * REC;
             float cx = __ldg(r + R_C0), cy = __ldg(r + R_C0 + 1),
@@ -1139,7 +1067,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         const float t_med =
             media_race(s_med, n_med, med_box, ox, oy, oz, dx, dy, dz, a_dd,
                        inv_a, t_best, pix, sample, (uint32_t)bounce, k0, k1,
-                       m_ev, s_gate);
+                       m_ev);
         if (MEDIA_TWICE) {
           // the timing build's second race: its cap passes through an asm
           // the compiler cannot see through, so the race is not merged with
@@ -1149,7 +1077,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
           int m2;
           const float t2 = media_race(s_med, n_med, med_box, ox, oy, oz, dx,
                                       dy, dz, a_dd, inv_a, cap, pix, sample,
-                                      (uint32_t)bounce, k0, k1, m2, s_gate);
+                                      (uint32_t)bounce, k0, k1, m2);
           asm volatile("" ::"f"(t2), "r"(m2));
         }
         if (walk_bounce ? t_med < BIG : t_med < t_best) {
@@ -1434,8 +1362,6 @@ trace_k1(const float* __restrict__ rec, int n_rec,
             // the probe: the pixel's segments, from each of its parts
             atomicAdd((unsigned long long*)(stats + pix),
                       (unsigned long long)busy);
-            if (PROBE_ALL_COUNTERS)
-              asm volatile("" ::"r"(tests_s), "r"(tests_b), "r"(cross_b));
           }
           if (STATS) total += busy;
         }
@@ -1559,8 +1485,7 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                         pix_table != nullptr;
   const size_t base =
       sizeof(float) * (n_rec * REC + CAMREC + (dyn_inst ? 12 : 0) +
-                       n_med * (MEDREC + (MEDIA_GATE ? 6 : 0)) +
-                       n_int * REC) +
+                       n_med * MEDREC + n_int * REC) +
       sizeof(int) * (2 * n_walk + 3 * n_int);
   const size_t leaf_bytes =
       sizeof(float) * (size_t)(n_leaf + n_sup + n_bleaf + n_bsup) * CLUSW;

@@ -8,7 +8,8 @@ DIR is another checkout of the repository, e.g. the parent commit unpacked
 with `git archive` into a directory `.gitignore` lists. On one CUDA card the
 script builds both checkouts' kernels, compares the SASS of the K1a
 instantiation (`trace_k1<false, false, false, false>`, cornell_box's
-kernel) line by line without addresses, and times the kernel in each
+kernel) and of the other production instantiations (STATS off) line by
+line without addresses, and times the kernel in each
 checkout in turns (other, this, this, other) on the shapes of `SCENES`:
 cornell_box_baseline 800×800 at 100 spp (also with roulette from bounce
 6, K1g), random_spheres 1280×720 at 100 spp, two_spheres and
@@ -63,7 +64,7 @@ compute the same image.
     python -m raytracing_rust_tpu_torch.kernel_ab --shares [--turns N]
         [--out FILE]
 
-measures in this checkout what five parts of K1 cost, on the shapes of
+measures in this checkout what three parts of K1 cost, on the shapes of
 `SHARE_SHAPES` (final_scene's table launch of 100 spp, its
 scanline launches of 10 and 1 spp and its 4-spp cost probe, simple_light
 72 + 28 and two_perlin_spheres 10 spp at 1280×720, cornell_smoke 100 spp
@@ -71,23 +72,17 @@ on the scanline layout and on compact tiles, the three probes, as above):
 the dense-medium walk, as final_scene's time with the walk against the
 event path (the same operands with FEAT_DENSE_WALK cleared;
 `walk_equals_event` says whether the two totals agree); and, against the
-production build, four timing builds of the kernels under a define that
+production build, two timing builds of the kernels under a define that
 only this mode passes to nvcc (`SHARE_BUILDS`): K1_SOLID_MARBLE, in which
 the marble shades with its solid-colour fields (the paths and their draws
-stay the same), so the noise's share is 1 − solid / production;
+stay the same), so the noise's share is 1 − solid / production; and
 K1_MEDIA_TWICE, in which each segment runs its media race twice (the
-second into a sink), so the race's share is twice / production − 1; and
-K1_PROBE_ALL_COUNTERS, in which the probe also counts the member tests,
-as the stats launch does, so what counting the segments alone saves is
-1 − production / counters; and K1_MEDIA_GATE, in which a thread skips a
-medium whose padded world AABB its segment cannot reach, so what such a
-per-thread gate saves is 1 − gate / production (its pad is not proven:
-its sums may differ). The builds run in fresh processes in turns
-(production, solid, media, counters, gate, gate, counters, media, solid,
-production), the medians of each build compared, with each fresh build's
-K1 registers and spills (`ptxas`); the production runs also
-count each shape's segments, warp steps and occupancy by a stats launch of
-the same layout (the probes: their split and blocks).
+second into a sink), so the race's share is twice / production − 1. The
+builds run in fresh processes in turns (production, solid, media, media,
+solid, production), the medians of each build compared, with each fresh
+build's K1 registers and spills (`ptxas`); the production runs also count
+each shape's segments, warp steps and occupancy by a stats launch of the
+same layout (the probes: their split and blocks).
 """
 
 from __future__ import annotations
@@ -151,9 +146,7 @@ SHARE_SHAPES = tuple(s for s in SCENES if s[1] in (
 
 # the --shares builds: the nvcc defines of each (csrc/tracer.cu)
 SHARE_BUILDS = {"production": (), "solid": ("-DK1_SOLID_MARBLE",),
-                "media": ("-DK1_MEDIA_TWICE",),
-                "counters": ("-DK1_PROBE_ALL_COUNTERS",),
-                "gate": ("-DK1_MEDIA_GATE",)}
+                "media": ("-DK1_MEDIA_TWICE",)}
 
 # (label, preset or crowd size, samples, layout) of the --cull timings
 CULL_SHAPES = (("random_spheres table", "random_spheres", 100, "table"),
@@ -481,8 +474,6 @@ def _time_shares(turns: int) -> dict:
                                   if w == b] for b in order},
                    noise_share=1.0 - med["solid"][label] / prod,
                    media_share=med["media"][label] / prod - 1.0,
-                   counters_share=1.0 - prod / med["counters"][label],
-                   gate_saves=1.0 - med["gate"][label] / prod,
                    sums_equal={b: len({r[label]["sum"] for w, r in runs
                                        if w == b}) == 1 for b in order},
                    counters={k: v for k, v in next(
@@ -500,21 +491,24 @@ def _time_shares(turns: int) -> dict:
                 runs=[dict(build=b, **r) for b, r in runs])
 
 
-def _k1a_sass(library: str) -> list[str]:
-    """The K1a instantiation's SASS instructions, addresses and encodings
-    stripped."""
+def _k1_sass(library: str) -> dict:
+    """The SASS instructions of each production instantiation of K1 (STATS
+    off), addresses and encodings stripped, by its flags "K1B,DYN,
+    LEAF_SMEM" (K1a's "0,0,0")."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    out, inside = [], False
+    out, inside = {}, None
     for line in text.splitlines():
         if line.strip().startswith("Function :"):
-            inside = "trace_k1ILb0ELb0ELb0E" in line
+            f = re.search(r"trace_k1ILb([01])ELb([01])ELb([01])EL[bi]0E",
+                          line)
+            inside = ",".join(f.groups()) if f else None
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
         if inside and m:
-            out.append(m.group(1))
+            out.setdefault(inside, []).append(m.group(1))
     return out
 
 
@@ -571,14 +565,20 @@ def main(argv=None) -> int:
                      kernels=kernels,
                      runs=[dict(who=who, **r) for who, r in runs]), args.out)
         return 0
-    sass = {who: _k1a_sass(r["library"]) for who, r in runs[:2]}
-    differ = sum(a != b for a, b in zip(sass["other"], sass["this"])) + abs(
-        len(sass["other"]) - len(sass["this"]))
+    sass = {who: _k1_sass(r["library"]) for who, r in runs[:2]}
+
+    def differ(name):
+        a, b = sass["other"].get(name, []), sass["this"].get(name, [])
+        return sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
     result = dict(
         device=smi, order=[who for who, _ in runs],
-        k1a_sass=dict(instructions_other=len(sass["other"]),
-                      instructions_this=len(sass["this"]),
-                      differing=differ),
+        k1a_sass=dict(
+            instructions_other=len(sass["other"].get("0,0,0", [])),
+            instructions_this=len(sass["this"].get("0,0,0", [])),
+            differing=differ("0,0,0")),
+        production_sass_differing={
+            name: differ(name)
+            for name in sorted(set(sass["other"]) | set(sass["this"]))},
         scenes={label: dict(
             spp=spp, layout=layout,
             median_ms={who: [r[label]["median_ms"] for w, r in runs

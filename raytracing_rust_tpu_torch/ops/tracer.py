@@ -2091,7 +2091,8 @@ def k1_blocks_per_sm() -> dict:
 
 
 def k1_work(ops: TraceOperands, counts: dict, n_pix: int,
-            n_samples: int, one_level: bool = False) -> tuple[int, int]:
+            n_samples: int, one_level: bool = False,
+            probe: bool = False) -> tuple[int, int]:
     """(operations, bytes) of K1 on a run's paths: `trace_plain`'s counts
     of lane bounces, of noise and image lanes, of the box members an exact
     leaf cull tests, of the slab tests an exact two-level cull makes, of
@@ -2100,7 +2101,12 @@ def k1_work(ops: TraceOperands, counts: dict, n_pix: int,
     per lane bounce (the sphere leaf cull's members counted as one leaf's);
     the sums read and written once, every record and the atlas read once.
     one_level: count the cull as a slab test of every leaf a lane bounce,
-    the one-level cull's work, in place of the two-level cull's."""
+    the one-level cull's work, in place of the two-level cull's. probe: the
+    cost probe's work (`trace_probe`), the paths alone: without what only
+    colours a path (the noise, image, textured-light, rect-UV and
+    textured-medium lanes, and the atlas; a scene that plays roulette keeps
+    them, since its paths follow their colours), and with the busy row
+    written once (8 bytes a pixel) in place of the sums read and written."""
     rows = ops.walk[0].tolist()   # the unrolled prims a ray tests
     n_sph = int((ops.rec[rows, R_IS_SPHERE] > 0).sum()) if rows else 0
     n_rect = len(rows) - n_sph
@@ -2116,21 +2122,21 @@ def k1_work(ops: TraceOperands, counts: dict, n_pix: int,
     per_walk = (K1_OPS["walk"] + int(ops.interior.shape[0])
                 * K1_OPS["interior"] + int(ops.med.shape[0])
                 * K1_OPS["medium"])
+    colour = not probe or bool(ops.feats & FEAT_RR)
     n_ops = (counts["segments"] * per_seg
              + n_pix * n_samples * K1_OPS["sample"]
-             + counts["noise"] * K1_OPS["noise"]
-             + counts["image"] * K1_OPS["image"]
              + counts["box"] * K1_OPS["box"]
              + (0 if one_level else counts["cull"] * K1_OPS["leaf"]
                 + counts["box_cull"] * K1_OPS["box_leaf"])
-             + counts["walk"] * per_walk
-             + sum(counts[k] * K1_OPS[k]
-                   for k in ("emis_tex", "rect_uv", "med_tex", "rr")))
-    n_bytes = 2 * 3 * 8 * n_pix + sum(
+             + counts["walk"] * per_walk + counts["rr"] * K1_OPS["rr"]
+             + (sum(counts[k] * K1_OPS[k] for k in (
+                 "noise", "image", "emis_tex", "rect_uv", "med_tex"))
+                if colour else 0))
+    n_bytes = (8 if probe else 2 * 3 * 8) * n_pix + sum(
         t.numel() * t.element_size()
         for t in (ops.rec, ops.walk, ops.dyn, ops.leaves, ops.sups, ops.cam,
-                  ops.med, ops.atlas, ops.box, ops.bleaves, ops.bsups,
-                  ops.interior, ops.interior_kind))
+                  ops.med, ops.atlas if colour else ops.atlas[:0], ops.box,
+                  ops.bleaves, ops.bsups, ops.interior, ops.interior_kind))
     return n_ops, n_bytes
 
 

@@ -821,11 +821,10 @@ def test_kernel_probe_matches_plain(cuda, name, nx, ny):
 
 @pytest.mark.parametrize("make", [_preset("cornell_smoke"), _media_mix])
 def test_kernel_media_race_is_bit_exact(cuda, make):
-    """K1d's media race (each group's draw issued once, at the top, every
-    medium's flight without a branch) gives the plain version's sums bit
-    for bit on cornell_smoke's two rotated boxes and on five box and
-    sphere media, rotated and not, whose draws come from two groups; one
-    K1D launch."""
+    """K1d's media race (a group's draw at its first open interval) gives
+    the plain version's sums bit for bit on cornell_smoke's two rotated
+    boxes and on five box and sphere media, rotated and not, whose draws
+    come from two groups; one K1D launch."""
     nx, ny = 96, 64
     ops = _operands(*make(nx, ny), cuda)
     assert ops.feats & tracer.FEAT_MEDIA

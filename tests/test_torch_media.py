@@ -1,16 +1,18 @@
 """K1d's media race in the plain version (`_media_events`), on the CPU.
 
-The kernel's race (csrc/tracer.cu `media_race`) issues each group of four
-media's flight draw once, at the top, whether or not a thread needs it,
-and takes every medium's flight without a branch: the values are the ones
-the plain version computes, which draws each group once for every lane
-and selects the first strict minimum. Here, on seeded rays and on grazing,
-face-parallel and corner rays through box and sphere media, rotated and
-not, in two groups of draws: the plain race asks for each group's draw
-once, in group order, whether or not an interval is open; its open count
-(`med_open`) and its winner equal a numpy recount of the same f32
-formulas. The kernel is held to the plain version bit for bit on the card
-(`test_kernel_media_race_is_bit_exact`, chip_smoke.py phases 13 and 40).
+The kernel's race (csrc/tracer.cu `media_race`) draws a group of four
+media's flights at the group's first medium whose interval is open, and
+only then: the draws are counter-keyed (pixel, sample, bounce, group), so
+the values are the ones the plain version computes, which draws each group
+once for every lane and selects the first strict minimum. Here, on seeded
+rays and on grazing, face-parallel and corner rays through box and sphere
+media, rotated and not, in two groups of draws: the plain race asks for
+each group's draw once, in group order, whether or not an interval is
+open; its open count (`med_open`, the (segment, medium) pairs a
+per-segment gate could not skip) and its winner equal a numpy recount of
+the same f32 formulas. The kernel is held to the plain version bit for bit
+on the card (`test_kernel_media_race_is_bit_exact`, chip_smoke.py phases
+13 and 40).
 """
 
 import numpy as np

@@ -1,8 +1,8 @@
 """K1f's cost probe launch (`trace_probe`, `cost_probe`), on the CPU.
 
 The render's probe counts each pixel's segments alone, on compact 16×8
-tiles in raster order, with each pixel's samples split over blocks where a
-small image would leave the card idle (csrc/tracer.cu, STATS == 2). A
+tiles in raster order, with each pixel's samples split over blocks until
+the launch fills the card (csrc/tracer.cu, the STATS == 2 instantiations). A
 pixel's paths are keyed by (pixel, sample, bounce), so its segments are the
 same in any layout and on any number of threads. Here, through the plain
 version: the probe's row equals row 0 of the stats launch on the scanline
@@ -92,9 +92,9 @@ def test_split_counters_equal_one_pixel_a_thread():
 def test_probe_split_fills_its_waves():
     """The least power of two that gives PROBE_WAVES waves of the resident
     blocks, dividing the samples, at most a sample a thread: on 132 SMs
-    that hold 7 of the probe's blocks, final_scene (5,000 tiles at
-    800×800, 128 at 128×128) takes 4 parts, random_spheres (7,200 tiles)
-    2."""
+    that hold 7 blocks of the probe's instantiations, final_scene (5,000
+    tiles at 800×800, 128 at 128×128) takes 4 parts, random_spheres (7,200
+    tiles) 2."""
     res = 132 * 7
     waves = tracer.PROBE_WAVES * res
     assert tracer.probe_tiles(128, 128) == 128
@@ -160,3 +160,38 @@ def test_probe_launch_passes_its_arguments():
     assert lib.args[-5:] == (2, steps.data_ptr(), busy.data_ptr(), 0, None)
     assert [getattr(tracer, n) - b for n, b in zip(names, before)] == [
         1, 1, 1, 0, 0]
+
+
+@pytest.mark.parametrize("rr", [None, 6])
+def test_probe_work_counts_the_paths_alone(rr):
+    """The probe's bound (`k1_work(probe=True)`) counts what its row needs:
+    the paths' segments, samples, culls, media and walk bounces, without
+    the noise, image, textured-light, rect-UV and textured-medium lanes or
+    the atlas, and the busy row written once in place of the sums read and
+    written; under roulette a path follows its colours, so they stay."""
+    p = tb.PRESETS["final_scene"]
+    cam = tcam.make_camera(p.look_from, p.look_at, p.view_up, p.vfov, 2.0,
+                           p.aperture, p.focus_dist, p.time0, p.time1)
+    ops = tracer.trace_operands(tracer.build_scene_record(p.build()),
+                                tracer.build_camera_record(cam), "cpu", rr)
+    assert ops.atlas.numel() > 0
+    counts = dict(segments=1000, noise=70, image=50, box=300, cull=400,
+                  box_cull=200, walk=90, emis_tex=3, rect_uv=5, med_tex=7,
+                  rr=40 if rr else 0)
+    n_pix, spp = 32, 4
+    ops_all, bytes_all = tracer.k1_work(ops, counts, n_pix, spp)
+    ops_probe, bytes_probe = tracer.k1_work(ops, counts, n_pix, spp,
+                                            probe=True)
+    colour = sum(counts[k] * tracer.K1_OPS[k] for k in (
+        "noise", "image", "emis_tex", "rect_uv", "med_tex"))
+    atlas = ops.atlas.numel() * ops.atlas.element_size()
+    if rr:
+        assert ops_probe == ops_all
+        assert bytes_probe == bytes_all - 40 * n_pix
+    else:
+        assert ops_probe == ops_all - colour
+        assert bytes_probe == bytes_all - 40 * n_pix - atlas
+    one, _ = tracer.k1_work(ops, counts, n_pix, spp, one_level=True,
+                            probe=True)
+    assert one - ops_probe == tracer.k1_work(
+        ops, counts, n_pix, spp, one_level=True)[0] - ops_all
