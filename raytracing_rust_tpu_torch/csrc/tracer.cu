@@ -48,7 +48,7 @@
 // render's table reads, and reads and writes no sums, so what only colours
 // a path (the marble's noise, the texels) is dead code there; as a mode of
 // the STATS == 1 instantiations it ran 1.1-1.2× slower on random_spheres
-// and final_scene (PERF.md §6, PR 17). Its blocks take the compact
+// and final_scene (PERF.md §6). Its blocks take the compact
 // TILE_W × TILE_H tiles in raster order, a pixel a thread, so a warp traces
 // 16 × 2 neighbouring pixels where a scanline warp traced a 32 × 1 strip;
 // the host splits each pixel's samples over probe_split blocks so that the
