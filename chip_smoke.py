@@ -587,25 +587,32 @@ def tape_matches(tape, want) -> bool:
                for r in (0, 1))
 
 
-def device_ops(fn, calls: int = 3) -> dict | None:
+def device_ops(fn, calls: int = 3, tries: int = 3) -> dict | None:
     """The device ops (kernels, copies, memsets) that `calls` calls of fn
     run, by name → count, from torch.profiler after a warm-up call; None
-    where the profiler records no device time."""
+    where the profiler records no device time. Every call of fn runs at
+    least one device op, so a profile that records fewer ops than calls
+    has lost events (CUPTI can miss a launch at the start of a session):
+    it is taken again, at most `tries` times in all, and the last one
+    returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ops = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0))
-        if t > 0 and e.key != "Activity Buffer Request":
-            ops[e.key] = e.count
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+            if t > 0 and e.key != "Activity Buffer Request":
+                ops[e.key] = e.count
+        if not ops or sum(ops.values()) >= calls:
+            break
     return ops or None
 
 
