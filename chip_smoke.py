@@ -192,8 +192,32 @@ Phases, one JSON line each on stdout:
      counted by its own steps row and its row held bit for bit to the
      scanline stats launch's; cornell_box_baseline's first
      launch (800×800, 104 samples) is also held bit for bit to
-     trace_plain.
-Every command-line phase prints its per-phase seconds, the PPM encode
+     trace_plain;
+ 41. the general wavefront tier (torch ops) on the card at full width:
+     `render --scene cornell_box_baseline --engine xla --device cuda`
+     (800×800, 500 spp, depth 50), its mean inside phase 5's band, its
+     primary rays/s and phases, no kernel launch, its image against the
+     kernel's of phase 5 (the same seed and draws: the share of pixels
+     with the same bytes, the channel means); then both engines' f64 sums
+     at 800×800×8, the share of pixels within 1e-4 relative (≥ 99%);
+ 42. R5: final_scene on both engines through the command line at
+     128×128×100 and at 800×800×4 (the spp cut so that the general tier,
+     which tests all 3,400 prims densely, stays under ~20 s), each
+     engine's render seconds and rays/s and which is faster;
+ 43. the fallback: a nine-media scene and an image on a rotated sphere
+     (scenes the kernel refuses) through `cli.render_scene` on the card:
+     "kernel" raises UnsupportedScene, "auto" renders on the general tier
+     with no kernel launch and one line on stderr, its mean within 1% of
+     the same scene's general-tier render on the CPU (96×64×32);
+ 44. checkpoint, kill and resume: the kernel on cornell_box_baseline
+     (800×800×500, 5 chunks) stopped after 2 chunks and resumed, and the
+     same checkpoint resumed in 64-sample chunks; the general tier on
+     cornell_box 128×128×16 in 4 blocks stopped after 2 and resumed; each
+     PPM byte-equal to an uninterrupted render, with `checkpoint_io`'s
+     seconds a chunk or block.
+Phases 41-44 print the card's name and power limit beside their numbers
+and their own seconds. Every command-line phase prints its per-phase
+seconds, the PPM encode
 included. Then the kernel table and, as the last line, the device
 summary. Each row of the table carries the kernel's bound: the larger of
 the bytes it must move over the card's memory rate and the f32 operations
@@ -510,6 +534,240 @@ def at_main_path(row: dict, replayed: list, counter: str,
         comparison=dict(spp=row["spp"], ms=row["ms"],
                         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                         bound_ms_one_level=row["bound_ms_one_level"]))
+
+
+# phase 42: final_scene's sizes and samples on both engines, 128×128 at its
+# preset's 100 spp and 800×800 at 4 (the general tier tests every one of
+# its 3,400 prims densely)
+R5_SIZES = ((128, None), (800, 4))
+# phase 44: the general tier's kill-and-resume on cornell_box (size², spp)
+CK_GENERAL = (128, 16)
+# phase 43: the fallback renders' size (nx, ny, spp) and the band of the
+# card's mean around the CPU's (the same draws; only rounding differs)
+FB_SIZE = (96, 64, 32)
+FB_BAND = 0.01
+
+
+def general_phases(dev, smi: str, run_cli, cornell_img, reset_launches,
+                   k1_launches) -> None:
+    """Phases 41-44: the general tier at full width against the kernel's
+    image (cornell_img, phase 5's), R5's engines on final_scene, the
+    fallback of `--engine auto`, and checkpoint kill-and-resume on both
+    engines. run_cli, reset_launches, k1_launches: main's."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from raytracing_rust_tpu_torch import cli
+    from raytracing_rust_tpu_torch import render as trender
+    from raytracing_rust_tpu_torch.models.builders import PRESETS
+    from raytracing_rust_tpu_torch.ops import tracer
+    from raytracing_rust_tpu_torch.utils.image_io import to_ppm
+    from raytracing_rust_tpu_torch.utils.timers import Timers
+
+    def render_seconds(info):
+        # the CLI's render phases: its timers without scene build and encode
+        return sum(v for k, v in info["timers"].items()
+                   if k not in ("scene_build", "encode"))
+
+    # -- 41. the general tier on the card at full width: the command line
+    # with --engine xla on cornell_box_baseline (800×800, 500 spp, depth
+    # 50), held to the kernel's image of phase 5 (the same seed and draws)
+    p = PRESETS["cornell_box_baseline"]
+    nx, ny = p.nx, p.ny
+    t_phase = time.perf_counter()
+    info, img = run_cli("cornell_box_baseline", "--engine", "xla")
+    lum = info["mean_luminance"]
+    same_bytes = float((img == cornell_img).all(axis=-1).mean())
+    emit("general_path", **info, card=smi, band=list(CORNELL_BAND),
+         phase_seconds=time.perf_counter() - t_phase,
+         render_seconds=render_seconds(info), primary_rays_per_s=(
+             nx * ny * p.spp / render_seconds(info)),
+         kernel_mean_luminance=float(cornell_img.mean()),
+         channel_means=img.reshape(-1, 3).mean(axis=0).tolist(),
+         kernel_channel_means=cornell_img.reshape(-1, 3).mean(axis=0)
+         .tolist(), pixels_with_the_kernels_bytes=same_bytes)
+    check(info["launches"]["k1a_static_trace"] == 0,
+          "--engine xla launched the kernel")
+    check(img.shape == (ny, nx, 3) and CORNELL_BAND[0] < lum < CORNELL_BAND[1],
+          f"general tier: mean luminance {lum:.4f} outside {CORNELL_BAND}")
+    # the sums of both engines at 8 spp, per pixel and channel
+    t_phase = time.perf_counter()
+    scene, cam = p.build(device=dev), p.camera(device=dev)
+    g8 = trender.render_sums(scene, cam, nx, ny, 8, device=dev)
+    ops = tracer.trace_operands(tracer.build_scene_record(scene),
+                                tracer.build_camera_record(cam), dev)
+    k8 = tracer.trace(ops, torch.zeros_like(g8), nx=nx, ny=ny, seed=0,
+                      sample0=0, n_samples=8, max_depth=50)
+    agree = float(torch.isclose(g8, k8, rtol=1e-4, atol=0.0).all(dim=0)
+                  .double().mean())
+    gm, km = g8.mean(dim=1), k8.mean(dim=1)
+    emit("general_vs_kernel", card=smi, shape=[ny, nx], spp=8,
+         phase_seconds=time.perf_counter() - t_phase,
+         pixels_within_rel_1e4=agree, general_channel_means=gm.tolist(),
+         kernel_channel_means=km.tolist(),
+         channel_mean_max_rel=float(((gm - km).abs() / km).max()))
+    check(agree >= 0.99, f"general tier vs kernel: only {agree:.4%} of "
+          "pixels within 1e-4")
+    del g8, k8, ops
+
+    # -- 42. R5: final_scene on both engines at each of R5_SIZES
+    t_phase = time.perf_counter()
+    r5 = []
+    for size, spp in R5_SIZES:
+        row = dict(size=[size, size], spp=spp or PRESETS["final_scene"].spp)
+        for engine in ("kernel", "xla"):
+            extra = ["--nx", str(size), "--ny", str(size), "--engine", engine]
+            info, img = run_cli("final_scene", *extra,
+                                *(["--spp", str(spp)] if spp else []))
+            row[engine] = dict(
+                render_seconds=render_seconds(info),
+                primary_rays_per_s=(size * size * row["spp"]
+                                    / render_seconds(info)),
+                wall_seconds=info["wall_seconds"], timers=info["timers"],
+                mean_luminance=info["mean_luminance"])
+            check(bool(np.isfinite(img).all()) and img.mean() > 0.0,
+                  f"final_scene {size}² on {engine}: a bad image")
+        row["faster"] = min(("kernel", "xla"),
+                            key=lambda e: row[e]["render_seconds"])
+        row["general_over_kernel_seconds"] = (row["xla"]["render_seconds"]
+                                              / row["kernel"]["render_seconds"])
+        r5.append(row)
+    emit("r5_engines", card=smi, scene="final_scene", sizes=r5,
+         phase_seconds=time.perf_counter() - t_phase)
+
+    # -- 43. the fallback: scenes the kernel refuses through `--engine
+    # auto`'s choice (`cli.render_scene`) on the card, held to the same
+    # scene's general-tier render on the CPU (the same draws)
+    t_phase = time.perf_counter()
+    fb = []
+    for name, build in (("nine_media", nine_media_scene),
+                        ("rotated_image_sphere", rotated_image_scene)):
+        cam_d, cam_c = (fallback_camera(FB_SIZE[0], FB_SIZE[1], dv)
+                        for dv in (dev, "cpu"))
+        kw = dict(seed=0, max_depth=50)
+        try:
+            cli.render_scene(build(dev), cam_d, *FB_SIZE, engine="kernel",
+                             device=dev, **kw)
+            refused = False
+        except tracer.UnsupportedScene:
+            refused = True
+        reset_launches()
+        err = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            img, engine = cli.render_scene(build(dev), cam_d, *FB_SIZE,
+                                           engine="auto", device=dev, **kw)
+        seconds = time.perf_counter() - t
+        k1 = sum(k1_launches().values())
+        ref, _ = cli.render_scene(build("cpu"), cam_c, *FB_SIZE,
+                                  engine="xla", device="cpu", **kw)
+        rel = abs(float(img.mean()) - float(ref.mean())) / float(ref.mean())
+        fb.append(dict(scene=name, size=list(FB_SIZE), engine=engine,
+                       kernel_refused=refused, kernel_launches=k1,
+                       seconds=seconds, stderr=err.getvalue().strip(),
+                       mean=float(img.mean()), cpu_mean=float(ref.mean()),
+                       mean_rel=rel, band_rel=FB_BAND))
+        check(refused and engine == "xla" and k1 == 0,
+              f"{name}: the kernel did not refuse it, or auto did not fall "
+              f"back ({engine}, {k1} kernel launches)")
+        check(rel < FB_BAND, f"{name}: the card's mean {img.mean():.5f} vs "
+              f"the CPU's {ref.mean():.5f}")
+    emit("fallback", card=smi, scenes=fb,
+         phase_seconds=time.perf_counter() - t_phase)
+
+    # -- 44. checkpoint, kill and resume: K1 on cornell_box_baseline
+    # (800×800×500, 5 chunks) stopped after 2 chunks, resumed with its
+    # chunks and with 64-sample ones; the general tier on 4 blocks of
+    # cornell_box 128×128×16 stopped after 2; each byte-equal to an
+    # uninterrupted render
+    t_phase = time.perf_counter()
+    scene, cam = p.build(device=dev), p.camera(device=dev)
+    ck_rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path, kept = (os.path.join(tmp, n) for n in ("k.npz", "k2.npz"))
+        full = to_ppm(tracer.render_kernel(scene, cam, nx, ny, p.spp,
+                                           device=dev))
+        tm = Timers()
+        stopped = tracer.render_kernel(scene, cam, nx, ny, p.spp, device=dev,
+                                       checkpoint=path, timers=tm,
+                                       _stop_after_chunks=2)
+        shutil.copy(path, kept)
+        with np.load(path) as z:
+            done = int(z["done"])
+        res = [to_ppm(tracer.render_kernel(scene, cam, nx, ny, p.spp,
+                                           device=dev, checkpoint=path,
+                                           timers=tm))]
+        shutil.copy(kept, path)
+        res.append(to_ppm(tracer.render_kernel(
+            scene, cam, nx, ny, p.spp, device=dev, spp_chunk=64,
+            checkpoint=path, timers=tm)))
+        n_saves = 2 + sum(len(tracer.launch_plan(nx * ny, p.spp, dev, c,
+                                                 done)[1]) for c in (None, 64))
+        ck_rows["kernel"] = dict(
+            shape=[ny, nx], spp=p.spp, stopped_after_chunks=2, done=done,
+            resumed_equal=res[0] == full, resumed_spp_chunk_64_equal=(
+                res[1] == full), checkpoint_io_seconds=tm.summary().get(
+                    "checkpoint_io"), saves=n_saves,
+            checkpoint_io_seconds_per_chunk=tm.summary().get(
+                "checkpoint_io", 0.0) / n_saves)
+        check(stopped is None and done < p.spp and res[0] == full
+              and res[1] == full, f"K1's resumed render differs: "
+              f"{ck_rows['kernel']}")
+        g, gspp = CK_GENERAL
+        gp = dataclasses.replace(PRESETS["cornell_box"], nx=g, ny=g)
+        gs, gc = gp.build(device=dev), gp.camera(device=dev)
+        gkw = dict(device=dev, block_pixels=g * g // 4)
+        gfull = to_ppm(trender.render(gs, gc, g, g, gspp, **gkw))
+        gpath = os.path.join(tmp, "g.npz")
+        tm = Timers()
+        gstop = trender.render(gs, gc, g, g, gspp, checkpoint=gpath,
+                               timers=tm, _stop_after_blocks=2, **gkw)
+        gres = to_ppm(trender.render(gs, gc, g, g, gspp, checkpoint=gpath,
+                                     timers=tm, **gkw))
+        ck_rows["general"] = dict(
+            shape=[g, g], spp=gspp, blocks=4, stopped_after_blocks=2,
+            resumed_equal=gres == gfull,
+            checkpoint_io_seconds=tm.summary().get("checkpoint_io"),
+            checkpoint_io_seconds_per_block=tm.summary().get(
+                "checkpoint_io", 0.0) / 4)
+        check(gstop is None and gres == gfull,
+              "the general tier's resumed render differs")
+    emit("checkpoint_resume", card=smi, **ck_rows,
+         phase_seconds=time.perf_counter() - t_phase)
+
+
+def fallback_camera(nx: int, ny: int, device):
+    from raytracing_rust_tpu_torch.ops.camera import make_camera
+    return make_camera((0, 3, 14), (0, 0.5, 0), (0, 1, 0), 40.0, nx / ny,
+                       0.0, 10.0, device=device)
+
+
+def nine_media_scene(device):
+    """One medium more than the kernel holds: nine fog spheres on a floor
+    under a rect light."""
+    from raytracing_rust_tpu_torch.models.scene import BG_BLACK, SceneBuilder
+    b = SceneBuilder(background=BG_BLACK)
+    b.sphere((0, -100, 0), 99.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    b.rect("zx", -20, -20, 20, 20, 12.0, b.diffuse_light(b.solid(3, 3, 3)))
+    for i in range(9):
+        b.medium_sphere((3.0 * i - 12.0, 0, 0), 1.0, 0.5,
+                        b.solid(0.9, 0.5 + 0.05 * i, 0.4))
+    return b.build(device)
+
+
+def rotated_image_scene(device):
+    """An image texture on a rotated sphere (the kernel takes images on
+    unrotated spheres only), under the sky."""
+    import numpy as np
+    from raytracing_rust_tpu_torch.models.scene import BG_SKY, SceneBuilder
+    b = SceneBuilder(background=BG_SKY)
+    xf = b.transform(offset=(0, 1, 0), rotate_axis="y", angle_deg=30.0)
+    b.sphere((0, -1000, 0), 999.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    b.sphere((0, 0, 0), 1.0, b.lambertian(b.image(
+        np.random.default_rng(3).integers(0, 256, (4, 6, 3), np.uint8))),
+        xform=xf)
+    return b.build(device)
 
 
 def emit(phase: str, **kw) -> None:
@@ -1035,6 +1293,7 @@ def main() -> int:
 
     # -- 5. the main path, through the command line
     info, img = run_cli("cornell_box_baseline", label="cornell_box_baseline")
+    cornell_img = img
     lum = info["mean_luminance"]
     launches = info["launches"]
     cornell_trace_s = info["timers"].get("trace")
@@ -2076,6 +2335,10 @@ def main() -> int:
     k1a["max_abs_err"] = max(
         k1a["max_abs_err"],
         replayed["cornell_box_baseline"][0]["plain_max_abs_err"])
+
+    # -- 41-44. the general tier, the fallback and checkpoints
+    general_phases(dev, smi, run_cli, cornell_img, reset_launches,
+                   k1_launches)
 
     def main_row(row: dict, labels, counter: str, n: int) -> dict:
         return at_main_path(row, [r for lab in labels

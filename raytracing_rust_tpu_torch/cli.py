@@ -1,14 +1,25 @@
 """Command-line entry point: `python -m raytracing_rust_tpu_torch`.
 
 Counterpart of `raytracing_rust_tpu/cli.py` for what the port covers:
-`scenes` lists the presets; `render` renders one through the K1 kernel
-(`--engine kernel`, the only engine so far), with Russian roulette from
-bounce N on under `--rr-depth N`. Every scene the JAX kernel takes renders;
-the ones it refuses too (an image on a rotated sphere, a nested checker,
-an image that is not 8-bit exact, more than 8 media, more than 96 rects
-that form no box beside more prims) exit 2 with the reason: there is no
-other engine to fall back on. `--device cuda` (the default) needs CUDA and
-raises without it; `--device cpu` runs the kernel's plain torch version.
+`scenes` lists the presets; `render` renders one, with Russian roulette
+from bounce N on under `--rr-depth N` and a resumable `.npz` under
+`--checkpoint PATH`, through one of two engines (`--engine`):
+
+* `kernel`: the K1 kernel (`ops/tracer.render_kernel`). A scene it refuses,
+  as the JAX kernel refuses it (an image on a rotated sphere, a nested
+  checker, an image that is not 8-bit exact, more than 8 media, more than
+  96 rects that form no box beside more prims), exits 2 with the reason;
+* `xla`: the general wavefront tier (`render.render`), torch ops on the
+  same device (the JAX CLI's name for its XLA tier, so both command lines
+  take the same flags); it takes every scene;
+* `auto` (the default): the kernel, and the general tier only where the
+  kernel's record build refuses the scene, with one line on stderr. No
+  preset is refused. A kernel that fails to build or launch is an error,
+  never a reason to change engines.
+
+`render_scene` is that choice, for any scene. `--device cuda` (the default)
+needs CUDA and raises without it; `--device cpu` runs the kernel's plain
+torch version or the general tier on the CPU.
 """
 
 from __future__ import annotations
@@ -17,6 +28,41 @@ import argparse
 import os
 import sys
 import time
+
+
+def render_scene(scene, cam, nx: int, ny: int, spp: int, *, engine="auto",
+                 device="cuda", seed: int = 0, max_depth: int = 50,
+                 rr_depth: int | None = None, checkpoint: str | None = None,
+                 timers=None):
+    """Render a scene through the engine the caller names → (image,
+    "kernel" or "xla"). "kernel" raises UnsupportedScene for a scene the
+    kernel refuses; "xla" runs the general tier; "auto" runs the kernel
+    unless its record build refuses the scene, and then the general tier,
+    with one line on stderr. Only UnsupportedScene from the record build
+    changes engines."""
+    from .ops import tracer
+    from .render import render
+    from .utils.timers import Timers
+
+    if engine not in ("auto", "xla", "kernel"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if timers is None:
+        timers = Timers()
+    kw = dict(device=device, seed=seed, max_depth=max_depth,
+              rr_depth=rr_depth, checkpoint=checkpoint, timers=timers)
+    if engine != "xla":
+        try:
+            with timers.phase("record_build"):
+                srec = tracer.build_scene_record(scene)
+        except tracer.UnsupportedScene as e:
+            if engine == "kernel":
+                raise
+            print(f"auto engine: the kernel refuses the scene ({e}); "
+                  "rendering on the general tier", file=sys.stderr)
+        else:
+            return tracer.render_kernel(scene, cam, nx, ny, spp, srec=srec,
+                                        **kw), "kernel"
+    return render(scene, cam, nx, ny, spp, **kw), "xla"
 
 
 def main(argv=None) -> int:
@@ -40,9 +86,15 @@ def main(argv=None) -> int:
     r.add_argument("--out", default=None,
                    help="output path (.ppm or .png); default "
                         "output/<scene>.ppm")
-    r.add_argument("--engine", choices=["kernel"], default="kernel",
+    r.add_argument("--engine", choices=["auto", "xla", "kernel"],
+                   default="auto",
                    help="kernel = the hand-written CUDA kernel (its plain "
-                        "torch version on --device cpu)")
+                        "torch version on --device cpu); xla = the general "
+                        "wavefront tier in torch ops (the JAX CLI's name); "
+                        "auto = the kernel, falling back to the general "
+                        "tier for a scene the kernel refuses")
+    r.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help=".npz path for a resumable render (either engine)")
     r.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     r.add_argument("--timers", action="store_true",
                    help="print per-phase wall times")
@@ -78,7 +130,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from .ops.tracer import UnsupportedScene, render_kernel
+    from .ops.tracer import UnsupportedScene
     from .utils import image_io
     from .utils.timers import Timers
 
@@ -91,9 +143,10 @@ def main(argv=None) -> int:
         cam = preset.camera(device=args.device)
     t0 = time.perf_counter()
     try:
-        img = render_kernel(scene, cam, nx, ny, spp, device=args.device,
-                            seed=args.seed, max_depth=args.max_depth,
-                            timers=timers, rr_depth=args.rr_depth)
+        img, engine = render_scene(
+            scene, cam, nx, ny, spp, engine=args.engine, device=args.device,
+            seed=args.seed, max_depth=args.max_depth, timers=timers,
+            rr_depth=args.rr_depth, checkpoint=args.checkpoint)
     except UnsupportedScene as e:
         print(f"kernel engine: {e}", file=sys.stderr)
         return 2
@@ -108,8 +161,9 @@ def main(argv=None) -> int:
             image_io.write_ppm(out, img)
 
     rays = nx * ny * spp
-    print(f"{args.scene}: {nx}x{ny} spp={spp} on {args.device} in {dt:.3f}s "
-          f"({rays / dt / 1e6:.2f}M primary rays/s) -> {out}")
+    print(f"{args.scene}: {nx}x{ny} spp={spp} on {args.device} ({engine} "
+          f"engine) in {dt:.3f}s ({rays / dt / 1e6:.2f}M primary rays/s) -> "
+          f"{out}")
     if args.timers:
         print(timers.report())
     return 0

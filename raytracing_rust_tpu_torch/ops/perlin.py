@@ -134,3 +134,36 @@ def noise(p: torch.Tensor, seed: int = 0) -> torch.Tensor:
 def turb(p: torch.Tensor, depth: int = 7, seed: int = 0) -> torch.Tensor:
     """Turbulence for points p[..., 3] (the JAX package's `turb`)."""
     return turb3(p[..., 0], p[..., 1], p[..., 2], seed, depth)
+
+
+def turb3_stacked(px, py, pz, seed: int = 0, depth: int = 7):
+    """`turb3`'s value bit for bit, in a few wide ops: the points of all
+    `depth` octaves (each the last one's times 2, exactly) and the eight
+    corners of each cell are stacked into one [depth·8, n] batch, so the
+    hash, the gradients and the corner terms run once; the terms are then
+    summed in `noise3`'s corner order and the octaves in `turb3`'s. The
+    general tier's marble; `turb3` stays the kernel's plain model."""
+    scale = torch.tensor([2.0 ** k for k in range(depth)], dtype=px.dtype,
+                         device=px.device)[:, None]
+    (ux, uy, uz), (ix, iy, iz), (sx, sy, sz) = cell(
+        scale * px[None, :], scale * py[None, :], scale * pz[None, :])
+    corner = torch.arange(8, device=px.device)
+    di, dj, dk = ((corner >> 2)[:, None, None], ((corner >> 1) & 1)[:, None,
+                  None], (corner & 1)[:, None, None])
+    fi, fj, fk = (x.to(px.dtype) for x in (di, dj, dk))
+    wu = torch.where(di == 1, sx, 1.0 - sx)
+    wv = torch.where(dj == 1, sy, 1.0 - sy)
+    ww = torch.where(dk == 1, sz, 1.0 - sz)
+    gx, gy, gz = gradient((ix + di) & 255, (iy + dj) & 255, (iz + dk) & 255,
+                          seed)
+    dot = gx * (ux - fi) + gy * (uy - fj) + gz * (uz - fk)
+    term = wu * wv * ww * dot                       # [8, depth, n]
+    noise = torch.zeros_like(term[0])
+    for c in range(8):
+        noise = noise + term[c]
+    accum = torch.zeros_like(px)
+    weight = 1.0
+    for k in range(depth):
+        accum = accum + weight * noise[k]
+        weight *= 0.5
+    return torch.abs(accum)

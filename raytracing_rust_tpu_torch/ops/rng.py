@@ -34,6 +34,17 @@ version (`ops/tracer.trace_plain`):
         path that scatters): word 0 the Russian roulette's survival draw
         (the path goes on if u < q); words 1-3 unused. No other draw reads
         this stream, so a render without roulette is the same as before
+    streams 7 and up (MEDIUM_HI, the general tier only, which takes any
+        number of media): medium i ≥ 8 draws from word i % 4 of counter
+        (pixel, sample, bounce, STREAM_MEDIUM_HI + (i − 8) // 4), so no
+        medium shares a stream with the roulette or another purpose
+        (`medium_slot`)
+
+The general tier (`ops/integrator.py`) reads the same slots as the kernel:
+its bounce takes SCATTER words 0-3 as its sphere and branch columns, the
+MEDIUM streams as its media columns and ROULETTE word 0 as its roulette
+column, and its camera rays take the CAMERA and TIME streams, so where
+the math is the same its paths are the kernel's.
 
 `render.camera_lane_rays` keys the camera stream by lane instead of pixel:
 counter (lane, 0, 0, 0).
@@ -61,6 +72,9 @@ STREAM_TIME = 2
 STREAM_GRAD = 3
 STREAM_MEDIUM = 4   # and 5: one counter for every four media
 STREAM_ROULETTE = 6
+STREAM_MEDIUM_HI = 7  # and up: media 8 and up (the general tier)
+# media the MEDIUM streams hold (the kernel's MAX_MEDIA)
+MEDIA_LO = 8
 
 PHILOX_M0 = 0xD2511F53
 PHILOX_M1 = 0xCD9E8D57
@@ -143,15 +157,46 @@ def uniform01(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * U24
 
 
-def draws(seed: int, pixel, sample, bounce, stream: int):
-    """The four f32 uniforms of counter (pixel, sample, bounce, stream)."""
+def draws(seed: int, pixel, sample, bounce, stream):
+    """The four f32 uniforms of counter (pixel, sample, bounce, stream)
+    (broadcast tensors or ints)."""
     key = (seed & _MASK32, (seed >> 32) & _MASK32)
     pixel = torch.as_tensor(pixel, dtype=torch.int64)
     ctr = torch.broadcast_tensors(
         pixel, torch.as_tensor(sample, dtype=torch.int64, device=pixel.device),
         torch.as_tensor(bounce, dtype=torch.int64, device=pixel.device),
-        torch.full((), stream, dtype=torch.int64, device=pixel.device))
+        torch.as_tensor(stream, dtype=torch.int64, device=pixel.device))
     return tuple(uniform01(w) for w in philox4x32_10(ctr, key))
+
+
+def medium_slot(i: int) -> tuple[int, int]:
+    """(stream, word) of medium i's free-flight draw: word i % 4 of stream
+    STREAM_MEDIUM + i // 4 for the kernel's eight media, of stream
+    STREAM_MEDIUM_HI + (i − 8) // 4 beyond them."""
+    if i < MEDIA_LO:
+        return STREAM_MEDIUM + i // 4, i % 4
+    return STREAM_MEDIUM_HI + (i - MEDIA_LO) // 4, i % 4
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root on any device, as XLA's is: torch's
+    f32 sqrt on an AVX-512 CPU is not correctly rounded, and the root of an
+    f32 value taken in f64 and rounded to f32 is. CUDA's f32 sqrt already
+    is."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
+def draws_many(seed: int, pixel, sample, bounce, streams):
+    """The four f32 uniforms of counters (pixel, sample, bounce, s) for
+    each stream s of `streams`, in one Philox pass → four [len(streams),
+    n] tensors; row k equals `draws(..., streams[k])` bit for bit."""
+    pixel = torch.as_tensor(pixel, dtype=torch.int64)
+    st = torch.tensor(list(streams), dtype=torch.int64,
+                      device=pixel.device)[:, None]
+    return draws(seed, pixel[None, :], torch.as_tensor(
+        sample, dtype=torch.int64, device=pixel.device)[None, :], bounce, st)
 
 
 def in_unit_sphere(u: torch.Tensor) -> torch.Tensor:

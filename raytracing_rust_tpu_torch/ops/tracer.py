@@ -2473,13 +2473,14 @@ def _perm_cache_key(cam_np, srec: SceneRecord, nx, ny, max_depth, rr_depth,
 
 
 def launch_plan(n_pix: int, spp: int, device,
-                spp_chunk: int | None = None):
+                spp_chunk: int | None = None, done: int = 0):
     """How `render_kernel` splits a render into `trace` calls → (kpix of
     JAX's balanced pixel table, `balanced_pix_table`: each thread renders
     kpix pixels, capped so that padding never exceeds one tile's worth of
     slots, pallas_tracer.py:3071; the render's own table, `render_table`,
     has kpix 1, so only the comparisons with JAX's table read it;
-    [(sample0, n_samples)] of the calls: spp_chunk samples each, by default
+    [(sample0, n_samples)] of the calls from sample `done` on (a resumed
+    render's first unfinished sample): spp_chunk samples each, by default
     as many as the device's lane budget holds)."""
     if spp_chunk is None:
         budget = (_KERNEL_CHUNK_LANES if torch.device(device).type == "cuda"
@@ -2487,31 +2488,42 @@ def launch_plan(n_pix: int, spp: int, device,
         spp_chunk = max(1, min(spp, budget // n_pix))
     return (max(1, min(KPIX, n_pix // TILE)),
             [(s0, min(spp_chunk, spp - s0))
-             for s0 in range(0, spp, spp_chunk)])
+             for s0 in range(done, spp, spp_chunk)])
 
 
 def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
-                  *, device, seed: int = 0, max_depth: int = 50,
+                  *, device="cuda", seed: int = 0, max_depth: int = 50,
                   spp_chunk: int | None = None,
                   timers: Timers | None = None,
                   rr_depth: int | None = None,
-                  balance: bool | None = None) -> np.ndarray:
+                  balance: bool | None = None,
+                  checkpoint: str | None = None,
+                  srec: SceneRecord | None = None,
+                  _stop_after_chunks: int | None = None) -> np.ndarray | None:
     """Full-image render through the K1 kernel → float32 [ny, nx, 3], row 0
     at the top, with the reference's gamma (sqrt + clamp,
     tests/test.rs:72-75).
 
-    device: where the sums live and the trace runs. "cuda" launches the
-    kernel, and raises when CUDA is absent; "cpu" runs the plain version.
-    spp_chunk: samples per `trace` call (default: a lane budget). The image
-    does not depend on it. rr_depth: Russian roulette from this bounce on
-    (the JAX CLI's --rr-depth; not in the reference), or None. balance:
-    render from a cost-balanced pixel table (`render_pallas(balance=)`;
-    the card's layout, `render_table`: one pixel a thread, a block on one
-    compact tile, the tiles dealt heaviest first); None turns it on for a
-    scene with a dynamic sphere or box table at spp ≥ 8, as JAX does
-    (pallas_tracer.py:3061-3063). Its probe runs once per scene, camera,
-    size and depth (a value-keyed cache), timed as the phase
-    `balance_probe`; the image does not depend on it. Raises
+    device: where the sums live and the trace runs. "cuda" (the default)
+    launches the kernel, and raises when CUDA is absent; "cpu" runs the
+    plain version. spp_chunk: samples per `trace` call (default: a lane
+    budget). The image does not depend on it. rr_depth: Russian roulette
+    from this bounce on (the JAX CLI's --rr-depth; not in the reference),
+    or None. balance: render from a cost-balanced pixel table
+    (`render_pallas(balance=)`; the card's layout, `render_table`: one
+    pixel a thread, a block on one compact tile, the tiles dealt heaviest
+    first); None turns it on for a scene with a dynamic sphere or box table
+    at spp ≥ 8, as JAX does (pallas_tracer.py:3061-3063). Its probe runs
+    once per scene, camera, size and depth (a value-keyed cache), timed as
+    the phase `balance_probe`; the image does not depend on it.
+    checkpoint: an .npz path; after each chunk the f64 sums and the
+    samples done are saved (phase `checkpoint_io`), and a render whose
+    meta (size, spp, seed, depth caps, the scene record's digest, the
+    camera record) matches resumes at the first unfinished sample, with
+    any spp_chunk, balance or device; a mismatch warns on stderr and starts
+    over. srec: the scene's record when the caller already built it.
+    _stop_after_chunks: a test hook that stops the render after that many
+    chunks, as if the process had died, and returns None. Raises
     UnsupportedScene for scenes outside the kernel.
     """
     device = torch.device(device)
@@ -2524,10 +2536,10 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     if timers is None:
         timers = Timers()
     n_pix = nx * ny
-    chunks = launch_plan(n_pix, spp, device, spp_chunk)[1]
 
     with timers.phase("record_build"):
-        srec = build_scene_record(scene)
+        if srec is None:
+            srec = build_scene_record(scene)
         cam_np = build_camera_record(cam)
     if device.type == "cuda":
         from ._build import load
@@ -2536,6 +2548,17 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     with timers.phase("upload"):
         ops = trace_operands(srec, cam_np, device, rr_depth)
         sums = torch.zeros((3, n_pix), dtype=torch.float64, device=device)
+    done = 0
+    want = None
+    if checkpoint:
+        from .. import checkpoint as ck
+        want = ck.meta(ck.ENGINE_KERNEL, nx, ny, spp, seed, max_depth,
+                       rr_depth, _record_digest(srec), cam_np.tobytes())
+        got = ck.load(checkpoint, want)
+        if got is not None:
+            sums = torch.from_numpy(got["sums"]).to(device)
+            done = int(got["done"])
+    chunks = launch_plan(n_pix, spp, device, spp_chunk, done)[1]
     if balance is None:
         balance = (srec.dyn_rec.shape[0] > 0 or srec.box_rec.shape[0] > 0) \
             and spp >= 8
@@ -2550,10 +2573,16 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
             while len(_PERM_CACHE) >= _PERM_CACHE_SIZE:
                 _PERM_CACHE.pop(next(iter(_PERM_CACHE)))
             _PERM_CACHE[key] = pix
-    with timers.phase("trace"):
-        for s0, n in chunks:
+    for i, (s0, n) in enumerate(chunks):
+        with timers.phase("trace"):
             trace(ops, sums, nx=nx, ny=ny, seed=seed, sample0=s0,
                   n_samples=n, max_depth=max_depth, pix=pix)
+        if checkpoint:
+            with timers.phase("checkpoint_io"):
+                ck.save(checkpoint, want, sums=sums.cpu().numpy(),
+                        done=s0 + n)
+        if _stop_after_chunks is not None and i + 1 >= _stop_after_chunks:
+            return None
     with timers.phase("finalize"):
         img = finalize_image(sums.T.cpu().numpy(), spp, nx, ny)
     return img

@@ -1,8 +1,14 @@
-"""The reference's image contract, and camera rays per lane.
+"""The general tier's render loop, the reference's image contract, and
+camera rays.
 
-Counterpart of `finalize_image` and `camera_lane_rays` in
-`raytracing_rust_tpu/render.py`: image row 0 is the top scanline, gamma 2.0
-via sqrt, clamp to [0,1] (reference tests/test.rs:72-75).
+Counterpart of `raytracing_rust_tpu/render.py`: `render` walks pixel
+blocks × sample chunks through the wavefront integrator in torch ops
+(`ops/integrator.py`) with the compaction schedule (6, 12, 24) and
+per-pixel f64 sums; `finalize_image` is the output contract, image row 0
+the top scanline, gamma 2.0 via sqrt, clamp to [0,1] (reference
+tests/test.rs:72-75); `camera_sample_rays` keys the camera's draws by
+(pixel, sample) as the kernel's raygen does, `camera_lane_rays` by batch
+lane for the trainer.
 """
 
 from __future__ import annotations
@@ -10,8 +16,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import checkpoint as ck
+from .models.scene import SceneTables
 from .ops import rng
 from .ops.camera import Camera, get_rays
+from .ops.integrator import run_bounces, trace
+from .ops.intersect import plan_pack
+from .utils.timers import Timers
+
+# re-compaction boundaries (bounce indices), the JAX package's: bounces
+# 0-5 run at full width, then the survivors are gathered, and again at
+# each later boundary
+_COMPACT_SCHEDULE = (6, 12, 24)
+# lanes (pixel × sample) of a chunk when the caller names no spp_chunk: on
+# the card each eager op's launch costs about what 10⁶ lanes of work do, so
+# the chunks are wide there
+_CHUNK_LANES = {"cpu": 1 << 22, "cuda": 1 << 24}
 
 
 def finalize_image(sums: np.ndarray, spp: int, nx: int, ny: int) -> np.ndarray:
@@ -40,3 +60,177 @@ def camera_lane_rays(cam: Camera, pid: torch.Tensor, seed: int, nx: int,
     t = (j + u1) / torch.tensor(float(ny), device=dev)
     return get_rays(cam, s, t, torch.stack([u2, u3, torch.zeros_like(u2)],
                                            dim=-1))
+
+
+def camera_sample_rays(cam: Camera, pix: torch.Tensor, smp: torch.Tensor,
+                       seed: int, nx: int, ny: int, moving: bool):
+    """Camera rays of (pixel, sample) pairs → (o, d, time), drawn as the
+    kernel's raygen draws them (`ops/tracer.trace_plain`): jitter and lens
+    from counter (pixel, sample, 0, CAMERA), the shutter time from
+    (pixel, sample, 0, TIME) in a scene with moving spheres (else time0)."""
+    dev = pix.device
+    u0, u1, u2, u3 = rng.draws(seed, pix, smp, 0, rng.STREAM_CAMERA)
+    f32 = cam.origin.dtype
+    i = (pix % nx).to(f32)
+    j = (ny - 1 - pix // nx).to(f32)  # reference row order
+    s = (i + u0) / torch.tensor(float(nx), device=dev)
+    t = (j + u1) / torch.tensor(float(ny), device=dev)
+    ut = (rng.draws(seed, pix, smp, 0, rng.STREAM_TIME)[0] if moving
+          else torch.zeros_like(u2))
+    return get_rays(cam, s, t, torch.stack([u2, u3, ut], dim=-1))
+
+
+def trace_compact(scene: SceneTables, pack, seed: int, pix, smp, o, d, time,
+                  max_depth: int, rr_depth: int | None = None,
+                  schedule=_COMPACT_SCHEDULE) -> torch.Tensor:
+    """Radiance [N, 3] of a batch of camera rays with wavefront compaction:
+    bounces 0 ≤ b < schedule[0] at full width, then at each boundary the
+    live lanes are gathered (`torch.nonzero`, an exact count) with their
+    state and draw keys and the next segment runs on them alone. A lane's
+    state and draws are the full width's, so the radiance equals the full
+    width's (`trace`) bit for bit."""
+    thr = torch.ones_like(o)
+    rad = torch.zeros_like(o)
+    alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    s1 = min(schedule[0], max_depth + 1)
+    o, d, thr, rad, alive = run_bounces(scene, pack, seed, pix, smp,
+                                        max_depth, 0, s1, o, d, time, thr,
+                                        rad, alive, rr_depth)
+    rad_full, lane = rad, None
+    b0 = s1
+    for b_end in [b for b in schedule[1:] if b <= max_depth] + [max_depth + 1]:
+        if b0 > max_depth:
+            break
+        keep = torch.nonzero(alive).squeeze(1)
+        if keep.numel() == 0:
+            break
+        if lane is not None:
+            rad_full[lane] = rad
+        lane = keep if lane is None else lane[keep]
+        o, d, time, thr, rad, pix, smp = (
+            x[keep] for x in (o, d, time, thr, rad, pix, smp))
+        o, d, thr, rad, alive = run_bounces(
+            scene, pack, seed, pix, smp, max_depth, b0, b_end, o, d, time,
+            thr, rad, torch.ones_like(keep, dtype=torch.bool), rr_depth)
+        b0 = b_end
+    if lane is not None:
+        rad_full[lane] = rad
+    return rad_full
+
+
+def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
+                *, device="cuda", seed: int = 0, max_depth: int = 50,
+                block_pixels: int = 1 << 16, spp_chunk: int | None = None,
+                rr_depth: int | None = None, compact: bool = True,
+                checkpoint: str | None = None,
+                timers: Timers | None = None,
+                _stop_after_blocks: int | None = None):
+    """The general tier's per-pixel radiance sums → f64[3, nx·ny] on the
+    device, each pixel's samples added in sample order (see `render`), or
+    None when `_stop_after_blocks` stopped the render."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device cuda requested, but "
+                           "torch.cuda.is_available() is false")
+    if min(nx, ny, spp, block_pixels) <= 0 or max_depth < 0:
+        raise ValueError(f"bad render size {nx}x{ny} spp={spp} "
+                         f"depth={max_depth} block={block_pixels}")
+    if timers is None:
+        timers = Timers()
+    n_pix = nx * ny
+    block_pixels = min(block_pixels, n_pix)
+    if spp_chunk is None:
+        spp_chunk = max(1, min(spp, _CHUNK_LANES[device.type] // block_pixels))
+    with timers.phase("upload"):
+        scene = scene.to(device)
+        cam = cam.to(device)
+        pack = plan_pack(scene)
+        sums = torch.zeros((3, n_pix), dtype=torch.float64, device=device)
+
+    start = 0
+    want = None
+    if checkpoint:
+        # imported here: ops.tracer imports this module
+        from .ops.tracer import build_camera_record
+        want = ck.meta(ck.ENGINE_GENERAL, nx, ny, spp, seed, max_depth,
+                       rr_depth, ck.scene_digest(scene),
+                       build_camera_record(cam).tobytes())
+        got = ck.load(checkpoint, want)
+        if got is not None:
+            sums = torch.from_numpy(got["sums"]).to(device)
+            start = int(got["next_pixel"])
+
+    n_run = 0
+    for lo in range(start, n_pix, block_pixels):
+        hi = min(lo + block_pixels, n_pix)
+        nb = hi - lo
+        pix_blk = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        for s0 in range(0, spp, spp_chunk):
+            ns = min(spp_chunk, spp - s0)
+            with timers.phase("raygen"):
+                # lanes sample-major: lane k·nb + i is pixel lo + i's
+                # sample s0 + k
+                pix = pix_blk.repeat(ns)
+                smp = torch.arange(s0, s0 + ns, dtype=torch.int64,
+                                   device=device).repeat_interleave(nb)
+                o, d, time = camera_sample_rays(cam, pix, smp, seed, nx, ny,
+                                                scene.has_moving)
+            with timers.phase("trace"):
+                if compact:
+                    rad = trace_compact(scene, pack, seed, pix, smp, o, d,
+                                        time, max_depth, rr_depth)
+                else:
+                    rad = trace(scene, o, d, time, seed, pix, smp, max_depth,
+                                rr_depth, pack)
+            with timers.phase("accumulate"):
+                per_sample = rad.double().view(ns, nb, 3)
+                for k in range(ns):
+                    sums[:, lo:hi] += per_sample[k].T
+        n_run += 1
+        if checkpoint:
+            with timers.phase("checkpoint_io"):
+                ck.save(checkpoint, want, sums=sums.cpu().numpy(),
+                        next_pixel=hi)
+        if _stop_after_blocks is not None and n_run >= _stop_after_blocks:
+            return None
+    return sums
+
+
+def render(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int, *,
+           device="cuda", seed: int = 0, max_depth: int = 50,
+           block_pixels: int = 1 << 16, spp_chunk: int | None = None,
+           rr_depth: int | None = None, compact: bool = True,
+           checkpoint: str | None = None, timers: Timers | None = None,
+           _stop_after_blocks: int | None = None) -> np.ndarray | None:
+    """Full image through the general tier → float32 [ny, nx, 3], row 0 at
+    the top, with the reference's gamma (sqrt + clamp, tests/test.rs:72-75).
+
+    Every scene the tables hold renders here, the ones the kernel refuses
+    included (an image on a rotated sphere, a nested checker, an image that
+    is not 8-bit exact, any number of media, any number of rects).
+    device: where the tables and the wavefront live ("cuda", the default,
+    raises when CUDA is absent; "cpu"). The draws are keyed by (pixel,
+    sample, bounce) in the kernel's Philox slots, and each pixel's f64 sums
+    are taken in sample order, so the image is the same bit for bit for
+    every block_pixels, spp_chunk (default: 2^24 lanes a chunk on the card,
+    2^22 on the CPU) and
+    compaction (compact=False runs every bounce at full width).
+    rr_depth: Russian roulette from this bounce on, or None.
+    checkpoint: an .npz path; the sums are saved after each pixel block and
+    a render whose meta matches resumes after the last saved block (a
+    mismatch warns and starts over). timers: phases upload, raygen,
+    trace, accumulate, checkpoint_io, finalize. _stop_after_blocks: a test
+    hook that stops the render after that many blocks, as if the process
+    had died, and returns None.
+    """
+    if timers is None:
+        timers = Timers()
+    sums = render_sums(scene, cam, nx, ny, spp, device=device, seed=seed,
+                       max_depth=max_depth, block_pixels=block_pixels,
+                       spp_chunk=spp_chunk, rr_depth=rr_depth,
+                       compact=compact, checkpoint=checkpoint, timers=timers,
+                       _stop_after_blocks=_stop_after_blocks)
+    if sums is None:
+        return None
+    with timers.phase("finalize"):
+        return finalize_image(sums.T.cpu().numpy(), spp, nx, ny)

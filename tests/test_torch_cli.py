@@ -87,16 +87,18 @@ def _rotated_image_sphere_scene(device="cpu"):
 
 def test_render_outside_the_kernel_exits_nonzero(tmp_path, capsys,
                                                  monkeypatch):
-    """Every preset renders; a scene outside the kernel (here a preset
-    patched to an image on a rotated sphere, which the JAX kernel refuses
-    too) exits 2 with the reason, with no CPU or plain fallback and no
-    image."""
+    """Every preset renders; on the kernel engine (`--engine kernel`) a
+    scene outside the kernel (here a preset patched to an image on a
+    rotated sphere, which the JAX kernel refuses too) exits 2 with the
+    reason, with no CPU or plain fallback and no image. (`--engine auto`,
+    the default, renders it on the general tier:
+    tests/test_torch_general.py.)"""
     p = PRESETS["cornell_box"]
     monkeypatch.setitem(PRESETS, "cornell_box", dataclasses.replace(
         p, build=_rotated_image_sphere_scene))
     rc = cli.main(["render", "--scene", "cornell_box", "--nx", "8",
-                   "--ny", "8", "--spp", "1", "--device", "cpu", "--out",
-                   str(tmp_path / "x.ppm")])
+                   "--ny", "8", "--spp", "1", "--device", "cpu",
+                   "--engine", "kernel", "--out", str(tmp_path / "x.ppm")])
     assert rc == 2
     assert "rotated sphere" in capsys.readouterr().err
     assert not (tmp_path / "x.ppm").exists()
