@@ -215,7 +215,32 @@ Phases, one JSON line each on stdout:
      cornell_box 128×128×16 in 4 blocks stopped after 2 and resumed; each
      PPM byte-equal to an uninterrupted render, with `checkpoint_io`'s
      seconds a chunk or block.
-Phases 41-44 print the card's name and power limit beside their numbers
+ 45. the general tier under autograd against K2/K3: the gradient of the
+     mean weighted radiance into the six scene tables through
+     `integrator.trace(differentiable=True)` (checkpointed bounces, torch
+     ops) and through `trace_fast`, on identical `fast_draws`, at 262,144
+     lanes: the default inverse scene at the trainer's start (depth 6), the
+     geometry scene at zero tilt (the sky, θ's rows; depth 6) and the
+     probe scene of phases 24-28 (depths 6 and 16). A lane whose winners
+     differ from K2's tape took another branch on an ulp
+     (`decision_flips`): at most FLIP_SHARE of the lanes may; on every
+     other lane the radiance within 2e-4 (+ 2e-4 relative); a lane whose
+     gradient into its own ray (d_o, d_d) is off K3's by more than 1e-4 of
+     its scale is ill-conditioned in f32 (at most ILL_SHARE of the lanes);
+     each table's gradient of the loss over the remaining lanes within
+     5e-4 of the fused tier's largest |gradient| in it, every gradient
+     finite; the worst ratio per table (also over all lanes, for the
+     record) and both tiers' forward + backward times;
+ 46. `benchlib.grad_fd_err` (64 rays, depth 8) with its breakdown: the
+     worst |autograd − central difference| ≤ 1e-3, all five sweeps;
+ 47. the trainer's general-tier modes through `inverse_render.main`: the
+     fused default (40 steps) and `--no-fast` at the default size (200×200,
+     4,096 × 64 spp, depth 6, 40 steps: albedo within 0.1, emission within
+     0.5, no K2 launch), their median step times side by side; `--quick`
+     (albedo within 0.08); `--geometry --no-fast` cut to GEO_NO_FAST_STEPS
+     of its 200 steps (the emission rises, the tilt moves off 0). Each run
+     must print its tier.
+Phases 41-47 print the card's name and power limit beside their numbers
 and their own seconds. Every command-line phase prints its per-phase
 seconds, the PPM encode
 included. Then the kernel table and, as the last line, the device
@@ -735,6 +760,272 @@ def general_phases(dev, smi: str, run_cli, cornell_img, reset_launches,
               "the general tier's resumed render differs")
     emit("checkpoint_resume", card=smi, **ck_rows,
          phase_seconds=time.perf_counter() - t_phase)
+
+
+# phase 45: (scene, depth) of the general tier's autograd against K2/K3
+AUTOGRAD_CASES = (("inverse_render", 6), ("geometry", 6),
+                  ("probe_scene", 6), ("probe_scene", 16))
+# phase 45: the share of lanes a decision on an ulp may send down another
+# path than K2's (`decision_flips`; on the CPU, general tier against the
+# plain twin at these widths: 5 of 262,144 lanes on the geometry scene, 2
+# on probe_scene, 0 on the inverse scene)
+FLIP_SHARE = 1e-4
+# phase 45: the share of the other lanes whose gradients into their own
+# ray (d_o, d_d) may differ from K3's by more than 1e-4 of the lane's
+# scale: lanes whose gradient is ill-conditioned in f32 (a refraction at
+# the critical angle, a tangent hit, a long chain inside the glass), where
+# each tier's rounding is amplified (on the CPU, against the twin: 72 and
+# 170 of 262,144 on probe_scene at depths 6 and 16; one lane exiting the
+# glass at a refraction discriminant of 3.6e-7 has a gradient of 262 in
+# the general tier, 171 in the twin and 192 in float64)
+ILL_SHARE = 1e-3
+# phase 47: the geometry trainer's steps on the general tier (its default
+# is 200; cut so that phases 45-47 stay near 120 s: a step takes 1.21 s on
+# the H100)
+GEO_NO_FAST_STEPS = 20
+
+
+def decision_flips(scene, o, d, u, md: int, tape):
+    """The lanes whose path through the general tier is not K2's →
+    bool[N]: at a bounce where the general tier's lane is alive, its
+    closest hit's winner (−1 on a miss) is not the one K2's tape holds.
+    Such a lane took another branch on an ulp (a hit at t ≈ T_MIN, an
+    edge, a comparison with a draw), so its radiance and gradient belong
+    to another path, not to a fault of either tier. K2 leaves a dead
+    lane's later entries unwritten: on a lane the general tier keeps alive
+    longer than K2 they hold no winner and count as a flip, and a lane
+    that K2 keeps alive longer is not flagged here, so its radiance is
+    held to K2's (the gate fails, it does not pass, on either)."""
+    import torch
+    from raytracing_rust_tpu_torch.ops import grad, integrator, intersect
+    pack = intersect.plan_pack(scene)
+    n = o.shape[0]
+    time_ = torch.zeros(n, device=o.device)
+    st = (o, d, torch.ones_like(o), torch.zeros_like(o),
+          torch.ones(n, dtype=torch.bool, device=o.device))
+    rows = []
+    with torch.no_grad():
+        for b in range(md + 1):
+            hit = intersect.closest_hit(scene, st[0], st[1], time_,
+                                        integrator.T_MIN, pack=pack)
+            rows.append(torch.where(st[4], hit.idx, grad.TAPE_NONE))
+            st = integrator._bounce(scene, pack, u[b].T, md, b, st[0],
+                                    st[1], time_, *st[2:])
+    win = torch.stack(rows)
+    code = tape[:, 0].long()
+    k2_win = torch.where(code >= 0, code >> grad.TAPE_SHIFT, code)
+    alive = win != grad.TAPE_NONE
+    return (alive & (win != k2_win)).any(dim=0)
+
+
+def _leaf_grads(scene, names, run, o, d):
+    """run(scene with the float tables `names` as fresh leaves, o, d as
+    fresh leaves) → (radiance, the loss) → (radiance detached, {table or
+    "o", "d": gradient})."""
+    import torch
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+              for k in names}
+    rays = {k: x.detach().clone().requires_grad_(True)
+            for k, x in (("o", o), ("d", d))}
+    rad, loss = run(dataclasses.replace(scene, **leaves), rays["o"],
+                    rays["d"])
+    leaves.update(rays)
+    g = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return rad.detach(), {k: torch.zeros_like(v) if x is None else x
+                          for (k, v), x in zip(leaves.items(), g)}
+
+
+def autograd_phases(dev, smi: str, reset_launches, block: int = 4096,
+                    spp: int = 64, trainer_args=()) -> None:
+    """Phases 45-47: the general tier under autograd on the card against
+    K2/K3, grad_fd_err, and the trainer's general-tier modes. reset_launches:
+    main's. block, spp: phase 45's pixels and samples (the training step's
+    full width); trainer_args: arguments appended to phase 47's trainer
+    runs (none: their defaults). Other values are for a rehearsal at a
+    small size, on the CPU with `cuda_ms` replaced."""
+    import numpy as np
+    import torch
+    from raytracing_rust_tpu_torch import benchlib
+    from raytracing_rust_tpu_torch import inverse_render as ir
+    from raytracing_rust_tpu_torch.ops import grad, integrator
+
+    # -- 45. the general tier's autograd (`trace(differentiable=True)`)
+    # against K2/K3 (`trace_fast`) on identical fast_draws at 262,144
+    # lanes: at most FLIP_SHARE of the lanes on another path than K2's
+    # (`decision_flips`); on every other lane the radiance within 2e-4
+    # (+ 2e-4 relative); on all but ILL_SHARE of them the lane's gradient
+    # into its own ray within 1e-4 of K3's; and each scene table's
+    # gradient of the loss over those lanes within 5e-4 of the fused
+    # tier's largest |gradient| in it
+    t_phase = time.perf_counter()
+    n = block * spp
+    r = np.random.default_rng(3)
+    probe_d = torch.from_numpy(np.stack(
+        [r.uniform(-0.7, 0.7, n), r.uniform(-0.45, 0.25, n), -np.ones(n)],
+        -1).astype(np.float32)).to(dev)
+    probe_o = torch.tensor([0.0, 2.0, 8.0], device=dev).expand(n, 3)
+    kw = dict(nx=200, ny=200, spp=spp, block=block, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    w = torch.rand(n, 3, generator=g, device=dev) + 0.5
+    cases = []
+    for name, md in AUTOGRAD_CASES:
+        if name == "inverse_render":
+            scene = ir.build_scene(ir.START_ALBEDO, ir.START_EMIT, device=dev)
+            o, d, u = ir.step_inputs(ir.camera(dev), 0, max_depth=md, **kw)
+        elif name == "geometry":
+            scene = ir.build_geo_scene(device=dev)
+            o, d, u = ir.step_inputs(ir.geo_camera(dev), 0, max_depth=md,
+                                     **kw)
+        else:
+            scene = grad_probe_scene(dev)
+            o, d = probe_o.contiguous(), probe_d
+            u = grad.fast_draws(7, n, md + 1, dev)
+        cfg = grad.fast_grad_config(scene)
+        time_ = torch.zeros(n, device=dev)
+        _, tape = grad.grad_fwd(grad.fast_grad_record(scene).detach(), o, d,
+                                u, cfg, md, tape=True)
+        flips = decision_flips(scene, o, d, u, md, tape)
+
+        def general(s, oo, dd, wt):
+            rad = integrator.trace(s, oo, dd, time_, 0, None, None, md,
+                                   differentiable=True, u=u)
+            return rad, torch.mean(wt * rad)
+
+        def fused(s, oo, dd, wt):
+            rad = grad.trace_fast(s, oo, dd, 0, max_depth=md, cfg=cfg, u=u)
+            return rad, torch.mean(wt * rad)
+
+        names = ("prim_data", "mat_param", "tex_color", "xf_offset",
+                 "xf_sin", "xf_cos")
+
+        def both(wt):
+            return [_leaf_grads(scene, names,
+                                lambda s, oo, dd: f(s, oo, dd, wt), o, d)
+                    for f in (general, fused)]
+
+        def ratios(g_g, g_f):
+            return {k: float((g_g[k] - g_f[k]).abs().max())
+                    / max(float(g_f[k].abs().max()), 1e-3) for k in names}
+
+        (rad_g, g_g), (rad_f, g_f) = both(w)
+        err = (rad_g - rad_f).abs()
+        off = (err > 2e-4 + 2e-4 * rad_f.abs()).any(dim=1)
+        # each lane's gradient into its own ray, against its own scale
+        # (floored at 1e-3 of the median lane's)
+        ray_g = torch.cat([g_g["o"], g_g["d"]], dim=1)
+        ray_f = torch.cat([g_f["o"], g_f["d"]], dim=1)
+        lane_scale = ray_f.abs().amax(dim=1)
+        ill = ~flips & ((ray_g - ray_f).abs().amax(dim=1) > 1e-4 * torch.clamp(
+            lane_scale, min=1e-3 * float(lane_scale.median())))
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (rad_g, *g_g.values()))
+        all_lanes = ratios(g_g, g_f)
+        (_, g_g), (_, g_f) = both(w * (~(flips | ill)).to(w.dtype)[:, None])
+        held = ratios(g_g, g_f)
+        # warm: the comparison above ran it twice
+        gen_ms = cuda_ms(lambda: _leaf_grads(
+            scene, names, lambda s, oo, dd: general(s, oo, dd, w), o, d),
+            reps=1, warm=False)
+        fused_ms = cuda_ms(lambda: _leaf_grads(
+            scene, names, lambda s, oo, dd: fused(s, oo, dd, w), o, d),
+            reps=5)
+        n_flips, n_ill = int(flips.sum()), int(ill.sum())
+        case = dict(
+            scene=name, depth=md, lanes=n, decision_flips=n_flips,
+            ill_conditioned_lanes=n_ill,
+            radiance_max_abs_err_same_path=float(err[~flips].max()),
+            radiance_max_abs_err_all=float(err.max()),
+            lanes_off_2e4=int(off.sum()),
+            lanes_off_2e4_on_the_same_path=int((off & ~flips).sum()),
+            worst_grad_err_over_scale=held,
+            worst_grad_err_over_scale_all_lanes=all_lanes,
+            grad_scale={k: float(g_f[k].abs().max()) for k in names},
+            finite=finite, general_fwd_bwd_ms=gen_ms,
+            fused_fwd_bwd_ms=fused_ms)
+        cases.append(case)
+        emit("general_autograd_case", card=smi, **case)
+        check(finite, f"{name} depth {md}: a general-tier gradient is not "
+              "finite")
+        check(n_flips <= FLIP_SHARE * n, f"{name} depth {md}: {n_flips} "
+              f"lanes on another path than K2's (> {FLIP_SHARE} of {n})")
+        check(not bool((off & ~flips).any()), f"{name} depth {md}: "
+              f"{int((off & ~flips).sum())} lanes on K2's path off its "
+              "radiance by more than 2e-4")
+        check(n_ill <= ILL_SHARE * n, f"{name} depth {md}: {n_ill} lanes' "
+              f"ray gradients off K3's by more than 1e-4 (> {ILL_SHARE} of "
+              f"{n})")
+        check(all(v <= 5e-4 for v in held.values()),
+              f"{name} depth {md}: a gradient off K3's by more than 5e-4 of "
+              f"its scale: {held}")
+        del rad_g, rad_f, g_g, g_f, tape, ray_g, ray_f
+    emit("general_autograd_vs_k2_k3", card=smi, cases=cases,
+         phase_seconds=time.perf_counter() - t_phase)
+
+    # -- 46. grad_fd_err on the card, with its breakdown
+    t_phase = time.perf_counter()
+    worst, per = benchlib.grad_fd_err(breakdown=True, device=dev)
+    emit("grad_fd_err", card=smi, n_rays=64, max_depth=8,
+         grad_fd_max_abs_err=worst, breakdown=per, bar=1e-3,
+         phase_seconds=time.perf_counter() - t_phase)
+    check(worst <= 1e-3 and len(per) == 5,
+          f"grad_fd_err {worst} (bar 1e-3), sweeps {per}")
+
+    # -- 47. the trainer's general-tier modes: --no-fast at the default
+    # size beside the fused default, --quick, and --geometry --no-fast for
+    # GEO_NO_FAST_STEPS steps
+    t_phase = time.perf_counter()
+    runs = {}
+    sized = ["--device", torch.device(dev).type, *trainer_args]
+    for label, argv in (
+            ("fused", sized),
+            ("no_fast", [*sized, "--no-fast"]),
+            ("quick", ["--device", torch.device(dev).type, "--quick"]),
+            ("geometry_no_fast", [*sized, "--geometry", "--no-fast",
+                                  "--steps", str(GEO_NO_FAST_STEPS)])):
+        buf = io.StringIO()
+        reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = ir.main(argv)
+        text = buf.getvalue()
+        rec = [ln for ln in text.splitlines() if ln.startswith("recovered")]
+        step = re.search(r"step time: ([0-9.]+)s", text)
+        nums = re.findall(r"-?[0-9]+\.[0-9]+", rec[0]) if rec else []
+        runs[label] = dict(
+            argv=argv, rc=rc, wall_seconds=time.perf_counter() - t,
+            k2_launches=grad.K2_LAUNCHES, k3_launches=grad.K3_LAUNCHES,
+            tier=[ln for ln in text.splitlines()
+                  if ln.startswith("differentiable tier")],
+            recovered=rec[0] if rec else None,
+            median_step_seconds=float(step.group(1)) if step else None,
+            log=text.splitlines()[-8:])
+        if label == "geometry_no_fast" and rec:
+            runs[label].update(albedo=[float(x) for x in nums[:3]],
+                               emission=float(nums[4]),
+                               tilt_deg=float(nums[6]))
+        check(rec != [], f"inverse_render.main({argv}): no summary")
+        general = label != "fused"
+        check((runs[label]["k2_launches"] == 0) == general,
+              f"{label}: K2 launched {runs[label]['k2_launches']} times")
+        check(bool(runs[label]["tier"]) and (
+            "general wavefront tier" in runs[label]["tier"][0]) == general,
+            f"{label}: printed tier {runs[label]['tier']}")
+    emit("trainer_general_tier", card=smi, runs=runs,
+         geometry_steps_cut=f"{GEO_NO_FAST_STEPS} of 200",
+         no_fast_over_fused_step=(runs["no_fast"]["median_step_seconds"]
+                                  / runs["fused"]["median_step_seconds"]),
+         phase_seconds=time.perf_counter() - t_phase)
+    for label in ("fused", "no_fast", "quick"):
+        check(runs[label]["rc"] == 0,
+              f"{label}: the trainer missed its criterion: "
+              f"{runs[label]['recovered']}")
+    geo = runs["geometry_no_fast"]
+    check(all(np.isfinite(geo["albedo"])) and geo["emission"] >
+          ir.START_GEO_EMIT and geo["tilt_deg"] != 0.0
+          and np.isfinite(geo["tilt_deg"]),
+          f"--geometry --no-fast did not move toward the truth: "
+          f"{geo['recovered']}")
 
 
 def fallback_camera(nx: int, ny: int, device):
@@ -2339,6 +2630,8 @@ def main() -> int:
     # -- 41-44. the general tier, the fallback and checkpoints
     general_phases(dev, smi, run_cli, cornell_img, reset_launches,
                    k1_launches)
+    # -- 45-47. the general tier under autograd
+    autograd_phases(dev, smi, reset_launches)
 
     def main_row(row: dict, labels, counter: str, n: int) -> dict:
         return at_main_path(row, [r for lab in labels

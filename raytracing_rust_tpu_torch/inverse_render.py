@@ -1,8 +1,7 @@
 """Inverse rendering: recover scene parameters by gradient descent through
-the fused differentiable tier (kernels K2 and K3).
+the fused differentiable tier (kernels K2 and K3) or the general tier.
 
-Counterpart of `examples/inverse_render.py`, its one-device fast path, in
-two modes:
+Counterpart of `examples/inverse_render.py` on one device, in two modes:
 
 * the default (`main_sharded`): a 200×200 cornell-style box is the target;
   Adam on an L2 photometric loss over random pixel blocks recovers TWO
@@ -15,19 +14,38 @@ two modes:
   geometric adjoint of K3: the sky's radiance moves with every scattered
   direction, and so with the cube's normals.
 
-Each step traces the target and the candidate through
-`ops.grad.trace_fast` on the SAME camera rays and the SAME draws: the
-path-matched estimator, so the loss compares two estimates of the same
-paths that differ only through the parameters (an L2 between independent
-Monte Carlo estimates would reward a darker, less noisy albedo).
+Each step traces the target and the candidate on the SAME camera rays and
+the SAME draws: the path-matched estimator, so the loss compares two
+estimates of the same paths that differ only through the parameters (an L2
+between independent Monte Carlo estimates would reward a darker, less
+noisy albedo). The differentiable tier, printed at the start:
+
+* the fused tier, `ops.grad.trace_fast` (K2/K3 on the card, their plain
+  twin on the CPU), wherever `supports_fast_grad` takes the scene and
+  depth;
+* the general tier, `render.train_step` (autograd through
+  `integrator.trace(differentiable=True)`, the target traced without
+  gradient), with `--no-fast`, with `--unfused`, and wherever the fused
+  tier refuses the scene (as the JAX script falls back to its XLA scan
+  tier). Its draws are the step's `fast_draws`, so on the same step both
+  tiers trace the same paths.
+
+`--unfused` is the JAX script's per-step loop: its pixel blocks come from
+numpy's `default_rng(seed).choice` (the JAX loop's `default_rng(0)` at
+seed 0) in place of the per-step randperm, on the general tier. The JAX
+loop also differs in its dispatches; in eager torch every mode issues its
+ops one by one, so the pixel choice is the only difference. `--quick` is
+`main_quick`: albedo alone, 8,192 rays through the script's camera, Adam
+0.05 for 60 steps on the general tier.
 
     python -m raytracing_rust_tpu_torch.inverse_render [--device cuda|cpu]
-        [--geometry] [--steps 40|200] [--spp 64] [--block 4096] [--seed 0]
+        [--geometry] [--no-fast] [--unfused] [--quick] [--steps 40|200]
+        [--spp 64] [--block 4096] [--seed 0]
 
 Exits 0 iff the JAX script's criterion holds: the default, the recovered
 albedo within 0.1 (max abs) and the emission within 0.5 of the truth;
-`--geometry`, albedo within 0.05, emission within 0.3 and tilt within 3°.
-Not ported: the sharded path, `--unfused`, `--no-fast` and `--quick`.
+`--geometry`, albedo within 0.05, emission within 0.3 and tilt within 3°;
+`--quick`, albedo within 0.08. Not ported: the sharded path.
 """
 
 from __future__ import annotations
@@ -43,9 +61,12 @@ import torch
 
 from .models.scene import BG_BLACK, BG_SKY, SceneBuilder, SceneTables
 from .ops.camera import make_camera
-from .ops.grad import (check_kernel_scope, fast_draws, fast_grad_config,
-                       trace_fast)
-from .render import camera_lane_rays
+from .ops import rng
+from .ops.camera import get_rays
+from .ops.grad import (MAX_DEPTH, check_kernel_scope, fast_draws,
+                       fast_grad_config, supports_fast_grad, trace_fast)
+from .ops.integrator import trace
+from .render import camera_lane_rays, lane_radiance, train_step
 
 TRUE_ALBEDO = (0.2, 0.5, 0.8)   # ground-truth blue-ish box
 TRUE_EMIT = 5.0                  # ground-truth light emission
@@ -141,17 +162,24 @@ def with_params(scene: SceneTables, light_tex: int, box_tex: int,
         xf_cos=torch.where(xrow, torch.cos(theta), scene.xf_cos))
 
 
+def step_pixels(step: int, *, nx: int, ny: int, block: int, device,
+                seed: int = 0) -> torch.Tensor:
+    """The step's pixel block: a permutation prefix from a generator
+    seeded with the key (seed << 32) | step."""
+    g = torch.Generator(device=device)
+    g.manual_seed((seed << 32) | step)
+    return torch.randperm(nx * ny, generator=g, device=device)[:block]
+
+
 def step_inputs(cam, step: int, *, nx: int, ny: int, spp: int, block: int,
                 max_depth: int, device, seed: int = 0):
-    """The step's pixel block, camera rays and trace draws, shared by the
-    target and the candidate. The pixel block is a permutation prefix from
-    a generator seeded with the key (seed << 32) | step; rays and draws come
-    from Philox under the same key (their streams differ, ops/rng.py).
-    Seed 0 keys each step by its index alone."""
+    """The step's pixel block (`step_pixels`), camera rays and trace draws,
+    shared by the target and the candidate. Rays and draws come from
+    Philox under the key (seed << 32) | step (their streams differ,
+    ops/rng.py). Seed 0 keys each step by its index alone."""
     key = (seed << 32) | step
-    g = torch.Generator(device=device)
-    g.manual_seed(key)
-    pix = torch.randperm(nx * ny, generator=g, device=device)[:block]
+    pix = step_pixels(step, nx=nx, ny=ny, block=block, device=device,
+                      seed=seed)
     pid = pix.repeat_interleave(spp)
     o, d, _ = camera_lane_rays(cam, pid, key, nx, ny)
     u = fast_draws(key, pid.shape[0], max_depth + 1, device)
@@ -173,6 +201,44 @@ def path_matched_loss(target_scene, scene, light_tex, box_tex, albedo, emit,
     return torch.mean((cand - target) ** 2)
 
 
+def general_step(target_scene, scene, cam, light_tex, box_tex, albedo, emit,
+                 pix, key: int, *, nx: int, ny: int, spp: int,
+                 max_depth: int, theta=None) -> torch.Tensor:
+    """One step on the general tier → the loss (detached), with the
+    gradients of albedo, emit and theta accumulated into their .grad:
+    `render.train_step` on the scene that `with_params` makes, its table
+    gradients chained back onto the parameters. The target is traced
+    without gradient on the same rays (`camera_lane_rays` under key) and
+    draws (`fast_draws` under key, as the fused tier's step draws)."""
+    u = fast_draws(key, pix.shape[0] * spp, max_depth + 1, pix.device)
+    kw = dict(nx=nx, ny=ny, spp=spp, max_depth=max_depth)
+    with torch.no_grad():
+        target = lane_radiance(target_scene, cam, pix, key, u=u, **kw) / spp
+    s2 = with_params(scene, light_tex, box_tex, albedo, emit, theta)
+    wrt = ("tex_color",) if theta is None else ("tex_color", "xf_sin",
+                                                "xf_cos")
+    loss, g = train_step(s2, cam, pix, key, target, wrt=wrt, u=u, **kw)
+    torch.autograd.backward([getattr(s2, k) for k in wrt],
+                            [g[k] for k in wrt])
+    return loss
+
+
+def pick_tier(scene: SceneTables, max_depth: int, device,
+              fast: bool = True, why_not: str = "--no-fast"):
+    """The differentiable tier of a run → ("fused", its log line) where
+    fast is on and the fused tier takes the scene at max_depth, else
+    ("general", its log line with the reason)."""
+    if fast and supports_fast_grad(scene, max_depth):
+        return "fused", ("fused CUDA kernels K2/K3" if device.type == "cuda"
+                         else "fused tier's plain torch twin")
+    if fast:
+        why_not = (f"the fused tier does not take this scene at depth "
+                   f"{max_depth}: it takes depth ≤ {MAX_DEPTH} and no media, "
+                   f"noise or image texture or moving sphere")
+    return "general", (f"general wavefront tier, torch autograd through "
+                       f"checkpointed bounces on {device.type} ({why_not})")
+
+
 def cosine_decay(total: int, alpha: float):
     """optax.cosine_decay_schedule(lr, total, alpha) as a LambdaLR factor."""
     def f(t):
@@ -189,20 +255,18 @@ def _check_device(device) -> torch.device:
     return device
 
 
-def _describe(device, nx, ny, spp, block, max_depth, seed) -> list[str]:
+def _describe(device, nx, ny, spp, block, max_depth, seed) -> str:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    tier = ("fused CUDA kernels K2/K3" if device.type == "cuda"
-            else "plain torch twin")
-    return [f"device: {device.type} ({name}), image {nx}x{ny}, spp {spp}/step, "
-            f"block {block} pixels, depth {max_depth}, seed {seed}",
-            f"differentiable tier: {tier}"]
+    return (f"device: {device.type} ({name}), image {nx}x{ny}, spp {spp}/step, "
+            f"block {block} pixels, depth {max_depth}, seed {seed}")
 
 
-def _fit(groups, step_loss, *, steps: int, horizon: int, log, show):
+def _fit(groups, step, *, steps: int, horizon: int, log, show):
     """Adam on `groups` [(leaf, lr, lo, hi)], each lr under the cosine decay
     to 0.1 of it over `horizon` steps, each leaf clamped to [lo, hi] after
-    its update; step_loss(i) is step i's loss → (losses, step_walls).
+    its update; step(i) runs step i's loss and backward and returns the
+    loss → (losses, step_walls).
 
     losses: the loss of every step, pulled to the host every 10 steps;
     step_walls: seconds per step of each chunk of up to 10 steps (the first
@@ -215,14 +279,13 @@ def _fit(groups, step_loss, *, steps: int, horizon: int, log, show):
     t0 = time.perf_counter()
     for i in range(steps):
         opt.zero_grad(set_to_none=True)
-        loss = step_loss(i)
-        loss.backward()
+        loss = step(i)
         opt.step()
         sched.step()
         with torch.no_grad():
             for p, _, lo, hi in groups:
                 p.clamp_(lo, hi)
-        pending.append(loss.detach())
+        pending.append(loss)
         if (i + 1) % 10 == 0 or i == steps - 1:
             # one host pull per chunk: it also waits for the chunk's work
             losses += torch.stack(pending).tolist()
@@ -241,98 +304,188 @@ def _albedo_str(a) -> str:
 
 def train(*, steps: int = 40, nx: int = 200, ny: int = 200, spp: int = 64,
           block: int = 4096, max_depth: int = 6, device="cuda", seed: int = 0,
-          log=print) -> dict:
+          fast: bool = True, unfused: bool = False, log=print) -> dict:
     """Run the default inverse render → dict(albedo, emit, losses,
-    step_walls) (`_fit`).
+    step_walls, tier) (`_fit`).
 
     seed picks the pixel blocks, rays and draws of every step
-    (`step_inputs`); 0 is the default run."""
+    (`step_inputs`); 0 is the default run. fast=False (`--no-fast`) and
+    unfused (`--unfused`: numpy's pixel blocks) train on the general tier
+    (`general_step`), as does a max_depth the fused tier refuses."""
     device = _check_device(device)
     cam = camera(device)
     target_scene = build_scene(TRUE_ALBEDO, TRUE_EMIT, device)
     scene = build_scene(START_ALBEDO, START_EMIT, device)
     light_tex, box_tex = param_tex_rows(scene)
-    cfg = fast_grad_config(scene)
-    check_kernel_scope(cfg)
+    tier, tier_line = pick_tier(scene, max_depth, device,
+                                fast and not unfused,
+                                "--unfused" if unfused else "--no-fast")
+    if tier == "fused":
+        cfg = fast_grad_config(scene)
+        check_kernel_scope(cfg)
 
     albedo = torch.tensor(START_ALBEDO, dtype=torch.float32, device=device,
                           requires_grad=True)
     emit = torch.tensor(START_EMIT, dtype=torch.float32, device=device,
                         requires_grad=True)
-    head = _describe(device, nx, ny, spp, block, max_depth, seed)
-    log(head[0])
+    log(_describe(device, nx, ny, spp, block, max_depth, seed))
     log(f"target: albedo [{TRUE_ALBEDO[0]:.2f} {TRUE_ALBEDO[1]:.2f} "
         f"{TRUE_ALBEDO[2]:.2f}], emission {TRUE_EMIT:.2f}; start: albedo "
         f"[0.50 0.50 0.50], emission 3.00")
-    log(head[1])
+    log(f"differentiable tier: {tier_line}")
 
     kw = dict(nx=nx, ny=ny, spp=spp, block=block, max_depth=max_depth)
+    pick = np.random.default_rng(seed) if unfused else None
 
-    def step_loss(i):
-        o, d, u = step_inputs(cam, i, device=device, seed=seed, **kw)
-        return path_matched_loss(target_scene, scene, light_tex, box_tex,
-                                 albedo, emit, o, d, u, block=block, spp=spp,
-                                 max_depth=max_depth, cfg=cfg)
+    def step(i):
+        if tier == "fused":
+            o, d, u = step_inputs(cam, i, device=device, seed=seed, **kw)
+            loss = path_matched_loss(target_scene, scene, light_tex, box_tex,
+                                     albedo, emit, o, d, u, block=block,
+                                     spp=spp, max_depth=max_depth, cfg=cfg)
+            loss.backward()
+            return loss.detach()
+        if unfused:
+            pix = torch.from_numpy(pick.choice(nx * ny, size=block,
+                                               replace=False)).to(device)
+        else:
+            pix = step_pixels(i, nx=nx, ny=ny, block=block, device=device,
+                              seed=seed)
+        return general_step(target_scene, scene, cam, light_tex, box_tex,
+                            albedo, emit, pix, (seed << 32) | i, nx=nx, ny=ny,
+                            spp=spp, max_depth=max_depth)
 
     # per-group lr: emission must travel ~2.0 while albedo travels ≤ 0.3;
     # the cosine decay damps the momentum overshoot once each arrives
     losses, walls = _fit(
-        [(albedo, 0.05, 0.0, 1.0), (emit, 0.25, 0.0, 20.0)], step_loss,
+        [(albedo, 0.05, 0.0, 1.0), (emit, 0.25, 0.0, 20.0)], step,
         steps=steps, horizon=steps, log=log,
         show=lambda: (f"albedo {_albedo_str(albedo.detach().cpu().numpy())}  "
                       f"emit {emit.item():.3f}"))
     return dict(albedo=albedo.detach().cpu().numpy(), emit=emit.item(),
-                losses=losses, step_walls=walls)
+                losses=losses, step_walls=walls, tier=tier)
 
 
 def train_geometry(*, steps: int = 200, nx: int = 200, ny: int = 200,
                    spp: int = 64, block: int = 4096, max_depth: int = 6,
-                   device="cuda", seed: int = 0, log=print) -> dict:
+                   device="cuda", seed: int = 0, fast: bool = True,
+                   log=print) -> dict:
     """Run the geometry inverse render (`main_geometry`) → dict(albedo,
-    emit, tilt_deg, losses, step_walls) (`_fit`): ceil(steps/10)·10 steps,
-    as the JAX script rounds `steps` up to whole chunks of 10, of Adam on
-    albedo (lr 0.05), emission (0.2) and θ (0.06), each under the cosine
-    decay over those steps, clamped to [0, 1], [0, 20] and [−1.2, 1.2]."""
+    emit, tilt_deg, losses, step_walls, tier) (`_fit`): ceil(steps/10)·10
+    steps, as the JAX script rounds `steps` up to whole chunks of 10, of
+    Adam on albedo (lr 0.05), emission (0.2) and θ (0.06), each under the
+    cosine decay over those steps, clamped to [0, 1], [0, 20] and
+    [−1.2, 1.2]. fast=False (`--no-fast`) trains on the general tier, θ
+    reaching it through the transform row's sin and cos."""
     device = _check_device(device)
     cam = geo_camera(device)
     target_scene = build_geo_scene(TRUE_GEO_ALBEDO, TRUE_GEO_EMIT,
                                    TRUE_TILT_DEG, device)
     scene = build_geo_scene(START_GEO_ALBEDO, TRUE_GEO_EMIT, 0.0, device)
     light_tex, cube_tex = geo_param_rows(scene)
-    cfg = fast_grad_config(scene)
-    check_kernel_scope(cfg)
+    tier, tier_line = pick_tier(scene, max_depth, device, fast)
+    if tier == "fused":
+        cfg = fast_grad_config(scene)
+        check_kernel_scope(cfg)
 
     f32 = dict(dtype=torch.float32, device=device, requires_grad=True)
     albedo = torch.tensor(START_GEO_ALBEDO, **f32)
     emit = torch.tensor(START_GEO_EMIT, **f32)
     theta = torch.tensor(START_THETA, **f32)
-    head = _describe(device, nx, ny, spp, block, max_depth, seed)
-    log(head[0])
+    log(_describe(device, nx, ny, spp, block, max_depth, seed))
     log(f"geometry mode: recover cube tilt {TRUE_TILT_DEG}° + albedo "
         f"[{TRUE_GEO_ALBEDO[0]:.2f} {TRUE_GEO_ALBEDO[1]:.2f} "
         f"{TRUE_GEO_ALBEDO[2]:.2f}] + emission {TRUE_GEO_EMIT:.2f}; start: "
         f"tilt 0°, albedo [0.50 0.50 0.50], emission 2.00")
-    log(head[1])
+    log(f"differentiable tier: {tier_line}")
 
     kw = dict(nx=nx, ny=ny, spp=spp, block=block, max_depth=max_depth)
 
-    def step_loss(i):
-        o, d, u = step_inputs(cam, i, device=device, seed=seed, **kw)
-        return path_matched_loss(target_scene, scene, light_tex, cube_tex,
-                                 albedo, emit, o, d, u, block=block, spp=spp,
-                                 max_depth=max_depth, cfg=cfg, theta=theta)
+    def step(i):
+        if tier == "fused":
+            o, d, u = step_inputs(cam, i, device=device, seed=seed, **kw)
+            loss = path_matched_loss(target_scene, scene, light_tex, cube_tex,
+                                     albedo, emit, o, d, u, block=block,
+                                     spp=spp, max_depth=max_depth, cfg=cfg,
+                                     theta=theta)
+            loss.backward()
+            return loss.detach()
+        pix = step_pixels(i, nx=nx, ny=ny, block=block, device=device,
+                          seed=seed)
+        return general_step(target_scene, scene, cam, light_tex, cube_tex,
+                            albedo, emit, pix, (seed << 32) | i, nx=nx, ny=ny,
+                            spp=spp, max_depth=max_depth, theta=theta)
 
     total = -(-steps // 10) * 10
     losses, walls = _fit(
         [(albedo, 0.05, 0.0, 1.0), (emit, 0.2, 0.0, 20.0),
-         (theta, 0.06, -1.2, 1.2)], step_loss,
+         (theta, 0.06, -1.2, 1.2)], step,
         steps=total, horizon=total, log=log,
         show=lambda: (f"albedo {_albedo_str(albedo.detach().cpu().numpy())}  "
                       f"emit {emit.item():.3f}  "
                       f"tilt {math.degrees(theta.item()):.2f}°"))
     return dict(albedo=albedo.detach().cpu().numpy(), emit=emit.item(),
                 tilt_deg=math.degrees(theta.item()), losses=losses,
-                step_walls=walls)
+                step_walls=walls, tier=tier)
+
+
+QUICK_RAYS = 8192
+QUICK_STEPS = 60
+QUICK_LR = 0.05
+QUICK_RAY_SEED = 1     # the rays' key (JAX: fold_in(key(0), 1))
+QUICK_STEP_SEED = 100  # step i's draws under key QUICK_STEP_SEED + i
+
+
+def train_quick(*, n_rays: int = QUICK_RAYS, steps: int = QUICK_STEPS,
+                max_depth: int = 6, device="cuda", log=print) -> dict:
+    """The JAX script's `main_quick` → dict(albedo, losses, seconds): the
+    box albedo alone (the light at its true emission) from n_rays camera
+    rays through `camera()` at uniform (s, t) (Philox CAMERA words 0-1
+    under key QUICK_RAY_SEED, keyed by lane), Adam at QUICK_LR with no
+    decay, clamped to [0, 1]; step i traces the target without gradient
+    and the candidate with it on the same draws (key QUICK_STEP_SEED + i)
+    through the general tier. Logs steps 0, 10, …, and the last."""
+    device = _check_device(device)
+    cam = camera(device)
+    lane = torch.arange(n_rays, dtype=torch.int64, device=device)
+    s, t, _, _ = rng.draws(QUICK_RAY_SEED, lane, 0, 0, rng.STREAM_CAMERA)
+    o, d, time_ = get_rays(cam, s, t, torch.zeros(n_rays, 3, device=device))
+    target_scene = build_scene(TRUE_ALBEDO, TRUE_EMIT, device)
+    scene = build_scene(START_ALBEDO, TRUE_EMIT, device)
+    _, box_tex = param_tex_rows(scene)
+    albedo = torch.tensor(START_ALBEDO, dtype=torch.float32, device=device,
+                          requires_grad=True)
+    opt = torch.optim.Adam([albedo], lr=QUICK_LR)
+    log(f"differentiable tier: general wavefront tier, torch autograd "
+        f"through checkpointed bounces on {device.type} (--quick)")
+    log(f"target albedo: [0.20 0.50 0.80], start: {_albedo_str(START_ALBEDO)}")
+    zero = torch.zeros_like(lane)
+    row = torch.arange(scene.tex_color.shape[0], device=device)[:, None]
+    losses = []
+    t0 = clock = time.perf_counter()
+    for i in range(steps):
+        seed = QUICK_STEP_SEED + i
+        with torch.no_grad():
+            target = trace(target_scene, o, d, time_, seed, lane, zero,
+                           max_depth)
+        s2 = dataclasses.replace(scene, tex_color=torch.where(
+            row == box_tex, albedo[None, :], scene.tex_color))
+        rad = trace(s2, o, d, time_, seed, lane, zero, max_depth,
+                    differentiable=True)
+        loss = torch.mean((rad - target) ** 2)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        with torch.no_grad():
+            albedo.clamp_(0.0, 1.0)
+        losses.append(loss.item())
+        if i % 10 == 0 or i == steps - 1:
+            log(f"step {i:3d}  loss {losses[-1]:.5f}  albedo "
+                f"{_albedo_str(albedo.detach().cpu().numpy())}  "
+                f"({time.perf_counter() - clock:.2f}s)")
+            clock = time.perf_counter()
+    return dict(albedo=albedo.detach().cpu().numpy(), losses=losses,
+                seconds=time.perf_counter() - t0)
 
 
 def _steady(walls) -> tuple[float, str]:
@@ -346,12 +499,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m raytracing_rust_tpu_torch.inverse_render",
         description="recover scene parameters by gradient descent through "
-                    "the fused kernels: the box albedo and the light "
-                    "emission, or with --geometry a cube's tilt as well")
+                    "the fused kernels or the general tier: the box albedo "
+                    "and the light emission, or with --geometry a cube's "
+                    "tilt as well")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--geometry", action="store_true",
                     help="recover the cube tilt + albedo + emission under "
                          "the sky (200 steps by default)")
+    ap.add_argument("--no-fast", action="store_true",
+                    help="train on the general tier (torch autograd) even "
+                         "where the fused kernels take the scene")
+    ap.add_argument("--unfused", action="store_true",
+                    help="the JAX script's per-step loop: numpy's pixel "
+                         "blocks, on the general tier (default mode only)")
+    ap.add_argument("--quick", action="store_true",
+                    help="the small demo: albedo alone, 8,192 rays, 60 "
+                         "steps on the general tier")
     ap.add_argument("--steps", type=int, default=None,
                     help="training steps (default 40, or 200 with --geometry, "
                          "which rounds them up to a multiple of 10)")
@@ -362,12 +525,21 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="offset of every step's pixel blocks, rays and draws")
     args = ap.parse_args(argv)
+    if args.quick:
+        res = train_quick(device=args.device)
+        a = res["albedo"]
+        err = float(np.abs(a - np.asarray(TRUE_ALBEDO)).max())
+        print(f"recovered albedo {_albedo_str(a)} (max abs err {err:.3f})")
+        return 0 if err < 0.08 else 1
+    if args.geometry and args.unfused:
+        ap.error("--unfused is the default mode's loop (the JAX script's "
+                 "geometry mode has none)")
     if not 0 <= args.seed < 1 << 31:
         ap.error(f"--seed {args.seed} must lie in [0, 2^31)")
     if args.block > args.nx * args.ny:
         ap.error(f"--block {args.block} exceeds the {args.nx * args.ny} pixels")
     kw = dict(nx=args.nx, ny=args.ny, spp=args.spp, block=args.block,
-              device=args.device, seed=args.seed)
+              device=args.device, seed=args.seed, fast=not args.no_fast)
     rays = args.block * args.spp
     if args.geometry:
         res = train_geometry(steps=200 if args.steps is None else args.steps,
@@ -382,9 +554,10 @@ def main(argv=None) -> int:
               f"(err {err_t:.2f}°)")
         print(f"step time: {steady:.4f}s {tag} (3 groups incl. geometry, "
               f"{rays / 1e6:.2f}M target + {rays / 1e6:.2f}M candidate "
-              f"sample-paths/step fwd+bwd, depth 6)")
+              f"sample-paths/step fwd+bwd, depth 6, {res['tier']} tier)")
         return 0 if (err_a < 0.05 and err_e < 0.3 and err_t < 3.0) else 1
-    res = train(steps=40 if args.steps is None else args.steps, **kw)
+    res = train(steps=40 if args.steps is None else args.steps,
+                unfused=args.unfused, **kw)
     a, e = res["albedo"], res["emit"]
     err_a = float(np.abs(a - np.asarray(TRUE_ALBEDO)).max())
     err_e = abs(e - TRUE_EMIT)
@@ -392,7 +565,8 @@ def main(argv=None) -> int:
     print(f"recovered albedo {_albedo_str(a)} (max abs err {err_a:.3f}), "
           f"emission {e:.3f} (err {err_e:.3f})")
     print(f"step time: {steady:.4f}s {tag} ({rays / 1e6:.2f}M target + "
-          f"{rays / 1e6:.2f}M candidate sample-paths/step fwd+bwd, depth 6)")
+          f"{rays / 1e6:.2f}M candidate sample-paths/step fwd+bwd, depth 6, "
+          f"{res['tier']} tier)")
     return 0 if (err_a < 0.1 and err_e < 0.5) else 1
 
 

@@ -25,6 +25,7 @@ path keeps its stream wherever compaction moves it.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from ..models.scene import BG_SKY, SceneTables
 from . import rng
@@ -136,7 +137,10 @@ def _bounce(scene: SceneTables, pack: PlannedPack, u_all: torch.Tensor,
         # throughput, clipped to [0.05, 1], and a survivor's throughput is
         # divided by q
         u_rr = u_all[:, -1]
-        q = torch.clamp(torch.amax(thr, dim=-1), 0.05, 1.0)
+        # detached, as JAX stops its gradient: the survival decision is a
+        # discrete choice like the hit's, and a gradient through q(θ)
+        # would leave an uncancelled −f·q′/q term
+        q = torch.clamp(torch.amax(thr, dim=-1), 0.05, 1.0).detach()
         roulette = b >= rr_depth
         survive = (u_rr < q) | (not roulette)
         thr = torch.where((cont & roulette & survive)[:, None],
@@ -148,35 +152,89 @@ def _bounce(scene: SceneTables, pack: PlannedPack, u_all: torch.Tensor,
     return o, d, thr, rad, cont
 
 
+def _check_draws(scene: SceneTables, u: torch.Tensor, n: int, rr: bool,
+                 n_bounce: int) -> None:
+    """Raise unless u holds the draws of n_bounce bounces of n lanes in
+    `_bounce`'s column layout f32[≥ n_bounce, n, m] (m = 4 + media +
+    roulette) or, for a media-free scene without roulette (m = 4), in the
+    fused tier's f32[≥ n_bounce, 4, n] (`grad.fast_draws`); a shape that
+    is both (n = m = 4) is read as the column layout."""
+    m = 4 + (scene.num_media if scene.has_media else 0) + int(rr)
+    if u.dim() == 3 and u.shape[0] < n_bounce:
+        raise ValueError(f"draws for {u.shape[0]} bounces, the trace runs "
+                         f"{n_bounce}")
+    if u.dim() == 3 and (u.shape[1:] == (n, m)
+                         or (m == 4 and u.shape[1:] == (4, n))):
+        return
+    raise ValueError(f"draws of shape {tuple(u.shape)}: want [n_bounce, {n}, "
+                     f"{m}]" + (f" or [n_bounce, 4, {n}]" if m == 4 else ""))
+
+
+def _bounce_draws(u: torch.Tensor, b: int, n: int) -> torch.Tensor:
+    """Bounce b's columns [n, m] of a `_check_draws`-checked u."""
+    ub = u[b]
+    return ub if ub.shape[0] == n else ub.T
+
+
 def run_bounces(scene: SceneTables, pack: PlannedPack, seed: int, pix, smp,
                 max_depth: int, b0: int, b_end: int, o, d, time, thr, rad,
-                alive, rr_depth: int | None = None):
+                alive, rr_depth: int | None = None, u=None,
+                differentiable: bool = False):
     """Bounces b0 ≤ b < b_end, stopping when no lane is alive → (o, d, thr,
     rad, alive). pix, smp: each lane's pixel and global sample, the keys of
     its draws (`lane_draws`), so a compacted batch draws what the full
-    one would."""
+    one would; u, differentiable: as in `trace`."""
+    n = o.shape[0]
+    state = (o, d, thr, rad, alive)
     for b in range(b0, b_end):
-        if not bool(alive.any()):
+        if not bool(state[4].any()):
             break
-        u_all = lane_draws(scene, seed, pix, smp, b, rr_depth is not None)
-        o, d, thr, rad, alive = _bounce(scene, pack, u_all, max_depth, b, o,
-                                        d, time, thr, rad, alive, rr_depth)
-    return o, d, thr, rad, alive
+
+        def bounce(*st, b=b):
+            u_all = (lane_draws(scene, seed, pix, smp, b, rr_depth is not None)
+                     if u is None else _bounce_draws(u, b, n))
+            return _bounce(scene, pack, u_all, max_depth, b, st[0], st[1],
+                           time, *st[2:], rr_depth)
+
+        if differentiable:
+            state = torch.utils.checkpoint.checkpoint(
+                bounce, *state, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            state = bounce(*state)
+    return state
 
 
 def trace(scene: SceneTables, o, d, time, seed: int, pix, smp,
           max_depth: int = 50, rr_depth: int | None = None,
-          pack: PlannedPack | None = None) -> torch.Tensor:
+          pack: PlannedPack | None = None, differentiable: bool = False,
+          u: torch.Tensor | None = None) -> torch.Tensor:
     """Trace a batch of rays to completion at full width (no compaction)
     → radiance [N, 3]. o, d, time: the rays (directions unnormalized, the
     reference convention); seed, pix, smp: the draws' key and each lane's
     (pixel, sample); rr_depth: the bounce Russian roulette starts at, or
     None (the reference always runs to the cap); pack: the scene's
-    `plan_pack`, when the caller holds it."""
+    `plan_pack`, when the caller holds it.
+
+    differentiable: run each bounce under `torch.utils.checkpoint` (the
+    JAX package's `jax.checkpoint(body)`): autograd keeps a bounce's inputs
+    and replays the bounce in the backward pass, O(1) residual memory a
+    bounce; the replay draws what the forward drew, since the draws are a
+    function of (seed, pixel, sample, bounce) or of u. The radiance is the
+    same bit for bit either way. u: the draws as a tensor in place of
+    `lane_draws` (then seed, pix and smp are not read), at least
+    max_depth + 1 bounces of them in a layout `_check_draws` takes, so a
+    test can feed the tier JAX's `_lane_draws` or the fused tier's
+    `fast_draws`; no gradient flows into them."""
+    if u is not None:
+        _check_draws(scene, u, o.shape[0], rr_depth is not None,
+                     max_depth + 1)
+        u = u.detach()
     thr = torch.ones_like(o)
     rad = torch.zeros_like(o)
     alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     _, _, _, rad, _ = run_bounces(scene, pack or plan_pack(scene), seed, pix,
                                   smp, max_depth, 0, max_depth + 1, o, d,
-                                  time, thr, rad, alive, rr_depth)
+                                  time, thr, rad, alive, rr_depth, u,
+                                  differentiable)
     return rad

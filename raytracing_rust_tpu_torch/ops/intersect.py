@@ -199,13 +199,33 @@ class HitPlan:
     off: torch.Tensor      # f32[7, R] k_off, a_off, b_off, a0, a1, b0, b1
 
 
-def plan_hits(pack: PrimPack) -> HitPlan:
-    """The kind split of `pack` for `closest_hit` (once per trace)."""
+def plan_hits(pack: PrimPack, src: torch.Tensor | None = None) -> HitPlan:
+    """The kind split of `pack` for `closest_hit` (once per trace).
+
+    The distinct frames are found on detached values, and `frames` gathers
+    each one from its first rect, so it stays a function of the transform
+    tables. Under autograd (the frames require grad) two rects share a
+    frame only where they also share its source: src, int64[P], names each
+    prim's (transform row, axis), or None to share no frame. Otherwise a
+    rect's gradient would reach the row of another rect whose frame has
+    the same value (a cube at zero tilt and an unrotated light). Every
+    frame's dot products are the same values either way."""
     sph = torch.nonzero(pack.is_sphere).squeeze(1)
     rect = torch.nonzero(pack.is_rect).squeeze(1)
     rf = torch.cat([pack.kn, pack.an, pack.bn], dim=1)[rect]   # [R, 9]
-    if rect.numel():
-        frames, frame = torch.unique(rf, dim=0, return_inverse=True)
+    n_rect = rect.numel()
+    if n_rect:
+        key = rf.detach()
+        if rf.requires_grad:
+            owner = (src[rect] if src is not None
+                     else torch.arange(n_rect, device=rf.device))
+            key = torch.cat([key, owner.to(key.dtype)[:, None]], dim=1)
+        _, frame = torch.unique(key, dim=0, return_inverse=True)
+        lanes = torch.arange(n_rect, device=rf.device)
+        first = torch.full((int(frame.max()) + 1,), n_rect,
+                           dtype=lanes.dtype, device=rf.device)
+        first = first.scatter_reduce(0, frame, lanes, "amin")
+        frames = rf[first]
     else:
         frames, frame = rf, rect
     return HitPlan(
@@ -301,11 +321,14 @@ def closest_hit(scene: SceneTables, o, d, time, t_min: float,
     i_best = torch.zeros((n,), dtype=torch.int64, device=o.device)
 
     def take(t, ids):
+        # rebinds, not in-place copies: t_best carries the winner's
+        # gradient under autograd
+        nonlocal t_best, i_best
         tc, ic = torch.min(t, dim=1)
         ic = ids[ic]
         better = (tc < t_best) | ((tc == t_best) & (ic < i_best))
-        t_best.copy_(torch.where(better, tc, t_best))
-        i_best.copy_(torch.where(better, ic, i_best))
+        t_best = torch.where(better, tc, t_best)
+        i_best = torch.where(better, ic, i_best)
 
     n_sph, n_rect = pl.sph.numel(), pl.rect.numel()
     if n_sph:
@@ -341,11 +364,12 @@ class PlannedPack(PrimPack):
 def plan_pack(scene: SceneTables) -> PlannedPack:
     """`pack_prims` with its `HitPlan` and shading kinds (once per trace)."""
     pack = pack_prims(scene)
+    src = scene.prim_xform.long() * 3 + scene.prim_axis.long()
     mat = scene.prim_material
     if scene.has_media:
         mat = torch.cat([mat, scene.med_material])
     return PlannedPack(
-        **vars(pack), plan=plan_hits(pack),
+        **vars(pack), plan=plan_hits(pack, src),
         mats=frozenset(scene.mat_type[mat.long()].tolist()),
         checker=bool((scene.tex_type == TEX_CHECKER).any()))
 

@@ -8,10 +8,15 @@ per-pixel f64 sums; `finalize_image` is the output contract, image row 0
 the top scanline, gamma 2.0 via sqrt, clamp to [0,1] (reference
 tests/test.rs:72-75); `camera_sample_rays` keys the camera's draws by
 (pixel, sample) as the kernel's raygen does, `camera_lane_rays` by batch
-lane for the trainer.
+lane for the trainer; `lane_radiance` and `train_step` are the one-device
+counterparts of `parallel/sharding.py`'s `_lane_radiance` and
+`train_step_sharded`: a pixel block's radiance through the general tier
+and one differentiable training step.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -194,6 +199,50 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
         if _stop_after_blocks is not None and n_run >= _stop_after_blocks:
             return None
     return sums
+
+
+def lane_radiance(scene: SceneTables, cam: Camera, pix: torch.Tensor,
+                  seed: int, nx: int, ny: int, spp: int, max_depth: int,
+                  differentiable: bool = False,
+                  u: torch.Tensor | None = None) -> torch.Tensor:
+    """Radiance sums f32[npix, 3] of an [npix, spp] lane grid through the
+    general tier at full width. pix: int64[npix]; the lanes are laid out
+    pixel-major (lane k·spp + s is pixel pix[k]'s sample s), and
+    `camera_lane_rays` keys their rays by lane under `seed`; the trace's
+    draws are `lane_draws` keyed by (lane, 0) under `seed`, or u (see
+    `integrator.trace`). differentiable: checkpointed bounces."""
+    npix = pix.shape[0]
+    pid = pix.repeat_interleave(spp)
+    o, d, time = camera_lane_rays(cam, pid, seed, nx, ny)
+    lane = torch.arange(pid.shape[0], dtype=torch.int64, device=pid.device)
+    rad = trace(scene, o, d, time, seed, lane, torch.zeros_like(lane),
+                max_depth, differentiable=differentiable, u=u)
+    return rad.reshape(npix, spp, 3).sum(dim=1)
+
+
+def train_step(scene: SceneTables, cam: Camera, pix: torch.Tensor,
+               seed: int, target: torch.Tensor, *, nx: int, ny: int,
+               spp: int, max_depth: int, wrt=("tex_color",),
+               u: torch.Tensor | None = None):
+    """One differentiable training step: the L2 photometric loss of the
+    block's image (`lane_radiance` / spp) against target f32[npix, 3] →
+    (loss, {table: gradient}) for each float table of `SceneTables` named
+    in wrt (prim_data, tex_color, mat_param, images, tex_scale, xf_sin,
+    xf_cos, xf_offset, …). A table whose gradient is zero everywhere (no
+    path reaches it) gets zeros. The gradients are taken with respect to
+    the tables as given: a caller whose tables are functions of its own
+    parameters chains them on (`torch.autograd.backward`)."""
+    leaves = {k: getattr(scene, k).detach().requires_grad_(True)
+              for k in wrt}
+    s = dataclasses.replace(scene, **leaves)
+    with torch.enable_grad():
+        img = lane_radiance(s, cam, pix, seed, nx, ny, spp, max_depth,
+                            differentiable=True, u=u) / spp
+        loss = torch.mean((img - target) ** 2)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(v) if g is None else g
+                           for (k, v), g in zip(leaves.items(), grads)}
 
 
 def render(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int, *,
