@@ -42,7 +42,7 @@ from .models.builders import PRESETS
 from .ops import peak, tracer
 
 
-def _smi(query: str) -> str:
+def smi(query: str) -> str:
     """One field of `nvidia-smi --query-gpu` for card 0."""
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -51,7 +51,7 @@ def _smi(query: str) -> str:
 
 
 def _mhz(query: str) -> float:
-    return float(_smi(query).split()[0])
+    return float(smi(query).split()[0])
 
 
 def _operands(name, nx, ny, max_depth, balance, device):

@@ -10,7 +10,6 @@ their means with standard errors (sample standard deviation / √n).
 
     python -m raytracing_rust_tpu_torch.seed_sweep [--seeds 10]
         [--device cuda|cpu] [--out chiprun_out/seed_sweep.json]
-        [--nx 200 --ny 200 --block 4096 --spp 64 --steps 40]
 """
 
 from __future__ import annotations
@@ -19,7 +18,6 @@ import argparse
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -27,22 +25,13 @@ import numpy as np
 import torch
 
 from . import inverse_render as ir
+from .kernel_stats import smi
 
 
 def mean_sem(xs) -> tuple[float, float]:
     """(mean, standard error of the mean) of xs (n ≥ 2)."""
     xs = np.asarray(xs, np.float64)
     return float(xs.mean()), float(xs.std(ddof=1) / math.sqrt(len(xs)))
-
-
-def card() -> str:
-    """nvidia-smi's name and power limit of the card, or "cpu"."""
-    if not torch.cuda.is_available():
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
@@ -53,25 +42,19 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=10)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--out", default=None, help="JSON path")
-    ap.add_argument("--nx", type=int, default=200)
-    ap.add_argument("--ny", type=int, default=200)
-    ap.add_argument("--block", type=int, default=4096)
-    ap.add_argument("--spp", type=int, default=64)
-    ap.add_argument("--steps", type=int, default=40)
     args = ap.parse_args(argv)
     if args.seeds < 2:
         ap.error("--seeds must be ≥ 2 for a standard error")
-    kw = dict(steps=args.steps, nx=args.nx, ny=args.ny, spp=args.spp,
-              block=args.block, device=args.device, log=lambda *a: None)
-    out = dict(card=card(), size=dict(nx=args.nx, ny=args.ny,
-                                      block=args.block, spp=args.spp,
-                                      steps=args.steps), tiers={})
+    card = (smi("name,power.limit") if args.device == "cuda"
+            and torch.cuda.is_available() else args.device)
+    out = dict(card=card, tiers={})
     print(out["card"], flush=True)
     for tier, fast in (("fused", True), ("general", False)):
         rows = []
         for seed in range(args.seeds):
             t = time.perf_counter()
-            res = ir.train(seed=seed, fast=fast, **kw)
+            res = ir.train(seed=seed, fast=fast, device=args.device,
+                           log=lambda *a: None)
             rows.append(dict(
                 seed=seed, albedo=res["albedo"].tolist(), emit=res["emit"],
                 albedo_err=float(np.abs(res["albedo"] - np.asarray(
