@@ -244,7 +244,29 @@ Phases, one JSON line each on stdout:
      (albedo within 0.08); `--geometry --no-fast` cut to GEO_NO_FAST_STEPS
      of its 200 steps (the emission rises, the tilt moves off 0). Each run
      must print its tier.
-Phases 41-47 print the card's name and power limit beside their numbers
+ 48. sharding at one rank on NCCL: `render --scene cornell_box --nx 800
+     --ny 800 --spp 32 --sharded` (depth 50) through the command line and
+     `render_sums_sharded` in this process on a one-rank NCCL group,
+     against the general tier's `render_sums` at the same size and seed:
+     the sums and the PPM bit for bit, no kernel launch;
+ 49. two ranks on the one card under gloo on CUDA tensors (NCCL refuses
+     two ranks on one GPU; `chip_smoke.py --sharded-rank DIR`, spawned by
+     `parallel.multihost_worker.launch`): the same render on meshes (2, 1),
+     bit-equal to one rank, and (1, 2), within 1e-12 relative and 1 f32
+     ulp of the image; both ranks' sums equal;
+ 50. on both meshes, the trainer's sharded step at full width (step 0's
+     4,096 pixels × 64 spp, depth 6, its `fast_draws`): the target through
+     `render_block_sharded`, the loss and tex_color's gradient through
+     `train_step_sharded`, against one rank's `lane_radiance` and
+     `train_step`: the loss within 1e-6 relative, the gradient within 1e-5
+     of its largest |value|; both ranks equal; each side's step time;
+ 51. the trainer's multi-rank default, `inverse_render.main(["--device",
+     "cuda"])` in both ranks (mesh (1, 2), 40 steps on the general tier):
+     both exit 0 (albedo within 0.1, emission within 0.5), no K1, K2 or K3
+     launch, the sharded tier printed by rank 0 alone; its median step
+     beside phase 47's one-rank `--no-fast` step. Two ranks on one card
+     show correctness, not multi-GPU scaling, which is not measured.
+Phases 41-51 print the card's name and power limit beside their numbers
 and their own seconds. Every command-line phase prints its per-phase
 seconds, the PPM encode
 included. Then the kernel table and, as the last line, the device
@@ -852,10 +874,10 @@ def as_float64(scene):
         and getattr(scene, f.name).is_floating_point()})
 
 
-def autograd_phases(dev, smi: str, reset_launches) -> None:
+def autograd_phases(dev, smi: str, reset_launches) -> float:
     """Phases 45-47: the general tier under autograd on the card against
-    K2/K3, grad_fd_err, and the trainer's general-tier modes. reset_launches:
-    main's."""
+    K2/K3, grad_fd_err, and the trainer's general-tier modes → phase 47's
+    median `--no-fast` step in seconds. reset_launches: main's."""
     import numpy as np
     import torch
     from raytracing_rust_tpu_torch import benchlib
@@ -1067,6 +1089,275 @@ def autograd_phases(dev, smi: str, reset_launches) -> None:
           and np.isfinite(geo["tilt_deg"]),
           f"--geometry --no-fast did not move toward the truth: "
           f"{geo['recovered']}")
+    return runs["no_fast"]["median_step_seconds"]
+
+
+# phases 48-49: the sharded render, cornell_box (nx, ny, spp) at depth 50
+SHARD_RENDER = (800, 800, 32)
+# phases 49-50: the meshes of two ranks on the one card (dp, sp)
+SHARD_MESHES = ((2, 1), (1, 2))
+# phase 50: the step's pixel block and draws, the trainer's step 0's
+SHARD_STEP_KEY = 0
+
+
+def shard_preset():
+    """cornell_box at SHARD_RENDER's size, as the command line sets it."""
+    from raytracing_rust_tpu_torch.models.builders import PRESETS
+    p = PRESETS["cornell_box"]
+    return type(p)(**{**p.__dict__, "nx": SHARD_RENDER[0],
+                      "ny": SHARD_RENDER[1]})
+
+
+def shard_step_case(dev):
+    """Phase 50's step at the trainer's full width: the target and start
+    scenes, the camera, step 0's pixel block (4,096 of 200×200) and its
+    draws (`fast_draws` of 4,096 × 64 lanes, depth 6), as the trainer's
+    general tier makes them."""
+    from raytracing_rust_tpu_torch import inverse_render as ir
+    from raytracing_rust_tpu_torch.ops.grad import fast_draws
+    kw = dict(nx=200, ny=200, spp=64, max_depth=6)
+    pix = ir.step_pixels(SHARD_STEP_KEY, nx=200, ny=200, block=4096,
+                         device=dev)
+    u = fast_draws(SHARD_STEP_KEY, 4096 * 64, 7, dev)
+    return (ir.build_scene(ir.TRUE_ALBEDO, ir.TRUE_EMIT, dev),
+            ir.build_scene(ir.START_ALBEDO, ir.START_EMIT, dev),
+            ir.camera(dev), pix, u, kw)
+
+
+def sharded_rank(out: str) -> int:
+    """One rank of phases 49-51, two ranks on card 0 under gloo (NCCL
+    refuses two ranks on one GPU), each saving its results to
+    out/rank<r>.pt: (49) `render_sums_sharded` of SHARD_RENDER on each of
+    SHARD_MESHES; (50) on each mesh the trainer's sharded step at full
+    width (`render_block_sharded` of the target, `train_step_sharded`),
+    timed; (51) `inverse_render.main(["--device", "cuda"])`, the trainer's
+    multi-rank default, its output and launch counts."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    import torch.distributed as dist
+    from raytracing_rust_tpu_torch import inverse_render as ir
+    from raytracing_rust_tpu_torch.ops import grad, tracer
+    from raytracing_rust_tpu_torch.parallel import sharding
+
+    res = {}
+    with sharding.process_group("cuda", "gloo") as dev:
+        rank = dist.get_rank()
+        res["backend"] = dist.get_backend()
+        p = shard_preset()
+        scene, cam = p.build(device=dev), p.camera(device=dev)
+        nx, ny, spp = SHARD_RENDER
+        for dp, sp in SHARD_MESHES:
+            tag = f"{dp}x{sp}"
+            mesh = sharding.make_mesh(dp, sp)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sums = sharding.render_sums_sharded(scene, cam, nx, ny, spp, mesh,
+                                                device=dev, max_depth=50)
+            torch.cuda.synchronize()
+            res[f"render_seconds {tag}"] = time.perf_counter() - t
+            res[f"sums {tag}"] = sums.cpu()
+        target_scene, start, cam2, pix, u, kw = shard_step_case(dev)
+        for dp, sp in SHARD_MESHES:
+            tag = f"{dp}x{sp}"
+            mesh = sharding.make_mesh(dp, sp)
+            for turn in range(2):  # the first pays the first use of its ops
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with torch.no_grad():
+                    target = sharding.render_block_sharded(
+                        target_scene, cam2, pix, SHARD_STEP_KEY, mesh=mesh,
+                        u=u, **kw)
+                loss, g = sharding.train_step_sharded(
+                    start, cam2, pix, SHARD_STEP_KEY, target / kw["spp"],
+                    mesh=mesh, u=u, **kw)
+                torch.cuda.synchronize()
+                res[f"step_seconds {tag} {turn}"] = time.perf_counter() - t
+                res[f"tex_color {tag} turn {turn}"] = g["tex_color"].cpu()
+            res[f"target {tag}"] = target.cpu()
+            res[f"loss {tag}"] = loss.cpu()
+            res[f"tex_color {tag}"] = g["tex_color"].cpu()
+        tracer.KERNEL_LAUNCHES = grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res["trainer_rc"] = ir.main(["--device", "cuda"])
+        res["trainer_seconds"] = time.perf_counter() - t
+        res["trainer_text"] = buf.getvalue()
+        res["trainer_launches"] = [tracer.KERNEL_LAUNCHES, grad.K2_LAUNCHES,
+                                   grad.K3_LAUNCHES]
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    return 0
+
+
+def sharded_phases(dev, smi: str, run_cli, no_fast_step: float) -> None:
+    """Phases 48-51: the sharded port on the card. (48) NCCL at one rank:
+    `render --sharded` through the command line and `render_sums_sharded`
+    in this process, against the general tier's `render_sums` at the same
+    size and seed, bit for bit; (49)-(51) two gloo ranks on the one card
+    (`sharded_rank`) against one rank. Multi-GPU scaling is not measured
+    here: two ranks on one card show correctness, not scaling.
+    run_cli: main's; no_fast_step: phase 47's median --no-fast step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from raytracing_rust_tpu_torch import render as trender
+    from raytracing_rust_tpu_torch.parallel import multihost_worker, sharding
+    from raytracing_rust_tpu_torch.utils.image_io import read_ppm, to_ppm
+
+    # -- 48. NCCL at one rank
+    t_phase = time.perf_counter()
+    nx, ny, spp = SHARD_RENDER
+    p = shard_preset()
+    scene, cam = p.build(device=dev), p.camera(device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref = trender.render_sums(scene, cam, nx, ny, spp, device=dev,
+                              max_depth=50)
+    torch.cuda.synchronize()
+    ref_seconds = time.perf_counter() - t
+    ref_img = trender.finalize_image(ref.T.cpu().numpy(), spp, nx, ny)
+    with sharding.process_group("cuda") as rank_dev:
+        backend = dist.get_backend()
+        mesh = sharding.make_mesh()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one = sharding.render_sums_sharded(scene, cam, nx, ny, spp, mesh,
+                                           device=rank_dev, max_depth=50)
+        torch.cuda.synchronize()
+        one_seconds = time.perf_counter() - t
+    check(not dist.is_initialized(), "phase 48's group outlived its render")
+    info, img = run_cli("cornell_box", "--nx", str(nx), "--ny", str(ny),
+                        "--spp", str(spp), "--sharded")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ref.ppm")
+        with open(path, "w") as fh:
+            fh.write(to_ppm(ref_img))
+        ref_ppm = read_ppm(path)
+    emit("sharded_nccl_one_rank", card=smi, backend=backend,
+         shape=[ny, nx], spp=spp, max_depth=50,
+         sums_equal=bool(torch.equal(one, ref)),
+         cli_image_equal=bool(np.array_equal(img, ref_ppm)),
+         cli=info, general_seconds=ref_seconds, sharded_seconds=one_seconds,
+         phase_seconds=time.perf_counter() - t_phase)
+    check(backend == "nccl", f"phase 48 ran on {backend}, not nccl")
+    check(bool(torch.equal(one, ref)), "NCCL at one rank: the sums differ "
+          "from the general tier's")
+    check(bool(np.array_equal(img, ref_ppm)), "render --sharded: the image "
+          "differs from the general tier's")
+    check(not any(info["launches"].values()), "render --sharded launched "
+          f"a kernel: {info['launches']}")
+
+    # -- 49-51. two ranks on the one card under gloo
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = multihost_worker.launch(
+            2, [os.path.abspath(__file__), "--sharded-rank", tmp],
+            one_device=True, timeout=600)
+        for r, (rc, text) in enumerate(runs):
+            check(rc == 0, f"sharded rank {r} exited {rc}:\n{text[-3000:]}")
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    spawn_seconds = time.perf_counter() - t_phase
+
+    # 49: the render on both meshes against one rank
+    rows = {}
+    for dp, sp in SHARD_MESHES:
+        tag = f"{dp}x{sp}"
+        got = res[0][f"sums {tag}"]
+        ref_c = ref.cpu()
+        rel = float(((got - ref_c).abs() / ref_c.abs().clamp_min(1e-300))
+                    .max())
+        g_img = trender.finalize_image(got.T.numpy(), spp, nx, ny)
+        ulps = int(np.abs(g_img.view(np.int32).astype(np.int64)
+                          - ref_img.view(np.int32).astype(np.int64)).max())
+        rows[tag] = dict(
+            ranks_equal=bool(torch.equal(got, res[1][f"sums {tag}"])),
+            equal=bool(torch.equal(got, ref_c)), max_rel=rel,
+            image_max_ulps=ulps,
+            render_seconds=[x[f"render_seconds {tag}"] for x in res])
+        check(rows[tag]["ranks_equal"], f"{tag}: the ranks' sums differ")
+        if sp == 1:
+            check(rows[tag]["equal"], f"{tag}: the sums differ from one "
+                  "rank's")
+        else:
+            check(rel <= 1e-12 and ulps <= 1, f"{tag}: sums {rel:.3g} "
+                  f"relative (1e-12), image {ulps} ulps (1) off one rank")
+    emit("sharded_gloo_two_ranks_render", card=smi,
+         backend=res[0]["backend"], shape=[ny, nx], spp=spp, max_depth=50,
+         one_rank_seconds=ref_seconds, meshes=rows,
+         # the two ranks' whole run: phases 49-51 and their start
+         phase_seconds=spawn_seconds)
+    check(res[0]["backend"] == "gloo", "phases 49-51 ran on "
+          f"{res[0]['backend']}, not gloo")
+
+    # 50: the trainer's step at full width on both meshes against one rank
+    t = time.perf_counter()
+    target_scene, start, cam2, pix, u, kw = shard_step_case(dev)
+    walls, turns = [], []
+    for turn in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            target = trender.lane_radiance(target_scene, cam2, pix,
+                                           SHARD_STEP_KEY, u=u, **kw)
+        loss, g = trender.train_step(start, cam2, pix, SHARD_STEP_KEY,
+                                     target / kw["spp"], u=u, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        turns.append(g["tex_color"].cpu())
+    target, loss, g = target.cpu(), loss.cpu(), turns[-1]
+    scale = float(g.abs().max())
+    steps = {}
+    for dp, sp in SHARD_MESHES:
+        tag = f"{dp}x{sp}"
+        r0 = res[0]
+        steps[tag] = dict(
+            ranks_equal=all(torch.equal(r0[f"{k} {tag}"], res[1][f"{k} {tag}"])
+                            for k in ("target", "loss", "tex_color")),
+            target_equal=bool(torch.equal(r0[f"target {tag}"], target)),
+            target_max_rel=float(((r0[f"target {tag}"] - target).abs()
+                                  / target.abs().clamp_min(1e-30)).max()),
+            loss=float(r0[f"loss {tag}"]), loss_one_rank=float(loss),
+            loss_rel=abs(float(r0[f"loss {tag}"]) - float(loss))
+            / float(loss),
+            grad_err_over_scale=float((r0[f"tex_color {tag}"] - g).abs()
+                                      .max()) / scale,
+            # a reading: the same step twice in each process, bit for bit
+            # or not (the f32 order of the gradient's sums)
+            turns_equal=[torch.equal(x[f"tex_color {tag} turn 0"],
+                                     x[f"tex_color {tag} turn 1"])
+                         for x in res],
+            step_seconds=[[x[f"step_seconds {tag} {i}"] for i in range(2)]
+                          for x in res])
+        check(steps[tag]["ranks_equal"], f"{tag}: the ranks' steps differ")
+        check(steps[tag]["loss_rel"] <= 1e-6
+              and steps[tag]["grad_err_over_scale"] <= 1e-5,
+              f"{tag}: the sharded step is off one rank's: {steps[tag]}")
+    emit("sharded_gloo_train_step", card=smi, lanes=4096 * kw["spp"],
+         one_rank_turns_equal=bool(torch.equal(turns[0], turns[1])),
+         max_depth=kw["max_depth"], grad_scale=scale, meshes=steps,
+         one_rank_step_seconds=walls, phase_seconds=time.perf_counter() - t)
+
+    # 51: the trainer's multi-rank default, 40 steps
+    text = res[0]["trainer_text"]
+    step = re.search(r"step time: ([0-9.]+)s", text)
+    rec = [ln for ln in text.splitlines() if ln.startswith("recovered")]
+    emit("sharded_gloo_trainer", card=smi,
+         rcs=[x["trainer_rc"] for x in res],
+         wall_seconds=[x["trainer_seconds"] for x in res],
+         launches_k1_k2_k3=[x["trainer_launches"] for x in res],
+         recovered=rec[0] if rec else None,
+         tier=[ln for ln in text.splitlines()
+               if ln.startswith("differentiable tier")],
+         median_step_seconds=float(step.group(1)) if step else None,
+         one_rank_no_fast_median_step_seconds=no_fast_step,
+         rank1_printed=res[1]["trainer_text"].strip() != "",
+         log=text.splitlines()[-6:])
+    check(all(x["trainer_rc"] == 0 for x in res),
+          f"the two-rank trainer missed its criterion: {rec}")
+    check("sharded over dp=1 sp=2 ranks" in text, "the two-rank trainer "
+          "did not print its sharded tier")
+    check(all(x["trainer_launches"] == [0, 0, 0] for x in res),
+          "the two-rank trainer launched a kernel")
 
 
 def fallback_camera(nx: int, ny: int, device):
@@ -2672,7 +2963,9 @@ def main() -> int:
     general_phases(dev, smi, run_cli, cornell_img, reset_launches,
                    k1_launches)
     # -- 45-47. the general tier under autograd
-    autograd_phases(dev, smi, reset_launches)
+    no_fast_step = autograd_phases(dev, smi, reset_launches)
+    # -- 48-51. sharding: NCCL at one rank, two gloo ranks on the card
+    sharded_phases(dev, smi, run_cli, no_fast_step)
 
     def main_row(row: dict, labels, counter: str, n: int) -> dict:
         return at_main_path(row, [r for lab in labels
@@ -2830,4 +3123,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(sys.argv[2]))
     sys.exit(main())

@@ -20,6 +20,14 @@ from bounce N on under `--rr-depth N` and a resumable `.npz` under
 `render_scene` is that choice, for any scene. `--device cuda` (the default)
 needs CUDA and raises without it; `--device cpu` runs the kernel's plain
 torch version or the general tier on the CPU.
+
+`--sharded` renders on the general tier over the ranks of a
+torch.distributed group (`parallel/sharding.render_sharded`: NCCL on the
+card, gloo on the CPU), every rank on pixel rows as JAX's default mesh
+puts every device on dp; under `torchrun --nproc-per-node N` each rank
+takes its card, and without torchrun the command is one rank. Rank 0
+writes the image and prints. As in JAX it takes neither `--checkpoint` nor
+`--engine kernel`.
 """
 
 from __future__ import annotations
@@ -95,6 +103,9 @@ def main(argv=None) -> int:
                         "tier for a scene the kernel refuses")
     r.add_argument("--checkpoint", default=None, metavar="PATH",
                    help=".npz path for a resumable render (either engine)")
+    r.add_argument("--sharded", action="store_true",
+                   help="shard the general tier's render over the ranks of "
+                        "torchrun (or one rank without it)")
     r.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     r.add_argument("--timers", action="store_true",
                    help="print per-phase wall times")
@@ -126,17 +137,24 @@ def main(argv=None) -> int:
         print(f"--rr-depth must be ≥ 0 (got {args.rr_depth})",
               file=sys.stderr)
         return 2
+    if args.sharded and (args.checkpoint or args.engine == "kernel"):
+        print("--sharded takes neither --checkpoint nor --engine kernel (it "
+              "is the general tier's path)", file=sys.stderr)
+        return 2
     preset = type(preset)(**{**preset.__dict__, "nx": nx, "ny": ny})
 
     import torch
 
     from .ops.tracer import UnsupportedScene
-    from .utils import image_io
     from .utils.timers import Timers
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs CUDA, and "
                            "torch.cuda.is_available() is false")
+    if args.sharded:
+        from .parallel import sharding
+        with sharding.process_group(args.device) as dev:
+            return _render_sharded(args, preset, nx, ny, spp, dev)
     timers = Timers()
     with timers.phase("scene_build"):
         scene = preset.build(device=args.device)
@@ -151,6 +169,40 @@ def main(argv=None) -> int:
         print(f"kernel engine: {e}", file=sys.stderr)
         return 2
     dt = time.perf_counter() - t0
+    _write(args, img, nx, ny, spp, dt, f"{args.device} ({engine} engine)",
+           timers)
+    return 0
+
+
+def _render_sharded(args, preset, nx: int, ny: int, spp: int, dev) -> int:
+    """`render --sharded` on this rank's device: `render_sharded` over every
+    rank on dp; rank 0 writes and prints."""
+    from .parallel import sharding
+    from .utils.timers import Timers
+
+    timers = Timers()
+    mesh = sharding.make_mesh()
+    with timers.phase("scene_build"):
+        scene = preset.build(device=dev)
+        cam = preset.camera(device=dev)
+    t0 = time.perf_counter()
+    img = sharding.render_sharded(scene, cam, nx, ny, spp, mesh, device=dev,
+                                  seed=args.seed, max_depth=args.max_depth,
+                                  rr_depth=args.rr_depth, timers=timers)
+    dt = time.perf_counter() - t0
+    if mesh.rank == 0:
+        import torch.distributed as dist
+        _write(args, img, nx, ny, spp, dt,
+               f"{args.device} (xla engine, sharded over dp={mesh.dp} "
+               f"sp={mesh.sp} ranks, {dist.get_backend()})", timers)
+    return 0
+
+
+def _write(args, img, nx: int, ny: int, spp: int, dt: float, where: str,
+           timers) -> None:
+    """Encode img at --out (default output/<scene>.ppm) and print the
+    summary line, and the timers under --timers."""
+    from .utils import image_io
 
     out = args.out or os.path.join("output", f"{args.scene}.ppm")
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
@@ -161,12 +213,10 @@ def main(argv=None) -> int:
             image_io.write_ppm(out, img)
 
     rays = nx * ny * spp
-    print(f"{args.scene}: {nx}x{ny} spp={spp} on {args.device} ({engine} "
-          f"engine) in {dt:.3f}s ({rays / dt / 1e6:.2f}M primary rays/s) -> "
-          f"{out}")
+    print(f"{args.scene}: {nx}x{ny} spp={spp} on {where} in {dt:.3f}s "
+          f"({rays / dt / 1e6:.2f}M primary rays/s) -> {out}")
     if args.timers:
         print(timers.report())
-    return 0
 
 
 if __name__ == "__main__":

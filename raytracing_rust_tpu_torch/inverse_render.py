@@ -1,7 +1,7 @@
 """Inverse rendering: recover scene parameters by gradient descent through
 the fused differentiable tier (kernels K2 and K3) or the general tier.
 
-Counterpart of `examples/inverse_render.py` on one device, in two modes:
+Counterpart of `examples/inverse_render.py`, in two modes:
 
 * the default (`main_sharded`): a 200×200 cornell-style box is the target;
   Adam on an L2 photometric loss over random pixel blocks recovers TWO
@@ -38,14 +38,25 @@ ops one by one, so the pixel choice is the only difference. `--quick` is
 `main_quick`: albedo alone, 8,192 rays through the script's camera, Adam
 0.05 for 60 steps on the general tier.
 
+Under `torchrun --nproc-per-node N` with N > 1 the default mode (and
+`--unfused`) is the JAX script's multi-device run: the ranks form JAX's
+mesh (sp = 2 when N is even, dp = N / sp; `parallel/sharding.py`, NCCL on
+the card, gloo on the CPU) and every step is `train_step_sharded` on the
+general tier, as JAX turns its fused tier off on a mesh of more than one
+device. Each rank draws the same pixel blocks and applies the same
+all-reduced gradients, so the parameters stay equal on every rank; rank 0
+logs. `--geometry` and `--quick` run on one rank, as in JAX.
+
     python -m raytracing_rust_tpu_torch.inverse_render [--device cuda|cpu]
         [--geometry] [--no-fast] [--unfused] [--quick] [--steps 40|200]
         [--spp 64] [--block 4096] [--seed 0]
+    torchrun --nproc-per-node N -m raytracing_rust_tpu_torch.inverse_render
+        [--device cuda|cpu] [--unfused] [--steps 40] [...]
 
 Exits 0 iff the JAX script's criterion holds: the default, the recovered
 albedo within 0.1 (max abs) and the emission within 0.5 of the truth;
 `--geometry`, albedo within 0.05, emission within 0.3 and tilt within 3°;
-`--quick`, albedo within 0.08. Not ported: the sharded path.
+`--quick`, albedo within 0.08.
 """
 
 from __future__ import annotations
@@ -66,6 +77,7 @@ from .ops.camera import get_rays
 from .ops.grad import (MAX_DEPTH, check_kernel_scope, fast_draws,
                        fast_grad_config, supports_fast_grad, trace_fast)
 from .ops.integrator import trace
+from .parallel import sharding
 from .render import camera_lane_rays, lane_radiance, train_step
 
 TRUE_ALBEDO = (0.2, 0.5, 0.8)   # ground-truth blue-ish box
@@ -203,21 +215,33 @@ def path_matched_loss(target_scene, scene, light_tex, box_tex, albedo, emit,
 
 def general_step(target_scene, scene, cam, light_tex, box_tex, albedo, emit,
                  pix, key: int, *, nx: int, ny: int, spp: int,
-                 max_depth: int, theta=None) -> torch.Tensor:
+                 max_depth: int, theta=None, mesh=None) -> torch.Tensor:
     """One step on the general tier → the loss (detached), with the
     gradients of albedo, emit and theta accumulated into their .grad:
     `render.train_step` on the scene that `with_params` makes, its table
     gradients chained back onto the parameters. The target is traced
     without gradient on the same rays (`camera_lane_rays` under key) and
-    draws (`fast_draws` under key, as the fused tier's step draws)."""
+    draws (`fast_draws` under key, as the fused tier's step draws). With a
+    mesh (`parallel.sharding.Mesh`), the target and the step are sharded
+    over its ranks (`render_block_sharded`, `train_step_sharded`)."""
     u = fast_draws(key, pix.shape[0] * spp, max_depth + 1, pix.device)
     kw = dict(nx=nx, ny=ny, spp=spp, max_depth=max_depth)
     with torch.no_grad():
-        target = lane_radiance(target_scene, cam, pix, key, u=u, **kw) / spp
+        if mesh is None:
+            target = lane_radiance(target_scene, cam, pix, key, u=u, **kw)
+        else:
+            target = sharding.render_block_sharded(
+                target_scene, cam, pix, key, nx, ny, spp, max_depth, mesh,
+                u=u)
+        target = target / spp
     s2 = with_params(scene, light_tex, box_tex, albedo, emit, theta)
     wrt = ("tex_color",) if theta is None else ("tex_color", "xf_sin",
                                                 "xf_cos")
-    loss, g = train_step(s2, cam, pix, key, target, wrt=wrt, u=u, **kw)
+    if mesh is None:
+        loss, g = train_step(s2, cam, pix, key, target, wrt=wrt, u=u, **kw)
+    else:
+        loss, g = sharding.train_step_sharded(s2, cam, pix, key, target,
+                                              wrt=wrt, u=u, mesh=mesh, **kw)
     torch.autograd.backward([getattr(s2, k) for k in wrt],
                             [g[k] for k in wrt])
     return loss
@@ -304,22 +328,29 @@ def _albedo_str(a) -> str:
 
 def train(*, steps: int = 40, nx: int = 200, ny: int = 200, spp: int = 64,
           block: int = 4096, max_depth: int = 6, device="cuda", seed: int = 0,
-          fast: bool = True, unfused: bool = False, log=print) -> dict:
+          fast: bool = True, unfused: bool = False, mesh=None,
+          log=print) -> dict:
     """Run the default inverse render → dict(albedo, emit, losses,
     step_walls, tier) (`_fit`).
 
     seed picks the pixel blocks, rays and draws of every step
     (`step_inputs`); 0 is the default run. fast=False (`--no-fast`) and
     unfused (`--unfused`: numpy's pixel blocks) train on the general tier
-    (`general_step`), as does a max_depth the fused tier refuses."""
+    (`general_step`), as does a max_depth the fused tier refuses. mesh: a
+    `parallel.sharding.Mesh` over the process group's ranks, each calling
+    this with its own device; every step is then sharded over it on the
+    general tier."""
     device = _check_device(device)
     cam = camera(device)
     target_scene = build_scene(TRUE_ALBEDO, TRUE_EMIT, device)
     scene = build_scene(START_ALBEDO, START_EMIT, device)
     light_tex, box_tex = param_tex_rows(scene)
+    why_not = "--unfused" if unfused else "--no-fast"
+    if mesh is not None:
+        why_not = f"sharded over dp={mesh.dp} sp={mesh.sp} ranks"
     tier, tier_line = pick_tier(scene, max_depth, device,
-                                fast and not unfused,
-                                "--unfused" if unfused else "--no-fast")
+                                fast and not unfused and mesh is None,
+                                why_not)
     if tier == "fused":
         cfg = fast_grad_config(scene)
         check_kernel_scope(cfg)
@@ -353,7 +384,7 @@ def train(*, steps: int = 40, nx: int = 200, ny: int = 200, spp: int = 64,
                               seed=seed)
         return general_step(target_scene, scene, cam, light_tex, box_tex,
                             albedo, emit, pix, (seed << 32) | i, nx=nx, ny=ny,
-                            spp=spp, max_depth=max_depth)
+                            spp=spp, max_depth=max_depth, mesh=mesh)
 
     # per-group lr: emission must travel ~2.0 while albedo travels ≤ 0.3;
     # the cosine decay damps the momentum overshoot once each arrives
@@ -525,6 +556,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="offset of every step's pixel blocks, rays and draws")
     args = ap.parse_args(argv)
+    ranks = sharding.world_size()
+    if ranks > 1 and (args.quick or args.geometry):
+        ap.error(f"--quick and --geometry run on one rank, not {ranks} (the "
+                 "JAX script shards its default mode alone)")
     if args.quick:
         res = train_quick(device=args.device)
         a = res["albedo"]
@@ -556,17 +591,29 @@ def main(argv=None) -> int:
               f"{rays / 1e6:.2f}M target + {rays / 1e6:.2f}M candidate "
               f"sample-paths/step fwd+bwd, depth 6, {res['tier']} tier)")
         return 0 if (err_a < 0.05 and err_e < 0.3 and err_t < 3.0) else 1
-    res = train(steps=40 if args.steps is None else args.steps,
-                unfused=args.unfused, **kw)
+    steps = 40 if args.steps is None else args.steps
+    rank0 = True
+    if ranks == 1:
+        res = train(steps=steps, unfused=args.unfused, **kw)
+    else:
+        # JAX's main_sharded mesh: sp = 2 on an even count of devices
+        sp = 2 if ranks % 2 == 0 else 1
+        with sharding.process_group(args.device) as dev:
+            mesh = sharding.make_mesh(dp=ranks // sp, sp=sp)
+            rank0 = mesh.rank == 0
+            res = train(steps=steps, unfused=args.unfused, mesh=mesh,
+                        log=print if rank0 else (lambda *a: None),
+                        **{**kw, "device": dev})
     a, e = res["albedo"], res["emit"]
     err_a = float(np.abs(a - np.asarray(TRUE_ALBEDO)).max())
     err_e = abs(e - TRUE_EMIT)
     steady, tag = _steady(res["step_walls"])
-    print(f"recovered albedo {_albedo_str(a)} (max abs err {err_a:.3f}), "
-          f"emission {e:.3f} (err {err_e:.3f})")
-    print(f"step time: {steady:.4f}s {tag} ({rays / 1e6:.2f}M target + "
-          f"{rays / 1e6:.2f}M candidate sample-paths/step fwd+bwd, depth 6, "
-          f"{res['tier']} tier)")
+    if rank0:
+        print(f"recovered albedo {_albedo_str(a)} (max abs err {err_a:.3f}), "
+              f"emission {e:.3f} (err {err_e:.3f})")
+        print(f"step time: {steady:.4f}s {tag} ({rays / 1e6:.2f}M target + "
+              f"{rays / 1e6:.2f}M candidate sample-paths/step fwd+bwd, depth "
+              f"6, {res['tier']} tier)")
     return 0 if (err_a < 0.1 and err_e < 0.5) else 1
 
 

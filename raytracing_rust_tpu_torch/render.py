@@ -47,15 +47,18 @@ def finalize_image(sums: np.ndarray, spp: int, nx: int, ny: int) -> np.ndarray:
 
 
 def camera_lane_rays(cam: Camera, pid: torch.Tensor, seed: int, nx: int,
-                     ny: int):
+                     ny: int, lane: torch.Tensor | None = None):
     """Flat pixel id per lane → (o, d, time) camera rays with the
     reference's sub-pixel jitter (tests/test.rs:62-68; row 0 = top via the
     j flip) and lens draws: Philox STREAM_CAMERA under key `seed`, keyed by
     lane (ops/rng.py), so a lane's ray depends on neither the batch split
-    nor the device."""
+    nor the device. lane: each lane's id, int64 like pid (default its
+    position in the batch); a shard passes its lanes' ids in the whole
+    batch, so it draws what the whole batch draws for them."""
     dev = pid.device
     f32 = cam.origin.dtype
-    lane = torch.arange(pid.shape[0], dtype=torch.int64, device=dev)
+    if lane is None:
+        lane = torch.arange(pid.shape[0], dtype=torch.int64, device=dev)
     u0, u1, u2, u3 = rng.draws(seed, lane, 0, 0, rng.STREAM_CAMERA)
     i = (pid % nx).to(f32)
     j = (ny - 1 - pid // nx).to(f32)  # reference row order
@@ -129,10 +132,16 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
                 rr_depth: int | None = None, compact: bool = True,
                 checkpoint: str | None = None,
                 timers: Timers | None = None,
+                pixels: tuple[int, int] | None = None,
+                samples: tuple[int, int] | None = None,
                 _stop_after_blocks: int | None = None):
     """The general tier's per-pixel radiance sums → f64[3, nx·ny] on the
     device, each pixel's samples added in sample order (see `render`), or
-    None when `_stop_after_blocks` stopped the render."""
+    None when `_stop_after_blocks` stopped the render. pixels, samples:
+    the ranges [lo, hi) of flat pixel ids and of samples that this call
+    traces (default all); the sums of other pixels stay 0, so a shard's
+    sums are the whole render's rows for its pixels when it has every
+    sample (`parallel/sharding.py`). A range may be empty."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested, but "
@@ -140,6 +149,13 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     if min(nx, ny, spp, block_pixels) <= 0 or max_depth < 0:
         raise ValueError(f"bad render size {nx}x{ny} spp={spp} "
                          f"depth={max_depth} block={block_pixels}")
+    p_lo, p_hi = pixels or (0, nx * ny)
+    s_lo, s_hi = samples or (0, spp)
+    if not (0 <= p_lo <= p_hi <= nx * ny and 0 <= s_lo <= s_hi <= spp):
+        raise ValueError(f"pixels {pixels} or samples {samples} outside "
+                         f"{nx * ny} pixels × {spp} samples")
+    if checkpoint and (pixels or samples):
+        raise ValueError("a checkpoint holds a whole render, not a range")
     if timers is None:
         timers = Timers()
     n_pix = nx * ny
@@ -152,7 +168,7 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
         pack = plan_pack(scene)
         sums = torch.zeros((3, n_pix), dtype=torch.float64, device=device)
 
-    start = 0
+    start = p_lo
     want = None
     if checkpoint:
         # imported here: ops.tracer imports this module
@@ -166,12 +182,12 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
             start = int(got["next_pixel"])
 
     n_run = 0
-    for lo in range(start, n_pix, block_pixels):
-        hi = min(lo + block_pixels, n_pix)
+    for lo in range(start, p_hi, block_pixels):
+        hi = min(lo + block_pixels, p_hi)
         nb = hi - lo
         pix_blk = torch.arange(lo, hi, dtype=torch.int64, device=device)
-        for s0 in range(0, spp, spp_chunk):
-            ns = min(spp_chunk, spp - s0)
+        for s0 in range(s_lo, s_hi, spp_chunk):
+            ns = min(spp_chunk, s_hi - s0)
             with timers.phase("raygen"):
                 # lanes sample-major: lane k·nb + i is pixel lo + i's
                 # sample s0 + k
@@ -204,17 +220,22 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
 def lane_radiance(scene: SceneTables, cam: Camera, pix: torch.Tensor,
                   seed: int, nx: int, ny: int, spp: int, max_depth: int,
                   differentiable: bool = False,
-                  u: torch.Tensor | None = None) -> torch.Tensor:
+                  u: torch.Tensor | None = None,
+                  lane: torch.Tensor | None = None) -> torch.Tensor:
     """Radiance sums f32[npix, 3] of an [npix, spp] lane grid through the
     general tier at full width. pix: int64[npix]; the lanes are laid out
     pixel-major (lane k·spp + s is pixel pix[k]'s sample s), and
     `camera_lane_rays` keys their rays by lane under `seed`; the trace's
     draws are `lane_draws` keyed by (lane, 0) under `seed`, or u (see
-    `integrator.trace`). differentiable: checkpointed bounces."""
+    `integrator.trace`). differentiable: checkpointed bounces. lane: the
+    grid's lane ids int64[npix·spp] in that layout, default its positions;
+    a shard of a larger grid passes its lanes' ids in that grid."""
     npix = pix.shape[0]
     pid = pix.repeat_interleave(spp)
-    o, d, time = camera_lane_rays(cam, pid, seed, nx, ny)
-    lane = torch.arange(pid.shape[0], dtype=torch.int64, device=pid.device)
+    if lane is None:
+        lane = torch.arange(pid.shape[0], dtype=torch.int64,
+                            device=pid.device)
+    o, d, time = camera_lane_rays(cam, pid, seed, nx, ny, lane)
     rad = trace(scene, o, d, time, seed, lane, torch.zeros_like(lane),
                 max_depth, differentiable=differentiable, u=u)
     return rad.reshape(npix, spp, 3).sum(dim=1)
