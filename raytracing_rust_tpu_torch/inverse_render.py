@@ -23,7 +23,8 @@ noisy albedo). The differentiable tier, printed at the start:
 * the fused tier, `ops.grad.trace_fast` (K2/K3 on the card, their plain
   twin on the CPU), wherever `supports_fast_grad` takes the scene and
   depth;
-* the general tier, `render.train_step` (autograd through
+* the general tier, `parallel.sharding.train_step_sharded` (on one rank
+  `render.train_step`: autograd through
   `integrator.trace(differentiable=True)`, the target traced without
   gradient), with `--no-fast`, with `--unfused`, and wherever the fused
   tier refuses the scene (as the JAX script falls back to its XLA scan
@@ -38,14 +39,16 @@ ops one by one, so the pixel choice is the only difference. `--quick` is
 `main_quick`: albedo alone, 8,192 rays through the script's camera, Adam
 0.05 for 60 steps on the general tier.
 
-Under `torchrun --nproc-per-node N` with N > 1 the default mode (and
-`--unfused`) is the JAX script's multi-device run: the ranks form JAX's
-mesh (sp = 2 when N is even, dp = N / sp; `parallel/sharding.py`, NCCL on
-the card, gloo on the CPU) and every step is `train_step_sharded` on the
-general tier, as JAX turns its fused tier off on a mesh of more than one
-device. Each rank draws the same pixel blocks and applies the same
-all-reduced gradients, so the parameters stay equal on every rank; rank 0
-logs. `--geometry` and `--quick` run on one rank, as in JAX.
+The default mode (and `--unfused`) runs, as the JAX script's
+`main_sharded` does, on a mesh of the process group's ranks: one without
+torchrun, N under `torchrun --nproc-per-node N`, laid out as JAX lays its
+devices (sp = 2 when N is even, dp = N / sp; `parallel/sharding.py`, NCCL
+on the card, gloo on the CPU). With N > 1 every step is
+`train_step_sharded` on the general tier, as JAX turns its fused tier off
+on a mesh of more than one device. Each rank draws the same pixel blocks
+and applies the same all-reduced gradients, so the parameters stay equal
+on every rank; rank 0 logs. `--geometry` and `--quick` run on one rank,
+as in JAX.
 
     python -m raytracing_rust_tpu_torch.inverse_render [--device cuda|cpu]
         [--geometry] [--no-fast] [--unfused] [--quick] [--steps 40|200]
@@ -78,7 +81,7 @@ from .ops.grad import (MAX_DEPTH, check_kernel_scope, fast_draws,
                        fast_grad_config, supports_fast_grad, trace_fast)
 from .ops.integrator import trace
 from .parallel import sharding
-from .render import camera_lane_rays, lane_radiance, train_step
+from .render import camera_lane_rays
 
 TRUE_ALBEDO = (0.2, 0.5, 0.8)   # ground-truth blue-ish box
 TRUE_EMIT = 5.0                  # ground-truth light emission
@@ -218,30 +221,23 @@ def general_step(target_scene, scene, cam, light_tex, box_tex, albedo, emit,
                  max_depth: int, theta=None, mesh=None) -> torch.Tensor:
     """One step on the general tier → the loss (detached), with the
     gradients of albedo, emit and theta accumulated into their .grad:
-    `render.train_step` on the scene that `with_params` makes, its table
-    gradients chained back onto the parameters. The target is traced
-    without gradient on the same rays (`camera_lane_rays` under key) and
-    draws (`fast_draws` under key, as the fused tier's step draws). With a
-    mesh (`parallel.sharding.Mesh`), the target and the step are sharded
-    over its ranks (`render_block_sharded`, `train_step_sharded`)."""
+    `train_step_sharded` over mesh (`parallel.sharding.Mesh`; None is one
+    rank with no process group, `render.train_step` bit for bit) on the
+    scene that `with_params` makes, its table gradients chained back onto
+    the parameters. The target is traced without gradient on the same rays
+    (`camera_lane_rays` under key) and draws (`fast_draws` under key, as the
+    fused tier's step draws), sharded the same way
+    (`render_block_sharded`)."""
     u = fast_draws(key, pix.shape[0] * spp, max_depth + 1, pix.device)
-    kw = dict(nx=nx, ny=ny, spp=spp, max_depth=max_depth)
+    kw = dict(nx=nx, ny=ny, spp=spp, max_depth=max_depth, mesh=mesh, u=u)
     with torch.no_grad():
-        if mesh is None:
-            target = lane_radiance(target_scene, cam, pix, key, u=u, **kw)
-        else:
-            target = sharding.render_block_sharded(
-                target_scene, cam, pix, key, nx, ny, spp, max_depth, mesh,
-                u=u)
-        target = target / spp
+        target = sharding.render_block_sharded(target_scene, cam, pix, key,
+                                               **kw) / spp
     s2 = with_params(scene, light_tex, box_tex, albedo, emit, theta)
     wrt = ("tex_color",) if theta is None else ("tex_color", "xf_sin",
                                                 "xf_cos")
-    if mesh is None:
-        loss, g = train_step(s2, cam, pix, key, target, wrt=wrt, u=u, **kw)
-    else:
-        loss, g = sharding.train_step_sharded(s2, cam, pix, key, target,
-                                              wrt=wrt, u=u, mesh=mesh, **kw)
+    loss, g = sharding.train_step_sharded(s2, cam, pix, key, target, wrt=wrt,
+                                          **kw)
     torch.autograd.backward([getattr(s2, k) for k in wrt],
                             [g[k] for k in wrt])
     return loss
@@ -338,19 +334,20 @@ def train(*, steps: int = 40, nx: int = 200, ny: int = 200, spp: int = 64,
     unfused (`--unfused`: numpy's pixel blocks) train on the general tier
     (`general_step`), as does a max_depth the fused tier refuses. mesh: a
     `parallel.sharding.Mesh` over the process group's ranks, each calling
-    this with its own device; every step is then sharded over it on the
+    this with its own device (None: one rank with no process group); on a
+    mesh of more than one rank every step is sharded over it on the
     general tier."""
     device = _check_device(device)
     cam = camera(device)
     target_scene = build_scene(TRUE_ALBEDO, TRUE_EMIT, device)
     scene = build_scene(START_ALBEDO, START_EMIT, device)
     light_tex, box_tex = param_tex_rows(scene)
+    sharded = mesh is not None and mesh.size > 1
     why_not = "--unfused" if unfused else "--no-fast"
-    if mesh is not None:
+    if sharded:
         why_not = f"sharded over dp={mesh.dp} sp={mesh.sp} ranks"
     tier, tier_line = pick_tier(scene, max_depth, device,
-                                fast and not unfused and mesh is None,
-                                why_not)
+                                fast and not unfused and not sharded, why_not)
     if tier == "fused":
         cfg = fast_grad_config(scene)
         check_kernel_scope(cfg)
@@ -592,23 +589,18 @@ def main(argv=None) -> int:
               f"sample-paths/step fwd+bwd, depth 6, {res['tier']} tier)")
         return 0 if (err_a < 0.05 and err_e < 0.3 and err_t < 3.0) else 1
     steps = 40 if args.steps is None else args.steps
-    rank0 = True
-    if ranks == 1:
-        res = train(steps=steps, unfused=args.unfused, **kw)
-    else:
-        # JAX's main_sharded mesh: sp = 2 on an even count of devices
-        sp = 2 if ranks % 2 == 0 else 1
-        with sharding.process_group(args.device) as dev:
-            mesh = sharding.make_mesh(dp=ranks // sp, sp=sp)
-            rank0 = mesh.rank == 0
-            res = train(steps=steps, unfused=args.unfused, mesh=mesh,
-                        log=print if rank0 else (lambda *a: None),
-                        **{**kw, "device": dev})
+    # JAX's main_sharded mesh: sp = 2 on an even count of devices
+    sp = 2 if ranks % 2 == 0 else 1
+    with sharding.process_group(args.device) as dev:
+        mesh = sharding.make_mesh(dp=ranks // sp, sp=sp)
+        res = train(steps=steps, unfused=args.unfused, mesh=mesh,
+                    log=print if mesh.rank == 0 else (lambda *a: None),
+                    **{**kw, "device": dev})
     a, e = res["albedo"], res["emit"]
     err_a = float(np.abs(a - np.asarray(TRUE_ALBEDO)).max())
     err_e = abs(e - TRUE_EMIT)
     steady, tag = _steady(res["step_walls"])
-    if rank0:
+    if mesh.rank == 0:
         print(f"recovered albedo {_albedo_str(a)} (max abs err {err_a:.3f}), "
               f"emission {e:.3f} (err {err_e:.3f})")
         print(f"step time: {steady:.4f}s {tag} ({rays / 1e6:.2f}M target + "

@@ -22,7 +22,6 @@ import contextlib
 import json
 import math
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -58,24 +57,26 @@ def step_result(mesh, device) -> dict:
                 .item(), g_geom=torch.linalg.norm(g["prim_data"]).item())
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def launch(n: int, argv: list[str], *, one_device: bool = False,
            timeout: float = 300.0) -> list[tuple[int, str]]:
     """Run `python argv…` as n ranks of one group on this host, with the
-    variables torchrun sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR =
-    127.0.0.1, a free MASTER_PORT; OMP_NUM_THREADS 1 unless set), and the
-    package importable → [(exit
-    code, output)] by rank. one_device: LOCAL_RANK 0 on every rank (ranks
-    that share card 0 under gloo). Every rank is killed, and TimeoutError
-    raised, when they have not all ended within timeout seconds."""
+    variables torchrun sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+    MASTER_PORT; OMP_NUM_THREADS 1 unless set), and the package importable
+    → [(exit code, output)] by rank. one_device: LOCAL_RANK 0 on every rank
+    (ranks that share card 0 under gloo). Every rank is killed, and
+    TimeoutError raised, when they have not all ended within timeout
+    seconds.
+
+    As torchrun's agent does, this process holds the group's TCPStore on a
+    port the system picks, and the ranks join it as clients
+    (TORCHELASTIC_USE_AGENT_STORE): the port is bound before any rank
+    starts, so no other process can take it in between."""
+    import torch.distributed as dist
+
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    port = _free_port()
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False)
     deadline = time.monotonic() + timeout
     with contextlib.ExitStack() as stack:
         # each rank writes to a file of its own: a rank blocked on a full
@@ -87,7 +88,10 @@ def launch(n: int, argv: list[str], *, one_device: bool = False,
             env = {"OMP_NUM_THREADS": "1",  # torchrun's default too
                    **os.environ, "RANK": str(r), "WORLD_SIZE": str(n),
                    "LOCAL_RANK": "0" if one_device else str(r),
-                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                   "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": str(store.port),
+                   "TORCHELASTIC_USE_AGENT_STORE": "True",
+                   "TORCHELASTIC_RESTART_COUNT": "0",
                    "PYTHONPATH": os.pathsep.join(
                        [root] + [p for p in [os.environ.get("PYTHONPATH")]
                                  if p])}

@@ -134,6 +134,10 @@ class Mesh:
         return {"dp": self.dp, "sp": self.sp}
 
     @property
+    def size(self) -> int:
+        return self.dp * self.sp
+
+    @property
     def coords(self) -> tuple[int, int]:
         return self.rank // self.sp, self.rank % self.sp
 
@@ -146,19 +150,39 @@ class Mesh:
         return _split(spp, self.sp, self.coords[1])
 
 
+# One rank and no process group: the functions below that take a mesh run
+# on one rank with no collective when given none.
+LOCAL = Mesh(1, 1, 0, dp_group=None, sp_group=None)
+
+# The process group whose subgroups `_layouts` holds, and for each (dp, sp)
+# its lists of sp and dp groups. Each subgroup gets a communicator of its
+# own on first use, so a layout's groups are made once per process group.
+_world = None
+_layouts: dict[tuple[int, int], tuple[list, list]] = {}
+
+
 def make_mesh(dp: int | None = None, sp: int | None = None) -> Mesh:
     """Lay the process group's ranks out as a (dp, sp) mesh (defaults as
-    JAX's: every rank on dp) and make its groups; every rank calls this, in
-    the same order as its other meshes. Needs `init` first."""
+    JAX's: every rank on dp) with its groups, made on the first call for
+    the layout and reused after; every rank calls this, in the same order
+    as its other meshes. Needs `init` first."""
+    global _world
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call init")
     dp, sp = mesh_shape(dist.get_world_size(), dp, sp)
     rank = dist.get_rank()
-    # new_group is collective: every rank makes every group, in one order
-    sp_groups = [dist.new_group([i * sp + j for j in range(sp)])
-                 for i in range(dp)]
-    dp_groups = [dist.new_group([i * sp + j for i in range(dp)])
-                 for j in range(sp)]
+    if _world is not dist.group.WORLD:
+        _world = dist.group.WORLD
+        _layouts.clear()
+    if (dp, sp) not in _layouts:
+        # new_group is collective: every rank makes every group, in one
+        # order
+        _layouts[dp, sp] = (
+            [dist.new_group([i * sp + j for j in range(sp)])
+             for i in range(dp)],
+            [dist.new_group([i * sp + j for i in range(dp)])
+             for j in range(sp)])
+    sp_groups, dp_groups = _layouts[dp, sp]
     return Mesh(dp, sp, rank, dp_group=dp_groups[rank % sp],
                 sp_group=sp_groups[rank // sp])
 
@@ -166,18 +190,17 @@ def make_mesh(dp: int | None = None, sp: int | None = None) -> Mesh:
 def _sum_shards(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Sum t in place over the sp group (the samples' partial sums), then
     over the dp group (a gather: each rank's rows are zero on the others,
-    so it is exact) → t, equal on every rank."""
-    dist.all_reduce(t, group=mesh.sp_group)
-    dist.all_reduce(t, group=mesh.dp_group)
+    so it is exact) → t, equal on every rank; t itself on `LOCAL`."""
+    if mesh is not LOCAL:
+        dist.all_reduce(t, group=mesh.sp_group)
+        dist.all_reduce(t, group=mesh.dp_group)
     return t
 
 
 def render_sums_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
                         spp: int, mesh: Mesh, *, device="cuda",
                         seed: int = 0, max_depth: int = 50,
-                        block_pixels: int = 1 << 16,
-                        spp_chunk: int | None = None,
-                        rr_depth: int | None = None, compact: bool = True,
+                        rr_depth: int | None = None,
                         timers: Timers | None = None) -> torch.Tensor:
     """The general tier's sums f64[3, nx·ny] of the whole image on every
     rank: each rank runs `render.render_sums` on its rows of flat pixel ids
@@ -191,9 +214,7 @@ def render_sums_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
     if timers is None:
         timers = Timers()
     sums = render_sums(scene, cam, nx, ny, spp, device=device, seed=seed,
-                       max_depth=max_depth, block_pixels=block_pixels,
-                       spp_chunk=spp_chunk, rr_depth=rr_depth,
-                       compact=compact, timers=timers,
+                       max_depth=max_depth, rr_depth=rr_depth, timers=timers,
                        pixels=mesh.rows(nx * ny), samples=mesh.samples(spp))
     with timers.phase("reduce"):
         return _sum_shards(sums, mesh)
@@ -201,9 +222,7 @@ def render_sums_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
 
 def render_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
                    spp: int, mesh: Mesh, *, device="cuda", seed: int = 0,
-                   max_depth: int = 50, block_pixels: int = 1 << 16,
-                   spp_chunk: int | None = None, rr_depth: int | None = None,
-                   compact: bool = True,
+                   max_depth: int = 50, rr_depth: int | None = None,
                    timers: Timers | None = None) -> np.ndarray | None:
     """Full image through the general tier, sharded over mesh → float32
     [ny, nx, 3] on rank 0 (`render.render`'s contract), None on the other
@@ -212,9 +231,7 @@ def render_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
         timers = Timers()
     sums = render_sums_sharded(scene, cam, nx, ny, spp, mesh, device=device,
                                seed=seed, max_depth=max_depth,
-                               block_pixels=block_pixels, spp_chunk=spp_chunk,
-                               rr_depth=rr_depth, compact=compact,
-                               timers=timers)
+                               rr_depth=rr_depth, timers=timers)
     if mesh.rank != 0:
         return None
     with timers.phase("finalize"):
@@ -266,13 +283,15 @@ def _whole_block(part: torch.Tensor, rows, npix: int, mesh: Mesh):
 
 def render_block_sharded(scene: SceneTables, cam: Camera, pix: torch.Tensor,
                          seed: int, nx: int, ny: int, spp: int,
-                         max_depth: int, mesh: Mesh,
+                         max_depth: int, mesh: Mesh | None = None,
                          u: torch.Tensor | None = None) -> torch.Tensor:
     """`render.lane_radiance` of a pixel block's [npix, spp] lane grid,
     sharded: pixels over dp, samples over sp, each lane keyed by its id in
     the whole grid → the block's sums f32[npix, 3] on every rank. pix: the
-    whole block, the same on every rank; u: the whole grid's draws, or None
+    whole block, the same on every rank; mesh: None for one rank with no
+    process group (`LOCAL`); u: the whole grid's draws, or None
     (`lane_radiance`)."""
+    mesh = mesh or LOCAL
     part, rows = _block_partial(scene, cam, pix, seed, nx, ny, spp,
                                 max_depth, mesh, False, u)
     return _whole_block(part, rows, pix.shape[0], mesh)
@@ -280,12 +299,13 @@ def render_block_sharded(scene: SceneTables, cam: Camera, pix: torch.Tensor,
 
 def train_step_sharded(scene: SceneTables, cam: Camera, pix: torch.Tensor,
                        seed: int, target: torch.Tensor, *, nx: int, ny: int,
-                       spp: int, max_depth: int, mesh: Mesh,
+                       spp: int, max_depth: int, mesh: Mesh | None = None,
                        wrt=("tex_color",), u: torch.Tensor | None = None):
     """`render.train_step` over the mesh → (loss, {table: gradient}), the
     same on every rank: the L2 loss of the whole block's image against
     target f32[npix, 3], and each table's gradient summed over the ranks.
-    pix, target and u are the whole block's, the same on every rank.
+    pix, target and u are the whole block's, the same on every rank; mesh:
+    None for one rank with no process group (`LOCAL`).
 
     No collective is differentiated: each rank traces its lanes with their
     graph, the detached partial sums are summed over the mesh into the
@@ -294,6 +314,7 @@ def train_step_sharded(scene: SceneTables, cam: Camera, pix: torch.Tensor,
     table gradients are then summed over the ranks. With one rank every
     operation is `train_step`'s, so its results are `train_step`'s bit for
     bit."""
+    mesh = mesh or LOCAL
     leaves = {k: getattr(scene, k).detach().requires_grad_(True)
               for k in wrt}
     s = dataclasses.replace(scene, **leaves)
@@ -312,5 +333,5 @@ def train_step_sharded(scene: SceneTables, cam: Camera, pix: torch.Tensor,
     out = {k: torch.zeros_like(v) if g is None else g
            for (k, v), g in zip(leaves.items(), grads)}
     for g in out.values():
-        dist.all_reduce(g)
+        _sum_shards(g, mesh)
     return loss.detach(), out

@@ -102,17 +102,22 @@ def test_mesh_layout_is_jax_make_mesh(n, dp, sp):
 def test_make_mesh_over_one_rank(group):
     mesh = sharding.make_mesh()
     assert (mesh.shape, mesh.coords) == ({"dp": 1, "sp": 1}, (0, 0))
+    # a layout's groups are made once in a process group
+    again = sharding.make_mesh(dp=1)
+    assert (again.dp_group, again.sp_group) == (mesh.dp_group, mesh.sp_group)
     assert (mesh.rows(10), mesh.samples(8)) == ((0, 10), (0, 8))
     with pytest.raises(AssertionError, match="mesh 2x0 != 1 devices"):
         sharding.make_mesh(dp=2)
 
 
-@pytest.mark.parametrize("case", ["render", "train_step", "train_step_u"])
+@pytest.mark.parametrize("case", ["render", "train_step", "train_step_u",
+                                  "train_step_local", "train_step_u_local"])
 def test_one_rank_is_the_one_process_function(group, case):
     """One rank: render_sharded (and its sums) is render, train_step_sharded
-    is train_step (with and without u), bit for bit."""
+    is train_step (with and without u), bit for bit; so is
+    train_step_sharded with no mesh (`LOCAL`, no collective)."""
     scene, cam = _scene()
-    mesh = sharding.make_mesh()
+    mesh = None if case.endswith("local") else sharding.make_mesh()
     if case == "render":
         kw = dict(device="cpu", max_depth=DEPTH)
         assert torch.equal(
@@ -122,7 +127,7 @@ def test_one_rank_is_the_one_process_function(group, case):
             sharding.render_sharded(scene, cam, NX, NY, SPP, mesh, **kw),
             render.render(scene, cam, NX, NY, SPP, **kw))
         return
-    pix, target, u = _step_inputs(case == "train_step_u")
+    pix, target, u = _step_inputs(case.startswith("train_step_u"))
     loss, g = sharding.train_step_sharded(scene, cam, pix, STEP_SEED, target,
                                           mesh=mesh, u=u, **STEP)
     want_loss, want = render.train_step(scene, cam, pix, STEP_SEED, target,
@@ -131,6 +136,21 @@ def test_one_rank_is_the_one_process_function(group, case):
     for k in STEP["wrt"]:
         assert torch.equal(g[k], want[k]), k
         assert g[k].abs().max() > 0, k
+
+
+@pytest.mark.parametrize("local", [False, True], ids=["one_rank", "local"])
+def test_render_block_one_rank_is_lane_radiance(group, local):
+    """render_block_sharded over a one-rank mesh, or with no mesh, is
+    lane_radiance of the block bit for bit."""
+    scene, cam = _scene()
+    pix, _, u = _step_inputs(True)
+    kw = dict(nx=NX, ny=NY, spp=STEP["spp"], max_depth=STEP["max_depth"],
+              u=u)
+    got = sharding.render_block_sharded(
+        scene, cam, pix, STEP_SEED, mesh=None if local else
+        sharding.make_mesh(), **kw)
+    assert torch.equal(got, render.lane_radiance(scene, cam, pix, STEP_SEED,
+                                                 **kw))
 
 
 def test_cli_sharded_one_rank_is_the_general_tier(group, tmp_path, capsys):
