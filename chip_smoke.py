@@ -202,7 +202,8 @@ Phases, one JSON line each on stdout:
      at 800×800×8, the share of pixels within 1e-4 relative (≥ 99%);
  42. R5: final_scene on both engines through the command line at
      128×128×100 and at 800×800×4 (the spp cut so that the general tier,
-     which tests all 3,400 prims densely, stays under ~20 s), each
+     which tests all 3,400 prims densely with `--bvh off`, stays under
+     ~20 s), each
      engine's render seconds and rays/s and which is faster;
  43. the fallback: a nine-media scene and an image on a rotated sphere
      (scenes the kernel refuses) through `cli.render_scene` on the card:
@@ -266,7 +267,24 @@ Phases, one JSON line each on stdout:
      launch, the sharded tier printed by rank 0 alone; its median step
      beside phase 47's one-rank `--no-fast` step. Two ranks on one card
      show correctness, not multi-GPU scaling, which is not measured.
-Phases 41-51 print the card's name and power limit beside their numbers
+ 52. the general tier's BVH (`accel/bvh.py`): `bvh_closest_hit` against
+     the dense `closest_hit` on one chunk of camera rays of final_scene
+     (128×128×100) and of big_spheres(30000) (256×144×16): the same mask
+     and prim on all but BVH_FLIP_SHARE of the lanes (the count printed),
+     t within 1e-4; then `render --scene final_scene --nx 128 --ny 128
+     --engine xla --bvh on` (100 spp, depth 50) against phase 42's dense
+     image (`--bvh off`): the means within 2e-3 relative and under 0.5% of
+     the pixels apart by more than 1e-3 (JAX's gates at 12k prims), no
+     kernel launch; both runs' bvh_build, trace and rays/s, the traversal's
+     iterations a call and the share of its lanes live at its end;
+ 53. the crossover: `bench_large` at its defaults (big_spheres(n) for n of
+     1,000 to 100,000 at 64×36, 4 spp, depth 8: the dense scan, the BVH
+     and K1), and `render._BVH_AUTO_MIN_PRIMS["cuda"]` equal to its
+     crossover (None where the BVH wins at no size);
+ 54. the parity sweep, `parity --quick --json` in this process: exit 0,
+     every one of its 11 configs and 8 extra checks reported and passed
+     (one line a check), with K1's, K1f's table's and K2/K3's launches.
+Phases 41-54 print the card's name and power limit beside their numbers
 and their own seconds. Every command-line phase prints its per-phase
 seconds, the PPM encode
 included. Then the kernel table and, as the last line, the device
@@ -600,11 +618,12 @@ FB_BAND = 0.01
 
 
 def general_phases(dev, smi: str, run_cli, cornell_img, reset_launches,
-                   k1_launches) -> None:
+                   k1_launches) -> dict:
     """Phases 41-44: the general tier at full width against the kernel's
     image (cornell_img, phase 5's), R5's engines on final_scene, the
     fallback of `--engine auto`, and checkpoint kill-and-resume on both
-    engines. run_cli, reset_launches, k1_launches: main's."""
+    engines. run_cli, reset_launches, k1_launches: main's. → phase 42's
+    dense general-tier run of final_scene at 128×128: {"info", "img"}."""
     import shutil
 
     import numpy as np
@@ -664,13 +683,17 @@ def general_phases(dev, smi: str, run_cli, cornell_img, reset_launches,
 
     # -- 42. R5: final_scene on both engines at each of R5_SIZES
     t_phase = time.perf_counter()
-    r5 = []
+    r5, dense128 = [], None
     for size, spp in R5_SIZES:
         row = dict(size=[size, size], spp=spp or PRESETS["final_scene"].spp)
         for engine in ("kernel", "xla"):
-            extra = ["--nx", str(size), "--ny", str(size), "--engine", engine]
+            # the general tier's dense scan, whatever `--bvh auto` picks
+            extra = ["--nx", str(size), "--ny", str(size), "--engine", engine,
+                     *(["--bvh", "off"] if engine == "xla" else [])]
             info, img = run_cli("final_scene", *extra,
                                 *(["--spp", str(spp)] if spp else []))
+            if engine == "xla" and size == 128:
+                dense128 = dict(info=info, img=img)
             row[engine] = dict(
                 render_seconds=render_seconds(info),
                 primary_rays_per_s=(size * size * row["spp"]
@@ -786,6 +809,7 @@ def general_phases(dev, smi: str, run_cli, cornell_img, reset_launches,
               "the general tier's resumed render differs")
     emit("checkpoint_resume", card=smi, **ck_rows,
          phase_seconds=time.perf_counter() - t_phase)
+    return dense128
 
 
 # phase 45: (scene, depth) of the general tier's autograd against K2/K3
@@ -1358,6 +1382,170 @@ def sharded_phases(dev, smi: str, run_cli, no_fast_step: float) -> None:
           "did not print its sharded tier")
     check(all(x["trainer_launches"] == [0, 0, 0] for x in res),
           "the two-rank trainer launched a kernel")
+
+
+# phase 52: the camera rays held to the dense scan: (scene, nx, ny, spp)
+# of one general-tier chunk each, final_scene's at the render's size
+BVH_HIT_CASES = (("final_scene", 128, 128, 100), ("big_spheres_30000", 256,
+                                                  144, 16))
+# phase 52: the share of lanes whose prim may differ from the dense scan's
+# (a near-tangent ray whose node box f32 rounding culls, an exact tie)
+BVH_FLIP_SHARE = 1e-4
+
+
+def bvh_traversals(rec: list) -> dict:
+    """`accel/bvh.RECORD`'s rows (lanes, iterations, live lanes at the
+    last compaction) summed up: calls, iterations a call (the loop's
+    iterations a bounce), and the share of a call's lanes still live in its
+    last COMPACT_EVERY iterations."""
+    import numpy as np
+    if not rec:
+        return dict(calls=0)
+    lanes, iters, live = (np.asarray(x, np.float64) for x in zip(*rec))
+    share = live / lanes
+    return dict(calls=len(rec), lanes_max=int(lanes.max()),
+                iterations_mean=float(iters.mean()),
+                iterations_max=int(iters.max()),
+                iterations_at_full_width=int(iters[lanes == lanes.max()]
+                                             .max()),
+                live_share_last_median=float(np.median(share)),
+                live_share_last_max=float(share.max()))
+
+
+def bvh_phases(dev, smi: str, run_cli, dense128: dict, reset_launches,
+               k1_launches) -> None:
+    """Phases 52-54: the BVH's closest hits against the dense scan on the
+    card and its final_scene render against phase 42's dense one; the
+    crossover table of `bench_large` against `auto_use_bvh`'s constant;
+    the parity sweep `parity --quick`."""
+    import numpy as np
+    import torch
+    from raytracing_rust_tpu_torch import bench_large, parity
+    from raytracing_rust_tpu_torch import render as trender
+    from raytracing_rust_tpu_torch.accel import bvh
+    from raytracing_rust_tpu_torch.models.builders import (
+        PRESETS, big_spheres, big_spheres_camera)
+    from raytracing_rust_tpu_torch.ops import grad
+    from raytracing_rust_tpu_torch.ops.intersect import closest_hit
+
+    # -- 52. bvh_closest_hit against the dense closest_hit on one chunk of
+    # camera rays of each case, then final_scene through the command line
+    t_phase = time.perf_counter()
+    hits = []
+    for name, nx, ny, spp in BVH_HIT_CASES:
+        if name == "final_scene":
+            p = dataclasses.replace(PRESETS[name], nx=nx, ny=ny)
+            scene, cam = p.build(device=dev), p.camera(device=dev)
+        else:
+            n = int(name.rsplit("_", 1)[1])
+            scene = big_spheres(n, device=dev)
+            cam = big_spheres_camera(n, nx, ny, device=dev)
+        pix = torch.arange(nx * ny, device=dev).repeat(spp)
+        smp = torch.arange(spp, device=dev).repeat_interleave(nx * ny)
+        o, d, tm = trender.camera_sample_rays(cam, pix, smp, 0, nx, ny,
+                                              scene.has_moving)
+        t = time.perf_counter()
+        tree = bvh.build_bvh(scene).to(dev)
+        build_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dense = closest_hit(scene, o, d, tm, 1e-3)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t
+        bvh.RECORD = []
+        t = time.perf_counter()
+        got = bvh.bvh_closest_hit(scene, tree, o, d, tm, 1e-3)
+        torch.cuda.synchronize()
+        bvh_s = time.perf_counter() - t
+        loop = bvh_traversals(bvh.RECORD)
+        bvh.RECORD = None
+        flips = (got.idx != dense.idx) | (got.mask != dense.mask)
+        both = got.mask & dense.mask & ~flips
+        t_rel = float(((got.t - dense.t).abs() / dense.t)[both].max())
+        hits.append(dict(scene=name, lanes=o.shape[0], prims=scene.num_prims,
+                         nodes=tree.num_nodes, hits=int(dense.mask.sum()),
+                         near_tangency_flips=int(flips.sum()),
+                         t_max_rel=t_rel, build_seconds=build_s,
+                         dense_seconds=dense_s, bvh_seconds=bvh_s, loop=loop))
+        check(int(flips.sum()) <= BVH_FLIP_SHARE * o.shape[0]
+              and t_rel <= 1e-4, f"{name}: the BVH's hits differ from the "
+              f"dense scan's on {int(flips.sum())} lanes, t by {t_rel:.3g}")
+        del o, d, tm, dense, got, flips, both
+    # final_scene 128×128×100, depth 50, through the CLI on the BVH
+    bvh.RECORD = []
+    info, img = run_cli("final_scene", "--nx", "128", "--ny", "128",
+                        "--engine", "xla", "--bvh", "on")
+    loop = bvh_traversals(bvh.RECORD)
+    bvh.RECORD = None
+    ref = dense128["img"]
+    ma, mb = float(ref.mean()), float(img.mean())
+    apart = float((np.abs(img - ref).max(-1) > 1e-3).mean())
+
+    def render_s(i):
+        return sum(v for k, v in i["timers"].items()
+                   if k not in ("scene_build", "encode"))
+    rays = 128 * 128 * PRESETS["final_scene"].spp
+    emit("bvh_general_tier", card=smi, hits=hits, shape=[128, 128],
+         spp=PRESETS["final_scene"].spp, max_depth=50,
+         bvh=dict(timers=info["timers"], render_seconds=render_s(info),
+                  primary_rays_per_s=rays / render_s(info),
+                  launches=info["launches"], loop=loop, mean=mb),
+         dense=dict(timers=dense128["info"]["timers"],
+                    render_seconds=render_s(dense128["info"]),
+                    primary_rays_per_s=rays / render_s(dense128["info"]),
+                    mean=ma),
+         mean_rel=abs(ma - mb) / ma, pixels_apart_1e3=apart,
+         same_bytes=bool(np.array_equal(img, ref)),
+         phase_seconds=time.perf_counter() - t_phase)
+    check(abs(ma - mb) / ma < 2e-3 and apart < 0.005,
+          f"final_scene on the BVH: mean {mb:.5f} vs dense {ma:.5f}, "
+          f"{apart:.4%} of pixels apart by > 1e-3")
+    check(not any(info["launches"].values()), "--engine xla --bvh on "
+          f"launched a kernel: {info['launches']}")
+    check("bvh_build" in info["timers"], "no bvh_build phase")
+
+    # -- 53. the crossover: bench_large at its defaults on the card, and
+    # auto_use_bvh's cuda threshold against it
+    t_phase = time.perf_counter()
+    reset_launches()
+    table = bench_large.run(device=dev, log=lambda s: None)
+    at = trender._BVH_AUTO_MIN_PRIMS["cuda"]
+    emit("bvh_crossover", card=smi, **table, auto_min_prims_cuda=at,
+         k1_launches=k1_launches(),
+         phase_seconds=time.perf_counter() - t_phase)
+    check(at == table["crossover"], f"render._BVH_AUTO_MIN_PRIMS['cuda'] "
+          f"= {at}, the card's crossover {table['crossover']}")
+    check(all(r["bvh_mean"] == r["dense_mean"] or abs(
+        r["bvh_mean"] - r["dense_mean"]) / r["dense_mean"] < 2e-3
+        for r in table["rows"]), "bench_large: a BVH image's mean is off "
+        "the dense one's")
+
+    # -- 54. the parity sweep, quick, on the card: K1 (K1f's table in
+    # balance_scatter) against the general tier, K2/K3 against autograd
+    t_phase = time.perf_counter()
+    reset_launches()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "parity.json")
+        with contextlib.redirect_stdout(buf):
+            rc = parity.main(["--quick", "--json", path])
+        with open(path) as fh:
+            art = json.load(fh)
+    launched = dict(k1_launches(), k2=grad.K2_LAUNCHES, k3=grad.K3_LAUNCHES)
+    for row in art["checks"]:
+        emit("parity_check", card=smi, **row)
+    emit("parity_sweep", card=smi, rc=rc, passed=art["pass"],
+         failures=art["failures"], checks=len(art["checks"]),
+         launches=launched, tail=buf.getvalue().splitlines()[-1],
+         phase_seconds=time.perf_counter() - t_phase)
+    want = [*parity.CONFIGS, *parity.EXTRA_CHECKS]
+    check(rc == 0 and art["pass"], f"parity --quick failed: "
+          f"{[r['check'] for r in art['checks'] if not r['pass']]}")
+    check([r["check"] for r in art["checks"]] == want,
+          f"parity --quick reported {[r['check'] for r in art['checks']]}")
+    check(sum(v for k, v in launched.items() if k.startswith("k1")) > 0
+          and launched["k1f_balanced_trace"] > 0 and launched["k2"] > 0
+          and launched["k3"] > 0, f"the sweep's launches: {launched}")
 
 
 def fallback_camera(nx: int, ny: int, device):
@@ -2960,12 +3148,14 @@ def main() -> int:
         replayed["cornell_box_baseline"][0]["plain_max_abs_err"])
 
     # -- 41-44. the general tier, the fallback and checkpoints
-    general_phases(dev, smi, run_cli, cornell_img, reset_launches,
-                   k1_launches)
+    dense128 = general_phases(dev, smi, run_cli, cornell_img,
+                              reset_launches, k1_launches)
     # -- 45-47. the general tier under autograd
     no_fast_step = autograd_phases(dev, smi, reset_launches)
     # -- 48-51. sharding: NCCL at one rank, two gloo ranks on the card
     sharded_phases(dev, smi, run_cli, no_fast_step)
+    # -- 52-54. the BVH, the crossover and the parity sweep
+    bvh_phases(dev, smi, run_cli, dense128, reset_launches, k1_launches)
 
     def main_row(row: dict, labels, counter: str, n: int) -> dict:
         return at_main_path(row, [r for lab in labels

@@ -27,6 +27,11 @@ import numpy as np
 CK_LAYOUT_VERSION = 1
 ENGINE_KERNEL = 1
 ENGINE_GENERAL = 2
+# the general tier with its closest hits from a BVH: the same image but
+# where a near-tangent ray picks another prim, so a dense render's
+# checkpoint never resumes a BVH render, nor the other way round (JAX's
+# digest takes use_bvh)
+ENGINE_GENERAL_BVH = 3
 
 
 def scene_digest(scene) -> bytes:

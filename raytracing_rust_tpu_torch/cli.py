@@ -17,6 +17,14 @@ from bounce N on under `--rr-depth N` and a resumable `.npz` under
   preset is refused. A kernel that fails to build or launch is an error,
   never a reason to change engines.
 
+`--bvh auto|on|off` (default `auto`) picks how the general tier finds its
+closest hits: `on` by a BVH (`accel/bvh.py`), `off` by the dense scan,
+`auto` by `render.auto_use_bvh` (the device's measured crossover in prims).
+`on` renders on the general tier under `--engine auto` (one line on
+stderr) and exits 2 under `--engine kernel`, as the JAX CLI's `--bvh` does
+with its Pallas engine; `auto` leaves K1 where it takes the scene. Unlike
+JAX's store_true flag, `off` forces the dense scan.
+
 `render_scene` is that choice, for any scene. `--device cuda` (the default)
 needs CUDA and raises without it; `--device cpu` runs the kernel's plain
 torch version or the general tier on the CPU.
@@ -27,7 +35,7 @@ card, gloo on the CPU), every rank on pixel rows as JAX's default mesh
 puts every device on dp; under `torchrun --nproc-per-node N` each rank
 takes its card, and without torchrun the command is one rank. Rank 0
 writes the image and prints. As in JAX it takes neither `--checkpoint` nor
-`--engine kernel`.
+`--engine kernel`, nor `--bvh on`: its general tier scans densely.
 """
 
 from __future__ import annotations
@@ -41,13 +49,13 @@ import time
 def render_scene(scene, cam, nx: int, ny: int, spp: int, *, engine="auto",
                  device="cuda", seed: int = 0, max_depth: int = 50,
                  rr_depth: int | None = None, checkpoint: str | None = None,
-                 timers=None):
+                 timers=None, use_bvh: bool | None = None):
     """Render a scene through the engine the caller names → (image,
     "kernel" or "xla"). "kernel" raises UnsupportedScene for a scene the
     kernel refuses; "xla" runs the general tier; "auto" runs the kernel
     unless its record build refuses the scene, and then the general tier,
     with one line on stderr. Only UnsupportedScene from the record build
-    changes engines."""
+    changes engines. use_bvh: the general tier's `render(use_bvh=)`."""
     from .ops import tracer
     from .render import render
     from .utils.timers import Timers
@@ -70,7 +78,7 @@ def render_scene(scene, cam, nx: int, ny: int, spp: int, *, engine="auto",
         else:
             return tracer.render_kernel(scene, cam, nx, ny, spp, srec=srec,
                                         **kw), "kernel"
-    return render(scene, cam, nx, ny, spp, **kw), "xla"
+    return render(scene, cam, nx, ny, spp, use_bvh=use_bvh, **kw), "xla"
 
 
 def main(argv=None) -> int:
@@ -103,6 +111,11 @@ def main(argv=None) -> int:
                         "tier for a scene the kernel refuses")
     r.add_argument("--checkpoint", default=None, metavar="PATH",
                    help=".npz path for a resumable render (either engine)")
+    r.add_argument("--bvh", choices=["auto", "on", "off"], default="auto",
+                   help="the general tier's closest hits: on = by a BVH "
+                        "(reference src/bvh.rs), off = the dense scan, auto "
+                        "= the BVH from the device's measured crossover in "
+                        "prims on; on renders on the general tier")
     r.add_argument("--sharded", action="store_true",
                    help="shard the general tier's render over the ranks of "
                         "torchrun (or one rank without it)")
@@ -137,10 +150,21 @@ def main(argv=None) -> int:
         print(f"--rr-depth must be ≥ 0 (got {args.rr_depth})",
               file=sys.stderr)
         return 2
-    if args.sharded and (args.checkpoint or args.engine == "kernel"):
-        print("--sharded takes neither --checkpoint nor --engine kernel (it "
-              "is the general tier's path)", file=sys.stderr)
+    if args.sharded and (args.checkpoint or args.engine == "kernel"
+                         or args.bvh == "on"):
+        print("--sharded takes neither --checkpoint, --engine kernel nor "
+              "--bvh on (it is the general tier's dense path)",
+              file=sys.stderr)
         return 2
+    if args.bvh == "on" and args.engine == "kernel":
+        print("--bvh on needs the general tier (--engine xla or auto)",
+              file=sys.stderr)
+        return 2
+    engine = args.engine
+    if args.bvh == "on" and engine == "auto":
+        print("--bvh on: rendering on the general tier", file=sys.stderr)
+        engine = "xla"
+    use_bvh = {"auto": None, "on": True, "off": False}[args.bvh]
     preset = type(preset)(**{**preset.__dict__, "nx": nx, "ny": ny})
 
     import torch
@@ -162,9 +186,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     try:
         img, engine = render_scene(
-            scene, cam, nx, ny, spp, engine=args.engine, device=args.device,
+            scene, cam, nx, ny, spp, engine=engine, device=args.device,
             seed=args.seed, max_depth=args.max_depth, timers=timers,
-            rr_depth=args.rr_depth, checkpoint=args.checkpoint)
+            rr_depth=args.rr_depth, checkpoint=args.checkpoint,
+            use_bvh=use_bvh)
     except UnsupportedScene as e:
         print(f"kernel engine: {e}", file=sys.stderr)
         return 2

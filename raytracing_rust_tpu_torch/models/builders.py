@@ -253,6 +253,53 @@ def lattice_scene(device="cpu") -> SceneTables:
     return b.build(device)
 
 
+def big_spheres(n: int = 30000, seed: int = 7, device="cpu") -> SceneTables:
+    """The scale scene: random_spheres' recipe (reference
+    tests/test.rs:89-163) grown to n small spheres on a ceil(√n)-sided
+    grid, static (no motion), lambertian or metal, on the ground sphere with
+    the three hero spheres: n + 4 prims, the regime the reference's BVH
+    exists for (src/bvh.rs:9-94). The JAX package's `big_spheres`, draw for
+    draw."""
+    side = int(np.ceil(np.sqrt(n)))
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder(background=BG_SKY)
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    half = side // 2
+    count = 0
+    for a in range(-half, side - half):
+        for c in range(-half, side - half):
+            if count >= n:
+                break
+            center = (a + 0.9 * rng.random(), 0.2, c + 0.9 * rng.random())
+            if rng.random() < 0.8:
+                albedo = b.solid(rng.random() * rng.random(),
+                                 rng.random() * rng.random(),
+                                 rng.random() * rng.random())
+                b.sphere(center, 0.2, b.lambertian(albedo))
+            else:
+                albedo = b.solid(0.5 * (1 + rng.random()),
+                                 0.5 * (1 + rng.random()),
+                                 0.5 * (1 + rng.random()))
+                b.sphere(center, 0.2, b.metal(albedo, 0.5 * rng.random()))
+            count += 1
+        if count >= n:
+            break
+    b.sphere((0, 1, 0), 1.0, b.dielectric(1.5))
+    b.sphere((-4, 1, 0), 1.0, b.lambertian(b.solid(0.4, 0.2, 0.1)))
+    b.sphere((4, 1, 0), 1.0, b.metal(b.solid(0.7, 0.6, 0.5), 0.0))
+    return b.build(device)
+
+
+def big_spheres_camera(n: int, nx: int, ny: int, device="cpu"):
+    """The camera that sees `big_spheres(n)`'s whole field (random_spheres'
+    viewpoint covers a ~20-unit patch of it)."""
+    from ..ops.camera import make_camera
+    side = int(np.ceil(np.sqrt(n)))
+    d = max(13.0, 0.9 * side)
+    return make_camera((d, 0.35 * d, d), (0, 0, 0), (0, 1, 0), 30.0, nx / ny,
+                       0.0, d * 1.4, 0.0, 1.0, device=device)
+
+
 def lattice_camera(nx: int, ny: int, device="cpu"):
     """The camera tools/tpu_parity.py renders `lattice_scene` with: from
     (0, 4, 14) at (0, 1.5, 0), 45° vertical field, no lens blur."""

@@ -80,12 +80,18 @@ def lane_draws(scene: SceneTables, seed: int, pix, smp, b: int,
 
 def _bounce(scene: SceneTables, pack: PlannedPack, u_all: torch.Tensor,
             max_depth: int, b: int, o, d, time, thr, rad, alive,
-            rr_depth: int | None = None):
+            rr_depth: int | None = None, bvh=None):
     """One wavefront bounce → updated (o, d, thr, rad, alive): closest hit,
     the media race, emission, the background of a miss, scatter below the
     depth cap, Russian roulette from rr_depth on. u_all: this bounce's
-    uniforms [n, 4 + media + roulette] (`lane_draws`' columns)."""
-    hit = closest_hit(scene, o, d, time, T_MIN, pack=pack)
+    uniforms [n, 4 + media + roulette] (`lane_draws`' columns); bvh: the
+    scene's `FlatBVH` on the rays' device, to find the closest hit by its
+    traversal (`accel/bvh.bvh_closest_hit`), or None for the dense scan."""
+    if bvh is not None:
+        from ..accel.bvh import bvh_closest_hit
+        hit = bvh_closest_hit(scene, bvh, o, d, time, T_MIN, pack=pack)
+    else:
+        hit = closest_hit(scene, o, d, time, T_MIN, pack=pack)
 
     t_ev = hit.t
     if scene.has_media:
@@ -179,11 +185,11 @@ def _bounce_draws(u: torch.Tensor, b: int, n: int) -> torch.Tensor:
 def run_bounces(scene: SceneTables, pack: PlannedPack, seed: int, pix, smp,
                 max_depth: int, b0: int, b_end: int, o, d, time, thr, rad,
                 alive, rr_depth: int | None = None, u=None,
-                differentiable: bool = False):
+                differentiable: bool = False, bvh=None):
     """Bounces b0 ≤ b < b_end, stopping when no lane is alive → (o, d, thr,
     rad, alive). pix, smp: each lane's pixel and global sample, the keys of
     its draws (`lane_draws`), so a compacted batch draws what the full
-    one would; u, differentiable: as in `trace`."""
+    one would; u, differentiable, bvh: as in `trace`."""
     n = o.shape[0]
     state = (o, d, thr, rad, alive)
     for b in range(b0, b_end):
@@ -194,7 +200,7 @@ def run_bounces(scene: SceneTables, pack: PlannedPack, seed: int, pix, smp,
             u_all = (lane_draws(scene, seed, pix, smp, b, rr_depth is not None)
                      if u is None else _bounce_draws(u, b, n))
             return _bounce(scene, pack, u_all, max_depth, b, st[0], st[1],
-                           time, *st[2:], rr_depth)
+                           time, *st[2:], rr_depth, bvh)
 
         if differentiable:
             state = torch.utils.checkpoint.checkpoint(
@@ -208,7 +214,7 @@ def run_bounces(scene: SceneTables, pack: PlannedPack, seed: int, pix, smp,
 def trace(scene: SceneTables, o, d, time, seed: int, pix, smp,
           max_depth: int = 50, rr_depth: int | None = None,
           pack: PlannedPack | None = None, differentiable: bool = False,
-          u: torch.Tensor | None = None) -> torch.Tensor:
+          u: torch.Tensor | None = None, bvh=None) -> torch.Tensor:
     """Trace a batch of rays to completion at full width (no compaction)
     → radiance [N, 3]. o, d, time: the rays (directions unnormalized, the
     reference convention); seed, pix, smp: the draws' key and each lane's
@@ -225,7 +231,13 @@ def trace(scene: SceneTables, o, d, time, seed: int, pix, smp,
     `lane_draws` (then seed, pix and smp are not read), at least
     max_depth + 1 bounces of them in a layout `_check_draws` takes, so a
     test can feed the tier JAX's `_lane_draws` or the fused tier's
-    `fast_draws`; no gradient flows into them."""
+    `fast_draws`; no gradient flows into them. bvh: the scene's `FlatBVH`
+    on the rays' device: each closest hit by its traversal, which is
+    forward only (as in JAX, whose traversal is a `lax.while_loop`), so it
+    raises under differentiable."""
+    if bvh is not None and differentiable:
+        raise ValueError("the BVH traversal is forward only: trace with "
+                         "differentiable=True takes no bvh")
     if u is not None:
         _check_draws(scene, u, o.shape[0], rr_depth is not None,
                      max_depth + 1)
@@ -236,5 +248,5 @@ def trace(scene: SceneTables, o, d, time, seed: int, pix, smp,
     _, _, _, rad, _ = run_bounces(scene, pack or plan_pack(scene), seed, pix,
                                   smp, max_depth, 0, max_depth + 1, o, d,
                                   time, thr, rad, alive, rr_depth, u,
-                                  differentiable)
+                                  differentiable, bvh)
     return rad

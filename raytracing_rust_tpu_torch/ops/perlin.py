@@ -39,9 +39,10 @@ _MASK32 = 0xFFFFFFFF
 
 
 def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
-    """(x · m) mod 2³² for int64 x holding uint32 values and a 32-bit m;
-    m is split into 16-bit halves so no product exceeds 2⁴⁸."""
-    return ((((x * (m >> 16)) & 0xFFFF) << 16) + x * (m & 0xFFFF)) & _MASK32
+    """(x · m) mod 2³² for int64 x holding uint32 values and a 32-bit m: the
+    product fits 64 bits, and int64 multiplication wraps modulo 2⁶⁴ on both
+    devices, so its low 32 bits are the product's."""
+    return (x * m) & _MASK32
 
 
 def seed_word(seed: int) -> int:

@@ -121,16 +121,12 @@ def lanewise(fn, *xs: torch.Tensor) -> torch.Tensor:
 
 def _mulhilo(m: int, x: torch.Tensor):
     """(hi, lo) 32-bit halves of the 64-bit product m·x, for a 32-bit
-    constant m and int64 tensor x holding uint32 values. m is split into
-    16-bit halves so no partial product exceeds 2^48 (int64 cannot hold the
-    full 64-bit product)."""
-    mh, ml = m >> 16, m & 0xFFFF
-    p_h = x * mh                        # < 2^48
-    p_l = x * ml                        # < 2^48
-    mid = p_h + (p_l >> 16)             # m·x = mid·2^16 + (p_l & 0xFFFF)
-    hi = mid >> 16
-    lo = ((mid & 0xFFFF) << 16) | (p_l & 0xFFFF)
-    return hi, lo
+    constant m and int64 tensor x holding uint32 values. The product fits
+    64 bits; int64 multiplication wraps modulo 2^64 on both devices, so its
+    bits are the product's, and the high half is read back past the sign
+    (>> is arithmetic) by masking."""
+    p = x * m
+    return (p >> 32) & _MASK32, p & _MASK32
 
 
 def philox4x32_10(ctr, key):

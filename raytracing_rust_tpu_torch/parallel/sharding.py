@@ -210,12 +210,15 @@ def render_sums_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
     chunk 0's widths and redoes a block whose survivors overflow them
     (`_head_sharded` … `_render_block_sharded_compact`). Here each rank's
     `trace_compact` gathers its live lanes with `torch.nonzero`, an exact
-    count, so none of that has a counterpart."""
+    count, so none of that has a counterpart. The closest hits are the
+    dense scan's, as on JAX's sharded path (its CLI refuses --sharded with
+    --bvh)."""
     if timers is None:
         timers = Timers()
     sums = render_sums(scene, cam, nx, ny, spp, device=device, seed=seed,
                        max_depth=max_depth, rr_depth=rr_depth, timers=timers,
-                       pixels=mesh.rows(nx * ny), samples=mesh.samples(spp))
+                       pixels=mesh.rows(nx * ny), samples=mesh.samples(spp),
+                       use_bvh=False)
     with timers.phase("reduce"):
         return _sum_shards(sums, mesh)
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as ck
+from .accel.bvh import LEAF_SIZE, MAX_STACK, ROW_FIELDS, build_bvh
 from .models.scene import SceneTables
 from .ops import rng
 from .ops.camera import Camera, get_rays
@@ -37,6 +38,24 @@ _COMPACT_SCHEDULE = (6, 12, 24)
 # the card each eager op's launch costs about what 10⁶ lanes of work do, so
 # the chunks are wide there
 _CHUNK_LANES = {"cpu": 1 << 22, "cuda": 1 << 24}
+# the bytes a lane of a BVH chunk may hold for its traversal, and what it
+# holds: its stack (MAX_STACK int32 node ids), its state (sp, best t and
+# prim, the inverse direction) and, at a leaf, the leaf's rows
+# (`accel/bvh.leaf_rows`: ROW_FIELDS f32 a slot) with the candidate test's
+# temporaries (about 24 f32 a slot)
+_BVH_BUDGET_BYTES = {"cpu": 1 << 28, "cuda": 1 << 33}
+_BVH_LANE_BYTES = 4 * MAX_STACK + 64 + LEAF_SIZE * 4 * (ROW_FIELDS + 24)
+# the prim count from which `auto_use_bvh` takes the BVH, per device:
+# `bench_large`'s crossover (big_spheres(n) at 64×36, 4 spp, depth 8: the
+# first prim count from which the BVH general tier's rays/s beat the dense
+# one's at every larger size), or None where the BVH never did
+_BVH_AUTO_MIN_PRIMS = {
+    # `bench_large --device cpu` on the 8-core CPU of the H100 host
+    "cpu": 1004,
+    # `bench_large` on an NVIDIA H100 80GB HBM3 at a 700 W power limit: up
+    # to 100,004 prims the dense scan is 3.8-7.2× faster at its 9,216 lanes
+    "cuda": None,
+}
 
 
 def finalize_image(sums: np.ndarray, spp: int, nx: int, ny: int) -> np.ndarray:
@@ -88,22 +107,30 @@ def camera_sample_rays(cam: Camera, pix: torch.Tensor, smp: torch.Tensor,
     return get_rays(cam, s, t, torch.stack([u2, u3, ut], dim=-1))
 
 
+def auto_use_bvh(scene: SceneTables, device="cuda") -> bool:
+    """Whether a general-tier render of scene on device takes the BVH when
+    the caller does not say: from the device's measured crossover on
+    (`_BVH_AUTO_MIN_PRIMS`), never where the device has none."""
+    at = _BVH_AUTO_MIN_PRIMS[torch.device(device).type]
+    return at is not None and scene.num_prims >= at
+
+
 def trace_compact(scene: SceneTables, pack, seed: int, pix, smp, o, d, time,
                   max_depth: int, rr_depth: int | None = None,
-                  schedule=_COMPACT_SCHEDULE) -> torch.Tensor:
+                  schedule=_COMPACT_SCHEDULE, bvh=None) -> torch.Tensor:
     """Radiance [N, 3] of a batch of camera rays with wavefront compaction:
     bounces 0 ≤ b < schedule[0] at full width, then at each boundary the
     live lanes are gathered (`torch.nonzero`, an exact count) with their
     state and draw keys and the next segment runs on them alone. A lane's
     state and draws are the full width's, so the radiance equals the full
-    width's (`trace`) bit for bit."""
+    width's (`trace`) bit for bit. bvh: as in `integrator.trace`."""
     thr = torch.ones_like(o)
     rad = torch.zeros_like(o)
     alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     s1 = min(schedule[0], max_depth + 1)
     o, d, thr, rad, alive = run_bounces(scene, pack, seed, pix, smp,
                                         max_depth, 0, s1, o, d, time, thr,
-                                        rad, alive, rr_depth)
+                                        rad, alive, rr_depth, bvh=bvh)
     rad_full, lane = rad, None
     b0 = s1
     for b_end in [b for b in schedule[1:] if b <= max_depth] + [max_depth + 1]:
@@ -119,7 +146,8 @@ def trace_compact(scene: SceneTables, pack, seed: int, pix, smp, o, d, time,
             x[keep] for x in (o, d, time, thr, rad, pix, smp))
         o, d, thr, rad, alive = run_bounces(
             scene, pack, seed, pix, smp, max_depth, b0, b_end, o, d, time,
-            thr, rad, torch.ones_like(keep, dtype=torch.bool), rr_depth)
+            thr, rad, torch.ones_like(keep, dtype=torch.bool), rr_depth,
+            bvh=bvh)
         b0 = b_end
     if lane is not None:
         rad_full[lane] = rad
@@ -134,6 +162,7 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
                 timers: Timers | None = None,
                 pixels: tuple[int, int] | None = None,
                 samples: tuple[int, int] | None = None,
+                use_bvh: bool | None = None,
                 _stop_after_blocks: int | None = None):
     """The general tier's per-pixel radiance sums → f64[3, nx·ny] on the
     device, each pixel's samples added in sample order (see `render`), or
@@ -158,10 +187,20 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
         raise ValueError("a checkpoint holds a whole render, not a range")
     if timers is None:
         timers = Timers()
+    if use_bvh is None:
+        use_bvh = auto_use_bvh(scene, device)
     n_pix = nx * ny
     block_pixels = min(block_pixels, n_pix)
     if spp_chunk is None:
-        spp_chunk = max(1, min(spp, _CHUNK_LANES[device.type] // block_pixels))
+        lanes = _CHUNK_LANES[device.type]
+        if use_bvh:
+            lanes = min(lanes, _BVH_BUDGET_BYTES[device.type]
+                        // _BVH_LANE_BYTES)
+        spp_chunk = max(1, min(spp, lanes // block_pixels))
+    bvh = None
+    if use_bvh:
+        with timers.phase("bvh_build"):
+            bvh = build_bvh(scene).to(device)
     with timers.phase("upload"):
         scene = scene.to(device)
         cam = cam.to(device)
@@ -173,7 +212,8 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     if checkpoint:
         # imported here: ops.tracer imports this module
         from .ops.tracer import build_camera_record
-        want = ck.meta(ck.ENGINE_GENERAL, nx, ny, spp, seed, max_depth,
+        want = ck.meta(ck.ENGINE_GENERAL_BVH if use_bvh else
+                       ck.ENGINE_GENERAL, nx, ny, spp, seed, max_depth,
                        rr_depth, ck.scene_digest(scene),
                        build_camera_record(cam).tobytes())
         got = ck.load(checkpoint, want)
@@ -199,10 +239,10 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
             with timers.phase("trace"):
                 if compact:
                     rad = trace_compact(scene, pack, seed, pix, smp, o, d,
-                                        time, max_depth, rr_depth)
+                                        time, max_depth, rr_depth, bvh=bvh)
                 else:
                     rad = trace(scene, o, d, time, seed, pix, smp, max_depth,
-                                rr_depth, pack)
+                                rr_depth, pack, bvh=bvh)
             with timers.phase("accumulate"):
                 per_sample = rad.double().view(ns, nb, 3)
                 for k in range(ns):
@@ -271,6 +311,7 @@ def render(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int, *,
            block_pixels: int = 1 << 16, spp_chunk: int | None = None,
            rr_depth: int | None = None, compact: bool = True,
            checkpoint: str | None = None, timers: Timers | None = None,
+           use_bvh: bool | None = None,
            _stop_after_blocks: int | None = None) -> np.ndarray | None:
     """Full image through the general tier → float32 [ny, nx, 3], row 0 at
     the top, with the reference's gamma (sqrt + clamp, tests/test.rs:72-75).
@@ -286,9 +327,16 @@ def render(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int, *,
     2^22 on the CPU) and
     compaction (compact=False runs every bounce at full width).
     rr_depth: Russian roulette from this bounce on, or None.
+    use_bvh: find each closest hit by a BVH's traversal (`accel/bvh.py`: the
+    tree built once a call, the phase bvh_build) or by the dense scan; None
+    (the default) takes `auto_use_bvh`'s choice for the device. The two
+    give the same image but where a near-tangent ray or an exact tie picks
+    another prim; a BVH chunk holds at most _BVH_BUDGET_BYTES of traversal
+    state, which also bounds the default spp_chunk.
     checkpoint: an .npz path; the sums are saved after each pixel block and
     a render whose meta matches resumes after the last saved block (a
-    mismatch warns and starts over). timers: phases upload, raygen,
+    mismatch, a BVH render's checkpoint for a dense one included, warns
+    and starts over). timers: phases bvh_build, upload, raygen,
     trace, accumulate, checkpoint_io, finalize. _stop_after_blocks: a test
     hook that stops the render after that many blocks, as if the process
     had died, and returns None.
@@ -299,7 +347,7 @@ def render(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int, *,
                        max_depth=max_depth, block_pixels=block_pixels,
                        spp_chunk=spp_chunk, rr_depth=rr_depth,
                        compact=compact, checkpoint=checkpoint, timers=timers,
-                       _stop_after_blocks=_stop_after_blocks)
+                       use_bvh=use_bvh, _stop_after_blocks=_stop_after_blocks)
     if sums is None:
         return None
     with timers.phase("finalize"):

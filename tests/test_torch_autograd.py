@@ -35,6 +35,7 @@ from raytracing_rust_tpu_torch.ops import intersect as tis
 from test_torch_general import _mixed
 from test_torch_grad import _jax_example
 from test_torch_kernel import probe_scene
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 # the float tables a gradient reaches (media densities stay parked)
 LEAVES = ("prim_data", "mat_param", "tex_color", "images", "xf_sin",

@@ -26,6 +26,7 @@ from raytracing_rust_tpu_torch.models import builders as tb
 from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import peak, tracer
 from raytracing_rust_tpu_torch.utils.timers import Timers
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _ops(name, nx, ny, rr_depth=None):
@@ -183,30 +184,46 @@ def _thread_totals(per_sample, n_pix, pix=None, kpix=1):
         .reshape(n_samples, -1)
 
 
+# test_warp_steps_sum_banks_and_samples' render: final_scene, 3 samples
+_WARP_CASE = dict(nx=64, ny=36, n_samples=3, seed=4)
+
+
+@pytest.fixture(scope="module")
+def per_sample_segments():
+    """Each sample's own per-pixel segments (the stats row 0) of
+    _WARP_CASE, one scanline launch a sample: row 0 is a pixel's count
+    on every layout (test_balanced_plain_is_bit_equal_and_counts), so both
+    layouts' cases read these."""
+    nx, ny, n = (_WARP_CASE[k] for k in ("nx", "ny", "n_samples"))
+    ops = _ops("final_scene", nx, ny)
+    per = []
+    for s in range(n):
+        one = tracer.new_stats(nx, ny, "cpu")
+        tracer.trace_plain(ops, _sums(nx, ny), sample0=s, n_samples=1,
+                           stats=one, nx=nx, ny=ny, seed=_WARP_CASE["seed"],
+                           max_depth=50)
+        per.append(tracer.stats_rows(one, nx * ny)[0].clone())
+    return ops, torch.stack(per)
+
+
 @pytest.mark.parametrize("kpix", [None, 4])
-def test_warp_steps_sum_banks_and_samples(kpix):
+def test_warp_steps_sum_banks_and_samples(kpix, per_sample_segments):
     """At 3 samples a warp's steps are the largest among its threads of a
     thread's segments summed over its banks and samples (the kernel's flat
     loop), recounted here from each sample's own per-pixel segments: on the
     scanline layout and on a kpix-4 table. That is at most the per-sample
     reconvergence's Σ over samples of the warp's largest, and below it
     somewhere."""
-    nx, ny, n_samples = 64, 36, 3
+    nx, ny, n_samples = (_WARP_CASE[k] for k in ("nx", "ny", "n_samples"))
     n_pix = nx * ny
-    ops = _ops("final_scene", nx, ny)
+    ops, per = per_sample_segments
     pix = None if kpix is None else _table(n_pix, kpix, seed=6)
     kp = 1 if kpix is None else kpix
-    kw = dict(nx=nx, ny=ny, seed=4, max_depth=50, pix=pix, kpix=kp)
+    kw = dict(nx=nx, ny=ny, seed=_WARP_CASE["seed"], max_depth=50, pix=pix,
+              kpix=kp)
     st = tracer.new_stats(nx, ny, "cpu", pix, kp)
     tracer.trace_plain(ops, _sums(nx, ny), sample0=0, n_samples=n_samples,
                        stats=st, **kw)
-    per = []
-    for s in range(n_samples):
-        one = tracer.new_stats(nx, ny, "cpu", pix, kp)
-        tracer.trace_plain(ops, _sums(nx, ny), sample0=s, n_samples=1,
-                           stats=one, **kw)
-        per.append(tracer.stats_rows(one, n_pix)[0].clone())
-    per = torch.stack(per)
     busy, _, _, steps = tracer.stats_rows(st, n_pix)
     assert torch.equal(busy, per.sum(0))
     totals = _thread_totals(per, n_pix, pix, kp)

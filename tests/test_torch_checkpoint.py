@@ -23,6 +23,7 @@ from raytracing_rust_tpu_torch.models.builders import PRESETS
 from raytracing_rust_tpu_torch.ops import tracer
 from raytracing_rust_tpu_torch.render import render
 from raytracing_rust_tpu_torch.utils.image_io import read_ppm, to_ppm
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _preset(name, nx, ny):

@@ -10,6 +10,7 @@ from raytracing_rust_tpu_torch import cli
 from raytracing_rust_tpu_torch.models.builders import PRESETS
 from raytracing_rust_tpu_torch.models.scene import BG_BLACK, SceneBuilder
 from raytracing_rust_tpu_torch.utils.image_io import read_ppm
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def test_scenes_lists_every_preset(capsys):

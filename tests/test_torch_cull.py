@@ -26,6 +26,7 @@ from raytracing_rust_tpu.ops import pallas_tracer as pt
 from raytracing_rust_tpu_torch.models import builders as tb
 from raytracing_rust_tpu_torch.models.scene import BG_SKY, SceneBuilder
 from raytracing_rust_tpu_torch.ops import tracer
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _crowd(n):

@@ -21,6 +21,7 @@ from raytracing_rust_tpu_torch import kernel_stats
 from raytracing_rust_tpu_torch.models import builders as tb
 from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import tracer
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 NX, NY = 32, 16
 KW = dict(nx=NX, ny=NY, seed=2, max_depth=50)

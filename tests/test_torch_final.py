@@ -38,6 +38,7 @@ from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import rng, tracer
 from raytracing_rust_tpu_torch.utils import image_io as tio
 from test_torch_tracer import _assert_halves_agree
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _cubes(cls, n=20):

@@ -38,6 +38,7 @@ from raytracing_rust_tpu_torch.ops import materials as tmat
 from raytracing_rust_tpu_torch.ops import rng, tracer
 from raytracing_rust_tpu_torch.ops import textures as ttex
 from raytracing_rust_tpu_torch.utils.image_io import read_ppm
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _mixed(builder_cls):

@@ -31,6 +31,7 @@ from raytracing_rust_tpu_torch.ops import grad as tg
 from raytracing_rust_tpu_torch.render import camera_lane_rays
 from test_torch_grad import (GRAD_LEAVES, _assert_scale_close, _jax_example,
                              _jax_geo_scene, _jax_trace, _leaves, _probe, _t)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 @pytest.mark.parametrize("tilt", [0.0, ir.TRUE_TILT_DEG])

@@ -33,6 +33,7 @@ from raytracing_rust_tpu_torch.ops import grad as tg
 from raytracing_rust_tpu_torch.ops import rng
 from raytracing_rust_tpu_torch.ops.tracer import UnsupportedScene
 from raytracing_rust_tpu_torch.render import camera_lane_rays
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 GRAD_LEAVES = ("prim_data", "mat_param", "tex_color", "xf_offset",
                "xf_sin", "xf_cos")

@@ -22,6 +22,7 @@ the port's (`python -m raytracing_rust_tpu_torch.inverse_render --seed k`).
 
 import os
 import sys
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 if __name__ == "__main__":
     # the JAX default's CPU mesh, set before jax is imported

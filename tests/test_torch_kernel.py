@@ -30,6 +30,7 @@ from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
                                                     TEX_CHECKER, SceneBuilder)
 from raytracing_rust_tpu_torch.ops import (camera, grad, microbench, peak,
                                            tracer)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 pytestmark = pytest.mark.cuda
 

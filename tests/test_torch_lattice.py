@@ -39,8 +39,10 @@ from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
                                                     SceneBuilder)
 from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import tracer
+from raytracing_rust_tpu_torch.render import finalize_image
 from test_torch_kernel import DOME_VIEW, HOLES, hole_scene, image_dome, texels
 from test_torch_tracer import _assert_halves_agree
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def fog_scene(cls=SceneBuilder):
@@ -397,9 +399,9 @@ def test_roulette_is_unbiased_and_matches_jax():
     np.testing.assert_allclose(float(on.mean()), float(off.mean()),
                                rtol=0.06)
     n, spp = 32, 32
-    ours = tracer.render_kernel(_enclosure(),
-                                tcam.make_camera(*ENCLOSURE_VIEW), n, n, spp,
-                                device="cpu", seed=4, rr_depth=3)
+    # render_kernel's image of the same render (seed 4, depth 50, roulette
+    # from 3): its sums are `on`, whatever its chunks
+    ours = finalize_image(on.T.numpy(), spp, n, n)
     ref = np.asarray(jax_render(_enclosure(JSceneBuilder),
                                 jcam.make_camera(*ENCLOSURE_VIEW), n, n, spp,
                                 seed=4, max_depth=50, rr_depth=3))

@@ -32,6 +32,7 @@ from test_torch_grad import (GRAD_LEAVES, _assert_cols_close,
                              _assert_scale_close, _jax_trace, _k3_mirror,
                              _leaves, _probe, _replay_tape, _t)
 from test_torch_kernel import checker_scene, glass_scene, probe_scene
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def small_scene(builder_cls):

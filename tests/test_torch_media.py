@@ -20,6 +20,7 @@ import torch
 
 from raytracing_rust_tpu_torch.models.scene import BG_BLACK, SceneBuilder
 from raytracing_rust_tpu_torch.ops import rng, tracer
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _media():

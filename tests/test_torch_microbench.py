@@ -36,6 +36,7 @@ from jax.experimental.pallas import tpu as pltpu
 from raytracing_rust_tpu.ops import pallas_tracer as pt
 from raytracing_rust_tpu_torch import microbench
 from raytracing_rust_tpu_torch.ops import microbench as mb
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 S, L = mb.SUB, mb.LANES
 f = jnp.float32

@@ -22,6 +22,7 @@ import torch
 from raytracing_rust_tpu_torch.models import builders as tb
 from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import tracer
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _ops(name, nx, ny):

@@ -20,6 +20,7 @@ from raytracing_rust_tpu_torch.models import builders as tb
 from raytracing_rust_tpu_torch.models.scene import SceneTables
 from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import intersect as tint
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _jax_fields(tables) -> dict:

@@ -35,6 +35,7 @@ from raytracing_rust_tpu_torch import render
 from raytracing_rust_tpu_torch.models.builders import PRESETS
 from raytracing_rust_tpu_torch.ops.grad import fast_draws
 from raytracing_rust_tpu_torch.parallel import multihost_worker, sharding
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 # the render: two_spheres 32×18×8, depth 6
 NX, NY, SPP, DEPTH = 32, 18, 8, 6

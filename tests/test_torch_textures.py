@@ -39,6 +39,7 @@ from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
 from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import perlin, tracer
 from test_torch_tracer import _assert_halves_agree
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 NEXT_WEEK = ["two_perlin_spheres", "simple_light", "earth", "cornell_smoke"]
 

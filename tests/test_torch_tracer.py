@@ -32,6 +32,7 @@ from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
 from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import rng, tracer
 from raytracing_rust_tpu_torch.utils import image_io as tio
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _sphere_scene(builder_cls):

@@ -31,6 +31,7 @@ from raytracing_rust_tpu_torch.models import builders as tb
 from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import perlin, tracer
 from test_torch_final import _final_camera
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 WARP = 32
 OCTAVES, CORNERS = 7, 8
