@@ -284,9 +284,38 @@ Phases, one JSON line each on stdout:
  54. the parity sweep, `parity --quick --json` in this process: exit 0,
      every one of its 11 configs and 8 extra checks reported and passed
      (one line a check), with K1's, K1f's table's and K2/K3's launches.
-Phases 41-54 print the card's name and power limit beside their numbers
-and their own seconds. Every command-line phase prints its per-phase
-seconds, the PPM encode
+ 55. `bench` through the command line at its defaults (`benchlib.run`:
+     cornell_box_baseline 800×800×500 through the auto engine, a warm
+     render and 8 timed ones; `grad_fd_err`; the default training step's
+     throughput on the fused tier, in 100-step chunks and on the general
+     tier): every key of JAX's line, engine "kernel" with phase 5's K1a
+     launches a render, grad_engine "fused" with K2 and K3 launched,
+     grad_fd_max_abs_err ≤ 1e-3 with all five sweeps; its figures printed;
+ 56. `python -m raytracing_rust_tpu_torch render --scene
+     cornell_box_baseline --profile DIR --log PATH --timers` with the bar
+     on, as a process of its own (torch.profiler has recorded the card's
+     activity in a process's first profiler session alone): the
+     Chrome trace holds a CUDA kernel event of K1 (`trace_k1`), the log
+     JAX's four lines (the request, the trace, the timers, the result)
+     with their stamps, stderr the bar at 100.0% once, the PPM's values
+     equal to phase 5's;
+ 57. `bench_scenes` (the eight reference configs through K1, best of 3)
+     and `make_gallery` into a temporary directory: eight lines with their
+     rays/s, eight PNGs, each mean within ±5% of GALLERY_MEANS, with K1a's,
+     K1f's table's and the walk's launches; `alive_profile` at its
+     defaults on the card (four scenes, 16,384 lanes): a line a scene, each
+     profile starting at 1.0 and falling, and cornell_box's fractions at
+     ALIVE_N lanes on the card within 4 binomial standard errors of the
+     same profile on the CPU;
+ 58. `profile_train_step` at the default width on both tiers
+     (PROFILE_STEPS steps a loop): the parts that partition a step within
+     PROFILE_SUM_TOL of the whole step, K2 + K3 by CUDA events inside the
+     fused step; its table printed. Then `profile_train_step --tier fused
+     --trace DIR` as a process of its own: the Chrome trace holds CUDA
+     kernel events of K2 (`grad_fwd`) and K3 (`grad_bwd`).
+Then the script's own seconds. Phases 41-58 print the card's name and
+power limit beside their numbers and their own seconds. Every
+command-line phase prints its per-phase seconds, the PPM encode
 included. Then the kernel table and, as the last line, the device
 summary. Each row of the table carries the kernel's bound: the larger of
 the bytes it must move over the card's memory rate and the f32 operations
@@ -1548,6 +1577,268 @@ def bvh_phases(dev, smi: str, run_cli, dense128: dict, reset_launches,
           and launched["k3"] > 0, f"the sweep's launches: {launched}")
 
 
+# phase 55: the keys of `benchlib.run`'s line (JAX's run's keys, with the
+# port's engine names)
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "baseline_rays_per_sec",
+    "baseline_source", "median_rays_per_sec", "wall_seconds",
+    "wall_seconds_all_reps", "engine", "grad_fd_max_abs_err",
+    "grad_fd_per_leaf", "grad_samples_per_sec", "grad_samples_per_sec_median",
+    "grad_step_seconds", "grad_step_seconds_all_reps", "grad_engine",
+    "grad_config", "grad_samples_per_sec_chunk100",
+    "grad_step_seconds_chunk100", "grad_samples_per_sec_xla_scan",
+    "grad_step_seconds_xla_scan", "device")
+# phase 57: each gallery image's reference mean (its band is ±5%): the
+# preset's mean behind phases 5-17's bands where the gallery's size and spp
+# stay inside those bands (JAX's own gallery images, docs/gallery/*.png,
+# rendered by tools/make_gallery.py at the same size and spp, lie within
+# 0.1-3.8% of them), and for simple_light and final_scene, whose
+# gamma-space means move with spp and size (JAX's gallery images sit 7.9%
+# and 12.5% above the bands of phases 13-19), the mean of JAX's gallery
+# image itself at the gallery's size and spp
+GALLERY_MEANS = {"random_spheres": RANDOM_SPHERES_MEAN,
+                 "two_spheres": TWO_SPHERES_MEAN,
+                 "two_perlin_spheres": NEXT_WEEK_MEANS["two_perlin_spheres"],
+                 "earth": NEXT_WEEK_MEANS["earth"],
+                 "simple_light": 0.1617465773291565,
+                 "cornell_box": CORNELL_MEAN,
+                 "cornell_smoke": NEXT_WEEK_MEANS["cornell_smoke"],
+                 "final_scene": 0.29696666464939875}
+# phase 58: the training step's profile: timed steps a loop, and how far
+# the parts that partition a step may sum from the whole step
+PROFILE_STEPS = 8
+PROFILE_SUM_TOL = 0.10
+# phase 57: the lanes of cornell_box's alive profile held card against CPU
+ALIVE_N = 4096
+
+
+def surface_phases(dev, smi: str, cornell_img, per_render: int,
+                   reset_launches, k1_launches) -> None:
+    """Phases 55-58: `bench` through the command line; `render --profile
+    --log` with the bar on; `bench_scenes`, `make_gallery` and
+    `alive_profile`; `profile_train_step` on both tiers, and its trace."""
+    import numpy as np
+    from PIL import Image
+    from raytracing_rust_tpu_torch import (alive_profile, bench_scenes,
+                                           benchlib, cli, make_gallery,
+                                           profile_train_step)
+    from raytracing_rust_tpu_torch.ops import grad, tracer
+    from raytracing_rust_tpu_torch.utils.image_io import read_ppm
+
+    # -- 55. bench through the command line, at its defaults
+    t_phase = time.perf_counter()
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench"])
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    renders = 1 + benchlib.KERNEL_REPS
+    launched = dict(k1a_static_trace=tracer.KERNEL_LAUNCHES,
+                    k2=grad.K2_LAUNCHES, k3=grad.K3_LAUNCHES)
+    emit("bench", card=smi, rc=rc, result=res, launches=launched,
+         k1a_launches_per_render=launched["k1a_static_trace"] / renders,
+         phase5_launches_per_render=per_render,
+         phase_seconds=time.perf_counter() - t_phase)
+    print(f"bench on {smi}: value {res['value']} rays/s, median "
+          f"{res['median_rays_per_sec']}, vs_baseline {res['vs_baseline']}, "
+          f"grad_samples_per_sec {res['grad_samples_per_sec']}, _chunk100 "
+          f"{res.get('grad_samples_per_sec_chunk100')}, _xla_scan "
+          f"{res.get('grad_samples_per_sec_xla_scan')}, device "
+          f"{res['device']}", flush=True)
+    missing = [k for k in BENCH_KEYS if k not in res]
+    check(rc == 0 and not missing, f"bench: rc {rc}, keys missing {missing}")
+    check(res["engine"] == "kernel" and launched["k1a_static_trace"]
+          == renders * per_render, f"bench: engine {res['engine']}, "
+          f"{launched['k1a_static_trace']} K1a launches for {renders} "
+          f"renders of {per_render}")
+    check(res["grad_engine"] == "fused" and launched["k2"] > 0
+          and launched["k3"] > 0, f"bench: grad_engine "
+          f"{res['grad_engine']}, launches {launched}")
+    check(res["grad_fd_max_abs_err"] <= 1e-3 and set(res["grad_fd_per_leaf"])
+          == {label for label, *_ in benchlib.FD_SWEEPS},
+          f"bench: grad_fd {res['grad_fd_max_abs_err']}, sweeps "
+          f"{res['grad_fd_per_leaf']}")
+
+    # -- 56. render with the profiler, the log and the bar, as a command of
+    # its own: with torch 2.11 on an H100 host, torch.profiler records the
+    # card's activity in a process's first profiler session alone (phase
+    # 9's session sees the kernels, phases 23 and 28's later ones see no
+    # device op)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cornell_box_baseline.ppm")
+        log_path = os.path.join(tmp, "log", "render.log")
+        prof = os.path.join(tmp, "profile")
+        argv = ["render", "--scene", "cornell_box_baseline", "--device",
+                "cuda", "--out", out, "--timers", "--profile", prof, "--log",
+                log_path]
+        run = subprocess.run(
+            [sys.executable, "-m", "raytracing_rust_tpu_torch", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        rc = run.returncode
+        check(rc == 0, f"{argv} exited {rc}: {run.stderr[-3000:]}")
+        img = read_ppm(out)
+        trace_path = os.path.join(prof, "cornell_box_baseline.trace.json")
+        trace_bytes = os.path.getsize(trace_path)
+        with open(trace_path) as fh:
+            events = json.load(fh)["traceEvents"]
+        with open(log_path) as fh:
+            log_lines = fh.read().splitlines()
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1_events = [e for e in kernels if "trace_k1" in e.get("name", "")]
+    stamped = all(re.match(r"\d{4}-\d\d-\d\d \d\d:\d\d:\d\d \[DEBUG\] - ",
+                           ln) for ln in log_lines)
+    said = [ln.split(" - ", 1)[1] for ln in log_lines]
+    bars = run.stderr.count("100.0%")
+    same = bool(np.array_equal(img, cornell_img))
+    emit("render_profile_log", card=smi, argv=argv, rc=rc,
+         trace_bytes=trace_bytes, trace_events=len(events),
+         kernel_events=len(kernels), k1_kernel_events=len(k1_events),
+         phase5_launches_per_render=per_render,
+         k1_kernel_names=sorted({e["name"] for e in k1_events}),
+         k1_device_ms=sum(e.get("dur", 0) for e in k1_events) * 1e-3,
+         log=log_lines, bars_at_100=bars, ppm_equals_phase5=same,
+         stdout=run.stdout.splitlines(),
+         phase_seconds=time.perf_counter() - t_phase)
+    check(len(k1_events) >= 1, f"--profile: {len(k1_events)} K1 kernel "
+          f"events in the trace ({len(kernels)} kernel events)")
+    check(stamped and said[0] == "render scene=cornell_box_baseline"
+          and said[1].startswith("profiler trace -> ")
+          and said[2].startswith("timers: {")
+          and said[3].startswith("rendered cornell_box_baseline in ")
+          and len(said) == 4, f"--log wrote {log_lines}")
+    check(bars == 1, f"the bar reached 100.0% {bars} times on stderr")
+    check(same, "the profiled render's PPM differs from phase 5's")
+
+    # -- 57. bench_scenes and make_gallery through their entry points
+    t_phase = time.perf_counter()
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_scenes.main(["--device", "cuda"])
+    text = buf.getvalue().strip().splitlines()
+    table = json.loads(text[-1])["rows"]
+    rates = {m.group(1): float(m.group(2)) for m in (re.match(
+        r"(\w+): \d+x\d+x\d+ best [0-9.]+s = ([0-9.]+)M rays/s", ln)
+        for ln in text[:-1]) if m}
+    bench_launches = k1_launches()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_g = make_gallery.main([tmp, "--device", "cuda"])
+        rows = json.loads(buf.getvalue().strip().splitlines()[-1])["rows"]
+        pngs = {}
+        for name in GALLERY_MEANS:
+            path = os.path.join(tmp, f"{name}.png")
+            if os.path.exists(path):
+                pngs[name] = float((np.asarray(Image.open(path).convert(
+                    "RGB"), dtype=np.float64) / 255.0).mean())
+    gallery_launches = k1_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_a = alive_profile.main([])
+    alive_lines = buf.getvalue().strip().splitlines()
+    print("\n".join(alive_lines), flush=True)
+    alive = {dev_name: alive_profile.profile("cornell_box", ALIVE_N,
+                                             device=dev_name)["alive"]
+             for dev_name in ("cuda", "cpu")}
+    k = min(len(v) for v in alive.values())
+    p, q = alive["cuda"][:k], alive["cpu"][:k]
+    alive_se = np.sqrt(p * (1 - p) / ALIVE_N + q * (1 - q) / ALIVE_N)
+    alive_off = np.abs(p - q) / np.maximum(alive_se, 1e-12)
+    falls = all(v[0] == 1.0 and (np.diff(v) <= 0).all()
+                for v in alive.values())
+    bands = {k: (0.95 * v, 1.05 * v) for k, v in GALLERY_MEANS.items()}
+    emit("bench_scenes", card=smi, rc=rc, lines=text[:-1], rows=table,
+         launches=bench_launches)
+    emit("make_gallery", card=smi, rc=rc_g, rows=rows, png_means=pngs,
+         bands=bands, launches=gallery_launches)
+    emit("alive_profile", card=smi, rc=rc_a, lines=alive_lines,
+         cornell_box_cuda=alive["cuda"].tolist(),
+         cornell_box_cpu=alive["cpu"].tolist(),
+         worst_diff_over_se=float(alive_off.max()),
+         phase_seconds=time.perf_counter() - t_phase)
+    check(rc_a == 0 and len(alive_lines) == len(alive_profile.DEFAULT_SCENES)
+          and all(ln.split()[0] == name for ln, name in zip(
+              alive_lines, alive_profile.DEFAULT_SCENES)),
+          f"alive_profile: rc {rc_a}, lines {alive_lines}")
+    check(falls and (p <= q + 4 * alive_se).all()
+          and (p >= q - 4 * alive_se).all(),
+          f"alive_profile: cornell_box's card profile off the CPU's by up "
+          f"to {alive_off.max():.2f} standard errors, or not falling from "
+          f"1.0: {alive}")
+    check(rc == 0 and len(text) == 9 and sorted(rates)
+          == sorted(n for n, *_ in bench_scenes.CONFIGS)
+          and all(v > 0 for v in rates.values()),
+          f"bench_scenes: rc {rc}, rates {rates}")
+    check(rc_g == 0 and sorted(pngs) == sorted(GALLERY_MEANS),
+          f"make_gallery: rc {rc_g}, PNGs {sorted(pngs)}")
+    off = {k: v for k, v in pngs.items()
+           if not bands[k][0] < v < bands[k][1]}
+    check(not off, f"gallery means outside their bands: {off} ({bands})")
+    for launched in (bench_launches, gallery_launches):
+        check(launched["k1a_static_trace"] > 0
+              and launched["k1f_balanced_trace"] > 0
+              and launched["k1d_walk_trace"] > 0,
+              f"the tools' K1 launches: {launched}")
+
+    # -- 58. the training step's profile on both tiers
+    t_phase = time.perf_counter()
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = profile_train_step.main(["--steps", str(PROFILE_STEPS)])
+    text = buf.getvalue().strip().splitlines()
+    prof = json.loads(text[-1])["tiers"]
+    print("\n".join(text[:-1]), flush=True)
+    emit("profile_train_step", card=smi, rc=rc, table=text[:-1],
+         tiers=prof, k2=grad.K2_LAUNCHES, k3=grad.K3_LAUNCHES,
+         phase_seconds=time.perf_counter() - t_phase)
+    check(rc == 0 and sorted(prof) == ["fused", "general"],
+          f"profile_train_step: rc {rc}, tiers {sorted(prof)}")
+    for tier, r in prof.items():
+        check(abs(r["parts_over_step"] - 1.0) <= PROFILE_SUM_TOL,
+              f"{tier}: the parts sum to {r['parts_over_step']:.3f}× the "
+              f"step")
+    fused = prof["fused"]
+    check(0 < fused["parts"]["kernels"] < fused["step"]
+          and grad.K2_LAUNCHES > 0 and grad.K3_LAUNCHES > 0,
+          f"K2 + K3 {fused['parts']['kernels']} s against the step "
+          f"{fused['step']} s; launches {grad.K2_LAUNCHES}, "
+          f"{grad.K3_LAUNCHES}")
+    # its trace, as a process of its own (see phase 56)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--tier", "fused", "--steps", "1", "--trace", tmp]
+        run = subprocess.run(
+            [sys.executable, "-m", "raytracing_rust_tpu_torch."
+             "profile_train_step", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        check(run.returncode == 0, f"profile_train_step {argv} exited "
+              f"{run.returncode}: {run.stderr[-3000:]}")
+        trace_path = os.path.join(tmp, "train_step_fused.trace.json")
+        trace_bytes = os.path.getsize(trace_path)
+        with open(trace_path) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k2_events = [e for e in kernels if "grad_fwd" in e.get("name", "")]
+    k3_events = [e for e in kernels if "grad_bwd" in e.get("name", "")]
+    emit("profile_train_step_trace", card=smi, argv=argv,
+         rc=run.returncode, trace_bytes=trace_bytes,
+         trace_events=len(events), kernel_events=len(kernels),
+         k2_kernel_events=len(k2_events), k3_kernel_events=len(k3_events),
+         k2_device_ms=sum(e.get("dur", 0) for e in k2_events) * 1e-3,
+         k3_device_ms=sum(e.get("dur", 0) for e in k3_events) * 1e-3,
+         kernel_names=sorted({e["name"] for e in k2_events + k3_events}),
+         phase_seconds=time.perf_counter() - t_phase)
+    check(len(k2_events) >= 1 and len(k3_events) >= 1,
+          f"--trace: {len(k2_events)} K2 and {len(k3_events)} K3 kernel "
+          f"events in the trace ({len(kernels)} kernel events)")
+
+
 def fallback_camera(nx: int, ny: int, device):
     from raytracing_rust_tpu_torch.ops.camera import make_camera
     return make_camera((0, 3, 14), (0, 0.5, 0), (0, 1, 0), 40.0, nx / ny,
@@ -1940,6 +2231,7 @@ def material_phases(dev, reset_launches, n: int = 4096 * 64):
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -3156,6 +3448,11 @@ def main() -> int:
     sharded_phases(dev, smi, run_cli, no_fast_step)
     # -- 52-54. the BVH, the crossover and the parity sweep
     bvh_phases(dev, smi, run_cli, dense128, reset_launches, k1_launches)
+    # -- 55-58. the tool surface: bench, render --profile --log,
+    # bench_scenes, make_gallery and alive_profile, profile_train_step
+    surface_phases(dev, smi, cornell_img, launches["k1a_static_trace"],
+                   reset_launches, k1_launches)
+    emit("script", card=smi, seconds=time.perf_counter() - t_script)
 
     def main_row(row: dict, labels, counter: str, n: int) -> dict:
         return at_main_path(row, [r for lab in labels

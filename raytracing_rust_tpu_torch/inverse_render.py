@@ -216,9 +216,14 @@ def path_matched_loss(target_scene, scene, light_tex, box_tex, albedo, emit,
     return torch.mean((cand - target) ** 2)
 
 
+def _unmarked(part: str) -> None:
+    """A step's `mark` where nothing times the step's parts."""
+
+
 def general_step(target_scene, scene, cam, light_tex, box_tex, albedo, emit,
                  pix, key: int, *, nx: int, ny: int, spp: int,
-                 max_depth: int, theta=None, mesh=None) -> torch.Tensor:
+                 max_depth: int, theta=None, mesh=None,
+                 mark=_unmarked) -> torch.Tensor:
     """One step on the general tier → the loss (detached), with the
     gradients of albedo, emit and theta accumulated into their .grad:
     `train_step_sharded` over mesh (`parallel.sharding.Mesh`; None is one
@@ -227,12 +232,14 @@ def general_step(target_scene, scene, cam, light_tex, box_tex, albedo, emit,
     the parameters. The target is traced without gradient on the same rays
     (`camera_lane_rays` under key) and draws (`fast_draws` under key, as the
     fused tier's step draws), sharded the same way
-    (`render_block_sharded`)."""
+    (`render_block_sharded`). mark(part) is called where each part ends:
+    "target", then "fwd_bwd"."""
     u = fast_draws(key, pix.shape[0] * spp, max_depth + 1, pix.device)
     kw = dict(nx=nx, ny=ny, spp=spp, max_depth=max_depth, mesh=mesh, u=u)
     with torch.no_grad():
         target = sharding.render_block_sharded(target_scene, cam, pix, key,
                                                **kw) / spp
+    mark("target")
     s2 = with_params(scene, light_tex, box_tex, albedo, emit, theta)
     wrt = ("tex_color",) if theta is None else ("tex_color", "xf_sin",
                                                 "xf_cos")
@@ -240,6 +247,7 @@ def general_step(target_scene, scene, cam, light_tex, box_tex, albedo, emit,
                                           **kw)
     torch.autograd.backward([getattr(s2, k) for k in wrt],
                             [g[k] for k in wrt])
+    mark("fwd_bwd")
     return loss
 
 
@@ -282,6 +290,34 @@ def _describe(device, nx, ny, spp, block, max_depth, seed) -> str:
             f"block {block} pixels, depth {max_depth}, seed {seed}")
 
 
+def optimizer(groups, horizon: int):
+    """Adam on `groups` [(leaf, lr, lo, hi)], a param group a leaf, and the
+    cosine decay of each lr to 0.1 of it over `horizon` steps → (opt,
+    sched)."""
+    opt = torch.optim.Adam([{"params": [p], "lr": lr}
+                            for p, lr, _, _ in groups])
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt,
+                                                  cosine_decay(horizon, 0.1))
+
+
+def update(opt, sched, groups, step, i: int, mark=None) -> torch.Tensor:
+    """Training step i: step(i)'s loss and backward, then the Adam update,
+    the schedule's step and each leaf clamped to its [lo, hi] → the loss
+    (on the device, not pulled). mark: None, or a hook that step(i, mark)
+    calls where each of its parts ends, and that is called with "adam"
+    after the update (`profile_train_step` times the parts so)."""
+    opt.zero_grad(set_to_none=True)
+    loss = step(i) if mark is None else step(i, mark)
+    opt.step()
+    sched.step()
+    with torch.no_grad():
+        for p, _, lo, hi in groups:
+            p.clamp_(lo, hi)
+    if mark is not None:
+        mark("adam")
+    return loss
+
+
 def _fit(groups, step, *, steps: int, horizon: int, log, show):
     """Adam on `groups` [(leaf, lr, lo, hi)], each lr under the cosine decay
     to 0.1 of it over `horizon` steps, each leaf clamped to [lo, hi] after
@@ -292,19 +328,11 @@ def _fit(groups, step, *, steps: int, horizon: int, log, show):
     step_walls: seconds per step of each chunk of up to 10 steps (the first
     includes the kernel build and warm-up). show() formats the parameters
     for the log line of each chunk."""
-    opt = torch.optim.Adam([{"params": [p], "lr": lr}
-                            for p, lr, _, _ in groups])
-    sched = torch.optim.lr_scheduler.LambdaLR(opt, cosine_decay(horizon, 0.1))
+    opt, sched = optimizer(groups, horizon)
     losses, pending, walls = [], [], []
     t0 = time.perf_counter()
     for i in range(steps):
-        opt.zero_grad(set_to_none=True)
-        loss = step(i)
-        opt.step()
-        sched.step()
-        with torch.no_grad():
-            for p, _, lo, hi in groups:
-                p.clamp_(lo, hi)
+        loss = update(opt, sched, groups, step, i)
         pending.append(loss)
         if (i + 1) % 10 == 0 or i == steps - 1:
             # one host pull per chunk: it also waits for the chunk's work
@@ -322,6 +350,90 @@ def _albedo_str(a) -> str:
     return f"[{a[0]:.3f} {a[1]:.3f} {a[2]:.3f}]"
 
 
+@dataclasses.dataclass
+class DefaultRun:
+    """The default inverse render's trained leaves and one step of it
+    (`default_run`)."""
+    albedo: torch.Tensor      # f32[3], requires grad
+    emit: torch.Tensor        # f32[], requires grad
+    groups: list              # [(leaf, lr, lo, hi)] for `optimizer`, `update`
+    step: object              # step(i, mark) → loss, the leaves' .grad added
+    tier: str                 # "fused" or "general"
+    tier_line: str            # `pick_tier`'s log line
+    cam: object               # the camera
+    target_scene: SceneTables  # at the true values
+    scene: SceneTables        # at the start values, with_params' base
+    light_tex: int
+    box_tex: int
+    cfg: object               # `fast_grad_config(scene)`; None: general
+
+
+def default_run(*, nx: int = 200, ny: int = 200, spp: int = 64,
+                block: int = 4096, max_depth: int = 6, device="cuda",
+                seed: int = 0, fast: bool = True, unfused: bool = False,
+                mesh=None) -> DefaultRun:
+    """The default inverse render's leaves, at the start values, and its
+    step: step(i) traces step i's target and candidate on the same rays
+    and draws (`step_inputs` and `path_matched_loss` on the fused tier,
+    `general_step` on the general tier), backpropagates and returns the
+    loss, calling mark(part) where each part ends: "step_inputs" and
+    "fwd_bwd" on the fused tier, "pixels", "target" and "fwd_bwd" on the
+    general. `train` runs it under `optimizer` and `update`, as
+    `benchlib.grad_throughput` and `profile_train_step` do; the arguments
+    are `train`'s."""
+    device = _check_device(device)
+    cam = camera(device)
+    target_scene = build_scene(TRUE_ALBEDO, TRUE_EMIT, device)
+    scene = build_scene(START_ALBEDO, START_EMIT, device)
+    light_tex, box_tex = param_tex_rows(scene)
+    sharded = mesh is not None and mesh.size > 1
+    why_not = "--unfused" if unfused else "--no-fast"
+    if sharded:
+        why_not = f"sharded over dp={mesh.dp} sp={mesh.sp} ranks"
+    tier, tier_line = pick_tier(scene, max_depth, device,
+                                fast and not unfused and not sharded, why_not)
+    cfg = None
+    if tier == "fused":
+        cfg = fast_grad_config(scene)
+        check_kernel_scope(cfg)
+
+    albedo = torch.tensor(START_ALBEDO, dtype=torch.float32, device=device,
+                          requires_grad=True)
+    emit = torch.tensor(START_EMIT, dtype=torch.float32, device=device,
+                        requires_grad=True)
+    kw = dict(nx=nx, ny=ny, spp=spp, block=block, max_depth=max_depth)
+    pick = np.random.default_rng(seed) if unfused else None
+
+    def step(i, mark=_unmarked):
+        if tier == "fused":
+            o, d, u = step_inputs(cam, i, device=device, seed=seed, **kw)
+            mark("step_inputs")
+            loss = path_matched_loss(target_scene, scene, light_tex, box_tex,
+                                     albedo, emit, o, d, u, block=block,
+                                     spp=spp, max_depth=max_depth, cfg=cfg)
+            loss.backward()
+            mark("fwd_bwd")
+            return loss.detach()
+        if unfused:
+            pix = torch.from_numpy(pick.choice(nx * ny, size=block,
+                                               replace=False)).to(device)
+        else:
+            pix = step_pixels(i, nx=nx, ny=ny, block=block, device=device,
+                              seed=seed)
+        mark("pixels")
+        return general_step(target_scene, scene, cam, light_tex, box_tex,
+                            albedo, emit, pix, (seed << 32) | i, nx=nx, ny=ny,
+                            spp=spp, max_depth=max_depth, mesh=mesh,
+                            mark=mark)
+
+    # per-group lr: emission must travel ~2.0 while albedo travels ≤ 0.3;
+    # the cosine decay damps the momentum overshoot once each arrives
+    return DefaultRun(albedo, emit,
+                      [(albedo, 0.05, 0.0, 1.0), (emit, 0.25, 0.0, 20.0)],
+                      step, tier, tier_line, cam, target_scene, scene,
+                      light_tex, box_tex, cfg)
+
+
 def train(*, steps: int = 40, nx: int = 200, ny: int = 200, spp: int = 64,
           block: int = 4096, max_depth: int = 6, device="cuda", seed: int = 0,
           fast: bool = True, unfused: bool = False, mesh=None,
@@ -337,61 +449,21 @@ def train(*, steps: int = 40, nx: int = 200, ny: int = 200, spp: int = 64,
     this with its own device (None: one rank with no process group); on a
     mesh of more than one rank every step is sharded over it on the
     general tier."""
-    device = _check_device(device)
-    cam = camera(device)
-    target_scene = build_scene(TRUE_ALBEDO, TRUE_EMIT, device)
-    scene = build_scene(START_ALBEDO, START_EMIT, device)
-    light_tex, box_tex = param_tex_rows(scene)
-    sharded = mesh is not None and mesh.size > 1
-    why_not = "--unfused" if unfused else "--no-fast"
-    if sharded:
-        why_not = f"sharded over dp={mesh.dp} sp={mesh.sp} ranks"
-    tier, tier_line = pick_tier(scene, max_depth, device,
-                                fast and not unfused and not sharded, why_not)
-    if tier == "fused":
-        cfg = fast_grad_config(scene)
-        check_kernel_scope(cfg)
-
-    albedo = torch.tensor(START_ALBEDO, dtype=torch.float32, device=device,
-                          requires_grad=True)
-    emit = torch.tensor(START_EMIT, dtype=torch.float32, device=device,
-                        requires_grad=True)
-    log(_describe(device, nx, ny, spp, block, max_depth, seed))
+    run = default_run(nx=nx, ny=ny, spp=spp, block=block,
+                      max_depth=max_depth, device=device, seed=seed,
+                      fast=fast, unfused=unfused, mesh=mesh)
+    albedo, emit = run.albedo, run.emit
+    log(_describe(albedo.device, nx, ny, spp, block, max_depth, seed))
     log(f"target: albedo [{TRUE_ALBEDO[0]:.2f} {TRUE_ALBEDO[1]:.2f} "
         f"{TRUE_ALBEDO[2]:.2f}], emission {TRUE_EMIT:.2f}; start: albedo "
         f"[0.50 0.50 0.50], emission 3.00")
-    log(f"differentiable tier: {tier_line}")
-
-    kw = dict(nx=nx, ny=ny, spp=spp, block=block, max_depth=max_depth)
-    pick = np.random.default_rng(seed) if unfused else None
-
-    def step(i):
-        if tier == "fused":
-            o, d, u = step_inputs(cam, i, device=device, seed=seed, **kw)
-            loss = path_matched_loss(target_scene, scene, light_tex, box_tex,
-                                     albedo, emit, o, d, u, block=block,
-                                     spp=spp, max_depth=max_depth, cfg=cfg)
-            loss.backward()
-            return loss.detach()
-        if unfused:
-            pix = torch.from_numpy(pick.choice(nx * ny, size=block,
-                                               replace=False)).to(device)
-        else:
-            pix = step_pixels(i, nx=nx, ny=ny, block=block, device=device,
-                              seed=seed)
-        return general_step(target_scene, scene, cam, light_tex, box_tex,
-                            albedo, emit, pix, (seed << 32) | i, nx=nx, ny=ny,
-                            spp=spp, max_depth=max_depth, mesh=mesh)
-
-    # per-group lr: emission must travel ~2.0 while albedo travels ≤ 0.3;
-    # the cosine decay damps the momentum overshoot once each arrives
+    log(f"differentiable tier: {run.tier_line}")
     losses, walls = _fit(
-        [(albedo, 0.05, 0.0, 1.0), (emit, 0.25, 0.0, 20.0)], step,
-        steps=steps, horizon=steps, log=log,
+        run.groups, run.step, steps=steps, horizon=steps, log=log,
         show=lambda: (f"albedo {_albedo_str(albedo.detach().cpu().numpy())}  "
                       f"emit {emit.item():.3f}"))
     return dict(albedo=albedo.detach().cpu().numpy(), emit=emit.item(),
-                losses=losses, step_walls=walls, tier=tier)
+                losses=losses, step_walls=walls, tier=run.tier)
 
 
 def train_geometry(*, steps: int = 200, nx: int = 200, ny: int = 200,

@@ -2499,6 +2499,7 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
                   balance: bool | None = None,
                   checkpoint: str | None = None,
                   srec: SceneRecord | None = None,
+                  progress=None,
                   _stop_after_chunks: int | None = None) -> np.ndarray | None:
     """Full-image render through the K1 kernel → float32 [ny, nx, 3], row 0
     at the top, with the reference's gamma (sqrt + clamp,
@@ -2522,6 +2523,8 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
     camera record) matches resumes at the first unfinished sample, with
     any spp_chunk, balance or device; a mismatch warns on stderr and starts
     over. srec: the scene's record when the caller already built it.
+    progress: called as progress(samples done, spp) after each chunk (e.g.
+    `utils.progress.ProgressBar`); it reads no device value.
     _stop_after_chunks: a test hook that stops the render after that many
     chunks, as if the process had died, and returns None. Raises
     UnsupportedScene for scenes outside the kernel.
@@ -2581,6 +2584,8 @@ def render_kernel(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
             with timers.phase("checkpoint_io"):
                 ck.save(checkpoint, want, sums=sums.cpu().numpy(),
                         done=s0 + n)
+        if progress is not None:
+            progress(s0 + n, spp)
         if _stop_after_chunks is not None and i + 1 >= _stop_after_chunks:
             return None
     with timers.phase("finalize"):

@@ -201,7 +201,8 @@ def render_sums_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
                         spp: int, mesh: Mesh, *, device="cuda",
                         seed: int = 0, max_depth: int = 50,
                         rr_depth: int | None = None,
-                        timers: Timers | None = None) -> torch.Tensor:
+                        timers: Timers | None = None,
+                        progress=None) -> torch.Tensor:
     """The general tier's sums f64[3, nx·ny] of the whole image on every
     rank: each rank runs `render.render_sums` on its rows of flat pixel ids
     and its range of samples, then `_sum_shards`.
@@ -212,13 +213,13 @@ def render_sums_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
     `trace_compact` gathers its live lanes with `torch.nonzero`, an exact
     count, so none of that has a counterpart. The closest hits are the
     dense scan's, as on JAX's sharded path (its CLI refuses --sharded with
-    --bvh)."""
+    --bvh). progress: `render_sums`' hook on this rank's ranges."""
     if timers is None:
         timers = Timers()
     sums = render_sums(scene, cam, nx, ny, spp, device=device, seed=seed,
                        max_depth=max_depth, rr_depth=rr_depth, timers=timers,
                        pixels=mesh.rows(nx * ny), samples=mesh.samples(spp),
-                       use_bvh=False)
+                       use_bvh=False, progress=progress)
     with timers.phase("reduce"):
         return _sum_shards(sums, mesh)
 
@@ -226,15 +227,19 @@ def render_sums_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
 def render_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
                    spp: int, mesh: Mesh, *, device="cuda", seed: int = 0,
                    max_depth: int = 50, rr_depth: int | None = None,
-                   timers: Timers | None = None) -> np.ndarray | None:
+                   timers: Timers | None = None,
+                   progress=None) -> np.ndarray | None:
     """Full image through the general tier, sharded over mesh → float32
     [ny, nx, 3] on rank 0 (`render.render`'s contract), None on the other
-    ranks. With sp = 1 it is `render`'s image bit for bit."""
+    ranks. With sp = 1 it is `render`'s image bit for bit. progress:
+    called on rank 0 alone, as progress(done, total) after each of its
+    (pixel block, sample chunk)."""
     if timers is None:
         timers = Timers()
     sums = render_sums_sharded(scene, cam, nx, ny, spp, mesh, device=device,
                                seed=seed, max_depth=max_depth,
-                               rr_depth=rr_depth, timers=timers)
+                               rr_depth=rr_depth, timers=timers,
+                               progress=progress if mesh.rank == 0 else None)
     if mesh.rank != 0:
         return None
     with timers.phase("finalize"):

@@ -162,7 +162,7 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
                 timers: Timers | None = None,
                 pixels: tuple[int, int] | None = None,
                 samples: tuple[int, int] | None = None,
-                use_bvh: bool | None = None,
+                use_bvh: bool | None = None, progress=None,
                 _stop_after_blocks: int | None = None):
     """The general tier's per-pixel radiance sums → f64[3, nx·ny] on the
     device, each pixel's samples added in sample order (see `render`), or
@@ -221,6 +221,9 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
             sums = torch.from_numpy(got["sums"]).to(device)
             start = int(got["next_pixel"])
 
+    n_chunks = len(range(s_lo, s_hi, spp_chunk))
+    total = len(range(p_lo, p_hi, block_pixels)) * n_chunks
+    done = len(range(p_lo, start, block_pixels)) * n_chunks
     n_run = 0
     for lo in range(start, p_hi, block_pixels):
         hi = min(lo + block_pixels, p_hi)
@@ -247,6 +250,9 @@ def render_sums(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int,
                 per_sample = rad.double().view(ns, nb, 3)
                 for k in range(ns):
                     sums[:, lo:hi] += per_sample[k].T
+            done += 1
+            if progress is not None:
+                progress(done, total)
         n_run += 1
         if checkpoint:
             with timers.phase("checkpoint_io"):
@@ -311,7 +317,7 @@ def render(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int, *,
            block_pixels: int = 1 << 16, spp_chunk: int | None = None,
            rr_depth: int | None = None, compact: bool = True,
            checkpoint: str | None = None, timers: Timers | None = None,
-           use_bvh: bool | None = None,
+           use_bvh: bool | None = None, progress=None,
            _stop_after_blocks: int | None = None) -> np.ndarray | None:
     """Full image through the general tier → float32 [ny, nx, 3], row 0 at
     the top, with the reference's gamma (sqrt + clamp, tests/test.rs:72-75).
@@ -337,9 +343,11 @@ def render(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int, *,
     a render whose meta matches resumes after the last saved block (a
     mismatch, a BVH render's checkpoint for a dense one included, warns
     and starts over). timers: phases bvh_build, upload, raygen,
-    trace, accumulate, checkpoint_io, finalize. _stop_after_blocks: a test
-    hook that stops the render after that many blocks, as if the process
-    had died, and returns None.
+    trace, accumulate, checkpoint_io, finalize. progress: called as
+    progress(done, total) after each (pixel block, sample chunk), e.g.
+    `utils.progress.ProgressBar`; it reads no device value.
+    _stop_after_blocks: a test hook that stops the render after that many
+    blocks, as if the process had died, and returns None.
     """
     if timers is None:
         timers = Timers()
@@ -347,7 +355,8 @@ def render(scene: SceneTables, cam: Camera, nx: int, ny: int, spp: int, *,
                        max_depth=max_depth, block_pixels=block_pixels,
                        spp_chunk=spp_chunk, rr_depth=rr_depth,
                        compact=compact, checkpoint=checkpoint, timers=timers,
-                       use_bvh=use_bvh, _stop_after_blocks=_stop_after_blocks)
+                       use_bvh=use_bvh, progress=progress,
+                       _stop_after_blocks=_stop_after_blocks)
     if sums is None:
         return None
     with timers.phase("finalize"):

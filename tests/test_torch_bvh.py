@@ -326,7 +326,8 @@ def test_cli_bvh_switch(tmp_path, capsys):
     with `--engine auto` it renders on the general tier with one line on
     stderr; `on` and `off` give the same image on a scene without ties."""
     base = ["render", "--scene", "two_spheres", "--nx", "16", "--ny", "8",
-            "--spp", "2", "--max-depth", "6", "--device", "cpu"]
+            "--spp", "2", "--max-depth", "6", "--device", "cpu",
+            "--no-progress"]
     out = {k: str(tmp_path / f"{k}.ppm") for k in ("on", "off")}
     assert cli.main(base + ["--bvh", "on", "--engine", "kernel"]) == 2
     assert cli.main(base + ["--bvh", "on", "--sharded"]) == 2

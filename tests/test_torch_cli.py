@@ -1,6 +1,8 @@
 """The port's command line: `python -m raytracing_rust_tpu_torch`."""
 
 import dataclasses
+import json
+import re
 
 import numpy as np
 import pytest
@@ -125,3 +127,102 @@ def test_render_cuda_without_cuda_raises(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["render", "--scene", "cornell_box", "--nx", "8", "--ny",
                   "8", "--spp", "1", "--out", str(tmp_path / "x.ppm")])
+
+
+def test_bench_validates_args(capsys):
+    """`bench` rejects an unknown scene and a non-positive spp with exit 2
+    and JAX's messages (tests/test_cli.py's test_bench_validates_args)."""
+    assert cli.main(["bench", "--scene", "nope"]) == 2
+    assert "cornell_box" in capsys.readouterr().err
+    assert cli.main(["bench", "--scene", "cornell_box", "--spp", "0"]) == 2
+    assert "positive" in capsys.readouterr().err
+
+
+def test_bench_cuda_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["bench", "--spp", "1"])
+
+
+def _small_render(tmp_path, *extra):
+    return ["render", "--scene", "cornell_box", "--nx", "32", "--ny", "32",
+            "--spp", "2", "--device", "cpu", "--out",
+            str(tmp_path / "c.ppm"), *extra]
+
+
+# JAX's log lines of a render (raytracing_rust_tpu/cli.py), after the stamp
+_STAMP = r"\d{4}-\d\d-\d\d \d\d:\d\d:\d\d \[DEBUG\] - "
+
+
+def test_render_log_appends_jax_lines(tmp_path, capsys):
+    """`--log PATH` makes its directory and appends JAX's lines: the
+    request, the timers' summary under --timers and the result, a render
+    after another."""
+    log = tmp_path / "logs" / "render.log"
+    for _ in range(2):
+        assert cli.main(_small_render(tmp_path, "--log", str(log),
+                                      "--timers", "--no-progress")) == 0
+    lines = log.read_text().splitlines()
+    out = str(tmp_path / "c.ppm")
+    pats = [_STAMP + "render scene=cornell_box",
+            _STAMP + r"timers: \{'scene_build': [0-9.e-]+, .*'encode': "
+                     r"[0-9.e-]+\}",
+            _STAMP + r"rendered cornell_box in [0-9]+\.[0-9]s -> "
+            + re.escape(out)]
+    assert len(lines) == 6
+    for ln, pat in zip(lines, pats * 2):
+        assert re.fullmatch(pat, ln), (ln, pat)
+    capsys.readouterr()
+
+
+def test_render_progress_bar_on_stderr(tmp_path, capsys):
+    """The bar goes to stderr by default and ends at 100.0% with a
+    newline; `--no-progress` leaves stderr empty."""
+    log = str(tmp_path / "l.log")
+    assert cli.main(_small_render(tmp_path, "--log", log)) == 0
+    err = capsys.readouterr().err
+    assert err.startswith("\rcornell_box |") and err.endswith("s\n")
+    assert err.count("100.0%") == 1 and err.count("\n") == 1
+    assert cli.main(_small_render(tmp_path, "--log", log,
+                                  "--no-progress")) == 0
+    assert capsys.readouterr().err == ""
+
+
+def test_render_profile_writes_a_trace(tmp_path, capsys):
+    """`--profile DIR` writes a Chrome trace of the render into DIR that
+    names torch's ops, logs its path, and leaves the image as it is."""
+    log = tmp_path / "l.log"
+    prof = tmp_path / "prof"
+    assert cli.main(_small_render(tmp_path, "--log", str(log),
+                                  "--no-progress", "--profile",
+                                  str(prof))) == 0
+    img = read_ppm(str(tmp_path / "c.ppm"))
+    with open(prof / "cornell_box.trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    said = [ln.split(" - ", 1)[1] for ln in log.read_text().splitlines()]
+    assert said[:2] == ["render scene=cornell_box",
+                        f"profiler trace -> {prof / 'cornell_box.trace.json'}"]
+    assert cli.main(_small_render(tmp_path, "--log", str(log),
+                                  "--no-progress")) == 0
+    assert np.array_equal(read_ppm(str(tmp_path / "c.ppm")), img)
+    capsys.readouterr()
+
+
+def test_render_log_names_the_fallback(tmp_path, monkeypatch, capsys):
+    """`--engine auto` on a scene the kernel refuses logs the fallback to
+    the general tier, as JAX's CLI logs its Pallas fallback."""
+    p = PRESETS["cornell_box"]
+    monkeypatch.setitem(PRESETS, "cornell_box", dataclasses.replace(
+        p, build=_rotated_image_sphere_scene))
+    log = tmp_path / "l.log"
+    assert cli.main(["render", "--scene", "cornell_box", "--nx", "8", "--ny",
+                     "8", "--spp", "1", "--device", "cpu", "--out",
+                     str(tmp_path / "x.ppm"), "--log", str(log),
+                     "--no-progress"]) == 0
+    said = [ln.split(" - ", 1)[1] for ln in log.read_text().splitlines()]
+    assert said[0] == "render scene=cornell_box"
+    assert said[1].startswith("kernel unsupported (") and said[1].endswith(
+        "); falling back to xla")
+    assert capsys.readouterr().err.count("\n") == 1

@@ -464,7 +464,8 @@ def test_cli_auto_falls_back_and_kernel_exits_2(tmp_path, capsys,
     monkeypatch.setitem(PRESETS, "cornell_box", dataclasses.replace(
         p, build=lambda device="cpu": _nine_media().to(device)))
     argv = ["render", "--scene", "cornell_box", "--nx", "12", "--ny", "8",
-            "--spp", "1", "--max-depth", "6", "--device", "cpu"]
+            "--spp", "1", "--max-depth", "6", "--device", "cpu",
+            "--no-progress"]
     out = tmp_path / "k.ppm"
     assert cli.main(argv + ["--engine", "kernel", "--out", str(out)]) == 2
     assert "9 media" in capsys.readouterr().err and not out.exists()
