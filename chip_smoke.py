@@ -10,8 +10,11 @@ Run from the repository root with no arguments:
 Phases, one JSON line each on stdout:
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from csrc/ with nvcc (timed), with ptxas's
-     registers and spills per instantiation and the blocks of each K1
-     instantiation an SM holds (the runtime's occupancy query);
+     registers and spills per instantiation, the blocks of each K1
+     instantiation an SM holds (the runtime's occupancy query) and, from
+     cuobjdump's SASS, each K1 instantiation's loads in its loop over the
+     unrolled record's rows (shared-memory LDS against constant-bank LDC,
+     ULDC and operands);
   3. the K1a kernel against its plain torch version, on the card, on the
      same records and draws: cornell_box 800×800, 4 spp, depth 50;
   4. sample chunks of 2 and 4 give bit-identical kernel sums;
@@ -114,14 +117,16 @@ Phases, one JSON line each on stdout:
      spp, depth 50, with its launch counts and a check of the image, and a
      render at 128×72, 100 spp whose mean is held to the JAX XLA tier's;
  31. Russian roulette (K1g) against its plain version: cornell_box
-     800×800, 4 spp, rr_depth 6 (a K1B launch), and final_scene 800×800,
+     800×800, 4 spp, rr_depth 6 (the static instantiation with RR), and
+     final_scene 800×800,
      1 spp, rr_depth 5 (the dense-medium walk off), depth 50, under phase
      3's gates and bit for bit; both versions' times and the roulette
      draws;
  32. the roulette path through the command line, `render --scene
      cornell_box_baseline --rr-depth 6 --device cuda` (800×800, 500 spp,
-     depth 50), with K1g's launch count, its mean within ±5% of phase 5's
-     reference, and its trace time beside phase 5's;
+     depth 50), with K1g's launch count, the instantiation its launches
+     ran (the static one with RR, never K1B), its mean within ±5% of phase
+     5's reference, and its trace time beside phase 5's;
  33. K1f's stats instantiation against the production kernel (sums bit
      for bit) and the plain version (sums bit for bit; per-pixel
      segments, sphere and box member tests and the warp steps equal):
@@ -2260,6 +2265,7 @@ def main() -> int:
         tracer.K1F_LAUNCHES = tracer.K1F_TABLE_LAUNCHES = 0
         tracer.K1F_STATS_LAUNCHES = tracer.K1F_DDA_LAUNCHES = 0
         tracer.K1F_PROBE_LAUNCHES = 0
+        tracer.K1_INSTANTIATION_LAUNCHES.clear()
         grad.K2_LAUNCHES = grad.K3_LAUNCHES = 0
         peak.D3_LAUNCHES = 0
         mb.D1_LAUNCHES = mb.D2_LAUNCHES = 0
@@ -2307,6 +2313,7 @@ def main() -> int:
                 rc = cli.main(argv)
             wall = time.perf_counter() - t
             launches = k1_launches()
+            instantiations = dict(tracer.K1_INSTANTIATION_LAUNCHES)
             check(rc == 0, f"cli.main({argv}) returned {rc}")
             img = read_ppm(out)
         text = buf.getvalue()
@@ -2317,6 +2324,7 @@ def main() -> int:
                     render_primary_rays_per_s=(float(rate.group(1)) * 1e6
                                                if rate else None),
                     timers=timers, launches=launches,
+                    k1_instantiations=instantiations,
                     image_shape=list(img.shape),
                     mean_luminance=float(img.mean())), img
 
@@ -2352,9 +2360,20 @@ def main() -> int:
                   if d2 else m.group(1))
         elif fn and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(fn, []).append(ln.split(" : ")[-1].strip())
-    emit("build", seconds=time.perf_counter() - t, nvcc=_build._nvcc(),
+    build_s = time.perf_counter() - t
+    # per K1 instantiation: its SASS's loads in the loop over the unrolled
+    # record's rows (its fields from shared memory: LDS, one load a thread;
+    # LDC, ULDC and constant operands read the constant bank) and in the
+    # whole kernel
+    loads = tracer.k1_sass_loads(lib_path)
+    emit("build", seconds=build_s, nvcc=_build._nvcc(),
          library=os.path.relpath(lib_path), ptxas=ptxas,
-         k1_blocks_per_sm=tracer.k1_blocks_per_sm())
+         k1_blocks_per_sm=tracer.k1_blocks_per_sm(),
+         k1_row_loop_loads={k: [{c: r[c] for c in ("lds", "ldc", "uldc",
+                                                   "const_operands")}
+                                for r in v["row_loops"]]
+                            for k, v in loads.items()},
+         k1_whole_loads={k: v["whole"] for k, v in loads.items()})
 
     # -- 3. kernel vs plain, cornell_box 800×800, 4 spp, depth 50
     p = PRESETS["cornell_box_baseline"]
@@ -2591,7 +2610,9 @@ def main() -> int:
         def sums():
             return torch.zeros((3, nx * ny), dtype=torch.float64, device=dev)
 
+        ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
         k = tracer.trace(ops, sums(), **kw)
+        ran = sorted(tracer.K1_INSTANTIATION_LAUNCHES - ran)
         pl = sums()
         work = {}
         pl_ms = cuda_ms(lambda: tracer.trace_plain(ops, pl.zero_(),
@@ -2612,7 +2633,8 @@ def main() -> int:
                    **k1_bound(ops, work, nx * ny, n_samples))
         held[key or scene] = dict(work=work, spp=n_samples)
         emit(phase, scene=scene, shape=[ny, nx], depth=50,
-             rr_depth=rr_depth, feats=ops.feats, unrolled=len(srec.kinds),
+             rr_depth=rr_depth, feats=ops.feats, instantiation=ran,
+             unrolled=len(srec.kinds),
              dynamic=int(ops.dyn.shape[0]), leaves=int(ops.leaves.shape[0]),
              sups=int(ops.sups.shape[0]),
              media=int(ops.med.shape[0]), atlas=list(ops.atlas.shape),
@@ -2923,6 +2945,10 @@ def main() -> int:
          trace_seconds_without_roulette=cornell_trace_s)
     check(rr_launches["k1g_roulette_trace"] > 0,
           f"cornell_box --rr-depth 6: K1g never launched: {rr_launches}")
+    # roulette alone runs the static instantiation with RR, never K1B
+    check(set(info["k1_instantiations"]) == {"trace_k1<0,0,0,0,1>"},
+          f"cornell_box --rr-depth 6 launched {info['k1_instantiations']}, "
+          f"not the static instantiation with roulette alone")
     check(img.shape == (800, 800, 3)
           and bool(((img >= 0) & (img <= 1)).all()),
           "cornell_box --rr-depth 6: image has the wrong shape or range")
@@ -3004,7 +3030,7 @@ def main() -> int:
     per_sm = tracer.k1_blocks_per_sm()
     # both presets run a K1B+DYN instantiation, with or without the leaves
     # in shared memory (the same registers)
-    per_sm = min(per_sm["trace_k1<1,1,0,0>"], per_sm["trace_k1<1,1,1,0>"])
+    per_sm = min(per_sm["trace_k1<1,1,0,0,0>"], per_sm["trace_k1<1,1,1,0,0>"])
     for scene, n_samples in (("random_spheres", 2), ("final_scene", 1)):
         sops, snx, sny = preset_ops(scene)
         n_pix = snx * sny

@@ -84,9 +84,9 @@ def load() -> ctypes.CDLL:
     lib.rt_trace_k1.argtypes = [p, i, p, i, p, i, p, i, p, i, p, i, p, i, i,
                                 u, u, i, i, i, p, i, i, p, i, i, u, p, i, p,
                                 i, p, i, p, i, p, i, i, p, i, i, i, p, p, i,
-                                p]
+                                p, p]
     lib.rt_trace_k1.restype = i
-    lib.rt_trace_k1_blocks_per_sm.argtypes = [i, i, i, i, p]
+    lib.rt_trace_k1_blocks_per_sm.argtypes = [i, i, i, i, i, p]
     lib.rt_trace_k1_blocks_per_sm.restype = i
     lib.rt_grad_fwd.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i,
                                 i, p, p]

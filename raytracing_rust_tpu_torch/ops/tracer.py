@@ -46,9 +46,11 @@ Random numbers are Philox4x32-10 keyed by the seed and addressed by
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import math
+import re
 from dataclasses import dataclass
 
 import numpy as np
@@ -228,6 +230,10 @@ K1F_TABLE_LAUNCHES = 0
 K1F_STATS_LAUNCHES = 0
 K1F_PROBE_LAUNCHES = 0
 K1F_DDA_LAUNCHES = 0
+# launches by the instantiation that ran ("trace_k1<K1B,DYN,LEAF_SMEM,STATS,
+# RR>", as the kernel reports it): which one a path took (cornell_box
+# --rr-depth: the static one with RR)
+K1_INSTANTIATION_LAUNCHES: collections.Counter = collections.Counter()
 
 # f32 and integer operations of csrc/tracer.cu per item, counted from its
 # source (an add, multiply, compare or transcendental is one): a lane
@@ -1947,6 +1953,7 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor | None, *, nx: int,
     global K1E_BOX_LAUNCHES, K1D_WALK_LAUNCHES, K1_LATTICE_LAUNCHES
     global K1G_LAUNCHES, K1F_LAUNCHES, K1F_TABLE_LAUNCHES, K1F_STATS_LAUNCHES
     global K1F_PROBE_LAUNCHES, K1F_DDA_LAUNCHES
+    inst = ctypes.c_int(-1)
     err = lib.rt_trace_k1(
         ops.rec.data_ptr(), ops.rec.shape[0], ops.walk.data_ptr(),
         ops.walk.shape[1], ops.dyn.data_ptr(), ops.dyn.shape[0],
@@ -1965,9 +1972,12 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor | None, *, nx: int,
         None if pix is None else pix.data_ptr(),
         0 if pix is None else pix.numel(), kpix, probe_split,
         None if probe_steps is None else probe_steps.data_ptr(),
-        None if stats is None else stats.data_ptr(), int(dda), stream)
+        None if stats is None else stats.data_ptr(), int(dda),
+        ctypes.addressof(inst), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
+    if inst.value >= 0:   # the library reports it (a stand-in may not)
+        K1_INSTANTIATION_LAUNCHES[instantiation_name(inst.value)] += 1
     n_dyn, n_box = ops.dyn.shape[0], ops.box.shape[0]
     k1f = pix is not None or stats is not None
     if ops.feats == 0 and n_dyn == 0 and n_box == 0 and not k1f:
@@ -2062,17 +2072,30 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     return sums
 
 
-# the ten instantiations of csrc/tracer.cu by their template arguments (K1B,
-# DYN, LEAF_SMEM, STATS: 0 none, 1 the stats launch's counters, 2 the cost
-# probe's), as ptxas names them
-K1_INSTANTIATIONS = ((0, 0, 0, 0), (0, 1, 0, 0), (0, 1, 1, 0), (1, 0, 0, 0),
-                     (1, 1, 0, 0), (1, 1, 1, 0), (1, 1, 0, 1), (1, 1, 1, 1),
-                     (1, 1, 0, 2), (1, 1, 1, 2))
+# the eleven instantiations of csrc/tracer.cu by their template arguments
+# (K1B, DYN, LEAF_SMEM, STATS: 0 none, 1 the stats launch's counters, 2 the
+# cost probe's; RR: roulette in the static instantiation), as ptxas names
+# them
+K1_INSTANTIATIONS = ((0, 0, 0, 0, 0), (0, 0, 0, 0, 1), (0, 1, 0, 0, 0),
+                     (0, 1, 1, 0, 0), (1, 0, 0, 0, 0), (1, 1, 0, 0, 0),
+                     (1, 1, 1, 0, 0), (1, 1, 0, 1, 0), (1, 1, 1, 1, 0),
+                     (1, 1, 0, 2, 0), (1, 1, 1, 2, 0))
+
+
+def instantiation_name(code: int) -> str:
+    """The instantiation of a launch's code (csrc/tracer.cu `Pick::code`:
+    K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3 | RR << 5) →
+    "trace_k1<K1B,DYN,LEAF_SMEM,STATS,RR>"."""
+    if not 0 <= code < 64:
+        raise ValueError(f"no K1 instantiation has the code {code}")
+    flags = (code & 1, code >> 1 & 1, code >> 2 & 1, code >> 3 & 3,
+             code >> 5 & 1)
+    return f"trace_k1<{','.join(map(str, flags))}>"
 
 
 def k1_blocks_per_sm() -> dict:
     """Blocks of THREADS threads that an SM of the current card holds, per
-    instantiation ("trace_k1<K1B,DYN,LEAF_SMEM,STATS>"), without dynamic
+    instantiation ("trace_k1<K1B,DYN,LEAF_SMEM,STATS,RR>"), without dynamic
     shared memory, by the runtime's occupancy query; raises without
     CUDA."""
     if not torch.cuda.is_available():
@@ -2087,6 +2110,28 @@ def k1_blocks_per_sm() -> dict:
             raise RuntimeError(f"occupancy of trace_k1{flags}: cudaError "
                                f"{err}")
         out[f"trace_k1<{','.join(map(str, flags))}>"] = blocks.value
+    return out
+
+
+def k1_sass_loads(library: str | None = None, text: str | None = None
+                  ) -> dict:
+    """The loads of each K1 instantiation's SASS ("trace_k1<...>", its
+    template arguments), by where they read (`sass.load_counts`): the
+    whole kernel (`whole`) and each loop over the unrolled record's rows
+    (`row_loops`, `sass.row_loops`); from `cuobjdump -sass` of the library
+    (this checkout's build unless named), or from its listing `text`."""
+    from . import sass
+    if text is None:
+        from ._build import build
+        text = sass.cuobjdump_sass(library or build()[0])
+    out = {}
+    for name, instrs in sass.functions(text).items():
+        m = re.search(r"trace_k1I((?:L[bi]\d+E)+)E", name)
+        if m:
+            flags = ",".join(re.findall(r"L[bi](\d+)E", m.group(1)))
+            out[f"trace_k1<{flags}>"] = dict(
+                whole=sass.load_counts([s for _, s in instrs]),
+                row_loops=sass.row_loops(instrs))
     return out
 
 
@@ -2306,7 +2351,8 @@ def probe_resident(device) -> int:
             per_sm = k1_blocks_per_sm()
         _RESIDENT[idx] = (
             torch.cuda.get_device_properties(idx).multi_processor_count
-            * min(per_sm["trace_k1<1,1,0,2>"], per_sm["trace_k1<1,1,1,2>"]))
+            * min(per_sm["trace_k1<1,1,0,2,0>"],
+                  per_sm["trace_k1<1,1,1,2,0>"]))
     return _RESIDENT[idx]
 
 

@@ -246,9 +246,9 @@ def test_dda_launch_counts_after_success():
     assert (tracer.K1F_DDA_LAUNCHES, tracer.K1F_STATS_LAUNCHES) == before
     lib = Lib(0)
     tracer._launch(lib, ops, sums, dda=True, **kw)
-    assert lib.args[-2] == 1
+    assert lib.args[-3] == 1   # dda, (the instantiation's slot), stream
     tracer._launch(lib, ops, sums, **dict(kw, stats=tracer.new_stats(
         2, 2, "cpu")))
-    assert lib.args[-2] == 0
+    assert lib.args[-3] == 0
     assert (tracer.K1F_DDA_LAUNCHES, tracer.K1F_STATS_LAUNCHES) == (
         before[0] + 1, before[1] + 2)

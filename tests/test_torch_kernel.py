@@ -361,8 +361,29 @@ def _expected_launches(ops):
             bool(f & tracer.FEAT_LATTICE), bool(f & tracer.FEAT_RR))
 
 
+def _expected_instantiation(ops):
+    """(K1B, DYN, RR) of the instantiation one launch of ops runs (with no
+    pixel table or stats): roulette alone, without a table, runs the static
+    instantiation with RR; any other feature bit runs a K1B one."""
+    f = ops.feats
+    dyn = int(bool(ops.dyn.shape[0] or ops.box.shape[0]))
+    rr = int(f == tracer.FEAT_RR and not dyn)
+    return int(f != 0 and not rr), dyn, rr
+
+
 def _launches():
     return tuple(getattr(tracer, n) for n in _COUNTERS)
+
+
+def _ran(before):
+    """The instantiations launched since `before` (a copy of
+    tracer.K1_INSTANTIATION_LAUNCHES), each as (K1B, DYN, RR)."""
+    out = []
+    for name, n in (tracer.K1_INSTANTIATION_LAUNCHES - before).items():
+        k1b, dyn, _, stats, rr = map(int, name[9:-1].split(","))
+        assert stats == 0, name
+        out += [(k1b, dyn, rr)] * n
+    return out
 
 
 def _assert_kernel_matches_plain(k, p):
@@ -381,16 +402,19 @@ def _assert_kernel_matches_plain(k, p):
     _small_spheres(3000), _preset("two_perlin_spheres"),
     _preset("simple_light"), _preset("earth"), _preset("cornell_smoke"),
     _image_sphere(16, 32, compat=True), _every_feature, _textured_crowd,
-    _preset("final_scene"), _cubes, _shared_faces, _sealed])
+    _preset("final_scene"), _cubes, _shared_faces, _sealed,
+    _preset("two_spheres")])
 def test_kernel_matches_plain(cuda, make):
     nx, ny = 96, 64
     ops = _operands(*make(nx, ny), cuda)
     kw = dict(nx=nx, ny=ny, seed=3, sample0=0, n_samples=4, max_depth=50)
     before = _launches()
+    ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
     k = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
                                       device=cuda), **kw)
     assert _launches() == tuple(b + e for b, e in
                                 zip(before, _expected_launches(ops)))
+    assert _ran(ran) == [_expected_instantiation(ops)]
     p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
     torch.cuda.synchronize()
     _assert_kernel_matches_plain(k, p)
@@ -421,9 +445,12 @@ def test_kernel_lattice_matches_plain(cuda, make):
     (_cornell, 6), (_preset("final_scene"), 5), (_lattice, 3)])
 def test_kernel_roulette_matches_plain(cuda, make, rr_depth):
     """Russian roulette (K1g) against the plain version, with its launch
-    count: cornell_box (a K1B launch), final_scene (the walk cleared) and
-    the lattice scene; at rr_depth == max_depth the kernel's sums equal
-    those without roulette bit for bit (cornell_box: K1B against K1a)."""
+    count and the instantiation it ran: cornell_box (the static
+    instantiation with RR, bit for bit equal to plain), final_scene (the
+    walk cleared; K1B with its tables) and the lattice scene (K1B); at
+    rr_depth == max_depth the kernel's sums equal those without roulette
+    bit for bit (cornell_box: the static instantiation with RR against
+    K1a's)."""
     nx, ny = 96, 64
     scene, cam = make(nx, ny)
     srec = tracer.build_scene_record(scene)
@@ -433,21 +460,27 @@ def test_kernel_roulette_matches_plain(cuda, make, rr_depth):
     assert not ops.feats & tracer.FEAT_DENSE_WALK
     kw = dict(nx=nx, ny=ny, seed=7, sample0=0, n_samples=4, max_depth=50)
     before = _launches()
+    ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
     k = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
                                       device=cuda), **kw)
     assert _launches() == tuple(b + e for b, e in
                                 zip(before, _expected_launches(ops)))
+    assert _ran(ran) == [_expected_instantiation(ops)]
     p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
     torch.cuda.synchronize()
     _assert_kernel_matches_plain(k, p)
     if make is _cornell:
+        assert _ran(ran) == [(0, 0, 1)]
+        assert torch.equal(k, p)
         kw["max_depth"] = 12
+        ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
         capped = tracer.trace(tracer.trace_operands(srec, cam, cuda,
                                                     rr_depth=12),
                               torch.zeros_like(k), **kw)
         off = tracer.trace(tracer.trace_operands(srec, cam, cuda),
                            torch.zeros_like(k), **kw)
         torch.cuda.synchronize()
+        assert sorted(_ran(ran)) == [(0, 0, 0), (0, 0, 1)]
         assert torch.equal(capped, off)
 
 

@@ -158,7 +158,9 @@ def test_probe_launch_passes_its_arguments():
     lib = Lib(0)
     tracer._launch(lib, ops, None, **kw)
     assert lib.args[12] is None   # no sums
-    assert lib.args[-5:] == (2, steps.data_ptr(), busy.data_ptr(), 0, None)
+    # probe_split, probe_steps, stats, dda, (the instantiation's slot), stream
+    assert lib.args[-6:-2] == (2, steps.data_ptr(), busy.data_ptr(), 0)
+    assert lib.args[-1] is None
     assert [getattr(tracer, n) - b for n, b in zip(names, before)] == [
         1, 1, 1, 0, 0]
 
