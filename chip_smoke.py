@@ -117,15 +117,14 @@ Phases, one JSON line each on stdout:
      spp, depth 50, with its launch counts and a check of the image, and a
      render at 128×72, 100 spp whose mean is held to the JAX XLA tier's;
  31. Russian roulette (K1g) against its plain version: cornell_box
-     800×800, 4 spp, rr_depth 6 (the static instantiation with RR), and
-     final_scene 800×800,
-     1 spp, rr_depth 5 (the dense-medium walk off), depth 50, under phase
-     3's gates and bit for bit; both versions' times and the roulette
-     draws;
+     800×800, 4 spp, rr_depth 6 (the static instantiation, K1a's), and
+     final_scene 800×800, 1 spp, rr_depth 5 (the dense-medium walk off),
+     depth 50, under phase 3's gates and bit for bit; both versions' times
+     and the roulette draws;
  32. the roulette path through the command line, `render --scene
      cornell_box_baseline --rr-depth 6 --device cuda` (800×800, 500 spp,
      depth 50), with K1g's launch count, the instantiation its launches
-     ran (the static one with RR, never K1B), its mean within ±5% of phase
+     ran (the static one, never K1B), its mean within ±5% of phase
      5's reference, and its trace time beside phase 5's;
  33. K1f's stats instantiation against the production kernel (sums bit
      for bit) and the plain version (sums bit for bit; per-pixel
@@ -2945,10 +2944,10 @@ def main() -> int:
          trace_seconds_without_roulette=cornell_trace_s)
     check(rr_launches["k1g_roulette_trace"] > 0,
           f"cornell_box --rr-depth 6: K1g never launched: {rr_launches}")
-    # roulette alone runs the static instantiation with RR, never K1B
-    check(set(info["k1_instantiations"]) == {"trace_k1<0,0,0,0,1>"},
+    # roulette alone runs the static instantiation, never K1B
+    check(set(info["k1_instantiations"]) == {"trace_k1<0,0,0,0>"},
           f"cornell_box --rr-depth 6 launched {info['k1_instantiations']}, "
-          f"not the static instantiation with roulette alone")
+          f"not the static instantiation")
     check(img.shape == (800, 800, 3)
           and bool(((img >= 0) & (img <= 1)).all()),
           "cornell_box --rr-depth 6: image has the wrong shape or range")
@@ -3030,7 +3029,7 @@ def main() -> int:
     per_sm = tracer.k1_blocks_per_sm()
     # both presets run a K1B+DYN instantiation, with or without the leaves
     # in shared memory (the same registers)
-    per_sm = min(per_sm["trace_k1<1,1,0,0,0>"], per_sm["trace_k1<1,1,1,0,0>"])
+    per_sm = min(per_sm["trace_k1<1,1,0,0>"], per_sm["trace_k1<1,1,1,0>"])
     for scene, n_samples in (("random_spheres", 2), ("final_scene", 1)):
         sops, snx, sny = preset_ops(scene)
         n_pix = snx * sny

@@ -59,18 +59,17 @@
 // version of the same computation are in ops/tracer.py (`trace_plain`,
 // `trace_probe`, `probe_plain`).
 //
-// The kernel is a template over five flags: K1B (any feature bit: sky,
+// The kernel is a template over four flags: K1B (any feature bit: sky,
 // checker, metal, dielectric, moving spheres, noise, image, media, the
 // walk, the lattice corners; roulette beside any of them or a table), DYN
 // (a dynamic sphere table, a box table or a pixel table), LEAF_SMEM (the
-// leaf tables sit in shared memory), STATS (0: none; 1: the counters of a
-// stats launch; 2: the cost probe's; set only with K1B and DYN, so two
+// leaf tables sit in shared memory) and STATS (0: none; 1: the counters of
+// a stats launch; 2: the cost probe's; set only with K1B and DYN, so two
 // instantiations of each serve every scene and the others keep their
-// registers) and RR (roulette in the instantiation without K1B and DYN).
-// cornell_box runs the instantiation with all of them off, which is K1a as
-// it was, and with --rr-depth the one with RR alone (K1g's path, which K1B
-// ran until roulette became a flag of its own: K1a's code and the roulette
-// draw, without the K1B branches and their registers). Inside the K1B
+// registers). cornell_box runs the instantiation with all of them off,
+// which is K1a, with and without --rr-depth: roulette alone is a branch on
+// its feature bit there (K1g's path, which K1B ran until then), so it runs
+// K1a's code and registers without the K1B branches. Inside the K1B
 // instantiations the fifteen features (the compat
 // sphere-UV constant counted) are branches on the launch's feature bits,
 // the same for every thread; inside DYN the box loop is a runtime loop,
@@ -188,19 +187,6 @@ constexpr int TILE_W = 16, TILE_H = THREADS / TILE_W;
 // shared memory a launch gets without opting in; the leaf table goes there
 // when it fits beside the record
 constexpr size_t SMEM_BUDGET = 48 * 1024;
-
-// K1_STATIC_MIN_BLOCKS: a timing build of `kernel_ab --bounds` alone (the
-// production build never defines it): the instantiations without K1B and
-// DYN (cornell_box's, with and without roulette) must fit that many blocks
-// on an SM, which caps their registers. A minimum of 1 is not the
-// production bound: with it ptxas gave the K1B instantiations 84-96
-// registers in place of 72-80 (PERF.md §6)
-#ifdef K1_STATIC_MIN_BLOCKS
-#define K1_LAUNCH_BOUNDS(STATIC) \
-  __launch_bounds__(THREADS, (STATIC) ? K1_STATIC_MIN_BLOCKS : 1)
-#else
-#define K1_LAUNCH_BOUNDS(STATIC) __launch_bounds__(THREADS)
-#endif
 
 // ops/tracer.py FEAT_*
 constexpr int FEAT_SKY = 1, FEAT_CHECKER = 2, FEAT_METAL = 4, FEAT_DIEL = 8,
@@ -614,8 +600,8 @@ __device__ __forceinline__ float media_race(
   return t_med;
 }
 
-template <bool K1B, bool DYN, bool LEAF_SMEM, int STATS, bool RR>
-__global__ void K1_LAUNCH_BOUNDS(!K1B && !DYN)
+template <bool K1B, bool DYN, bool LEAF_SMEM, int STATS>
+__global__ void __launch_bounds__(THREADS)
 trace_k1(const float* __restrict__ rec, int n_rec,
          const int* __restrict__ walk, int n_walk,
          const float* __restrict__ dyn, int n_dyn,
@@ -635,12 +621,12 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          const float* __restrict__ bsups, int n_bsup, int probe_split,
          long long* __restrict__ probe_steps) {
   // the scene's features; all off outside the K1B instantiations, but
-  // roulette, which the static instantiation with RR plays too
+  // roulette, which the static instantiation plays too
   const bool emis_tex = K1B && (feats & FEAT_EMIS_TEX),
              uv_carry = K1B && (feats & FEAT_UV_CARRY),
              img_flip = K1B && (feats & FEAT_IMG_FLIP),
              med_tex = K1B && (feats & FEAT_MED_TEX),
-             rr = RR || (K1B && (feats & FEAT_RR));
+             rr = (K1B || !DYN) && (feats & FEAT_RR);
   const bool sky = K1B && (feats & FEAT_SKY),
              checker = K1B && (feats & FEAT_CHECKER),
              metal = K1B && (feats & FEAT_METAL),
@@ -1413,43 +1399,30 @@ using TraceFn = void (*)(const float*, int, const int*, int, const float*,
 // the instantiations, indexed [K1B][DYN][LEAF_SMEM]; without a dynamic
 // table there is no leaf table
 const TraceFn KERNELS[2][2][2] = {
-    {{trace_k1<false, false, false, 0, false>,
-      trace_k1<false, false, false, 0, false>},
-     {trace_k1<false, true, false, 0, false>,
-      trace_k1<false, true, true, 0, false>}},
-    {{trace_k1<true, false, false, 0, false>,
-      trace_k1<true, false, false, 0, false>},
-     {trace_k1<true, true, false, 0, false>,
-      trace_k1<true, true, true, 0, false>}}};
-// Russian roulette alone, without a table (cornell_box --rr-depth): the
-// static instantiation's code and the roulette draw, so the roulette path
-// keeps K1a's registers and no K1B branch
-const TraceFn RR_KERNEL = trace_k1<false, false, false, 0, true>;
+    {{trace_k1<false, false, false, 0>, trace_k1<false, false, false, 0>},
+     {trace_k1<false, true, false, 0>, trace_k1<false, true, true, 0>}},
+    {{trace_k1<true, false, false, 0>, trace_k1<true, false, false, 0>},
+     {trace_k1<true, true, false, 0>, trace_k1<true, true, true, 0>}}};
 // K1f's counters ride in instantiations of their own, K1B and DYN with
 // every section a runtime branch, so they serve every scene and leave the
 // production kernels' registers as they were: the stats launch's and the
 // cost probe's, indexed [STATS − 1][LEAF_SMEM]
 const TraceFn STATS_KERNELS[2][2] = {
-    {trace_k1<true, true, false, 1, false>,
-     trace_k1<true, true, true, 1, false>},
-    {trace_k1<true, true, false, 2, false>,
-     trace_k1<true, true, true, 2, false>}};
+    {trace_k1<true, true, false, 1>, trace_k1<true, true, true, 1>},
+    {trace_k1<true, true, false, 2>, trace_k1<true, true, true, 2>}};
 
 // The instantiation a launch runs: its kernel and its code, K1B | DYN << 1
-// | LEAF_SMEM << 2 | STATS << 3 | RR << 5 (ops/tracer.py
-// `instantiation_name`)
+// | LEAF_SMEM << 2 | STATS << 3 (ops/tracer.py `instantiation_name`)
 struct Pick {
   TraceFn fn;
   int code;
 };
 
-Pick pick(int k1b, int dyn, int leaf_smem, int stats, int rr) {
-  const TraceFn fn =
-      stats ? STATS_KERNELS[stats - 1][leaf_smem != 0]
-      : rr  ? RR_KERNEL
-            : KERNELS[k1b != 0][dyn != 0][leaf_smem != 0 && dyn != 0];
-  return {fn, (k1b != 0) | (dyn != 0) << 1 | (leaf_smem != 0) << 2 |
-                  stats << 3 | (rr != 0) << 5};
+Pick pick(int k1b, int dyn, int leaf_smem, int stats) {
+  leaf_smem = leaf_smem != 0 && dyn != 0;
+  const TraceFn fn = stats ? STATS_KERNELS[stats - 1][leaf_smem]
+                           : KERNELS[k1b != 0][dyn != 0][leaf_smem];
+  return {fn, (k1b != 0) | (dyn != 0) << 1 | leaf_smem << 2 | stats << 3};
 }
 
 }  // namespace
@@ -1528,11 +1501,11 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
   if (n_bleaf == 0) n_bsup = 0;
   // a table runs in a DYN instantiation (zero-trip table loops without
   // tables), the counters in their own, roulette with no other feature and
-  // no table in the static instantiation with RR
+  // no table in the static instantiation
   const bool dyn_inst = stats != nullptr || n_dyn > 0 || n_box > 0 ||
                         pix_table != nullptr;
-  const bool k1b = stats != nullptr || (feats != 0 && feats != FEAT_RR) ||
-                   (feats == FEAT_RR && dyn_inst);
+  const bool k1b = stats != nullptr || (feats & ~FEAT_RR) != 0 ||
+                   (feats != 0 && dyn_inst);
   const size_t base =
       sizeof(float) * (n_rec * REC + CAMREC + (dyn_inst ? 12 : 0) +
                        n_med * MEDREC + n_int * REC) +
@@ -1549,8 +1522,7 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                      : pix_table != nullptr ? n_table / kpix / THREADS
                                             : (n_pix + THREADS - 1) / THREADS;
   const Pick k = pick(k1b, dyn_inst, leaf_smem,
-                      stats == nullptr ? 0 : probe ? 2 : 1,
-                      !k1b && feats == FEAT_RR);
+                      stats == nullptr ? 0 : probe ? 2 : 1);
   k.fn<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       rec, n_rec, walk, n_walk, dyn, n_dyn, leaves, n_leaf, cam, feats, sums,
       nx, ny, seed_lo, seed_hi, sample0, n_samples, max_depth, med, n_med,
@@ -1568,15 +1540,13 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
 // The blocks of THREADS threads of one instantiation that an SM holds
 // without dynamic shared memory (the records take a few KB of the SM's
 // 228 KB, so registers decide), by the runtime's occupancy query, into
-// *blocks: the production kernel [k1b][dyn][leaf_smem], the static one
-// with roulette (rr set, the others 0), or with stats 1 the stats launch's
-// [leaf_smem] and with stats 2 the cost probe's (k1b and dyn set). Returns
-// the cudaError.
+// *blocks: the production kernel [k1b][dyn][leaf_smem], or with stats 1
+// the stats launch's [leaf_smem] and with stats 2 the cost probe's (k1b and
+// dyn set). Returns the cudaError.
 extern "C" int rt_trace_k1_blocks_per_sm(int k1b, int dyn, int leaf_smem,
-                                         int stats, int rr, int* blocks) {
-  if (stats < 0 || stats > 2 || (stats && !(k1b && dyn)) ||
-      (rr && (k1b || dyn || leaf_smem || stats)))
+                                         int stats, int* blocks) {
+  if (stats < 0 || stats > 2 || (stats && !(k1b && dyn)))
     return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, pick(k1b, dyn, leaf_smem, stats, rr).fn, THREADS, 0);
+      blocks, pick(k1b, dyn, leaf_smem, stats).fn, THREADS, 0);
 }

@@ -7,17 +7,15 @@ this checkout and another one; the time shares of two K1 sections.
 DIR is another checkout of the repository, e.g. the parent commit unpacked
 with `git archive` into a directory `.gitignore` lists. On one CUDA card the
 script builds both checkouts' kernels, compares the SASS of the K1a
-instantiation (`trace_k1<false, false, false, false, false>`,
-cornell_box's kernel) and of the other production instantiations (STATS
+instantiation (`trace_k1<false, false, false, false>`,
+cornell_box's kernel, with and without roulette) and of the other production instantiations (STATS
 off) line by line without addresses, counts every instantiation's loads
 in its row loops (`tracer.k1_sass_loads`), reports both builds' ptxas
 registers and spills and blocks an SM, and times the kernel in each
 checkout in turns (other, this, this, other) on the shapes of `SCENES`:
 cornell_box_baseline 800×800 at 100 spp (also with roulette from bounce
 6, K1g), as the command line's five launches of 500 spp with and
-without roulette, at 104 spp (one launch of the command line's chunk)
-on K1a and on a K1B instantiation with no feature at work (the `k1b`
-variant), random_spheres 1280×720 at 100 spp, two_spheres and
+without roulette, random_spheres 1280×720 at 100 spp, two_spheres and
 two_perlin_spheres 1280×720 at 10 spp, earth 1280×720 at 10 spp,
 cornell_smoke 800×800 at 100 spp, final_scene 800×800 at 10 spp, then at
 the comparison shapes of chip_smoke.py (cornell_box_baseline and
@@ -66,18 +64,6 @@ spheres (`crowd`: n = 1,000 to 20,000, 64 to 2,048 leaves) at 1280×720 ×
 summed) by CUDA events after a warm-up; the sums show whether both forms
 compute the same image.
 
-    python -m raytracing_rust_tpu_torch.kernel_ab --bounds N [N ...]
-        [--turns N] [--out FILE]
-
-times this checkout's instantiations without K1B and DYN (cornell_box's,
-with and without roulette) in builds under `-DK1_STATIC_MIN_BLOCKS=N`
-(`__launch_bounds__(THREADS, N)`: the blocks an SM must hold, which caps
-their registers) against the production build, in fresh processes in
-turns (production, each N, each N backwards, production), on
-`BOUND_SHAPES` (the command line's five launches at 500 spp with and
-without roulette from bounce 6, and the comparison shape at 2 spp), with
-each build's ptxas registers and spills and its blocks an SM.
-
     python -m raytracing_rust_tpu_torch.kernel_ab --shares [--turns N]
         [--out FILE]
 
@@ -120,9 +106,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # "cli" (the command line's scanline launches, in the chunks of the lane
 # budget) or "tiles" (one launch on the card's table of a zero cost:
 # compact 16×8 tiles in raster order); variant None, "event" (the walk's
-# bit cleared), "rr6" (roulette from bounce 6) or "k1b" (FEAT_COMPAT_UV
-# set, a bit that only an image texture reads: the scene's paths through a
-# K1B instantiation with no feature at work); "lattice" is
+# bit cleared) or "rr6" (roulette from bounce 6); "lattice" is
 # lattice_scene through lattice_camera at 1280×720; a label in SIZES runs
 # at that size instead of the preset's
 SCENES = (
@@ -134,10 +118,6 @@ SCENES = (
      None),
     ("cornell_box_baseline rr6 cli", "cornell_box_baseline", 500, 3, "cli",
      "rr6"),
-    ("cornell_box_baseline@104", "cornell_box_baseline", 104, 5, "scanline",
-     None),
-    ("cornell_box_baseline@104 k1b", "cornell_box_baseline", 104, 5,
-     "scanline", "k1b"),
     ("random_spheres", "random_spheres", 100, 5, "scanline", None),
     ("two_spheres", "two_spheres", 10, 10, "scanline", None),
     ("two_perlin_spheres", "two_perlin_spheres", 10, 10, "scanline", None),
@@ -174,13 +154,6 @@ SHARE_SHAPES = tuple(s for s in SCENES if s[1] in (
 # the --shares builds: the nvcc defines of each (csrc/tracer.cu)
 SHARE_BUILDS = {"production": (), "solid": ("-DK1_SOLID_MARBLE",),
                 "media": ("-DK1_MEDIA_TWICE",)}
-
-# the --bounds shapes: the launches of the instantiations without K1B and
-# DYN (cornell_box's, with and without roulette: the command line's five
-# and the comparison shape)
-BOUND_SHAPES = tuple(s for s in SCENES if s[0] in (
-    "cornell_box_baseline rr6", "cornell_box_baseline cli",
-    "cornell_box_baseline rr6 cli", "cornell_box_baseline@2"))
 
 # (label, preset or crowd size, samples, layout) of the --cull timings
 CULL_SHAPES = (("random_spheres table", "random_spheres", 100, "table"),
@@ -307,9 +280,6 @@ for label, scene, spp, reps, layout, variant in SCENES:
     if variant == "event":
         ops = dataclasses.replace(
             ops, feats=ops.feats & ~tracer.FEAT_DENSE_WALK)
-    elif variant == "k1b":
-        ops = dataclasses.replace(
-            ops, feats=ops.feats | tracer.FEAT_COMPAT_UV)
     sums = torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
     kw = dict(nx=nx, ny=ny, seed=0, max_depth=50)
     stats = None
@@ -529,50 +499,18 @@ def _time_shares(turns: int) -> dict:
                 runs=[dict(build=b, **r) for b, r in runs])
 
 
-def _time_bounds(turns: int, bounds: list) -> dict:
-    """The --bounds timings (see the module's docstring)."""
-    import statistics
-    order = ("production", *(f"min_blocks={n}" for n in bounds))
-    defines = {"production": (), **{
-        f"min_blocks={n}": (f"-DK1_STATIC_MIN_BLOCKS={n}",) for n in bounds}}
-    runs = [(b, _time_checkout(_ROOT, scenes=BOUND_SHAPES,
-                               defines=defines[b]))
-            for b in (*order, *order[::-1]) * turns]
-    shapes = {}
-    for label, _, spp, _, layout, variant in BOUND_SHAPES:
-        ms = {b: [r[label]["median_ms"] for w, r in runs if w == b]
-              for b in order}
-        shapes[label] = dict(
-            spp=spp, layout=layout, variant=variant, median_ms=ms,
-            over_production={b: statistics.median(v)
-                             / statistics.median(ms["production"])
-                             for b, v in ms.items()},
-            sums_equal=len({r[label]["sum"] for _, r in runs}) == 1)
-    static = ("trace_k1<0,0,0,0,0>", "trace_k1<0,0,0,0,1>")
-    # ptxas names them trace_k1ILb0ELb0ELb0ELi0ELb{0,1}E...
-    return dict(order=[b for b, _ in runs], shapes=shapes, ptxas={
-        b: {k: v for k, v in next(r for w, r in runs if w == b)["ptxas"]
-            .items() if "trace_k1ILb0ELb0ELb0ELi0E" in k}
-        for b in order}, blocks_per_sm={
-        b: {k: v for k, v in next(r for w, r in runs if w == b)
-            ["blocks_per_sm"].items() if k in static} for b in order})
-
-
 def _k1_sass(library: str) -> tuple[dict, dict]:
     """(the SASS instructions of each production instantiation of K1
     (STATS off), addresses and encodings stripped, by its flags "K1B,DYN,
-    LEAF_SMEM", K1a's "0,0,0" and the static roulette instantiation's
-    "0,0,0,rr"; the loads of every instantiation, `tracer.k1_sass_loads`)."""
+    LEAF_SMEM" (K1a's "0,0,0"); the loads of every instantiation,
+    `tracer.k1_sass_loads`)."""
     from raytracing_rust_tpu_torch.ops import sass, tracer
     text = sass.cuobjdump_sass(library)
     out = {}
     for name, instrs in sass.functions(text).items():
-        f = re.search(r"trace_k1ILb([01])ELb([01])ELb([01])EL[bi]0E"
-                      r"(?:Lb([01])E)?E", name)
+        f = re.search(r"trace_k1ILb([01])ELb([01])ELb([01])EL[bi]0E", name)
         if f:
-            key = ",".join(f.groups()[:3]) + (",rr" if f.group(4) == "1"
-                                              else "")
-            out[key] = [s for _, s in instrs]
+            out[",".join(f.groups())] = [s for _, s in instrs]
     return out, tracer.k1_sass_loads(text=text)
 
 
@@ -587,17 +525,12 @@ def main(argv=None) -> int:
     ap.add_argument("--shares", action="store_true",
                     help="measure the walk's and the marble's time shares "
                     "in this checkout instead")
-    ap.add_argument("--bounds", type=int, nargs="+", metavar="N",
-                    help="time the static instantiations' builds with "
-                    "__launch_bounds__(THREADS, N) against the production "
-                    "build instead")
     ap.add_argument("--turns", type=int, default=1,
                     help="repeat the (other, this, this, other) turns")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
-    if (args.other is not None) + args.cull + args.shares + bool(
-            args.bounds) != 1:
-        ap.error("give one of --other DIR, --cull, --shares or --bounds")
+    if (args.other is not None) + args.cull + args.shares != 1:
+        ap.error("give one of --other DIR, --cull or --shares")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
@@ -608,10 +541,6 @@ def main(argv=None) -> int:
     if args.shares:
         _report(dict(device=smi, turns=args.turns,
                      **_time_shares(args.turns)), args.out)
-        return 0
-    if args.bounds:
-        _report(dict(device=smi, turns=args.turns,
-                     **_time_bounds(args.turns, args.bounds)), args.out)
         return 0
     other = os.path.abspath(args.other)
     runs = [(who, _time_checkout(path, args.grad)) for who, path in

@@ -230,9 +230,9 @@ K1F_TABLE_LAUNCHES = 0
 K1F_STATS_LAUNCHES = 0
 K1F_PROBE_LAUNCHES = 0
 K1F_DDA_LAUNCHES = 0
-# launches by the instantiation that ran ("trace_k1<K1B,DYN,LEAF_SMEM,STATS,
-# RR>", as the kernel reports it): which one a path took (cornell_box
-# --rr-depth: the static one with RR)
+# launches by the instantiation that ran ("trace_k1<K1B,DYN,LEAF_SMEM,
+# STATS>", as the kernel reports it): which one a path took (cornell_box
+# --rr-depth: the static one, K1a's)
 K1_INSTANTIATION_LAUNCHES: collections.Counter = collections.Counter()
 
 # f32 and integer operations of csrc/tracer.cu per item, counted from its
@@ -2072,30 +2072,27 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     return sums
 
 
-# the eleven instantiations of csrc/tracer.cu by their template arguments
-# (K1B, DYN, LEAF_SMEM, STATS: 0 none, 1 the stats launch's counters, 2 the
-# cost probe's; RR: roulette in the static instantiation), as ptxas names
-# them
-K1_INSTANTIATIONS = ((0, 0, 0, 0, 0), (0, 0, 0, 0, 1), (0, 1, 0, 0, 0),
-                     (0, 1, 1, 0, 0), (1, 0, 0, 0, 0), (1, 1, 0, 0, 0),
-                     (1, 1, 1, 0, 0), (1, 1, 0, 1, 0), (1, 1, 1, 1, 0),
-                     (1, 1, 0, 2, 0), (1, 1, 1, 2, 0))
+# the ten instantiations of csrc/tracer.cu by their template arguments (K1B,
+# DYN, LEAF_SMEM, STATS: 0 none, 1 the stats launch's counters, 2 the cost
+# probe's), as ptxas names them
+K1_INSTANTIATIONS = ((0, 0, 0, 0), (0, 1, 0, 0), (0, 1, 1, 0), (1, 0, 0, 0),
+                     (1, 1, 0, 0), (1, 1, 1, 0), (1, 1, 0, 1), (1, 1, 1, 1),
+                     (1, 1, 0, 2), (1, 1, 1, 2))
 
 
 def instantiation_name(code: int) -> str:
     """The instantiation of a launch's code (csrc/tracer.cu `Pick::code`:
-    K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3 | RR << 5) →
-    "trace_k1<K1B,DYN,LEAF_SMEM,STATS,RR>"."""
-    if not 0 <= code < 64:
+    K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3) →
+    "trace_k1<K1B,DYN,LEAF_SMEM,STATS>"."""
+    if not 0 <= code < 32:
         raise ValueError(f"no K1 instantiation has the code {code}")
-    flags = (code & 1, code >> 1 & 1, code >> 2 & 1, code >> 3 & 3,
-             code >> 5 & 1)
+    flags = (code & 1, code >> 1 & 1, code >> 2 & 1, code >> 3 & 3)
     return f"trace_k1<{','.join(map(str, flags))}>"
 
 
 def k1_blocks_per_sm() -> dict:
     """Blocks of THREADS threads that an SM of the current card holds, per
-    instantiation ("trace_k1<K1B,DYN,LEAF_SMEM,STATS,RR>"), without dynamic
+    instantiation ("trace_k1<K1B,DYN,LEAF_SMEM,STATS>"), without dynamic
     shared memory, by the runtime's occupancy query; raises without
     CUDA."""
     if not torch.cuda.is_available():
@@ -2351,8 +2348,7 @@ def probe_resident(device) -> int:
             per_sm = k1_blocks_per_sm()
         _RESIDENT[idx] = (
             torch.cuda.get_device_properties(idx).multi_processor_count
-            * min(per_sm["trace_k1<1,1,0,2,0>"],
-                  per_sm["trace_k1<1,1,1,2,0>"]))
+            * min(per_sm["trace_k1<1,1,0,2>"], per_sm["trace_k1<1,1,1,2>"]))
     return _RESIDENT[idx]
 
 

@@ -17,28 +17,28 @@ _CU = os.path.join(os.path.dirname(tracer.__file__), "..", "csrc",
                    "tracer.cu")
 
 
-@pytest.mark.parametrize("flags", tracer.K1_INSTANTIATIONS)
-def test_instantiation_names_round_trip(flags):
-    """The code a launch reports (csrc/tracer.cu `Pick::code`) names the
+@pytest.mark.parametrize("code, name", [
+    (0, "trace_k1<0,0,0,0>"),    # cornell_box, with or without roulette
+    (7, "trace_k1<1,1,1,0>"),    # final_scene's pixel table, leaves in smem
+    (19, "trace_k1<1,1,0,2>")])  # a cost probe, leaves in device memory
+def test_instantiation_names_of_known_launches(code, name):
+    """The code that csrc/tracer.cu `pick` gives a known launch
+    (`Pick::code`: K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3) names its
     instantiation as ptxas and the occupancy query name it."""
-    k1b, dyn, leaf, stats, rr = flags
-    code = k1b | dyn << 1 | leaf << 2 | stats << 3 | rr << 5
-    assert tracer.instantiation_name(code) == (
-        f"trace_k1<{k1b},{dyn},{leaf},{stats},{rr}>")
+    assert tracer.instantiation_name(code) == name
 
 
 def test_instantiations_are_the_kernels_table():
     """K1_INSTANTIATIONS lists each instantiation csrc/tracer.cu makes
-    once, the static one with roulette among them."""
+    once."""
     with open(_CU) as f:
         cu = f.read()
     made = set(re.findall(r"trace_k1<(true|false), (true|false), "
-                          r"(true|false), (\d), (true|false)>", cu))
+                          r"(true|false), (\d)>", cu))
     as_flags = {tuple(int(x == "true") if x in ("true", "false") else int(x)
                       for x in m) for m in made}
     assert as_flags == set(tracer.K1_INSTANTIATIONS)
-    assert len(tracer.K1_INSTANTIATIONS) == 11
-    assert (0, 0, 0, 0, 1) in as_flags
+    assert len(tracer.K1_INSTANTIATIONS) == 10
     with pytest.raises(ValueError):
         tracer.instantiation_name(-1)
 
@@ -47,7 +47,8 @@ def test_launch_counts_the_instantiation_the_kernel_reports():
     """`_launch` counts a launch under the instantiation whose code the
     library writes through its `inst` slot (the argument before the
     stream), and nothing when the launch fails: cornell_box with roulette
-    alone reported as the static instantiation with RR."""
+    alone reported as the static instantiation, counted as K1g's launch and
+    not as K1a's."""
     import ctypes
 
     import torch
@@ -72,12 +73,12 @@ def test_launch_counts_the_instantiation_the_kernel_reports():
     before = tracer.K1_INSTANTIATION_LAUNCHES.copy()
     counts = (tracer.K1G_LAUNCHES, tracer.KERNEL_LAUNCHES)
     with pytest.raises(RuntimeError, match="cudaError 700"):
-        tracer._launch(Lib(700, 32), ops, sums, **kw)
+        tracer._launch(Lib(700, 0), ops, sums, **kw)
     assert tracer.K1_INSTANTIATION_LAUNCHES == before
-    tracer._launch(Lib(0, 32), ops, sums, **kw)
+    tracer._launch(Lib(0, 0), ops, sums, **kw)
     tracer._launch(Lib(0, 0), ops, sums, **kw)
     assert tracer.K1_INSTANTIATION_LAUNCHES - before == {
-        "trace_k1<0,0,0,0,1>": 1, "trace_k1<0,0,0,0,0>": 1}
+        "trace_k1<0,0,0,0>": 2}
     # roulette's launches count as K1g's, never as K1a's
     assert (tracer.K1G_LAUNCHES, tracer.KERNEL_LAUNCHES) == (
         counts[0] + 2, counts[1])
@@ -85,7 +86,7 @@ def test_launch_counts_the_instantiation_the_kernel_reports():
 
 _LISTING = """
 	code for sm_90a
-		Function : _ZN12_GLOBAL__N_18trace_k1ILb0ELb0ELb0ELi0ELb1EEEvPKfiPKii
+		Function : _ZN12_GLOBAL__N_18trace_k1ILb0ELb0ELb0ELi0EEEvPKfiPKii
 	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
         /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
                                                                /* 0x000fe40000000800 */
@@ -120,7 +121,7 @@ def test_sass_reader_counts_the_row_loops_loads():
     loop, with its loads by where they read."""
     funcs = sass.functions(_LISTING)
     assert set(funcs) == {
-        "_ZN12_GLOBAL__N_18trace_k1ILb0ELb0ELb0ELi0ELb1EEEvPKfiPKii",
+        "_ZN12_GLOBAL__N_18trace_k1ILb0ELb0ELb0ELi0EEEvPKfiPKii",
         "_Z8other_kv"}
     k1 = next(v for k, v in funcs.items() if "trace_k1" in k)
     assert k1[9] == (0x90, "@P1 BRA 0xb0")
@@ -134,5 +135,5 @@ def test_sass_reader_counts_the_row_loops_loads():
     assert (whole["lds"], whole["ldc"], whole["uldc"], whole["ldg"]) == (
         1, 2, 1, 1)
     loads = tracer.k1_sass_loads(text=_LISTING)
-    assert set(loads) == {"trace_k1<0,0,0,0,1>"}
-    assert loads["trace_k1<0,0,0,0,1>"]["row_loops"] == sass.row_loops(k1)
+    assert set(loads) == {"trace_k1<0,0,0,0>"}
+    assert loads["trace_k1<0,0,0,0>"]["row_loops"] == sass.row_loops(k1)

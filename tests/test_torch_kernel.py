@@ -362,13 +362,12 @@ def _expected_launches(ops):
 
 
 def _expected_instantiation(ops):
-    """(K1B, DYN, RR) of the instantiation one launch of ops runs (with no
-    pixel table or stats): roulette alone, without a table, runs the static
-    instantiation with RR; any other feature bit runs a K1B one."""
+    """(K1B, DYN) of the instantiation one launch of ops runs (with no pixel
+    table or stats): roulette alone, without a table, runs the static
+    instantiation; any other feature bit runs a K1B one."""
     f = ops.feats
     dyn = int(bool(ops.dyn.shape[0] or ops.box.shape[0]))
-    rr = int(f == tracer.FEAT_RR and not dyn)
-    return int(f != 0 and not rr), dyn, rr
+    return int((f & ~tracer.FEAT_RR) != 0 or (f != 0 and dyn == 1)), dyn
 
 
 def _launches():
@@ -377,12 +376,12 @@ def _launches():
 
 def _ran(before):
     """The instantiations launched since `before` (a copy of
-    tracer.K1_INSTANTIATION_LAUNCHES), each as (K1B, DYN, RR)."""
+    tracer.K1_INSTANTIATION_LAUNCHES), each as (K1B, DYN)."""
     out = []
     for name, n in (tracer.K1_INSTANTIATION_LAUNCHES - before).items():
-        k1b, dyn, _, stats, rr = map(int, name[9:-1].split(","))
+        k1b, dyn, _, stats = map(int, name[9:-1].split(","))
         assert stats == 0, name
-        out += [(k1b, dyn, rr)] * n
+        out += [(k1b, dyn)] * n
     return out
 
 
@@ -446,11 +445,11 @@ def test_kernel_lattice_matches_plain(cuda, make):
 def test_kernel_roulette_matches_plain(cuda, make, rr_depth):
     """Russian roulette (K1g) against the plain version, with its launch
     count and the instantiation it ran: cornell_box (the static
-    instantiation with RR, bit for bit equal to plain), final_scene (the
+    instantiation, K1a's, bit for bit equal to plain), final_scene (the
     walk cleared; K1B with its tables) and the lattice scene (K1B); at
     rr_depth == max_depth the kernel's sums equal those without roulette
-    bit for bit (cornell_box: the static instantiation with RR against
-    K1a's)."""
+    bit for bit (cornell_box: both launches in the static
+    instantiation)."""
     nx, ny = 96, 64
     scene, cam = make(nx, ny)
     srec = tracer.build_scene_record(scene)
@@ -470,7 +469,7 @@ def test_kernel_roulette_matches_plain(cuda, make, rr_depth):
     torch.cuda.synchronize()
     _assert_kernel_matches_plain(k, p)
     if make is _cornell:
-        assert _ran(ran) == [(0, 0, 1)]
+        assert _ran(ran) == [(0, 0)]
         assert torch.equal(k, p)
         kw["max_depth"] = 12
         ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
@@ -480,7 +479,7 @@ def test_kernel_roulette_matches_plain(cuda, make, rr_depth):
         off = tracer.trace(tracer.trace_operands(srec, cam, cuda),
                            torch.zeros_like(k), **kw)
         torch.cuda.synchronize()
-        assert sorted(_ran(ran)) == [(0, 0, 0), (0, 0, 1)]
+        assert _ran(ran) == [(0, 0), (0, 0)]
         assert torch.equal(capped, off)
 
 
