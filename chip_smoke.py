@@ -53,18 +53,20 @@ Phases, one JSON line each on stdout:
      launch count and a check of the image;
  12. the same for `render --scene two_spheres --device cuda` (1280×720,
      10 spp, depth 50);
- 13. the K1c and K1d sections of the K1B instantiations against their
-     plain version, on each Next Week preset the command line renders
-     below, at the preset's size, 2 spp, depth 50, under phase 3's gates
-     and bit for bit:
+ 13. the K1c and K1d sections against their plain version, on each
+     Next Week preset the command line renders below, at the preset's
+     size, 2 spp, depth 50, under phase 3's gates and bit for bit:
      two_perlin_spheres and simple_light 1280×720 (Perlin marble),
-     earth 1280×720 (sphere UV and the 512×1024 texel atlas) and
-     cornell_smoke 800×800 (two rotated constant-density boxes); both
+     earth 1280×720 (sphere UV and the 512×1024 texel atlas; these three
+     in K1B without MED) and cornell_smoke 800×800 (two rotated
+     constant-density boxes, K1d, in K1a's code with MED); both
      versions' times, and the work the paths needed (lane bounces, noise
      and image lanes) for the kernels' bounds;
  14-17. the render path through the command line, `render --scene S
      --device cuda` at each of those presets' size and spp, depth 50, with
-     the launch counts and a check of the image;
+     the launch counts, the instantiations they ran (media in a MED one,
+     cornell_smoke's in `trace_k1<0,0,0,0,1>`, the other scenes' in none)
+     and a check of the image;
  18. the K1e box and K1d walk sections against their plain version on
      final_scene at its preset's size, 800×800, 1 spp, depth 50, under
      phase 3's gates and bit for bit, with the walk on (each walk bounce
@@ -194,9 +196,12 @@ Phases, one JSON line each on stdout:
      samples launched in chunks of the size its scene's comparison phase
      holds to trace_plain, and bounded; a cost probe (`replay_probe`)
      counted by its own steps row and its row held bit for bit to the
-     scanline stats launch's; cornell_box_baseline's first
-     launch (800×800, 104 samples) is also held bit for bit to
-     trace_plain;
+     scanline stats launch's; each launch must run the instantiation
+     the host's counterpart of `pick` names for it (`picked`: media in
+     the MED ones, cornell_smoke's on K1a's code with the media);
+     cornell_box_baseline's first launch (800×800, 104 samples) is also
+     held bit for bit to trace_plain, and so is cornell_smoke's launch on
+     its first 8 samples;
  41. the general wavefront tier (torch ops) on the card at full width:
      `render --scene cornell_box_baseline --engine xla --device cuda`
      (800×800, 500 spp, depth 50), its mean inside phase 5's band, its
@@ -529,7 +534,8 @@ def replay(launch: dict, held: dict):
     comparison holds to trace_plain; the production instantiation). Its
     bound: held["work"] (trace_plain's counts on that comparison) scaled by
     this launch's segments over the comparison's, on this launch's pixels
-    and samples. The cost probe (`replay_probe`) instead."""
+    and samples. Its instantiation: the one its timed launches ran. The
+    cost probe (`replay_probe`) instead."""
     import torch
     from raytracing_rust_tpu_torch import kernel_stats
     from raytracing_rust_tpu_torch.ops import tracer
@@ -544,11 +550,14 @@ def replay(launch: dict, held: dict):
         return torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
 
     whole, st = zeros(), tracer.new_stats(nx, ny, dev, pix, kpix, dda=dda)
+    ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
     if launch["stats"]:
         ms = cuda_ms(lambda: tracer.trace(ops, whole.zero_(),
                                           stats=st.zero_(), **kw), reps=2)
     else:
         ms = cuda_ms(lambda: tracer.trace(ops, whole.zero_(), **kw), reps=2)
+    ran = sorted(tracer.K1_INSTANTIATION_LAUNCHES - ran)
+    if not launch["stats"]:
         tracer.trace(ops, zeros(), stats=st, **kw)
     parts, step = zeros(), held["spp"]
     prod = {k: v for k, v in kw.items() if k != "dda"}
@@ -560,7 +569,8 @@ def replay(launch: dict, held: dict):
     scale = occ["segments"] / (work["segments"] + work["walk"])
     return dict(
         shape=[ny, nx, n], sample0=s0, kpix=kpix, table=pix is not None,
-        stats=launch["stats"], dda=dda, counted=launch["counted"], ms=ms,
+        stats=launch["stats"], dda=dda, counted=launch["counted"],
+        instantiation=ran, ms=ms,
         **k1_bound(ops, {k: v * scale for k, v in work.items()}, n_pix, n),
         segments=occ["segments"], warp_steps=occ["warp_steps"],
         occupancy=occ["occupancy"], tail_share=occ["tail_share"],
@@ -570,7 +580,8 @@ def replay(launch: dict, held: dict):
 def replay_probe(launch: dict, held: dict) -> dict:
     """A cost probe launch of `recording` (`tracer.trace_probe`), made
     again on the same operands and arguments → its figures: ms (CUDA
-    events, two launches after a warm-up, on a fresh row), its segments,
+    events, two launches after a warm-up, on a fresh row; the instantiation
+    they ran), its segments,
     and its warp steps from its own steps row (occupancy, tail share); its
     row held bit for bit to row 0 of the stats launch of the same samples
     on the scanline layout (`equals_scanline`: what the render's table is
@@ -583,7 +594,9 @@ def replay_probe(launch: dict, held: dict) -> dict:
     nx, ny, n, split = kw["nx"], kw["ny"], kw["n_samples"], kw["split"]
     n_pix, dev = nx * ny, ops.rec.device
     busy = torch.zeros(n_pix, dtype=torch.int64, device=dev)
+    ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
     ms = cuda_ms(lambda: tracer.trace_probe(ops, busy.zero_(), **kw), reps=2)
+    ran = sorted(tracer.K1_INSTANTIATION_LAUNCHES - ran)
     steps = torch.zeros(tracer.probe_warps(nx, ny, split), dtype=torch.int64,
                         device=dev)
     tracer.trace_probe(ops, busy.zero_(), steps=steps, **kw)
@@ -597,7 +610,7 @@ def replay_probe(launch: dict, held: dict) -> dict:
     scale = seg / (work["segments"] + work["walk"])
     return dict(
         shape=[ny, nx, n], sample0=kw["sample0"], kpix=1, table=False,
-        stats=True, probe=True, split=split,
+        stats=True, probe=True, split=split, instantiation=ran,
         blocks=split * tracer.probe_tiles(nx, ny), dda=False,
         counted=launch["counted"], ms=ms,
         **k1_bound(ops, {k: v * scale for k, v in work.items()}, n_pix, n,
@@ -606,6 +619,14 @@ def replay_probe(launch: dict, held: dict) -> dict:
         tail_share=1.0 - occ,
         equals_scanline=bool(torch.equal(busy,
                                          tracer.stats_rows(st, n_pix)[0])))
+
+
+def picked(ops, **kw) -> str:
+    """The name of the K1 instantiation a launch of ops runs, by the host's
+    counterpart of csrc/tracer.cu `pick` (`tracer.k1_instantiation`; kw:
+    table, stats)."""
+    from raytracing_rust_tpu_torch.ops import tracer
+    return f"trace_k1<{','.join(map(str, tracer.k1_instantiation(ops, **kw)))}>"
 
 
 def at_main_path(row: dict, replayed: list, counter: str,
@@ -2590,12 +2611,12 @@ def main() -> int:
 
     def hold(phase: str, scene: str, built=None, n_samples: int = 2,
              rr_depth=None, key: str | None = None) -> dict:
-        """The K1B kernel against trace_plain on `scene` at its preset's
+        """The kernel against trace_plain on `scene` at its preset's
         size (or on built = (scene tables, camera, nx, ny)), n_samples
-        spp, depth 50, roulette from rr_depth: gates, times, the paths'
-        work and the bound, emitted as one line; returns what the table
-        needs. The work and the samples held go to held[key] (the scene
-        unless given)."""
+        spp, depth 50, roulette from rr_depth, in the instantiation
+        `picked` names: gates, times, the paths' work and the bound,
+        emitted as one line; returns what the table needs. The work and
+        the samples held go to held[key] (the scene unless given)."""
         if built is None:
             p = PRESETS[scene]
             built = (p.build(), p.camera(), p.nx, p.ny)
@@ -2612,6 +2633,8 @@ def main() -> int:
         ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
         k = tracer.trace(ops, sums(), **kw)
         ran = sorted(tracer.K1_INSTANTIATION_LAUNCHES - ran)
+        check(ran == [picked(ops)], f"{scene}: K1 ran {ran}, not "
+              f"{picked(ops)}")
         pl = sums()
         work = {}
         pl_ms = cuda_ms(lambda: tracer.trace_plain(ops, pl.zero_(),
@@ -2663,6 +2686,14 @@ def main() -> int:
             p.nx * p.ny * p.spp / info["wall_seconds"]), band=list(band))
         check(info["launches"][section] > 0,
               f"{scene}: {section} never launched: {info['launches']}")
+        # media run their own instantiations (MED), cornell_smoke's K1a's
+        # code with them; the probe's (STATS 2) serves every scene
+        prod = {n for n in info["k1_instantiations"]
+                if n.split(",")[3] == "0"}
+        check(all(n.endswith(",1>") == (scene == "cornell_smoke")
+                  for n in prod) and (scene != "cornell_smoke" or prod == {
+                      "trace_k1<0,0,0,0,1>"}),
+              f"{scene}: launched {info['k1_instantiations']}")
         check(img.shape == (p.ny, p.nx, 3)
               and bool(((img >= 0) & (img <= 1)).all()),
               f"{scene}: image has the wrong shape or range")
@@ -2945,7 +2976,7 @@ def main() -> int:
     check(rr_launches["k1g_roulette_trace"] > 0,
           f"cornell_box --rr-depth 6: K1g never launched: {rr_launches}")
     # roulette alone runs the static instantiation, never K1B
-    check(set(info["k1_instantiations"]) == {"trace_k1<0,0,0,0>"},
+    check(set(info["k1_instantiations"]) == {"trace_k1<0,0,0,0,0>"},
           f"cornell_box --rr-depth 6 launched {info['k1_instantiations']}, "
           f"not the static instantiation")
     check(img.shape == (800, 800, 3)
@@ -3027,9 +3058,10 @@ def main() -> int:
     k1f_bal = {}
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     per_sm = tracer.k1_blocks_per_sm()
-    # both presets run a K1B+DYN instantiation, with or without the leaves
-    # in shared memory (the same registers)
-    per_sm = min(per_sm["trace_k1<1,1,0,0>"], per_sm["trace_k1<1,1,1,0>"])
+    # both presets run a K1B+DYN instantiation, with the leaves in shared
+    # memory, random_spheres without MED and final_scene with it
+    per_sm = min(per_sm[f"trace_k1<1,1,{f}>"]
+                 for f in ("0,0,1", "1,0,0", "1,0,1"))
     for scene, n_samples in (("random_spheres", 2), ("final_scene", 1)):
         sops, snx, sny = preset_ops(scene)
         n_pix = snx * sny
@@ -3426,15 +3458,21 @@ def main() -> int:
 
     # -- 40. K1 at the main path's own launches: every launch that phases
     # 5, 11-17, 19, 30, 32, 35 and 39 recorded, made again on its operands
-    # and arguments (`replay`); cornell_box_baseline's first launch also
-    # held to trace_plain itself, in 8-sample calls
+    # and arguments (`replay`), in the instantiation `pick` names for it;
+    # cornell_box_baseline's first launch also held to trace_plain itself,
+    # in 8-sample calls, and cornell_smoke's launch (K1d, K1a's code with
+    # the media) on its first 8 samples
     replayed = {}
     for label, run in main_runs.items():
         rows = []
         for i, launch in enumerate(run["launches"]):
             r, whole = replay(launch, held[run["held"]])
+            kw = launch["kw"]
+            want = picked(launch["ops"], table=kw.get("pix") is not None,
+                          stats=2 if launch["probe"] else int(launch["stats"]))
+            check(r["instantiation"] == [want], f"{label}: launch {i} ran "
+                  f"{r['instantiation']}, not {want}")
             if label == "cornell_box_baseline" and i == 0:
-                kw = launch["kw"]
                 s0, n = kw["sample0"], kw["n_samples"]
                 pl = torch.zeros_like(whole)
                 for s in range(s0, s0 + n, 8):
@@ -3443,6 +3481,15 @@ def main() -> int:
                 r["plain_max_abs_err"] = float((whole - pl).abs().max())
                 r["equals_plain"] = bool(torch.equal(whole, pl))
                 del pl
+            if label == "cornell_smoke":
+                head = {**kw, "n_samples": min(8, kw["n_samples"])}
+                kh, ph = (torch.zeros_like(whole) for _ in range(2))
+                tracer.trace(launch["ops"], kh, **head)
+                tracer.trace_plain(launch["ops"], ph, **head)
+                r["plain_spp"] = head["n_samples"]
+                r["plain_max_abs_err"] = float((kh - ph).abs().max())
+                r["equals_plain"] = bool(torch.equal(kh, ph))
+                del kh, ph
             rows.append(r)
             del whole
         replayed[label] = rows
@@ -3463,6 +3510,9 @@ def main() -> int:
     k1a["max_abs_err"] = max(
         k1a["max_abs_err"],
         replayed["cornell_box_baseline"][0]["plain_max_abs_err"])
+    k1cd["cornell_smoke"]["max_abs_err"] = max(
+        k1cd["cornell_smoke"]["max_abs_err"],
+        *(r["plain_max_abs_err"] for r in replayed["cornell_smoke"]))
 
     # -- 41-44. the general tier, the fallback and checkpoints
     dense128 = general_phases(dev, smi, run_cli, cornell_img,
@@ -3636,5 +3686,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
-        sys.exit(sharded_rank(sys.argv[2]))
+        from raytracing_rust_tpu_torch.parallel.multihost_worker import finish
+        finish(sharded_rank(sys.argv[2]))
     sys.exit(main())

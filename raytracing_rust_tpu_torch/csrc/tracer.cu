@@ -59,18 +59,27 @@
 // version of the same computation are in ops/tracer.py (`trace_plain`,
 // `trace_probe`, `probe_plain`).
 //
-// The kernel is a template over four flags: K1B (any feature bit: sky,
-// checker, metal, dielectric, moving spheres, noise, image, media, the
-// walk, the lattice corners; roulette beside any of them or a table), DYN
-// (a dynamic sphere table, a box table or a pixel table), LEAF_SMEM (the
-// leaf tables sit in shared memory) and STATS (0: none; 1: the counters of
-// a stats launch; 2: the cost probe's; set only with K1B and DYN, so two
-// instantiations of each serve every scene and the others keep their
-// registers). cornell_box runs the instantiation with all of them off,
-// which is K1a, with and without --rr-depth: roulette alone is a branch on
-// its feature bit there (K1g's path, which K1B ran until then), so it runs
-// K1a's code and registers without the K1B branches. Inside the K1B
-// instantiations the fifteen features (the compat
+// The kernel is a template over five flags: K1B (any feature bit but
+// media and roulette: sky, checker, metal, dielectric, moving spheres,
+// noise, image, the walk, the lattice corners; media and roulette beside
+// any of them or a table), DYN (a dynamic sphere table, a box table or a
+// pixel table), LEAF_SMEM (the leaf tables sit in shared memory), STATS
+// (0: none; 1: the counters of a stats launch; 2: the cost probe's; set
+// only with K1B, DYN and MED, so two instantiations of each serve every
+// scene and the others keep their registers) and MED (the media: their
+// race, the override of the hit, the isotropic scatter and, with K1B, the
+// dense-medium walk; compiled only where it is set, so a scene without a
+// medium runs none of that code). cornell_box runs the instantiation with
+// all of them off, which is K1a, with and without --rr-depth: roulette
+// alone is a branch on its feature bit there (K1g's path, which K1B ran
+// until then), so it runs K1a's code and registers without the K1B
+// branches; cornell_smoke, whose only feature is media, runs K1a's code
+// with MED, and so without the K1B branches either. The production
+// instantiations with MED serve the scenes that hold a medium; a K1B
+// launch with a table whose leaves are not in shared memory (none, or too
+// many to fit) runs the one K1B + DYN instantiation without them there,
+// which has MED, as the stats instantiations do (no preset's command line
+// launches it). Inside the K1B instantiations the features (the compat
 // sphere-UV constant counted) are branches on the launch's feature bits,
 // the same for every thread; inside DYN the box loop is a runtime loop,
 // zero-trip without boxes. The TPU kernel carries a rect winner's UV and
@@ -600,7 +609,7 @@ __device__ __forceinline__ float media_race(
   return t_med;
 }
 
-template <bool K1B, bool DYN, bool LEAF_SMEM, int STATS>
+template <bool K1B, bool DYN, bool LEAF_SMEM, int STATS, bool MED>
 __global__ void __launch_bounds__(THREADS)
 trace_k1(const float* __restrict__ rec, int n_rec,
          const int* __restrict__ walk, int n_walk,
@@ -621,11 +630,13 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          const float* __restrict__ bsups, int n_bsup, int probe_split,
          long long* __restrict__ probe_steps) {
   // the scene's features; all off outside the K1B instantiations, but
-  // roulette, which the static instantiation plays too
+  // roulette, which the static instantiations play too, and media, on
+  // wherever MED is; the walk's interior rows (WALK) come with both
+  constexpr bool WALK = K1B && MED;
   const bool emis_tex = K1B && (feats & FEAT_EMIS_TEX),
              uv_carry = K1B && (feats & FEAT_UV_CARRY),
              img_flip = K1B && (feats & FEAT_IMG_FLIP),
-             med_tex = K1B && (feats & FEAT_MED_TEX),
+             med_tex = WALK && (feats & FEAT_MED_TEX),
              rr = (K1B || !DYN) && (feats & FEAT_RR);
   const bool sky = K1B && (feats & FEAT_SKY),
              checker = K1B && (feats & FEAT_CHECKER),
@@ -634,37 +645,37 @@ trace_k1(const float* __restrict__ rec, int n_rec,
              moving = K1B && (feats & FEAT_MOVING),
              noise = K1B && !SOLID_MARBLE && (feats & FEAT_NOISE),
              image = K1B && (feats & FEAT_IMAGE),
-             media = K1B && (feats & FEAT_MEDIA),
+             media = MED && (feats & FEAT_MEDIA),
              compat_uv = K1B && (feats & FEAT_COMPAT_UV),
-             dense_walk = K1B && (feats & FEAT_DENSE_WALK);
+             dense_walk = WALK && (feats & FEAT_DENSE_WALK);
   // dynamic shared memory, sized by the launch: record, the walk's
-  // interior rows (K1B: rows n_rec.. of the record), camera, the box and
+  // interior rows (WALK: rows n_rec.. of the record), camera, the box and
   // sphere tables' root AABBs (DYN), sphere leaves and supers and box
-  // leaves and supers (LEAF_SMEM), media (K1B), the row list (order, then
-  // lead: the unrolled rows' walk order, then with K1B the interior
-  // spheres and rects), the interior rows' kinds (K1B)
+  // leaves and supers (LEAF_SMEM), media (MED), the row list (order, then
+  // lead: the unrolled rows' walk order, then with WALK the interior
+  // spheres and rects), the interior rows' kinds (WALK)
   extern __shared__ float smem[];
   float* s_rec = smem;
   float* s_int = s_rec + n_rec * REC;
-  float* s_cam = s_int + (K1B ? n_int * REC : 0);
+  float* s_cam = s_int + (WALK ? n_int * REC : 0);
   float* s_root = s_cam + CAMREC;
   float* s_leaf = s_root + (DYN ? 12 : 0);
   float* s_sup = s_leaf + (LEAF_SMEM ? n_leaf * CLUSW : 0);
   float* s_bleaf = s_sup + (LEAF_SMEM ? n_sup * CLUSW : 0);
   float* s_bsup = s_bleaf + (LEAF_SMEM ? n_bleaf * CLUSW : 0);
   float* s_med = s_bsup + (LEAF_SMEM ? n_bsup * CLUSW : 0);
-  int* s_walk = (int*)(s_med + (K1B ? n_med * MEDREC : 0));
+  int* s_walk = (int*)(s_med + (MED ? n_med * MEDREC : 0));
   // the interior spheres and rects join the row list; the boxes stay
   // apart (a walk bounce tests them after the list)
   int n_int_sr = 0;
-  if (K1B)
+  if (WALK)
     for (int i = 0; i < n_int; ++i) n_int_sr += interior_kind[i] != INT_BOX;
-  const int n_list = n_walk + (K1B ? n_int_sr : 0);
+  const int n_list = n_walk + (WALK ? n_int_sr : 0);
   int* s_ikind = s_walk + 2 * n_list;
   for (int i = threadIdx.x; i < n_rec * REC; i += blockDim.x)
     s_rec[i] = rec[i];
   for (int i = threadIdx.x; i < 2 * n_walk; i += blockDim.x)
-    s_walk[i + (K1B && i >= n_walk ? n_int_sr : 0)] = walk[i];
+    s_walk[i + (WALK && i >= n_walk ? n_int_sr : 0)] = walk[i];
   for (int i = threadIdx.x; i < CAMREC; i += blockDim.x) s_cam[i] = cam[i];
   if (LEAF_SMEM) {
     for (int i = threadIdx.x; i < n_leaf * CLUSW; i += blockDim.x)
@@ -710,9 +721,10 @@ trace_k1(const float* __restrict__ rec, int n_rec,
       }
     }
   }
-  if (K1B) {
+  if (MED)
     for (int i = threadIdx.x; i < n_med * MEDREC; i += blockDim.x)
       s_med[i] = med[i];
+  if (WALK) {
     for (int i = threadIdx.x; i < n_int * REC; i += blockDim.x)
       s_int[i] = interior[i];
     for (int i = threadIdx.x; i < n_int; i += blockDim.x)
@@ -1396,33 +1408,52 @@ using TraceFn = void (*)(const float*, int, const int*, int, const float*,
                          int, long long*, long long*, const float*, int,
                          const float*, int, int, long long*);
 
-// the instantiations, indexed [K1B][DYN][LEAF_SMEM]; without a dynamic
-// table there is no leaf table
-const TraceFn KERNELS[2][2][2] = {
-    {{trace_k1<false, false, false, 0>, trace_k1<false, false, false, 0>},
-     {trace_k1<false, true, false, 0>, trace_k1<false, true, true, 0>}},
-    {{trace_k1<true, false, false, 0>, trace_k1<true, false, false, 0>},
-     {trace_k1<true, true, false, 0>, trace_k1<true, true, true, 0>}}};
-// K1f's counters ride in instantiations of their own, K1B and DYN with
-// every section a runtime branch, so they serve every scene and leave the
-// production kernels' registers as they were: the stats launch's and the
-// cost probe's, indexed [STATS − 1][LEAF_SMEM]
-const TraceFn STATS_KERNELS[2][2] = {
-    {trace_k1<true, true, false, 1>, trace_k1<true, true, true, 1>},
-    {trace_k1<true, true, false, 2>, trace_k1<true, true, true, 2>}};
-
-// The instantiation a launch runs: its kernel and its code, K1B | DYN << 1
-// | LEAF_SMEM << 2 | STATS << 3 (ops/tracer.py `instantiation_name`)
+// The instantiations a launch may run, each with its code, K1B | DYN << 1
+// | LEAF_SMEM << 2 | STATS << 3 | MED << 5 (ops/tracer.py
+// `instantiation_name`; `K1_INSTANTIATIONS` lists the same flags)
 struct Pick {
   TraceFn fn;
   int code;
 };
 
-Pick pick(int k1b, int dyn, int leaf_smem, int stats) {
-  leaf_smem = leaf_smem != 0 && dyn != 0;
-  const TraceFn fn = stats ? STATS_KERNELS[stats - 1][leaf_smem]
-                           : KERNELS[k1b != 0][dyn != 0][leaf_smem];
-  return {fn, (k1b != 0) | (dyn != 0) << 1 | leaf_smem << 2 | stats << 3};
+template <bool K1B, bool DYN, bool LEAF_SMEM, int STATS, bool MED>
+Pick inst() {
+  return {trace_k1<K1B, DYN, LEAF_SMEM, STATS, MED>,
+          K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3 | MED << 5};
+}
+
+// Without a dynamic table there is no leaf table. The production
+// instantiations: K1a (cornell_box, with or without roulette), K1a's code
+// with the media (media alone, no table: cornell_smoke), the tables with no
+// feature, K1B without and with the media (no table: two_spheres, earth,
+// two_perlin_spheres, simple_light; the lattice), the tables without their
+// leaves in shared memory (every section: MED set), the tables with them
+// without and with the media (random_spheres; final_scene). K1f's
+// counters ride in instantiations of their own, K1B, DYN and MED with
+// every section a runtime branch, so they serve every scene and leave the
+// production kernels' registers as they were: the stats launch's and the
+// cost probe's.
+const Pick INSTANTIATIONS[] = {
+    inst<false, false, false, 0, false>(), inst<false, false, false, 0, true>(),
+    inst<false, true, false, 0, false>(),  inst<false, true, true, 0, false>(),
+    inst<true, false, false, 0, false>(),  inst<true, false, false, 0, true>(),
+    inst<true, true, false, 0, true>(),    inst<true, true, true, 0, false>(),
+    inst<true, true, true, 0, true>(),     inst<true, true, false, 1, true>(),
+    inst<true, true, true, 1, true>(),     inst<true, true, false, 2, true>(),
+    inst<true, true, true, 2, true>()};
+
+// The instantiation a launch runs (fn null where none has the flags): the
+// counters run K1B, DYN and MED, and so does a K1B table launch whose
+// leaves are not in shared memory
+Pick pick(int k1b, int dyn, int leaf_smem, int stats, int med) {
+  k1b = k1b != 0 || stats != 0;
+  dyn = dyn != 0 || stats != 0;
+  leaf_smem = leaf_smem != 0 && dyn;
+  med = med != 0 || stats != 0 || (k1b && dyn && !leaf_smem);
+  const int code = k1b | dyn << 1 | leaf_smem << 2 | stats << 3 | med << 5;
+  for (const Pick& p : INSTANTIATIONS)
+    if (p.code == code) return p;
+  return {nullptr, code};
 }
 
 }  // namespace
@@ -1500,11 +1531,13 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
   if (n_leaf == 0) n_sup = 0;
   if (n_bleaf == 0) n_bsup = 0;
   // a table runs in a DYN instantiation (zero-trip table loops without
-  // tables), the counters in their own, roulette with no other feature and
-  // no table in the static instantiation
+  // tables), the counters in their own, media in a MED one; roulette and
+  // media with no other feature and no table in a static instantiation
+  // (K1a's code)
   const bool dyn_inst = stats != nullptr || n_dyn > 0 || n_box > 0 ||
                         pix_table != nullptr;
-  const bool k1b = stats != nullptr || (feats & ~FEAT_RR) != 0 ||
+  const bool k1b = stats != nullptr ||
+                   (feats & ~(FEAT_RR | FEAT_MEDIA)) != 0 ||
                    (feats != 0 && dyn_inst);
   const size_t base =
       sizeof(float) * (n_rec * REC + CAMREC + (dyn_inst ? 12 : 0) +
@@ -1522,7 +1555,8 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                      : pix_table != nullptr ? n_table / kpix / THREADS
                                             : (n_pix + THREADS - 1) / THREADS;
   const Pick k = pick(k1b, dyn_inst, leaf_smem,
-                      stats == nullptr ? 0 : probe ? 2 : 1);
+                      stats == nullptr ? 0 : probe ? 2 : 1, n_med > 0);
+  if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   k.fn<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       rec, n_rec, walk, n_walk, dyn, n_dyn, leaves, n_leaf, cam, feats, sums,
       nx, ny, seed_lo, seed_hi, sample0, n_samples, max_depth, med, n_med,
@@ -1540,13 +1574,18 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
 // The blocks of THREADS threads of one instantiation that an SM holds
 // without dynamic shared memory (the records take a few KB of the SM's
 // 228 KB, so registers decide), by the runtime's occupancy query, into
-// *blocks: the production kernel [k1b][dyn][leaf_smem], or with stats 1
-// the stats launch's [leaf_smem] and with stats 2 the cost probe's (k1b and
-// dyn set). Returns the cudaError.
+// *blocks: the instantiation trace_k1<k1b, dyn, leaf_smem, stats, med>.
+// Returns the cudaError (cudaErrorInvalidValue where no instantiation has
+// those flags).
 extern "C" int rt_trace_k1_blocks_per_sm(int k1b, int dyn, int leaf_smem,
-                                         int stats, int* blocks) {
-  if (stats < 0 || stats > 2 || (stats && !(k1b && dyn)))
+                                         int stats, int med, int* blocks) {
+  if (k1b < 0 || k1b > 1 || dyn < 0 || dyn > 1 || leaf_smem < 0 ||
+      leaf_smem > 1 || stats < 0 || stats > 2 || med < 0 || med > 1)
+    return (int)cudaErrorInvalidValue;
+  const Pick k = pick(k1b, dyn, leaf_smem, stats, med);
+  if (k.fn == nullptr ||
+      k.code != (k1b | dyn << 1 | leaf_smem << 2 | stats << 3 | med << 5))
     return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, pick(k1b, dyn, leaf_smem, stats).fn, THREADS, 0);
+      blocks, k.fn, THREADS, 0);
 }

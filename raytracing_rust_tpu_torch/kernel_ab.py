@@ -7,9 +7,11 @@ this checkout and another one; the time shares of two K1 sections.
 DIR is another checkout of the repository, e.g. the parent commit unpacked
 with `git archive` into a directory `.gitignore` lists. On one CUDA card the
 script builds both checkouts' kernels, compares the SASS of the K1a
-instantiation (`trace_k1<false, false, false, false>`,
-cornell_box's kernel, with and without roulette) and of the other production instantiations (STATS
-off) line by line without addresses, counts every instantiation's loads
+instantiation (`trace_k1<false, false, false, 0, false>`, cornell_box's
+kernel, with and without roulette) and of the other production
+instantiations (STATS off; in a checkout from before the MED flag, the
+one that ran the same scenes) line by line without addresses, counts
+every instantiation's loads
 in its row loops (`tracer.k1_sass_loads`), reports both builds' ptxas
 registers and spills and blocks an SM, and times the kernel in each
 checkout in turns (other, this, this, other) on the shapes of `SCENES`:
@@ -502,16 +504,32 @@ def _time_shares(turns: int) -> dict:
 def _k1_sass(library: str) -> tuple[dict, dict]:
     """(the SASS instructions of each production instantiation of K1
     (STATS off), addresses and encodings stripped, by its flags "K1B,DYN,
-    LEAF_SMEM" (K1a's "0,0,0"); the loads of every instantiation,
+    LEAF_SMEM,MED" (K1a's "0,0,0,0"), or "K1B,DYN,LEAF_SMEM" in a checkout
+    from before the MED flag; the loads of every instantiation,
     `tracer.k1_sass_loads`)."""
     from raytracing_rust_tpu_torch.ops import sass, tracer
     text = sass.cuobjdump_sass(library)
     out = {}
     for name, instrs in sass.functions(text).items():
-        f = re.search(r"trace_k1ILb([01])ELb([01])ELb([01])EL[bi]0E", name)
+        f = re.search(r"trace_k1ILb([01])ELb([01])ELb([01])EL[bi]0E"
+                      r"(?:Lb([01])E)?E", name)
         if f:
-            out[",".join(f.groups())] = [s for _, s in instrs]
+            out[",".join(g for g in f.groups() if g is not None)] = [
+                s for _, s in instrs]
     return out, tracer.k1_sass_loads(text=text)
+
+
+def _counterpart(other: dict, name: str) -> list:
+    """The other checkout's SASS of the instantiation `name` ("K1B,DYN,
+    LEAF_SMEM,MED"): its own, or in a checkout from before the MED flag
+    the one that ran the same scenes ("K1B,DYN,LEAF_SMEM"; media alone ran
+    K1B then)."""
+    if name in other:
+        return other[name]
+    k1b, dyn, leaf, med = name.split(",")
+    if (k1b, dyn, med) == ("0", "0", "1"):
+        k1b = "1"
+    return other.get(",".join((k1b, dyn, leaf)), [])
 
 
 def main(argv=None) -> int:
@@ -572,17 +590,17 @@ def main(argv=None) -> int:
         sass[who], loads[who] = _k1_sass(r["library"])
 
     def differ(name):
-        a, b = sass["other"].get(name, []), sass["this"].get(name, [])
+        a, b = _counterpart(sass["other"], name), sass["this"].get(name, [])
         return sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+    k1a = "0,0,0,0" if "0,0,0,0" in sass["this"] else "0,0,0"
     result = dict(
         device=smi, order=[who for who, _ in runs],
         k1a_sass=dict(
-            instructions_other=len(sass["other"].get("0,0,0", [])),
-            instructions_this=len(sass["this"].get("0,0,0", [])),
-            differing=differ("0,0,0")),
+            instructions_other=len(_counterpart(sass["other"], k1a)),
+            instructions_this=len(sass["this"].get(k1a, [])),
+            differing=differ(k1a)),
         production_sass_differing={
-            name: differ(name)
-            for name in sorted(set(sass["other"]) | set(sass["this"]))},
+            name: differ(name) for name in sorted(sass["this"])},
         sass_loads=loads,
         ptxas={who: r["ptxas"] for who, r in runs[:2]},
         blocks_per_sm={who: r["blocks_per_sm"] for who, r in runs[:2]},

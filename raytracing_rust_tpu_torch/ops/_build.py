@@ -86,7 +86,7 @@ def load() -> ctypes.CDLL:
                                 i, p, i, p, i, p, i, i, p, i, i, i, p, p, i,
                                 p, p]
     lib.rt_trace_k1.restype = i
-    lib.rt_trace_k1_blocks_per_sm.argtypes = [i, i, i, i, p]
+    lib.rt_trace_k1_blocks_per_sm.argtypes = [i, i, i, i, i, p]
     lib.rt_trace_k1_blocks_per_sm.restype = i
     lib.rt_grad_fwd.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i,
                                 i, p, p]

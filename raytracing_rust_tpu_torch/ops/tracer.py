@@ -153,6 +153,10 @@ CLUSW = 8
 MAX_INTERIOR = 24
 # interior row kinds (TraceOperands.interior_kind)
 INT_SPHERE, INT_RECT, INT_BOX = 0, 1, 2
+# the bytes of shared memory a launch takes without opting in; the leaf
+# tables go there when they fit beside the records (csrc/tracer.cu
+# SMEM_BUDGET)
+SMEM_BUDGET = 48 * 1024
 
 # K1f's balanced layout (pallas_tracer.py SUB, LANES, TILE, and the JAX
 # defaults of RT_KPIX, RT_PROBE_SPP, RT_SMOOTH, RT_BUCKETS; the port reads
@@ -231,8 +235,9 @@ K1F_STATS_LAUNCHES = 0
 K1F_PROBE_LAUNCHES = 0
 K1F_DDA_LAUNCHES = 0
 # launches by the instantiation that ran ("trace_k1<K1B,DYN,LEAF_SMEM,
-# STATS>", as the kernel reports it): which one a path took (cornell_box
-# --rr-depth: the static one, K1a's)
+# STATS,MED>", as the kernel reports it): which one a path took
+# (cornell_box --rr-depth: the static one, K1a's; cornell_smoke: K1a's code
+# with the media)
 K1_INSTANTIATION_LAUNCHES: collections.Counter = collections.Counter()
 
 # f32 and integer operations of csrc/tracer.cu per item, counted from its
@@ -2072,27 +2077,60 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
     return sums
 
 
-# the ten instantiations of csrc/tracer.cu by their template arguments (K1B,
+# the instantiations of csrc/tracer.cu by their template arguments (K1B,
 # DYN, LEAF_SMEM, STATS: 0 none, 1 the stats launch's counters, 2 the cost
-# probe's), as ptxas names them
-K1_INSTANTIATIONS = ((0, 0, 0, 0), (0, 1, 0, 0), (0, 1, 1, 0), (1, 0, 0, 0),
-                     (1, 1, 0, 0), (1, 1, 1, 0), (1, 1, 0, 1), (1, 1, 1, 1),
-                     (1, 1, 0, 2), (1, 1, 1, 2))
+# probe's; MED), as ptxas names them: nine production ones (`k1_instantiation`
+# says which a launch runs) and four for K1f's counters
+K1_INSTANTIATIONS = ((0, 0, 0, 0, 0), (0, 0, 0, 0, 1), (0, 1, 0, 0, 0),
+                     (0, 1, 1, 0, 0), (1, 0, 0, 0, 0), (1, 0, 0, 0, 1),
+                     (1, 1, 0, 0, 1), (1, 1, 1, 0, 0), (1, 1, 1, 0, 1),
+                     (1, 1, 0, 1, 1), (1, 1, 1, 1, 1), (1, 1, 0, 2, 1),
+                     (1, 1, 1, 2, 1))
 
 
 def instantiation_name(code: int) -> str:
     """The instantiation of a launch's code (csrc/tracer.cu `Pick::code`:
-    K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3) →
-    "trace_k1<K1B,DYN,LEAF_SMEM,STATS>"."""
-    if not 0 <= code < 32:
+    K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3 | MED << 5) →
+    "trace_k1<K1B,DYN,LEAF_SMEM,STATS,MED>"."""
+    if not 0 <= code < 64:
         raise ValueError(f"no K1 instantiation has the code {code}")
-    flags = (code & 1, code >> 1 & 1, code >> 2 & 1, code >> 3 & 3)
+    flags = (code & 1, code >> 1 & 1, code >> 2 & 1, code >> 3 & 3,
+             code >> 5 & 1)
     return f"trace_k1<{','.join(map(str, flags))}>"
+
+
+def k1_instantiation(ops: TraceOperands, *, table: bool = False,
+                     stats: bool = False) -> tuple:
+    """The flags (K1B, DYN, LEAF_SMEM, STATS, MED) of the instantiation a
+    launch of ops runs, as csrc/tracer.cu `rt_trace_k1` and `pick` choose
+    it: table, a launch on a pixel table; stats, 1 for the counters of a
+    stats launch, 2 for the cost probe's (`trace_probe`). A table, a box
+    table or counters run a DYN instantiation; any feature but roulette
+    and media, or either of them beside a table, a K1B one; media a MED
+    one, and so do the counters and a K1B launch with a table whose leaves
+    are not in shared memory (none, or too many to fit); roulette or media
+    alone, without a table, K1a's code."""
+    n_dyn, n_box = int(ops.dyn.shape[0]), int(ops.box.shape[0])
+    n_leaf = int(ops.leaves.shape[0]) if n_dyn else 0
+    n_bleaf = int(ops.bleaves.shape[0]) if n_box else 0
+    n_sup = int(ops.sups.shape[0]) if n_leaf else 0
+    n_bsup = int(ops.bsups.shape[0]) if n_bleaf else 0
+    n_int, n_med = int(ops.interior.shape[0]), int(ops.med.shape[0])
+    stats = int(stats)
+    dyn = int(bool(stats or n_dyn or n_box or table))
+    k1b = int(bool(stats or ops.feats & ~(FEAT_RR | FEAT_MEDIA)
+                   or (ops.feats and dyn)))
+    base = (4 * (ops.rec.shape[0] * REC + CAMREC + 12 * dyn + n_med * MEDREC
+                 + n_int * REC) + 4 * (2 * ops.walk.shape[1] + 3 * n_int))
+    leaf_bytes = 4 * (n_leaf + n_sup + n_bleaf + n_bsup) * CLUSW
+    leaf_smem = int(n_leaf + n_bleaf > 0 and base + leaf_bytes <= SMEM_BUDGET)
+    med = int(bool(n_med or stats or (k1b and dyn and not leaf_smem)))
+    return k1b, dyn, leaf_smem, stats, med
 
 
 def k1_blocks_per_sm() -> dict:
     """Blocks of THREADS threads that an SM of the current card holds, per
-    instantiation ("trace_k1<K1B,DYN,LEAF_SMEM,STATS>"), without dynamic
+    instantiation ("trace_k1<K1B,DYN,LEAF_SMEM,STATS,MED>"), without dynamic
     shared memory, by the runtime's occupancy query; raises without
     CUDA."""
     if not torch.cuda.is_available():
@@ -2348,7 +2386,8 @@ def probe_resident(device) -> int:
             per_sm = k1_blocks_per_sm()
         _RESIDENT[idx] = (
             torch.cuda.get_device_properties(idx).multi_processor_count
-            * min(per_sm["trace_k1<1,1,0,2>"], per_sm["trace_k1<1,1,1,2>"]))
+            * min(per_sm["trace_k1<1,1,0,2,1>"],
+                  per_sm["trace_k1<1,1,1,2,1>"]))
     return _RESIDENT[idx]
 
 

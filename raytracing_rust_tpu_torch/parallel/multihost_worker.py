@@ -12,7 +12,8 @@ the gradient norms as JSON:
     python -m raytracing_rust_tpu_torch.parallel.multihost_worker OUT.json \\
         [--device cpu|cuda] [--dp N] [--sp N]
 
-under `torchrun --nproc-per-node N`, or under `launch`.
+under `torchrun --nproc-per-node N`, or under `launch`. A rank ends through
+`finish`.
 """
 
 from __future__ import annotations
@@ -114,6 +115,22 @@ def launch(n: int, argv: list[str], *, one_device: bool = False,
     return [(p.returncode, out) for p, out in zip(procs, outs)]
 
 
+def finish(rc: int):
+    """End this process with exit code rc: `sys.exit`, but in a rank of a
+    launched group (RANK set, as `launch` and torchrun set it) `os._exit`
+    once Python's streams are flushed, which skips the interpreter's and
+    libtorch's teardown. On a loaded CPU that teardown aborted a gloo rank
+    now and then (SIGABRT, "terminate called without an active exception"
+    from a static destructor, no Python frame on the stack), after the rank
+    had destroyed its group and written its results: a failed run of work
+    that had succeeded. A rank's files are closed before it returns."""
+    if "RANK" not in os.environ:
+        sys.exit(rc)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)
+
+
 def dryrun(n: int, timeout: float = 300.0) -> dict:
     """One sharded training step in n gloo ranks on the CPU, on JAX's
     dryrun mesh (sp = 2 when n is even) → rank 0's `step_result`. Raises
@@ -157,4 +174,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    finish(main())

@@ -485,4 +485,5 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from .parallel.multihost_worker import finish
+    finish(main())

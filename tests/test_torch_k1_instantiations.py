@@ -18,29 +18,115 @@ _CU = os.path.join(os.path.dirname(tracer.__file__), "..", "csrc",
 
 
 @pytest.mark.parametrize("code, name", [
-    (0, "trace_k1<0,0,0,0>"),    # cornell_box, with or without roulette
-    (7, "trace_k1<1,1,1,0>"),    # final_scene's pixel table, leaves in smem
-    (19, "trace_k1<1,1,0,2>")])  # a cost probe, leaves in device memory
+    (0, "trace_k1<0,0,0,0,0>"),    # cornell_box, with or without roulette
+    (32, "trace_k1<0,0,0,0,1>"),   # cornell_smoke: K1a's code with media
+    (1, "trace_k1<1,0,0,0,0>"),    # two_spheres: K1B without media
+    (33, "trace_k1<1,0,0,0,1>"),   # the lattice: K1B with media
+    (7, "trace_k1<1,1,1,0,0>"),    # random_spheres' pixel table
+    (39, "trace_k1<1,1,1,0,1>"),   # final_scene's pixel table, with media
+    (51, "trace_k1<1,1,0,2,1>")])  # a cost probe, leaves in device memory
 def test_instantiation_names_of_known_launches(code, name):
     """The code that csrc/tracer.cu `pick` gives a known launch
-    (`Pick::code`: K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3) names its
-    instantiation as ptxas and the occupancy query name it."""
+    (`Pick::code`: K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3 | MED << 5)
+    names its instantiation as ptxas and the occupancy query name it."""
     assert tracer.instantiation_name(code) == name
 
 
 def test_instantiations_are_the_kernels_table():
     """K1_INSTANTIATIONS lists each instantiation csrc/tracer.cu makes
-    once."""
+    once: nine production ones, three of them with MED beside the six of
+    four flags, and four for K1f's counters, which all have MED."""
     with open(_CU) as f:
         cu = f.read()
-    made = set(re.findall(r"trace_k1<(true|false), (true|false), "
-                          r"(true|false), (\d)>", cu))
-    as_flags = {tuple(int(x == "true") if x in ("true", "false") else int(x)
-                      for x in m) for m in made}
-    assert as_flags == set(tracer.K1_INSTANTIATIONS)
-    assert len(tracer.K1_INSTANTIATIONS) == 10
+    made = re.findall(r"inst<(true|false), (true|false), (true|false), "
+                      r"(\d), (true|false)>\(\)", cu)
+    as_flags = [tuple(int(x == "true") if x in ("true", "false") else int(x)
+                      for x in m) for m in made]
+    assert len(set(as_flags)) == len(as_flags) == 13
+    assert set(as_flags) == set(tracer.K1_INSTANTIATIONS)
+    production = [f for f in as_flags if f[3] == 0]
+    assert len(production) == 9
+    assert sum(f[4] for f in production) == 4  # one is a table's fallback
+    assert all(f[4] == 1 for f in as_flags if f[3] > 0)
+    for f in as_flags:
+        code = f[0] | f[1] << 1 | f[2] << 2 | f[3] << 3 | f[4] << 5
+        assert tracer.instantiation_name(code) == (
+            f"trace_k1<{','.join(map(str, f))}>")
     with pytest.raises(ValueError):
         tracer.instantiation_name(-1)
+    with pytest.raises(ValueError):
+        tracer.instantiation_name(64)
+
+
+def _preset_ops(name):
+    from raytracing_rust_tpu_torch.models import builders as tb
+    if name == "lattice":
+        scene, cam = tb.lattice_scene(), tb.lattice_camera(64, 36)
+    else:
+        p = tb.PRESETS[name]
+        scene, cam = p.build(), p.camera()
+    return tracer.trace_operands(tracer.build_scene_record(scene),
+                                 tracer.build_camera_record(cam), "cpu")
+
+
+# (K1B, DYN, LEAF_SMEM, STATS, MED) of each preset's launch: media in
+# instantiations of their own, cornell_smoke's (media alone, no table) on
+# K1a's code
+_ROUTES = {"cornell_box": (0, 0, 0, 0, 0), "cornell_smoke": (0, 0, 0, 0, 1),
+           "two_spheres": (1, 0, 0, 0, 0), "two_perlin_spheres": (1, 0, 0, 0, 0),
+           "simple_light": (1, 0, 0, 0, 0), "earth": (1, 0, 0, 0, 0),
+           "random_spheres": (1, 1, 1, 0, 0), "final_scene": (1, 1, 1, 0, 1),
+           "lattice": (1, 0, 0, 0, 1)}
+
+
+@pytest.mark.parametrize("name", sorted(_ROUTES))
+def test_pick_sends_each_scene_to_its_instantiation(name):
+    """`tracer.k1_instantiation`, the host's counterpart of csrc/tracer.cu
+    `pick`, sends each of the eight presets and the lattice to the
+    instantiation the design names: a scene with a medium to one with MED,
+    a scene without to one without; the same scene with roulette to the
+    same one; on a pixel table a DYN one (with MED where its leaves are
+    not in shared memory, none or too many); its stats and probe launches
+    one with every section."""
+    import dataclasses
+    ops = _preset_ops(name)
+    want = _ROUTES[name]
+    got = tracer.k1_instantiation(ops)
+    assert got == want
+    assert got in tracer.K1_INSTANTIATIONS
+    assert bool(got[4]) == bool(ops.feats & tracer.FEAT_MEDIA)
+    if not ops.feats & tracer.FEAT_DENSE_WALK:
+        rr = dataclasses.replace(ops, feats=ops.feats | tracer.FEAT_RR,
+                                 rr_depth=6)
+        assert tracer.k1_instantiation(rr) == want
+    table = tracer.k1_instantiation(ops, table=True)
+    assert table in tracer.K1_INSTANTIATIONS
+    assert table[1] == 1
+    assert table[4] == int(bool(want[4]) or (table[0] and not table[2]))
+    for stats in (1, 2):
+        assert tracer.k1_instantiation(ops, stats=stats) == (
+            1, 1, want[2], stats, 1)
+
+
+def test_pick_keeps_a_table_in_device_memory_on_every_section():
+    """A K1B table whose leaves do not fit in shared memory runs the one
+    K1B + DYN instantiation without them there, which has MED, with or
+    without a medium: 20,000 small spheres under the sky (2,048 leaves)."""
+    import numpy as np
+    from raytracing_rust_tpu_torch.models.scene import BG_SKY, SceneBuilder
+    from raytracing_rust_tpu_torch.ops import camera
+    b = SceneBuilder(background=BG_SKY)
+    r = np.random.default_rng(5)
+    for _ in range(20000):
+        b.sphere(r.uniform((-6.0, 0.05, -6.0), (6.0, 3.0, 6.0)), 0.05,
+                 b.lambertian(b.solid(0.8, 0.3, 0.3)))
+    cam = camera.make_camera((0, 2, 8), (0, 1, 0), (0, 1, 0), 35.0, 1.5,
+                             0.0, 10.0, 0.0, 1.0)
+    ops = tracer.trace_operands(tracer.build_scene_record(b.build()),
+                                tracer.build_camera_record(cam), "cpu")
+    assert ops.leaves.shape[0] * tracer.CLUSW * 4 > tracer.SMEM_BUDGET
+    assert not ops.feats & tracer.FEAT_MEDIA
+    assert tracer.k1_instantiation(ops) == (1, 1, 0, 0, 1)
 
 
 def test_launch_counts_the_instantiation_the_kernel_reports():
@@ -78,7 +164,7 @@ def test_launch_counts_the_instantiation_the_kernel_reports():
     tracer._launch(Lib(0, 0), ops, sums, **kw)
     tracer._launch(Lib(0, 0), ops, sums, **kw)
     assert tracer.K1_INSTANTIATION_LAUNCHES - before == {
-        "trace_k1<0,0,0,0>": 2}
+        "trace_k1<0,0,0,0,0>": 2}
     # roulette's launches count as K1g's, never as K1a's
     assert (tracer.K1G_LAUNCHES, tracer.KERNEL_LAUNCHES) == (
         counts[0] + 2, counts[1])
@@ -86,7 +172,7 @@ def test_launch_counts_the_instantiation_the_kernel_reports():
 
 _LISTING = """
 	code for sm_90a
-		Function : _ZN12_GLOBAL__N_18trace_k1ILb0ELb0ELb0ELi0EEEvPKfiPKii
+		Function : _ZN12_GLOBAL__N_18trace_k1ILb0ELb0ELb0ELi0ELb0EEEvPKfiPKii
 	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
         /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
                                                                /* 0x000fe40000000800 */
@@ -121,7 +207,7 @@ def test_sass_reader_counts_the_row_loops_loads():
     loop, with its loads by where they read."""
     funcs = sass.functions(_LISTING)
     assert set(funcs) == {
-        "_ZN12_GLOBAL__N_18trace_k1ILb0ELb0ELb0ELi0EEEvPKfiPKii",
+        "_ZN12_GLOBAL__N_18trace_k1ILb0ELb0ELb0ELi0ELb0EEEvPKfiPKii",
         "_Z8other_kv"}
     k1 = next(v for k, v in funcs.items() if "trace_k1" in k)
     assert k1[9] == (0x90, "@P1 BRA 0xb0")
@@ -135,5 +221,5 @@ def test_sass_reader_counts_the_row_loops_loads():
     assert (whole["lds"], whole["ldc"], whole["uldc"], whole["ldg"]) == (
         1, 2, 1, 1)
     loads = tracer.k1_sass_loads(text=_LISTING)
-    assert set(loads) == {"trace_k1<0,0,0,0>"}
-    assert loads["trace_k1<0,0,0,0>"]["row_loops"] == sass.row_loops(k1)
+    assert set(loads) == {"trace_k1<0,0,0,0,0>"}
+    assert loads["trace_k1<0,0,0,0,0>"]["row_loops"] == sass.row_loops(k1)

@@ -361,13 +361,13 @@ def _expected_launches(ops):
             bool(f & tracer.FEAT_LATTICE), bool(f & tracer.FEAT_RR))
 
 
-def _expected_instantiation(ops):
-    """(K1B, DYN) of the instantiation one launch of ops runs (with no pixel
-    table or stats): roulette alone, without a table, runs the static
-    instantiation; any other feature bit runs a K1B one."""
-    f = ops.feats
-    dyn = int(bool(ops.dyn.shape[0] or ops.box.shape[0]))
-    return int((f & ~tracer.FEAT_RR) != 0 or (f != 0 and dyn == 1)), dyn
+def _expected_instantiation(ops, **kw):
+    """The flags (K1B, DYN, LEAF_SMEM, STATS, MED) of the instantiation one
+    launch of ops runs, by the host's counterpart of csrc/tracer.cu `pick`
+    (`tracer.k1_instantiation`; the CPU tests hold it to the design's
+    routes): roulette or media alone, without a table, run K1a's code; any
+    other feature bit a K1B one; media a MED one."""
+    return tracer.k1_instantiation(ops, **kw)
 
 
 def _launches():
@@ -376,12 +376,11 @@ def _launches():
 
 def _ran(before):
     """The instantiations launched since `before` (a copy of
-    tracer.K1_INSTANTIATION_LAUNCHES), each as (K1B, DYN)."""
+    tracer.K1_INSTANTIATION_LAUNCHES), each as its flags (K1B, DYN,
+    LEAF_SMEM, STATS, MED)."""
     out = []
     for name, n in (tracer.K1_INSTANTIATION_LAUNCHES - before).items():
-        k1b, dyn, _, stats = map(int, name[9:-1].split(","))
-        assert stats == 0, name
-        out += [(k1b, dyn)] * n
+        out += [tuple(map(int, name[9:-1].split(",")))] * n
     return out
 
 
@@ -469,7 +468,7 @@ def test_kernel_roulette_matches_plain(cuda, make, rr_depth):
     torch.cuda.synchronize()
     _assert_kernel_matches_plain(k, p)
     if make is _cornell:
-        assert _ran(ran) == [(0, 0)]
+        assert _ran(ran) == [(0, 0, 0, 0, 0)]
         assert torch.equal(k, p)
         kw["max_depth"] = 12
         ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
@@ -479,7 +478,7 @@ def test_kernel_roulette_matches_plain(cuda, make, rr_depth):
         off = tracer.trace(tracer.trace_operands(srec, cam, cuda),
                            torch.zeros_like(k), **kw)
         torch.cuda.synchronize()
-        assert _ran(ran) == [(0, 0), (0, 0)]
+        assert _ran(ran) == [(0, 0, 0, 0, 0)] * 2
         assert torch.equal(capped, off)
 
 
@@ -852,25 +851,65 @@ def test_kernel_probe_matches_plain(cuda, name, nx, ny):
     assert torch.equal(pix, tracer.block_tile_table(row0, nx, ny))
 
 
-@pytest.mark.parametrize("make", [_preset("cornell_smoke"), _media_mix])
-def test_kernel_media_race_is_bit_exact(cuda, make):
-    """K1d's media race (a group's draw at its first open interval) gives
-    the plain version's sums bit for bit on cornell_smoke's two rotated
-    boxes and on five box and sphere media, rotated and not, whose draws
-    come from two groups; one K1D launch."""
+@pytest.mark.parametrize("make,walk", [
+    (_preset("cornell_smoke"), False), (_media_mix, False),
+    (_preset("final_scene"), True), (_preset("final_scene"), False),
+    (_lattice, False)],
+    ids=["cornell_smoke", "media_mix", "final_scene_walk",
+         "final_scene_event", "lattice"])
+def test_kernel_media_race_is_bit_exact(cuda, make, walk):
+    """K1d's media race, override and isotropic scatter in each
+    instantiation with MED give the plain version's sums bit for bit:
+    cornell_smoke's two rotated boxes (K1a's code with the media), five box
+    and sphere media, rotated and not, whose draws come from two groups
+    (K1B), final_scene with the dense-medium walk and on the event path
+    alone (K1B and its tables) and the lattice's textured media (K1B); one
+    K1D launch each, in the instantiation `pick` names, which has MED."""
     nx, ny = 96, 64
     ops = _operands(*make(nx, ny), cuda)
     assert ops.feats & tracer.FEAT_MEDIA
-    assert not ops.feats & tracer.FEAT_DENSE_WALK
+    if not walk:
+        ops = dataclasses.replace(ops, feats=ops.feats
+                                  & ~tracer.FEAT_DENSE_WALK)
+    assert bool(ops.feats & tracer.FEAT_DENSE_WALK) == walk
     kw = dict(nx=nx, ny=ny, seed=11, sample0=0, n_samples=4, max_depth=50)
     before = tracer.K1D_LAUNCHES
+    ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
     k = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
                                       device=cuda), **kw)
     assert tracer.K1D_LAUNCHES == before + 1
+    assert _ran(ran) == [_expected_instantiation(ops)]
+    assert _ran(ran)[0][4] == 1
     p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
     torch.cuda.synchronize()
     assert float(k.sum()) > 0
     assert torch.equal(k, p), float((k == p).all(dim=0).double().mean())
+
+
+@pytest.mark.parametrize("make,table", [
+    (_cornell, False), (_preset("two_spheres"), False),
+    (_preset("simple_light"), False), (_random_spheres, False),
+    (_random_spheres, True)],
+    ids=["cornell_box", "two_spheres", "simple_light", "random_spheres",
+         "random_spheres_table"])
+def test_kernel_scene_without_media_runs_without_med(cuda, make, table):
+    """A scene without a medium runs an instantiation without MED (none of
+    the media's code), the one `pick` names, on the scanline layout and on
+    its render table, with sums equal to the plain version's."""
+    nx, ny = 96, 64
+    ops = _operands(*make(nx, ny), cuda)
+    assert not ops.feats & tracer.FEAT_MEDIA
+    kw = dict(nx=nx, ny=ny, seed=2, sample0=0, n_samples=2, max_depth=50)
+    if table:
+        kw["pix"] = tracer.render_table(ops, nx, ny, 50, cuda)
+    ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
+    k = tracer.trace(ops, torch.zeros((3, nx * ny), dtype=torch.float64,
+                                      device=cuda), **kw)
+    assert _ran(ran) == [_expected_instantiation(ops, table=table)]
+    assert _ran(ran)[0][4] == 0
+    p = tracer.trace_plain(ops, torch.zeros_like(k), **kw)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(k, p)
 
 
 def test_d3_matches_plain(cuda):

@@ -342,6 +342,29 @@ def test_two_ranks_trainer(two_ranks):
     assert not np.allclose(want["albedo"], ir.START_ALBEDO)
 
 
+@pytest.mark.parametrize("rank", [None, "1"], ids=["alone", "rank"])
+def test_finish_ends_with_the_code(rank):
+    """`multihost_worker.finish` ends a process with the code it is given:
+    in a rank of a launched group (RANK set) by os._exit, its output
+    flushed first, which skips the interpreter's teardown (an atexit hook
+    does not run); elsewhere by sys.exit, which runs it."""
+    import subprocess
+    env = {k: v for k, v in os.environ.items() if k != "RANK"}
+    if rank is not None:
+        env["RANK"] = rank
+    code = ("import atexit, sys\n"
+            "from raytracing_rust_tpu_torch.parallel import multihost_worker\n"
+            "atexit.register(lambda: print('teardown', flush=True))\n"
+            "sys.stdout.write('done')\n"
+            "multihost_worker.finish(3)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 3, res.stderr
+    assert res.stdout.startswith("done")
+    assert ("teardown" in res.stdout) == (rank is None)
+
+
 def test_dryrun_matches_one_rank(group):
     """dryrun(2): the port's multihost worker in two gloo ranks (mesh (1,
     2), as JAX's dryrun lays two devices) against the same step on one
@@ -356,3 +379,4 @@ def test_dryrun_matches_one_rank(group):
 
 if __name__ == "__main__":
     _ranks(sys.argv[1])
+    multihost_worker.finish(0)
