@@ -71,14 +71,21 @@ Phases, one JSON line each on stdout:
      final_scene at its preset's size, 800×800, 1 spp, depth 50, under
      phase 3's gates and bit for bit, with the walk on (each walk bounce
      an iteration of the flat loop) and with it off (the event path
-     alone); both kernel times, the plain version's, the paths' work, and
-     the two kernel runs' sums held to each other bit for bit; on each, the
-     two-level cull held bit for bit to the one-level cull and to no cull,
-     with their times;
+     alone); its 20×20 ground boxes in the strip layout, through the strip
+     pass (K1E_GRID counted on each launch, in a box grid's
+     instantiation, DYN 2); both kernel times, the plain
+     version's, the paths' work, and the two kernel runs' sums held to
+     each other bit for bit; on each, the two-level cull held bit for bit
+     to the one-level cull and to no cull, with their times; then 20 cubes
+     (a 5×4 grid: the strip pass) and 17 (no grid: the generic box loop)
+     against plain, bit for bit, K1E_GRID counted on the grid alone, each
+     in the instantiation `tracer.k1_instantiation` names;
  19. the render path through the command line, `render --scene
      final_scene --device cuda` (800×800, 100 spp, depth 50), with the
-     launch counts and a check of the image, and a render at 128×128, 100
-     spp whose mean is held to the JAX XLA tier's;
+     launch counts (every box launch a strip-pass launch; none in any
+     command line run of a preset without a box grid) and a check of the
+     image, and a render at 128×128, 100 spp whose mean is held to the JAX
+     XLA tier's;
  20. K2 with the sky against its plain version, bit for bit, on the geometry
      inverse render's scene (a ground sphere, a rect light, a tilted cube)
      at its step's full width: 262,144 lanes, depth 6, step 0's rays and
@@ -1897,6 +1904,10 @@ def rotated_image_scene(device):
     return b.build(device)
 
 
+# the presets whose boxes form a regular grid (the strip pass's)
+GRID_PRESETS = ("final_scene",)
+
+
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -2281,6 +2292,7 @@ def main() -> int:
         tracer.KERNEL_LAUNCHES = tracer.K1BE_LAUNCHES = 0
         tracer.K1C_LAUNCHES = tracer.K1D_LAUNCHES = 0
         tracer.K1E_BOX_LAUNCHES = tracer.K1D_WALK_LAUNCHES = 0
+        tracer.K1E_GRID_LAUNCHES = 0
         tracer.K1_LATTICE_LAUNCHES = tracer.K1G_LAUNCHES = 0
         tracer.K1F_LAUNCHES = tracer.K1F_TABLE_LAUNCHES = 0
         tracer.K1F_STATS_LAUNCHES = tracer.K1F_DDA_LAUNCHES = 0
@@ -2296,6 +2308,7 @@ def main() -> int:
                 "k1c_texture_trace": tracer.K1C_LAUNCHES,
                 "k1d_media_trace": tracer.K1D_LAUNCHES,
                 "k1e_box_trace": tracer.K1E_BOX_LAUNCHES,
+                "k1e_grid_strip": tracer.K1E_GRID_LAUNCHES,
                 "k1d_walk_trace": tracer.K1D_WALK_LAUNCHES,
                 "k1_lattice_trace": tracer.K1_LATTICE_LAUNCHES,
                 "k1g_roulette_trace": tracer.K1G_LAUNCHES,
@@ -2335,6 +2348,12 @@ def main() -> int:
             launches = k1_launches()
             instantiations = dict(tracer.K1_INSTANTIATION_LAUNCHES)
             check(rc == 0, f"cli.main({argv}) returned {rc}")
+            # the presets' one box grid is final_scene's: every box launch
+            # of its K1 renders runs the strip pass, no other preset's any
+            check(launches["k1e_grid_strip"] == (
+                launches["k1e_box_trace"] if scene in GRID_PRESETS else 0),
+                f"{scene}: {launches['k1e_grid_strip']} strip-pass launches "
+                f"beside {launches['k1e_box_trace']} box launches")
             img = read_ppm(out)
         text = buf.getvalue()
         rate = re.search(r"\(([0-9.]+)M primary rays/s\)", text)
@@ -2722,11 +2741,16 @@ def main() -> int:
         tracer.build_camera_record(p.camera()), dev)
     check(bool(fops.feats & tracer.FEAT_DENSE_WALK), "final_scene does not "
           "walk")
+    check(fops.grid[:2] == (20, 20) and fops.bleaves.shape[0] == 60,
+          f"final_scene's boxes are not in the strip layout: {fops.grid}")
     kw = dict(nx=nx, ny=ny, seed=0, sample0=0, n_samples=1, max_depth=50)
     final, final_k = {}, {}
     for name, o in (("walk", fops), ("event", dataclasses.replace(
             fops, feats=fops.feats & ~tracer.FEAT_DENSE_WALK))):
+        n_grid = tracer.K1E_GRID_LAUNCHES
         k = tracer.trace(o, sums(), **kw)
+        check(tracer.K1E_GRID_LAUNCHES == n_grid + 1, f"final_scene "
+              f"({name}): the launch did not run the strip pass")
         pl, work = sums(), {}
         pl_ms = cuda_ms(lambda: tracer.trace_plain(o, pl.zero_(),
                                                    counts=work, **kw),
@@ -2783,6 +2807,36 @@ def main() -> int:
     emit("k1d_walk_vs_event_samples", scene="final_scene", samples=4,
          seed=0, pixel_samples_differ=len(differ), first=differ[:8])
     del final_k
+    # 20 cubes fill a 5×4 grid (the strip pass, in a box grid's
+    # instantiation), 17 leave three cells empty (the generic box loop):
+    # each against plain, bit for bit
+    from raytracing_rust_tpu_torch.models import builders
+    layouts = {}
+    for n_cubes in (20, 17):
+        cops = tracer.trace_operands(
+            tracer.build_scene_record(builders.cubes_scene(n_cubes)),
+            tracer.build_camera_record(builders.cubes_camera(320, 240)), dev)
+        n_grid, n_box = tracer.K1E_GRID_LAUNCHES, tracer.K1E_BOX_LAUNCHES
+        insts = tracer.K1_INSTANTIATION_LAUNCHES.copy()
+        ckw = dict(nx=320, ny=240, seed=1, sample0=0, n_samples=4,
+                   max_depth=50)
+        zc = torch.zeros((3, 320 * 240), dtype=torch.float64, device=dev)
+        k = tracer.trace(cops, zc.clone(), **ckw)
+        ran = (tracer.K1E_GRID_LAUNCHES - n_grid,
+               tracer.K1E_BOX_LAUNCHES - n_box)
+        inst = sorted(tracer.K1_INSTANTIATION_LAUNCHES - insts)
+        pl = tracer.trace_plain(cops, zc.clone(), **ckw)
+        layouts[n_cubes] = dict(
+            grid=list(cops.grid), box_leaves=int(cops.bleaves.shape[0]),
+            grid_launches=ran[0], box_launches=ran[1], instantiation=inst,
+            max_abs_err=float((k - pl).abs().max()))
+        check(ran == ((1, 1) if n_cubes == 20 else (0, 1))
+              and bool(cops.grid) == (n_cubes == 20)
+              and inst == [picked(cops)]
+              and (",2," in inst[0]) == (n_cubes == 20)
+              and bool(torch.equal(k, pl)) and float(k.sum()) > 0,
+              f"{n_cubes} cubes: {layouts[n_cubes]}")
+    emit("k1e_grid_layouts", cubes=layouts)
 
     # -- 19. the render path of final_scene through the command line, and
     # its mean at the JAX reference's size and spp
@@ -2792,7 +2846,7 @@ def main() -> int:
     final_launches = info["launches"]
     check(all(final_launches[k] > 0 for k in (
         "k1be_sphere_trace", "k1c_texture_trace", "k1d_media_trace",
-        "k1e_box_trace", "k1d_walk_trace")),
+        "k1e_box_trace", "k1e_grid_strip", "k1d_walk_trace")),
         f"final_scene: a kernel section never launched: {final_launches}")
     check(img.shape == (ny, nx, 3) and bool(((img >= 0) & (img <= 1)).all()),
           "final_scene: image has the wrong shape or range")
@@ -3011,9 +3065,13 @@ def main() -> int:
         def zeros():
             return torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
 
+        n_grid = tracer.K1E_GRID_LAUNCHES
         prod = tracer.trace(sops, zeros(), **kw)
         sk = tracer.new_stats(snx, sny, dev)
         k = tracer.trace(sops, zeros(), stats=sk, **kw)
+        check(tracer.K1E_GRID_LAUNCHES - n_grid == (
+            2 if scene in GRID_PRESETS else 0), f"{scene}: "
+            f"{tracer.K1E_GRID_LAUNCHES - n_grid} strip-pass launches of 2")
         sp, work = tracer.new_stats(snx, sny, dev), {}
         pl = zeros()
         pl_ms = cuda_ms(lambda: tracer.trace_plain(
@@ -3059,9 +3117,10 @@ def main() -> int:
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     per_sm = tracer.k1_blocks_per_sm()
     # both presets run a K1B+DYN instantiation, with the leaves in shared
-    # memory, random_spheres without MED and final_scene with it
-    per_sm = min(per_sm[f"trace_k1<1,1,{f}>"]
-                 for f in ("0,0,1", "1,0,0", "1,0,1"))
+    # memory, random_spheres without MED and final_scene, a box grid, with
+    # it (DYN 2)
+    per_sm = min(per_sm[f"trace_k1<1,{f}>"]
+                 for f in ("1,0,0,1", "1,1,0,0", "2,1,0,1"))
     for scene, n_samples in (("random_spheres", 2), ("final_scene", 1)):
         sops, snx, sny = preset_ops(scene)
         n_pix = snx * sny
@@ -3155,7 +3214,6 @@ def main() -> int:
     # to the others; times in turns (scanline, probe, probe, scanline),
     # each split's time, and the probe's blocks, waves and occupancy (its
     # own steps row); each split in turns (1, 2, 4, 4, 2, 1)
-    probe_resident = tracer.probe_resident(dev)
     k1f_probe = {}
     for label, scene, size in (("random_spheres", "random_spheres", None),
                                ("final_scene", "final_scene", None),
@@ -3168,6 +3226,7 @@ def main() -> int:
         kw = dict(nx=snx, ny=sny, seed=tracer.PROBE_SEED, sample0=0,
                   n_samples=tracer.PROBE_SPP, max_depth=50)
         tiles_n = tracer.probe_tiles(snx, sny)
+        probe_resident = tracer.probe_resident(dev, bool(sops.grid))
         split = tracer.probe_split(tiles_n, probe_resident)
         st = tracer.new_stats(snx, sny, dev)
         scan_sums = torch.zeros((3, n_pix), dtype=torch.float64, device=dev)
@@ -3435,6 +3494,9 @@ def main() -> int:
                                                  "final_scene"):
         rc = kernel_stats.main(["final_scene"])
     dda_launches = tracer.K1F_DDA_LAUNCHES
+    check(tracer.K1E_GRID_LAUNCHES == tracer.K1E_BOX_LAUNCHES > 0,
+          f"kernel_stats final_scene: {tracer.K1E_GRID_LAUNCHES} strip-pass "
+          f"launches beside {tracer.K1E_BOX_LAUNCHES} box launches")
     stats_log = buf.getvalue()
     emit("k1f_dda_row", scene="final_scene", shape=[sny, snx],
          depth=50, sums_equal_production=same_sums,
@@ -3507,6 +3569,11 @@ def main() -> int:
               "stats launch's")
         check(all(r.get("equals_plain", True) for r in rows),
               f"{label}: the launch's sums differ from trace_plain's")
+        check(all(("k1e_grid_strip" in r["counted"])
+                  == ("k1e_box_trace" in r["counted"]
+                      and bool(launch["ops"].grid))
+                  for r, launch in zip(rows, run["launches"])),
+              f"{label}: a box launch of a grid skipped the strip pass")
     k1a["max_abs_err"] = max(
         k1a["max_abs_err"],
         replayed["cornell_box_baseline"][0]["plain_max_abs_err"])
@@ -3572,6 +3639,14 @@ def main() -> int:
         "launches": final_launches["k1e_box_trace"],
         **main_row(final["event"], ["final_scene"], "k1e_box_trace",
                    final_launches["k1e_box_trace"]), "library_ms": None}, {
+        "name": "k1e_grid_strip", "route": "cuda",
+        "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
+        "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:1947",
+        "launches": final_launches["k1e_grid_strip"],
+        **main_row(final["walk"], ["final_scene"], "k1e_grid_strip",
+                   final_launches["k1e_grid_strip"]),
+        "max_abs_err": max(final[v]["max_abs_err"] for v in final),
+        "library_ms": None}, {
         "name": "k1d_walk_trace", "route": "cuda",
         "source": "raytracing_rust_tpu_torch/csrc/tracer.cu",
         "replaces": "raytracing_rust_tpu/ops/pallas_tracer.py:2787",

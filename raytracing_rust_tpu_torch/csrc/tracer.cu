@@ -11,7 +11,8 @@
 // body `kernel`, launched by `_trace_call`): camera raygen with sub-pixel
 // jitter, a thin lens and a shutter time; closest hit over the unrolled
 // spheres and rect plane-frame groups, then over the box table (`box_thin`:
-// one slab test per merged cube, entry face beyond T_MIN else exit face)
+// one slab test per merged cube, entry face beyond T_MIN else exit face;
+// on a regular grid the strip pass's member test, 1947-2024)
 // and the dynamic sphere table, each in cluster order behind its
 // two-level AABB cull (root, super rows, leaves), carrying only (t,
 // winner) and resolving the winner's normal afterwards (a box's face by
@@ -62,11 +63,14 @@
 // The kernel is a template over five flags: K1B (any feature bit but
 // media and roulette: sky, checker, metal, dielectric, moving spheres,
 // noise, image, the walk, the lattice corners; media and roulette beside
-// any of them or a table), DYN (a dynamic sphere table, a box table or a
-// pixel table), LEAF_SMEM (the leaf tables sit in shared memory), STATS
-// (0: none; 1: the counters of a stats launch; 2: the cost probe's; set
-// only with K1B, DYN and MED, so two instantiations of each serve every
-// scene and the others keep their registers) and MED (the media: their
+// any of them or a table), DYN (1: a dynamic sphere table, a box table or
+// a pixel table; 2: the same with the box table a regular grid, whose
+// members take the strip pass, compiled only there, always with K1B and
+// MED, so a table without a grid runs none of its code), LEAF_SMEM (the
+// leaf tables sit in shared memory), STATS (0: none; 1: the counters of a
+// stats launch; 2: the cost probe's; set only with K1B, DYN and MED, so
+// two instantiations of each (and two more for a grid) serve every scene
+// and the others keep their registers) and MED (the media: their
 // race, the override of the hit, the isotropic scatter and, with K1B, the
 // dense-medium walk; compiled only where it is set, so a scene without a
 // medium runs none of that code). cornell_box runs the instantiation with
@@ -122,8 +126,15 @@
 // the supers its ray crosses rather than every leaf. A warp runs a guarded
 // branch while any of its threads takes it, so the TPU kernel's OR-tree over
 // its lanes has no counterpart here (a warp vote in place of the per-thread
-// root and super guards measured the same), nor has its strip pass over a
-// regular box grid (measured a wash on the TPU). A walk bounce is an
+// root and super guards measured the same). A regular box grid
+// (`_grid_cluster_rows`: final_scene's 20×20 ground boxes, in strip
+// layout) takes the TPU kernel's strip pass in the box members of
+// instantiations of its own (DYN 2), so no other table carries its code:
+// the leaf guard's x slab stands for its members' (the
+// host checks that their x planes are its bits), the shared y_lo plane and
+// the z pitch are taken once a segment, and a member reads its y_hi and
+// z_lo alone (one 8-byte shared load where the leaves sit in shared
+// memory), its z exit the entry plus the pitch. A walk bounce is an
 // iteration of its own, so a thread on a dense-medium walk no longer holds
 // its warp-mates through a nested loop of bounces: it runs the segment's
 // code with the medium's interior rows in place of the scene's closest
@@ -446,14 +457,16 @@ __device__ __forceinline__ float safe_inv(float dc) {
 }
 
 // Entry and exit t of a ray against the box [lo, hi] (`_slab`, 1741-1754),
-// x, then y, then z.
+// x, then y, then z, and the x slab's (txmn, txmx) alone (dropped where a
+// caller leaves them unread).
 __device__ __forceinline__ void slab(float lx, float ly, float lz, float hx,
                                      float hy, float hz, float ox, float oy,
                                      float oz, float inv_dx, float inv_dy,
-                                     float inv_dz, float& tmn, float& tmx) {
+                                     float inv_dz, float& tmn, float& tmx,
+                                     float& txmn, float& txmx) {
   float t0 = (lx - ox) * inv_dx, t1 = (hx - ox) * inv_dx;
-  tmn = fminf(t0, t1);
-  tmx = fmaxf(t0, t1);
+  txmn = tmn = fminf(t0, t1);
+  txmx = tmx = fmaxf(t0, t1);
   t0 = (ly - oy) * inv_dy;
   t1 = (hy - oy) * inv_dy;
   tmn = fmaxf(tmn, fminf(t0, t1));
@@ -466,13 +479,15 @@ __device__ __forceinline__ void slab(float lx, float ly, float lz, float hx,
 
 // Whether the ray crosses the AABB of a cluster-table row (lo3, hi3)
 // inside its window, before its best hit so far (`_clus_guard`,
-// 1756-1776): slab entry before t_d, exit beyond both the entry and T_MIN.
+// 1756-1776): slab entry before t_d, exit beyond both the entry and T_MIN;
+// the row's x slab into (txmn, txmx).
 __device__ __forceinline__ bool crosses(const float* B, float ox, float oy,
                                         float oz, float inv_dx, float inv_dy,
-                                        float inv_dz, float t_d) {
+                                        float inv_dz, float t_d, float& txmn,
+                                        float& txmx) {
   float tmn, tmx;
   slab(B[0], B[1], B[2], B[3], B[4], B[5], ox, oy, oz, inv_dx, inv_dy,
-       inv_dz, tmn, tmx);
+       inv_dz, tmn, tmx, txmn, txmx);
   return tmx > fmaxf(tmn, T_MIN) && tmn < t_d;
 }
 
@@ -488,29 +503,39 @@ __device__ __forceinline__ bool crosses(const float* B, float ox, float oy,
 // one-level cull would test is therefore tested here too, in the same
 // order at the same t_d, and the winners, the ties and the counters are
 // the one-level cull's. Without leaves the members are scanned flat.
-template <typename Members>
+// `members(start, count, txmn, txmx)` gets the x slab of the leaf whose
+// guard it passed (unset in a flat scan); `enter()` runs once a segment,
+// before the first members, once the root guard passes.
+template <typename Members, typename Enter>
 __device__ __forceinline__ void cull_table(
     const float* root, const float* sup, int n_sup, const float* leaf,
     int n_leaf, int n_mem, float ox, float oy, float oz, float inv_dx,
-    float inv_dy, float inv_dz, const float& t_d, Members members) {
+    float inv_dy, float inv_dz, const float& t_d, Members members,
+    Enter enter) {
+  float txmn = 0.0f, txmx = 0.0f;
   if (n_leaf == 0) {
-    members(0, n_mem);
+    enter();
+    members(0, n_mem, txmn, txmx);
     return;
   }
-  if (!crosses(root, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_d)) return;
+  if (!crosses(root, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_d, txmn, txmx))
+    return;
+  enter();
   const int n_top = n_sup > 0 ? n_sup : 1;
   for (int s = 0; s < n_top; ++s) {
     int c0 = 0, c1 = n_leaf;
     if (n_sup > 0) {
       const float* S = sup + s * CLUSW;
-      if (!crosses(S, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_d)) continue;
+      if (!crosses(S, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_d, txmn, txmx))
+        continue;
       c0 = (int)S[6];
       c1 = c0 + (int)S[7];
     }
     for (int c = c0; c < c1; ++c) {
       const float* L = leaf + c * CLUSW;
-      if (!crosses(L, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_d)) continue;
-      members((int)L[6], (int)L[7]);
+      if (!crosses(L, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_d, txmn, txmx))
+        continue;
+      members((int)L[6], (int)L[7], txmn, txmx);
     }
   }
 }
@@ -609,7 +634,7 @@ __device__ __forceinline__ float media_race(
   return t_med;
 }
 
-template <bool K1B, bool DYN, bool LEAF_SMEM, int STATS, bool MED>
+template <bool K1B, int DYN, bool LEAF_SMEM, int STATS, bool MED>
 __global__ void __launch_bounds__(THREADS)
 trace_k1(const float* __restrict__ rec, int n_rec,
          const int* __restrict__ walk, int n_walk,
@@ -628,11 +653,13 @@ trace_k1(const float* __restrict__ rec, int n_rec,
          long long* __restrict__ stats, long long* __restrict__ dda,
          const float* __restrict__ sups, int n_sup,
          const float* __restrict__ bsups, int n_bsup, int probe_split,
-         long long* __restrict__ probe_steps) {
+         long long* __restrict__ probe_steps, float grid_ylo, float grid_w) {
   // the scene's features; all off outside the K1B instantiations, but
   // roulette, which the static instantiations play too, and media, on
   // wherever MED is; the walk's interior rows (WALK) come with both
   constexpr bool WALK = K1B && MED;
+  // the box table is a regular grid (`_grid_cluster_rows`): the strip pass
+  constexpr bool GRID = DYN == 2;
   const bool emis_tex = K1B && (feats & FEAT_EMIS_TEX),
              uv_carry = K1B && (feats & FEAT_UV_CARRY),
              img_flip = K1B && (feats & FEAT_IMG_FLIP),
@@ -653,9 +680,11 @@ trace_k1(const float* __restrict__ rec, int n_rec,
   // sphere tables' root AABBs (DYN), sphere leaves and supers and box
   // leaves and supers (LEAF_SMEM), media (MED), the row list (order, then
   // lead: the unrolled rows' walk order, then with WALK the interior
-  // spheres and rects), the interior rows' kinds (WALK)
+  // spheres and rects), the interior rows' kinds (WALK); before them all,
+  // a box grid's (y_hi, z_lo) per box (GRID and LEAF_SMEM)
   extern __shared__ float smem[];
-  float* s_rec = smem;
+  float2* s_grid = (float2*)smem;
+  float* s_rec = smem + (GRID && LEAF_SMEM ? 2 * n_box : 0);
   float* s_int = s_rec + n_rec * REC;
   float* s_cam = s_int + (WALK ? n_int * REC : 0);
   float* s_root = s_cam + CAMREC;
@@ -672,6 +701,10 @@ trace_k1(const float* __restrict__ rec, int n_rec,
     for (int i = 0; i < n_int; ++i) n_int_sr += interior_kind[i] != INT_BOX;
   const int n_list = n_walk + (WALK ? n_int_sr : 0);
   int* s_ikind = s_walk + 2 * n_list;
+  if (GRID && LEAF_SMEM)
+    for (int i = threadIdx.x; i < n_box; i += blockDim.x)
+      s_grid[i] = make_float2(box[(size_t)i * REC + R_DC + 1],
+                              box[(size_t)i * REC + R_C0 + 2]);
   for (int i = threadIdx.x; i < n_rec * REC; i += blockDim.x)
     s_rec[i] = rec[i];
   for (int i = threadIdx.x; i < 2 * n_walk; i += blockDim.x)
@@ -959,9 +992,9 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         for (int j = 0; j < n_int; ++j) {
           if (s_ikind[j] != INT_BOX) continue;
           const float* r = s_int + j * REC;
-          float tmn, tmx;
+          float tmn, tmx, txmn, txmx;
           slab(r[R_C0], r[R_C0 + 1], r[R_C0 + 2], r[R_DC], r[R_DC + 1],
-               r[R_DC + 2], ox, oy, oz, iwx, iwy, iwz, tmn, tmx);
+               r[R_DC + 2], ox, oy, oz, iwx, iwy, iwz, tmn, tmx, txmn, txmx);
           const float t_p = tmn > T_MIN ? tmn : tmx;
           if (tmx > tmn && t_p > T_MIN && t_p < t_best) t_best = t_p;
         }
@@ -974,34 +1007,75 @@ trace_k1(const float* __restrict__ rec, int n_rec,
         const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy),
                     inv_dz = safe_inv(dz);
         int wb = -1;
+        // a member's slab → its hit t: the entry face when beyond T_MIN,
+        // else the exit face
+        const auto box_hit = [&](int q, float tmn, float tmx) {
+          const float t_p = tmn > T_MIN ? tmn : tmx;
+          // STATS, the DDA row (pallas_tracer.py:1927-1938): the ray
+          // crosses the member's AABB inside its window, before its best
+          // hit so far: the visit set of a per-ray grid DDA
+          if (STATS == 1 && dda != nullptr && tmx > fmaxf(tmn, T_MIN) &&
+              tmn < t_d)
+            ++cross_b;
+          if (tmx > tmn && t_p > T_MIN && t_p < t_d) {
+            t_d = t_p;
+            wb = q;
+          }
+        };
+        // a grid's y_lo plane and z pitch, once a segment
+        float t_ylo = 0.0f, dwz = 0.0f;
         cull_table(s_root, bsup, n_bsup, bleaf, n_bleaf, n_box, ox, oy, oz,
-                   inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
+                   inv_dx, inv_dy, inv_dz, t_d,
+                   [&](int start, int cnt, float txmn, float txmx) {
           if (STATS == 1) tests_b += (uint32_t)cnt;
+          if (GRID) {
+            // the strip pass (pallas_tracer.py:1947-2024): a member of a
+            // grid strip takes the leaf's x slab (its own planes' bits; a
+            // flat scan reads them from the row), the shared y_lo plane,
+            // its y_hi plane, its z entry and the incremental z exit;
+            // (y_hi, z_lo) one 8-byte shared load where the grid's table
+            // sits in shared memory, else two reads of the row
+            for (int q = start; q < start + cnt; ++q) {
+              const float* r = box + (size_t)q * REC;
+              if (n_bleaf == 0) {
+                const float t0 = (__ldg(r + R_C0) - ox) * inv_dx,
+                            t1 = (__ldg(r + R_DC) - ox) * inv_dx;
+                txmn = fminf(t0, t1);
+                txmx = fmaxf(t0, t1);
+              }
+              const float2 g = LEAF_SMEM
+                                   ? s_grid[q]
+                                   : make_float2(__ldg(r + R_DC + 1),
+                                                 __ldg(r + R_C0 + 2));
+              const float th = (g.x - oy) * inv_dy;
+              const float tz0 = (g.y - oz) * inv_dz;
+              const float tz1 = tz0 + dwz;
+              box_hit(q,
+                      fmaxf(fmaxf(fminf(t_ylo, th), txmn), fminf(tz0, tz1)),
+                      fminf(fminf(fmaxf(t_ylo, th), txmx), fmaxf(tz0, tz1)));
+            }
+            return;
+          }
           for (int q = start; q < start + cnt; ++q) {
-            // merged cube (reference src/cube.rs:20-74): one slab test,
-            // the entry face when beyond T_MIN, else the exit face
+            // merged cube (reference src/cube.rs:20-74): one slab test
             const float* r = box + (size_t)q * REC;
-            float tmn, tmx;
+            float tmn, tmx, sxmn, sxmx;
             slab(__ldg(r + R_C0), __ldg(r + R_C0 + 1), __ldg(r + R_C0 + 2),
                  __ldg(r + R_DC), __ldg(r + R_DC + 1), __ldg(r + R_DC + 2),
-                 ox, oy, oz, inv_dx, inv_dy, inv_dz, tmn, tmx);
-            const float t_p = tmn > T_MIN ? tmn : tmx;
-            // STATS, the DDA row (pallas_tracer.py:1927-1938): the ray
-            // crosses the member's AABB inside its window, before its
-            // best hit so far: the visit set of a per-ray grid DDA
-            if (STATS == 1 && dda != nullptr && tmx > fmaxf(tmn, T_MIN) &&
-                tmn < t_d)
-              ++cross_b;
-            if (tmx > tmn && t_p > T_MIN && t_p < t_d) {
-              t_d = t_p;
-              wb = q;
-            }
+                 ox, oy, oz, inv_dx, inv_dy, inv_dz, tmn, tmx, sxmn, sxmx);
+            box_hit(q, tmn, tmx);
+          }
+        }, [&] {
+          if (GRID) {
+            t_ylo = (grid_ylo - oy) * inv_dy;
+            dwz = grid_w * inv_dz;
           }
         });
         const float t_box = t_d;
         int wd = -1;
         cull_table(s_root + 6, sup, n_sup, leaf, n_leaf, n_dyn, ox, oy, oz,
-                   inv_dx, inv_dy, inv_dz, t_d, [&](int start, int cnt) {
+                   inv_dx, inv_dy, inv_dz, t_d,
+                   [&](int start, int cnt, float, float) {
           if (STATS == 1) tests_s += (uint32_t)cnt;
           for (int q = start; q < start + cnt; ++q) {
             const float* r = dyn + (size_t)q * REC;
@@ -1030,7 +1104,7 @@ trace_k1(const float* __restrict__ rec, int n_rec,
               }
             }
           }
-        });
+        }, [] {});
         if (wd >= 0) {
           // winner resolve: normal (o + t·d − c(time))·inv_r, then the
           // flip (pallas_tracer.py:2097-2148)
@@ -1406,20 +1480,26 @@ using TraceFn = void (*)(const float*, int, const int*, int, const float*,
                          uint32_t, const float*, int, const float*, int,
                          const float*, int, const int*, int, int, const int*,
                          int, long long*, long long*, const float*, int,
-                         const float*, int, int, long long*);
+                         const float*, int, int, long long*, float, float);
 
-// The instantiations a launch may run, each with its code, K1B | DYN << 1
-// | LEAF_SMEM << 2 | STATS << 3 | MED << 5 (ops/tracer.py
-// `instantiation_name`; `K1_INSTANTIATIONS` lists the same flags)
+// The instantiations a launch may run, each with its code, K1B | (DYN > 0)
+// << 1 | LEAF_SMEM << 2 | STATS << 3 | MED << 5 | (DYN == 2) << 6
+// (ops/tracer.py `instantiation_name`; `K1_INSTANTIATIONS` lists the same
+// flags)
 struct Pick {
   TraceFn fn;
   int code;
 };
 
-template <bool K1B, bool DYN, bool LEAF_SMEM, int STATS, bool MED>
+int code(int k1b, int dyn, int leaf_smem, int stats, int med) {
+  return k1b | (dyn > 0) << 1 | leaf_smem << 2 | stats << 3 | med << 5 |
+         (dyn == 2) << 6;
+}
+
+template <bool K1B, int DYN, bool LEAF_SMEM, int STATS, bool MED>
 Pick inst() {
   return {trace_k1<K1B, DYN, LEAF_SMEM, STATS, MED>,
-          K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3 | MED << 5};
+          code(K1B, DYN, LEAF_SMEM, STATS, MED)};
 }
 
 // Without a dynamic table there is no leaf table. The production
@@ -1432,28 +1512,34 @@ Pick inst() {
 // counters ride in instantiations of their own, K1B, DYN and MED with
 // every section a runtime branch, so they serve every scene and leave the
 // production kernels' registers as they were: the stats launch's and the
-// cost probe's.
+// cost probe's. A box grid (final_scene) runs DYN 2 with K1B and MED: its
+// production launch, with and without its leaves in shared memory, and
+// its counters.
 const Pick INSTANTIATIONS[] = {
-    inst<false, false, false, 0, false>(), inst<false, false, false, 0, true>(),
-    inst<false, true, false, 0, false>(),  inst<false, true, true, 0, false>(),
-    inst<true, false, false, 0, false>(),  inst<true, false, false, 0, true>(),
-    inst<true, true, false, 0, true>(),    inst<true, true, true, 0, false>(),
-    inst<true, true, true, 0, true>(),     inst<true, true, false, 1, true>(),
-    inst<true, true, true, 1, true>(),     inst<true, true, false, 2, true>(),
-    inst<true, true, true, 2, true>()};
+    inst<false, 0, false, 0, false>(), inst<false, 0, false, 0, true>(),
+    inst<false, 1, false, 0, false>(), inst<false, 1, true, 0, false>(),
+    inst<true, 0, false, 0, false>(),  inst<true, 0, false, 0, true>(),
+    inst<true, 1, false, 0, true>(),   inst<true, 1, true, 0, false>(),
+    inst<true, 1, true, 0, true>(),    inst<true, 1, false, 1, true>(),
+    inst<true, 1, true, 1, true>(),    inst<true, 1, false, 2, true>(),
+    inst<true, 1, true, 2, true>(),    inst<true, 2, false, 0, true>(),
+    inst<true, 2, true, 0, true>(),    inst<true, 2, false, 1, true>(),
+    inst<true, 2, true, 1, true>(),    inst<true, 2, false, 2, true>(),
+    inst<true, 2, true, 2, true>()};
 
 // The instantiation a launch runs (fn null where none has the flags): the
-// counters run K1B, DYN and MED, and so does a K1B table launch whose
-// leaves are not in shared memory
+// counters run K1B, DYN and MED, and so do a K1B table launch whose leaves
+// are not in shared memory and a box grid (dyn 2)
 Pick pick(int k1b, int dyn, int leaf_smem, int stats, int med) {
-  k1b = k1b != 0 || stats != 0;
-  dyn = dyn != 0 || stats != 0;
+  const bool grid = dyn == 2;
+  k1b = k1b != 0 || stats != 0 || grid;
+  dyn = grid ? 2 : (dyn != 0 || stats != 0);
   leaf_smem = leaf_smem != 0 && dyn;
-  med = med != 0 || stats != 0 || (k1b && dyn && !leaf_smem);
-  const int code = k1b | dyn << 1 | leaf_smem << 2 | stats << 3 | med << 5;
+  med = med != 0 || stats != 0 || grid || (k1b && dyn && !leaf_smem);
+  const int c = code(k1b, dyn, leaf_smem, stats, med);
   for (const Pick& p : INSTANTIATIONS)
-    if (p.code == code) return p;
-  return {nullptr, code};
+    if (p.code == c) return p;
+  return {nullptr, c};
 }
 
 }  // namespace
@@ -1468,12 +1554,14 @@ Pick pick(int k1b, int dyn, int leaf_smem, int stats, int med) {
 // leaves. med: f32[n_med, MEDREC], bit i of med_box set for a box
 // boundary, bit i of dense for a medium the walk serves; atlas:
 // int32[atlas_rows, atlas_w] packed texels; perlin_word: (perlin seed ·
-// HSEED) mod 2^32; box: f32[n_box, REC]; interior: f32[n_int, REC] with
-// interior_kind int32[n_int] (ops/tracer.py INT_*); rr_depth: the first
-// bounce of Russian roulette, ≥ 0 exactly when FEAT_RR is set (never with
-// the walk). pix_table: null, and thread i renders pixel i; or int32[n_table]
-// (n_table a multiple of kpix·TILE), and thread j of tile g renders the
-// pixels pix_table[(g·kpix + b)·TILE + j], b < kpix, a slot outside
+// HSEED) mod 2^32; box: f32[n_box, REC], with grid = 1 a regular grid in
+// strip layout (ops/tracer.py `TraceOperands.grid`: one y_lo, grid_ylo,
+// and one f32 z width, grid_w), run by the strip pass; interior:
+// f32[n_int, REC] with interior_kind int32[n_int] (ops/tracer.py INT_*);
+// rr_depth: the first bounce of Russian roulette, ≥ 0 exactly when FEAT_RR
+// is set (never with the walk). pix_table: null, and thread i renders
+// pixel i; or int32[n_table] (n_table a multiple of kpix·TILE), and thread
+// j of tile g renders the pixels pix_table[(g·kpix + b)·TILE + j], b < kpix, a slot outside
 // [0, nx·ny) none (K1f); a pixel named twice races with itself. stats:
 // null, or int64[3·nx·ny + threads / 32] to which the launch adds per
 // pixel its segments, its dynamic sphere member tests and its box member
@@ -1501,6 +1589,7 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
                            int atlas_rows, int atlas_w, uint32_t perlin_word,
                            const float* box, int n_box, const float* bleaves,
                            int n_bleaf, const float* bsups, int n_bsup,
+                           int grid, float grid_ylo, float grid_w,
                            const float* interior, int n_int,
                            const int* interior_kind, int dense,
                            int rr_depth, const int* pix_table, int n_table,
@@ -1521,6 +1610,7 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       (pix_table == nullptr ? kpix != 1
                             : n_table <= 0 || n_table % (kpix * TILE) != 0) ||
       (dda && stats == nullptr) || n_sup < 0 || n_bsup < 0 ||
+      grid < 0 || grid > 1 || (grid && (n_box <= 0 || !(grid_w > 0.0f))) ||
       probe_split < 0 ||
       (probe ? pix_table != nullptr || dda || stats == nullptr ||
                    n_samples % probe_split != 0
@@ -1543,8 +1633,10 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       sizeof(float) * (n_rec * REC + CAMREC + (dyn_inst ? 12 : 0) +
                        n_med * MEDREC + n_int * REC) +
       sizeof(int) * (2 * n_walk + 3 * n_int);
+  // the leaf tables, and a box grid's (y_hi, z_lo) table
   const size_t leaf_bytes =
-      sizeof(float) * (size_t)(n_leaf + n_sup + n_bleaf + n_bsup) * CLUSW;
+      sizeof(float) * ((size_t)(n_leaf + n_sup + n_bleaf + n_bsup) * CLUSW +
+                       (grid ? 2 * (size_t)n_box : 0));
   const bool leaf_smem = n_leaf + n_bleaf > 0 &&
                          base + leaf_bytes <= SMEM_BUDGET;
   const size_t smem = base + (leaf_smem ? leaf_bytes : 0);
@@ -1554,7 +1646,7 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
   const int blocks = probe ? probe_split * n_tiles
                      : pix_table != nullptr ? n_table / kpix / THREADS
                                             : (n_pix + THREADS - 1) / THREADS;
-  const Pick k = pick(k1b, dyn_inst, leaf_smem,
+  const Pick k = pick(k1b, grid ? 2 : dyn_inst, leaf_smem,
                       stats == nullptr ? 0 : probe ? 2 : 1, n_med > 0);
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   k.fn<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
@@ -1565,7 +1657,8 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
       kpix, stats,
       dda ? stats + 3 * (size_t)n_pix + (size_t)blocks * THREADS / 32
           : nullptr,
-      sups, n_sup, bsups, n_bsup, probe ? probe_split : 1, probe_steps);
+      sups, n_sup, bsups, n_bsup, probe ? probe_split : 1, probe_steps,
+      grid_ylo, grid_w);
   const int err = (int)cudaGetLastError();
   if (err == 0 && inst != nullptr) *inst = k.code;
   return err;
@@ -1579,12 +1672,11 @@ extern "C" int rt_trace_k1(const float* rec, int n_rec, const int* walk,
 // those flags).
 extern "C" int rt_trace_k1_blocks_per_sm(int k1b, int dyn, int leaf_smem,
                                          int stats, int med, int* blocks) {
-  if (k1b < 0 || k1b > 1 || dyn < 0 || dyn > 1 || leaf_smem < 0 ||
+  if (k1b < 0 || k1b > 1 || dyn < 0 || dyn > 2 || leaf_smem < 0 ||
       leaf_smem > 1 || stats < 0 || stats > 2 || med < 0 || med > 1)
     return (int)cudaErrorInvalidValue;
   const Pick k = pick(k1b, dyn, leaf_smem, stats, med);
-  if (k.fn == nullptr ||
-      k.code != (k1b | dyn << 1 | leaf_smem << 2 | stats << 3 | med << 5))
+  if (k.fn == nullptr || k.code != code(k1b, dyn, leaf_smem, stats, med))
     return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, k.fn, THREADS, 0);

@@ -7,7 +7,7 @@ this checkout and another one; the time shares of two K1 sections.
 DIR is another checkout of the repository, e.g. the parent commit unpacked
 with `git archive` into a directory `.gitignore` lists. On one CUDA card the
 script builds both checkouts' kernels, compares the SASS of the K1a
-instantiation (`trace_k1<false, false, false, 0, false>`, cornell_box's
+instantiation (`trace_k1<false, 0, false, 0, false>`, cornell_box's
 kernel, with and without roulette) and of the other production
 instantiations (STATS off; in a checkout from before the MED flag, the
 one that ran the same scenes) line by line without addresses, counts
@@ -289,8 +289,11 @@ for label, scene, spp, reps, layout, variant in SCENES:
     row = None   # the probe's per-pixel segments
     extra = {}
     if layout == "probe" and hasattr(tracer, "trace_probe"):
+        # a box grid's probe runs its own instantiations (a checkout from
+        # before them has no `ops.grid`)
+        grid = (True,) if getattr(ops, "grid", ()) else ()
         split = tracer.probe_split(tracer.probe_tiles(nx, ny),
-                                   tracer.probe_resident(dev), spp)
+                                   tracer.probe_resident(dev, *grid), spp)
         row = torch.zeros(n_pix, dtype=torch.int64, device=dev)
         extra.update(split=split, blocks=split * tracer.probe_tiles(nx, ny))
     elif layout == "probe":
@@ -504,14 +507,14 @@ def _time_shares(turns: int) -> dict:
 def _k1_sass(library: str) -> tuple[dict, dict]:
     """(the SASS instructions of each production instantiation of K1
     (STATS off), addresses and encodings stripped, by its flags "K1B,DYN,
-    LEAF_SMEM,MED" (K1a's "0,0,0,0"), or "K1B,DYN,LEAF_SMEM" in a checkout
-    from before the MED flag; the loads of every instantiation,
-    `tracer.k1_sass_loads`)."""
+    LEAF_SMEM,MED" (K1a's "0,0,0,0"; DYN 2 a box grid's), or "K1B,DYN,
+    LEAF_SMEM" in a checkout from before the MED flag; the loads of every
+    instantiation, `tracer.k1_sass_loads`)."""
     from raytracing_rust_tpu_torch.ops import sass, tracer
     text = sass.cuobjdump_sass(library)
     out = {}
     for name, instrs in sass.functions(text).items():
-        f = re.search(r"trace_k1ILb([01])ELb([01])ELb([01])EL[bi]0E"
+        f = re.search(r"trace_k1ILb([01])EL[bi]([012])ELb([01])EL[bi]0E"
                       r"(?:Lb([01])E)?E", name)
         if f:
             out[",".join(g for g in f.groups() if g is not None)] = [
@@ -521,12 +524,15 @@ def _k1_sass(library: str) -> tuple[dict, dict]:
 
 def _counterpart(other: dict, name: str) -> list:
     """The other checkout's SASS of the instantiation `name` ("K1B,DYN,
-    LEAF_SMEM,MED"): its own, or in a checkout from before the MED flag
-    the one that ran the same scenes ("K1B,DYN,LEAF_SMEM"; media alone ran
-    K1B then)."""
+    LEAF_SMEM,MED"): its own, or in a checkout from before the box grid's
+    instantiations (DYN 2) the one that ran the grid (DYN 1), or in a
+    checkout from before the MED flag the one that ran the same scenes
+    ("K1B,DYN,LEAF_SMEM"; media alone ran K1B then)."""
     if name in other:
         return other[name]
     k1b, dyn, leaf, med = name.split(",")
+    if dyn == "2":
+        return _counterpart(other, ",".join((k1b, "1", leaf, med)))
     if (k1b, dyn, med) == ("0", "0", "1"):
         k1b = "1"
     return other.get(",".join((k1b, dyn, leaf)), [])

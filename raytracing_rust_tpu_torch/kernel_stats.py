@@ -13,7 +13,9 @@ done: its steps, its iterations, are the largest segment total among its 32
 threads, over their banks and samples, walk bounces counted), the
 occupancy (segments over 32 × warp steps: the share of a
 warp's thread-steps that trace; the rest is the tail), the segments per
-sample, and the dynamic sphere and box member tests per segment. On a scene with boxes the launch also fills K1f's
+sample, and the dynamic sphere and box member tests per segment (the box
+layout beside them: a grid's strip pass, or generic leaves). On a scene
+with boxes the launch also fills K1f's
 DDA row (tools/kernel_stats.py's dda probe): of the box member tests the
 leaf cull lets through, those whose AABB the ray crosses inside its live
 window, the visit set of a per-ray grid DDA; it prints their rate per
@@ -121,6 +123,7 @@ def run(name: str, nx: int = 400, ny: int = 400, spp: int = 32,
     out = dict(name=name, nx=nx, ny=ny, spp=spp, max_depth=max_depth,
                balance=bool(balance), device=str(device),
                n_dyn=int(ops.dyn.shape[0]), n_box=int(ops.box.shape[0]),
+               box_grid=list(ops.grid[:2]) if ops.grid else None,
                **summarize(stats, n_pix, spp, dda=dda))
     print(f"{name}{' [balanced]' if balance else ''}: "
           f"{nx}x{ny} spp={spp} depth={max_depth} on {device}; "
@@ -134,8 +137,11 @@ def run(name: str, nx: int = 400, ny: int = 400, spp: int = 32,
         print(f"  sphere member tests/segment "
               f"{out['sphere_tests_per_segment']:.1f} of {out['n_dyn']}")
     if out["n_box"]:
+        layout = ("the strip pass over a {}×{} grid".format(*out["box_grid"])
+                  if out["box_grid"] else "generic leaves")
         print(f"  box member tests/segment "
-              f"{out['box_tests_per_segment']:.1f} of {out['n_box']}")
+              f"{out['box_tests_per_segment']:.2f} of {out['n_box']} "
+              f"({layout})")
         print(f"  box tests whose AABB the ray crosses: "
               f"{out['dda_cross_per_segment']:.2f}/segment → a per-ray gate "
               f"could skip {100 * out['dda_skip_share']:.1f}%")

@@ -308,6 +308,32 @@ def lattice_camera(nx: int, ny: int, device="cpu"):
                        10.0, 0.0, 1.0, device=device)
 
 
+def cubes_scene(n: int = 20, builder=SceneBuilder) -> SceneTables:
+    """A test scene, not a reference preset: n cubes of three materials
+    under the sky on a 5-wide grid of pitch 1, heights seeded. 20 fill a
+    5×4 grid, so their boxes take the strip pass; fewer leave cells empty
+    and take the generic box loop. `builder` is the scene builder class
+    (this package's, or another with its interface)."""
+    r = np.random.default_rng(1)
+    b = builder(background=BG_SKY)
+    mats = [b.lambertian(b.solid(0.7, 0.3, 0.3)),
+            b.metal(b.solid(0.8, 0.8, 0.8), 0.1),
+            b.lambertian(b.solid(0.3, 0.7, 0.3))]
+    for k in range(n):
+        x, z = k % 5 - 2.5, k // 5 - 2.0
+        b.cube((x, 0.0, z), (x + 1.0, float(r.uniform(0.2, 1.5)), z + 1.0),
+               mats[k % 3])
+    return b.build()
+
+
+def cubes_camera(nx: int, ny: int, device="cpu"):
+    """`cubes_scene`'s view: from (3, 4, 6) at (0, 0.5, 0), 40° vertical
+    field, no lens blur."""
+    from ..ops.camera import make_camera
+    return make_camera((3, 4, 6), (0, 0.5, 0), (0, 1, 0), 40.0, nx / ny, 0.0,
+                       6.0, 0.0, 1.0, device=device)
+
+
 @dataclass
 class ScenePreset:
     build: object                 # (device=...) -> SceneTables

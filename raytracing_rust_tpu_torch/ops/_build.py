@@ -80,11 +80,11 @@ def build() -> tuple[str, str]:
 def load() -> ctypes.CDLL:
     """The kernel library with its entry points' signatures declared."""
     lib = ctypes.CDLL(build()[0])
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.rt_trace_k1.argtypes = [p, i, p, i, p, i, p, i, p, i, p, i, p, i, i,
                                 u, u, i, i, i, p, i, i, p, i, i, u, p, i, p,
-                                i, p, i, p, i, p, i, i, p, i, i, i, p, p, i,
-                                p, p]
+                                i, p, i, i, f, f, p, i, p, i, i, p, i, i, i,
+                                p, p, i, p, p]
     lib.rt_trace_k1.restype = i
     lib.rt_trace_k1_blocks_per_sm.argtypes = [i, i, i, i, i, p]
     lib.rt_trace_k1_blocks_per_sm.restype = i
@@ -96,7 +96,6 @@ def load() -> ctypes.CDLL:
     lib.rt_grad_bwd.restype = i
     lib.rt_grad_occupancy.argtypes = [i, p]
     lib.rt_grad_occupancy.restype = i
-    f = ctypes.c_float
     lib.rt_fp32_peak.argtypes = [p, i, i, i, f, f, i, i, p]
     lib.rt_fp32_peak.restype = i
     lib.rt_attr_read.argtypes = [p, i, i, p, i, i, i, p, p, p]

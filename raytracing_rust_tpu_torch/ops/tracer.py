@@ -212,7 +212,8 @@ K1BE_FEATS = FEAT_SKY | FEAT_CHECKER | FEAT_METAL | FEAT_DIEL | FEAT_MOVING
 # once for each section the launch runs: K1a is the instantiation with
 # every feature off and no table (cornell_box); a launch counts as K1BE
 # when it runs sky, checker, metal, dielectric, moving spheres or the
-# dynamic sphere table, as K1E_BOX when it holds boxes, as K1C when it
+# dynamic sphere table, as K1E_BOX when it holds boxes (and as K1E_GRID
+# when they are a grid, which the strip pass tests), as K1C when it
 # shades noise or image textures, as K1D when it holds media, as K1D_WALK
 # when it runs the dense-medium walk, as K1_LATTICE when it runs any of
 # the lattice corners, and as K1G when it plays Russian roulette; K1F counts
@@ -226,6 +227,7 @@ K1BE_LAUNCHES = 0
 K1C_LAUNCHES = 0
 K1D_LAUNCHES = 0
 K1E_BOX_LAUNCHES = 0
+K1E_GRID_LAUNCHES = 0
 K1D_WALK_LAUNCHES = 0
 K1_LATTICE_LAUNCHES = 0
 K1G_LAUNCHES = 0
@@ -245,7 +247,10 @@ K1_INSTANTIATION_LAUNCHES: collections.Counter = collections.Counter()
 # bounce's fixed work (scatter Philox, ball sample, emission, new ray), a
 # camera sample, a sphere test, a rect test, a rect frame, a leaf slab, a
 # dynamic member, a medium, a Perlin marble (7 octaves × 8 corners), a
-# texel, a box member, a box leaf slab, a walk bounce's fixed work
+# texel, a box member, a grid box member in the strip pass (its y_hi and
+# z planes, the incremental z exit, the folds and the hit test; its y_lo
+# plane and z pitch, 3 a segment past the box root, are left out), a box
+# leaf slab, a walk bounce's fixed work
 # (its scatter Philox, ball sample, new ray) and each interior row it
 # tests; a textured light's hit (its texture test, hit point and a
 # checker's three sines; a marble or a texel counted as such), a rect's
@@ -254,7 +259,7 @@ K1_INSTANTIATION_LAUNCHES: collections.Counter = collections.Counter()
 # (a Philox call, the clipped maximum, the reciprocal and three multiplies)
 K1_OPS = dict(segment=160, sample=140, sphere=20, rect=14, frame=32,
               leaf=24, member=20, medium=70, noise=2455, image=30, box=26,
-              box_leaf=24, walk=120, interior=22, emis_tex=20, rect_uv=34,
+              box_strip=17, box_leaf=24, walk=120, interior=22, emis_tex=20, rect_uv=34,
               med_tex=17, rr=112)
 
 # lanes (pixel × sample) per chunk when the caller names no chunk: the plain
@@ -288,7 +293,7 @@ class SceneRecord:
     perlin_seed: int
     box_rec: np.ndarray  # f32[n_box, REC] merged boxes in cluster order
     bclus: np.ndarray    # f32[n_leaf + n_sup, CLUSW] their leaves, then supers
-    n_bclus: tuple       # (n_leaf, n_sup)
+    n_bclus: tuple       # (n_leaf, n_sup), and (NI, NJ) of a box grid
     med_dense: tuple     # per medium: the dense-medium walk serves it
     int_rec: np.ndarray  # f32[≤ MAX_INTERIOR, REC] the walk's interior rows
     int_kinds: tuple     # "sphere" / "moving" / "rect" / "box" per row
@@ -447,6 +452,81 @@ def _cluster_rows(rows, lo, hi, leaf):
             len(clusters), len(supers))
 
 
+def _grid_cluster_rows(box_rows):
+    """A regular NI×NJ box grid laid out for the strip pass
+    (`pallas_tracer._grid_cluster_rows`, line for line), or None.
+
+    final_scene's 400 ground boxes (reference tests/test.rs:424-438) are a
+    20×20 grid: one y_lo, the x and z bounds on one pitch w, only the
+    heights vary. The kernel's strip pass (csrc/tracer.cu, the box
+    members of a grid) takes the y_lo plane once a segment and a leaf's x
+    slab once a leaf; a member pays for its y_hi plane, its z entry and an
+    incremental z exit. Returns (rows strip-major: x-major, z ascending;
+    table f32[L + S, CLUSW]; n_leaf, n_sup, NI, NJ), or None when the
+    boxes are no such grid: fewer than 16, a y_lo not shared, a pitch not
+    one w in x and z to 1e-4·w, a cell taken twice, a z width that is not
+    one f32 value w32, or a strip whose x planes are not each member's
+    bit for bit. A leaf is a BOX_LEAF-member z segment of one strip (lo
+    [x_i, y_lo, z_first], hi [x_i + w, max y_hi, z_last + w]); the supers
+    group SUP_FANOUT leaves, even when there are no more leaves than that.
+    """
+    B = len(box_rows)
+    if B < 16:
+        return None
+    lo = box_rows[:, R_C0:R_C0 + 3]
+    hi = box_rows[:, R_DC:R_DC + 3]
+    ylo = lo[0, 1]
+    if not np.all(lo[:, 1] == ylo):
+        return None
+    xs = np.unique(lo[:, 0])
+    zs = np.unique(lo[:, 2])
+    ni, nj = len(xs), len(zs)
+    if ni < 2 or nj < 2 or ni * nj != B:
+        return None
+    w = float(xs[1] - xs[0])
+    if w <= 0:
+        return None
+    tol = 1e-4 * w
+    if not (np.allclose(np.diff(xs), w, rtol=0, atol=tol)
+            and np.allclose(np.diff(zs), w, rtol=0, atol=tol)
+            and np.allclose(hi[:, 0] - lo[:, 0], w, rtol=0, atol=tol)
+            and np.allclose(hi[:, 2] - lo[:, 2], w, rtol=0, atol=tol)):
+        return None
+    i_idx = np.rint((lo[:, 0] - xs[0]) / w).astype(int)
+    j_idx = np.rint((lo[:, 2] - zs[0]) / w).astype(int)
+    cells = i_idx * nj + j_idx
+    if len(np.unique(cells)) != B:
+        return None
+    order = np.argsort(cells)
+    rows = np.ascontiguousarray(box_rows[order])
+    # the incremental z exit tz0 + w·inv_dz needs one f32 z width
+    w32 = np.float32(rows[0, R_DC + 2] - rows[0, R_C0 + 2])
+    if not np.all((rows[:, R_DC + 2] - rows[:, R_C0 + 2]) == w32):
+        return None
+    leaves = []
+    for i in range(ni):
+        strip = rows[i * nj:(i + 1) * nj]
+        # the leaf's x slab stands for each member's: the same bits
+        if (not np.all(strip[:, R_C0] == strip[0, R_C0])
+                or not np.all(strip[:, R_DC] == strip[0, R_DC])):
+            return None
+        for s in range(0, nj, BOX_LEAF):
+            seg = strip[s:s + BOX_LEAF]
+            leaves.append(np.concatenate([
+                [strip[0, R_C0], ylo, seg[0, R_C0 + 2]],
+                [strip[0, R_DC], seg[:, R_DC + 1].max(),
+                 seg[-1, R_DC + 2]],
+                [i * nj + s, len(seg)]]))
+    supers = []
+    for s in range(0, len(leaves), SUP_FANOUT):
+        grp = np.stack(leaves[s:s + SUP_FANOUT])
+        supers.append(np.concatenate([
+            grp[:, 0:3].min(0), grp[:, 3:6].max(0),
+            [s, len(grp)]]))
+    table = np.asarray(leaves + supers, np.float32)
+    return rows, table, len(leaves), len(supers), ni, nj
+
+
 def _texture_fields(tx, what, tex_type, tex_color, tex_child, tex_scale,
                     tex_image, image_hw, img_h) -> np.ndarray:
     """Texture tx as the kernel reads it → f32[TEXW] (T_* columns): a
@@ -485,15 +565,16 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
     """Flatten SceneTables into the kernel's records (host side).
 
     The columns, the partition and the flags are those of
-    `pallas_tracer.build_scene_record` with its strip grid off
-    (`pallas_tracer.GRID` False: the boxes are clustered like the
-    spheres). A scene of at most UNROLL_BUDGET prims unrolls them all. A
-    bigger one merges its cubes into box rows (`_merge_boxes`), unrolls
-    the rects left over, its moving spheres when they fit beside them, and
-    its "hero" spheres (radius ≥ 4× the median of the rest), and moves the
-    other spheres into the dynamic table; the dynamic spheres and the
-    boxes are each cluster-sorted with a leaf AABB table. Rect frame
-    groups share the six ray·frame dot products of one plane frame.
+    `pallas_tracer.build_scene_record` at its defaults. A scene of at most
+    UNROLL_BUDGET prims unrolls them all. A bigger one merges its cubes
+    into box rows (`_merge_boxes`), unrolls the rects left over, its
+    moving spheres when they fit beside them, and its "hero" spheres
+    (radius ≥ 4× the median of the rest), and moves the other spheres into
+    the dynamic table; the dynamic spheres are cluster-sorted with a leaf
+    AABB table, and so are the boxes, unless they form a regular grid
+    (`_grid_cluster_rows`: strip-major rows, z-segment leaves, n_bclus
+    (n_leaf, n_sup, NI, NJ)), which the kernel's strip pass tests. Rect
+    frame groups share the six ray·frame dot products of one plane frame.
 
     A light with a checker, noise or image texture fills the texture
     fields as an albedo would and keeps R_EMIT zero; the kernel emits the
@@ -707,9 +788,13 @@ def build_scene_record(scene: SceneTables) -> SceneRecord:
                 np.maximum(c0, c1) + r_, SPH_LEAF)
             n_sclus = tuple(n_sclus)
         if len(box_rows):
-            box_rec, bclus, *n_bclus = _cluster_rows(
-                box_rows, box_rows[:, R_C0:R_C0 + 3],
-                box_rows[:, R_DC:R_DC + 3], BOX_LEAF)
+            # a regular grid takes the strip layout, n_bclus (n_leaf,
+            # n_sup, NI, NJ) (pallas_tracer.py:853-864)
+            g = _grid_cluster_rows(box_rows)
+            if g is None:
+                g = _cluster_rows(box_rows, box_rows[:, R_C0:R_C0 + 3],
+                                  box_rows[:, R_DC:R_DC + 3], BOX_LEAF)
+            box_rec, bclus, *n_bclus = g
             n_bclus = tuple(n_bclus)
         rec = np.ascontiguousarray(rec[keep])
         kinds = [k for i, k in enumerate(kinds) if keep[i]]
@@ -881,8 +966,12 @@ class TraceOperands:
     dense: int            # bit i set: medium i is served by the walk
     rr_depth: int = -1    # the first bounce of Russian roulette; -1: none
                           # (FEAT_RR is set exactly when it is ≥ 0)
+    grid: tuple = ()      # (NI, NJ, y_lo, w32): the boxes are a regular grid
+                          # in strip layout (`_grid_cluster_rows`), tested
+                          # by the strip pass; (): none
 
     def __post_init__(self):
+        self._check_grid()
         # the kernel visits a super's leaves as one ascending range, so the
         # ranges must tile [0, n_leaf) once, in order (unread without
         # leaves). The check reads the rows on the host, so it runs once,
@@ -901,6 +990,38 @@ class TraceOperands:
                 raise ValueError(f"{name}' leaf ranges do not tile [0, "
                                  f"{leaves.shape[0]}) in ascending order")
 
+    def _check_grid(self):
+        """A grid spec must describe the box table as the strip pass reads
+        it (it has no generic fallback): NI·NJ rows, each with the shared
+        y_lo and the z width w32 in f32, and each leaf's x planes the bits
+        of its members'. Read on the host, once, like the super rows."""
+        if not self.grid:
+            return
+        if len(self.grid) != 4:
+            raise ValueError(f"grid must be (NI, NJ, y_lo, w32), got "
+                             f"{self.grid}")
+        ni, nj, ylo, w32 = self.grid
+        box, leaves = self.box, self.bleaves
+        if not (box.dim() == 2 and box.shape[1] == REC
+                and box.dtype == torch.float32 and leaves.dim() == 2
+                and leaves.shape[1] == CLUSW
+                and leaves.dtype == torch.float32):
+            return   # `trace` refuses these rows
+        if ni * nj != box.shape[0] or not w32 > 0.0:
+            raise ValueError(f"grid {ni}×{nj} with pitch {w32} does not "
+                             f"describe {box.shape[0]} box rows")
+        b = box.cpu()
+        if not (bool((b[:, R_C0 + 1] == ylo).all())
+                and bool((b[:, R_DC + 2] - b[:, R_C0 + 2] == w32).all())):
+            raise ValueError("a box of the grid has another y_lo or z width "
+                             "than the grid's")
+        for lf in leaves.cpu().tolist():
+            m = b[int(lf[6]):int(lf[6]) + int(lf[7])]
+            if not (bool((m[:, R_C0] == lf[0]).all())
+                    and bool((m[:, R_DC] == lf[3]).all())):
+                raise ValueError("a grid leaf's x planes are not its "
+                                 "members' own")
+
 
 def trace_operands(srec: SceneRecord, cam_rec: np.ndarray, device,
                    rr_depth: int | None = None) -> TraceOperands:
@@ -918,7 +1039,12 @@ def trace_operands(srec: SceneRecord, cam_rec: np.ndarray, device,
         if rr_depth < 0:
             raise ValueError(f"rr_depth {rr_depth} is negative")
         feats = (feats | FEAT_RR) & ~FEAT_DENSE_WALK
-    (n_leaf, n_sup), (n_bleaf, n_bsup) = srec.n_sclus, srec.n_bclus
+    (n_leaf, n_sup), (n_bleaf, n_bsup) = srec.n_sclus, srec.n_bclus[:2]
+    grid = ()
+    if len(srec.n_bclus) == 4:
+        b = srec.box_rec
+        grid = (*srec.n_bclus[2:], float(b[0, R_C0 + 1]),
+                float(np.float32(b[0, R_DC + 2] - b[0, R_C0 + 2])))
     return TraceOperands(
         rec=put(srec.rec), walk=put(walk_table(srec.kinds, srec.rect_groups)),
         dyn=put(srec.dyn_rec), leaves=put(srec.sclus[:n_leaf]),
@@ -933,7 +1059,7 @@ def trace_operands(srec: SceneRecord, cam_rec: np.ndarray, device,
         interior_kind=put(np.asarray([kind[k] for k in srec.int_kinds],
                                      np.int32)),
         dense=sum(1 << i for i, d in enumerate(srec.med_dense) if d),
-        rr_depth=-1 if rr_depth is None else int(rr_depth))
+        rr_depth=-1 if rr_depth is None else int(rr_depth), grid=grid)
 
 
 def _sphere_center(r, time, moving: bool):
@@ -1138,6 +1264,32 @@ def _box_t(lo, hi, o, inv_d, slab=False):
     (pallas_tracer.py `box_thin`, 1914-1923) → (t, ok), and with slab the
     slab's (entry, exit) t besides."""
     tmn, tmx = _slab(lo, hi, o, inv_d)
+    t_p = torch.where(tmn > T_MIN, tmn, tmx)
+    ok = (tmx > tmn) & (t_p > T_MIN)
+    return (t_p, ok, (tmn, tmx)) if slab else (t_p, ok)
+
+
+def _strip_t(x_lo, x_hi, y_hi, z_lo, o, inv_d, t_ylo, dwz, slab=False):
+    """A grid box's hit t in the strip pass's form (pallas_tracer.py
+    1965-1995, csrc/tracer.cu the grid's box members) → (t, ok), and with
+    slab the (entry, exit) t besides: the x slab of the box's strip (its
+    planes are the box's own bits), the shared y_lo plane's t_ylo, the
+    box's y_hi plane, its z entry plane tz0 and the incremental z exit
+    tz0 + dwz (dwz = w32·inv_dz), folded y, x, z. The entry t is
+    `_box_t`'s where the ray enters through the z_lo plane or another
+    axis's; the hi z plane's t may differ from (z_hi − oz)·inv_dz by the
+    add's rounding."""
+    tx0 = (x_lo - o[0]) * inv_d[0]
+    tx1 = (x_hi - o[0]) * inv_d[0]
+    th = (y_hi - o[1]) * inv_d[1]
+    tz0 = (z_lo - o[2]) * inv_d[2]
+    tz1 = tz0 + dwz
+    tmn = torch.maximum(torch.maximum(torch.minimum(t_ylo, th),
+                                      torch.minimum(tx0, tx1)),
+                        torch.minimum(tz0, tz1))
+    tmx = torch.minimum(torch.minimum(torch.maximum(t_ylo, th),
+                                      torch.maximum(tx0, tx1)),
+                        torch.maximum(tz0, tz1))
     t_p = torch.where(tmn > T_MIN, tmn, tmx)
     ok = (tmx > tmn) & (t_p > T_MIN)
     return (t_p, ok, (tmn, tmx)) if slab else (t_p, ok)
@@ -1511,13 +1663,27 @@ def trace_plain(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
             # first, so the first strict minimum keeps a box on a tie)
             tests = None if stats is None else torch.zeros_like(bnc)
             cross = torch.zeros_like(bnc) if dda else None
-            t_b, wb = _closest_rows(
-                lambda rows, ln: _box_t(
-                    [rows[None, :, R_C0 + a] for a in range(3)],
-                    [rows[None, :, R_DC + a] for a in range(3)],
-                    [x[ln, None] for x in o], [x[ln, None] for x in inv_d],
-                    slab=dda),
-                box_dev, bleaf_dev, o, inv_d, t_best, tests, cross)
+            if ops.grid:
+                # a box grid: the strip pass's member test, its y_lo plane
+                # and z pitch taken once a segment
+                t_ylo = (ops.grid[2] - oy) * inv_d[1]
+                dwz = ops.grid[3] * inv_d[2]
+
+                def box_rows(rows, ln):
+                    return _strip_t(
+                        rows[None, :, R_C0], rows[None, :, R_DC],
+                        rows[None, :, R_DC + 1], rows[None, :, R_C0 + 2],
+                        [x[ln, None] for x in o], [x[ln, None] for x in inv_d],
+                        t_ylo[ln, None], dwz[ln, None], slab=dda)
+            else:
+                def box_rows(rows, ln):
+                    return _box_t(
+                        [rows[None, :, R_C0 + a] for a in range(3)],
+                        [rows[None, :, R_DC + a] for a in range(3)],
+                        [x[ln, None] for x in o], [x[ln, None] for x in inv_d],
+                        slab=dda)
+            t_b, wb = _closest_rows(box_rows, box_dev, bleaf_dev, o, inv_d,
+                                    t_best, tests, cross)
             if stats is not None:
                 tb_lane[live] += tests
             if dda:
@@ -1957,7 +2123,7 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor | None, *, nx: int,
     global KERNEL_LAUNCHES, K1BE_LAUNCHES, K1C_LAUNCHES, K1D_LAUNCHES
     global K1E_BOX_LAUNCHES, K1D_WALK_LAUNCHES, K1_LATTICE_LAUNCHES
     global K1G_LAUNCHES, K1F_LAUNCHES, K1F_TABLE_LAUNCHES, K1F_STATS_LAUNCHES
-    global K1F_PROBE_LAUNCHES, K1F_DDA_LAUNCHES
+    global K1F_PROBE_LAUNCHES, K1F_DDA_LAUNCHES, K1E_GRID_LAUNCHES
     inst = ctypes.c_int(-1)
     err = lib.rt_trace_k1(
         ops.rec.data_ptr(), ops.rec.shape[0], ops.walk.data_ptr(),
@@ -1971,7 +2137,8 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor | None, *, nx: int,
         ops.atlas.shape[0], ops.atlas.shape[1],
         perlin.seed_word(ops.perlin_seed), ops.box.data_ptr(),
         ops.box.shape[0], ops.bleaves.data_ptr(), ops.bleaves.shape[0],
-        ops.bsups.data_ptr(), ops.bsups.shape[0],
+        ops.bsups.data_ptr(), ops.bsups.shape[0], int(bool(ops.grid)),
+        *(ops.grid[2:] if ops.grid else (0.0, 0.0)),
         ops.interior.data_ptr(), ops.interior.shape[0],
         ops.interior_kind.data_ptr(), ops.dense, ops.rr_depth,
         None if pix is None else pix.data_ptr(),
@@ -2001,6 +2168,8 @@ def _launch(lib, ops: TraceOperands, sums: torch.Tensor | None, *, nx: int,
         K1BE_LAUNCHES += 1
     if n_box:
         K1E_BOX_LAUNCHES += 1
+    if n_box and ops.grid:
+        K1E_GRID_LAUNCHES += 1
     if ops.feats & (FEAT_NOISE | FEAT_IMAGE):
         K1C_LAUNCHES += 1
     if ops.feats & FEAT_MEDIA:
@@ -2078,24 +2247,28 @@ def trace(ops: TraceOperands, sums: torch.Tensor, *, nx: int, ny: int,
 
 
 # the instantiations of csrc/tracer.cu by their template arguments (K1B,
-# DYN, LEAF_SMEM, STATS: 0 none, 1 the stats launch's counters, 2 the cost
-# probe's; MED), as ptxas names them: nine production ones (`k1_instantiation`
-# says which a launch runs) and four for K1f's counters
+# DYN: 1 the tables, 2 the tables with a box grid's strip pass; LEAF_SMEM,
+# STATS: 0 none, 1 the stats launch's counters, 2 the cost probe's; MED),
+# as ptxas names them: eleven production ones (`k1_instantiation` says
+# which a launch runs), two of them a box grid's, and six for K1f's
+# counters, two of them a box grid's
 K1_INSTANTIATIONS = ((0, 0, 0, 0, 0), (0, 0, 0, 0, 1), (0, 1, 0, 0, 0),
                      (0, 1, 1, 0, 0), (1, 0, 0, 0, 0), (1, 0, 0, 0, 1),
                      (1, 1, 0, 0, 1), (1, 1, 1, 0, 0), (1, 1, 1, 0, 1),
                      (1, 1, 0, 1, 1), (1, 1, 1, 1, 1), (1, 1, 0, 2, 1),
-                     (1, 1, 1, 2, 1))
+                     (1, 1, 1, 2, 1), (1, 2, 0, 0, 1), (1, 2, 1, 0, 1),
+                     (1, 2, 0, 1, 1), (1, 2, 1, 1, 1), (1, 2, 0, 2, 1),
+                     (1, 2, 1, 2, 1))
 
 
 def instantiation_name(code: int) -> str:
     """The instantiation of a launch's code (csrc/tracer.cu `Pick::code`:
-    K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3 | MED << 5) →
-    "trace_k1<K1B,DYN,LEAF_SMEM,STATS,MED>"."""
-    if not 0 <= code < 64:
+    K1B | (DYN > 0) << 1 | LEAF_SMEM << 2 | STATS << 3 | MED << 5 |
+    (DYN == 2) << 6) → "trace_k1<K1B,DYN,LEAF_SMEM,STATS,MED>"."""
+    if not 0 <= code < 128 or code >> 6 and not code >> 1 & 1:
         raise ValueError(f"no K1 instantiation has the code {code}")
-    flags = (code & 1, code >> 1 & 1, code >> 2 & 1, code >> 3 & 3,
-             code >> 5 & 1)
+    flags = (code & 1, (code >> 1 & 1) + (code >> 6), code >> 2 & 1,
+             code >> 3 & 3, code >> 5 & 1)
     return f"trace_k1<{','.join(map(str, flags))}>"
 
 
@@ -2105,10 +2278,11 @@ def k1_instantiation(ops: TraceOperands, *, table: bool = False,
     launch of ops runs, as csrc/tracer.cu `rt_trace_k1` and `pick` choose
     it: table, a launch on a pixel table; stats, 1 for the counters of a
     stats launch, 2 for the cost probe's (`trace_probe`). A table, a box
-    table or counters run a DYN instantiation; any feature but roulette
-    and media, or either of them beside a table, a K1B one; media a MED
-    one, and so do the counters and a K1B launch with a table whose leaves
-    are not in shared memory (none, or too many to fit); roulette or media
+    table or counters run a DYN instantiation, DYN 2 where the boxes are a
+    grid (`ops.grid`); any feature but roulette and media, or either of
+    them beside a table, or a grid, a K1B one; media a MED one, and so do
+    the counters, a grid and a K1B launch with a table whose leaves are
+    not in shared memory (none, or too many to fit); roulette or media
     alone, without a table, K1a's code."""
     n_dyn, n_box = int(ops.dyn.shape[0]), int(ops.box.shape[0])
     n_leaf = int(ops.leaves.shape[0]) if n_dyn else 0
@@ -2116,16 +2290,18 @@ def k1_instantiation(ops: TraceOperands, *, table: bool = False,
     n_sup = int(ops.sups.shape[0]) if n_leaf else 0
     n_bsup = int(ops.bsups.shape[0]) if n_bleaf else 0
     n_int, n_med = int(ops.interior.shape[0]), int(ops.med.shape[0])
-    stats = int(stats)
+    stats, grid = int(stats), bool(ops.grid)
     dyn = int(bool(stats or n_dyn or n_box or table))
-    k1b = int(bool(stats or ops.feats & ~(FEAT_RR | FEAT_MEDIA)
+    k1b = int(bool(stats or grid or ops.feats & ~(FEAT_RR | FEAT_MEDIA)
                    or (ops.feats and dyn)))
     base = (4 * (ops.rec.shape[0] * REC + CAMREC + 12 * dyn + n_med * MEDREC
                  + n_int * REC) + 4 * (2 * ops.walk.shape[1] + 3 * n_int))
-    leaf_bytes = 4 * (n_leaf + n_sup + n_bleaf + n_bsup) * CLUSW
+    leaf_bytes = 4 * ((n_leaf + n_sup + n_bleaf + n_bsup) * CLUSW
+                      + (2 * n_box if grid else 0))
     leaf_smem = int(n_leaf + n_bleaf > 0 and base + leaf_bytes <= SMEM_BUDGET)
-    med = int(bool(n_med or stats or (k1b and dyn and not leaf_smem)))
-    return k1b, dyn, leaf_smem, stats, med
+    med = int(bool(n_med or stats or grid
+                   or (k1b and dyn and not leaf_smem)))
+    return k1b, 2 if grid else dyn, leaf_smem, stats, med
 
 
 def k1_blocks_per_sm() -> dict:
@@ -2175,7 +2351,7 @@ def k1_work(ops: TraceOperands, counts: dict, n_pix: int,
             probe: bool = False) -> tuple[int, int]:
     """(operations, bytes) of K1 on a run's paths: `trace_plain`'s counts
     of lane bounces, of noise and image lanes, of the box members an exact
-    leaf cull tests, of the slab tests an exact two-level cull makes, of
+    leaf cull tests (a grid's in the strip pass's form), of the slab tests an exact two-level cull makes, of
     walk bounces, of textured-light hits, rect-UV lanes, textured-medium
     events and roulette draws, times K1_OPS, with the scene's structure
     per lane bounce (the sphere leaf cull's members counted as one leaf's);
@@ -2205,7 +2381,7 @@ def k1_work(ops: TraceOperands, counts: dict, n_pix: int,
     colour = not probe or bool(ops.feats & FEAT_RR)
     n_ops = (counts["segments"] * per_seg
              + n_pix * n_samples * K1_OPS["sample"]
-             + counts["box"] * K1_OPS["box"]
+             + counts["box"] * K1_OPS["box_strip" if ops.grid else "box"]
              + (0 if one_level else counts["cull"] * K1_OPS["leaf"]
                 + counts["box_cull"] * K1_OPS["box_leaf"])
              + counts["walk"] * per_walk + counts["rr"] * K1_OPS["rr"]
@@ -2335,7 +2511,8 @@ def cost_probe(ops: TraceOperands, nx: int, ny: int, max_depth: int,
     busy = torch.zeros(nx * ny, dtype=torch.int64, device=device)
     split = 1
     if device.type == "cuda":
-        split = probe_split(probe_tiles(nx, ny), probe_resident(device))
+        split = probe_split(probe_tiles(nx, ny),
+                            probe_resident(device, bool(ops.grid)))
     return trace_probe(ops, busy, nx=nx, ny=ny, seed=PROBE_SEED, sample0=0,
                        n_samples=PROBE_SPP, max_depth=max_depth,
                        split=split)
@@ -2370,25 +2547,27 @@ def probe_split(n_tiles: int, resident: int,
     return split
 
 
-# resident blocks of the probe's instantiation on each card, by index
+# resident blocks of the probe's instantiations on each card, by (index,
+# box grid)
 _RESIDENT: dict = {}
 
 
-def probe_resident(device) -> int:
+def probe_resident(device, grid: bool = False) -> int:
     """The probe's blocks that the card of `device` holds at once: its SMs
     × the blocks of the probe's instantiations an SM holds (the fewer of
-    the two, with and without the leaves in shared memory; the occupancy
-    query, once per card)."""
+    the two, with and without the leaves in shared memory; a box grid's
+    two with grid; the occupancy query, once per card)."""
     idx = torch.device(device).index
     idx = torch.cuda.current_device() if idx is None else idx
-    if idx not in _RESIDENT:
+    if (idx, grid) not in _RESIDENT:
         with torch.cuda.device(idx):
             per_sm = k1_blocks_per_sm()
-        _RESIDENT[idx] = (
+        dyn = 2 if grid else 1
+        _RESIDENT[idx, grid] = (
             torch.cuda.get_device_properties(idx).multi_processor_count
-            * min(per_sm["trace_k1<1,1,0,2,1>"],
-                  per_sm["trace_k1<1,1,1,2,1>"]))
-    return _RESIDENT[idx]
+            * min(per_sm[f"trace_k1<1,{dyn},0,2,1>"],
+                  per_sm[f"trace_k1<1,{dyn},1,2,1>"]))
+    return _RESIDENT[idx, grid]
 
 
 def _check_probe(busy, nx, ny, n_samples, split, steps):

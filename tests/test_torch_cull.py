@@ -55,9 +55,10 @@ _SCENES = {
                   lambda: _crowd(120)(JSceneBuilder)),
 }
 # (dynamic sphere leaves, supers), (box leaves, supers) as `_cluster_rows`
-# splits them
+# splits them (final_scene's boxes: the strip grid's z segments,
+# `_grid_cluster_rows`)
 _COUNTS = {"random_spheres": ((32, 4), (0, 0)),
-           "final_scene": ((64, 8), (64, 8)),
+           "final_scene": ((64, 8), (60, 8)),
            "crowd_2000": ((128, 16), (0, 0)),
            "crowd_120": ((8, 0), (0, 0))}
 
@@ -77,15 +78,14 @@ def _tables(ops):
 
 
 @pytest.mark.parametrize("name", sorted(_SCENES))
-def test_super_rows_equal_jax(name, monkeypatch):
+def test_super_rows_equal_jax(name):
     """sups and bsups are the super rows of `pallas_tracer._cluster_rows`
-    as its `build_scene_record` (strip grid off, as the port clusters
-    boxes) lays them out after the leaves, bit for bit; leaves and
-    bleaves are its leaf rows, as before."""
-    monkeypatch.setattr(pt, "GRID", False)
+    (of `_grid_cluster_rows` for final_scene's box grid) as its
+    `build_scene_record` lays them out after the leaves at its defaults,
+    bit for bit; leaves and bleaves are its leaf rows, as before."""
     ops = _ops(name)
     (_, _, _, _, _, _, _, sclus, (n_leaf, n_sup), bclus,
-     (n_bleaf, n_bsup)) = pt.build_scene_record(_SCENES[name][1]())[:11]
+     (n_bleaf, n_bsup, *_)) = pt.build_scene_record(_SCENES[name][1]())[:11]
     assert ((n_leaf, n_sup), (n_bleaf, n_bsup)) == _COUNTS[name]
     for got, want in ((ops.leaves, sclus[:n_leaf]),
                       (ops.sups, sclus[n_leaf:n_leaf + n_sup]),

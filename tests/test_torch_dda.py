@@ -5,7 +5,8 @@ The JAX package's row cannot be computed here (the megakernel's PRNG has no
 CPU lowering, tests/test_pallas_tripwire.py), and the port's row is per
 thread, not per tile (csrc/tracer.cu, the box member loop): for each box
 member test a ray runs, it counts whether the ray crosses the member's
-AABB inside (T_MIN, its best hit before the test). Here: the row equals a
+AABB inside (T_MIN, its best hit before the test), final_scene's ground
+boxes in the strip pass's form. Here: the row equals a
 sequential numpy recount of that predicate, member by member against the
 running best, on every box pass of every segment; it never exceeds the box
 tests; it adds up across chunks; the other counters and the probe do not
@@ -53,11 +54,30 @@ def _slab(lo, hi, o, inv):
     return tmn, tmx
 
 
-def _recount(leaves, box, o, inv_d, t_d):
+def _strip(r, o, inv, grid):
+    """csrc/tracer.cu's strip-pass member test in numpy f32 → (entry,
+    exit): the box's x slab, the grid's y_lo plane and its y_hi plane, its
+    z_lo plane and the incremental z exit, folded y, x, z."""
+    f32 = np.float32
+    t_ylo = (f32(grid[2]) - o[1]) * inv[1]
+    tx0 = (r[tracer.R_C0] - o[0]) * inv[0]
+    tx1 = (r[tracer.R_DC] - o[0]) * inv[0]
+    th = (r[tracer.R_DC + 1] - o[1]) * inv[1]
+    tz0 = (r[tracer.R_C0 + 2] - o[2]) * inv[2]
+    tz1 = tz0 + f32(grid[3]) * inv[2]
+    tmn = np.maximum(np.maximum(np.minimum(t_ylo, th), np.minimum(tx0, tx1)),
+                     np.minimum(tz0, tz1))
+    tmx = np.minimum(np.minimum(np.maximum(t_ylo, th), np.maximum(tx0, tx1)),
+                     np.maximum(tz0, tz1))
+    return tmn, tmx
+
+
+def _recount(leaves, box, o, inv_d, t_d, grid=()):
     """The DDA count of one box pass, per ray, as the kernel's loop runs it:
     leaf by leaf, a leaf tested against the running best hit, then its
-    members one by one, each counted when its slab is crossed inside
-    (T_MIN, the best hit before it), then the best hit updated."""
+    members one by one, each counted when its slab (a grid's: the strip
+    pass's member test) is crossed inside (T_MIN, the best hit before it),
+    then the best hit updated."""
     f32 = np.float32
     o = [x.numpy() for x in o]
     inv = [x.numpy() for x in inv_d]
@@ -71,8 +91,9 @@ def _recount(leaves, box, o, inv_d, t_d):
         live = (tmx > np.maximum(tmn, t_min)) & (tmn < t_d)
         for q in range(int(L[6]), int(L[6]) + int(L[7])):
             r = rows[q]
-            tmn, tmx = _slab(r[tracer.R_C0:tracer.R_C0 + 3],
-                             r[tracer.R_DC:tracer.R_DC + 3], o, inv)
+            tmn, tmx = (_strip(r, o, inv, grid) if grid else
+                        _slab(r[tracer.R_C0:tracer.R_C0 + 3],
+                              r[tracer.R_DC:tracer.R_DC + 3], o, inv))
             count += live & (tmx > np.maximum(tmn, t_min)) & (tmn < t_d)
             t_p = np.where(tmn > t_min, tmn, tmx)
             better = live & (tmx > tmn) & (t_p > t_min) & (t_p < t_d)
@@ -93,7 +114,8 @@ def final_run():
         out = closest(hit_fn, table, leaves, o, inv_d, t_d, tests, crossings)
         if crossings is not None:
             passes.append((crossings.clone(),
-                           _recount(leaves, table, o, inv_d, t_d)))
+                           _recount(leaves, table, o, inv_d, t_d,
+                                    ops.grid)))
         return out
 
     stats = tracer.new_stats(NX, NY, "cpu", dda=True)

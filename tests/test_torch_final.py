@@ -5,7 +5,8 @@ CPU.
 The kernel itself runs only on a CUDA card (tests/test_torch_kernel.py and
 chip_smoke.py hold it against `trace_plain` there). Here: `_merge_boxes`
 and the box leaves equal the JAX package's; final_scene's whole record
-equals `pallas_tracer.build_scene_record`'s with the strip grid off;
+equals `pallas_tracer.build_scene_record`'s at its defaults (its ground
+boxes in the strip grid's layout);
 `trace_plain` renders final_scene and a sealed dense-medium scene to the
 JAX XLA tier's radiometry per image half; the walk gives the event path's
 sums bit for bit; final_scene's sums do not depend on the sample chunking;
@@ -31,8 +32,7 @@ from raytracing_rust_tpu.render import render as jax_render
 from raytracing_rust_tpu.utils import image_io as jio
 from raytracing_rust_tpu_torch import inverse_render
 from raytracing_rust_tpu_torch.models import builders as tb
-from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
-                                                    SceneBuilder)
+from raytracing_rust_tpu_torch.models.scene import BG_BLACK, SceneBuilder
 from raytracing_rust_tpu_torch.render import finalize_image
 from raytracing_rust_tpu_torch.ops import camera as tcam
 from raytracing_rust_tpu_torch.ops import rng, tracer
@@ -42,18 +42,10 @@ import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 def _cubes(cls, n=20):
-    """n cubes of three materials on a 5-wide grid under the sky: 6·n
-    rects, more than the unroll budget for n ≥ 17, and nothing else."""
-    r = np.random.default_rng(1)
-    b = cls(background=BG_SKY)
-    mats = [b.lambertian(b.solid(0.7, 0.3, 0.3)),
-            b.metal(b.solid(0.8, 0.8, 0.8), 0.1),
-            b.lambertian(b.solid(0.3, 0.7, 0.3))]
-    for k in range(n):
-        x, z = k % 5 - 2.5, k // 5 - 2.0
-        b.cube((x, 0.0, z), (x + 1.0, float(r.uniform(0.2, 1.5)), z + 1.0),
-               mats[k % 3])
-    return b.build()
+    """`builders.cubes_scene` built by cls: n cubes of three materials on a
+    5-wide grid under the sky: 6·n rects, more than the unroll budget for
+    n ≥ 17, and nothing else."""
+    return tb.cubes_scene(n, cls)
 
 
 def _sealed(cls):
@@ -103,14 +95,14 @@ def test_merge_boxes_and_box_leaves_equal_jax(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["final_scene", "cubes", "sealed"])
-def test_record_equals_jax_with_grid_off(name, monkeypatch):
+def test_record_equals_jax_with_grid_off(name):
     """The whole record, field by field, against
-    `pallas_tracer.build_scene_record` with its strip grid patched off
-    (the port clusters the boxes like the spheres): rec, kinds, groups,
-    the dynamic table and its clusters, the box table and its clusters,
-    media, flags, the atlas, the interior rows and kinds, the dense
-    bits."""
-    monkeypatch.setattr(pt, "GRID", False)
+    `pallas_tracer.build_scene_record` at its defaults (the strip grid on:
+    final_scene's 20×20 ground boxes and the 20 cubes' 5×4 grid in strip
+    layout, n_bclus (n_leaf, n_sup, NI, NJ); the name is older than the
+    port's grid): rec, kinds, groups, the dynamic table and its clusters,
+    the box table and its clusters, media, flags, the atlas, the interior
+    rows and kinds, the dense bits."""
     build = {"final_scene": lambda cls: (tb if cls is SceneBuilder
                                          else jb).final_scene(),
              "cubes": _cubes, "sealed": _sealed}[name]
@@ -142,6 +134,7 @@ def test_record_equals_jax_with_grid_off(name, monkeypatch):
         assert srec.med_dense == (True, False)
         assert srec.feats & tracer.FEAT_DENSE_WALK
         assert 2 <= len(srec.int_kinds) <= tracer.MAX_INTERIOR
+        assert srec.n_bclus == (60, 8, 20, 20)
     if name == "cubes":
         assert srec.kinds == () and len(srec.box_rec) == 20
         assert srec.rec.shape == (1, tracer.REC)   # the zero row

@@ -23,39 +23,46 @@ _CU = os.path.join(os.path.dirname(tracer.__file__), "..", "csrc",
     (1, "trace_k1<1,0,0,0,0>"),    # two_spheres: K1B without media
     (33, "trace_k1<1,0,0,0,1>"),   # the lattice: K1B with media
     (7, "trace_k1<1,1,1,0,0>"),    # random_spheres' pixel table
-    (39, "trace_k1<1,1,1,0,1>"),   # final_scene's pixel table, with media
-    (51, "trace_k1<1,1,0,2,1>")])  # a cost probe, leaves in device memory
+    (39, "trace_k1<1,1,1,0,1>"),   # a pixel table with media, no box grid
+    (51, "trace_k1<1,1,0,2,1>"),   # a cost probe, leaves in device memory
+    (103, "trace_k1<1,2,1,0,1>"),  # final_scene's pixel table: a box grid
+    (119, "trace_k1<1,2,1,2,1>")])  # final_scene's cost probe
 def test_instantiation_names_of_known_launches(code, name):
     """The code that csrc/tracer.cu `pick` gives a known launch
-    (`Pick::code`: K1B | DYN << 1 | LEAF_SMEM << 2 | STATS << 3 | MED << 5)
-    names its instantiation as ptxas and the occupancy query name it."""
+    (`Pick::code`: K1B | (DYN > 0) << 1 | LEAF_SMEM << 2 | STATS << 3 |
+    MED << 5 | (DYN == 2) << 6) names its instantiation as ptxas and the
+    occupancy query name it."""
     assert tracer.instantiation_name(code) == name
 
 
 def test_instantiations_are_the_kernels_table():
     """K1_INSTANTIATIONS lists each instantiation csrc/tracer.cu makes
-    once: nine production ones, three of them with MED beside the six of
-    four flags, and four for K1f's counters, which all have MED."""
+    once: eleven production ones, five of them with MED (two of those a box
+    grid's, DYN 2, with and without the leaves in shared memory) beside the
+    six of four flags, and six for K1f's counters (two of them a box
+    grid's), which all have MED; a box grid's all have K1B and MED."""
     with open(_CU) as f:
         cu = f.read()
-    made = re.findall(r"inst<(true|false), (true|false), (true|false), "
+    made = re.findall(r"inst<(true|false), (\d), (true|false), "
                       r"(\d), (true|false)>\(\)", cu)
     as_flags = [tuple(int(x == "true") if x in ("true", "false") else int(x)
                       for x in m) for m in made]
-    assert len(set(as_flags)) == len(as_flags) == 13
+    assert len(set(as_flags)) == len(as_flags) == 19
     assert set(as_flags) == set(tracer.K1_INSTANTIATIONS)
     production = [f for f in as_flags if f[3] == 0]
-    assert len(production) == 9
-    assert sum(f[4] for f in production) == 4  # one is a table's fallback
+    assert len(production) == 11
+    assert sum(f[4] for f in production) == 6  # one is a table's fallback
     assert all(f[4] == 1 for f in as_flags if f[3] > 0)
+    grid = [f for f in as_flags if f[1] == 2]
+    assert len(grid) == 6 and all(f[0] == f[4] == 1 for f in grid)
     for f in as_flags:
-        code = f[0] | f[1] << 1 | f[2] << 2 | f[3] << 3 | f[4] << 5
+        code = (f[0] | (f[1] > 0) << 1 | f[2] << 2 | f[3] << 3 | f[4] << 5
+                | (f[1] == 2) << 6)
         assert tracer.instantiation_name(code) == (
             f"trace_k1<{','.join(map(str, f))}>")
-    with pytest.raises(ValueError):
-        tracer.instantiation_name(-1)
-    with pytest.raises(ValueError):
-        tracer.instantiation_name(64)
+    for bad in (-1, 64, 128):
+        with pytest.raises(ValueError):
+            tracer.instantiation_name(bad)
 
 
 def _preset_ops(name):
@@ -75,7 +82,7 @@ def _preset_ops(name):
 _ROUTES = {"cornell_box": (0, 0, 0, 0, 0), "cornell_smoke": (0, 0, 0, 0, 1),
            "two_spheres": (1, 0, 0, 0, 0), "two_perlin_spheres": (1, 0, 0, 0, 0),
            "simple_light": (1, 0, 0, 0, 0), "earth": (1, 0, 0, 0, 0),
-           "random_spheres": (1, 1, 1, 0, 0), "final_scene": (1, 1, 1, 0, 1),
+           "random_spheres": (1, 1, 1, 0, 0), "final_scene": (1, 2, 1, 0, 1),
            "lattice": (1, 0, 0, 0, 1)}
 
 
@@ -87,7 +94,7 @@ def test_pick_sends_each_scene_to_its_instantiation(name):
     a scene without to one without; the same scene with roulette to the
     same one; on a pixel table a DYN one (with MED where its leaves are
     not in shared memory, none or too many); its stats and probe launches
-    one with every section."""
+    one with every section; a box grid (final_scene) one of its own."""
     import dataclasses
     ops = _preset_ops(name)
     want = _ROUTES[name]
@@ -101,11 +108,12 @@ def test_pick_sends_each_scene_to_its_instantiation(name):
         assert tracer.k1_instantiation(rr) == want
     table = tracer.k1_instantiation(ops, table=True)
     assert table in tracer.K1_INSTANTIATIONS
-    assert table[1] == 1
+    assert table[1] == (2 if ops.grid else 1)
     assert table[4] == int(bool(want[4]) or (table[0] and not table[2]))
+    assert (got[1] == 2) == bool(ops.grid)
     for stats in (1, 2):
         assert tracer.k1_instantiation(ops, stats=stats) == (
-            1, 1, want[2], stats, 1)
+            1, 2 if ops.grid else 1, want[2], stats, 1)
 
 
 def test_pick_keeps_a_table_in_device_memory_on_every_section():
@@ -127,6 +135,47 @@ def test_pick_keeps_a_table_in_device_memory_on_every_section():
     assert ops.leaves.shape[0] * tracer.CLUSW * 4 > tracer.SMEM_BUDGET
     assert not ops.feats & tracer.FEAT_MEDIA
     assert tracer.k1_instantiation(ops) == (1, 1, 0, 0, 1)
+
+
+def wide_grid(nx=64, ny=64, ni=150, nj=32):
+    """ni × nj ground boxes of pitch 1, heights seeded, under the sky, and
+    a view over them at nx × ny: a box grid whose leaves and supers (600
+    and 75 at the default size) fit in K1's shared memory, and whose
+    (y_hi, z_lo) table (38,400 B) does not fit beside them."""
+    import numpy as np
+    from raytracing_rust_tpu_torch.models.scene import BG_SKY, SceneBuilder
+    from raytracing_rust_tpu_torch.ops import camera
+    b = SceneBuilder(background=BG_SKY)
+    m = b.lambertian(b.solid(0.5, 0.5, 0.5))
+    r = np.random.default_rng(2)
+    for i in range(ni):
+        for j in range(nj):
+            b.cube((float(i), 0.0, float(j)),
+                   (i + 1.0, float(r.uniform(0.2, 1.5)), j + 1.0), m)
+    return b.build(), camera.make_camera(
+        (ni / 2, 12, -10), (ni / 2, 0, nj / 2), (0, 1, 0), 60.0, nx / ny,
+        0.0, 10.0, 0.0, 1.0)
+
+
+def test_pick_counts_a_grid_table_in_shared_memory():
+    """The grid's (y_hi, z_lo) table, 8 bytes a box, sits in shared memory
+    with the leaves or not at all: 150 × 32 boxes, whose leaves and supers
+    alone would fit, run the box grid's instantiation without the leaves
+    in shared memory; a 20 × 20 grid runs it with them."""
+    def ops(**kw):
+        scene, cam = wide_grid(**kw)
+        return tracer.trace_operands(tracer.build_scene_record(scene),
+                                     tracer.build_camera_record(cam), "cpu")
+    wide = ops()
+    assert wide.grid[:2] == (150, 32)
+    leaves = 4 * tracer.CLUSW * (wide.bleaves.shape[0]
+                                 + wide.bsups.shape[0])
+    assert leaves + 2048 < tracer.SMEM_BUDGET < leaves + 8 * 150 * 32
+    assert tracer.k1_instantiation(wide) == (1, 2, 0, 0, 1)
+    assert tracer.k1_instantiation(wide, stats=2) == (1, 2, 0, 2, 1)
+    small = ops(ni=20, nj=20)
+    assert small.grid[:2] == (20, 20)
+    assert tracer.k1_instantiation(small) == (1, 2, 1, 0, 1)
 
 
 def test_launch_counts_the_instantiation_the_kernel_reports():

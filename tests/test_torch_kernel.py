@@ -3,8 +3,9 @@
 These tests need an NVIDIA GPU with the CUDA toolkit (`nvcc`): they build
 `raytracing_rust_tpu_torch/csrc/*.cu`, launch K1 (`tracer.cu`: the K1a
 instantiation and the K1B ones with their checker, sky, metal, glass,
-moving-sphere, dynamic-table, box-table, noise, image, media, dense-medium
-walk, lattice-corner and roulette sections, its two-level cull against the
+moving-sphere, dynamic-table, box-table (a grid's strip pass and the
+generic loop), noise, image, media, dense-medium walk, lattice-corner and
+roulette sections, its two-level cull against the
 one-level cull and no cull, and K1f: the stats instantiation with and
 without its DDA row, JAX's balanced pixel table and the render's own),
 K2/K3 (`grad.cu`: lambertian, light, sky, metal, glass and the checker;
@@ -30,6 +31,7 @@ from raytracing_rust_tpu_torch.models.scene import (BG_BLACK, BG_SKY,
                                                     TEX_CHECKER, SceneBuilder)
 from raytracing_rust_tpu_torch.ops import (camera, grad, microbench, peak,
                                            tracer)
+from test_torch_k1_instantiations import wide_grid
 import torch_threads  # noqa: F401  (one torch thread a process)
 
 pytestmark = pytest.mark.cuda
@@ -180,20 +182,35 @@ def _textured_crowd(nx, ny):
     return b.build(), _sky_view(nx, ny)
 
 
-def _cubes(nx, ny):
-    """20 cubes of three materials under the sky: 120 rects, merged into
-    20 boxes, with no unrolled prim and no dynamic sphere."""
-    r = np.random.default_rng(1)
-    b = SceneBuilder(background=BG_SKY)
-    mats = [b.lambertian(b.solid(0.7, 0.3, 0.3)),
-            b.metal(b.solid(0.8, 0.8, 0.8), 0.1),
-            b.lambertian(b.solid(0.3, 0.7, 0.3))]
-    for k in range(20):
-        x, z = k % 5 - 2.5, k // 5 - 2.0
-        b.cube((x, 0.0, z), (x + 1.0, float(r.uniform(0.2, 1.5)), z + 1.0),
-               mats[k % 3])
-    return b.build(), camera.make_camera((3, 4, 6), (0, 0.5, 0), (0, 1, 0),
-                                         40.0, nx / ny, 0.0, 6.0, 0.0, 1.0)
+def _cubes(nx, ny, n=20):
+    """20 cubes of three materials under the sky (`builders.cubes_scene`):
+    120 rects, merged into 20 boxes, with no unrolled prim and no dynamic
+    sphere. They fill a 5×4 grid of pitch 1, so their boxes take the strip
+    pass; fewer (n) leave cells empty and take the generic box loop."""
+    return builders.cubes_scene(n), builders.cubes_camera(nx, ny)
+
+
+def _cubes17(nx, ny):
+    """17 of `_cubes`: no grid, the generic box loop."""
+    return _cubes(nx, ny, n=17)
+
+
+def _final_inside_box(nx, ny):
+    """final_scene through a lens whose centre lies 0.2 above the top of
+    the ground box at x, z in [−1000, −900]: a lens radius of 0.5 puts
+    part of the camera rays' origins inside the box (they leave through
+    its faces: the exit, or the hi z face the strip pass reaches by the
+    incremental z plane) and part above it, looking up along +z."""
+    p = builders.PRESETS["final_scene"]
+    scene = p.build()
+    rec = tracer.build_scene_record(scene).box_rec
+    top = float(rec[(rec[:, tracer.R_C0] == -1000.0)
+                    & (rec[:, tracer.R_C0 + 2] == -1000.0)][0,
+                                                            tracer.R_DC + 1])
+    y = top + 0.2
+    return scene, camera.make_camera(
+        (-950.0, y, -950.0), (-950.0, y + 30.0, 0.0), (0, 1, 0), 60.0,
+        nx / ny, 1.0, 20.0, 0.0, 1.0)
 
 
 def _shared_faces(nx, ny):
@@ -666,6 +683,69 @@ def test_kernel_wrapper_rejects_bad_super_rows(cuda):
         with pytest.raises(ValueError):
             tracer.trace(dataclasses.replace(final, sups=bad), sums, **kw)
             torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("make,grid", [
+    (_preset("final_scene"), True), (_final_inside_box, True),
+    (_cubes, True), (_cubes17, False), (wide_grid, True)],
+    ids=["final_scene", "inside_a_box", "cubes_20", "cubes_17",
+         "wide_grid"])
+def test_kernel_grid_strip_pass(cuda, make, grid):
+    """The strip pass over a box grid, bit for bit `trace_plain`'s: the
+    sums with the walk on and off (where the scene walks), a stats launch's
+    sums and counters (its member tests and DDA row in strip form); a
+    launch counts as K1E_GRID exactly where the boxes are a grid, runs a
+    box grid's instantiation (DYN 2; the one `tracer.k1_instantiation`
+    names: 150 × 32 boxes without their leaves and grid table in shared
+    memory), and the generic box loop serves a table that is none."""
+    nx, ny = 96, 64
+    ops = _operands(*make(nx, ny), cuda)
+    assert bool(ops.grid) == grid and ops.box.shape[0]
+    kw = dict(nx=nx, ny=ny, seed=9, sample0=0, n_samples=4, max_depth=50)
+
+    def sums():
+        return torch.zeros((3, nx * ny), dtype=torch.float64, device=cuda)
+
+    forms = [ops]
+    if ops.feats & tracer.FEAT_DENSE_WALK:
+        forms.append(dataclasses.replace(
+            ops, feats=ops.feats & ~tracer.FEAT_DENSE_WALK))
+    for o in forms:
+        before = tracer.K1E_GRID_LAUNCHES, tracer.K1E_BOX_LAUNCHES
+        ran = tracer.K1_INSTANTIATION_LAUNCHES.copy()
+        k = tracer.trace(o, sums(), **kw)
+        assert (tracer.K1E_GRID_LAUNCHES - before[0],
+                tracer.K1E_BOX_LAUNCHES - before[1]) == (int(grid), 1)
+        assert _ran(ran) == [_expected_instantiation(o)]
+        assert (_ran(ran)[0][1] == 2) == grid
+        p = tracer.trace_plain(o, sums(), **kw)
+        torch.cuda.synchronize()
+        assert float(k.sum()) > 0 and torch.equal(k, p), float(
+            (k - p).abs().max())
+    sk, sp = (tracer.new_stats(nx, ny, cuda, dda=True) for _ in range(2))
+    k = tracer.trace(ops, sums(), stats=sk, dda=True, **kw)
+    p = tracer.trace_plain(ops, sums(), stats=sp, dda=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p) and torch.equal(sk, sp)
+
+
+def test_kernel_refuses_a_bad_grid_spec(cuda):
+    """A grid spec that does not describe the box table never reaches the
+    kernel: the launch raises, it runs no other form."""
+    final = _operands(*_preset("final_scene")(8, 8), cuda)
+    sums = torch.zeros((3, 64), dtype=torch.float64, device=cuda)
+    kw = dict(nx=8, ny=8, seed=0, sample0=0, n_samples=1, max_depth=1)
+    before = tracer.K1E_BOX_LAUNCHES
+    bad_x = final.bleaves.clone()
+    bad_x[3, 0] += 1.0
+    for bad in (dict(grid=(20, 19) + final.grid[2:]),
+                dict(grid=final.grid[:2] + (1.0, final.grid[3])),
+                dict(grid=final.grid[:3] + (99.0,)),
+                dict(bleaves=bad_x)):
+        with pytest.raises(ValueError):
+            tracer.trace(dataclasses.replace(final, **bad), sums, **kw)
+    torch.cuda.synchronize()
+    assert tracer.K1E_BOX_LAUNCHES == before
 
 
 @pytest.mark.parametrize("make", [_cornell, _random_spheres,
